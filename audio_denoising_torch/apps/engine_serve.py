@@ -43,13 +43,12 @@ class EngineDaemon:
                  max_streams: int = 256,
                  address: Tuple[str, int] = ("localhost", 6102),
                  mode: str = "fused", tick_ms: float = 1.0,
-                 pipeline_depth: int = 2, auto_gate: bool = True,
+                 pipeline_depth: int = 2,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg, self.model = load_pretrained(spec)
-        if auto_gate:
-            # the measured-best profile; a checkpoint it would gate is
-            # refused by the fused hop (no gate yet), never served ungated
-            self.cfg = recommended_serving(self.cfg)
+        # the measured-best profile; a checkpoint it would gate is refused
+        # by the fused hop (no gate yet), never served ungated
+        self.cfg = recommended_serving(self.cfg)
         self.engine = StreamEngine(self.cfg, self.model, mode=mode,
                                    max_streams=max_streams, device=device)
         self.address = address
@@ -188,9 +187,6 @@ def main(argv=None) -> int:
     p.add_argument("--max-streams", type=int, default=256)
     p.add_argument("--mode", choices=list(MODES), default="fused")
     p.add_argument("--tick-ms", type=float, default=1.0)
-    p.add_argument("--no-snr-gate", action="store_true",
-                   help="serve the raw model even where the recommended "
-                        "profile would turn the SNR gate on")
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="rounds kept in flight before delivery blocks")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -199,7 +195,7 @@ def main(argv=None) -> int:
     daemon = EngineDaemon(args.model, args.max_streams,
                           (args.host, args.port), args.mode, args.tick_ms,
                           pipeline_depth=args.pipeline_depth,
-                          auto_gate=not args.no_snr_gate, device=args.device)
+                          device=args.device)
     try:
         daemon.serve_forever()
     except KeyboardInterrupt:

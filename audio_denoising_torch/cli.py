@@ -1,7 +1,7 @@
 """Top-level CLI: ``python -m audio_denoising_torch <command> ...``.
 
-The port's commands so far: ``engine`` (the batched multi-stream daemon)
-and ``models`` (the preset listing).
+The port's one command so far: ``engine`` (the batched multi-stream
+daemon).
 """
 
 import sys
@@ -11,37 +11,14 @@ COMMANDS = {
 }
 
 
-def _models(argv) -> int:
-    import json
-    import os
-    from audio_denoising_torch.config import PRESETS
-    from audio_denoising_torch.hub import CHECKPOINT_DIR, _CKPT_ALIASES
-    rows = {}
-    for name, cfg in sorted(PRESETS.items()):
-        ckpt = _CKPT_ALIASES.get(name, name)
-        rows[name] = {
-            "arch": cfg.model.arch,
-            "sample_rate": cfg.dsp.sample_rate,
-            "n_fft": cfg.dsp.n_fft,
-            "hop": cfg.dsp.hop_length,
-            "reconstruction": cfg.dsp.reconstruction,
-            "weights": os.path.exists(
-                os.path.join(CHECKPOINT_DIR, f"{ckpt}.npz")),
-        }
-    print(json.dumps(rows, indent=2))
-    return 0
-
-
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        names = ", ".join(list(COMMANDS) + ["models"])
+        names = ", ".join(COMMANDS)
         print(f"usage: python -m audio_denoising_torch <command> [...]\n"
               f"commands: {names}")
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
-    if cmd == "models":
-        return _models(rest)
     if cmd in COMMANDS:
         import importlib
         return importlib.import_module(COMMANDS[cmd]).main(rest)

@@ -326,10 +326,9 @@ def recommended_serving(cfg: Config) -> Config:
       so x3-gain (residual-objective) checkpoints would level-swing.
 
     No-op otherwise, and no-op when a gate is already configured. The
-    engine daemon applies this when the user passes no gate flags; pass
-    ``--no-snr-gate`` to serve the raw model. The port's fused hop has no
-    gate yet, so a profile that turns it on is refused there rather than
-    served ungated. The reference's analogue
+    engine daemon applies this. The port's fused hop has no gate yet, so
+    a profile that turns it on is refused there rather than served
+    ungated. The reference's analogue
     is its ad-hoc fixed x3 serving gain (server.py:213-214) — a static
     heuristic where this is a measured per-stream blend."""
     srv = cfg.serving

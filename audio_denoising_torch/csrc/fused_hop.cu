@@ -16,32 +16,38 @@
 // scaling the complex bins, inverse DFT, window, overlap-add divided by
 // the window envelope, and decay the hidden state.
 //
-// What bounds it on an H100 (gruunet2-stream16k, B = 256 streams): about
-// 805 MFLOP per hop (DFT 210 M, inverse DFT 210 M, mel pair 21 M, plan
-// cell 364 M) against 67 TFLOP/s of fp32 FMA is 12 us, while the bytes
-// (6.3 MB of weights, 3.4 MB of state in and out) over 3.35 TB/s are
-// 2.9 us: the hop is bound by fp32 operations. Parity with the reference
-// needs fp32, so the kernel uses FMA, not TF32 tensor cores.
+// What bounds it on an H100 (gruunet2-stream16k, B = 256 streams): the
+// function needs about 393 MFLOP per hop (plan cell 364 M, mel pair 21 M,
+// and the transform and its inverse at real-FFT cost, 2.5 N log2 N each,
+// 7.6 M), 5.9 us against 67 TFLOP/s of fp32 FMA, while its bytes (3.0 MB
+// of weights without DFT matrices, 3.4 MB of state in and out) over
+// 3.35 TB/s are 1.9 us: the hop is bound by fp32 operations. This kernel
+// takes the transforms as dense cos/sin matmuls, as the reference does
+// (805 MFLOP), so it does about twice the work the bound counts. Parity
+// with the reference needs fp32, so the kernel uses FMA, not TF32 tensor
+// cores.
 //
-// Design: one block of 512 threads owns a tile of S streams and walks the
-// chain's stages in order, with every activation in dynamic shared memory
-// (about 4.6 k floats per stream, plus a split-K scratch of 2 k floats
-// per stream). The weights (6.3 MB) stay in global memory and are served
-// from the 50 MB L2; each block reads each weight once per hop. All 17
-// matmuls go through one routine (`gemm`): a thread owns four output
-// columns for all S rows, streams those columns of the weight matrix from
-// L2 as float4 loads (neighbouring threads read neighbouring columns, so
-// the loads coalesce) and reads the activations as float4 broadcasts from
-// shared memory, so each weight load feeds 16 S FMAs. Narrow stages split
-// k across threads to shorten each thread's chain of dependent steps, and
-// add the partial sums in shared memory in a fixed order. The epilogue
-// adds the bias and applies the stage's activation. Rows past the batch
-// (the ragged edge) compute on zeros and are never stored.
+// Design: one block of 512 threads owns a tile of kTile = 2 streams and
+// walks the chain's stages in order, with every activation in dynamic
+// shared memory (about 4.6 k floats per stream, plus a split-K scratch of
+// 2 k floats per stream). The weights (6.3 MB) stay in global memory and
+// are served from the 50 MB L2; each block reads each weight once per
+// hop. All 17 matmuls go through one routine (`gemm`): a thread owns four
+// output columns for all kTile rows, streams those columns of the weight
+// matrix from L2 as float4 loads (neighbouring threads read neighbouring
+// columns, so the loads coalesce) and reads the activations as float4
+// broadcasts from shared memory, so each weight load feeds 16 kTile FMAs.
+// Narrow stages split k across threads to shorten each thread's chain of
+// dependent steps, and add the partial sums in shared memory in a fixed
+// order. The epilogue adds the bias and applies the stage's activation.
+// Rows past the batch (the ragged edge) compute on zeros and are never
+// stored.
 //
 // The tile trades two limits: a larger tile streams fewer weight bytes
 // from L2 in all (each block reads all of them), a smaller one gives each
-// thread less dependent work. At B = 256 on an H100 tile 2 measured best
-// (PERF.md); the kernel then pulls about 800 MB per hop from L2.
+// thread less dependent work. At B = 256 on an H100, tile 2 measured best
+// of tiles 1, 2, 4 and 8 (PERF.md); the kernel then pulls about 800 MB per
+// hop from L2.
 
 #include <cuda_runtime.h>
 
@@ -89,12 +95,13 @@ struct AdtFusedHopArgs {
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kTile = 2;  // streams per block
 
 enum Epilogue { kNone = 0, kRelu = 1, kLog1p = 2, kLinGain = 3 };
 
 // Offsets (in floats) of the per-block shared-memory buffers; every
-// buffer holds S rows of a leading dimension rounded up to 4 floats, so
-// each row starts 16-byte aligned for float4 reads.
+// buffer holds kTile rows of a leading dimension rounded up to 4 floats,
+// so each row starts 16-byte aligned for float4 reads.
 struct Layout {
   int ld_t, ld_f, ld_n, ld_pp;
   int ld_d[ADT_MAX_LEVELS + 1];
@@ -111,7 +118,7 @@ __host__ __device__ inline int take(int* off, int rows, int ld) {
   return o;
 }
 
-__host__ __device__ inline void make_layout(const AdtFusedHopArgs& a, int S,
+__host__ __device__ inline void make_layout(const AdtFusedHopArgs& a,
                                             Layout* l) {
   int off = 0;
   l->ld_t = round4(a.n_fft);
@@ -121,28 +128,28 @@ __host__ __device__ inline void make_layout(const AdtFusedHopArgs& a, int S,
   for (int i = 1; i <= a.levels; ++i)
     widest = a.up_n[i] > widest ? a.up_n[i] : widest;
   l->ld_pp = round4(widest);
-  l->frame = take(&off, S, l->ld_t);
-  l->re = take(&off, S, l->ld_f);
-  l->im = take(&off, S, l->ld_f);
-  l->mag = take(&off, S, l->ld_f);
-  l->lin = take(&off, S, l->ld_f);
+  l->frame = take(&off, kTile, l->ld_t);
+  l->re = take(&off, kTile, l->ld_f);
+  l->im = take(&off, kTile, l->ld_f);
+  l->mag = take(&off, kTile, l->ld_f);
+  l->lin = take(&off, kTile, l->ld_f);
   for (int i = 0; i <= a.levels; ++i) {
     l->ld_d[i] = round4(a.down_n[i]);
-    l->d[i] = take(&off, S, l->ld_d[i]);
+    l->d[i] = take(&off, kTile, l->ld_d[i]);
   }
-  l->gh = take(&off, S, round4(3 * a.n_hidden));
-  l->hx = take(&off, S, l->ld_n);
-  l->hi = take(&off, S, l->ld_n);
-  l->pp0 = take(&off, S, l->ld_pp);
-  l->pp1 = take(&off, S, l->ld_pp);
-  l->scratch = take(&off, S, 4 * kThreads);
+  l->gh = take(&off, kTile, round4(3 * a.n_hidden));
+  l->hx = take(&off, kTile, l->ld_n);
+  l->hi = take(&off, kTile, l->ld_n);
+  l->pp0 = take(&off, kTile, l->ld_pp);
+  l->pp1 = take(&off, kTile, l->ld_pp);
+  l->scratch = take(&off, kTile, 4 * kThreads);
   l->total = off;
 }
 
-// C[S, n] = epilogue(A1[S, k1] @ W1 + A2[S, k2] @ W2 + bias); A and C in
-// shared memory, W row-major in global memory with rows padded to
-// round4(n) floats (the wrapper pads), so a thread reads four columns as
-// one float4. A2 may be null. C's rows hold round4(n) floats; the padding
+// C[kTile, n] = epilogue(A1[kTile, k1] @ W1 + A2[kTile, k2] @ W2 + bias);
+// A and C in shared memory, W row-major in global memory with rows padded
+// to round4(n) floats (the wrapper pads), so a thread reads four columns
+// as one float4. A2 may be null. C's rows hold round4(n) floats; the padding
 // columns come out as the epilogue of 0.
 struct Gemm {
   const float* a1;
@@ -157,18 +164,18 @@ struct Gemm {
   float gain;
   float* c;
   int ldc;
-  float* scratch;  // split-K partial sums, 4 * kThreads * S floats
+  float* scratch;  // split-K partial sums, 4 * kThreads * kTile floats
 };
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-template <int S>
-__device__ __forceinline__ void fma_row(float (&acc)[S][4], const float* a,
-                                        int lda, int k, float4 w) {
+__device__ __forceinline__ void fma_row(float (&acc)[kTile][4],
+                                        const float* a, int lda, int k,
+                                        float4 w) {
 #pragma unroll
-  for (int r = 0; r < S; ++r) {
+  for (int r = 0; r < kTile; ++r) {
     const float v = a[r * lda + k];
     acc[r][0] = fmaf(v, w.x, acc[r][0]);
     acc[r][1] = fmaf(v, w.y, acc[r][1]);
@@ -178,14 +185,14 @@ __device__ __forceinline__ void fma_row(float (&acc)[S][4], const float* a,
 }
 
 // acc[r][c] += sum_{k in [lo, hi)} a[r][k] * w[k][4q + c]
-template <int S>
-__device__ __forceinline__ void accumulate(float (&acc)[S][4], const float* a,
-                                           int lda, const float* __restrict__ w,
+__device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
+                                           const float* a, int lda,
+                                           const float* __restrict__ w,
                                            int ldw, int q, int lo, int hi) {
   const float* wq = w + 4 * q;
   int k = lo;
   for (; k < hi && (k & 3); ++k)
-    fma_row<S>(acc, a, lda, k, ldg4(wq + (size_t)k * ldw));
+    fma_row(acc, a, lda, k, ldg4(wq + (size_t)k * ldw));
 #pragma unroll 2
   for (; k + 4 <= hi; k += 4) {
     const float4 w0 = ldg4(wq + (size_t)(k + 0) * ldw);
@@ -193,7 +200,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[S][4], const float* a,
     const float4 w2 = ldg4(wq + (size_t)(k + 2) * ldw);
     const float4 w3 = ldg4(wq + (size_t)(k + 3) * ldw);
 #pragma unroll
-    for (int r = 0; r < S; ++r) {
+    for (int r = 0; r < kTile; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(a + r * lda + k);
       acc[r][0] = fmaf(v.x, w0.x, acc[r][0]);
       acc[r][1] = fmaf(v.x, w0.y, acc[r][1]);
@@ -214,7 +221,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[S][4], const float* a,
     }
   }
   for (; k < hi; ++k)
-    fma_row<S>(acc, a, lda, k, ldg4(wq + (size_t)k * ldw));
+    fma_row(acc, a, lda, k, ldg4(wq + (size_t)k * ldw));
 }
 
 __device__ __forceinline__ float epilogue(const Gemm& g, float v, int col) {
@@ -225,11 +232,10 @@ __device__ __forceinline__ float epilogue(const Gemm& g, float v, int col) {
   return v;
 }
 
-// A work item is four output columns (q) for all S rows over one of ks_n
+// A work item is four output columns (q) for all kTile rows over one of ks_n
 // contiguous k ranges of the two sources laid end to end. Narrow stages
 // split k (ks_n > 1) until the items fill the block; their partial sums
 // meet in shared memory and are added in a fixed order.
-template <int S>
 __device__ void gemm(const Gemm& g) {
   const int ldw = round4(g.n);
   const int n4 = ldw / 4;
@@ -252,32 +258,33 @@ __device__ void gemm(const Gemm& g) {
   for (int it = threadIdx.x; it < items; it += nt) {
     const int q = it % n4, ks = it / n4;
     const int lo = ks * chunk, hi = min(ktot, lo + chunk);
-    float acc[S][4];
+    float acc[kTile][4];
 #pragma unroll
-    for (int r = 0; r < S; ++r)
+    for (int r = 0; r < kTile; ++r)
       acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
     if (lo < min(hi, g.k1))
-      accumulate<S>(acc, g.a1, g.lda1, g.w1, ldw, q, lo, min(hi, g.k1));
+      accumulate(acc, g.a1, g.lda1, g.w1, ldw, q, lo, min(hi, g.k1));
     if (g.a2 != nullptr && max(lo, g.k1) < hi)
-      accumulate<S>(acc, g.a2, g.lda2, g.w2, ldw, q, max(lo, g.k1) - g.k1,
+      accumulate(acc, g.a2, g.lda2, g.w2, ldw, q, max(lo, g.k1) - g.k1,
                     hi - g.k1);
 #pragma unroll
-    for (int r = 0; r < S; ++r)
+    for (int r = 0; r < kTile; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = 4 * q + c;
         if (ks_n == 1)
           g.c[r * g.ldc + col] = epilogue(g, acc[r][c], col);
         else
-          g.scratch[(ks * S + r) * ldw + col] = acc[r][c];
+          g.scratch[(ks * kTile + r) * ldw + col] = acc[r][c];
       }
   }
   if (ks_n > 1) {
     __syncthreads();
-    for (int e = threadIdx.x; e < S * ldw; e += nt) {
+    for (int e = threadIdx.x; e < kTile * ldw; e += nt) {
       const int r = e / ldw, col = e % ldw;
       float v = 0.f;
-      for (int ks = 0; ks < ks_n; ++ks) v += g.scratch[(ks * S + r) * ldw + col];
+      for (int ks = 0; ks < ks_n; ++ks)
+        v += g.scratch[(ks * kTile + r) * ldw + col];
       g.c[r * g.ldc + col] = epilogue(g, v, col);
     }
     __syncthreads();  // the scratch is free for the next gemm
@@ -310,17 +317,16 @@ __device__ inline float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
 // The plan cell (common.plan_cell_math): reads x = smem d[0] and hx,
 // leaves hi in smem and returns the buffer holding y (width n_mels).
-template <int S>
 __device__ float* plan_cell(const AdtFusedHopArgs& a, const Layout& l,
                             float* smem) {
   const int L = a.levels;
   const int n = a.n_hidden;
   for (int i = 0; i < L; ++i) {
-    gemm<S>(make_gemm(smem + l.d[i], l.ld_d[i], a.down_n[i], a.down_w[i],
+    gemm(make_gemm(smem + l.d[i], l.ld_d[i], a.down_n[i], a.down_w[i],
                       a.down_n[i + 1], a.down_b[i], kRelu, smem + l.d[i + 1],
                       l.ld_d[i + 1], smem + l.scratch));
     if (i == 0)  // the reset gate reads only hx: share the first barrier
-      gemm<S>(make_gemm(smem + l.hx, l.ld_n, n, a.reset_w, 3 * n, a.reset_b,
+      gemm(make_gemm(smem + l.hx, l.ld_n, n, a.reset_w, 3 * n, a.reset_b,
                         kRelu, smem + l.gh, round4(3 * n), smem + l.scratch));
     __syncthreads();
   }
@@ -328,7 +334,7 @@ __device__ float* plan_cell(const AdtFusedHopArgs& a, const Layout& l,
   const float* gh = smem + l.gh;
   const int ld_gx = l.ld_d[L];
   const int ld_gh = round4(3 * n);
-  for (int e = threadIdx.x; e < S * n; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
     const int s = e / n, j = e % n;
     const float* x = gx + s * ld_gx;
     const float* h = gh + s * ld_gh;
@@ -354,7 +360,7 @@ __device__ float* plan_cell(const AdtFusedHopArgs& a, const Layout& l,
       g.k2 = a.down_n[L - i];
       g.w2 = a.up_s[i];
     }
-    gemm<S>(g);
+    gemm(g);
     __syncthreads();
     h = dst;
     ldh = l.ld_pp;
@@ -363,20 +369,19 @@ __device__ float* plan_cell(const AdtFusedHopArgs& a, const Layout& l,
   return dst;
 }
 
-template <int S>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_hop_kernel(const __grid_constant__ AdtFusedHopArgs a) {
   extern __shared__ __align__(16) float smem[];
   Layout l;
-  make_layout(a, S, &l);
-  const int b0 = blockIdx.x * S;
-  const int rows = min(S, a.batch - b0);
+  make_layout(a, &l);
+  const int b0 = blockIdx.x * kTile;
+  const int rows = min(kTile, a.batch - b0);
   const int n_fft = a.n_fft, hop = a.hop, F = a.n_bins, M = a.n_mels;
   const int n = a.n_hidden;
   const int keep = n_fft - hop;
 
   // ring shift + Hann; the cell state comes in beside it
-  for (int e = threadIdx.x; e < S * n_fft; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
     const int s = e / n_fft, i = e % n_fft;
     float v = 0.f;
     if (s < rows) {
@@ -386,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     smem[l.frame + s * l.ld_t + i] = v * a.win[i];
   }
-  for (int e = threadIdx.x; e < S * n; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
     const int s = e / n, j = e % n;
     smem[l.hx + s * l.ld_n + j] =
         s < rows ? a.hx[(size_t)(b0 + s) * n + j] : 0.f;
@@ -394,12 +399,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // DFT as two matmuls, then the magnitude
-  gemm<S>(make_gemm(smem + l.frame, l.ld_t, n_fft, a.cf, F, nullptr, kNone,
+  gemm(make_gemm(smem + l.frame, l.ld_t, n_fft, a.cf, F, nullptr, kNone,
                     smem + l.re, l.ld_f, smem + l.scratch));
-  gemm<S>(make_gemm(smem + l.frame, l.ld_t, n_fft, a.sf, F, nullptr, kNone,
+  gemm(make_gemm(smem + l.frame, l.ld_t, n_fft, a.sf, F, nullptr, kNone,
                     smem + l.im, l.ld_f, smem + l.scratch));
   __syncthreads();
-  for (int e = threadIdx.x; e < S * F; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
     const int o = (e / F) * l.ld_f + e % F;
     const float re = smem[l.re + o], im = smem[l.im + o];
     smem[l.mag + o] = sqrtf(re * re + im * im);
@@ -407,11 +412,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // x = log(1 + mag @ mel), the model's feature and first skip
-  gemm<S>(make_gemm(smem + l.mag, l.ld_f, F, a.mel, M, nullptr, kLog1p,
+  gemm(make_gemm(smem + l.mag, l.ld_f, F, a.mel, M, nullptr, kLog1p,
                     smem + l.d[0], l.ld_d[0], smem + l.scratch));
   __syncthreads();
 
-  float* y = plan_cell<S>(a, l, smem);
+  float* y = plan_cell(a, l, smem);
 
   // the new state: hi decayed
   for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
@@ -420,7 +425,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         smem[l.hi + s * l.ld_n + j] * a.state_decay;
   }
   // residual: y <- max(exp(leaky_relu(x - y, 0.2)) - 1, 0)
-  for (int e = threadIdx.x; e < S * M; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kTile * M; e += blockDim.x) {
     const int s = e / M, m = e % M;
     float r = smem[l.d[0] + s * l.ld_d[0] + m] - y[s * l.ld_pp + m];
     r = r >= 0.f ? r : 0.2f * r;
@@ -432,11 +437,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   Gemm gl = make_gemm(y, l.ld_pp, M, a.imel, F, nullptr, kLinGain,
                       smem + l.lin, l.ld_f, smem + l.scratch);
   gl.gain = a.output_gain;
-  gemm<S>(gl);
+  gemm(gl);
   __syncthreads();
 
   // phase reuse as complex scaling; at mag ~ 0 the bin becomes lin + 0j
-  for (int e = threadIdx.x; e < S * F; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
     const int o = (e / F) * l.ld_f + e % F;
     const float mag = smem[l.mag + o], lin = smem[l.lin + o];
     const bool safe = mag > 1e-8f;
@@ -453,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   gs.lda2 = l.ld_f;
   gs.k2 = F;
   gs.w2 = a.is_;
-  gemm<S>(gs);
+  gemm(gs);
   __syncthreads();
 
   // window, overlap-add, divide the finished hop by the envelope
@@ -470,15 +475,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int S>
 cudaError_t launch(const AdtFusedHopArgs& a, size_t smem_bytes,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_hop_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_hop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.batch + S - 1) / S);
-  fused_hop_kernel<S><<<grid, kThreads, smem_bytes, stream>>>(a);
+  const dim3 grid((a.batch + kTile - 1) / kTile);
+  fused_hop_kernel<<<grid, kThreads, smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -488,35 +492,23 @@ extern "C" {
 
 int adt_fused_hop_args_size() { return (int)sizeof(AdtFusedHopArgs); }
 
-// Dynamic shared memory one block of `tile` streams needs.
-long long adt_fused_hop_smem_bytes(const AdtFusedHopArgs* a, int tile) {
+// Dynamic shared memory one block of kTile streams needs.
+long long adt_fused_hop_smem_bytes(const AdtFusedHopArgs* a) {
   Layout l;
-  make_layout(*a, tile, &l);
+  make_layout(*a, &l);
   return (long long)l.total * (long long)sizeof(float);
 }
 
 // Launches the hop on `stream` without synchronising; returns the launch's
 // cudaError_t (0 on success).
-int adt_fused_hop(const AdtFusedHopArgs* a, int tile, void* stream) {
+int adt_fused_hop(const AdtFusedHopArgs* a, void* stream) {
   if (a->levels < 1 || a->levels > ADT_MAX_LEVELS ||
       a->down_n[a->levels] != 3 * a->n_hidden ||
       a->up_n[a->levels] != a->n_mels || a->n_fft % a->hop != 0)
     return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  const size_t bytes = (size_t)adt_fused_hop_smem_bytes(a, tile);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-    case 1:
-      return (int)launch<1>(*a, bytes, s);
-    case 2:
-      return (int)launch<2>(*a, bytes, s);
-    case 4:
-      return (int)launch<4>(*a, bytes, s);
-    case 8:
-      return (int)launch<8>(*a, bytes, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch(*a, (size_t)adt_fused_hop_smem_bytes(a),
+                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -27,8 +27,6 @@ from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.windows import hann_window
 
 MAX_LEVELS = 8          # ADT_MAX_LEVELS in csrc/fused_hop.cu
-TILES = (1, 2, 4, 8)    # streams per block the kernel is instantiated for
-DEFAULT_TILE = 2
 
 
 class FusedHopState(NamedTuple):
@@ -130,7 +128,6 @@ class FusedHop:
         self.output_gain = float(srv.output_gain)
         self.state_decay = float(srv.state_decay)
         self.launches = 0
-        self.tile = DEFAULT_TILE
 
         win = hann_window(self.n_fft, dtype=torch.float64).numpy()
         CF, SF, IC, IS = _dft_matrices(self.n_fft)
@@ -155,17 +152,16 @@ class FusedHop:
                 load_kernel_library)
             self._lib = load_kernel_library("fused_hop").lib
             self._lib.adt_fused_hop_args_size.restype = ctypes.c_int
-            self._lib.adt_fused_hop_smem_bytes.argtypes = [
-                ctypes.c_void_p, ctypes.c_int]
+            self._lib.adt_fused_hop_smem_bytes.argtypes = [ctypes.c_void_p]
             self._lib.adt_fused_hop_smem_bytes.restype = ctypes.c_longlong
             self._lib.adt_fused_hop.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_void_p]
             self._lib.adt_fused_hop.restype = ctypes.c_int
             if self._lib.adt_fused_hop_args_size() != ctypes.sizeof(_Args):
                 raise RuntimeError("csrc/fused_hop.cu and _Args disagree on "
                                    "the argument layout")
             self._base_args = self._args()
-            self.use_tile(DEFAULT_TILE)
+            self._check_shared_memory()
 
     # -- the plain PyTorch version ------------------------------------------
     def reference(self, state: FusedHopState, chunk: torch.Tensor
@@ -265,25 +261,17 @@ class FusedHop:
         a.output_gain, a.state_decay = self.output_gain, self.state_decay
         return a
 
-    def smem_bytes(self, tile: int) -> int:
-        """Dynamic shared memory one block of ``tile`` streams needs."""
-        return int(self._lib.adt_fused_hop_smem_bytes(
-            ctypes.byref(self._base_args), tile))
-
-    def use_tile(self, tile: int) -> None:
-        """Set the streams per block, after checking what this kernel can
-        take: the activations of ``tile`` streams in one block's shared
-        memory."""
-        if tile not in TILES:
-            raise ValueError(f"tile must be one of {TILES}, got {tile}")
+    def _check_shared_memory(self) -> None:
+        """What this kernel can take: the activations of one block's tile
+        of streams in its shared memory."""
         limit = torch.cuda.get_device_properties(
             self.device).shared_memory_per_block_optin
-        need = self.smem_bytes(tile)
+        need = int(self._lib.adt_fused_hop_smem_bytes(
+            ctypes.byref(self._base_args)))
         if need > limit:
             raise RuntimeError(
-                f"the fused hop needs {need} B of shared memory per block "
-                f"at {tile} streams per block; this card allows {limit} B")
-        self.tile = tile
+                f"the fused hop needs {need} B of shared memory per block; "
+                f"this card allows {limit} B")
 
     def _launch(self, state: FusedHopState, chunk: torch.Tensor
                 ) -> Tuple[FusedHopState, torch.Tensor]:
@@ -297,7 +285,7 @@ class FusedHop:
         a.ring_out, a.ola_out, a.hx_out = (t.data_ptr() for t in new)
         a.out = out.data_ptr()
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        err = self._lib.adt_fused_hop(ctypes.byref(a), self.tile, stream)
+        err = self._lib.adt_fused_hop(ctypes.byref(a), stream)
         if err != 0:
             raise RuntimeError(f"fused hop launch failed: cudaError {err}")
         self.launches += 1

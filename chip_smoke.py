@@ -10,16 +10,15 @@ non-zero and prints no result):
 1. the card's name and power limit, and the kernel build (nvcc's
    register and shared-memory lines, build seconds);
 2. the fused-hop kernel against its plain PyTorch version on the card,
-   at 256 streams and at 3 (the ragged edge), over 20 hops, for every
-   tile size the kernel is built for; then at 64 streams on two trained
-   checkpoints of other widths (hidden 40; 128 mels, n_fft 1024, five
-   levels, hidden 64);
+   at 256 streams and at 3 (the ragged edge), over 20 hops; then at 64
+   streams on two trained checkpoints of other widths (hidden 40; 128
+   mels, n_fft 1024, five levels, hidden 64);
 3. ``StreamEngine`` mode ``fused`` with 256 slots and 256 streams for 50
    ticks, some streams skipping ticks, against the same run on the CPU;
 4. ``EngineDaemon`` on 127.0.0.1 serving gruunet2-stream16k to 4 clients
    x 16 streams x 25 chunks, every reply within a deadline, each
    stream's output against its own sequence through the plain version on
-   the CPU;
+   the CPU, and the reply latency each client sees per round;
 5. CUDA-event timing at 256 streams: the kernel, its plain version, and
    the bound from the hop's operations and bytes.
 
@@ -30,6 +29,7 @@ card, or outside a checkout of the repo, the script fails.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -69,12 +69,9 @@ def run_hops(step, state, chunks):
 
 def phase_kernel_vs_plain(torch, hop, cfg, plan, batches):
     """Kernel against its plain version on the same inputs, each carrying
-    its own state, at every tile whose activations fit in a block;
-    returns the largest output error seen."""
+    its own state; returns the largest output error seen."""
     from audio_denoising_torch.ops.kernels.fused_hop import (
-        DEFAULT_TILE, TILES, fused_hop_init_state)
-    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    tiles = [t for t in TILES if hop.smem_bytes(t) <= limit]
+        fused_hop_init_state)
     worst = 0.0
     for batch in batches:
         rng = np.random.default_rng(batch)
@@ -84,24 +81,20 @@ def phase_kernel_vs_plain(torch, hop, cfg, plan, batches):
         s_ref, o_ref = run_hops(
             hop.reference, fused_hop_init_state(cfg, plan, batch, "cuda"),
             chunks)
-        for tile in tiles:
-            hop.use_tile(tile)
-            s_k, o_k = run_hops(
-                hop, fused_hop_init_state(cfg, plan, batch, "cuda"), chunks)
-            torch.cuda.synchronize()
-            e_out = max(max_err(a, b) for a, b in zip(o_k, o_ref))
-            e_state = {k: max_err(getattr(s_k, k), getattr(s_ref, k))
-                       for k in ("ring", "ola", "hx")}
-            say(f"  B={batch:3d} tile={tile}: out {e_out:.3e} (bound "
-                f"{OUT_ATOL:g}); ring {e_state['ring']:.3e} ola "
-                f"{e_state['ola']:.3e} hx {e_state['hx']:.3e} (bound "
-                f"{STATE_ATOL:g})")
-            if e_out > OUT_ATOL or max(e_state.values()) > STATE_ATOL:
-                raise AssertionError(
-                    f"fused hop kernel disagrees with its plain version at "
-                    f"B={batch}, tile={tile}")
-            worst = max(worst, e_out)
-    hop.use_tile(DEFAULT_TILE)
+        s_k, o_k = run_hops(
+            hop, fused_hop_init_state(cfg, plan, batch, "cuda"), chunks)
+        torch.cuda.synchronize()
+        e_out = max(max_err(a, b) for a, b in zip(o_k, o_ref))
+        e_state = {k: max_err(getattr(s_k, k), getattr(s_ref, k))
+                   for k in ("ring", "ola", "hx")}
+        say(f"  B={batch:3d}: out {e_out:.3e} (bound {OUT_ATOL:g}); ring "
+            f"{e_state['ring']:.3e} ola {e_state['ola']:.3e} hx "
+            f"{e_state['hx']:.3e} (bound {STATE_ATOL:g})")
+        if e_out > OUT_ATOL or max(e_state.values()) > STATE_ATOL:
+            raise AssertionError(
+                f"fused hop kernel disagrees with its plain version at "
+                f"B={batch}")
+        worst = max(worst, e_out)
     return worst
 
 
@@ -153,7 +146,9 @@ def _client(address, cid, chunks, results, errors):
                 if msg[0] != "ok":
                     raise RuntimeError(f"open {sid}: {msg}")
             outs = {sid: [] for sid in sids}
+            rounds = []
             for k in range(chunks.shape[1]):
+                t0 = time.perf_counter()
                 for j, sid in enumerate(sids):
                     conn.send(("chunk", sid, chunks[j, k]))
                 for _ in sids:
@@ -161,6 +156,8 @@ def _client(address, cid, chunks, results, errors):
                     if msg[0] != "out":
                         raise RuntimeError(f"chunk: {msg}")
                     outs[msg[1]].append(msg[2])
+                rounds.append(time.perf_counter() - t0)
+            results[("round_s", cid)] = rounds
             if cid == 0:
                 conn.send(("stats",))
                 results["stats"] = recv()[1]
@@ -220,9 +217,13 @@ def phase_daemon(torch):
         state, out = ref_hop(state, torch.from_numpy(seqs[:, k].copy()))
         want.append(out.numpy())
     err = float(np.abs(got - np.stack(want, axis=1)).max())
+    rounds = np.concatenate([results[("round_s", c)] for c in range(clients)])
+    p50, p99 = np.percentile(rounds, [50, 99]) * 1e3
     say(f"  {clients} clients x {streams} streams x {n_chunks} chunks in "
         f"{wall:.2f} s: out {err:.3e} (bound {OUT_ATOL:g}); {launches} "
-        f"launches")
+        f"launches; reply latency per round (a client's {streams} chunks "
+        f"sent to its {streams} replies in) p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms over {rounds.size} rounds")
     if err > OUT_ATOL:
         raise AssertionError("daemon output disagrees with the plain version")
     if launches <= 0:
@@ -245,45 +246,39 @@ def time_launches(torch, fn, n):
 
 
 def hop_work(hop, batch):
-    """(flops, bytes) one hop needs: every matmul's 2*m*k*n, and each
-    input read and output written once."""
-    macs = (2 * hop.n_fft * hop.F + hop.F * hop.M + hop.M * hop.F
-            + 2 * hop.F * hop.n_fft + sum(
-                w.numel() for w in hop.weights if w.dim() == 2))
+    """(flops, bytes) one hop needs: 2 per multiply-add of the mel pair
+    and the plan cell's matmuls, the transform and its inverse at the cost
+    of a real FFT of n_fft points (2.5 N log2 N each), and each input read
+    and output written once (no DFT matrices). The kernel itself takes
+    the transforms as dense matmuls, about twice this work."""
+    macs = 2 * hop.F * hop.M + sum(w.numel() for w in hop.weights
+                                   if w.dim() == 2)
+    ffts = 2 * 2.5 * hop.n_fft * math.log2(hop.n_fft)
     weights = (sum(w.numel() for w in hop.weights)
-               + sum(t.numel() for t in (hop.cf, hop.sf, hop.ic, hop.is_,
-                                         hop.mel, hop.imel, hop.win,
+               + sum(t.numel() for t in (hop.mel, hop.imel, hop.win,
                                          hop.env)))
     per_stream = 2 * 2 * hop.n_fft + 2 * hop.n + 2 * hop.hop
-    return 2 * batch * macs, 4 * (batch * per_stream + weights)
+    return batch * (2 * macs + ffts), 4 * (batch * per_stream + weights)
 
 
 def phase_timing(torch, hop, cfg, plan):
     from audio_denoising_torch.ops.kernels.fused_hop import (
-        DEFAULT_TILE, TILES, fused_hop_init_state)
+        fused_hop_init_state)
     batch = 256
     g = torch.Generator(device="cuda").manual_seed(5)
     state = fused_hop_init_state(cfg, plan, batch, "cuda")
     state = type(state)(*(0.1 * torch.randn(t.shape, generator=g,
                                             device="cuda") for t in state))
     chunk = 0.1 * torch.randn((batch, hop.hop), generator=g, device="cuda")
-    tile_ms = {}
-    for tile in TILES:
-        hop.use_tile(tile)
-        tile_ms[tile] = time_launches(torch, lambda: hop(state, chunk),
-                                      TIMED_LAUNCHES)
-    hop.use_tile(DEFAULT_TILE)
     ms = time_launches(torch, lambda: hop(state, chunk), TIMED_LAUNCHES)
     plain_ms = time_launches(torch, lambda: hop.reference(state, chunk),
                              TIMED_LAUNCHES)
     flops, nbytes = hop_work(hop, batch)
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     bound_ms = max(t_ops, t_bytes)
-    say("  per tile: " + ", ".join(f"{t}: {v * 1e3:.1f} us"
-                                   for t, v in tile_ms.items()))
-    say(f"  B={batch}: kernel {ms * 1e3:.1f} us/hop (tile {DEFAULT_TILE}), "
-        f"plain {plain_ms * 1e3:.1f} us/hop; bound {bound_ms * 1e3:.2f} us "
-        f"({flops / 1e6:.0f} MFLOP -> {t_ops * 1e3:.2f} us, "
+    say(f"  B={batch}: kernel {ms * 1e3:.1f} us/hop, plain "
+        f"{plain_ms * 1e3:.1f} us/hop; bound {bound_ms * 1e3:.2f} us "
+        f"({flops / 1e6:.1f} MFLOP -> {t_ops * 1e3:.2f} us, "
         f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us); kernel at "
         f"{bound_ms / ms:.1%} of the bound")
     return ms, plain_ms, bound_ms, ("operations" if t_ops >= t_bytes
