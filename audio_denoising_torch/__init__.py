@@ -5,9 +5,12 @@ names follow the JAX package so each counterpart is easy to find:
 
 - ``config``              — the shared config tree (a copy; stdlib only).
 - ``compat``              — ``.npz`` checkpoints and JAX parameter import.
-- ``ops``                 — host-side DSP constants and conv wrappers.
-- ``ops.kernels``         — the hand-written sm_90a CUDA kernels, each with
-                            its plain PyTorch version beside it.
+- ``ops``                 — host-side DSP: windows, the mel pair, STFT,
+                            Griffin-Lim, conv wrappers.
+- ``ops.kernels``         — the hand-written sm_90a CUDA kernels (the
+                            fused hop, the WebRTC hop), each with its
+                            plain PyTorch version beside it.
+- ``pipeline``            — the WebRTC-path step, op by op.
 - ``models``              — GRUUNet2 as an ``nn.Module``.
 - ``runtime``             — the matrixized cell plan, ``StreamEngine``,
                             batching tick and serving metrics.

@@ -2,8 +2,10 @@
 apps/engine_serve.py, same wire protocol).
 
 N concurrent client streams multiplex onto one fixed-slot StreamEngine;
-every tick advances all streams that sent a chunk in a single launch of
-the fused-hop kernel (runtime/tick.BatchingTick).
+every tick advances all streams that sent a chunk in one engine step
+(runtime/tick.BatchingTick): one launch of the fused-hop kernel in mode
+``fused``, of the WebRTC-hop kernels in mode ``fused-webrtc``, or the
+op-by-op Griffin-Lim hop in mode ``webrtc``.
 
 Protocol (multiprocessing.connection, length-prefixed pickle):
 
@@ -46,9 +48,11 @@ class EngineDaemon:
                  pipeline_depth: int = 2,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg, self.model = load_pretrained(spec)
-        # the measured-best profile; a checkpoint it would gate is refused
-        # by the fused hop (no gate yet), never served ungated
-        self.cfg = recommended_serving(self.cfg)
+        if mode == "fused":
+            # the measured-best profile of the phase-reuse hop (a no-op for
+            # Griffin-Lim configs); a checkpoint it would gate is refused
+            # by the fused hop (no gate yet), never served ungated
+            self.cfg = recommended_serving(self.cfg)
         self.engine = StreamEngine(self.cfg, self.model, mode=mode,
                                    max_streams=max_streams, device=device)
         self.address = address
@@ -181,7 +185,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="audio_denoising_torch engine",
         description="Batched multi-stream denoising daemon (PyTorch/CUDA)")
-    p.add_argument("--model", default="gruunet2-stream16k")
+    p.add_argument("--model", default="gruunet2-stream16k",
+                   help="a preset name or an .npz checkpoint; mode "
+                   "fused-webrtc needs one whose embedded full_config "
+                   "turns on dsp.griffin_lim_warm_start")
     p.add_argument("--host", default="localhost")
     p.add_argument("--port", type=int, default=6102)
     p.add_argument("--max-streams", type=int, default=256)
@@ -190,7 +197,7 @@ def main(argv=None) -> int:
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="rounds kept in flight before delivery blocks")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="'cpu' runs the kernel's plain PyTorch version")
+                   help="'cpu' runs the kernels' plain PyTorch versions")
     args = p.parse_args(argv)
     daemon = EngineDaemon(args.model, args.max_streams,
                           (args.host, args.port), args.mode, args.tick_ms,

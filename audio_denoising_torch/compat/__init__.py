@@ -5,7 +5,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from audio_denoising_torch.compat.npz_store import load_params_npz
+from audio_denoising_torch.compat.npz_store import (
+    load_params_npz, save_params_npz)
 
 
 def params_from_jax(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -18,4 +19,4 @@ def params_from_jax(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]
             for k, v in params.items()}
 
 
-__all__ = ["load_params_npz", "params_from_jax"]
+__all__ = ["load_params_npz", "params_from_jax", "save_params_npz"]

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with ``nvcc`` and load them through ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface, so it compiles in
-seconds without PyTorch's headers. The shared library goes into the
+seconds without PyTorch's headers; the ``csrc/*.cuh`` headers hold device
+code that several kernels share. The shared library goes into the
 package's ``build/`` directory (listed in ``.gitignore``) at first use,
-named by a hash of the source and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Nothing here runs at import.
+named by a hash of the source, the headers and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Nothing here
+runs at import.
 """
 
 import ctypes
@@ -15,7 +17,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Sequence
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PKG / "csrc"
@@ -49,30 +51,59 @@ def nvcc_path() -> str:
     return found
 
 
+def _library_path(name: str) -> Path:
+    src = SOURCE_DIR / f"{name}.cu"
+    # the headers beside the sources are part of every build's input
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(SOURCE_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src.read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_kernel_libraries(names: Sequence[str]) -> List[KernelLibrary]:
+    """Build each ``csrc/<name>.cu`` for sm_90a unless already built (one
+    nvcc process per source, all started together), load them, and return
+    them with their build logs. Raises if nvcc fails."""
+    with _lock:
+        todo, built = {}, {}
+        try:
+            for name in dict.fromkeys(names):
+                out = _library_path(name) if name not in _loaded else None
+                if out is None or out.exists():
+                    continue
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+                src = SOURCE_DIR / f"{name}.cu"
+                proc = subprocess.Popen(
+                    [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                todo[name] = (proc, tmp, out, time.perf_counter())
+            for name, (proc, tmp, out, t0) in todo.items():
+                log = proc.communicate(timeout=NVCC_TIMEOUT_S)[0]
+                built[name] = (log, time.perf_counter() - t0)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {SOURCE_DIR / (name + '.cu')}:\n{log}")
+                os.replace(tmp, out)  # atomic: other processes see all or none
+        finally:
+            for proc, tmp, _, _ in todo.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                tmp.unlink(missing_ok=True)
+        for name in names:
+            if name not in _loaded:
+                out = _library_path(name)
+                log, seconds = built.get(name, ("", 0.0))
+                _loaded[name] = KernelLibrary(ctypes.CDLL(str(out)), str(out),
+                                              log, seconds)
+        return [_loaded[name] for name in names]
+
+
 def load_kernel_library(name: str) -> KernelLibrary:
     """Build ``csrc/<name>.cu`` for sm_90a unless already built, load it,
     and return it with the build log. Raises if nvcc fails."""
-    with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        src = SOURCE_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
-        log, seconds = "", 0.0
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-            os.replace(tmp, out)     # atomic: other processes see all or none
-        built = KernelLibrary(ctypes.CDLL(str(out)), str(out), log, seconds)
-        _loaded[name] = built
-        return built
+    return load_kernel_libraries((name,))[0]

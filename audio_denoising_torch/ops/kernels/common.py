@@ -3,13 +3,76 @@ ops/pallas/common.py:22-160, fp32 branch).
 
 ``pack_plan_weights`` flattens a CellPlan into the fixed operand order the
 kernels walk; ``plan_cell_math`` is the plain PyTorch version of the cell
-step that ``csrc/fused_hop.cu`` computes in its ``plan_cell`` device
-routine.
+step that ``csrc/plan_cell.cuh`` computes in its ``plan_cell`` device
+routine; ``plan_args`` fills that header's ``AdtPlan`` for a launch.
 """
 
+import ctypes
 from typing import List, Sequence, Tuple
 
 import torch
+
+MAX_LEVELS = 8          # ADT_MAX_LEVELS in csrc/plan_cell.cuh
+
+
+class PlanArgs(ctypes.Structure):
+    """Field-for-field mirror of AdtPlan in csrc/plan_cell.cuh."""
+    _fields_ = [("down_w", ctypes.c_void_p * MAX_LEVELS),
+                ("down_b", ctypes.c_void_p * MAX_LEVELS),
+                ("reset_w", ctypes.c_void_p), ("reset_b", ctypes.c_void_p),
+                ("up_w", ctypes.c_void_p * MAX_LEVELS),
+                ("up_s", ctypes.c_void_p * MAX_LEVELS),
+                ("up_b", ctypes.c_void_p * MAX_LEVELS),
+                ("down_n", ctypes.c_int * (MAX_LEVELS + 1)),
+                ("up_n", ctypes.c_int * (MAX_LEVELS + 1)),
+                ("levels", ctypes.c_int), ("n_hidden", ctypes.c_int)]
+
+
+def kernel_operand(t: torch.Tensor, keep: List[torch.Tensor],
+                   pad_columns: bool = True) -> int:
+    """The device pointer of ``t`` as a kernel reads it: unless
+    ``pad_columns`` is False, matrices get their columns zero-padded to a
+    multiple of 4 (the GEMM reads rows as float4s). The tensor passed is
+    appended to ``keep``, which the caller holds for as long as launches
+    use the pointer."""
+    if pad_columns and t.dim() == 2 and t.shape[1] % 4:
+        t = torch.nn.functional.pad(t, (0, 4 - t.shape[1] % 4))
+    t = t.contiguous()
+    keep.append(t)
+    if t.data_ptr() % 16:
+        raise ValueError("kernel operands must be 16-byte aligned")
+    return t.data_ptr()
+
+
+def plan_args(weights: Sequence[torch.Tensor], skip_flags: Sequence[bool],
+              n_mels: int, n_hidden: int, keep: List[torch.Tensor]
+              ) -> PlanArgs:
+    """``AdtPlan`` for weights in pack_plan_weights order (on the card)."""
+    levels = len(skip_flags)
+    if levels > MAX_LEVELS:
+        raise ValueError(f"the kernels take at most {MAX_LEVELS} levels")
+    p = PlanArgs()
+    it = iter(weights)
+    down_n, up_n = [n_mels], [n_hidden]
+    for i in range(levels):
+        m = next(it)
+        down_n.append(m.shape[1])
+        p.down_w[i] = kernel_operand(m, keep)
+        p.down_b[i] = kernel_operand(next(it), keep)
+    p.reset_w = kernel_operand(next(it), keep)
+    p.reset_b = kernel_operand(next(it), keep)
+    for i in range(levels):
+        m = next(it)
+        up_n.append(m.shape[1])
+        p.up_w[i] = kernel_operand(m, keep)
+        p.up_b[i] = kernel_operand(next(it), keep)
+        p.up_s[i] = kernel_operand(next(it), keep) if skip_flags[i] else None
+    for i, v in enumerate(down_n):
+        p.down_n[i] = v
+    for i, v in enumerate(up_n):
+        p.up_n[i] = v
+    p.levels, p.n_hidden = levels, n_hidden
+    return p
 
 
 def pack_plan_weights(plan) -> Tuple[List[torch.Tensor], List[bool]]:

@@ -22,12 +22,10 @@ import torch
 from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.kernels.common import (
-    pack_plan_weights, plan_cell_math)
+    MAX_LEVELS, PlanArgs, kernel_operand, pack_plan_weights, plan_args,
+    plan_cell_math)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.windows import hann_window
-
-MAX_LEVELS = 8          # ADT_MAX_LEVELS in csrc/fused_hop.cu
-
 
 class FusedHopState(NamedTuple):
     ring: torch.Tensor   # (B, n_fft) analysis window
@@ -74,17 +72,9 @@ class _Args(ctypes.Structure):
         [(f, ctypes.c_void_p) for f in (
             "ring", "ola", "hx", "chunk", "ring_out", "ola_out", "hx_out",
             "out", "cf", "sf", "ic", "is_", "mel", "imel", "win", "env")]
-        + [("down_w", ctypes.c_void_p * MAX_LEVELS),
-           ("down_b", ctypes.c_void_p * MAX_LEVELS),
-           ("reset_w", ctypes.c_void_p), ("reset_b", ctypes.c_void_p),
-           ("up_w", ctypes.c_void_p * MAX_LEVELS),
-           ("up_s", ctypes.c_void_p * MAX_LEVELS),
-           ("up_b", ctypes.c_void_p * MAX_LEVELS),
-           ("down_n", ctypes.c_int * (MAX_LEVELS + 1)),
-           ("up_n", ctypes.c_int * (MAX_LEVELS + 1))]
+        + [("plan", PlanArgs)]
         + [(f, ctypes.c_int) for f in (
-            "levels", "batch", "n_fft", "hop", "n_bins", "n_mels",
-            "n_hidden")]
+            "batch", "n_fft", "hop", "n_bins", "n_mels")]
         + [("output_gain", ctypes.c_float), ("state_decay", ctypes.c_float)])
 
 
@@ -142,9 +132,6 @@ class FusedHop:
         plan = plan.to(device=device, dtype=torch.float32)
         weights, self.skip_flags = pack_plan_weights(plan)
         self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]
-        self.levels = len(self.skip_flags)
-        self.down_n = [self.M] + [m.shape[1] for m in plan.down_mats]
-        self.up_n = [self.n] + [m.shape[1] for m in plan.up_h_mats]
 
         self._lib = None
         if device.type == "cuda":
@@ -224,40 +211,18 @@ class FusedHop:
                              f"tensors on {chunk.device}")
 
     def _args(self) -> _Args:
-        """The launch arguments that do not change from hop to hop. The
-        kernel reads each weight row as float4s, so matrices get their
-        columns zero-padded to a multiple of 4; the padded copies are kept
-        alive on the hop."""
-        def ptr(t):
-            if t.dim() == 2 and t.shape[1] % 4:
-                t = torch.nn.functional.pad(t, (0, 4 - t.shape[1] % 4))
-            self._kernel_tensors.append(t)
-            if t.data_ptr() % 16:
-                raise ValueError("kernel operands must be 16-byte aligned")
-            return t.data_ptr()
-
+        """The launch arguments that do not change from hop to hop; the
+        padded operand copies (kernel_operand) are kept alive on the
+        hop."""
         self._kernel_tensors: List[torch.Tensor] = []
         a = _Args()
         for name in ("cf", "sf", "ic", "is_", "mel", "imel", "win", "env"):
-            setattr(a, name, ptr(getattr(self, name)))
-        it = iter(self.weights)
-        for i in range(self.levels):
-            a.down_w[i] = ptr(next(it))
-            a.down_b[i] = ptr(next(it))
-        a.reset_w = ptr(next(it))
-        a.reset_b = ptr(next(it))
-        for i in range(self.levels):
-            a.up_w[i] = ptr(next(it))
-            a.up_b[i] = ptr(next(it))
-            a.up_s[i] = ptr(next(it)) if self.skip_flags[i] else None
-        for i, v in enumerate(self.down_n):
-            a.down_n[i] = v
-        for i, v in enumerate(self.up_n):
-            a.up_n[i] = v
-        a.levels = self.levels
+            setattr(a, name, kernel_operand(getattr(self, name),
+                                            self._kernel_tensors))
+        a.plan = plan_args(self.weights, self.skip_flags, self.M, self.n,
+                           self._kernel_tensors)
         a.n_fft, a.hop, a.n_bins, a.n_mels = self.n_fft, self.hop, self.F, \
             self.M
-        a.n_hidden = self.n
         a.output_gain, a.state_decay = self.output_gain, self.state_decay
         return a
 

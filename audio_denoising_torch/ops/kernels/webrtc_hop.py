@@ -1,0 +1,320 @@
+"""The whole WebRTC hop, warm-start Griffin-Lim included (JAX counterpart
+ops/pallas/webrtc_hop.py, single-hop ``kernel`` at :331).
+
+``make_webrtc_hop(cfg, plan, device)`` returns a ``WebRTCHop``: calling it
+runs one hop for a batch of streams, ``step(state, chunk (B, hop)) ->
+(state', out (B, hop))``, with the semantics of
+``pipeline.make_webrtc_step`` under ``dsp.griffin_lim_warm_start`` and the
+model run through the matrixized plan. For CPU tensors it runs
+``reference``, the plain PyTorch version that follows ``_hop_math``
+(webrtc_hop.py:190-327); for CUDA tensors it launches the hand-written
+kernels of ``csrc/webrtc_hop.cu`` or raises. ``launches`` counts the
+kernels launched on the card: three per hop (analysis, plan cell,
+Griffin-Lim and synthesis).
+
+The carried phases are ``(B, 3 * n_bins)`` planes with frame t at
+``[t * n_bins, (t + 1) * n_bins)``; the JAX kernel pads each frame to 128
+lanes, which the port does not need.
+
+This slice ports the fp32 hop. The bf16 Griffin-Lim mode and the resident
+multi-hop form raise NotImplementedError.
+"""
+
+import ctypes
+from typing import List, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from audio_denoising_torch.config import Config
+from audio_denoising_torch.device import resolve_device
+from audio_denoising_torch.ops.griffinlim import griffin_lim
+from audio_denoising_torch.ops.kernels.common import (
+    MAX_LEVELS, PlanArgs, kernel_operand, pack_plan_weights, plan_args,
+    plan_cell_math)
+from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
+from audio_denoising_torch.ops.stft import stft
+from audio_denoising_torch.ops.windows import hann_window
+
+FRAMES = 3   # centered STFT frames of one window at hop = n_fft / 2
+KERNELS_PER_HOP = 3   # csrc/webrtc_hop.cu: analysis, cell, gl
+
+
+class WebRTCHopState(NamedTuple):
+    ring: torch.Tensor     # (B, n_fft) input window
+    ola: torch.Tensor      # (B, n_fft) synthesis accumulator
+    hx: torch.Tensor       # (B, hidden*compressed) cell state
+    ang_re: torch.Tensor   # (B, 3*n_bins) carried GL phases, real part
+    ang_im: torch.Tensor   # (B, 3*n_bins) imaginary part
+
+
+def webrtc_hop_init_state(cfg: Config, plan, batch: int,
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> WebRTCHopState:
+    n_fft, F = cfg.dsp.n_fft, cfg.dsp.n_stft
+    z = lambda w: torch.zeros((batch, w), dtype=torch.float32, device=device)
+    # warm seed 1+0j, matching pipeline.webrtc_init_state
+    return WebRTCHopState(ring=z(n_fft), ola=z(n_fft),
+                          hx=z(plan.hidden * plan.compressed),
+                          ang_re=torch.ones((batch, FRAMES * F),
+                                            dtype=torch.float32,
+                                            device=device),
+                          ang_im=z(FRAMES * F))
+
+
+def _istft_envelope(win: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
+    """The window-square envelope of the three frames' overlap-add over
+    the trim region [hop, hop + n_fft); 1 where it vanishes."""
+    env = np.zeros(n_fft + 2 * hop)
+    for t in range(FRAMES):
+        env[t * hop:t * hop + n_fft] += win * win
+    env = env[hop:hop + n_fft]
+    return np.where(np.abs(env) > 1e-11, env, 1.0).astype(np.float32)
+
+
+class _Args(ctypes.Structure):
+    """Field-for-field mirror of AdtWebRTCHopArgs in csrc/webrtc_hop.cu."""
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in (
+            "ring", "ola", "hx", "ang_re", "ang_im", "chunk", "ring_out",
+            "ola_out", "hx_out", "ang_re_out", "ang_im_out", "out", "feat",
+            "mel_mag", "peak", "win", "env", "mel", "imel", "twiddle")]
+        + [("plan", PlanArgs)]
+        + [(f, ctypes.c_int) for f in (
+            "batch", "n_fft", "hop", "n_bins", "n_mels", "n_iter")]
+        + [(f, ctypes.c_float) for f in (
+            "momentum", "output_gain", "state_decay")])
+
+
+def _check_supported(cfg: Config, plan, hops_per_call: int,
+                     compute_dtype) -> None:
+    dsp = cfg.dsp
+    if dsp.n_fft != 2 * dsp.hop_length:
+        raise ValueError("the fused webrtc hop expects hop == n_fft / 2")
+    if not dsp.griffin_lim_warm_start:
+        raise ValueError("the fused webrtc hop carries GL phases (warm "
+                         "start); enable dsp.griffin_lim_warm_start")
+    if dsp.domain == "raw":
+        raise ValueError("the webrtc path is mel-domain (app2.py:199-202)")
+    if plan.delta:
+        raise ValueError("the webrtc hop serves the GRUUNet family, not "
+                         "delta (MOMO3) plans")
+    if len(plan.down_mats) > MAX_LEVELS:
+        raise ValueError(f"the kernel takes at most {MAX_LEVELS} levels")
+    later = []
+    if compute_dtype != torch.float32:
+        later.append(f"compute dtype {compute_dtype} (the bf16 GL mode)")
+    if hops_per_call != 1:
+        later.append("hops_per_call > 1 (the resident multi-hop kernel)")
+    if later:
+        raise NotImplementedError(
+            "the port's webrtc hop does not implement " + ", ".join(later)
+            + " yet")
+
+
+class WebRTCHop:
+    """One WebRTC hop for a batch of streams on ``device``; see the module
+    docstring."""
+
+    def __init__(self, cfg: Config, plan, device: torch.device):
+        dsp, srv = cfg.dsp, cfg.serving
+        self.device = device
+        self.n_fft, self.hop = dsp.n_fft, dsp.hop_length
+        self.F, self.M = dsp.n_stft, dsp.n_mels
+        self.n = plan.hidden * plan.compressed
+        self.n_iter = int(dsp.griffin_lim_iters)
+        self.momentum = float(dsp.griffin_lim_momentum)
+        self.output_gain = float(srv.output_gain)
+        self.state_decay = float(srv.state_decay)
+        self.launches = 0
+
+        win = hann_window(self.n_fft, dtype=torch.float64).numpy()
+        f32 = lambda a: torch.as_tensor(
+            np.ascontiguousarray(a), dtype=torch.float32).to(device)
+        self.win = f32(win)
+        self.env = f32(_istft_envelope(win, self.n_fft, self.hop))
+        self.mel = mel_filterbank(self.F, self.M, dsp.sample_rate).to(device)
+        self.imel = inverse_mel_matrix(
+            self.F, self.M, dsp.sample_rate).T.contiguous().to(device)
+        # one-hop phase advance of the newest frame (pipeline.py:164-175)
+        rot = np.exp(2j * np.pi * np.arange(self.F) * self.hop / self.n_fft)
+        self.rot = torch.complex(f32(rot.real), f32(rot.imag))
+        plan = plan.to(device=device, dtype=torch.float32)
+        weights, self.skip_flags = pack_plan_weights(plan)
+        self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]
+
+        self._lib = None
+        if device.type == "cuda":
+            from audio_denoising_torch.ops.kernels.build import (
+                load_kernel_library)
+            self._lib = load_kernel_library("webrtc_hop").lib
+            self._lib.adt_webrtc_hop_args_size.restype = ctypes.c_int
+            self._lib.adt_webrtc_hop_smem_bytes.argtypes = [ctypes.c_void_p]
+            self._lib.adt_webrtc_hop_smem_bytes.restype = ctypes.c_longlong
+            self._lib.adt_webrtc_hop.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p]
+            self._lib.adt_webrtc_hop.restype = ctypes.c_int
+            if self._lib.adt_webrtc_hop_args_size() != ctypes.sizeof(_Args):
+                raise RuntimeError("csrc/webrtc_hop.cu and _Args disagree "
+                                   "on the argument layout")
+            self._base_args = self._args()
+            self._check_shared_memory()
+
+    # -- the plain PyTorch version ------------------------------------------
+    def targets(self, state: WebRTCHopState, chunk: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+        """The hop up to Griffin-Lim, in plain PyTorch: ``(ring (B, n_fft),
+        peak (B, 1), hx (B, n) before the decay, lin (B, 3, n_bins))``,
+        where ``lin`` holds the magnitudes GL rebuilds phases for. No
+        carried phase reaches any of them."""
+        hop, n_fft = self.hop, self.n_fft
+        ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
+        peak = ring.abs().amax(dim=-1, keepdim=True)
+        ok = peak > 1e-6
+        normed = torch.where(ok, ring / torch.where(ok, peak, 1.0), ring)
+        peak = torch.where(ok, peak, 1.0)
+        spec = stft(normed * self.win, n_fft, hop, window=self.win)
+        mag = spec.abs().transpose(1, 2)                      # (B, 3, F)
+        x = torch.log(1.0 + mag @ self.mel)                   # (B, 3, M)
+
+        hx = state.hx
+        recs = []
+        for t in range(FRAMES):
+            y, hx = plan_cell_math(self.weights, self.skip_flags, self.n,
+                                   x[:, t], hx)
+            rec = x[:, t] - y
+            recs.append(torch.where(rec >= 0, rec, 0.2 * rec))
+        mel_mag = torch.clamp(torch.exp(torch.stack(recs, dim=1)) - 1.0,
+                              min=0.0)
+        lin = torch.clamp(mel_mag @ self.imel, min=0.0) * self.output_gain
+        return ring, peak, hx, lin
+
+    def reference(self, state: WebRTCHopState, chunk: torch.Tensor
+                  ) -> Tuple[WebRTCHopState, torch.Tensor]:
+        hop, n_fft, F = self.hop, self.n_fft, self.F
+        b = chunk.shape[0]
+        ring, peak, hx, lin = self.targets(state, chunk)
+
+        # warm seed: shift one frame, advance the newest by one hop
+        a = torch.complex(state.ang_re, state.ang_im).reshape(b, FRAMES, F)
+        seed = torch.cat([a[:, 1:], (a[:, -1] * self.rot)[:, None]], dim=1)
+        frame, angles = griffin_lim(
+            lin.transpose(1, 2), n_fft, hop, window=self.win,
+            n_iter=self.n_iter, momentum=self.momentum,
+            init_angles=seed.transpose(1, 2), return_angles=True)
+        angles = angles.transpose(1, 2).reshape(b, FRAMES * F)
+
+        out = state.ola[:, :hop]
+        ola = torch.cat([state.ola[:, hop:],
+                         torch.zeros_like(state.ola[:, :hop])], dim=-1)
+        ola = ola + frame * peak
+        return WebRTCHopState(ring, ola, hx * self.state_decay,
+                              angles.real.contiguous(),
+                              angles.imag.contiguous()), out
+
+    # -- the wrapper -----------------------------------------------------------
+    def __call__(self, state: WebRTCHopState, chunk: torch.Tensor
+                 ) -> Tuple[WebRTCHopState, torch.Tensor]:
+        self._check(state, chunk)
+        if chunk.device.type == "cpu":
+            return self.reference(state, chunk)
+        return self._launch(state, chunk)
+
+    def _check(self, state: WebRTCHopState, chunk: torch.Tensor) -> None:
+        if chunk.dim() != 2 or chunk.shape[1] != self.hop:
+            raise ValueError(f"chunk must be (B, {self.hop}), got "
+                             f"{tuple(chunk.shape)}")
+        b = chunk.shape[0]
+        nb = FRAMES * self.F
+        want = {"chunk": (b, self.hop), "ring": (b, self.n_fft),
+                "ola": (b, self.n_fft), "hx": (b, self.n),
+                "ang_re": (b, nb), "ang_im": (b, nb)}
+        got = {"chunk": chunk, **state._asdict()}
+        for name, t in got.items():
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {t.dtype}")
+            if tuple(t.shape) != want[name]:
+                raise ValueError(f"{name} must be {want[name]}, got "
+                                 f"{tuple(t.shape)}")
+            if t.device != chunk.device:
+                raise ValueError(f"{name} is on {t.device}, chunk on "
+                                 f"{chunk.device}")
+        if chunk.device.type != self.device.type:
+            raise ValueError(f"this hop was built for {self.device}; got "
+                             f"tensors on {chunk.device}")
+
+    def _args(self) -> _Args:
+        """The launch arguments that do not change from hop to hop; the
+        operands (and the twiddle table, e^{-2 pi i t / n_fft} built in
+        float64) are kept alive on the hop."""
+        self._kernel_tensors: List[torch.Tensor] = []
+        keep = self._kernel_tensors
+        t = np.arange(self.n_fft) * (2 * np.pi / self.n_fft)
+        twiddle = torch.as_tensor(np.stack([np.cos(t), -np.sin(t)], axis=1),
+                                  dtype=torch.float32).to(self.device)
+        a = _Args()
+        # read element by element, at their own widths: not padded
+        for name, t in (("win", self.win), ("env", self.env),
+                        ("mel", self.mel), ("imel", self.imel),
+                        ("twiddle", twiddle)):
+            setattr(a, name, kernel_operand(t, keep, pad_columns=False))
+        a.plan = plan_args(self.weights, self.skip_flags, self.M, self.n,
+                           keep)
+        a.n_fft, a.hop, a.n_bins, a.n_mels = self.n_fft, self.hop, self.F, \
+            self.M
+        a.n_iter = self.n_iter
+        a.momentum = self.momentum / (1.0 + self.momentum)
+        a.output_gain, a.state_decay = self.output_gain, self.state_decay
+        return a
+
+    def _check_shared_memory(self) -> None:
+        """What these kernels can take on this card: a block's working set
+        in its shared memory, and transform sizes whose halves factor into
+        2, 3 and 4."""
+        need = int(self._lib.adt_webrtc_hop_smem_bytes(
+            ctypes.byref(self._base_args)))
+        if need < 0:
+            raise ValueError(
+                f"the webrtc hop kernels do not take n_fft {self.n_fft} "
+                f"with {self.M} mels (n_fft / 2 must factor into 2, 3 and "
+                f"4, and 3 * n_mels be at most n_fft and 384)")
+        limit = torch.cuda.get_device_properties(
+            self.device).shared_memory_per_block_optin
+        if need > limit:
+            raise RuntimeError(
+                f"the webrtc hop needs {need} B of shared memory per block; "
+                f"this card allows {limit} B")
+
+    def _launch(self, state: WebRTCHopState, chunk: torch.Tensor
+                ) -> Tuple[WebRTCHopState, torch.Tensor]:
+        ins = [t.contiguous() for t in (*state, chunk)]
+        new = WebRTCHopState(*(torch.empty_like(t) for t in ins[:5]))
+        out = torch.empty_like(ins[5])
+        b = chunk.shape[0]
+        feat = torch.empty((b, FRAMES, self.M), device=chunk.device)
+        mel_mag = torch.empty_like(feat)
+        peak = torch.empty((b,), device=chunk.device)
+        a = _Args.from_buffer_copy(self._base_args)
+        a.batch = b
+        (a.ring, a.ola, a.hx, a.ang_re, a.ang_im,
+         a.chunk) = (t.data_ptr() for t in ins)
+        (a.ring_out, a.ola_out, a.hx_out, a.ang_re_out,
+         a.ang_im_out) = (t.data_ptr() for t in new)
+        a.out, a.feat, a.mel_mag, a.peak = (
+            t.data_ptr() for t in (out, feat, mel_mag, peak))
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._lib.adt_webrtc_hop(ctypes.byref(a), stream)
+        if err != 0:
+            raise RuntimeError(f"webrtc hop launch failed: cudaError {err}")
+        self.launches += KERNELS_PER_HOP
+        return new, out
+
+
+def make_webrtc_hop(cfg: Config, plan,
+                    device: Optional[Union[str, torch.device]] = None,
+                    compute_dtype=torch.float32,
+                    hops_per_call: int = 1) -> WebRTCHop:
+    """One-kernel WebRTC hop on ``device`` (the card unless ``"cpu"``)."""
+    _check_supported(cfg, plan, hops_per_call, compute_dtype)
+    return WebRTCHop(cfg, plan, resolve_device(device))

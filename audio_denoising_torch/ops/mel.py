@@ -55,3 +55,17 @@ def inverse_mel_matrix(n_stft: int, n_mels: int, sample_rate: int,
     inv = np.linalg.pinv(fb.astype(np.float32).T.astype(np.float64),
                          rcond=1e-8)
     return torch.from_numpy(inv).to(dtype)
+
+
+def mel_scale(spec: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """(..., n_stft, T) magnitude -> (..., n_mels, T), as torchaudio's
+    MelScale applies ``fb``."""
+    return torch.einsum("...ft,fm->...mt", spec, fb)
+
+
+def inverse_mel_scale(mel: torch.Tensor, inv_fb: torch.Tensor
+                      ) -> torch.Tensor:
+    """(..., n_mels, T) -> (..., n_stft, T) non-negative magnitude: the
+    pseudo-inverse solve, then relu, as torchaudio's InverseMelScale
+    clamps after its least-squares solve."""
+    return torch.clamp(torch.einsum("...mt,fm->...ft", mel, inv_fb), min=0.0)

@@ -1,14 +1,23 @@
 """Batched multi-stream serving engine (JAX counterpart runtime/engine.py,
 ``StreamEngine`` at :231).
 
-This slice has mode ``fused`` only: every tick advances all slots in one
-launch of the fused-hop kernel (ops/kernels/fused_hop.py), and commits
-state only for the slots that received a chunk. Per-stream state lives
-at a slot index of batched device tensors; slots are admitted and
-evicted by index, and inactive slots compute on zeros.
+Modes of the port:
+
+- ``fused``        — the phase-reuse hop as one kernel launch per tick
+                     (ops/kernels/fused_hop.py);
+- ``webrtc``       — the reference's Griffin-Lim WebRTC hop op by op
+                     (pipeline.make_webrtc_step), cold or warm GL;
+- ``fused-webrtc`` — the same hop with warm-start GL in the hand-written
+                     kernels of ops/kernels/webrtc_hop.py.
+
+Every tick advances all slots and commits state only for the slots that
+received a chunk. Per-stream state lives at a slot index of batched
+device tensors; slots are admitted and evicted by index, and inactive
+slots compute on zeros. Where the JAX engine downgrades a mode that
+cannot serve a config, the port raises.
 """
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -16,18 +25,26 @@ import torch
 from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.kernels.fused_hop import (
-    FusedHopState, fused_hop_init_state, make_fused_hop)
+    fused_hop_init_state, make_fused_hop)
+from audio_denoising_torch.ops.kernels.webrtc_hop import (
+    make_webrtc_hop, webrtc_hop_init_state)
+from audio_denoising_torch.pipeline import make_webrtc_step, webrtc_init_state
 from audio_denoising_torch.runtime.plan import build_cell_plan
 
-MODES = ("fused",)
+MODES = ("fused", "webrtc", "fused-webrtc")
+
+
+def _fields(state: NamedTuple) -> Dict[str, torch.Tensor]:
+    """The state's tensors by name; absent (None) fields left out."""
+    return {k: v for k, v in state._asdict().items() if v is not None}
 
 
 class StreamEngine:
     """Admission-controlled batched serving over a fixed slot table.
 
-    A stream's lifecycle is add -> process xN -> remove (slot state zeroed
-    on add). ``device`` is the card unless ``"cpu"`` is passed, which runs
-    the kernel's plain PyTorch version."""
+    A stream's lifecycle is add -> process xN -> remove (slot state reset
+    to the mode's initial state on add). ``device`` is the card unless
+    ``"cpu"`` is passed, which runs the kernels' plain PyTorch versions."""
 
     def __init__(self, cfg: Config, model, mode: str = "fused",
                  max_streams: Optional[int] = None,
@@ -36,21 +53,46 @@ class StreamEngine:
             raise ValueError(f"engine mode {mode!r} is not ported yet; the "
                              f"port has {MODES}")
         if getattr(cfg.model, "lookahead_frames", 0):
-            raise NotImplementedError(
-                "bounded-lookahead checkpoints need the op-by-op fast step, "
-                "which is not ported yet")
+            if mode == "fused":
+                raise NotImplementedError(
+                    "bounded-lookahead checkpoints need the op-by-op fast "
+                    "step, which is not ported yet")
+            raise ValueError(
+                f"engine mode {mode!r} does not support lookahead "
+                f"checkpoints (ModelConfig.lookahead_frames > 0)")
+        if cfg.serving.snr_gate_db is not None and mode == "fused-webrtc":
+            raise ValueError(
+                "the fused webrtc kernel has no SNR gate "
+                "(serving.snr_gate_db is set); the JAX engine downgrades to "
+                "mode 'webrtc' here, the port does not")
+        if cfg.serving.dtype == "int8" and mode != "fused":
+            raise ValueError(
+                f"serving dtype 'int8' is implemented for the fused hop "
+                f"only, not for engine mode {mode!r}")
         self.cfg = cfg
         self.mode = mode
-        self.device = resolve_device(device)
         self.n = max_streams or cfg.serving.max_streams
         self.hop = cfg.dsp.hop_length
-        self.plan = build_cell_plan(model)
-        # raises for what the kernel lacks, and on the card checks that a
-        # block's activations fit in shared memory
-        self.hop_step = make_fused_hop(
-            cfg, self.plan, self.device,
-            compute_dtype=getattr(torch, cfg.serving.dtype))
-        self.state = fused_hop_init_state(cfg, self.plan, self.n, self.device)
+        self.plan = None
+        # each maker raises for what its hop lacks before it resolves the
+        # device; on the card the kernel hops then check what the card can
+        # take (a block's shared memory)
+        if mode == "webrtc":
+            self.hop_step = make_webrtc_step(cfg, model, device)
+            self.device = resolve_device(device)
+            init = lambda b: webrtc_init_state(cfg, model, b, self.device)
+        else:
+            self.plan = build_cell_plan(model)
+            make, init_state = (
+                (make_fused_hop, fused_hop_init_state) if mode == "fused"
+                else (make_webrtc_hop, webrtc_hop_init_state))
+            self.hop_step = make(cfg, self.plan, device,
+                                 compute_dtype=getattr(torch,
+                                                       cfg.serving.dtype))
+            self.device = self.hop_step.device
+            init = lambda b: init_state(cfg, self.plan, b, self.device)
+        self.state = init(self.n)
+        self._zero_one = init(1)      # what add_stream resets a slot to
         self.slots: Dict[str, int] = {}
         self._free = list(range(self.n - 1, -1, -1))
 
@@ -61,8 +103,8 @@ class StreamEngine:
         if not self._free:
             raise RuntimeError("engine full: no free stream slots")
         slot = self._free.pop()
-        for t in self.state:
-            t[slot].zero_()
+        for name, t in _fields(self.state).items():
+            t[slot] = getattr(self._zero_one, name)[0]
         self.slots[stream_id] = slot
         return slot
 
@@ -77,7 +119,9 @@ class StreamEngine:
     @property
     def algorithmic_latency_samples(self) -> int:
         """What the serving mode itself delays the audio by: the
-        hop-synchronous overlap-add holds ``n_fft - hop`` samples."""
+        hop-synchronous overlap-add holds ``n_fft - hop`` samples (in the
+        webrtc modes the segment leaves before the newest frame enters the
+        OLA buffer, app2.py:226-231: the same window tail)."""
         return self.cfg.dsp.n_fft - self.cfg.dsp.hop_length
 
     @property
@@ -86,8 +130,7 @@ class StreamEngine:
                 / self.cfg.dsp.sample_rate * 1e3)
 
     # -- data path -----------------------------------------------------------
-    def _step(self, batch: torch.Tensor) -> Tuple[FusedHopState,
-                                                  torch.Tensor]:
+    def _step(self, batch: torch.Tensor) -> Tuple[NamedTuple, torch.Tensor]:
         # ingress sanitization: a NaN/Inf sample would poison the slot's
         # recurrent state for good (the carry never forgets it, and masked
         # commit cannot help: the poisoned tick is a real chunk)
@@ -116,8 +159,10 @@ class StreamEngine:
         batch = torch.from_numpy(batch).to(self.device)
         keep = torch.from_numpy(mask).to(self.device)[:, None]
         new, out = self._step(batch)
-        self.state = FusedHopState(*(torch.where(keep, a, b)
-                                     for a, b in zip(new, self.state)))
+        self.state = self.state._replace(**{
+            k: torch.where(keep.reshape((-1,) + (1,) * (v.dim() - 1)),
+                           getattr(new, k), v)
+            for k, v in _fields(self.state).items()})
         return out, slot_map
 
     def process(self, chunks: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -137,7 +182,7 @@ class StreamEngine:
         """Host-side copy of all per-stream state and the slot table."""
         return {
             "state": {k: v.cpu().numpy()
-                      for k, v in self.state._asdict().items()},
+                      for k, v in _fields(self.state).items()},
             "slots": dict(self.slots),
             "free": list(self._free),
             "mode": self.mode,
@@ -147,14 +192,15 @@ class StreamEngine:
         if snap["mode"] != self.mode:
             raise ValueError(f"snapshot mode {snap['mode']!r} != engine "
                              f"mode {self.mode!r}")
-        if set(snap["state"]) != set(FusedHopState._fields):
+        current = _fields(self.state)
+        if set(snap["state"]) != set(current):
             raise ValueError("snapshot state layout mismatch")
-        state = FusedHopState(**{
+        state = self.state._replace(**{
             k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
             for k, v in snap["state"].items()})
-        mismatched = [(tuple(a.shape), tuple(b.shape))
-                      for a, b in zip(state, self.state)
-                      if a.shape != b.shape]
+        mismatched = [(tuple(v.shape), tuple(current[k].shape))
+                      for k, v in _fields(state).items()
+                      if v.shape != current[k].shape]
         if mismatched:
             raise ValueError(
                 f"snapshot shapes {mismatched} do not match this engine "

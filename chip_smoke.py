@@ -1,38 +1,67 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``audio_denoising_torch/csrc``, then
-runs five phases, each of which raises on failure (so the script exits
-non-zero and prints no result):
+Builds the port's CUDA kernels from ``audio_denoising_torch/csrc`` (one
+nvcc per source, all at once), then runs these phases, each of which
+raises on failure (so the script exits non-zero and prints no result):
 
-1. the card's name and power limit, and the kernel build (nvcc's
+1. the card's name and power limit, and the kernel builds (nvcc's
    register and shared-memory lines, build seconds);
 2. the fused-hop kernel against its plain PyTorch version on the card,
    at 256 streams and at 3 (the ragged edge), over 20 hops; then at 64
    streams on two trained checkpoints of other widths (hidden 40; 128
    mels, n_fft 1024, five levels, hidden 64);
-3. ``StreamEngine`` mode ``fused`` with 256 slots and 256 streams for 50
+3. the WebRTC-hop kernels against their plain version on the card, on
+   gruunet2-dari_tult with warm-start Griffin-Lim at 256 streams and at
+   3: with no GL round, each carrying its own state over 6 hops (every
+   surface exact); with the configured 32 rounds, every hop taken from
+   the plain version's state (the frame added to the OLA buffer against
+   the plain version and a float64 witness, each stream's spectral
+   convergence, hx), and so with 4 rounds at 64 streams over 40 hops;
+   with 32 rounds, each carrying its own state (hx, two kernel runs
+   bit-identical; the waveform SNR of every pair of versions printed);
+   then GL-32 and GL-4 at the JAX tests' small geometry, each carrying
+   its own state, waveform held;
+4. ``StreamEngine`` mode ``fused`` with 256 slots and 256 streams for 50
    ticks, some streams skipping ticks, against the same run on the CPU;
-4. ``EngineDaemon`` on 127.0.0.1 serving gruunet2-stream16k to 4 clients
-   x 16 streams x 25 chunks, every reply within a deadline, each
-   stream's output against its own sequence through the plain version on
-   the CPU, and the reply latency each client sees per round;
-5. CUDA-event timing at 256 streams: the kernel, its plain version, and
+5. ``EngineDaemon`` mode ``fused`` on 127.0.0.1 serving
+   gruunet2-stream16k to 4 clients x 16 streams x 25 chunks, every reply
+   within a deadline, each stream's output against its own sequence
+   through the plain version on the CPU, and the reply latency each
+   client sees per round;
+6. ``StreamEngine`` mode ``fused-webrtc`` with 256 slots and 256 streams
+   for 8 ticks, some streams skipping ticks, against the CPU engine given
+   the card's state before every tick;
+7. ``EngineDaemon`` mode ``fused-webrtc`` serving an ``.npz`` it writes
+   (dari_tult's weights, warm start on) to 4 clients x 16 streams x 8
+   chunks, each stream's replies against its own sequence through the
+   kernel in this process, hx against the plain version on the CPU;
+8. CUDA-event timing at 256 streams: each kernel, its plain version, and
    the bound from the hop's operations and bytes.
 
-Phases 3 and 4 are the main path: the fused-hop launch counters are set
-to 0 just before each and read just after. The last two lines are the
-``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Without a
-card, or outside a checkout of the repo, the script fails.
+Phases 4 to 7 are the main paths: each kernel's launch counter is set to
+0 just before each and read just after (the WebRTC hop counts its three
+kernels). Griffin-Lim with carried phases is chaotic where a frame's
+rebuilt spectrum nears zero: fp32 round-off there flips a phase, and the
+carried phases spread it, so two correct fp32 versions that each carry
+their own state part ways within a few hops (the plain version on the
+card, on the CPU and the kernel all part from a float64 run alike). So
+the served geometry's waveform is held one hop at a time from a shared
+state, with a float64 witness, beside the surfaces no phase reaches (hx,
+spectral convergence). The last two lines are the ``kernels`` JSON line
+and ``{"ok": true, "device": {...}}``. Without a card, or outside a
+checkout of the repo, the script fails.
 """
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -40,12 +69,24 @@ import numpy as np
 
 OUT_ATOL = 2e-4      # per-hop output, as tests/test_fused_hop.py bounds it
 STATE_ATOL = 2e-5    # ring, ola and hx after 20 hops
+HX_ATOL = 1e-5       # webrtc hx, as tests/test_webrtc_hop.py bounds it
+PHASE_ATOL = 2e-3    # carried phases with no GL round (test_webrtc_hop.py)
+UNIT_TOL = 1e-3      # carried phases: |1 - |a|| or |a| below this
+SNR_GL32_DB = 35.0   # tests/test_webrtc_hop.py's waveform bounds
+SNR_GL4_DB = 40.0
+MAG_REL = 2e-2       # GL-4 output rfft magnitudes, relative to max(1, max)
+SC_TOL = 1e-2        # spectral convergence, kernel vs plain, per stream
+WITNESS_DB = 10.0    # see forced_floor
+REPLAY_ATOL = 1e-6   # daemon replies vs the kernel replayed per stream
+SLOTS = 256          # streams at full width: the engines' slot count
 HOPS = 20
+WEBRTC_HOPS = 6
 TIMED_LAUNCHES = 200
 FP32_FLOPS = 67e12   # H100 SXM fp32 FMA peak, NVIDIA data sheet
 HBM_BYTES_S = 3.35e12
 REPLY_DEADLINE_S = 30.0
 REPO = os.path.dirname(os.path.abspath(__file__))
+KERNELS = ("fused_hop", "webrtc_hop")
 # trained checkpoints of other widths, held in phase 2 besides the main one
 OTHER_CHECKPOINTS = ("gruunet2s16kw40-mrstft-idp-50k.npz",
                      "gruunet2mel128d5w64-mrstft-50k.npz")
@@ -57,6 +98,12 @@ def say(*parts):
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max().cpu())
+
+
+def snr_db(ref, got) -> float:
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return 10 * math.log10(max(float((ref ** 2).sum()), 1e-20)
+                           / max(float(((ref - got) ** 2).sum()), 1e-20))
 
 
 def run_hops(step, state, chunks):
@@ -98,9 +145,313 @@ def phase_kernel_vs_plain(torch, hop, cfg, plan, batches):
     return worst
 
 
+# -- the WebRTC hop ------------------------------------------------------------
+
+def warm_cfg(cfg, n_iter=None):
+    """``cfg`` with warm-start Griffin-Lim on (and n_iter rounds)."""
+    dsp = dataclasses.replace(cfg.dsp, griffin_lim_warm_start=True)
+    if n_iter is not None:
+        dsp = dataclasses.replace(dsp, griffin_lim_iters=n_iter)
+    return dataclasses.replace(cfg, dsp=dsp)
+
+
+def small_webrtc_model(torch, n_iter):
+    """The JAX webrtc tests' geometry (tests/test_webrtc_hop.py
+    _small_setup: n_fft 64, 16 mels, hidden (5, 5)) with random weights
+    from a seed: a point where warm GL is not chaotic, so the waveform is
+    a surface to hold."""
+    from audio_denoising_torch.config import Config, DSPConfig, ModelConfig
+    from audio_denoising_torch.models import build_model
+    cfg = Config(
+        dsp=DSPConfig(sample_rate=16000, n_fft=64, hop_length=32, n_mels=16,
+                      reconstruction="griffin_lim", griffin_lim_iters=n_iter,
+                      griffin_lim_warm_start=True),
+        model=ModelConfig(arch="GRUUNet2", num_compressed_bins=4,
+                          hidden_sizes=(5, 5), kernel_sizes=(3, 3),
+                          strides=(2, 2), paddings=(1, 1), num_gaussians=3))
+    torch.manual_seed(0)
+    return cfg, build_model(cfg.model, num_bins=cfg.dsp.n_mels)
+
+
+def phases_ok(torch, state) -> bool:
+    nrm = torch.sqrt(state.ang_re ** 2 + state.ang_im ** 2)
+    return bool(((nrm - 1).abs() < UNIT_TOL).logical_or(nrm < UNIT_TOL)
+                .all())
+
+
+def webrtc_chunks(torch, batch, hops, seed, hop_len):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((0.2 * rng.standard_normal((batch, hop_len)))
+                             .astype(np.float32)) for _ in range(hops)]
+
+
+def to(state, device, dtype=None):
+    return type(state)(*(t.to(device, dtype) for t in state))
+
+
+def float64_plain(torch, cfg, plan):
+    """The plain version on the CPU in float64: a witness of how far each
+    fp32 version departs."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import make_webrtc_hop
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    for name in ("win", "env", "mel", "imel"):
+        setattr(hop, name, getattr(hop, name).double())
+    hop.rot = hop.rot.to(torch.complex128)
+    hop.weights = [w.double() for w in hop.weights]
+    return hop
+
+
+def added_frame(state_in, state_out, hop_len):
+    """What one hop adds to the OLA buffer (the synthesized frame times the
+    peak), float64 on the CPU: ola' minus the shifted ola."""
+    ola = state_in.ola.double().cpu()
+    shifted = ola.roll(-hop_len, dims=1)
+    shifted[:, -hop_len:] = 0
+    return (state_out.ola.double().cpu() - shifted).numpy()
+
+
+def spectral_convergence(torch, hop, frame, peak, lin):
+    """Per stream || |STFT(frame / peak)| - lin || / || lin ||: how far a
+    synthesized frame's magnitudes are from the target magnitudes ``lin``
+    that Griffin-Lim rebuilds phases for. It reads no phase, so it holds
+    the loop where phases may part ways."""
+    from audio_denoising_torch.ops.stft import stft
+    x = torch.from_numpy(frame) / peak
+    m = stft(x, hop.n_fft, hop.hop, window=hop.win).abs().transpose(1, 2)
+    return (torch.linalg.vector_norm(m - lin, dim=(1, 2))
+            / torch.linalg.vector_norm(lin, dim=(1, 2)).clamp_min(1e-30)
+            ).numpy()
+
+
+def stream_snrs(ref, got):
+    return np.array([snr_db(r, g) for r, g in zip(ref, got)])
+
+
+def check_webrtc_exact(torch, cfg, plan, batch):
+    """No GL round: the seed, analysis, cell and synthesis only, every
+    surface exact to fp32 round-off; each version carries its own state."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    cfg = warm_cfg(cfg, 0)
+    hop = make_webrtc_hop(cfg, plan, "cuda")
+    s_k = s_p = webrtc_hop_init_state(cfg, plan, batch, "cuda")
+    e = {"out": 0.0, "ola": 0.0, "hx": 0.0, "phases": 0.0}
+    for c in webrtc_chunks(torch, batch, WEBRTC_HOPS, batch, hop.hop):
+        c = c.cuda()
+        s_k, o_k = hop(s_k, c)
+        s_p, o_p = hop.reference(s_p, c)
+        e["out"] = max(e["out"], max_err(o_k, o_p))
+        e["ola"] = max(e["ola"], max_err(s_k.ola, s_p.ola))
+        e["hx"] = max(e["hx"], max_err(s_k.hx, s_p.hx))
+        e["phases"] = max(e["phases"], max_err(s_k.ang_re, s_p.ang_re),
+                          max_err(s_k.ang_im, s_p.ang_im))
+        if max_err(s_k.ring, s_p.ring) != 0:
+            raise AssertionError("webrtc kernel's ring differs")
+    say(f"  GL-0  B={batch:3d}: out {e['out']:.3e} (bound {OUT_ATOL:g}), "
+        f"ola {e['ola']:.3e} (bound {STATE_ATOL:g}), hx {e['hx']:.3e} "
+        f"(bound {HX_ATOL:g}), phases {e['phases']:.3e} (bound "
+        f"{PHASE_ATOL:g})")
+    if (e["out"] > OUT_ATOL or e["ola"] > STATE_ATOL or e["hx"] > HX_ATOL
+            or e["phases"] > PHASE_ATOL):
+        raise AssertionError(f"webrtc kernel disagrees with its plain "
+                             f"version with no GL round at B={batch}")
+
+
+def forced_floor(f_kernel, f_plain, f_f64, bound=SNR_GL32_DB):
+    """The waveform rule for one hop taken from one state by the kernel, a
+    plain fp32 version and the float64 plain version: over the streams,
+    the kernel's median SNR against float64 must reach ``bound``, or,
+    on a hop where the plain fp32 version itself departs further, come
+    within WITNESS_DB of the plain version's median. Medians, because a
+    few streams per hop flip a near-zero bin's phase in any fp32 version.
+    Returns (kernel median, plain median, floor)."""
+    k = float(np.median(stream_snrs(f_f64, f_kernel)))
+    p = float(np.median(stream_snrs(f_f64, f_plain)))
+    return k, p, min(bound, p - WITNESS_DB)
+
+
+def check_webrtc_forced(torch, cfg, plan, batch, hops, bound):
+    """Griffin-Lim held hop by hop at the served geometry. The plain
+    version on the card sets the trajectory; at every hop the kernel, the
+    plain version on the card, the plain version on the CPU and the
+    float64 plain version start from its state and take the same chunk.
+    Held on hops 2 on: ``forced_floor`` at ``bound`` on the frame each adds
+    to its OLA buffer, and each stream's spectral convergence within SC_TOL of the
+    plain version's; at every hop hx and unit phases. Returns the largest
+    error of the kernel's ola against the plain version's, all hops."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    hop = make_webrtc_hop(cfg, plan, "cuda")
+    cpu = make_webrtc_hop(cfg, plan, "cpu")
+    f64 = float64_plain(torch, cfg, plan)
+    s = webrtc_hop_init_state(cfg, plan, batch, "cuda")
+    pairs = ("kernel/plain", "plain card/CPU", "kernel/f64", "plain/f64")
+    batch_snr = {k: [] for k in pairs}
+    stream_min = {k: [] for k in pairs}
+    rules, sc_err, worst_hx, worst_ola = [], [], 0.0, 0.0
+    for t, c in enumerate(webrtc_chunks(torch, batch, hops, batch + 7,
+                                        hop.hop)):
+        s_k, _ = hop(s, c.cuda())
+        s_p, _ = hop.reference(s, c.cuda())
+        s_c, _ = cpu.reference(to(s, "cpu"), c)
+        s_d, _ = f64.reference(to(s, "cpu", torch.float64), c.double())
+        torch.cuda.synchronize()
+        worst_hx = max(worst_hx, max_err(s_k.hx, s_p.hx))
+        worst_ola = max(worst_ola, max_err(s_k.ola, s_p.ola))
+        if not phases_ok(torch, s_k) or not bool(torch.isfinite(
+                s_k.ola).all()):
+            raise AssertionError(f"webrtc kernel: non-unit phases or a "
+                                 f"non-finite frame at hop {t}")
+        fk, fp, fc, fd = (added_frame(s, x, hop.hop)
+                          for x in (s_k, s_p, s_c, s_d))
+        if t >= 2:         # a stream's first window is half silence
+            for k, (ref, got) in zip(pairs, ((fp, fk), (fp, fc), (fd, fk),
+                                             (fd, fp))):
+                batch_snr[k].append(snr_db(ref, got))
+                stream_min[k].append(float(stream_snrs(ref, got).min()))
+            rules.append(forced_floor(fk, fp, fd, bound))
+            _, peak, _, lin = f64.targets(to(s, "cpu", torch.float64),
+                                          c.double())
+            sc_k = spectral_convergence(torch, f64, fk, peak, lin)
+            sc_p = spectral_convergence(torch, f64, fp, peak, lin)
+            sc_err.append(float(np.abs(sc_k - sc_p).max()))
+        s = s_p
+    say(f"  GL-{hop.n_iter} B={batch:3d}, each hop from the plain version's "
+        f"state, hops 2-{hops - 1}: SNR of the added frame, over the batch "
+        f"and the lowest stream:")
+    for k in pairs:
+        say(f"    {k:15s} batch min {min(batch_snr[k]):.1f}, median "
+            f"{float(np.median(batch_snr[k])):.1f} dB; lowest stream "
+            f"{min(stream_min[k]):.1f} dB")
+    worst = min(rules, key=lambda r: r[0] - r[2])
+    say(f"    held, median over streams of kernel/f64 >= floor = min("
+        f"{bound:g}, plain/f64 - {WITNESS_DB:g}) at every hop; lowest "
+        f"kernel/f64 {min(r[0] for r in rules):.1f} dB; closest hop "
+        f"{worst[0]:.1f} (plain/f64 {worst[1]:.1f}, floor {worst[2]:.1f}) "
+        f"dB")
+    say(f"    spectral convergence, kernel vs plain: max difference "
+        f"{max(sc_err):.2e} (bound {SC_TOL:g}); hx {worst_hx:.3e} (bound "
+        f"{HX_ATOL:g}); ola {worst_ola:.3e} over all hops; phases unit")
+    if (worst_hx > HX_ATOL or any(k < f for k, _, f in rules)
+            or max(sc_err) > SC_TOL):
+        raise AssertionError(f"webrtc kernel disagrees with its plain "
+                             f"version (GL-{hop.n_iter}, B={batch})")
+    return worst_ola
+
+
+def check_webrtc_free(torch, cfg, plan, batch, hops):
+    """Each version carries its own state over the same chunks: the kernel
+    (run twice, which must agree bit for bit), the plain version on the
+    card, on the CPU and in float64. hx and unit phases are held; the
+    waveform SNR of each pair on hops 2 on is printed: carried phases part
+    ways where a rebuilt spectrum nears zero."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    hop = make_webrtc_hop(cfg, plan, "cuda")
+    cpu = make_webrtc_hop(cfg, plan, "cpu")
+    f64 = float64_plain(torch, cfg, plan)
+    chunks = webrtc_chunks(torch, batch, hops, batch + 7, hop.hop)
+    init = lambda: webrtc_hop_init_state(cfg, plan, batch, "cuda")
+    runs = {}
+    for name, step, state, dev in (
+            ("kernel", hop, init(), "cuda"),
+            ("kernel again", hop, init(), "cuda"),
+            ("plain card", hop.reference, init(), "cuda"),
+            ("plain CPU", cpu.reference, to(init(), "cpu"), "cpu"),
+            ("f64", f64.reference, to(init(), "cpu", torch.float64), "f64")):
+        outs = []
+        for c in chunks:
+            c = c.double() if dev == "f64" else c.to(dev)
+            state, o = step(state, c)
+            outs.append(o.double().cpu().numpy())
+        runs[name] = (state, outs)
+    s_k, o_k = runs["kernel"]
+    s_again, o_again = runs["kernel again"]
+    if not all(np.array_equal(a, b) for a, b in zip(o_k, o_again)) or not \
+            all(torch.equal(a, b) for a, b in zip(s_k, s_again)):
+        raise AssertionError("webrtc kernel: two runs on the same inputs "
+                             "differ")
+    hx = max_err(s_k.hx, runs["plain card"][0].hx)
+    if hx > HX_ATOL or not phases_ok(torch, s_k):
+        raise AssertionError(f"webrtc kernel: hx {hx:.3e} or non-unit "
+                             f"phases, B={batch}")
+    say(f"  GL-{hop.n_iter} B={batch:3d}, each version on its own state "
+        f"over {hops} hops: kernel twice bit-identical; hx {hx:.3e} (bound "
+        f"{HX_ATOL:g}); phases unit; waveform SNR over the batch on hops "
+        f"2-{hops - 1} (printed, not held):")
+    for ref, got in (("plain card", "kernel"), ("plain CPU", "plain card"),
+                     ("f64", "kernel"), ("f64", "plain card"),
+                     ("f64", "plain CPU")):
+        per_hop = [snr_db(a, b) for a, b in zip(runs[ref][1],
+                                                runs[got][1])][2:]
+        say(f"    {got} vs {ref}: " + ", ".join(f"{v:.1f}" for v in per_hop)
+            + " dB")
+
+
+def check_webrtc_small(torch, cfg, plan, batch, hops, snr_bound,
+                       mag_rel=None, label=""):
+    """At the JAX tests' small geometry each version carries its own state
+    and the waveform is held: SNR on hops 2 on, hx at every hop (and with
+    ``mag_rel`` each hop's output rfft magnitudes)."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    hop = make_webrtc_hop(cfg, plan, "cuda")
+    s_k = s_p = webrtc_hop_init_state(cfg, plan, batch, "cuda")
+    worst_hx, snrs = 0.0, []
+    for t, c in enumerate(webrtc_chunks(torch, batch, hops, batch + 7,
+                                        hop.hop)):
+        s_k, o_k = hop(s_k, c.cuda())
+        s_p, o_p = hop.reference(s_p, c.cuda())
+        o_k, o_p = o_k.cpu().numpy(), o_p.cpu().numpy()
+        worst_hx = max(worst_hx, max_err(s_k.hx, s_p.hx))
+        if not phases_ok(torch, s_k) or not np.all(np.isfinite(o_k)):
+            raise AssertionError(f"webrtc kernel: non-unit phases or a "
+                                 f"non-finite output at hop {t}")
+        if t < 2:          # warm-up hops emit (near-)silence
+            continue
+        snrs.append(snr_db(o_p, o_k))
+        if mag_rel is not None:
+            m0 = np.abs(np.fft.rfft(o_p, axis=-1))
+            m1 = np.abs(np.fft.rfft(o_k, axis=-1))
+            if np.abs(m1 - m0).max() > mag_rel * max(1.0, m0.max()):
+                raise AssertionError(f"webrtc kernel: output magnitudes "
+                                     f"drift at hop {t}")
+    say(f"  {label} B={batch:3d} x {hops} hops: hx {worst_hx:.3e} (bound "
+        f"{HX_ATOL:g}); waveform SNR on hops 2-{hops - 1} min "
+        f"{min(snrs):.1f} dB (bound {snr_bound:g}); phases unit")
+    if worst_hx > HX_ATOL or min(snrs) < snr_bound:
+        raise AssertionError(f"webrtc kernel disagrees with its plain "
+                             f"version ({label}, B={batch})")
+
+
+def phase_webrtc_kernel(torch, cfg, plan):
+    """Phase 3; returns the largest ola error of the served GL-n run at
+    B=SLOTS, each hop from the plain version's state."""
+    for b in (SLOTS, 3):
+        check_webrtc_exact(torch, cfg, plan, b)
+    err = max(check_webrtc_forced(torch, cfg, plan, b, WEBRTC_HOPS,
+                                  SNR_GL32_DB) for b in (SLOTS, 3))
+    check_webrtc_forced(torch, warm_cfg(cfg, 4), plan, 64, 40, SNR_GL4_DB)
+    for b in (SLOTS, 3):
+        check_webrtc_free(torch, cfg, plan, b, WEBRTC_HOPS)
+    from audio_denoising_torch.runtime.plan import build_cell_plan
+    small_cfg, small = small_webrtc_model(torch, 32)
+    small_plan = build_cell_plan(small)
+    say("  the JAX tests' geometry (n_fft 64, 16 mels, hidden (5, 5)), "
+        "random weights:")
+    for b in (SLOTS, 3):
+        check_webrtc_small(torch, small_cfg, small_plan, b, WEBRTC_HOPS,
+                           SNR_GL32_DB, label="GL-32")
+    check_webrtc_small(torch, warm_cfg(small_cfg, 4), small_plan, 64, 40,
+                       SNR_GL4_DB, MAG_REL, label="GL-4 ")
+    return err
+
+
+# -- the engines ---------------------------------------------------------------
+
 def phase_engine(torch, cfg, model):
     from audio_denoising_torch.runtime.engine import StreamEngine
-    n, ticks = 256, 50
+    n, ticks = SLOTS, 50
     gpu = StreamEngine(cfg, model, mode="fused", max_streams=n)
     cpu = StreamEngine(cfg, model, mode="fused", max_streams=n, device="cpu")
     sids = [f"s{i}" for i in range(n)]
@@ -129,7 +480,73 @@ def phase_engine(torch, cfg, model):
     return launches
 
 
-def _client(address, cid, chunks, results, errors):
+def phase_engine_webrtc(torch, cfg, model):
+    """Mode fused-webrtc on the card against the CPU engine, the CPU engine
+    given the card's state before every tick: each tick's outputs equal,
+    hx within HX_ATOL, from tick 2 on the frame each active slot adds to
+    its OLA buffer held by ``forced_floor`` (the float64 plain version run
+    from the same state is the witness), idle slots untouched."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import KERNELS_PER_HOP
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    n, ticks = SLOTS, 8
+    gpu = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=n)
+    cpu = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=n,
+                       device="cpu")
+    sids = [f"s{i}" for i in range(n)]
+    for sid in sids:
+        gpu.add_stream(sid)
+        cpu.add_stream(sid)
+    f64 = float64_plain(torch, cfg, gpu.plan)
+    rng = np.random.default_rng(6)
+    worst_hx, snrs, rules = 0.0, [], []
+    gpu.hop_step.launches = 0
+    for t in range(ticks):
+        chunks = {sid: (0.2 * rng.standard_normal(cfg.dsp.hop_length)
+                        ).astype(np.float32)
+                  for i, sid in enumerate(sids) if (7 * i + t) % 5}
+        active = [gpu.slots[s] for s in sids if s in chunks]
+        idle = [gpu.slots[s] for s in sids if s not in chunks]
+        before = to(gpu.state, "cpu")
+        cpu.state = type(before)(*(x.clone() for x in before))
+        a, b = gpu.process(chunks), cpu.process(chunks)
+        after = to(gpu.state, "cpu")
+        for x, y in zip(before, after):
+            if not torch.equal(x[idle], y[idle]):
+                raise AssertionError("an idle slot's state moved")
+        for sid in chunks:
+            if not np.array_equal(a[sid], b[sid]) or not np.all(
+                    np.isfinite(a[sid])):
+                raise AssertionError("engine outputs differ from the CPU "
+                                     "engine's on the same state")
+        worst_hx = max(worst_hx, max_err(after.hx, cpu.state.hx))
+        if t >= 2:
+            batch = torch.zeros((n, cfg.dsp.hop_length), dtype=torch.float64)
+            for sid, chunk in chunks.items():
+                batch[gpu.slots[sid]] = torch.from_numpy(chunk).double()
+            s_d, _ = f64.reference(to(before, "cpu", torch.float64), batch)
+            f_gpu, f_cpu, f_d = (added_frame(before, x, cfg.dsp.hop_length)
+                                 [active] for x in (after, cpu.state, s_d))
+            rules.append(forced_floor(f_gpu, f_cpu, f_d))
+            snrs.append(snr_db(f_cpu, f_gpu))
+    launches = gpu.hop_step.launches
+    say(f"  {n} streams x {ticks} ticks, the CPU engine given the card's "
+        f"state each tick: outputs equal; hx {worst_hx:.3e} (bound "
+        f"{HX_ATOL:g}); idle slots bit-identical; {launches} kernel "
+        f"launches; on ticks 2-{ticks - 1} the added frames' SNR card vs "
+        f"CPU over the active slots "
+        + ", ".join(f"{v:.1f}" for v in snrs) + " dB, and held, median "
+        "over streams of card/f64 (CPU/f64, floor): "
+        + ", ".join(f"{k:.1f} ({p:.1f}, {f:.1f})" for k, p, f in rules)
+        + " dB")
+    if worst_hx > HX_ATOL or any(k < f for k, _, f in rules):
+        raise AssertionError("engine on the card disagrees with the CPU run")
+    if launches != KERNELS_PER_HOP * ticks:
+        raise AssertionError(f"expected {KERNELS_PER_HOP * ticks} "
+                             f"kernel launches, saw {launches}")
+    return launches
+
+
+def _client(address, cid, chunks, results, errors, before_close=None):
     from multiprocessing.connection import Client
     try:
         with Client(address) as conn:
@@ -140,11 +557,13 @@ def _client(address, cid, chunks, results, errors):
                 return conn.recv()
 
             sids = [f"c{cid}s{j}" for j in range(chunks.shape[0])]
+            slots = {}
             for sid in sids:
                 conn.send(("open", sid))
                 msg = recv()
                 if msg[0] != "ok":
                     raise RuntimeError(f"open {sid}: {msg}")
+                slots[sid] = msg[2]
             outs = {sid: [] for sid in sids}
             rounds = []
             for k in range(chunks.shape[1]):
@@ -158,9 +577,12 @@ def _client(address, cid, chunks, results, errors):
                     outs[msg[1]].append(msg[2])
                 rounds.append(time.perf_counter() - t0)
             results[("round_s", cid)] = rounds
+            results[("slots", cid)] = [slots[s] for s in sids]
             if cid == 0:
                 conn.send(("stats",))
                 results["stats"] = recv()[1]
+            if before_close is not None:
+                before_close.wait(REPLY_DEADLINE_S)
             for sid in sids:
                 conn.send(("close", sid))
                 msg = recv()
@@ -171,17 +593,11 @@ def _client(address, cid, chunks, results, errors):
         errors.append(f"client {cid}: {e!r}")
 
 
-def phase_daemon(torch):
-    from audio_denoising_torch.apps.engine_serve import EngineDaemon
-    from audio_denoising_torch.ops.kernels.fused_hop import (
-        fused_hop_init_state, make_fused_hop)
-    clients, streams, n_chunks = 4, 16, 25
-    daemon = EngineDaemon("gruunet2-stream16k", max_streams=256,
-                          address=("127.0.0.1", 0))
-    hop_len = daemon.cfg.dsp.hop_length
-    rng = np.random.default_rng(4)
-    data = (0.1 * rng.standard_normal(
-        (clients, streams, n_chunks, hop_len))).astype(np.float32)
+def serve_clients(daemon, data, before_close=None):
+    """Run ``daemon`` for one client thread per row of ``data`` (clients,
+    streams, chunks, hop); returns (outputs, slots, round seconds, stats,
+    launches, wall seconds)."""
+    clients = data.shape[0]
     server = threading.Thread(target=daemon.serve_forever, daemon=True)
     results, errors, threads = {}, [], []
     server.start()
@@ -191,12 +607,12 @@ def phase_daemon(torch):
         daemon.engine.hop_step.launches = 0
         t0 = time.perf_counter()
         threads = [threading.Thread(target=_client, args=(
-            daemon.address, c, data[c], results, errors), daemon=True)
-            for c in range(clients)]
+            daemon.address, c, data[c], results, errors, before_close),
+            daemon=True) for c in range(clients)]
         for t in threads:
             t.start()
         for t in threads:
-            t.join(REPLY_DEADLINE_S * (n_chunks + 4))
+            t.join(REPLY_DEADLINE_S * (data.shape[2] + 4))
         wall = time.perf_counter() - t0
         launches = daemon.engine.hop_step.launches
     finally:
@@ -208,6 +624,34 @@ def phase_daemon(torch):
         raise RuntimeError("; ".join(errors))
     say(f"  stats: {json.dumps(results['stats'])}")
     got = np.concatenate([results[c] for c in range(clients)])
+    slots = sum((results[("slots", c)] for c in range(clients)), [])
+    rounds = np.concatenate([results[("round_s", c)]
+                             for c in range(clients)])
+    return got, slots, rounds, launches, wall
+
+
+def latency_line(data, rounds, launches, wall):
+    clients, streams, n_chunks = data.shape[:3]
+    p50, p99 = np.percentile(rounds, [50, 99]) * 1e3
+    return (f"{clients} clients x {streams} streams x {n_chunks} chunks in "
+            f"{wall:.2f} s; {launches} launches; reply latency per round "
+            f"(a client's {streams} chunks sent to its {streams} replies "
+            f"in) p50 {p50:.3f} ms, p99 {p99:.3f} ms over {rounds.size} "
+            f"rounds")
+
+
+def phase_daemon(torch):
+    from audio_denoising_torch.apps.engine_serve import EngineDaemon
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    clients, streams, n_chunks = 4, 16, 25
+    daemon = EngineDaemon("gruunet2-stream16k", max_streams=SLOTS,
+                          address=("127.0.0.1", 0))
+    hop_len = daemon.cfg.dsp.hop_length
+    rng = np.random.default_rng(4)
+    data = (0.1 * rng.standard_normal(
+        (clients, streams, n_chunks, hop_len))).astype(np.float32)
+    got, _, rounds, launches, wall = serve_clients(daemon, data)
     ref_hop = make_fused_hop(daemon.cfg, daemon.engine.plan, "cpu")
     state = fused_hop_init_state(daemon.cfg, daemon.engine.plan,
                                  clients * streams)
@@ -217,13 +661,8 @@ def phase_daemon(torch):
         state, out = ref_hop(state, torch.from_numpy(seqs[:, k].copy()))
         want.append(out.numpy())
     err = float(np.abs(got - np.stack(want, axis=1)).max())
-    rounds = np.concatenate([results[("round_s", c)] for c in range(clients)])
-    p50, p99 = np.percentile(rounds, [50, 99]) * 1e3
-    say(f"  {clients} clients x {streams} streams x {n_chunks} chunks in "
-        f"{wall:.2f} s: out {err:.3e} (bound {OUT_ATOL:g}); {launches} "
-        f"launches; reply latency per round (a client's {streams} chunks "
-        f"sent to its {streams} replies in) p50 {p50:.3f} ms, p99 "
-        f"{p99:.3f} ms over {rounds.size} rounds")
+    say(f"  out {err:.3e} (bound {OUT_ATOL:g}); "
+        + latency_line(data, rounds, launches, wall))
     if err > OUT_ATOL:
         raise AssertionError("daemon output disagrees with the plain version")
     if launches <= 0:
@@ -231,8 +670,69 @@ def phase_daemon(torch):
     return launches
 
 
+def write_warm_checkpoint(model, cfg, directory):
+    """dari_tult's weights with a full_config that turns warm start on:
+    what serving mode fused-webrtc takes."""
+    from audio_denoising_torch.compat import save_params_npz
+    path = os.path.join(directory, "gruunet2-dari_tult-warm.npz")
+    params = {k: v.numpy() for k, v in model.state_dict().items()}
+    save_params_npz(path, params,
+                    {"full_config": json.loads(warm_cfg(cfg).to_json())})
+    return path
+
+
+def phase_daemon_webrtc(torch, cfg, model):
+    """Every reply in time; each stream's replies against its own sequence
+    run through the kernel in this process (a stream's hop does not depend
+    on the other streams in the batch, so the bound is tight), and its hx
+    after its last chunk against the plain version on the CPU."""
+    from audio_denoising_torch.apps.engine_serve import EngineDaemon
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    clients, streams, n_chunks = 4, 16, 8
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = write_warm_checkpoint(model, cfg, tmp)
+        daemon = EngineDaemon(spec, max_streams=SLOTS, mode="fused-webrtc",
+                              address=("127.0.0.1", 0))
+    hop_len = daemon.cfg.dsp.hop_length
+    rng = np.random.default_rng(8)
+    data = (0.2 * rng.standard_normal(
+        (clients, streams, n_chunks, hop_len))).astype(np.float32)
+    # streams close only once every client is done, so no slot is reused
+    # before its final state is read
+    got, slots, rounds, launches, wall = serve_clients(
+        daemon, data, threading.Barrier(clients))
+    plan = daemon.engine.plan
+    seqs = torch.from_numpy(data.reshape(clients * streams, n_chunks,
+                                         hop_len))
+    want = {}
+    for device in ("cuda", "cpu"):
+        step = make_webrtc_hop(daemon.cfg, plan, device)
+        state = webrtc_hop_init_state(daemon.cfg, plan, clients * streams,
+                                      device)
+        outs = []
+        for k in range(n_chunks):
+            state, out = step(state, seqs[:, k].contiguous().to(device))
+            outs.append(out.cpu().numpy())
+        want[device] = (state, np.stack(outs, axis=1))
+    replay = float(np.abs(got - want["cuda"][1]).max())
+    hx_err = max_err(daemon.engine.state.hx[slots].cpu(), want["cpu"][0].hx)
+    say(f"  replies vs the kernel replayed per stream {replay:.3e} (bound "
+        f"{REPLAY_ATOL:g}); hx vs the plain version on the CPU "
+        f"{hx_err:.3e} (bound {HX_ATOL:g}); "
+        + latency_line(data, rounds, launches, wall))
+    if replay > REPLAY_ATOL or hx_err > HX_ATOL:
+        raise AssertionError("daemon disagrees with the kernel replayed "
+                             "per stream or with the plain version")
+    if launches <= 0:
+        raise AssertionError("the daemon never launched the kernel")
+    return launches
+
+
+# -- timing --------------------------------------------------------------------
+
 def time_launches(torch, fn, n):
-    for _ in range(20):
+    for _ in range(min(20, n)):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -261,19 +761,58 @@ def hop_work(hop, batch):
     return batch * (2 * macs + ffts), 4 * (batch * per_stream + weights)
 
 
-def phase_timing(torch, hop, cfg, plan):
-    from audio_denoising_torch.ops.kernels.fused_hop import (
-        fused_hop_init_state)
-    batch = 256
+def webrtc_hop_work(hop, batch):
+    """(flops, bytes) one WebRTC hop needs per ``batch`` streams: each of
+    the 3 (n_iter + 2) real transforms of n_fft points at FFT cost
+    (2.5 N log2 N: the analysis STFT, n_iter rounds of inverse STFT and
+    STFT, the synthesis), 2 per multiply-add of the three plan-cell steps
+    and of the mel pair over three frames; each input read and output
+    written once (state, chunk, output, weights and tables)."""
+    transforms = 3 * (2 * hop.n_iter + 2)
+    ffts = transforms * 2.5 * hop.n_fft * math.log2(hop.n_fft)
+    cell = sum(w.numel() for w in hop.weights if w.dim() == 2)
+    macs = 3 * cell + 3 * 2 * hop.F * hop.M
+    weights = (sum(w.numel() for w in hop.weights)
+               + sum(t.numel() for t in (hop.mel, hop.imel, hop.win,
+                                         hop.env)))
+    per_stream = (2 * 2 * hop.n_fft + 2 * hop.n + 2 * 2 * 3 * hop.F
+                  + 2 * hop.hop)
+    return batch * (ffts + 2 * macs), 4 * (batch * per_stream + weights)
+
+
+def device_breakdown(torch, fn, n):
+    """Device time per call (us) of each kernel ``fn`` launches, summed
+    from torch.profiler's kernel events over ``n`` calls; empty if the
+    profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rows[e.name] = (rows.get(e.name, 0.0)
+                            + e.time_range.elapsed_us() / n)
+    return rows
+
+
+def timed(torch, hop, init, work, batch, launches):
+    """Kernel and plain times (ms) on random state and chunks, and the
+    bound from ``work``."""
     g = torch.Generator(device="cuda").manual_seed(5)
-    state = fused_hop_init_state(cfg, plan, batch, "cuda")
+    state = init(batch)
     state = type(state)(*(0.1 * torch.randn(t.shape, generator=g,
                                             device="cuda") for t in state))
     chunk = 0.1 * torch.randn((batch, hop.hop), generator=g, device="cuda")
-    ms = time_launches(torch, lambda: hop(state, chunk), TIMED_LAUNCHES)
+    ms = time_launches(torch, lambda: hop(state, chunk), launches)
     plain_ms = time_launches(torch, lambda: hop.reference(state, chunk),
-                             TIMED_LAUNCHES)
-    flops, nbytes = hop_work(hop, batch)
+                             launches)
+    flops, nbytes = work(hop, batch)
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     say(f"  B={batch}: kernel {ms * 1e3:.1f} us/hop, plain "
@@ -281,6 +820,11 @@ def phase_timing(torch, hop, cfg, plan):
         f"({flops / 1e6:.1f} MFLOP -> {t_ops * 1e3:.2f} us, "
         f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us); kernel at "
         f"{bound_ms / ms:.1%} of the bound")
+    rows = device_breakdown(torch, lambda: hop(state, chunk), 20)
+    if not rows:
+        say("  torch.profiler saw no device time: breakdown not measured")
+    for name, us in sorted(rows.items(), key=lambda kv: -kv[1]):
+        say(f"    {us:9.1f} us/hop  {name[:90]}")
     return ms, plain_ms, bound_ms, ("operations" if t_ops >= t_bytes
                                     else "bytes")
 
@@ -291,8 +835,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from audio_denoising_torch.hub import load_pretrained
-    from audio_denoising_torch.ops.kernels.build import load_kernel_library
-    from audio_denoising_torch.ops.kernels.fused_hop import make_fused_hop
+    from audio_denoising_torch.ops.kernels.build import load_kernel_libraries
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
     from audio_denoising_torch.runtime.plan import build_cell_plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -305,17 +852,17 @@ def main() -> int:
     say("phase 1: card and build")
     say(smi)
     say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
-    built = load_kernel_library("fused_hop")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say("  ptxas: " + line.strip())
-    say(f"  built {built.path} in {built.seconds:.1f} s")
+    for name, built in zip(KERNELS, load_kernel_libraries(KERNELS)):
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                say(f"  ptxas ({name}): " + line.strip())
+        say(f"  built {built.path} in {built.seconds:.1f} s")
 
     cfg, model = load_pretrained("gruunet2-stream16k")
     plan = build_cell_plan(model)
     hop = make_fused_hop(cfg, plan, "cuda")
     say("phase 2: fused hop kernel vs its plain version on the card")
-    err = phase_kernel_vs_plain(torch, hop, cfg, plan, (256, 3))
+    err = phase_kernel_vs_plain(torch, hop, cfg, plan, (SLOTS, 3))
     for name in OTHER_CHECKPOINTS:
         other_cfg, other = load_pretrained(os.path.join(REPO, "runs", name))
         other_plan = build_cell_plan(other)
@@ -324,20 +871,48 @@ def main() -> int:
         phase_kernel_vs_plain(
             torch, make_fused_hop(other_cfg, other_plan, "cuda"), other_cfg,
             other_plan, (64,))
-    say("phase 3: StreamEngine mode fused, 256 slots, card vs CPU")
-    launches = phase_engine(torch, cfg, model)
-    say("phase 4: EngineDaemon on 127.0.0.1")
-    launches += phase_daemon(torch)
-    say("phase 5: timing")
-    ms, plain_ms, bound_ms, bound_by = phase_timing(torch, hop, cfg, plan)
 
-    say(json.dumps({"kernels": [{
-        "name": "fused_hop", "route": "cuda",
-        "source": "audio_denoising_torch/csrc/fused_hop.cu",
-        "replaces": "audio_denoising_tpu/ops/pallas/fused_hop.py:242",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+    dari_cfg, dari = load_pretrained("gruunet2-dari_tult")
+    dari_cfg = warm_cfg(dari_cfg)
+    dari_plan = build_cell_plan(dari)
+    say("phase 3: webrtc hop kernels vs their plain version on the card "
+        f"(gruunet2-dari_tult, warm start, {dari_cfg.dsp.n_fft}/"
+        f"{dari_cfg.dsp.hop_length}, {dari_cfg.dsp.n_mels} mels)")
+    w_err = phase_webrtc_kernel(torch, dari_cfg, dari_plan)
+
+    say(f"phase 4: StreamEngine mode fused, {SLOTS} slots, card vs CPU")
+    launches = phase_engine(torch, cfg, model)
+    say("phase 5: EngineDaemon mode fused on 127.0.0.1")
+    launches += phase_daemon(torch)
+    say(f"phase 6: StreamEngine mode fused-webrtc, {SLOTS} slots, card vs "
+        "CPU")
+    w_launches = phase_engine_webrtc(torch, dari_cfg, dari)
+    say("phase 7: EngineDaemon mode fused-webrtc on 127.0.0.1")
+    w_launches += phase_daemon_webrtc(torch, dari_cfg, dari)
+
+    say("phase 8: timing")
+    say(f"  fused hop ({smi}):")
+    fused = timed(torch, hop,
+                  lambda b: fused_hop_init_state(cfg, plan, b, "cuda"),
+                  hop_work, SLOTS, TIMED_LAUNCHES)
+    w_hop = make_webrtc_hop(dari_cfg, dari_plan, "cuda")
+    say(f"  webrtc hop, GL-{w_hop.n_iter} ({smi}):")
+    webrtc = timed(
+        torch, w_hop,
+        lambda b: webrtc_hop_init_state(dari_cfg, dari_plan, b, "cuda"),
+        webrtc_hop_work, SLOTS, 50)
+
+    rows = []
+    for name, replaces, n, e, (ms, plain_ms, bound_ms, bound_by) in (
+            ("fused_hop", "fused_hop.py:242", launches, err, fused),
+            ("webrtc_hop", "webrtc_hop.py:331", w_launches, w_err, webrtc)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"audio_denoising_torch/csrc/{name}.cu",
+            "replaces": f"audio_denoising_tpu/ops/pallas/{replaces}",
+            "launches": n, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

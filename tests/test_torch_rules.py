@@ -38,6 +38,33 @@ def test_every_port_module_is_found():
     assert len(mods) >= 20
 
 
+@pytest.mark.parametrize("module", [
+    "audio_denoising_torch.ops.kernels.webrtc_hop",
+    "audio_denoising_torch.pipeline", "audio_denoising_torch.ops.stft",
+    "audio_denoising_torch.ops.griffinlim"])
+def test_webrtc_slice_modules_are_found(module):
+    assert module in _port_modules()
+
+
+@pytest.mark.parametrize("source", sorted(
+    f for f in os.listdir(os.path.join(PKG, "csrc"))
+    if f.endswith((".cu", ".cuh"))))
+def test_kernel_sources_are_hand_written(source):
+    """The kernels include the CUDA runtime and their own headers only:
+    no cuFFT, cuBLAS, CUTLASS or PyTorch on the kernels' path."""
+    with open(os.path.join(PKG, "csrc", source)) as f:
+        text = f.read()
+    includes = [line.split(None, 1)[1].strip() for line in text.splitlines()
+                if line.startswith("#include")]
+    assert includes, source
+    for inc in includes:
+        assert inc == "<cuda_runtime.h>" or (
+            inc.startswith('"') and inc.endswith('.cuh"')), inc
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    for word in ("cufft", "cublas", "cutlass", "cute::", "at::"):
+        assert word not in code.lower(), word
+
+
 def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import importlib, sys\n"
@@ -87,6 +114,7 @@ def test_cli_lists_only_ported_commands():
 
 
 @pytest.mark.parametrize("argv", [["engine", "--mode", "fast"],
+                                  ["engine", "--mode", "unet"],
                                   ["no-such-command"]])
 def test_cli_refuses_what_is_not_ported(argv):
     proc = subprocess.run([sys.executable, "-m", "audio_denoising_torch",

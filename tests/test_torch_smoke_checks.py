@@ -1,0 +1,128 @@
+"""The surfaces chip_smoke.py holds the WebRTC kernel to, checked on the CPU
+with the plain version at the JAX tests' small geometry (n_fft 64, 16
+mels, hidden (5, 5), random weights from a seed): the float64 witness,
+the frame a hop adds to its OLA buffer, the spectral convergence that
+Griffin-Lim lowers, and the waveform rule for a hop taken from a shared
+state."""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from audio_denoising_torch.ops import griffin_lim
+from audio_denoising_torch.ops.kernels.webrtc_hop import (
+    make_webrtc_hop, webrtc_hop_init_state)
+from audio_denoising_torch.runtime.plan import build_cell_plan
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SNR_DB = 40.0      # two versions of one algorithm where GL is stable
+HX_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _small(smoke, n_iter):
+    cfg, model = smoke.small_webrtc_model(torch, n_iter)
+    return cfg, build_cell_plan(model)
+
+
+def _chunks(n, batch, hop, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((0.2 * rng.standard_normal((batch, hop)))
+                             .astype(np.float32)) for _ in range(n)]
+
+
+def test_griffin_lim_keeps_float64():
+    rng = np.random.default_rng(1)
+    mag = np.abs(rng.standard_normal((2, 33, 10)))
+    out32, ang32 = griffin_lim(torch.from_numpy(mag.astype(np.float32)), 64,
+                               32, n_iter=4, return_angles=True)
+    out64, ang64 = griffin_lim(torch.from_numpy(mag), 64, 32, n_iter=4,
+                               return_angles=True)
+    assert out64.dtype == torch.float64 and ang64.dtype == torch.complex128
+    assert out32.dtype == torch.float32 and ang32.dtype == torch.complex64
+    assert torch.allclose(out64.float(), out32, atol=1e-4)
+
+
+def test_float64_witness_tracks_the_plain_hop(smoke):
+    """Where GL is stable the float64 witness and the fp32 plain version
+    agree to SNR_DB on every hop after the first two, hx to HX_ATOL."""
+    cfg, plan = _small(smoke, 32)
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    f64 = smoke.float64_plain(torch, cfg, plan)
+    s = webrtc_hop_init_state(cfg, plan, 3)
+    d = smoke.to(s, "cpu", torch.float64)
+    for t, c in enumerate(_chunks(6, 3, hop.hop)):
+        s, out = hop(s, c)
+        d, out_d = f64.reference(d, c.double())
+        assert out_d.dtype == torch.float64
+        assert (d.hx - s.hx.double()).abs().max() < HX_ATOL
+        if t >= 2:
+            assert smoke.snr_db(out_d.numpy(), out.numpy()) > SNR_DB
+
+
+def test_added_frame_is_what_the_hop_adds(smoke):
+    cfg, plan = _small(smoke, 4)
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    s = webrtc_hop_init_state(cfg, plan, 2)
+    for c in _chunks(3, 2, hop.hop):
+        s2, out = hop(s, c)
+        frame = smoke.added_frame(s, s2, hop.hop)
+        # out is the old buffer's head; the new buffer is the old tail,
+        # zero-padded, plus the frame
+        tail = np.concatenate([s.ola[:, hop.hop:].numpy(),
+                               np.zeros((2, hop.hop))], axis=1)
+        np.testing.assert_allclose(tail + frame, s2.ola.numpy(), atol=1e-6)
+        np.testing.assert_array_equal(out.numpy(), s.ola[:, :hop.hop])
+        s = s2
+
+
+def test_griffin_lim_lowers_spectral_convergence(smoke):
+    """From a state whose carried phases no GL round has touched, 32 rounds
+    bring every stream's frame closer to its target magnitudes than none;
+    the float64 witness reads the same convergence."""
+    cfg0, plan = _small(smoke, 0)
+    cfg32 = smoke.warm_cfg(cfg0, 32)
+    hop0 = make_webrtc_hop(cfg0, plan, "cpu")
+    hop32 = make_webrtc_hop(cfg32, plan, "cpu")
+    f64 = smoke.float64_plain(torch, cfg32, plan)
+    s = webrtc_hop_init_state(cfg0, plan, 4)
+    *warm, c = _chunks(4, 4, hop0.hop, seed=2)
+    for x in warm:
+        s, _ = hop0(s, x)
+    d = smoke.to(s, "cpu", torch.float64)
+    _, peak, _, lin = f64.targets(d, c.double())
+    sc = {}
+    for name, step, state, chunk in (("0", hop0, s, c), ("32", hop32, s, c),
+                                     ("f64", f64.reference, d, c.double())):
+        s2, _ = step(state, chunk)
+        sc[name] = smoke.spectral_convergence(
+            torch, f64, smoke.added_frame(state, s2, hop0.hop), peak, lin)
+    assert np.all(sc["32"] < sc["0"])
+    assert np.abs(sc["32"] - sc["f64"]).max() < 1e-4
+
+
+@pytest.mark.parametrize("kernel_db,plain_db,held", [
+    (60.0, 60.0, True),     # both near float64
+    (5.0, 60.0, False),     # a wrong loop
+    (25.0, 28.0, True),     # a hop where every fp32 version departs
+    (5.0, 28.0, False),     # a wrong loop on such a hop
+])
+def test_forced_floor(smoke, kernel_db, plain_db, held):
+    rng = np.random.default_rng(3)
+    ref = rng.standard_normal((8, 64))
+    noise = lambda db: ref + 10 ** (-db / 20) * rng.standard_normal(
+        ref.shape) * np.sqrt((ref ** 2).mean(axis=1, keepdims=True))
+    k, p, floor = smoke.forced_floor(noise(kernel_db), noise(plain_db), ref)
+    assert abs(k - kernel_db) < 3 and abs(p - plain_db) < 3
+    assert (k >= floor) == held

@@ -1,0 +1,689 @@
+"""The port's WebRTC slice against the JAX package on the CPU: the STFT,
+mel and Griffin-Lim ops, the op-by-op webrtc step (also against the
+reference goldens), the WebRTC hop's plain version against the JAX
+kernel (interpret mode) fed the identical plan, the engine modes
+``webrtc`` and ``fused-webrtc``, and the daemon serving them. The CUDA
+kernels themselves are held against the plain version on the card by
+chip_smoke.py."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import threading
+from multiprocessing.connection import Client
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from audio_denoising_tpu import ops as jax_ops
+from audio_denoising_tpu.config import (
+    Config as JaxConfig, DSPConfig as JaxDSPConfig,
+    ModelConfig as JaxModelConfig)
+from audio_denoising_tpu.models import build_model as jax_build_model
+from audio_denoising_tpu.ops.pallas.webrtc_hop import (
+    _fpad, make_webrtc_hop as jax_make_hop,
+    webrtc_hop_init_state as jax_hop_init_state)
+from audio_denoising_tpu.pipeline import (
+    make_webrtc_step as jax_make_step, webrtc_init_state as jax_step_init)
+from audio_denoising_tpu.runtime.engine import StreamEngine as JaxEngine
+from audio_denoising_tpu.runtime.plan import (
+    build_cell_plan as jax_build_cell_plan)
+
+from audio_denoising_torch import ops
+from audio_denoising_torch.apps.engine_serve import EngineDaemon
+from audio_denoising_torch.compat import (
+    load_params_npz, params_from_jax, save_params_npz)
+from audio_denoising_torch.config import (
+    Config, DSPConfig, ModelConfig, PRESETS)
+from audio_denoising_torch.hub import load_pretrained
+from audio_denoising_torch.models import build_model
+from audio_denoising_torch.ops.kernels.webrtc_hop import (
+    WebRTCHopState, make_webrtc_hop, webrtc_hop_init_state)
+from audio_denoising_torch.pipeline import (
+    make_webrtc_step, webrtc_init_state)
+from audio_denoising_torch.runtime.engine import StreamEngine
+from audio_denoising_torch.runtime.plan import plan_from_numpy
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLD = os.path.join(REPO, "tests", "goldens")
+CKPT = os.path.join(REPO, "checkpoints")
+OP_REL = 1e-5          # DSP ops: fp32 FFTs of two libraries, relative
+SNR_DB = 40.0          # waveform SNR of two fp32 versions of one algorithm
+HX_ATOL = 1e-5         # the model state reads no phase: fp32 round-off
+# the JAX kernel's bf16 3-pass matmuls carry ~4e-4 relative, so the port
+# is held to tests/test_webrtc_hop.py's bounds against it
+KERNEL_OUT = dict(rtol=2e-3, atol=1e-3)
+KERNEL_HX = 5e-4
+KERNEL_PHASES = 2e-3   # zero-iteration path (test_webrtc_hop.py:95-112)
+RECV_TIMEOUT_S = 30.0
+SMALL = dict(n_fft=64, hop_length=32, n_mels=16)   # _small_setup's sizes
+
+
+def _snr(ref, got):
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return 10 * np.log10(max((ref ** 2).sum(), 1e-20)
+                         / max(((ref - got) ** 2).sum(), 1e-20))
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return np.abs(np.asarray(got) - want).max() / np.abs(want).max()
+
+
+# -- ops ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_fft,hop,win,length", [
+    (64, 32, None, None), (64, 16, 48, None), (64, 16, None, 900),
+    (1536, 768, None, None), (1536, 768, None, 2900)])
+def test_stft_istft_match_jax(rng, n_fft, hop, win, length):
+    x = rng.standard_normal((2, 3000)).astype(np.float32)
+    want = np.asarray(jax_ops.stft(jnp.asarray(x), n_fft, hop, win))
+    got = ops.stft(torch.from_numpy(x), n_fft, hop, win)
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    assert _rel(got.numpy(), want) < OP_REL
+    want_t = np.asarray(jax_ops.istft(jnp.asarray(want), n_fft, hop, win,
+                                      length=length))
+    got_t = ops.istft(torch.from_numpy(want), n_fft, hop, win, length=length)
+    assert got_t.shape == want_t.shape
+    assert _rel(got_t.numpy(), want_t) < OP_REL
+
+
+@pytest.mark.parametrize("length,n_fft,hop", [(1536, 1536, 768),
+                                              (3000, 64, 16), (10, 8, 3)])
+def test_num_frames_and_framing(rng, length, n_fft, hop):
+    assert ops.num_frames(length, n_fft, hop) == \
+        jax_ops.num_frames(length, n_fft, hop)
+    from audio_denoising_torch.ops.stft import frame_signal
+    from audio_denoising_tpu.ops.stft import frame_signal as jax_frames
+    x = rng.standard_normal((2, length)).astype(np.float32)
+    np.testing.assert_array_equal(
+        frame_signal(torch.from_numpy(x), n_fft, hop).numpy(),
+        np.asarray(jax_frames(jnp.asarray(x), n_fft, hop)))
+
+
+@pytest.mark.parametrize("n_stft,n_mels,sr", [
+    (769, 64, 48000), (513, 128, 48000), (33, 16, 16000)])
+def test_mel_scale_pair_matches_jax(rng, n_stft, n_mels, sr):
+    """The inverse's entries reach 4e4 on bases with few bins per mel
+    (33 x 16, 513 x 128) and its sums cancel, so its error is taken
+    relative to the largest sum of term magnitudes, the scale fp32
+    summation errors grow with."""
+    spec = np.abs(rng.standard_normal((2, n_stft, 3))).astype(np.float32)
+    fb = ops.mel_filterbank(n_stft, n_mels, sr)
+    inv = ops.inverse_mel_matrix(n_stft, n_mels, sr)
+    mel = ops.mel_scale(torch.from_numpy(spec), fb)
+    want = np.asarray(jax_ops.mel_scale(
+        jnp.asarray(spec), jax_ops.mel_filterbank(n_stft, n_mels, sr)))
+    assert _rel(mel.numpy(), want) < OP_REL
+    back = ops.inverse_mel_scale(mel, inv)
+    want_b = np.asarray(jax_ops.inverse_mel_scale(
+        jnp.asarray(want), jax_ops.inverse_mel_matrix(n_stft, n_mels, sr)))
+    assert back.min() >= 0 and back.shape == want_b.shape
+    terms = np.einsum("...mt,fm->...ft", np.abs(want), np.abs(inv.numpy()))
+    assert np.abs(back.numpy() - want_b).max() < OP_REL * terms.max()
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_griffin_lim_matches_jax(rng, warm):
+    mag = np.abs(rng.standard_normal((2, 33, 10))).astype(np.float32)
+    kw = dict(n_iter=4, length=300)
+    seed = None
+    if warm:
+        ang = rng.uniform(-np.pi, np.pi, mag.shape)
+        seed = np.exp(1j * ang).astype(np.complex64)
+    want, want_a = jax_ops.griffin_lim(
+        jnp.asarray(mag), 64, 32, init_angles=None if seed is None
+        else jnp.asarray(seed), return_angles=True, **kw)
+    got, got_a = ops.griffin_lim(
+        torch.from_numpy(mag), 64, 32, init_angles=None if seed is None
+        else torch.from_numpy(seed), return_angles=True, **kw)
+    assert got.shape == want.shape == (2, 300)
+    assert _snr(np.asarray(want), got.numpy()) > SNR_DB
+    assert got_a.shape == mag.shape and got_a.dtype == torch.complex64
+
+
+def test_griffin_lim_random_init_takes_a_generator():
+    """JAX's PRNG stream cannot be reproduced: shape and unit modulus."""
+    mag = torch.ones(2, 33, 5)
+    with pytest.raises(ValueError, match="generator"):
+        ops.griffin_lim(mag, 64, 32, n_iter=2, init="random")
+    g = torch.Generator().manual_seed(0)
+    out, ang = ops.griffin_lim(mag, 64, 32, n_iter=2, init="random",
+                               generator=g, return_angles=True)
+    assert out.shape == (2, 128) and torch.isfinite(out).all()
+    assert torch.allclose(ang.abs(), torch.ones(()), atol=1e-5)
+
+
+# -- the small setup: tests/test_webrtc_hop.py::_small_setup ----------------
+
+def _small(n_iter=4, warm=True, **dsp):
+    """The JAX side (cfg, model, params, plan) and the port's (cfg, model,
+    plan) on the same random weights."""
+    d = dict(SMALL, sample_rate=16000, reconstruction="griffin_lim",
+             griffin_lim_iters=n_iter, griffin_lim_warm_start=warm, **dsp)
+    m = dict(arch="GRUUNet2", num_compressed_bins=4, hidden_sizes=(5, 5),
+             kernel_sizes=(3, 3), strides=(2, 2), paddings=(1, 1),
+             num_gaussians=3)
+    jcfg = JaxConfig(dsp=JaxDSPConfig(**d), model=JaxModelConfig(**m))
+    jmodel = jax_build_model(jcfg.model, num_bins=jcfg.dsp.n_mels)
+    params = jmodel.init(jax.random.PRNGKey(0))
+    jplan = jax_build_cell_plan(jmodel, params)
+    cfg = Config(dsp=DSPConfig(**d), model=ModelConfig(**m))
+    model = build_model(cfg.model, num_bins=cfg.dsp.n_mels).load_params(
+        params_from_jax({k: np.asarray(v) for k, v in params.items()}))
+    return (jcfg, jmodel, params, jplan), (cfg, model, plan_from_numpy(jplan))
+
+
+def _chunks(rng, b, hop, n):
+    return [(0.2 * rng.standard_normal((b, hop))).astype(np.float32)
+            for _ in range(n)]
+
+
+def _angles_to_planes(a):
+    """JAX step angles (B, F, 3, 2) -> (re, im) each (B, 3F), frame-major."""
+    a = np.asarray(a)
+    return (a[..., 0].transpose(0, 2, 1).reshape(a.shape[0], -1),
+            a[..., 1].transpose(0, 2, 1).reshape(a.shape[0], -1))
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_webrtc_step_matches_jax(rng, warm):
+    (jcfg, jmodel, params, _), (cfg, model, _) = _small(warm=warm)
+    jstep = jax_make_step(jcfg, jmodel)
+    step = make_webrtc_step(cfg, model, "cpu")
+    js = jax_step_init(jcfg, jmodel, 3)
+    s = webrtc_init_state(cfg, model, 3)
+    for t, c in enumerate(_chunks(rng, 3, 32, 6)):
+        js, jout = jstep(params, js, jnp.asarray(c))
+        s, out = step(s, torch.from_numpy(c))
+        assert out.shape == (3, 32)
+        np.testing.assert_allclose(s.hx.numpy(), np.asarray(js.hx),
+                                   atol=HX_ATOL)
+        if t >= 2:                   # warm-up hops emit (near-)silence
+            assert _snr(np.asarray(jout), out.numpy()) > SNR_DB
+    if warm:
+        assert s.gl_angles.shape == np.asarray(js.gl_angles).shape
+    else:
+        assert s.gl_angles is None and js.gl_angles is None
+
+
+def test_webrtc_step_refuses_lookahead_and_the_gate():
+    _, (cfg, model, _) = _small()
+    la = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, lookahead_frames=1))
+    with pytest.raises(ValueError, match="lookahead"):
+        make_webrtc_step(la, model, "cpu")
+    gated = dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, snr_gate_db=1.0))
+    with pytest.raises(NotImplementedError, match="SNR gate"):
+        make_webrtc_step(gated, model, "cpu")
+
+
+# -- the webrtc step on gruunet2-dari_tult against the reference goldens -----
+
+@pytest.fixture(scope="module")
+def dari():
+    cfg, model = load_pretrained("gruunet2-dari_tult")
+    return cfg, model
+
+
+def test_webrtc_stages_match_golden(dari):
+    """tests/test_pipeline.py::test_stagewise_lockstep_vs_golden with the
+    port's ops and model, at its bounds."""
+    cfg, model = dari
+    g = np.load(os.path.join(GOLD, "pipeline_webrtc_GRUUNet2-dari_tult.npz"))
+    dsp = cfg.dsp
+    fb = ops.mel_filterbank(dsp.n_stft, dsp.n_mels, dsp.sample_rate)
+    win = ops.hann_window(dsp.n_fft)
+    audio = torch.from_numpy(g["audio"])
+    hx = model.init_state(1)
+    with torch.no_grad():
+        for i in range(g["frames_in"].shape[0]):
+            cur = audio[i * dsp.hop_length:i * dsp.hop_length + dsp.n_fft]
+            windowed = cur / cur.abs().max() * win
+            np.testing.assert_allclose(windowed.numpy(), g["frames_in"][i],
+                                       atol=1e-5)
+            spec = ops.stft(windowed[None], dsp.n_fft, dsp.hop_length,
+                            window=win)
+            x = torch.log1p(ops.mel_scale(spec.abs(), fb)).transpose(-1, -2)
+            np.testing.assert_allclose(x[0].numpy(), g["mels"][i],
+                                       atol=2e-3, rtol=1e-4)
+            resid, hx = model.apply(x, hx)
+            np.testing.assert_allclose(resid[0].numpy(), g["residuals"][i],
+                                       atol=2e-3, rtol=1e-3)
+            recon = torch.nn.functional.leaky_relu(x - resid, 0.2)
+            mel_mag = torch.clamp(torch.expm1(recon.transpose(-1, -2)),
+                                  min=0)
+            np.testing.assert_allclose(mel_mag[0].numpy(),
+                                       g["recon_mags"][i],
+                                       atol=5e-3, rtol=1e-3)
+    np.testing.assert_allclose(hx.numpy(), g["final_hx"], atol=1e-3,
+                               rtol=1e-3)
+
+
+def test_webrtc_step_matches_waveform_golden(dari):
+    """tests/test_pipeline.py::test_waveform_golden: cold GL-32 over the
+    golden's audio, SNR above 25 dB against the executed reference."""
+    cfg, model = dari
+    g = np.load(os.path.join(
+        GOLD, "pipeline_webrtc_waveform_GRUUNet2-dari_tult.npz"))
+    cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
+        cfg.dsp, griffin_lim_iters=32, griffin_lim_warm_start=False))
+    step = make_webrtc_step(cfg, model, "cpu")
+    hop = cfg.dsp.hop_length
+    audio = torch.from_numpy(g["audio"])
+    state = webrtc_init_state(cfg, model, 1)
+    # the reference waits for a full window: pre-seed the ring's tail
+    state.ring[:, hop:] = audio[None, :hop]
+    outs = []
+    for j in range(g["out_hops"].shape[0]):
+        state, out = step(state, audio[None, (j + 1) * hop:(j + 2) * hop])
+        outs.append(out[0].numpy())
+    outs, ref = np.stack(outs), g["out_hops"]
+    np.testing.assert_array_equal(outs[0], 0.0)
+    assert _snr(ref[1:], outs[1:]) > 25.0
+    np.testing.assert_allclose(state.hx.numpy(),
+                               g["final_hx"].reshape(state.hx.shape),
+                               atol=2e-3)
+
+
+# -- the WebRTC hop's plain version against the JAX kernel ---------------------
+
+def _jax_planes(a, F):
+    """The JAX kernel's FP-strided phases (B, 3 FP) as (B, 3 F)."""
+    a, FP = np.asarray(a), _fpad(F)
+    return np.concatenate([a[:, t * FP:t * FP + F] for t in range(3)], 1)
+
+
+@pytest.mark.parametrize("batch", [3, 9])
+def test_plain_hop_matches_jax_kernel(rng, batch):
+    """B=3 at tests/test_webrtc_hop.py's elementwise bound; B=9 (not a
+    multiple of the JAX kernel's tile of 8: its padding) relative to each
+    hop's scale. On B=9's data the JAX kernel's bf16 3-pass error itself
+    leaves the elementwise bound against the JAX op-by-op step (by 0.08
+    at hop 4, where outputs reach 3.4e3), while the port's plain version
+    stays inside it; the 2e-3 of the scale is the kernel's ~4e-4 relative
+    error with room."""
+    (jcfg, _, _, jplan), (cfg, _, plan) = _small()
+    jax_hop = jax_make_hop(jcfg, jplan, interpret=True, block_b=8)
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    js = jax_hop_init_state(jcfg, jplan, batch)
+    s = webrtc_hop_init_state(cfg, plan, batch)
+    F = cfg.dsp.n_stft
+    for c in _chunks(rng, batch, 32, 6):
+        js, jout = jax_hop(js, jnp.asarray(c))
+        s, out = hop(s, torch.from_numpy(c))
+        assert out.shape == (batch, 32) and out.dtype == torch.float32
+        jout = np.asarray(jout)
+        if batch == 3:
+            np.testing.assert_allclose(out.numpy(), jout, **KERNEL_OUT)
+        else:
+            assert np.abs(out.numpy() - jout).max() <= \
+                KERNEL_OUT["rtol"] * np.abs(jout).max() + KERNEL_OUT["atol"]
+        np.testing.assert_allclose(s.hx.numpy(), np.asarray(js.hx),
+                                   atol=KERNEL_HX)
+        np.testing.assert_array_equal(s.ring.numpy(), np.asarray(js.ring))
+        nrm = np.hypot(s.ang_re.numpy(), s.ang_im.numpy())
+        assert np.all((np.abs(nrm - 1) < 1e-3) | (nrm < 1e-3))
+        assert s.ang_re.shape == (batch, 3 * F)
+    assert hop.launches == 0      # the plain version is not a launch
+
+
+def test_plain_hop_zero_iterations_matches_jax_phases(rng):
+    (jcfg, _, _, jplan), (cfg, _, plan) = _small(n_iter=0)
+    jax_hop = jax_make_hop(jcfg, jplan, interpret=True, block_b=8)
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    js = jax_hop_init_state(jcfg, jplan, 3)
+    s = webrtc_hop_init_state(cfg, plan, 3)
+    F = cfg.dsp.n_stft
+    for c in _chunks(rng, 3, 32, 3):
+        js, jout = jax_hop(js, jnp.asarray(c))
+        s, out = hop(s, torch.from_numpy(c))
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   **KERNEL_OUT)
+        np.testing.assert_allclose(s.ang_re.numpy(),
+                                   _jax_planes(js.ang_re, F),
+                                   atol=KERNEL_PHASES)
+        np.testing.assert_allclose(s.ang_im.numpy(),
+                                   _jax_planes(js.ang_im, F),
+                                   atol=KERNEL_PHASES)
+
+
+@pytest.mark.parametrize("n_iter", [0, 4])
+def test_plain_hop_matches_jax_step(rng, n_iter):
+    """The hop (plan cell) against the op-by-op step (conv model): the
+    same function in two forms."""
+    (jcfg, jmodel, params, _), (cfg, _, plan) = _small(n_iter=n_iter)
+    jstep = jax_make_step(jcfg, jmodel)
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    js = jax_step_init(jcfg, jmodel, 3)
+    s = webrtc_hop_init_state(cfg, plan, 3)
+    for t, c in enumerate(_chunks(rng, 3, 32, 6)):
+        js, jout = jstep(params, js, jnp.asarray(c))
+        s, out = hop(s, torch.from_numpy(c))
+        np.testing.assert_allclose(s.hx.numpy(),
+                                   np.asarray(js.hx).reshape(3, -1),
+                                   atol=HX_ATOL)
+        if t >= 2:
+            assert _snr(np.asarray(jout), out.numpy()) > SNR_DB
+    re, im = _angles_to_planes(js.gl_angles)
+    if n_iter == 0:
+        np.testing.assert_allclose(s.ang_re.numpy(), re, atol=1e-5)
+        np.testing.assert_allclose(s.ang_im.numpy(), im, atol=1e-5)
+
+
+def _bad_inputs(cfg, plan):
+    s = webrtc_hop_init_state(cfg, plan, 2)
+    c = torch.zeros(2, cfg.dsp.hop_length)
+    return {
+        "chunk dtype": (s, c.double(), TypeError),
+        "chunk width": (s, torch.zeros(2, 33), ValueError),
+        "state batch": (webrtc_hop_init_state(cfg, plan, 3), c, ValueError),
+        "phase width": (s._replace(ang_im=torch.zeros(2, 7)), c, ValueError),
+        "phase dtype": (s._replace(ang_re=s.ang_re.half()), c, TypeError),
+    }
+
+
+@pytest.mark.parametrize("case", ["chunk dtype", "chunk width",
+                                  "state batch", "phase width",
+                                  "phase dtype"])
+def test_hop_wrapper_rejects_bad_inputs(case):
+    _, (cfg, _, plan) = _small()
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    state, chunk, err = _bad_inputs(cfg, plan)[case]
+    with pytest.raises(err):
+        hop(state, chunk)
+
+
+@pytest.mark.parametrize("case,err", [
+    ("cold", ValueError), ("hop", ValueError), ("raw", ValueError),
+    ("delta", ValueError), ("bf16", NotImplementedError),
+    ("multi", NotImplementedError)])
+def test_hop_refuses_what_it_cannot_serve(case, err):
+    """What the JAX kernel refuses, with ValueError; what the port has not
+    ported yet, with NotImplementedError."""
+    _, (cfg, _, plan) = _small()
+    kw = {}
+    dsp = cfg.dsp
+    if case == "cold":
+        dsp = dataclasses.replace(dsp, griffin_lim_warm_start=False)
+    elif case == "hop":
+        dsp = dataclasses.replace(dsp, hop_length=16)
+    elif case == "raw":
+        dsp = dataclasses.replace(dsp, domain="raw")
+    elif case == "delta":
+        plan = plan._replace(delta=True)
+    elif case == "bf16":
+        kw["compute_dtype"] = torch.bfloat16
+    else:
+        kw["hops_per_call"] = 25
+    with pytest.raises(err):
+        make_webrtc_hop(dataclasses.replace(cfg, dsp=dsp), plan, "cpu", **kw)
+
+
+def test_hop_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    _, (cfg, _, plan) = _small()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_webrtc_hop(cfg, plan)
+
+
+def test_cpu_hop_refuses_tensors_it_was_not_built_for():
+    _, (cfg, _, plan) = _small()
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    state = WebRTCHopState(*(torch.empty(2, w, device="meta")
+                             for w in (64, 64, 20, 99, 99)))
+    with pytest.raises(ValueError, match="built for cpu"):
+        hop(state, torch.empty(2, 32, device="meta"))
+
+
+# -- the engine modes ----------------------------------------------------------
+
+def _schedule(rng, hop, ticks=8):
+    """{stream: chunk} per tick: stream 'c' skips every third tick, 'b'
+    leaves at tick 3 and 'e' takes its slot; a NaN chunk at tick 2."""
+    out = []
+    for t in range(ticks):
+        live = ["a", "c"] + (["b"] if t < 3 else ["e"] if t > 3 else [])
+        chunks = {s: (0.2 * rng.standard_normal(hop)).astype(np.float32)
+                  for s in live if not (s == "c" and t % 3 == 1)}
+        if t == 2:
+            chunks["a"][3] = np.nan
+        out.append(chunks)
+    return out
+
+
+def _drive(engines, ticks):
+    """Both engines through the schedule; per tick both outputs."""
+    for e in engines:
+        for s in "abc":
+            e.add_stream(s)
+    pairs = []
+    for t, chunks in enumerate(ticks):
+        if t == 3:
+            for e in engines:
+                e.remove_stream("b")
+                e.add_stream("e")
+        pairs.append(tuple(e.process(chunks) for e in engines))
+    return pairs
+
+
+@pytest.mark.parametrize("mode", ["webrtc", "fused-webrtc"])
+def test_engine_mode_matches_jax(rng, mode):
+    (jcfg, jmodel, params, _), (cfg, model, _) = _small(n_iter=2)
+    jax_engine = JaxEngine(jcfg, jmodel, params, mode=mode, max_streams=4,
+                           pallas_interpret=True)
+    engine = StreamEngine(cfg, model, mode=mode, max_streams=4, device="cpu")
+    pairs = _drive((jax_engine, engine), _schedule(rng, 32))
+    assert engine.slots == jax_engine.slots
+    seen = {}
+    for oj, ot in pairs:
+        assert set(ot) == set(oj)
+        for s in ot:
+            seen[s] = seen.get(s, 0) + 1
+            assert np.all(np.isfinite(ot[s]))
+            if mode == "fused-webrtc":
+                np.testing.assert_allclose(ot[s], oj[s], **KERNEL_OUT)
+            elif seen[s] > 2:        # a stream's first hops are silent
+                assert _snr(oj[s], ot[s]) > SNR_DB
+    np.testing.assert_allclose(
+        engine.state.hx.numpy().reshape(4, -1),
+        np.asarray(jax_engine.state.hx).reshape(4, -1),
+        atol=KERNEL_HX if mode == "fused-webrtc" else HX_ATOL)
+    assert engine.algorithmic_latency_ms == jax_engine.algorithmic_latency_ms
+    assert engine.algorithmic_latency_samples == 32
+
+
+@pytest.mark.parametrize("mode", ["webrtc", "fused-webrtc"])
+def test_engine_idle_slots_and_snapshot(rng, mode):
+    """Masked commit: an idle slot's state, carried phases included, does
+    not move; a snapshot restores every state field."""
+    _, (cfg, model, _) = _small(n_iter=2)
+    engine = StreamEngine(cfg, model, mode=mode, max_streams=4, device="cpu")
+    engine.add_stream("x")
+    engine.add_stream("idle")
+    chunk = lambda: (0.2 * rng.standard_normal(32)).astype(np.float32)
+    engine.process({"x": chunk(), "idle": chunk()})
+    slot = engine.slots["idle"]
+    fields = {k: v for k, v in engine.state._asdict().items()
+              if v is not None}
+    assert ("ang_re" in fields) == (mode == "fused-webrtc")
+    assert ("gl_angles" in fields) == (mode == "webrtc")
+    before = {k: v[slot].clone() for k, v in fields.items()}
+    snap = engine.snapshot()
+    assert set(snap["state"]) == set(fields)
+    for _ in range(3):
+        engine.process({"x": chunk()})
+    for k, v in before.items():
+        assert torch.equal(getattr(engine.state, k)[slot], v), k
+    engine.restore(snap)
+    for k, v in snap["state"].items():
+        np.testing.assert_array_equal(getattr(engine.state, k).numpy(), v)
+    bad = dict(snap, state={k: v for k, v in snap["state"].items()
+                            if k != "hx"})
+    with pytest.raises(ValueError, match="layout"):
+        engine.restore(bad)
+
+
+def test_engine_snapshot_round_trip_replays_the_audio(rng):
+    _, (cfg, model, _) = _small(n_iter=2)
+    engine = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=2,
+                          device="cpu")
+    engine.add_stream("s")
+    chunks = [(0.2 * rng.standard_normal(32)).astype(np.float32)
+              for _ in range(5)]
+    engine.process({"s": chunks[0]})
+    snap = engine.snapshot()
+    first = [engine.process({"s": c})["s"] for c in chunks[1:]]
+    engine.restore(snap)
+    again = [engine.process({"s": c})["s"] for c in chunks[1:]]
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_add_stream_resets_the_warm_seed(rng):
+    """A reused slot starts from the 1+0j seed, not from zeros."""
+    _, (cfg, model, _) = _small(n_iter=2)
+    engine = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=1,
+                          device="cpu")
+    engine.add_stream("a")
+    engine.process({"a": (0.2 * rng.standard_normal(32)).astype(np.float32)})
+    engine.remove_stream("a")
+    slot = engine.add_stream("b")
+    assert torch.equal(engine.state.ang_re[slot], torch.ones(99))
+    assert torch.equal(engine.state.ang_im[slot], torch.zeros(99))
+    assert torch.equal(engine.state.hx[slot], torch.zeros(20))
+
+
+@pytest.mark.parametrize("case,mode,err", [
+    ("gate", "fused-webrtc", ValueError),
+    ("gate", "webrtc", NotImplementedError),
+    ("int8", "fused-webrtc", ValueError),
+    ("int8", "webrtc", ValueError),
+    ("lookahead", "fused-webrtc", ValueError),
+    ("lookahead", "webrtc", ValueError),
+    ("cold", "fused-webrtc", ValueError),
+    ("bf16", "fused-webrtc", NotImplementedError)])
+def test_engine_raises_where_jax_downgrades(case, mode, err):
+    """The JAX engine downgrades these (engine.py:257-341) or its kernel
+    refuses them; the port raises and never serves another mode."""
+    _, (cfg, model, _) = _small()
+    srv, dsp, mc = cfg.serving, cfg.dsp, cfg.model
+    if case == "gate":
+        srv = dataclasses.replace(srv, snr_gate_db=1.0)
+    elif case in ("int8", "bf16"):
+        srv = dataclasses.replace(srv, dtype={"int8": "int8",
+                                              "bf16": "bfloat16"}[case])
+    elif case == "lookahead":
+        mc = dataclasses.replace(mc, lookahead_frames=1)
+    else:
+        dsp = dataclasses.replace(dsp, griffin_lim_warm_start=False)
+    cfg = dataclasses.replace(cfg, serving=srv, dsp=dsp, model=mc)
+    with pytest.raises(err):
+        StreamEngine(cfg, model, mode=mode, max_streams=2, device="cpu")
+
+
+def test_webrtc_engines_need_a_card_unless_cpu_is_asked(monkeypatch):
+    _, (cfg, model, _) = _small()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mode in ("webrtc", "fused-webrtc"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            StreamEngine(cfg, model, mode=mode, max_streams=2)
+
+
+# -- hub, checkpoints and the daemon ---------------------------------------------
+
+def test_hub_loads_dari_tult_with_its_own_weights(dari):
+    cfg, model = dari
+    assert cfg.to_json() == PRESETS["gruunet2-dari_tult"].to_json()
+    params, _ = load_params_npz(os.path.join(CKPT, "gruunet2-dari_tult.npz"))
+    w = "cell.input_gate.downs.0.conv.weight"
+    np.testing.assert_array_equal(model.state_dict()[w].numpy(), params[w])
+
+
+def _write_warm_npz(path, cfg, model):
+    save_params_npz(path, {k: v.numpy() for k, v in
+                           model.state_dict().items()},
+                    {"full_config": json.loads(cfg.to_json())})
+    return path
+
+
+def test_warm_checkpoint_round_trip(tmp_path):
+    """save_params_npz writes what both hubs read, full_config and all."""
+    from audio_denoising_tpu.hub import load_pretrained as jax_load
+    _, (cfg, model, _) = _small()
+    path = _write_warm_npz(str(tmp_path / "warm.npz"), cfg, model)
+    cfg2, model2 = load_pretrained(path)
+    assert cfg2.dsp == cfg.dsp and cfg2.dsp.griffin_lim_warm_start
+    jcfg, _, jparams = jax_load(path)
+    assert jcfg.dsp.griffin_lim_warm_start
+    for k, v in model.state_dict().items():
+        assert torch.equal(model2.state_dict()[k], v)
+        np.testing.assert_array_equal(np.asarray(jparams[k]), v.numpy())
+
+
+def _recv(conn):
+    if not conn.poll(RECV_TIMEOUT_S):
+        raise TimeoutError("no reply from the daemon")
+    return conn.recv()
+
+
+def test_daemon_serves_fused_webrtc(tmp_path, rng):
+    _, (cfg, model, plan) = _small(n_iter=2)
+    path = _write_warm_npz(str(tmp_path / "warm.npz"), cfg, model)
+    daemon = EngineDaemon(path, max_streams=4, address=("127.0.0.1", 0),
+                          mode="fused-webrtc", device="cpu")
+    server = threading.Thread(target=daemon.serve_forever, daemon=True)
+    server.start()
+    data = (0.2 * rng.standard_normal((2, 3, 32))).astype(np.float32)
+    got = np.zeros_like(data)
+    try:
+        assert daemon.listening.wait(RECV_TIMEOUT_S)
+        with Client(daemon.address) as conn:
+            for j in range(2):
+                conn.send(("open", f"s{j}"))
+                assert _recv(conn)[0] == "ok"
+            for k in range(3):
+                for j in range(2):
+                    conn.send(("chunk", f"s{j}", data[j, k]))
+                for _ in range(2):
+                    op, sid, out = _recv(conn)
+                    assert op == "out"
+                    got[int(sid[1]), k] = out
+            conn.send(("stats",))
+            op, stats = _recv(conn)
+            assert stats["algorithmic_latency_ms"] == 2.0
+    finally:
+        daemon.stop()
+        server.join(RECV_TIMEOUT_S)
+    assert not server.is_alive()
+    hop = make_webrtc_hop(cfg, plan, "cpu")
+    state = webrtc_hop_init_state(cfg, plan, 2)
+    for k in range(3):
+        state, out = hop(state, torch.from_numpy(data[:, k].copy()))
+        # the daemon's batch of 4 slots sums in another order than 2
+        np.testing.assert_allclose(got[:, k], out.numpy(), rtol=1e-5,
+                                   atol=1e-5 * np.abs(out.numpy()).max())
+
+
+def _cli(*argv):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX", "XLA"))}
+    return subprocess.run([sys.executable, "-m", "audio_denoising_torch",
+                           "engine", *argv], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+@pytest.mark.parametrize("device", [[], ["--device", "cpu"]])
+def test_cli_refuses_the_preset_in_mode_fused_webrtc(device):
+    """No preset turns warm start on: the preset alone is refused, as the
+    JAX package's assertion refuses it, before any device is sought."""
+    proc = _cli("--mode", "fused-webrtc", "--model", "gruunet2-dari_tult",
+                "--port", "0", *device)
+    assert proc.returncode != 0
+    assert "griffin_lim_warm_start" in proc.stderr
