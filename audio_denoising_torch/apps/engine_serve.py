@@ -3,9 +3,10 @@ apps/engine_serve.py, same wire protocol).
 
 N concurrent client streams multiplex onto one fixed-slot StreamEngine;
 every tick advances all streams that sent a chunk in one engine step
-(runtime/tick.BatchingTick): one launch of the fused-hop kernel in mode
-``fused``, of the WebRTC-hop kernels in mode ``fused-webrtc``, or the
-op-by-op Griffin-Lim hop in mode ``webrtc``.
+(runtime/tick.BatchingTick): the op-by-op phase-reuse hop in mode
+``fast``, one launch of the fused-hop kernel in mode ``fused``, of the
+WebRTC-hop kernels in mode ``fused-webrtc``, or the op-by-op Griffin-Lim
+hop in mode ``webrtc``.
 
 Protocol (multiprocessing.connection, length-prefixed pickle):
 
@@ -48,10 +49,10 @@ class EngineDaemon:
                  pipeline_depth: int = 2,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg, self.model = load_pretrained(spec)
-        if mode == "fused":
-            # the measured-best profile of the phase-reuse hop (a no-op for
-            # Griffin-Lim configs); a checkpoint it would gate is refused
-            # by the fused hop (no gate yet), never served ungated
+        if mode in ("fast", "fused"):
+            # the measured-best profile of the phase-reuse hops (a no-op
+            # for Griffin-Lim configs); a checkpoint it would gate is
+            # refused by both hops (no gate yet), never served ungated
             self.cfg = recommended_serving(self.cfg)
         self.engine = StreamEngine(self.cfg, self.model, mode=mode,
                                    max_streams=max_streams, device=device)

@@ -1,13 +1,14 @@
 """Top-level CLI: ``python -m audio_denoising_torch <command> ...``.
 
-The port's one command so far: ``engine`` (the batched multi-stream
-daemon).
+The port's commands so far: ``engine`` (the batched multi-stream daemon)
+and ``profile`` (per-hop latency of a serving step).
 """
 
 import sys
 
 COMMANDS = {
     "engine": "audio_denoising_torch.apps.engine_serve",
+    "profile": "audio_denoising_torch.apps.profile_app",
 }
 
 

@@ -1,0 +1,139 @@
+"""One matrixized GRUUNet cell step as one kernel (JAX counterpart
+ops/pallas/gruunet_cell.py, ``make_fused_cell.kernel`` at :58).
+
+``make_fused_cell(plan, device)`` returns a ``FusedCell``: calling it runs
+one cell step for a batch of streams, ``cell(x (B, F), hx (B, H)) ->
+(y (B, F), hx' (B, H))``, with hx' before the state decay (the caller
+applies it, as ``PlanModel.decay_carry`` does). For CPU tensors it runs
+``reference``, the plain PyTorch version (``plan_cell_math``); for CUDA
+tensors it launches the hand-written kernel in ``csrc/fused_cell.cu`` or
+raises. ``launches`` counts kernel launches.
+
+The JAX wrapper pads B to a multiple of its 128-row tile; the kernel
+masks its ragged last tile instead, so nothing is padded here. Delta
+(MOMO3) plans raise NotImplementedError.
+"""
+
+import ctypes
+from typing import List, Optional, Tuple, Union
+
+import torch
+
+from audio_denoising_torch.device import resolve_device
+from audio_denoising_torch.ops.kernels.common import (
+    MAX_LEVELS, PlanArgs, pack_plan_weights, plan_args, plan_cell_math)
+
+
+class _Args(ctypes.Structure):
+    """Field-for-field mirror of AdtFusedCellArgs in csrc/fused_cell.cu."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("x", "hx", "y", "hx_out")]
+                + [("plan", PlanArgs)]
+                + [(f, ctypes.c_int) for f in ("batch", "n_feat")])
+
+
+class FusedCell:
+    """One plan-cell step for a batch of streams on ``device``; see the
+    module docstring."""
+
+    def __init__(self, plan, device: torch.device):
+        self.device = device
+        self.n = plan.hidden * plan.compressed
+        self.n_feat = plan.down_mats[0].shape[0]
+        self.launches = 0
+        plan = plan.to(device=device, dtype=torch.float32)
+        weights, self.skip_flags = pack_plan_weights(plan)
+        self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]
+
+        self._lib = None
+        if device.type == "cuda":
+            from audio_denoising_torch.ops.kernels.build import (
+                load_kernel_library)
+            self._lib = load_kernel_library("fused_cell").lib
+            self._lib.adt_fused_cell_args_size.restype = ctypes.c_int
+            self._lib.adt_fused_cell_smem_bytes.argtypes = [ctypes.c_void_p]
+            self._lib.adt_fused_cell_smem_bytes.restype = ctypes.c_longlong
+            self._lib.adt_fused_cell.argtypes = [ctypes.c_void_p,
+                                                 ctypes.c_void_p]
+            self._lib.adt_fused_cell.restype = ctypes.c_int
+            if self._lib.adt_fused_cell_args_size() != ctypes.sizeof(_Args):
+                raise RuntimeError("csrc/fused_cell.cu and _Args disagree "
+                                   "on the argument layout")
+            # the padded operand copies (kernel_operand) live on the cell
+            self._kernel_tensors: List[torch.Tensor] = []
+            self._base_args = _Args()
+            self._base_args.plan = plan_args(
+                self.weights, self.skip_flags, self.n_feat, self.n,
+                self._kernel_tensors)
+            self._base_args.n_feat = self.n_feat
+            self._check_shared_memory()
+
+    # -- the plain PyTorch version ------------------------------------------
+    def reference(self, x: torch.Tensor, hx: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return plan_cell_math(self.weights, self.skip_flags, self.n, x, hx)
+
+    # -- the wrapper ----------------------------------------------------------
+    def __call__(self, x: torch.Tensor, hx: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        self._check(x, hx)
+        if x.device.type == "cpu":
+            return self.reference(x, hx)
+        return self._launch(x, hx)
+
+    def _check(self, x: torch.Tensor, hx: torch.Tensor) -> None:
+        if x.dim() != 2 or x.shape[1] != self.n_feat:
+            raise ValueError(f"x must be (B, {self.n_feat}), got "
+                             f"{tuple(x.shape)}")
+        if tuple(hx.shape) != (x.shape[0], self.n):
+            raise ValueError(f"hx must be ({x.shape[0]}, {self.n}), got "
+                             f"{tuple(hx.shape)}")
+        for name, t in (("x", x), ("hx", hx)):
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if hx.device != x.device:
+            raise ValueError(f"hx is on {hx.device}, x on {x.device}")
+        if x.device.type != self.device.type:
+            raise ValueError(f"this cell was built for {self.device}; got "
+                             f"tensors on {x.device}")
+
+    def _check_shared_memory(self) -> None:
+        """What this kernel can take: one block's tile of activations in
+        its shared memory. Raises; there is no other path to fall back
+        to."""
+        limit = torch.cuda.get_device_properties(
+            self.device).shared_memory_per_block_optin
+        need = int(self._lib.adt_fused_cell_smem_bytes(
+            ctypes.byref(self._base_args)))
+        if need < 0:
+            raise ValueError("csrc/fused_cell.cu does not take this plan")
+        if need > limit:
+            raise RuntimeError(
+                f"the fused cell needs {need} B of shared memory per block; "
+                f"this card allows {limit} B")
+
+    def _launch(self, x: torch.Tensor, hx: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, hx = x.contiguous(), hx.contiguous()
+        y = torch.empty_like(x)
+        hx_out = torch.empty_like(hx)
+        a = _Args.from_buffer_copy(self._base_args)
+        a.batch = x.shape[0]
+        a.x, a.hx, a.y, a.hx_out = (t.data_ptr() for t in (x, hx, y, hx_out))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = self._lib.adt_fused_cell(ctypes.byref(a), stream)
+        if err != 0:
+            raise RuntimeError(f"fused cell launch failed: cudaError {err}")
+        self.launches += 1
+        return y, hx_out
+
+
+def make_fused_cell(plan, device: Optional[Union[str, torch.device]] = None
+                    ) -> FusedCell:
+    """One-kernel cell step on ``device`` (the card unless ``"cpu"``)."""
+    if plan.delta:
+        raise NotImplementedError(
+            "the fused cell's delta (MOMO3) branch is not ported yet "
+            "(ROADMAP A4)")
+    if len(plan.down_mats) > MAX_LEVELS:
+        raise ValueError(f"the kernel takes at most {MAX_LEVELS} levels")
+    return FusedCell(plan, resolve_device(device))

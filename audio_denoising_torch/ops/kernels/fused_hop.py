@@ -25,7 +25,7 @@ from audio_denoising_torch.ops.kernels.common import (
     MAX_LEVELS, PlanArgs, kernel_operand, pack_plan_weights, plan_args,
     plan_cell_math)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
-from audio_denoising_torch.ops.windows import hann_window
+from audio_denoising_torch.ops.windows import hann_window, wola_envelope
 
 class FusedHopState(NamedTuple):
     ring: torch.Tensor   # (B, n_fft) analysis window
@@ -55,15 +55,6 @@ def _dft_matrices(n_fft: int):
     IC = (w[:, None] * np.cos(ang) / n_fft).astype(np.float32)
     IS = (-w[:, None] * np.sin(ang) / n_fft).astype(np.float32)
     return CF, SF, IC, IS
-
-
-def _ola_envelope(win: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
-    """Sum of the squared window over the overlapping hops, first hop only;
-    1 where it vanishes."""
-    env = np.zeros(n_fft, np.float64)
-    for k in range(n_fft // hop):
-        env += np.roll(win * win, k * hop)
-    return np.where(env[:hop] > 1e-8, env[:hop], 1.0).astype(np.float32)
 
 
 class _Args(ctypes.Structure):
@@ -128,7 +119,7 @@ class FusedHop:
         self.imel = inverse_mel_matrix(
             self.F, self.M, dsp.sample_rate).T.contiguous().to(device)
         self.win = f32(win)
-        self.env = f32(_ola_envelope(win, self.n_fft, self.hop))
+        self.env = f32(wola_envelope(win, self.n_fft, self.hop))
         plan = plan.to(device=device, dtype=torch.float32)
         weights, self.skip_flags = pack_plan_weights(plan)
         self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]

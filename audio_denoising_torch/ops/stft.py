@@ -1,7 +1,8 @@
 """STFT / iSTFT with torch.stft / torch.istft semantics (JAX counterpart
 ops/stft.py).
 
-Centered reflect padding, a window zero-padded to ``n_fft``, one-sided
+Centered reflect padding (numpy's, which also takes a pad longer than
+the signal), a window zero-padded to ``n_fft``, one-sided
 spectra, and an inverse that overlap-adds windowed ``irfft`` frames and
 divides by the window-square envelope, guarded where the envelope is ~0
 (torch raises there). Shapes follow the JAX package: spectra are
@@ -36,15 +37,24 @@ def _full_window(window: Optional[torch.Tensor], n_fft: int, win_length: int,
     return window
 
 
+def _reflect_index(length: int, pad: int, device) -> torch.Tensor:
+    """Indices of numpy's (and the JAX package's) 'reflect' padding of a
+    length-``length`` axis by ``pad`` on both sides; unlike
+    ``F.pad(mode="reflect")`` it takes ``pad >= length`` (a server-step
+    chunk of one hop is shorter than the n_fft // 2 padding)."""
+    idx = torch.arange(-pad, length + pad, device=device)
+    if length == 1:
+        return torch.zeros_like(idx)
+    period = 2 * (length - 1)
+    idx = torch.remainder(idx, period)
+    return torch.where(idx < length, idx, period - idx)
+
+
 def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int,
                  center: bool = True) -> torch.Tensor:
     """Slice (..., L) into overlapping frames (..., T, n_fft)."""
     if center:
-        shape = x.shape
-        pad = n_fft // 2
-        x = torch.nn.functional.pad(x.reshape(-1, 1, shape[-1]), (pad, pad),
-                                    mode="reflect").reshape(
-                                        *shape[:-1], shape[-1] + 2 * pad)
+        x = x[..., _reflect_index(x.shape[-1], n_fft // 2, x.device)]
     return x.unfold(-1, n_fft, hop_length)
 
 

@@ -1,4 +1,5 @@
-"""Window functions matching torch conventions (host-side constants)."""
+"""Window functions matching torch conventions, and the overlap-add
+envelope of the phase-reuse hops (host-side constants)."""
 
 import numpy as np
 import torch
@@ -15,3 +16,13 @@ def hann_window(window_length: int, periodic: bool = True,
     denom = window_length if periodic else window_length - 1
     w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / denom))
     return torch.from_numpy(w).to(dtype)
+
+
+def wola_envelope(win: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
+    """The sum of the squared window over the overlapping hops, over the
+    first hop (constant for a periodic Hann at hop | n_fft); 1 where it
+    vanishes. float32, shape (hop,)."""
+    env = np.zeros(n_fft, np.float64)
+    for k in range(n_fft // hop):
+        env += np.roll(win * win, k * hop)
+    return np.where(env[:hop] > 1e-8, env[:hop], 1.0).astype(np.float32)

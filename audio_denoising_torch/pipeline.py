@@ -1,18 +1,25 @@
-"""The WebRTC-path streaming step (JAX counterpart pipeline.py, the
-webrtc part: ``_transforms`` :37, ``WebRTCState`` :464,
-``webrtc_init_state`` :490, ``make_webrtc_step`` :520).
+"""The op-by-op streaming steps (JAX counterpart pipeline.py: the webrtc
+part, ``_transforms`` :37, ``WebRTCState`` :464, ``webrtc_init_state``
+:490, ``make_webrtc_step`` :520; and ``make_server_step`` :653).
 
-One hop of the reference's app2.py recv loop (app2.py:174-233), op by op:
-ring buffer, per-window peak normalization, Hann pre-window, 3-frame
-centered STFT, mel log1p, the model over the three frames with carried
-hx, residual subtract, leaky_relu(0.2), expm1, inverse mel, Griffin-Lim,
-peak de-normalization and overlap-add. With
+``make_webrtc_step``: one hop of the reference's app2.py recv loop
+(app2.py:174-233), op by op: ring buffer, per-window peak normalization,
+Hann pre-window, 3-frame centered STFT, mel log1p, the model over the
+three frames with carried hx, residual subtract, leaky_relu(0.2), expm1,
+inverse mel, Griffin-Lim, peak de-normalization and overlap-add. With
 ``dsp.griffin_lim_warm_start`` the converged GL phases are carried from
 hop to hop and re-seeded one frame later (RTISI-style streaming GL).
-
 This is engine mode ``webrtc`` and the oracle of the fused WebRTC hop
 (ops/kernels/webrtc_hop.py). The SNR gate is not ported: a config that
 sets ``serving.snr_gate_db`` raises NotImplementedError.
+
+``make_server_step``: one server.py recv message (server.py:200-216), a
+centered STFT over the whole chunk, the model, ReLU on its residual, the
+output gain, the state decay, the inverse mel and the ISTFT with the
+noisy phase. ``profile --mode server`` runs it.
+
+Each step takes a zoo model (an ``nn.Module``, copied to the device) or
+a ``runtime.plan.PlanModel`` built for that device.
 """
 
 import copy
@@ -25,7 +32,29 @@ from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops import (
     griffin_lim, hann_window, inverse_mel_matrix, inverse_mel_scale,
-    mel_filterbank, mel_scale, num_frames, stft)
+    istft, mel_filterbank, mel_scale, num_frames, stft)
+
+
+def serving_model(model, device: torch.device):
+    """The model a step runs on ``device``: a zoo model (``nn.Module``) is
+    copied there in eval mode; a PlanModel is built for one device and
+    must be on this one."""
+    if isinstance(model, torch.nn.Module):
+        return copy.deepcopy(model).to(device).eval()
+    if model.device.type != device.type:
+        raise ValueError(f"this model was built for {model.device}, the "
+                         f"step runs on {device}")
+    return model
+
+
+def fp32_convs():
+    """Scope the model's convolutions to full fp32: cuDNN takes TF32 for
+    fp32 convolutions by default on the card."""
+    return torch.backends.cudnn.flags(
+        enabled=torch.backends.cudnn.enabled,
+        benchmark=torch.backends.cudnn.benchmark,
+        deterministic=torch.backends.cudnn.deterministic,
+        allow_tf32=False)
 
 
 def _transforms(cfg: Config, device: Union[str, torch.device] = "cpu"):
@@ -91,7 +120,7 @@ def make_webrtc_step(cfg: Config, model,
             "the SNR gate (serving.snr_gate_db) of the webrtc step is not "
             "ported yet")
     device = resolve_device(device)
-    model = copy.deepcopy(model).to(device).eval()
+    model = serving_model(model, device)
     n_fft, hop = dsp.n_fft, dsp.hop_length
     fb, inv, win = _transforms(cfg, device)
     # per-bin phase advance of one hop for the extrapolated newest frame:
@@ -114,13 +143,7 @@ def make_webrtc_step(cfg: Config, model,
         mag = spec.abs()
         logmel = torch.log1p(mel_scale(mag, fb))            # (B, M, T=3)
         x = logmel.transpose(-1, -2)
-        # the model's convolutions in full fp32: cuDNN takes TF32 by
-        # default on the card
-        with torch.no_grad(), torch.backends.cudnn.flags(
-                enabled=torch.backends.cudnn.enabled,
-                benchmark=torch.backends.cudnn.benchmark,
-                deterministic=torch.backends.cudnn.deterministic,
-                allow_tf32=False):
+        with torch.no_grad(), fp32_convs():
             resid, hx = model.apply(x, state.hx)
         recon = torch.nn.functional.leaky_relu(x - resid, 0.2)
         mel_mag = torch.clamp(torch.expm1(recon.transpose(-1, -2)), min=0.0)
@@ -150,5 +173,41 @@ def make_webrtc_step(cfg: Config, model,
                          torch.zeros_like(state.ola[:, :hop])], dim=-1)
         ola = ola + frame
         return WebRTCState(ring=ring, ola=ola, hx=hx, gl_angles=angles), out
+
+    return step
+
+
+def make_server_step(cfg: Config, model,
+                     device: Optional[Union[str, torch.device]] = None):
+    """Build ``step(hx, chunk (B, L)) -> (hx', out (B, L))`` on ``device``
+    (the card unless ``"cpu"``): the chunk is processed as one centered
+    STFT exactly like a server.py recv message, with the output gain and
+    state decay of the serving config. ReLU on the residual, no clamp
+    before the inverse mel: not the fast step's nonlinearity."""
+    dsp, srv = cfg.dsp, cfg.serving
+    if getattr(cfg.model, "lookahead_frames", 0):
+        raise ValueError(
+            "lookahead checkpoints (ModelConfig.lookahead_frames > 0) "
+            "stream via engine mode 'fast'; the per-message server step "
+            "cannot carry the cross-chunk delay ring")
+    device = resolve_device(device)
+    model = serving_model(model, device)
+    fb, inv, win = _transforms(cfg, device)
+
+    def step(hx: torch.Tensor, chunk: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        length = chunk.shape[-1]
+        spec = stft(chunk, dsp.n_fft, dsp.hop_length, dsp.win, window=win)
+        logmel = torch.log1p(mel_scale(spec.abs(), fb))
+        with torch.no_grad(), fp32_convs():
+            out, hx = model.apply(logmel.transpose(-1, -2), hx)
+        out = torch.relu(out.transpose(-1, -2)) * srv.output_gain
+        hx = hx * srv.state_decay
+        lin = inverse_mel_scale(torch.exp(logmel - out) - 1.0, inv)
+        # angle(0) is 0, so a silent bin is rebuilt as lin + 0j
+        rec = torch.polar(lin, torch.angle(spec))
+        y = istft(rec, dsp.n_fft, dsp.hop_length, dsp.win, window=win,
+                  length=length)
+        return hx, y
 
     return step

@@ -3,6 +3,9 @@
 
 Modes of the port:
 
+- ``fast``         — the phase-reuse hop op by op (``make_fast_step``):
+                     one windowed rfft, mel log1p, one model cell, inverse
+                     mel, noisy-phase resynthesis, WOLA;
 - ``fused``        — the phase-reuse hop as one kernel launch per tick
                      (ops/kernels/fused_hop.py);
 - ``webrtc``       — the reference's Griffin-Lim WebRTC hop op by op
@@ -24,14 +27,112 @@ import torch
 
 from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
+from audio_denoising_torch.ops import (
+    hann_window, inverse_mel_matrix, inverse_mel_scale, mel_filterbank,
+    mel_scale)
 from audio_denoising_torch.ops.kernels.fused_hop import (
     fused_hop_init_state, make_fused_hop)
 from audio_denoising_torch.ops.kernels.webrtc_hop import (
     make_webrtc_hop, webrtc_hop_init_state)
-from audio_denoising_torch.pipeline import make_webrtc_step, webrtc_init_state
+from audio_denoising_torch.ops.windows import wola_envelope
+from audio_denoising_torch.pipeline import (
+    fp32_convs, make_webrtc_step, serving_model, webrtc_init_state)
 from audio_denoising_torch.runtime.plan import build_cell_plan
 
-MODES = ("fused", "webrtc", "fused-webrtc")
+
+class FastState(NamedTuple):
+    """JAX counterpart engine.py:34, without the gate and lookahead
+    planes (not ported)."""
+    ring: torch.Tensor   # (B, n_fft) analysis window
+    ola: torch.Tensor    # (B, n_fft) synthesis accumulator
+    hx: torch.Tensor     # the model's carry: (B, hidden, comp) for the zoo
+                         # model, (B, hidden*comp) for a PlanModel
+
+
+def _check_fast_supported(cfg: Config) -> None:
+    """What the JAX fast step serves and the port's does not yet."""
+    if cfg.serving.snr_gate_db is not None:
+        raise NotImplementedError(
+            "the fast step's SNR gate (serving.snr_gate_db) is not ported "
+            "yet (ROADMAP A3)")
+    if getattr(cfg.model, "lookahead_frames", 0):
+        raise NotImplementedError(
+            "the fast step's lookahead delay rings "
+            "(ModelConfig.lookahead_frames > 0) are not ported yet "
+            "(ROADMAP A10)")
+    if cfg.dsp.domain == "raw":
+        raise NotImplementedError(
+            "the fast step's raw-spectrogram domain is not ported yet "
+            "(ROADMAP A4)")
+    if cfg.serving.dtype == "int8":
+        raise NotImplementedError(
+            "int8 serving in mode 'fast' (the quantized PlanModel) is not "
+            "ported yet (ROADMAP A13)")
+    if cfg.dsp.n_fft % cfg.dsp.hop_length:
+        raise ValueError("fast mode expects hop | n_fft (WOLA)")
+
+
+def fast_init_state(cfg: Config, model, batch: int,
+                    device: Union[str, torch.device] = "cpu") -> FastState:
+    _check_fast_supported(cfg)
+    n_fft = cfg.dsp.n_fft
+    init = getattr(model, "init_carry", None) or model.init_state
+    return FastState(
+        ring=torch.zeros((batch, n_fft), device=device),
+        ola=torch.zeros((batch, n_fft), device=device),
+        hx=init(batch, device=device))
+
+
+def make_fast_step(cfg: Config, model,
+                   device: Optional[Union[str, torch.device]] = None):
+    """Build ``step(state, chunk (B, hop)) -> (state', out (B, hop))`` on
+    ``device`` (the card unless ``"cpu"``; JAX counterpart
+    engine.py:95-228, ungated, no lookahead, mel domain).
+
+    Per hop: one windowed rfft (no center padding), mel log1p, one model
+    cell on the carried state, leaky-ReLU 0.2 of the residual, expm1,
+    inverse mel, the output gain, the state decay (the model's
+    ``decay_carry`` where it has one), noisy-phase resynthesis and WOLA
+    divided by the window envelope. ``model`` is a zoo model or a
+    PlanModel (``fused=True`` runs its cell as the hand-written kernel)."""
+    _check_fast_supported(cfg)
+    dsp, srv = cfg.dsp, cfg.serving
+    device = resolve_device(device)
+    model = serving_model(model, device)
+    n_fft, hop = dsp.n_fft, dsp.hop_length
+    fb = mel_filterbank(dsp.n_stft, dsp.n_mels, dsp.sample_rate).to(device)
+    inv = inverse_mel_matrix(dsp.n_stft, dsp.n_mels,
+                             dsp.sample_rate).to(device)
+    win = hann_window(n_fft).to(device)
+    env_hop = torch.from_numpy(wola_envelope(
+        hann_window(n_fft, dtype=torch.float64).numpy(), n_fft, hop)
+    ).to(device)
+    decay = getattr(model, "decay_carry", None) or (lambda h, f: h * f)
+
+    def step(state: FastState, chunk: torch.Tensor
+             ) -> Tuple[FastState, torch.Tensor]:
+        ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
+        spec = torch.fft.rfft(ring * win, n=n_fft, dim=-1)    # (B, F)
+        x_t = torch.log1p(mel_scale(spec.abs()[..., None], fb))[..., 0]
+        with torch.no_grad(), fp32_convs():
+            resid, hx = model.cell(x_t, state.hx)
+        rec = torch.nn.functional.leaky_relu(x_t - resid, 0.2)
+        mel_mag = torch.clamp(torch.expm1(rec), min=0.0)[..., None]
+        lin = inverse_mel_scale(mel_mag, inv)[..., 0] * srv.output_gain
+        hx = decay(hx, srv.state_decay)
+        # angle(0) is 0, so a silent bin is rebuilt as lin + 0j
+        synth = torch.fft.irfft(torch.polar(lin, torch.angle(spec)),
+                                n=n_fft, dim=-1) * win
+        acc = state.ola + synth
+        out = acc[:, :hop] / env_hop
+        ola = torch.cat([acc[:, hop:], torch.zeros_like(acc[:, :hop])],
+                        dim=-1)
+        return FastState(ring=ring, ola=ola, hx=hx), out
+
+    return step
+
+
+MODES = ("fast", "fused", "webrtc", "fused-webrtc")
 
 
 def _fields(state: NamedTuple) -> Dict[str, torch.Tensor]:
@@ -44,7 +145,9 @@ class StreamEngine:
 
     A stream's lifecycle is add -> process xN -> remove (slot state reset
     to the mode's initial state on add). ``device`` is the card unless
-    ``"cpu"`` is passed, which runs the kernels' plain PyTorch versions."""
+    ``"cpu"`` is passed, which runs the kernels' plain PyTorch versions.
+    In mode ``fast`` ``model`` may be a zoo model or a PlanModel; the other
+    modes take a GRUUNet2 zoo model."""
 
     def __init__(self, cfg: Config, model, mode: str = "fused",
                  max_streams: Optional[int] = None,
@@ -53,10 +156,12 @@ class StreamEngine:
             raise ValueError(f"engine mode {mode!r} is not ported yet; the "
                              f"port has {MODES}")
         if getattr(cfg.model, "lookahead_frames", 0):
-            if mode == "fused":
+            if mode in ("fast", "fused"):
+                # the JAX engine serves them in mode 'fast' (and downgrades
+                # 'fused' to it); the port's fast step has no delay rings
                 raise NotImplementedError(
-                    "bounded-lookahead checkpoints need the op-by-op fast "
-                    "step, which is not ported yet")
+                    "bounded-lookahead checkpoints need the fast step's "
+                    "delay rings, which are not ported yet (ROADMAP A10)")
             raise ValueError(
                 f"engine mode {mode!r} does not support lookahead "
                 f"checkpoints (ModelConfig.lookahead_frames > 0)")
@@ -65,7 +170,7 @@ class StreamEngine:
                 "the fused webrtc kernel has no SNR gate "
                 "(serving.snr_gate_db is set); the JAX engine downgrades to "
                 "mode 'webrtc' here, the port does not")
-        if cfg.serving.dtype == "int8" and mode != "fused":
+        if cfg.serving.dtype == "int8" and mode not in ("fast", "fused"):
             raise ValueError(
                 f"serving dtype 'int8' is implemented for the fused hop "
                 f"only, not for engine mode {mode!r}")
@@ -77,7 +182,11 @@ class StreamEngine:
         # each maker raises for what its hop lacks before it resolves the
         # device; on the card the kernel hops then check what the card can
         # take (a block's shared memory)
-        if mode == "webrtc":
+        if mode == "fast":
+            self.hop_step = make_fast_step(cfg, model, device)
+            self.device = resolve_device(device)
+            init = lambda b: fast_init_state(cfg, model, b, self.device)
+        elif mode == "webrtc":
             self.hop_step = make_webrtc_step(cfg, model, device)
             self.device = resolve_device(device)
             init = lambda b: webrtc_init_state(cfg, model, b, self.device)
@@ -118,10 +227,12 @@ class StreamEngine:
 
     @property
     def algorithmic_latency_samples(self) -> int:
-        """What the serving mode itself delays the audio by: the
-        hop-synchronous overlap-add holds ``n_fft - hop`` samples (in the
+        """What the serving mode itself delays the audio by (JAX
+        engine.py:513-541): in modes ``fast`` and ``fused`` the
+        hop-synchronous overlap-add holds ``n_fft - hop`` samples (the
+        lookahead term is 0: lookahead checkpoints are refused); in the
         webrtc modes the segment leaves before the newest frame enters the
-        OLA buffer, app2.py:226-231: the same window tail)."""
+        OLA buffer (app2.py:226-231), the same window tail."""
         return self.cfg.dsp.n_fft - self.cfg.dsp.hop_length
 
     @property

@@ -14,14 +14,20 @@ checkpoint into an affine plan:
 Probing runs on the CPU in float64 and the plan is cast to float32
 afterwards, so no TF32 convolution (cuDNN's default on the card) can leak
 into the plan matrices.
+
+``PlanModel`` (JAX counterpart plan.py:341-455) serves the plan through
+the zoo models' interface, one frame at a time through the cell (the
+hand-written kernel of ``ops/kernels/fused_cell.py`` with ``fused=True``)
+and sequences through ``plan_apply_parallel``.
 """
 
 import copy
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.convs import conv1d, conv_transpose1d
 
 
@@ -148,34 +154,129 @@ def plan_from_numpy(plan) -> CellPlan:
         delta=bool(plan.delta))
 
 
+def _encode(plan: CellPlan, x: torch.Tensor) -> List[torch.Tensor]:
+    """The encoder chain over rows of x: [x, d1, ..., d_L]; d_L is the
+    gates' input projection (B, 3*hidden*comp)."""
+    skips = [x]
+    for m, b in zip(plan.down_mats, plan.down_biases):
+        skips.append(torch.relu(skips[-1] @ m + b))
+    return skips
+
+
+def _gate(plan: CellPlan, gate_x: torch.Tensor, hx: torch.Tensor
+          ) -> torch.Tensor:
+    """The reset-gate matmul on hx and the GRU gating hx' = n + z (hx - n)."""
+    n = plan.hidden * plan.compressed
+    gate_h = torch.relu(hx @ plan.reset_mat + plan.reset_bias)
+    i_r, i_i, i_n = gate_x[:, :n], gate_x[:, n:2 * n], gate_x[:, 2 * n:]
+    h_r, h_i, h_n = gate_h[:, :n], gate_h[:, n:2 * n], gate_h[:, 2 * n:]
+    inputgate = torch.sigmoid(i_i + h_i)
+    resetgate = torch.sigmoid(i_r + h_r)
+    newgate = torch.tanh(i_n + resetgate * h_n)
+    return newgate + inputgate * (hx - newgate)
+
+
+def _decode(plan: CellPlan, h: torch.Tensor, skips: List[torch.Tensor]
+            ) -> torch.Tensor:
+    """The decoder chain from hx' with split skip matmuls: no concat."""
+    L = len(plan.up_h_mats)
+    for i in range(L):
+        out = h @ plan.up_h_mats[i] + plan.up_biases[i]
+        if plan.up_s_mats[i] is not None:
+            out = out + skips[L - i] @ plan.up_s_mats[i]
+        h = torch.relu(out) if i != L - 1 else out
+    return h
+
+
 def plan_cell(plan: CellPlan, x_t: torch.Tensor, hx: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame through the plan. x_t: (B, F); hx: (B, hidden*comp)
     flattened. Returns (y (B, F), hx')."""
     if plan.delta:
         raise NotImplementedError("delta (MOMO3) plans are a later slice")
-    L = len(plan.down_mats)
-    skips = [x_t]
-    h = x_t
-    for m, b in zip(plan.down_mats, plan.down_biases):
-        h = torch.relu(h @ m + b)
-        skips.append(h)
+    skips = _encode(plan, x_t)
+    hi = _gate(plan, skips[-1], hx)
+    return _decode(plan, hi, skips), hi
 
-    gate_x = h                                        # (B, 3*hidden*comp)
-    gate_h = torch.relu(hx @ plan.reset_mat + plan.reset_bias)
-    n = plan.hidden * plan.compressed
-    i_r, i_i, i_n = gate_x[:, :n], gate_x[:, n:2 * n], gate_x[:, 2 * n:]
-    h_r, h_i, h_n = gate_h[:, :n], gate_h[:, n:2 * n], gate_h[:, 2 * n:]
-    inputgate = torch.sigmoid(i_i + h_i)
-    resetgate = torch.sigmoid(i_r + h_r)
-    newgate = torch.tanh(i_n + resetgate * h_n)
-    hi = newgate + inputgate * (hx - newgate)
 
-    ups_in = skips[:-1]                               # [x, d1, ..., d_{L-1}]
-    h = hi
-    for i in range(L):
-        out = h @ plan.up_h_mats[i] + plan.up_biases[i]
-        if plan.up_s_mats[i] is not None:
-            out = out + ups_in[L - i] @ plan.up_s_mats[i]
-        h = torch.relu(out) if i != L - 1 else out
-    return h, hi
+def plan_apply_parallel(plan: CellPlan, x: torch.Tensor, hx: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequence mode with the recurrence minimized (JAX counterpart
+    plan.py:277-339). x: (B, T, F); hx: (B, hidden*comp).
+
+    The encoder depends only on x_t and the decoder only on (hi_t,
+    skips_t), so both run as one matmul chain over all B*T frames; only
+    the reset-gate matmul and the gating loop over T."""
+    if plan.delta:
+        raise NotImplementedError("delta (MOMO3) plans are a later slice")
+    B, T, F = x.shape
+    skips = _encode(plan, x.reshape(B * T, F))
+    gate_x = skips[-1].reshape(B, T, -1)
+    his = []
+    for t in range(T):
+        hx = _gate(plan, gate_x[:, t], hx)
+        his.append(hx)
+    h = torch.stack(his, dim=1).reshape(B * T, -1)
+    return _decode(plan, h, skips).reshape(B, T, -1), hx
+
+
+class PlanModel:
+    """The zoo models' interface (``init_state``, ``init_carry``,
+    ``decay_carry``, ``cell``, ``apply``) on the matrixized plan of a
+    GRUUNet2 ``model``, on ``device`` (the card unless ``"cpu"``).
+
+    ``fused=True`` runs the cell as the hand-written kernel
+    (``self.fused_cell``, a ``FusedCell``); on a CPU tensor that wrapper
+    runs its plain version. The JAX class falls back to the op-by-op plan
+    where the plan outgrows a TPU's VMEM; the kernel streams its weights
+    through L2 and has no such limit, and where a tile's activations do
+    not fit in a block's shared memory the FusedCell raises here."""
+
+    def __init__(self, model, fused: bool = False,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.num_bins = model.num_bins
+        self.device = resolve_device(device)
+        self.plan = build_cell_plan(model).to(device=self.device)
+        self.fused_cell = None
+        if fused:
+            from audio_denoising_torch.ops.kernels.fused_cell import (
+                make_fused_cell)
+            self.fused_cell = make_fused_cell(self.plan, self.device)
+            self._cell = self.fused_cell
+        else:
+            self._cell = lambda x, hx: plan_cell(self.plan, x, hx)
+
+    def init_state(self, batch: int, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+        return torch.zeros((batch, self.plan.hidden * self.plan.compressed),
+                           dtype=dtype,
+                           device=self.device if device is None else device)
+
+    def init_carry(self, batch: int, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+        return self.init_state(batch, dtype, device)
+
+    def decay_carry(self, carry: torch.Tensor, factor: float
+                    ) -> torch.Tensor:
+        return carry * factor
+
+    def cell(self, x_t: torch.Tensor, carry: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One frame: x_t (B, F), carry (B, hidden*comp) -> (y_t, hx')."""
+        return self._cell(x_t, carry)
+
+    def apply(self, x: torch.Tensor, hx: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, T, F) or (T, F) -> (y (B, T, F), hx'). A single frame
+        goes through the cell (and so the kernel when fused); longer
+        sequences through ``plan_apply_parallel``."""
+        if x.dim() == 2:
+            x = x[None]
+        if hx is None:
+            hx = self.init_state(x.shape[0], x.dtype, x.device)
+        if hx.dim() == 3:                     # accept model-layout state
+            hx = hx.reshape(hx.shape[0], -1)
+        if x.shape[1] == 1:
+            y, hx = self._cell(x[:, 0], hx)
+            return y[:, None], hx
+        return plan_apply_parallel(self.plan, x, hx)

@@ -38,16 +38,33 @@ raises on failure (so the script exits non-zero and prints no result):
    (dari_tult's weights, warm start on) to 4 clients x 16 streams x 8
    chunks, each stream's replies against its own sequence through the
    kernel in this process, hx against the plain version on the CPU;
-8. CUDA-event timing at 256 streams: each kernel, its plain version, and
-   the bound from the hop's operations and bytes.
+8. the fused-cell kernel against its plain version on the card, at 1, 3
+   and 256 streams, on gruunet2-good's plan and on the two other widths
+   of phase 2;
+9. ``profile --mode fast --fused --streams 256`` in process: its report,
+   and the fused cell launched once per hop it ran;
+10. the fast step with ``PlanModel(fused=True)`` on the card against the
+    zoo model's fast step on the CPU, 256 streams over 20 hops;
+11. ``StreamEngine`` mode ``fast`` (gruunet2-good, the zoo model) with 256
+    slots and 256 streams for 50 ticks, some streams skipping ticks,
+    against the same run on the CPU, idle slots bit-identical;
+12. ``EngineDaemon`` mode ``fast`` on 127.0.0.1 serving gruunet2-good to
+    4 clients x 16 streams x 25 chunks, each stream's replies against its
+    own sequence replayed through the fast step on the CPU;
+13. CUDA-event timing at 256 streams: each kernel, its plain version, and
+    the bound from its operations and bytes; the fast step per hop with
+    the zoo model and with the fused cell; torch.profiler breakdowns.
 
-Phases 4 to 7 are the main paths: each kernel's launch counter is set to
-0 just before each and read just after (the WebRTC hop counts its three
-kernels). Griffin-Lim with carried phases is chaotic where a frame's
-rebuilt spectrum nears zero: fp32 round-off there flips a phase, and the
-carried phases spread it, so two correct fp32 versions that each carry
-their own state part ways within a few hops (the plain version on the
-card, on the CPU and the kernel all part from a float64 run alike). So
+Phases 4 to 7 and 9 to 12 are the main paths: each kernel's launch
+counter is set to 0 just before each (a new wrapper starts at 0) and read
+just after (the WebRTC hop counts its three kernels). Mode ``fast`` with
+the zoo model (phases 11, 12) runs no hand-written kernel, as the JAX
+package's mode ``fast`` runs no Pallas kernel. Griffin-Lim with carried
+phases is chaotic where a frame's rebuilt spectrum nears zero: fp32
+round-off there flips a phase, and the carried phases spread it, so two
+correct fp32 versions that each carry their own state part ways within a
+few hops (the plain version on the card, on the CPU and the kernel all
+part from a float64 run alike). So
 the served geometry's waveform is held one hop at a time from a shared
 state, with a float64 witness, beside the surfaces no phase reaches (hx,
 spectral convergence). The last two lines are the ``kernels`` JSON line
@@ -86,7 +103,9 @@ FP32_FLOPS = 67e12   # H100 SXM fp32 FMA peak, NVIDIA data sheet
 HBM_BYTES_S = 3.35e12
 REPLY_DEADLINE_S = 30.0
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("fused_hop", "webrtc_hop")
+CELL_ATOL = 1e-5     # y and hx' of one cell step (test_torch_fused_cell.py)
+CELL_BATCHES = (1, 3, SLOTS)
+KERNELS = ("fused_hop", "webrtc_hop", "fused_cell")
 # trained checkpoints of other widths, held in phase 2 besides the main one
 OTHER_CHECKPOINTS = ("gruunet2s16kw40-mrstft-idp-50k.npz",
                      "gruunet2mel128d5w64-mrstft-50k.npz")
@@ -145,7 +164,7 @@ def phase_kernel_vs_plain(torch, hop, cfg, plan, batches):
     return worst
 
 
-# -- the WebRTC hop ------------------------------------------------------------
+# -- the WebRTC hop -----------------------------------------------------------
 
 def warm_cfg(cfg, n_iter=None):
     """``cfg`` with warm-start Griffin-Lim on (and n_iter rounds)."""
@@ -447,7 +466,7 @@ def phase_webrtc_kernel(torch, cfg, plan):
     return err
 
 
-# -- the engines ---------------------------------------------------------------
+# -- the engines --------------------------------------------------------------
 
 def phase_engine(torch, cfg, model):
     from audio_denoising_torch.runtime.engine import StreamEngine
@@ -593,10 +612,12 @@ def _client(address, cid, chunks, results, errors, before_close=None):
         errors.append(f"client {cid}: {e!r}")
 
 
-def serve_clients(daemon, data, before_close=None):
+def serve_clients(daemon, data, kernel, before_close=None):
     """Run ``daemon`` for one client thread per row of ``data`` (clients,
-    streams, chunks, hop); returns (outputs, slots, round seconds, stats,
-    launches, wall seconds)."""
+    streams, chunks, hop); returns (outputs, slots, round seconds,
+    launches, wall seconds). ``kernel`` is the wrapper whose launches are
+    counted, or None where the mode's path has no hand-written kernel
+    (launches then None)."""
     clients = data.shape[0]
     server = threading.Thread(target=daemon.serve_forever, daemon=True)
     results, errors, threads = {}, [], []
@@ -604,7 +625,8 @@ def serve_clients(daemon, data, before_close=None):
     try:
         if not daemon.listening.wait(60):
             raise TimeoutError("daemon did not start listening")
-        daemon.engine.hop_step.launches = 0
+        if kernel is not None:
+            kernel.launches = 0
         t0 = time.perf_counter()
         threads = [threading.Thread(target=_client, args=(
             daemon.address, c, data[c], results, errors, before_close),
@@ -614,7 +636,7 @@ def serve_clients(daemon, data, before_close=None):
         for t in threads:
             t.join(REPLY_DEADLINE_S * (data.shape[2] + 4))
         wall = time.perf_counter() - t0
-        launches = daemon.engine.hop_step.launches
+        launches = None if kernel is None else kernel.launches
     finally:
         daemon.stop()
         server.join(10)
@@ -633,8 +655,10 @@ def serve_clients(daemon, data, before_close=None):
 def latency_line(data, rounds, launches, wall):
     clients, streams, n_chunks = data.shape[:3]
     p50, p99 = np.percentile(rounds, [50, 99]) * 1e3
+    counted = ("no hand-written kernel on this path" if launches is None
+               else f"{launches} launches")
     return (f"{clients} clients x {streams} streams x {n_chunks} chunks in "
-            f"{wall:.2f} s; {launches} launches; reply latency per round "
+            f"{wall:.2f} s; {counted}; reply latency per round "
             f"(a client's {streams} chunks sent to its {streams} replies "
             f"in) p50 {p50:.3f} ms, p99 {p99:.3f} ms over {rounds.size} "
             f"rounds")
@@ -651,7 +675,8 @@ def phase_daemon(torch):
     rng = np.random.default_rng(4)
     data = (0.1 * rng.standard_normal(
         (clients, streams, n_chunks, hop_len))).astype(np.float32)
-    got, _, rounds, launches, wall = serve_clients(daemon, data)
+    got, _, rounds, launches, wall = serve_clients(daemon, data,
+                                                   daemon.engine.hop_step)
     ref_hop = make_fused_hop(daemon.cfg, daemon.engine.plan, "cpu")
     state = fused_hop_init_state(daemon.cfg, daemon.engine.plan,
                                  clients * streams)
@@ -701,7 +726,7 @@ def phase_daemon_webrtc(torch, cfg, model):
     # streams close only once every client is done, so no slot is reused
     # before its final state is read
     got, slots, rounds, launches, wall = serve_clients(
-        daemon, data, threading.Barrier(clients))
+        daemon, data, daemon.engine.hop_step, threading.Barrier(clients))
     plan = daemon.engine.plan
     seqs = torch.from_numpy(data.reshape(clients * streams, n_chunks,
                                          hop_len))
@@ -729,7 +754,168 @@ def phase_daemon_webrtc(torch, cfg, model):
     return launches
 
 
-# -- timing --------------------------------------------------------------------
+# -- the fused cell and mode fast ---------------------------------------------
+
+def cell_inputs(torch, batch, n_feat, n, seed):
+    """Features as the hop makes them (log1p of a magnitude, >= 0) and a
+    state in the gating's range (-1, 1), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.log1p(4 * torch.rand((batch, n_feat), generator=g,
+                                   device="cuda"))
+    hx = 2 * torch.rand((batch, n), generator=g, device="cuda") - 1
+    return x, hx
+
+
+def phase_fused_cell(torch, plans):
+    """Phase 8: the kernel against its plain version on the same inputs,
+    at CELL_BATCHES streams, for each (name, plan); returns the largest
+    error seen."""
+    from audio_denoising_torch.ops.kernels.fused_cell import make_fused_cell
+    worst = 0.0
+    for name, plan in plans:
+        cell = make_fused_cell(plan, "cuda")
+        errs = []
+        for batch in CELL_BATCHES:
+            x, hx = cell_inputs(torch, batch, cell.n_feat, cell.n, batch)
+            y_k, h_k = cell(x, hx)
+            y_p, h_p = cell.reference(x, hx)
+            torch.cuda.synchronize()
+            e = (max_err(y_k, y_p), max_err(h_k, h_p))
+            errs.append(f"B={batch} y {e[0]:.3e} hx' {e[1]:.3e}")
+            if max(e) > CELL_ATOL or not bool(torch.isfinite(y_k).all()):
+                raise AssertionError(f"fused cell kernel disagrees with its "
+                                     f"plain version ({name}, B={batch})")
+            worst = max(worst, *e)
+        say(f"  {name} (levels {len(plan.down_mats)}, hx {cell.n}, "
+            f"{sum(w.numel() for w in cell.weights)} weights): "
+            + "; ".join(errs) + f" (bound {CELL_ATOL:g})")
+    return worst
+
+
+def phase_profile(torch):
+    """Phase 9: the profile command in mode fast on the fused cell, in
+    this process; returns the cell's launches (one per hop it ran)."""
+    import contextlib
+    import io
+    from audio_denoising_torch.apps import profile_app
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = profile_app.main(["--model", "gruunet2-good", "--streams",
+                               str(SLOTS), "--mode", "fast", "--fused"])
+    out = buf.getvalue()
+    say("  " + out.strip().replace("\n", "\n  "))
+    report = json.loads(out)
+    launches = report["fused_cell_launches"]
+    if rc != 0 or report["streams"] != SLOTS or not math.isfinite(
+            report["amortized_ms_per_hop"]):
+        raise AssertionError("the profile command failed")
+    if launches != report["hops_run"] or launches <= 0:
+        raise AssertionError(f"the profile ran {report['hops_run']} hops "
+                             f"and launched the fused cell {launches} times")
+    return launches, report
+
+
+def phase_fast_step(torch, cfg, model):
+    """Phase 10: the fast step with the fused cell on the card against the
+    zoo model's fast step on the CPU, each carrying its own state; returns
+    the cell's launches."""
+    from audio_denoising_torch.runtime.engine import (
+        fast_init_state, make_fast_step)
+    from audio_denoising_torch.runtime.plan import PlanModel
+    pm = PlanModel(model, fused=True)
+    card = make_fast_step(cfg, pm)
+    cpu = make_fast_step(cfg, model, "cpu")
+    s_k = fast_init_state(cfg, pm, SLOTS, "cuda")
+    s_c = fast_init_state(cfg, model, SLOTS, "cpu")
+    rng = np.random.default_rng(10)
+    pm.fused_cell.launches = 0
+    e_out = e_hx = 0.0
+    for t in range(HOPS):
+        c = torch.from_numpy((0.1 * rng.standard_normal(
+            (SLOTS, cfg.dsp.hop_length))).astype(np.float32))
+        if t == 3:
+            c.zero_()              # a silent hop: angle(0) is 0
+        s_k, o_k = card(s_k, c.cuda())
+        s_c, o_c = cpu(s_c, c)
+        e_out = max(e_out, max_err(o_k.cpu(), o_c))
+        e_hx = max(e_hx, max_err(s_k.hx.cpu(), s_c.hx.reshape(SLOTS, -1)))
+        if not bool(torch.isfinite(o_k).all()):
+            raise AssertionError(f"fast step: non-finite output at hop {t}")
+    launches = pm.fused_cell.launches
+    say(f"  {SLOTS} streams x {HOPS} hops: out {e_out:.3e} (bound "
+        f"{OUT_ATOL:g}), hx {e_hx:.3e} (bound {HX_ATOL:g}); {launches} "
+        f"fused-cell launches")
+    if e_out > OUT_ATOL or e_hx > HX_ATOL:
+        raise AssertionError("fast step on the card disagrees with the CPU")
+    if launches != HOPS:
+        raise AssertionError(f"expected {HOPS} fused-cell launches, saw "
+                             f"{launches}")
+    return launches
+
+
+def phase_engine_fast(torch, cfg, model):
+    """Phase 11: mode fast on the card against the CPU engine, each
+    carrying its own state; idle slots bit-identical on the card."""
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    n, ticks = SLOTS, 50
+    gpu = StreamEngine(cfg, model, mode="fast", max_streams=n)
+    cpu = StreamEngine(cfg, model, mode="fast", max_streams=n, device="cpu")
+    sids = [f"s{i}" for i in range(n)]
+    for sid in sids:
+        gpu.add_stream(sid)
+        cpu.add_stream(sid)
+    rng = np.random.default_rng(11)
+    worst = 0.0
+    for t in range(ticks):
+        chunks = {sid: (0.1 * rng.standard_normal(cfg.dsp.hop_length)
+                        ).astype(np.float32)
+                  for i, sid in enumerate(sids) if (7 * i + t) % 5}
+        idle = [gpu.slots[s] for s in sids if s not in chunks]
+        before = [x[idle].clone() for x in gpu.state]
+        a, b = gpu.process(chunks), cpu.process(chunks)
+        for x, y in zip(before, gpu.state):
+            if not torch.equal(x, y[idle]):
+                raise AssertionError("an idle slot's state moved")
+        worst = max(worst, max(float(np.abs(a[s] - b[s]).max())
+                               for s in chunks))
+    st = max(max_err(x.cpu(), y) for x, y in zip(gpu.state, cpu.state))
+    say(f"  {n} streams x {ticks} ticks: out {worst:.3e} (bound "
+        f"{OUT_ATOL:g}), state {st:.3e} (bound {STATE_ATOL:g}); idle slots "
+        f"bit-identical; no hand-written kernel on this path")
+    if worst > OUT_ATOL or st > STATE_ATOL:
+        raise AssertionError("engine on the card disagrees with the CPU run")
+
+
+def phase_daemon_fast(torch):
+    """Phase 12: the JAX daemon's defaults (gruunet2-good, mode fast);
+    every reply against its stream's sequence through the fast step on the
+    CPU."""
+    from audio_denoising_torch.apps.engine_serve import EngineDaemon
+    from audio_denoising_torch.runtime.engine import (
+        fast_init_state, make_fast_step)
+    clients, streams, n_chunks = 4, 16, 25
+    daemon = EngineDaemon("gruunet2-good", max_streams=SLOTS, mode="fast",
+                          address=("127.0.0.1", 0))
+    hop_len = daemon.cfg.dsp.hop_length
+    rng = np.random.default_rng(13)
+    data = (0.1 * rng.standard_normal(
+        (clients, streams, n_chunks, hop_len))).astype(np.float32)
+    got, _, rounds, launches, wall = serve_clients(daemon, data, None)
+    step = make_fast_step(daemon.cfg, daemon.model, "cpu")
+    state = fast_init_state(daemon.cfg, daemon.model, clients * streams)
+    seqs = data.reshape(clients * streams, n_chunks, hop_len)
+    want = []
+    for k in range(n_chunks):
+        state, out = step(state, torch.from_numpy(seqs[:, k].copy()))
+        want.append(out.numpy())
+    err = float(np.abs(got - np.stack(want, axis=1)).max())
+    say(f"  out {err:.3e} (bound {OUT_ATOL:g}); "
+        + latency_line(data, rounds, launches, wall))
+    if err > OUT_ATOL or not np.all(np.isfinite(got)):
+        raise AssertionError("daemon output disagrees with the fast step")
+
+
+# -- timing -------------------------------------------------------------------
 
 def time_launches(torch, fn, n):
     for _ in range(min(20, n)):
@@ -801,32 +987,77 @@ def device_breakdown(torch, fn, n):
     return rows
 
 
-def timed(torch, hop, init, work, batch, launches):
-    """Kernel and plain times (ms) on random state and chunks, and the
-    bound from ``work``."""
+def hop_inputs(torch, hop, init, batch):
+    """Random state and chunk on the card for timing a hop."""
     g = torch.Generator(device="cuda").manual_seed(5)
     state = init(batch)
     state = type(state)(*(0.1 * torch.randn(t.shape, generator=g,
                                             device="cuda") for t in state))
     chunk = 0.1 * torch.randn((batch, hop.hop), generator=g, device="cuda")
-    ms = time_launches(torch, lambda: hop(state, chunk), launches)
-    plain_ms = time_launches(torch, lambda: hop.reference(state, chunk),
-                             launches)
-    flops, nbytes = work(hop, batch)
+    return state, chunk
+
+
+def timed(torch, run, plain, work, batch, launches):
+    """Kernel and plain times (ms) of ``run`` and ``plain``, and the bound
+    from ``work`` = (flops, bytes); prints the kernel breakdown."""
+    ms = time_launches(torch, run, launches)
+    plain_ms = time_launches(torch, plain, launches)
+    flops, nbytes = work
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     bound_ms = max(t_ops, t_bytes)
-    say(f"  B={batch}: kernel {ms * 1e3:.1f} us/hop, plain "
-        f"{plain_ms * 1e3:.1f} us/hop; bound {bound_ms * 1e3:.2f} us "
+    say(f"  B={batch}: kernel {ms * 1e3:.1f} us/call, plain "
+        f"{plain_ms * 1e3:.1f} us/call; bound {bound_ms * 1e3:.2f} us "
         f"({flops / 1e6:.1f} MFLOP -> {t_ops * 1e3:.2f} us, "
         f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us); kernel at "
         f"{bound_ms / ms:.1%} of the bound")
-    rows = device_breakdown(torch, lambda: hop(state, chunk), 20)
+    print_breakdown(device_breakdown(torch, run, 20), "call")
+    return ms, plain_ms, bound_ms, ("operations" if t_ops >= t_bytes
+                                    else "bytes")
+
+
+def print_breakdown(rows, unit):
     if not rows:
         say("  torch.profiler saw no device time: breakdown not measured")
     for name, us in sorted(rows.items(), key=lambda kv: -kv[1]):
-        say(f"    {us:9.1f} us/hop  {name[:90]}")
-    return ms, plain_ms, bound_ms, ("operations" if t_ops >= t_bytes
-                                    else "bytes")
+        say(f"    {us:9.1f} us/{unit}  {name[:90]}")
+
+
+def cell_work(cell, batch):
+    """(flops, bytes) one cell step needs: 2 per multiply-add of the
+    plan's matmuls; x and hx read, y and hx' written once per stream, and
+    the plan's weights read once."""
+    macs = sum(w.numel() for w in cell.weights if w.dim() == 2)
+    weights = sum(w.numel() for w in cell.weights)
+    return (2 * macs * batch,
+            4 * (2 * batch * (cell.n_feat + cell.n) + weights))
+
+
+def time_fast_step(torch, cfg, model, label):
+    """ms per hop of the fast step at SLOTS streams, state carried: CUDA
+    events around 100 hops, so the host's launch cost of every op is in
+    it; with the torch.profiler's device time by kernel and the share of
+    the hop the card is busy."""
+    from audio_denoising_torch.runtime.engine import (
+        fast_init_state, make_fast_step)
+    step = make_fast_step(cfg, model)
+    state = fast_init_state(cfg, model, SLOTS, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    chunk = 0.1 * torch.randn((SLOTS, cfg.dsp.hop_length), generator=g,
+                              device="cuda")
+
+    def run():
+        nonlocal state
+        state, _ = step(state, chunk)
+
+    ms = time_launches(torch, run, 100)
+    rows = device_breakdown(torch, run, 20)
+    busy = sum(rows.values()) / 1e3
+    say(f"  fast step, {label}, B={SLOTS}: {ms * 1e3:.1f} us/hop (CUDA "
+        f"events over 100 hops, launch cost included); device busy "
+        f"{busy * 1e3:.1f} us/hop by torch.profiler ({busy / ms:.1%}), "
+        f"{len(rows)} kernels:")
+    print_breakdown(rows, "hop")
+    return ms
 
 
 def main() -> int:
@@ -840,7 +1071,7 @@ def main() -> int:
         fused_hop_init_state, make_fused_hop)
     from audio_denoising_torch.ops.kernels.webrtc_hop import (
         make_webrtc_hop, webrtc_hop_init_state)
-    from audio_denoising_torch.runtime.plan import build_cell_plan
+    from audio_denoising_torch.runtime.plan import PlanModel, build_cell_plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -863,9 +1094,11 @@ def main() -> int:
     hop = make_fused_hop(cfg, plan, "cuda")
     say("phase 2: fused hop kernel vs its plain version on the card")
     err = phase_kernel_vs_plain(torch, hop, cfg, plan, (SLOTS, 3))
+    other_plans = []
     for name in OTHER_CHECKPOINTS:
         other_cfg, other = load_pretrained(os.path.join(REPO, "runs", name))
         other_plan = build_cell_plan(other)
+        other_plans.append((name, other_plan))
         say(f"  {name}: n_fft {other_cfg.dsp.n_fft}, {other_cfg.dsp.n_mels} "
             f"mels, hidden {other_cfg.model.hidden_sizes}")
         phase_kernel_vs_plain(
@@ -890,22 +1123,54 @@ def main() -> int:
     say("phase 7: EngineDaemon mode fused-webrtc on 127.0.0.1")
     w_launches += phase_daemon_webrtc(torch, dari_cfg, dari)
 
-    say("phase 8: timing")
+    good_cfg, good = load_pretrained("gruunet2-good")
+    say("phase 8: fused cell kernel vs its plain version on the card")
+    c_err = phase_fused_cell(torch, [("gruunet2-good", build_cell_plan(good))]
+                             + other_plans)
+    say(f"phase 9: profile --mode fast --fused --streams {SLOTS}, in process")
+    c_launches, _ = phase_profile(torch)
+    say(f"phase 10: fast step with the fused cell on the card vs the zoo "
+        f"model on the CPU (gruunet2-good, {SLOTS} streams)")
+    c_launches += phase_fast_step(torch, good_cfg, good)
+    say(f"phase 11: StreamEngine mode fast, {SLOTS} slots, card vs CPU")
+    phase_engine_fast(torch, good_cfg, good)
+    say("phase 12: EngineDaemon mode fast on 127.0.0.1")
+    phase_daemon_fast(torch)
+
+    say("phase 13: timing")
     say(f"  fused hop ({smi}):")
-    fused = timed(torch, hop,
-                  lambda b: fused_hop_init_state(cfg, plan, b, "cuda"),
-                  hop_work, SLOTS, TIMED_LAUNCHES)
+    state, chunk = hop_inputs(
+        torch, hop, lambda b: fused_hop_init_state(cfg, plan, b, "cuda"),
+        SLOTS)
+    fused = timed(torch, lambda: hop(state, chunk),
+                  lambda: hop.reference(state, chunk), hop_work(hop, SLOTS),
+                  SLOTS, TIMED_LAUNCHES)
     w_hop = make_webrtc_hop(dari_cfg, dari_plan, "cuda")
     say(f"  webrtc hop, GL-{w_hop.n_iter} ({smi}):")
-    webrtc = timed(
+    w_state, w_chunk = hop_inputs(
         torch, w_hop,
         lambda b: webrtc_hop_init_state(dari_cfg, dari_plan, b, "cuda"),
-        webrtc_hop_work, SLOTS, 50)
+        SLOTS)
+    webrtc = timed(torch, lambda: w_hop(w_state, w_chunk),
+                   lambda: w_hop.reference(w_state, w_chunk),
+                   webrtc_hop_work(w_hop, SLOTS), SLOTS, 50)
+    pm = PlanModel(good, fused=True)
+    cell = pm.fused_cell
+    say(f"  fused cell, gruunet2-good ({smi}):")
+    x, hx = cell_inputs(torch, SLOTS, cell.n_feat, cell.n, 7)
+    fused_cell = timed(torch, lambda: cell(x, hx),
+                       lambda: cell.reference(x, hx), cell_work(cell, SLOTS),
+                       SLOTS, TIMED_LAUNCHES)
+    say(f"  mode fast, gruunet2-good ({smi}):")
+    time_fast_step(torch, good_cfg, good, "zoo model")
+    time_fast_step(torch, good_cfg, pm, "PlanModel(fused=True)")
 
     rows = []
     for name, replaces, n, e, (ms, plain_ms, bound_ms, bound_by) in (
             ("fused_hop", "fused_hop.py:242", launches, err, fused),
-            ("webrtc_hop", "webrtc_hop.py:331", w_launches, w_err, webrtc)):
+            ("webrtc_hop", "webrtc_hop.py:331", w_launches, w_err, webrtc),
+            ("fused_cell", "gruunet_cell.py:58", c_launches, c_err,
+             fused_cell)):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"audio_denoising_torch/csrc/{name}.cu",

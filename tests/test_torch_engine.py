@@ -1,6 +1,7 @@
 """The port's serving slice against the JAX package on the CPU:
 StreamEngine mode 'fused' (masked commit, ingress sanitization, slot
-reuse, snapshot/restore) and the EngineDaemon's wire protocol."""
+reuse, snapshot/restore) and the EngineDaemon's wire protocol. Mode
+'fast' is held in tests/test_torch_fast.py."""
 
 import os
 import threading
@@ -164,17 +165,20 @@ def test_engine_needs_a_card_unless_cpu_is_asked(monkeypatch):
 def test_engine_refuses_unported_modes():
     cfg, model = load_pretrained(SPEC)
     with pytest.raises(ValueError, match="not ported"):
-        StreamEngine(cfg, model, mode="fast", device="cpu")
+        StreamEngine(cfg, model, mode="unet", device="cpu")
 
 
 def test_daemon_refuses_a_profile_it_cannot_serve():
     """A unit-gain checkpoint's recommended profile turns the SNR gate on,
-    which the port's fused hop lacks: the daemon refuses it rather than
-    serve it ungated."""
+    which the port's fused hop and fast step lack: the daemon refuses it
+    in both modes rather than serve it ungated."""
     path = os.path.join(REPO, "runs", "gruunet2s16kw40-mrstft-idp-50k.npz")
     with pytest.raises(NotImplementedError, match="SNR gate"):
         EngineDaemon(path, max_streams=2, address=("127.0.0.1", 0),
                      device="cpu")
+    with pytest.raises(NotImplementedError, match="SNR gate"):
+        EngineDaemon(path, max_streams=2, address=("127.0.0.1", 0),
+                     mode="fast", device="cpu")
 
 
 def _recv(conn):

@@ -46,6 +46,15 @@ def test_webrtc_slice_modules_are_found(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "audio_denoising_torch.ops.kernels.fused_cell",
+    "audio_denoising_torch.runtime.profiler",
+    "audio_denoising_torch.apps.profile_app"])
+def test_fast_slice_modules_are_found(module):
+    """The third slice's modules fall under the import check below."""
+    assert module in _port_modules()
+
+
 @pytest.mark.parametrize("source", sorted(
     f for f in os.listdir(os.path.join(PKG, "csrc"))
     if f.endswith((".cu", ".cuh"))))
@@ -110,10 +119,10 @@ def test_cli_lists_only_ported_commands():
                            "--help"], cwd=REPO, env=_clean_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0
-    assert "engine" in proc.stdout
+    assert "engine" in proc.stdout and "profile" in proc.stdout
 
 
-@pytest.mark.parametrize("argv", [["engine", "--mode", "fast"],
+@pytest.mark.parametrize("argv", [["profile", "--mode", "unet"],
                                   ["engine", "--mode", "unet"],
                                   ["no-such-command"]])
 def test_cli_refuses_what_is_not_ported(argv):

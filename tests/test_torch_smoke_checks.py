@@ -126,3 +126,18 @@ def test_forced_floor(smoke, kernel_db, plain_db, held):
     k, p, floor = smoke.forced_floor(noise(kernel_db), noise(plain_db), ref)
     assert abs(k - kernel_db) < 3 and abs(p - plain_db) < 3
     assert (k >= floor) == held
+
+
+def test_cell_bound_counts_the_plan(smoke):
+    """chip_smoke's bound of the fused cell at gruunet2-good's plan and 256
+    streams: 2 x 710,192 multiply-adds per stream, the 712,568 plan
+    floats read once, x, hx, y and hx' once per stream."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.ops.kernels.fused_cell import make_fused_cell
+    _, model = load_pretrained("gruunet2-good")
+    cell = make_fused_cell(build_cell_plan(model), "cpu")
+    assert sum(w.numel() for w in cell.weights) == 712_568
+    flops, nbytes = smoke.cell_work(cell, 256)
+    assert flops == 2 * 710_192 * 256
+    assert nbytes == 4 * (712_568 + 256 * 2 * (64 + 68))
+    assert flops / smoke.FP32_FLOPS > nbytes / smoke.HBM_BYTES_S
