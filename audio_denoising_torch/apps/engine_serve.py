@@ -6,7 +6,10 @@ every tick advances all streams that sent a chunk in one engine step
 (runtime/tick.BatchingTick): the op-by-op phase-reuse hop in mode
 ``fast``, one launch of the fused-hop kernel in mode ``fused``, of the
 WebRTC-hop kernels in mode ``fused-webrtc``, or the op-by-op Griffin-Lim
-hop in mode ``webrtc``.
+hop in mode ``webrtc``. As in the JAX package, a bare daemon serves
+``gruunet2-good`` in mode ``fast``, and in modes ``fast`` and ``fused`` a
+unit-gain causal checkpoint gets the tuned SNR gate unless the caller
+sets one (``--snr-gate``) or turns it off (``--no-snr-gate``).
 
 Protocol (multiprocessing.connection, length-prefixed pickle):
 
@@ -32,7 +35,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from audio_denoising_torch.config import recommended_serving
+from audio_denoising_torch.config import recommended_serving, with_snr_gate
 from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.runtime.engine import MODES, StreamEngine
 from audio_denoising_torch.runtime.metrics import ServingMetrics
@@ -42,17 +45,29 @@ POLL_S = 0.25   # how often blocked loops look at the stop flag
 
 
 class EngineDaemon:
-    def __init__(self, spec: str = "gruunet2-stream16k",
+    """The JAX daemon's defaults: ``gruunet2-good`` in mode ``fast``. An
+    explicit ``snr_gate_db`` turns the SNR gate on (``with_snr_gate``);
+    without one, modes ``fast`` and ``fused`` serve the recommended
+    profile (the tuned gate on unit-gain causal checkpoints) unless
+    ``auto_gate`` is False."""
+
+    def __init__(self, spec: str = "gruunet2-good",
                  max_streams: int = 256,
                  address: Tuple[str, int] = ("localhost", 6102),
-                 mode: str = "fused", tick_ms: float = 1.0,
+                 mode: str = "fast", tick_ms: float = 1.0,
                  pipeline_depth: int = 2,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 snr_gate_db: Optional[float] = None,
+                 snr_gate_width_db: Optional[float] = None,
+                 snr_gate_estimator: Optional[str] = None,
+                 auto_gate: bool = True):
         self.cfg, self.model = load_pretrained(spec)
-        if mode in ("fast", "fused"):
-            # the measured-best profile of the phase-reuse hops (a no-op
-            # for Griffin-Lim configs); a checkpoint it would gate is
-            # refused by both hops (no gate yet), never served ungated
+        if snr_gate_db is not None:
+            self.cfg = with_snr_gate(self.cfg, snr_gate_db,
+                                     snr_gate_width_db, snr_gate_estimator)
+        elif auto_gate and mode in ("fast", "fused"):
+            # the measured-best profile of the phase-reuse hops; the
+            # Griffin-Lim modes have no gated reconstruction
             self.cfg = recommended_serving(self.cfg)
         self.engine = StreamEngine(self.cfg, self.model, mode=mode,
                                    max_streams=max_streams, device=device)
@@ -182,28 +197,54 @@ class EngineDaemon:
         self.tick.stop()
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="audio_denoising_torch engine",
         description="Batched multi-stream denoising daemon (PyTorch/CUDA)")
-    p.add_argument("--model", default="gruunet2-stream16k",
+    p.add_argument("--model", default="gruunet2-good",
                    help="a preset name or an .npz checkpoint; mode "
                    "fused-webrtc needs one whose embedded full_config "
                    "turns on dsp.griffin_lim_warm_start")
     p.add_argument("--host", default="localhost")
     p.add_argument("--port", type=int, default=6102)
     p.add_argument("--max-streams", type=int, default=256)
-    p.add_argument("--mode", choices=list(MODES), default="fused")
+    p.add_argument("--mode", choices=list(MODES), default="fast")
     p.add_argument("--tick-ms", type=float, default=1.0)
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="rounds kept in flight before delivery blocks")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="'cpu' runs the kernels' plain PyTorch versions")
-    args = p.parse_args(argv)
-    daemon = EngineDaemon(args.model, args.max_streams,
-                          (args.host, args.port), args.mode, args.tick_ms,
-                          pipeline_depth=args.pipeline_depth,
-                          device=args.device)
+    p.add_argument("--snr-gate", type=float, default=None,
+                   help="SNR-gated passthrough blend: the output leans "
+                   "toward the raw input above this estimated input SNR "
+                   "(dB), protecting near-clean streams (ops/noisefloor.py)."
+                   " Without it, unit-gain causal checkpoints serve the "
+                   "tuned gate in modes fast and fused "
+                   "(config.recommended_serving)")
+    p.add_argument("--no-snr-gate", action="store_true",
+                   help="serve the raw profile: no recommended gate")
+    p.add_argument("--snr-gate-width", type=float, default=None,
+                   help="the gate's transition width in dB (tuned default "
+                   "6)")
+    p.add_argument("--snr-gate-estimator", default=None,
+                   choices=("removed", "floor", "both"),
+                   help="the gate's SNR estimator (default 'both': the "
+                   "model-informed decision with the floor tracker's veto)")
+    return p
+
+
+def daemon_from_args(args: argparse.Namespace) -> EngineDaemon:
+    return EngineDaemon(args.model, args.max_streams, (args.host, args.port),
+                        args.mode, args.tick_ms,
+                        pipeline_depth=args.pipeline_depth,
+                        device=args.device, snr_gate_db=args.snr_gate,
+                        snr_gate_width_db=args.snr_gate_width,
+                        snr_gate_estimator=args.snr_gate_estimator,
+                        auto_gate=not args.no_snr_gate)
+
+
+def main(argv=None) -> int:
+    daemon = daemon_from_args(parser().parse_args(argv))
     try:
         daemon.serve_forever()
     except KeyboardInterrupt:

@@ -326,9 +326,8 @@ def recommended_serving(cfg: Config) -> Config:
       so x3-gain (residual-objective) checkpoints would level-swing.
 
     No-op otherwise, and no-op when a gate is already configured. The
-    engine daemon applies this. The port's fused hop has no gate yet, so
-    a profile that turns it on is refused there rather than served
-    ungated. The reference's analogue
+    engine daemon applies this in modes ``fast`` and ``fused``. The
+    reference's analogue
     is its ad-hoc fixed x3 serving gain (server.py:213-214) — a static
     heuristic where this is a measured per-stream blend."""
     srv = cfg.serving
@@ -340,6 +339,37 @@ def recommended_serving(cfg: Config) -> Config:
             srv, snr_gate_db=1.0, snr_gate_width_db=6.0,
             snr_gate_estimator="both", snr_gate_tau_s=0.1))
     return cfg
+
+
+def with_snr_gate(cfg: Config, gate_db: Optional[float],
+                  width_db: Optional[float] = None,
+                  estimator: Optional[str] = None) -> Config:
+    """``cfg`` with the SNR-gated passthrough blend on (one helper, so
+    every surface agrees: the tuning chose (gate, width) pairs). No-op
+    when ``gate_db`` is None. Warns on a non-unit ``output_gain``: the
+    blend mixes the gained denoised magnitude with the raw input, so the
+    gate is meant for level-calibrated (gain 1.0) checkpoints."""
+    if gate_db is None:
+        return cfg
+    if estimator is not None and estimator not in ("removed", "floor",
+                                                   "both"):
+        raise ValueError(
+            f"snr_gate_estimator must be 'removed', 'floor' or 'both', "
+            f"got {estimator!r}")
+    if cfg.serving.output_gain != 1.0:
+        import warnings
+        warnings.warn(
+            f"snr_gate_db set on a checkpoint with output_gain="
+            f"{cfg.serving.output_gain} — the gate blends toward the "
+            f"raw input level, so non-unit gains shift level with the "
+            f"gate; intended for level-calibrated (gain 1.0) "
+            f"checkpoints", stacklevel=2)
+    return dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, snr_gate_db=gate_db,
+        snr_gate_width_db=(width_db if width_db is not None
+                           else cfg.serving.snr_gate_width_db),
+        snr_gate_estimator=(estimator if estimator is not None
+                            else cfg.serving.snr_gate_estimator)))
 
 
 PRESETS: Dict[str, Config] = {

@@ -1,10 +1,12 @@
-// The whole streaming serving hop as one CUDA kernel for Hopper (sm_90a).
+// The whole streaming serving hop as CUDA kernels for Hopper (sm_90a).
 //
-// Replaces audio_denoising_tpu/ops/pallas/fused_hop.py::make_fused_hop's
-// single-hop Pallas kernel (`kernel`, fused_hop.py:242), with the cell
-// math of ops/pallas/common.py::plan_cell_math as the `plan_cell` routine
-// below. This slice covers its fp32, mel-domain form with no SNR gate and
-// no delta carry. The plain PyTorch version of the same function is
+// Replaces two Pallas kernels of audio_denoising_tpu/ops/pallas/
+// fused_hop.py::make_fused_hop: the single-hop `kernel` (fused_hop.py:242)
+// and the resident multi-hop `kernel_multi` (fused_hop.py:384), with the
+// cell math of ops/pallas/common.py::plan_cell_math as plan_cell.cuh's
+// `plan_cell` routine. This file covers their fp32, mel-domain forms with
+// the SNR gate (estimators 'removed', 'floor' and 'both') and int16 IO,
+// and no delta carry. The plain PyTorch version of the same function is
 // FusedHop.reference in audio_denoising_torch/ops/kernels/fused_hop.py.
 //
 // Per stream and hop: shift the analysis ring, apply the Hann window,
@@ -12,29 +14,38 @@
 // take log(1 + .), run the plan cell (encoder matmuls with ReLU, the
 // reset-gate matmul, GRU gating, decoder matmuls with split skips),
 // subtract the residual, leaky-ReLU 0.2, exp - 1 clamped at 0, inverse
-// mel clamped at 0 times the output gain, reuse the noisy phase by
-// scaling the complex bins, inverse DFT, window, overlap-add divided by
-// the window envelope, and decay the hidden state.
+// mel clamped at 0 times the output gain, the SNR gate (ops/noisefloor.py:
+// per-stream EMAs of the output and removed power and the per-bin noise
+// floor, then the output magnitude blended toward the input's), reuse the
+// noisy phase by scaling the complex bins, inverse DFT, window,
+// overlap-add divided by the window envelope, and decay the hidden state.
 //
 // What bounds it on an H100 (gruunet2-stream16k, B = 256 streams): the
 // function needs about 393 MFLOP per hop (plan cell 364 M, mel pair 21 M,
 // and the transform and its inverse at real-FFT cost, 2.5 N log2 N each,
-// 7.6 M), 5.9 us against 67 TFLOP/s of fp32 FMA, while its bytes (3.0 MB
-// of weights without DFT matrices, 3.4 MB of state in and out) over
-// 3.35 TB/s are 1.9 us: the hop is bound by fp32 operations. This kernel
-// takes the transforms as dense cos/sin matmuls, as the reference does
-// (805 MFLOP), so it does about twice the work the bound counts. Parity
-// with the reference needs fp32, so the kernel uses FMA, not TF32 tensor
-// cores.
+// 7.6 M; the gate adds about 20 per bin), 5.9 us against 67 TFLOP/s of
+// fp32 FMA, while its bytes (3.0 MB of weights without DFT matrices,
+// 3.4 MB of state in and out) over 3.35 TB/s are 1.9 us: the hop is bound
+// by fp32 operations. K hops in one call move the weights and the state
+// once and K chunks in and out, so the call stays bound by operations.
+// This kernel takes the transforms as dense cos/sin matmuls, as the
+// reference does (805 MFLOP per hop), so it does about twice the work the
+// bound counts. Parity with the reference needs fp32, so the kernel uses
+// FMA, not TF32 tensor cores.
 //
 // Design: one block of 512 threads owns a tile of kTile = 2 streams and
-// walks the chain's stages in order, with every activation in dynamic
-// shared memory (about 4.6 k floats per stream, plus a split-K scratch of
-// 2 k floats per stream). The weights (6.3 MB) stay in global memory and
-// are served from the 50 MB L2; each block reads each weight once per
-// hop. All 17 matmuls go through the small-GEMM routine of
-// plan_cell.cuh (`gemm`, shared with webrtc_hop.cu), which that header
-// describes.
+// walks the chain's stages in order, with every activation and the tile's
+// whole state (ring, OLA buffer, hx, the gate's planes) in dynamic shared
+// memory. Both entry points load the state once, run `hop_body` (kept out
+// of line, so the two run the same instructions and K hops in one call
+// equal K single hops bit for bit), and write the state back once: the
+// single-hop kernel runs one hop, the multi-hop kernel K, reading chunk k
+// from (K, B, hop) and writing output k, the counterpart of the Pallas
+// kernel's VMEM scratch carried across its K grid steps. The weights
+// (6.3 MB) stay in global memory and are served from the 50 MB L2; each
+// block reads each weight once per hop. All 17 matmuls go through the
+// small-GEMM routine of plan_cell.cuh (`gemm`, shared with webrtc_hop.cu),
+// which that header describes.
 //
 // The tile trades two limits: a larger tile streams fewer weight bytes
 // from L2 in all (each block reads all of them), a smaller one gives each
@@ -46,17 +57,42 @@
 
 #include "plan_cell.cuh"
 
+// One set of per-stream state planes, B rows each. The gate's planes are
+// null when the configuration does not carry them.
+struct AdtHopState {
+  float* ring;       // (B, n_fft) analysis ring
+  float* ola;        // (B, n_fft) synthesis accumulator
+  float* hx;         // (B, n_hidden) cell state
+  float* nf_smooth;  // (B, n_bins) estimator 'floor': smoothed power
+  float* nf_floor;   // (B, n_bins) estimator 'floor': tracked floor
+  float* nf_total;   // (B,) estimator 'floor': long power EMA
+  float* em_out;     // (B,) estimator 'removed': output-power EMA
+  float* em_rem;     // (B,) estimator 'removed': removed-power EMA
+};
+
+// The SNR gate's constants (ops/noisefloor.py); removed = floor = 0 is no
+// gate.
+struct AdtGate {
+  int removed;            // estimator 'removed' or 'both'
+  int floor;              // estimator 'floor' or 'both'
+  float gate_db;          // the decision's ramp: gate and width
+  float width_db;
+  float floor_gate_db;    // the floor part's ramp (the veto under 'both')
+  float floor_width_db;
+  float beta;             // per-bin power smoothing
+  float rise;             // the floor's per-frame rise bound
+  float beta_tot;         // the long EMAs
+  float floor_bias;
+  float eps;
+};
+
 // Mirrored field by field by _Args in ops/kernels/fused_hop.py;
 // adt_fused_hop_args_size lets the wrapper check the layouts agree.
 struct AdtFusedHopArgs {
-  const float* ring;   // (B, n_fft) analysis ring
-  const float* ola;    // (B, n_fft) synthesis accumulator
-  const float* hx;     // (B, n_hidden) cell state
-  const float* chunk;  // (B, hop) new samples
-  float* ring_out;
-  float* ola_out;
-  float* hx_out;
-  float* out;          // (B, hop)
+  AdtHopState in;
+  AdtHopState out_state;
+  const void* chunk;   // (hops, B, hop) float32, or int16 when pcm16
+  void* out;           // (hops, B, hop), the chunk's type
   const float* cf;     // (n_fft, n_bins) forward DFT, real part
   const float* sf;     // (n_fft, n_bins) forward DFT, imaginary part
   const float* ic;     // (n_bins, n_fft) inverse DFT from the real part
@@ -66,23 +102,36 @@ struct AdtFusedHopArgs {
   const float* win;    // (n_fft,)
   const float* env;    // (hop,) overlap-add envelope
   AdtPlan plan;
+  AdtGate gate;
   int batch;
   int n_fft;
   int hop;
   int n_bins;
   int n_mels;
+  int hops;            // hops per call (the multi-hop kernel)
+  int pcm16;           // chunks and outputs are int16 (the multi-hop kernel)
   float output_gain;
   float state_decay;
 };
 
 namespace {
 
+// Per-stream scalars in shared memory, and the partial sums of the gate's
+// four bin means (32 per mean and stream).
+enum Scalar { kTot = 0, kEmo, kEmr, kAlpha, kScalars = 4 };
+constexpr int kMeans = 4;  // output, removed and input power; the floor
+constexpr int kLanes = 32;
+static_assert(kTile * kMeans * kLanes <= kThreads,
+              "one thread per partial sum of the gate's means");
+constexpr float kDbPerNeper = 4.342944819032518f;  // 10 / ln 10
+
 // Offsets (in floats) of the per-block shared-memory buffers: the hop's
-// own, then the cell's (plan_cell.cuh), each kTile rows of a leading
-// dimension rounded up to 4 floats.
+// activations, the tile's state, then the cell's (plan_cell.cuh), each
+// kTile rows of a leading dimension rounded up to 4 floats.
 struct Layout {
   int ld_t, ld_f;
   int frame, re, im, mag, lin;
+  int ring, ola, nfs, nff, sc, red;
   CellLayout cell;
   int total;
 };
@@ -97,44 +146,180 @@ __host__ __device__ inline void make_layout(const AdtFusedHopArgs& a,
   l->im = take(&off, kTile, l->ld_f);
   l->mag = take(&off, kTile, l->ld_f);
   l->lin = take(&off, kTile, l->ld_f);
+  l->ring = take(&off, kTile, l->ld_t);
+  l->ola = take(&off, kTile, l->ld_t);
+  l->nfs = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
+  l->nff = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
+  l->sc = take(&off, kTile, kScalars);
+  l->red = take(&off, kTile, kMeans * kLanes);
   make_cell_layout(a.plan, &l->cell, &off);
   l->total = off;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    fused_hop_kernel(const __grid_constant__ AdtFusedHopArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  Layout l;
-  make_layout(a, &l);
-  const int b0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.batch - b0);
+__device__ inline float load_sample(const AdtFusedHopArgs& a, int k,
+                                    size_t b, int i) {
+  const size_t idx = ((size_t)k * a.batch + b) * a.hop + i;
+  if (a.pcm16)  // s16 -> f32, the reference's 1/32768 scale
+    return (float)static_cast<const short*>(a.chunk)[idx] * (1.f / 32768.f);
+  return static_cast<const float*>(a.chunk)[idx];
+}
+
+__device__ inline void store_sample(const AdtFusedHopArgs& a, int k,
+                                    size_t b, int i, float v) {
+  const size_t idx = ((size_t)k * a.batch + b) * a.hop + i;
+  if (a.pcm16)  // clip to [-1, 1], x 32767, truncated toward zero
+    static_cast<short*>(a.out)[idx] =
+        (short)__float2int_rz(fminf(fmaxf(v, -1.f), 1.f) * 32767.f);
+  else
+    static_cast<float*>(a.out)[idx] = v;
+}
+
+// Copies rows [b0, b0 + rows) of state `st` into the tile's shared
+// memory (to = true; rows past the batch are zeros) or back (to = false).
+__device__ inline void move_state(const AdtFusedHopArgs& a, const Layout& l,
+                                  float* smem, const AdtHopState& st, int b0,
+                                  int rows, bool to) {
+  const int n_fft = a.n_fft, F = a.n_bins, n = a.plan.n_hidden;
+  auto move = [&](float* g, int width, int off, int ld) {
+    for (int e = threadIdx.x; e < kTile * width; e += blockDim.x) {
+      const int s = e / width, i = e % width;
+      float* sv = smem + off + s * ld + i;
+      if (to)
+        *sv = s < rows ? g[(size_t)(b0 + s) * width + i] : 0.f;
+      else if (s < rows)
+        g[(size_t)(b0 + s) * width + i] = *sv;
+    }
+  };
+  move(st.ring, n_fft, l.ring, l.ld_t);
+  move(st.ola, n_fft, l.ola, l.ld_t);
+  move(st.hx, n, l.cell.hx, l.cell.ld_n);
+  if (a.gate.floor) {
+    move(st.nf_smooth, F, l.nfs, l.ld_f);
+    move(st.nf_floor, F, l.nff, l.ld_f);
+    move(st.nf_total, 1, l.sc + kTot, kScalars);
+  }
+  if (a.gate.removed) {
+    move(st.em_out, 1, l.sc + kEmo, kScalars);
+    move(st.em_rem, 1, l.sc + kEmr, kScalars);
+  }
+}
+
+// The SNR gate's estimators for the tile (noisefloor.removed_step,
+// floor_step, their SNRs and gate_alpha); leaves each stream's denoise
+// weight alpha in the scalars. The bin means run over exactly n_bins bins.
+__device__ void gate_alphas(const AdtFusedHopArgs& a, const Layout& l,
+                            float* smem) {
+  const AdtGate& g = a.gate;
+  const int F = a.n_bins;
+  // one thread per (stream, mean, lane): partial sums over bins lane + 32j;
+  // the floor's thread also steps the per-bin tracker of its bins
+  const int t = threadIdx.x;
+  if (t < kTile * kMeans * kLanes) {
+    const int s = t / (kMeans * kLanes), q = t / kLanes % kMeans,
+              lane = t % kLanes;
+    const float* mag = smem + l.mag + s * l.ld_f;
+    const float* lin = smem + l.lin + s * l.ld_f;
+    float sum = 0.f;
+    if (q < 2 && g.removed) {
+      for (int f = lane; f < F; f += kLanes) {
+        const float p_lin = lin[f] * lin[f];
+        sum += q == 0 ? p_lin : fmaxf(mag[f] * mag[f] - p_lin, 0.f);
+      }
+    } else if (q == 2 && g.floor) {
+      for (int f = lane; f < F; f += kLanes) sum += mag[f] * mag[f];
+    } else if (q == 3 && g.floor) {
+      float* nfs = smem + l.nfs + s * l.ld_f;
+      float* nff = smem + l.nff + s * l.ld_f;
+      for (int f = lane; f < F; f += kLanes) {
+        const float smooth =
+            g.beta * nfs[f] + (1.f - g.beta) * (mag[f] * mag[f]);
+        const float fl =
+            nff[f] <= 0.f ? smooth : fminf(smooth, nff[f] * g.rise);
+        nfs[f] = smooth;
+        nff[f] = fl;
+        sum += fl;
+      }
+    }
+    smem[l.red + t] = sum;
+  }
+  __syncthreads();
+  if (t < kTile) {
+    float* sc = smem + l.sc + t * kScalars;
+    const float* red = smem + l.red + t * kMeans * kLanes;
+    float mean[kMeans];
+    for (int q = 0; q < kMeans; ++q) {
+      float sum = 0.f;
+      for (int lane = 0; lane < kLanes; ++lane) sum += red[q * kLanes + lane];
+      mean[q] = sum / (float)F;
+    }
+    const float bt = g.beta_tot;
+    float alpha = 0.f;
+    if (g.removed) {  // a zero pair (a fresh slot) latches
+      const bool fresh = sc[kEmo] + sc[kEmr] <= 0.f;
+      const float o = fresh ? mean[0] : bt * sc[kEmo] + (1.f - bt) * mean[0];
+      const float r = fresh ? mean[1] : bt * sc[kEmr] + (1.f - bt) * mean[1];
+      sc[kEmo] = o;
+      sc[kEmr] = r;
+      const float snr = kDbPerNeper * (logf(o + g.eps) - logf(r + g.eps));
+      alpha = fminf(fmaxf((g.gate_db + g.width_db - snr) / (2.f * g.width_db),
+                          0.f), 1.f);
+    }
+    if (g.floor) {  // the floor part; the veto under 'both'
+      const float total = sc[kTot] <= 0.f
+                              ? mean[2]
+                              : bt * sc[kTot] + (1.f - bt) * mean[2];
+      sc[kTot] = total;
+      const float nfm = g.floor_bias * mean[3];
+      const float sig = fmaxf(total - nfm, 0.f);
+      const float snr = kDbPerNeper * (logf(sig + g.eps) - logf(nfm + g.eps));
+      const float af = fminf(
+          fmaxf((g.floor_gate_db + g.floor_width_db - snr) /
+                    (2.f * g.floor_width_db),
+                0.f),
+          1.f);
+      alpha = g.removed ? fmaxf(alpha, af) : af;
+    }
+    sc[kAlpha] = alpha;
+  }
+  __syncthreads();
+}
+
+// One hop of the tile on its state in shared memory: chunk k in, output k
+// out. Kept out of line so both kernels run the same instructions.
+__device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
+                                      const Layout& l, float* smem, int k,
+                                      int b0, int rows) {
   const int n_fft = a.n_fft, hop = a.hop, F = a.n_bins, M = a.n_mels;
   const int n = a.plan.n_hidden;
   const int keep = n_fft - hop;
+  const bool gated = a.gate.removed || a.gate.floor;
+  float* frame = smem + l.frame;
+  float* ring = smem + l.ring;
+  float* ola = smem + l.ola;
 
-  // ring shift + Hann; the cell state comes in beside it
+  // the shifted ring, staged in the frame buffer, then kept and windowed
   for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
     const int s = e / n_fft, i = e % n_fft;
     float v = 0.f;
-    if (s < rows) {
-      const size_t b = b0 + s;
-      v = i < keep ? a.ring[b * n_fft + i + hop] : a.chunk[b * hop + i - keep];
-      a.ring_out[b * n_fft + i] = v;
-    }
-    smem[l.frame + s * l.ld_t + i] = v * a.win[i];
+    if (i < keep)
+      v = ring[s * l.ld_t + i + hop];
+    else if (s < rows)
+      v = load_sample(a, k, b0 + s, i - keep);
+    frame[s * l.ld_t + i] = v;
   }
-  for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
-    const int s = e / n, j = e % n;
-    smem[l.cell.hx + s * l.cell.ld_n + j] =
-        s < rows ? a.hx[(size_t)(b0 + s) * n + j] : 0.f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
+    const int o = (e / n_fft) * l.ld_t + e % n_fft;
+    ring[o] = frame[o];
+    frame[o] = frame[o] * a.win[e % n_fft];
   }
   __syncthreads();
 
   // DFT as two matmuls, then the magnitude
-  gemm(make_gemm(smem + l.frame, l.ld_t, n_fft, a.cf, F, nullptr, kNone,
-                    smem + l.re, l.ld_f, smem + l.cell.scratch));
-  gemm(make_gemm(smem + l.frame, l.ld_t, n_fft, a.sf, F, nullptr, kNone,
-                    smem + l.im, l.ld_f, smem + l.cell.scratch));
+  gemm(make_gemm(frame, l.ld_t, n_fft, a.cf, F, nullptr, kNone,
+                 smem + l.re, l.ld_f, smem + l.cell.scratch));
+  gemm(make_gemm(frame, l.ld_t, n_fft, a.sf, F, nullptr, kNone,
+                 smem + l.im, l.ld_f, smem + l.cell.scratch));
   __syncthreads();
   for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
     const int o = (e / F) * l.ld_f + e % F;
@@ -145,17 +330,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // x = log(1 + mag @ mel), the model's feature and first skip
   gemm(make_gemm(smem + l.mag, l.ld_f, F, a.mel, M, nullptr, kLog1p,
-                    smem + l.cell.d[0], l.cell.ld_d[0],
-                    smem + l.cell.scratch));
+                 smem + l.cell.d[0], l.cell.ld_d[0], smem + l.cell.scratch));
   __syncthreads();
 
   float* y = plan_cell(a.plan, l.cell, smem);
 
   // the new state: hi decayed
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-    const int s = e / n, j = e % n;
-    a.hx_out[(size_t)(b0 + s) * n + j] =
-        smem[l.cell.hi + s * l.cell.ld_n + j] * a.state_decay;
+  for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
+    const int o = (e / n) * l.cell.ld_n + e % n;
+    smem[l.cell.hx + o] = smem[l.cell.hi + o] * a.state_decay;
   }
   // residual: y <- max(exp(leaky_relu(x - y, 0.2)) - 1, 0)
   for (int e = threadIdx.x; e < kTile * M; e += blockDim.x) {
@@ -174,10 +357,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   gemm(gl);
   __syncthreads();
 
-  // phase reuse as complex scaling; at mag ~ 0 the bin becomes lin + 0j
+  if (gated) gate_alphas(a, l, smem);
+
+  // the gate's blend toward the input magnitude, then phase reuse as
+  // complex scaling; at mag ~ 0 the bin becomes lin + 0j
   for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
-    const int o = (e / F) * l.ld_f + e % F;
-    const float mag = smem[l.mag + o], lin = smem[l.lin + o];
+    const int s = e / F;
+    const int o = s * l.ld_f + e % F;
+    const float mag = smem[l.mag + o];
+    float lin = smem[l.lin + o];
+    if (gated) {
+      const float alpha = smem[l.sc + s * kScalars + kAlpha];
+      lin = alpha * lin + (1.f - alpha) * mag;
+    }
     const bool safe = mag > 1e-8f;
     const float scale = lin / (safe ? mag : 1.f);
     smem[l.re + o] = safe ? smem[l.re + o] * scale : lin;
@@ -187,7 +379,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // inverse DFT from both parts in one accumulation
   Gemm gs = make_gemm(smem + l.re, l.ld_f, F, a.ic, n_fft, nullptr, kNone,
-                      smem + l.frame, l.ld_t, smem + l.cell.scratch);
+                      frame, l.ld_t, smem + l.cell.scratch);
   gs.a2 = smem + l.im;
   gs.lda2 = l.ld_f;
   gs.k2 = F;
@@ -195,29 +387,66 @@ __global__ void __launch_bounds__(kThreads, 1)
   gemm(gs);
   __syncthreads();
 
-  // window, overlap-add, divide the finished hop by the envelope
-  for (int e = threadIdx.x; e < rows * n_fft; e += blockDim.x) {
-    const int s = e / n_fft, i = e % n_fft;
-    const size_t b = b0 + s;
-    const float* synth = smem + l.frame + s * l.ld_t;
-    if (i < hop)
-      a.out[b * hop + i] = (a.ola[b * n_fft + i] + synth[i] * a.win[i]) /
-                           a.env[i];
-    a.ola_out[b * n_fft + i] =
-        i < keep ? a.ola[b * n_fft + i + hop] + synth[i + hop] * a.win[i + hop]
-                 : 0.f;
+  // window and overlap-add; the finished hop divided by the envelope
+  for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
+    const int o = (e / n_fft) * l.ld_t + e % n_fft;
+    frame[o] = ola[o] + frame[o] * a.win[e % n_fft];
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
+    const int s = e / n_fft, i = e % n_fft;
+    const float* acc = frame + s * l.ld_t;
+    if (i < hop && s < rows) store_sample(a, k, b0 + s, i, acc[i] / a.env[i]);
+    ola[s * l.ld_t + i] = i < keep ? acc[i + hop] : 0.f;
+  }
+  __syncthreads();  // the frame buffer is free for the next hop
 }
 
-cudaError_t launch(const AdtFusedHopArgs& a, size_t smem_bytes,
-                   cudaStream_t stream) {
+// Loads the tile's state, runs `hops` hops and writes the state back.
+__device__ __forceinline__ void run_hops(const AdtFusedHopArgs& a, int hops) {
+  extern __shared__ __align__(16) float smem[];
+  Layout l;
+  make_layout(a, &l);
+  const int b0 = blockIdx.x * kTile;
+  const int rows = min(kTile, a.batch - b0);
+  move_state(a, l, smem, a.in, b0, rows, true);
+  __syncthreads();
+  for (int k = 0; k < hops; ++k) hop_body(a, l, smem, k, b0, rows);
+  move_state(a, l, smem, a.out_state, b0, rows, false);
+}
+
+// The single-hop kernel (fused_hop.py:242): one hop, float32 IO.
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_hop_kernel(const __grid_constant__ AdtFusedHopArgs a) {
+  run_hops(a, 1);
+}
+
+// The resident multi-hop kernel (fused_hop.py:384): a.hops hops with the
+// state in shared memory throughout.
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_hop_multi_kernel(const __grid_constant__ AdtFusedHopArgs a) {
+  run_hops(a, a.hops);
+}
+
+cudaError_t launch(void (*kernel)(AdtFusedHopArgs), const AdtFusedHopArgs& a,
+                   size_t smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_hop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.batch + kTile - 1) / kTile);
-  fused_hop_kernel<<<grid, kThreads, smem_bytes, stream>>>(a);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+bool args_ok(const AdtFusedHopArgs& a) {
+  const bool state_ok =
+      (!a.gate.floor || (a.in.nf_smooth && a.in.nf_floor && a.in.nf_total &&
+                         a.out_state.nf_smooth && a.out_state.nf_floor &&
+                         a.out_state.nf_total)) &&
+      (!a.gate.removed || (a.in.em_out && a.in.em_rem &&
+                           a.out_state.em_out && a.out_state.em_rem));
+  return plan_ok(a.plan, a.n_mels) && a.n_fft % a.hop == 0 && state_ok &&
+         a.hops >= 1;
 }
 
 }  // namespace
@@ -226,20 +455,30 @@ extern "C" {
 
 int adt_fused_hop_args_size() { return (int)sizeof(AdtFusedHopArgs); }
 
-// Dynamic shared memory one block of kTile streams needs.
+// Dynamic shared memory one block of kTile streams needs (either kernel).
 long long adt_fused_hop_smem_bytes(const AdtFusedHopArgs* a) {
   Layout l;
   make_layout(*a, &l);
   return (long long)l.total * (long long)sizeof(float);
 }
 
-// Launches the hop on `stream` without synchronising; returns the launch's
-// cudaError_t (0 on success).
+// Launches one hop (float32 IO, a->hops == 1) on `stream` without
+// synchronising; returns the launch's cudaError_t (0 on success).
 int adt_fused_hop(const AdtFusedHopArgs* a, void* stream) {
-  if (!plan_ok(a->plan, a->n_mels) || a->n_fft % a->hop != 0)
+  if (!args_ok(*a) || a->hops != 1 || a->pcm16)
     return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  return (int)launch(*a, (size_t)adt_fused_hop_smem_bytes(a),
+  return (int)launch(fused_hop_kernel, *a,
+                     (size_t)adt_fused_hop_smem_bytes(a),
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Launches a->hops hops in one kernel on `stream` without synchronising.
+int adt_fused_hop_multi(const AdtFusedHopArgs* a, void* stream) {
+  if (!args_ok(*a)) return (int)cudaErrorInvalidValue;
+  if (a->batch <= 0) return (int)cudaSuccess;
+  return (int)launch(fused_hop_multi_kernel, *a,
+                     (size_t)adt_fused_hop_smem_bytes(a),
                      static_cast<cudaStream_t>(stream));
 }
 

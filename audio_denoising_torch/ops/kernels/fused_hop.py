@@ -1,16 +1,32 @@
 """The whole serving hop as one kernel (JAX counterpart
-ops/pallas/fused_hop.py, single-hop ``kernel`` at :242).
+ops/pallas/fused_hop.py: the single-hop ``kernel`` at :242 and the
+resident multi-hop ``kernel_multi`` at :384).
 
 ``make_fused_hop(cfg, plan, device)`` returns a ``FusedHop``: calling it
 runs one hop for a batch of streams, ``step(state, chunk (B, hop)) ->
-(state', out (B, hop))``. For CPU tensors it runs ``reference``, the plain
-PyTorch version that follows ``_hop_math`` (fused_hop.py:256-371); for
-CUDA tensors it launches the hand-written kernel in
-``csrc/fused_hop.cu`` or raises. ``launches`` counts kernel launches.
+(state', out (B, hop))``. With ``hops_per_call=K > 1`` a call runs K hops,
+``step(state, chunks (K, B, hop)) -> (state', outs (K, B, hop))``, as one
+launch whose state stays in the card's shared memory across the K hops.
+``io_dtype=torch.int16`` takes and gives int16 PCM (s16 x 1/32768 in,
+clip to [-1, 1] x 32767 truncated out): in the multi-hop kernel, or
+around the single hop in the wrapper, as JAX's ``step`` does. For CPU
+tensors a call runs ``plain`` (K hops of ``reference``, the plain PyTorch
+version that follows ``_hop_math``, fused_hop.py:256-371, with the same
+int16 conversion); for CUDA tensors it launches the hand-written kernels
+in ``csrc/fused_hop.cu`` or raises. ``launches`` counts kernel launches.
 
-This slice ports the fp32, mel-domain hop with no SNR gate and no delta
-(MOMO3) carry; those, bf16/int8 compute, int16 IO and the resident
-multi-hop form raise NotImplementedError.
+The hop carries the SNR gate (``serving.snr_gate_db``; ops/noisefloor.py)
+on extra state planes: estimator 'removed' two per-stream EMAs, 'floor'
+the per-bin smoothed power and floor and a per-stream EMA, 'both' all
+five. The per-stream EMAs are (B, 1) here; the Pallas kernel keeps them
+as (B, 128) broadcasts of the TPU's lane width.
+
+The port does not take JAX's ``hops_per_step`` (hops unrolled per grid
+step: its outputs are bit-identical, and the Hopper kernel has no grid
+step along K) or ``block_b`` (the kernel's tile of 2 streams is fixed and
+its ragged last tile masked, so B is not padded). Delta (MOMO3) plans and
+the raw domain (ROADMAP B3, A4) and bf16/int8 compute (B4) raise
+NotImplementedError.
 """
 
 import ctypes
@@ -25,21 +41,47 @@ from audio_denoising_torch.ops.kernels.common import (
     MAX_LEVELS, PlanArgs, kernel_operand, pack_plan_weights, plan_args,
     plan_cell_math)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
+from audio_denoising_torch.ops.noisefloor import (
+    _EPS, FLOOR_BIAS, FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB,
+    floor_rise_per_frame, gate_planes, smooth_beta_per_frame,
+    total_beta_per_frame)
 from audio_denoising_torch.ops.windows import hann_window, wola_envelope
+
+DB_PER_NEPER = 10.0 / np.log(10.0)
+
 
 class FusedHopState(NamedTuple):
     ring: torch.Tensor   # (B, n_fft) analysis window
     ola: torch.Tensor    # (B, n_fft) synthesis accumulator
     hx: torch.Tensor     # (B, hidden*compressed) cell state
+    # the SNR gate's planes, present only when serving.snr_gate_db is set
+    nf_smooth: Optional[torch.Tensor] = None   # (B, F) estimator 'floor'
+    nf_floor: Optional[torch.Tensor] = None    # (B, F) estimator 'floor'
+    nf_total: Optional[torch.Tensor] = None    # (B, 1) estimator 'floor'
+    em_out: Optional[torch.Tensor] = None      # (B, 1) estimator 'removed'
+    em_rem: Optional[torch.Tensor] = None      # (B, 1) estimator 'removed'
+
+
+def _plane_widths(cfg: Config, plan) -> dict:
+    """Width of each state plane ``cfg`` carries, in FusedHopState order."""
+    removed, floor = gate_planes(cfg.serving)
+    n_fft, F = cfg.dsp.n_fft, cfg.dsp.n_stft
+    widths = {"ring": n_fft, "ola": n_fft,
+              "hx": plan.hidden * plan.compressed}
+    if floor:
+        widths.update(nf_smooth=F, nf_floor=F, nf_total=1)
+    if removed:
+        widths.update(em_out=1, em_rem=1)
+    return widths
 
 
 def fused_hop_init_state(cfg: Config, plan, batch: int,
                          device: Union[str, torch.device] = "cpu"
                          ) -> FusedHopState:
-    n_fft = cfg.dsp.n_fft
-    z = lambda w: torch.zeros((batch, w), dtype=torch.float32, device=device)
-    return FusedHopState(ring=z(n_fft), ola=z(n_fft),
-                         hx=z(plan.hidden * plan.compressed))
+    """Zeros: a zero gate plane latches to the first hop's value."""
+    return FusedHopState(**{
+        name: torch.zeros((batch, w), dtype=torch.float32, device=device)
+        for name, w in _plane_widths(cfg, plan).items()})
 
 
 def _dft_matrices(n_fft: int):
@@ -57,58 +99,76 @@ def _dft_matrices(n_fft: int):
     return CF, SF, IC, IS
 
 
+class _StatePtrs(ctypes.Structure):
+    """Field-for-field mirror of AdtHopState in csrc/fused_hop.cu."""
+    _fields_ = [(f, ctypes.c_void_p) for f in FusedHopState._fields]
+
+
+class _GateArgs(ctypes.Structure):
+    """Field-for-field mirror of AdtGate in csrc/fused_hop.cu."""
+    _fields_ = ([("removed", ctypes.c_int), ("floor", ctypes.c_int)]
+                + [(f, ctypes.c_float) for f in (
+                    "gate_db", "width_db", "floor_gate_db", "floor_width_db",
+                    "beta", "rise", "beta_tot", "floor_bias", "eps")])
+
+
 class _Args(ctypes.Structure):
     """Field-for-field mirror of AdtFusedHopArgs in csrc/fused_hop.cu."""
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in (
-            "ring", "ola", "hx", "chunk", "ring_out", "ola_out", "hx_out",
-            "out", "cf", "sf", "ic", "is_", "mel", "imel", "win", "env")]
-        + [("plan", PlanArgs)]
+        [("state_in", _StatePtrs), ("state_out", _StatePtrs)]
+        + [(f, ctypes.c_void_p) for f in (
+            "chunk", "out", "cf", "sf", "ic", "is_", "mel", "imel", "win",
+            "env")]
+        + [("plan", PlanArgs), ("gate", _GateArgs)]
         + [(f, ctypes.c_int) for f in (
-            "batch", "n_fft", "hop", "n_bins", "n_mels")]
+            "batch", "n_fft", "hop", "n_bins", "n_mels", "hops", "pcm16")]
         + [("output_gain", ctypes.c_float), ("state_decay", ctypes.c_float)])
 
 
 def _check_supported(cfg: Config, plan, hops_per_call: int, io_dtype,
                      compute_dtype) -> None:
-    dsp, srv = cfg.dsp, cfg.serving
+    dsp = cfg.dsp
     later = []
-    if srv.snr_gate_db is not None:
-        later.append("the SNR gate (serving.snr_gate_db)")
     if plan.delta:
-        later.append("delta (MOMO3) plans")
+        later.append("delta (MOMO3) plans (ROADMAP B3, A4)")
     if compute_dtype != torch.float32:
-        later.append(f"compute dtype {compute_dtype}")
+        later.append(f"compute dtype {compute_dtype} (ROADMAP B4)")
     if dsp.domain == "raw":
-        later.append("the raw-spectrogram domain")
-    if io_dtype != torch.float32:
-        later.append(f"{io_dtype} IO")
-    if hops_per_call != 1:
-        later.append("hops_per_call > 1 (the resident multi-hop kernel)")
+        later.append("the raw-spectrogram domain (ROADMAP B3, A4)")
     if later:
         raise NotImplementedError(
             "the port's fused hop does not implement " + ", ".join(later)
             + " yet")
+    if io_dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"io_dtype must be float32 or int16, got {io_dtype}")
+    if hops_per_call < 1:
+        raise ValueError(f"hops_per_call must be >= 1, got {hops_per_call}")
     if dsp.n_fft % dsp.hop_length or dsp.n_fft % 2:
         raise ValueError("the fused hop needs an even n_fft that the hop "
                          "divides (WOLA)")
     if len(plan.down_mats) > MAX_LEVELS:
         raise ValueError(f"the kernel takes at most {MAX_LEVELS} levels")
+    gate_planes(cfg.serving)   # raises on an unknown estimator
 
 
 class FusedHop:
-    """One serving hop for a batch of streams on ``device``; see the
-    module docstring."""
+    """One serving hop (or ``hops_per_call`` hops) for a batch of streams
+    on ``device``; see the module docstring."""
 
-    def __init__(self, cfg: Config, plan, device: torch.device):
+    def __init__(self, cfg: Config, plan, device: torch.device,
+                 hops_per_call: int = 1, io_dtype=torch.float32):
         dsp, srv = cfg.dsp, cfg.serving
         self.device = device
+        self.hops_per_call = hops_per_call
+        self.io_dtype = io_dtype
         self.n_fft, self.hop = dsp.n_fft, dsp.hop_length
         self.F, self.M = dsp.n_stft, dsp.n_mels
         self.n = plan.hidden * plan.compressed
         self.output_gain = float(srv.output_gain)
         self.state_decay = float(srv.state_decay)
+        self.widths = _plane_widths(cfg, plan)
         self.launches = 0
+        self._gate_constants(cfg)
 
         win = hann_window(self.n_fft, dtype=torch.float64).numpy()
         CF, SF, IC, IS = _dft_matrices(self.n_fft)
@@ -128,22 +188,47 @@ class FusedHop:
         if device.type == "cuda":
             from audio_denoising_torch.ops.kernels.build import (
                 load_kernel_library)
-            self._lib = load_kernel_library("fused_hop").lib
-            self._lib.adt_fused_hop_args_size.restype = ctypes.c_int
-            self._lib.adt_fused_hop_smem_bytes.argtypes = [ctypes.c_void_p]
-            self._lib.adt_fused_hop_smem_bytes.restype = ctypes.c_longlong
-            self._lib.adt_fused_hop.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p]
-            self._lib.adt_fused_hop.restype = ctypes.c_int
-            if self._lib.adt_fused_hop_args_size() != ctypes.sizeof(_Args):
-                raise RuntimeError("csrc/fused_hop.cu and _Args disagree on "
-                                   "the argument layout")
-            self._base_args = self._args()
-            self._check_shared_memory()
+            self._bind(load_kernel_library("fused_hop").lib)
+
+    def _gate_constants(self, cfg: Config) -> None:
+        """The gate's constants, as fused_hop.py:169-193 derives them."""
+        srv, dsp = cfg.serving, cfg.dsp
+        self.removed, self.floor = gate_planes(srv)
+        self.gated = self.removed or self.floor
+        if not self.gated:
+            return
+        hop, sr = dsp.hop_length, dsp.sample_rate
+        self.beta = smooth_beta_per_frame(hop, sr)
+        self.rise = floor_rise_per_frame(hop, sr)
+        self.beta_t = total_beta_per_frame(hop, sr, srv.snr_gate_tau_s)
+        self.gate_db = float(srv.snr_gate_db)
+        self.width = max(srv.snr_gate_width_db, 1e-3)
+        # the floor part's ramp: its own where it is the decision, the
+        # fixed veto under 'both'
+        both = self.removed and self.floor
+        self.floor_gate_db = FLOOR_VETO_GATE_DB if both else self.gate_db
+        self.floor_width = FLOOR_VETO_WIDTH_DB if both else self.width
+
+    def _bind(self, lib) -> None:
+        """Binds the built library's C functions and fills the launch
+        arguments that do not change from call to call."""
+        self._lib = lib
+        lib.adt_fused_hop_args_size.restype = ctypes.c_int
+        lib.adt_fused_hop_smem_bytes.argtypes = [ctypes.c_void_p]
+        lib.adt_fused_hop_smem_bytes.restype = ctypes.c_longlong
+        for fn in (lib.adt_fused_hop, lib.adt_fused_hop_multi):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        if lib.adt_fused_hop_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError("csrc/fused_hop.cu and _Args disagree on "
+                               "the argument layout")
+        self._base_args = self._args()
+        self._check_shared_memory()
 
     # -- the plain PyTorch version ------------------------------------------
     def reference(self, state: FusedHopState, chunk: torch.Tensor
                   ) -> Tuple[FusedHopState, torch.Tensor]:
+        """One float32 hop."""
         hop = self.hop
         ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
         frame = ring * self.win
@@ -159,6 +244,9 @@ class FusedHop:
         # the mel pseudo-inverse projects some bins negative: clamp, as
         # inverse_mel_scale does, or they resynthesize with inverted phase
         lin = torch.clamp(feat_mag @ self.imel, min=0.0) * self.output_gain
+        planes = {}
+        if self.gated:
+            planes, lin = self._gate(state, mag, lin)
         # phase reuse as complex scaling; at mag ~ 0 the bin is lin + 0j
         safe = mag > 1e-8
         scale = lin / torch.where(safe, mag, torch.ones_like(mag))
@@ -169,40 +257,114 @@ class FusedHop:
         out = acc[:, :hop] / self.env
         ola = torch.cat([acc[:, hop:], torch.zeros_like(acc[:, :hop])],
                         dim=-1)
-        return FusedHopState(ring, ola, hi * self.state_decay), out
+        return state._replace(ring=ring, ola=ola, hx=hi * self.state_decay,
+                              **planes), out
+
+    def _gate(self, state: FusedHopState, mag: torch.Tensor,
+              lin: torch.Tensor) -> Tuple[dict, torch.Tensor]:
+        """The SNR gate in the kernel's form (fused_hop.py:302-350): the
+        estimators' new planes and the blended output magnitude."""
+        power = mag * mag
+        bt = self.beta_t
+        planes = {}
+        if self.removed:
+            p_lin = lin * lin
+            p_out = p_lin.mean(dim=-1, keepdim=True)               # (B, 1)
+            p_rem = torch.clamp(power - p_lin, min=0.0).mean(
+                dim=-1, keepdim=True)
+            # a zero pair (a fresh slot) latches
+            fresh = (state.em_out + state.em_rem) <= 0.0
+            planes["em_out"] = torch.where(
+                fresh, p_out, bt * state.em_out + (1.0 - bt) * p_out)
+            planes["em_rem"] = torch.where(
+                fresh, p_rem, bt * state.em_rem + (1.0 - bt) * p_rem)
+        if self.floor:
+            smooth = self.beta * state.nf_smooth + (1.0 - self.beta) * power
+            planes["nf_smooth"] = smooth
+            planes["nf_floor"] = torch.where(
+                state.nf_floor <= 0.0, smooth,
+                torch.minimum(smooth, state.nf_floor * self.rise))
+            p_mean = power.mean(dim=-1, keepdim=True)
+            tot = state.nf_total
+            planes["nf_total"] = torch.where(tot <= 0.0, p_mean,
+                                             bt * tot + (1.0 - bt) * p_mean)
+        alpha = self.alpha(state._replace(**planes))
+        return planes, alpha * lin + (1.0 - alpha) * mag
+
+    def alpha(self, state: FusedHopState) -> torch.Tensor:
+        """(B, 1): each stream's denoise weight in the hop that left
+        ``state`` (1 denoises fully, 0 passes the input through)."""
+        ramp = lambda snr, gate, width: torch.clamp(
+            (gate + width - snr) / (2.0 * width), 0.0, 1.0)
+        alpha = None
+        if self.removed:
+            snr = DB_PER_NEPER * (torch.log(state.em_out + _EPS)
+                                  - torch.log(state.em_rem + _EPS))
+            alpha = ramp(snr, self.gate_db, self.width)
+        if self.floor:   # the floor part; the veto under 'both'
+            nfm = FLOOR_BIAS * state.nf_floor.mean(dim=-1, keepdim=True)
+            sig = torch.clamp(state.nf_total - nfm, min=0.0)
+            snr = DB_PER_NEPER * (torch.log(sig + _EPS)
+                                  - torch.log(nfm + _EPS))
+            alpha_f = ramp(snr, self.floor_gate_db, self.floor_width)
+            alpha = alpha_f if alpha is None else torch.maximum(alpha, alpha_f)
+        return alpha
+
+    def plain(self, state: FusedHopState, chunks: torch.Tensor
+              ) -> Tuple[FusedHopState, torch.Tensor]:
+        """What one call computes, on the plain version: the int16
+        conversion at the boundary and ``hops_per_call`` hops of
+        ``reference``."""
+        multi = self.hops_per_call > 1
+        outs = []
+        for chunk in (chunks if multi else (chunks,)):
+            state, out = self.reference(state, _from_pcm(chunk))
+            outs.append(_to_pcm(out, self.io_dtype))
+        return state, torch.stack(outs) if multi else outs[0]
 
     # -- the wrapper -----------------------------------------------------------
-    def __call__(self, state: FusedHopState, chunk: torch.Tensor
+    def __call__(self, state: FusedHopState, chunks: torch.Tensor
                  ) -> Tuple[FusedHopState, torch.Tensor]:
-        self._check(state, chunk)
-        if chunk.device.type == "cpu":
-            return self.reference(state, chunk)
-        return self._launch(state, chunk)
+        self._check(state, chunks)
+        if chunks.device.type == "cpu":
+            return self.plain(state, chunks)
+        return self._launch(state, chunks)
 
-    def _check(self, state: FusedHopState, chunk: torch.Tensor) -> None:
-        if chunk.dim() != 2 or chunk.shape[1] != self.hop:
-            raise ValueError(f"chunk must be (B, {self.hop}), got "
-                             f"{tuple(chunk.shape)}")
-        b = chunk.shape[0]
-        want = {"chunk": (b, self.hop), "ring": (b, self.n_fft),
-                "ola": (b, self.n_fft), "hx": (b, self.n)}
-        got = {"chunk": chunk, "ring": state.ring, "ola": state.ola,
-               "hx": state.hx}
-        for name, t in got.items():
+    def _check(self, state: FusedHopState, chunks: torch.Tensor) -> None:
+        K = self.hops_per_call
+        lead = (K,) if K > 1 else ()
+        if chunks.dim() != len(lead) + 2 or chunks.shape[-1] != self.hop \
+                or tuple(chunks.shape[:len(lead)]) != lead:
+            want = f"({K}, B, {self.hop})" if K > 1 else f"(B, {self.hop})"
+            raise ValueError(f"chunks must be {want}, got "
+                             f"{tuple(chunks.shape)}")
+        if chunks.dtype != self.io_dtype:
+            raise TypeError(f"chunks must be {self.io_dtype}, got "
+                            f"{chunks.dtype}")
+        b = chunks.shape[-2]
+        if chunks.device.type != self.device.type:
+            raise ValueError(f"this hop was built for {self.device}; got "
+                             f"tensors on {chunks.device}")
+        for name in FusedHopState._fields:
+            t = getattr(state, name)
+            if (t is None) != (name not in self.widths):
+                raise ValueError(
+                    f"state plane {name} is "
+                    f"{'missing' if t is None else 'not carried by this hop'}"
+                    f" (the SNR gate's configuration decides the planes)")
+            if t is None:
+                continue
             if t.dtype != torch.float32:
                 raise TypeError(f"{name} must be float32, got {t.dtype}")
-            if tuple(t.shape) != want[name]:
-                raise ValueError(f"{name} must be {want[name]}, got "
-                                 f"{tuple(t.shape)}")
-            if t.device != chunk.device:
-                raise ValueError(f"{name} is on {t.device}, chunk on "
-                                 f"{chunk.device}")
-        if chunk.device.type != self.device.type:
-            raise ValueError(f"this hop was built for {self.device}; got "
-                             f"tensors on {chunk.device}")
+            if tuple(t.shape) != (b, self.widths[name]):
+                raise ValueError(f"{name} must be {(b, self.widths[name])}, "
+                                 f"got {tuple(t.shape)}")
+            if t.device != chunks.device:
+                raise ValueError(f"{name} is on {t.device}, chunks on "
+                                 f"{chunks.device}")
 
     def _args(self) -> _Args:
-        """The launch arguments that do not change from hop to hop; the
+        """The launch arguments that do not change from call to call; the
         padded operand copies (kernel_operand) are kept alive on the
         hop."""
         self._kernel_tensors: List[torch.Tensor] = []
@@ -214,12 +376,23 @@ class FusedHop:
                            self._kernel_tensors)
         a.n_fft, a.hop, a.n_bins, a.n_mels = self.n_fft, self.hop, self.F, \
             self.M
+        a.hops = self.hops_per_call
+        a.pcm16 = int(self.hops_per_call > 1
+                      and self.io_dtype == torch.int16)
         a.output_gain, a.state_decay = self.output_gain, self.state_decay
+        g = a.gate
+        g.removed, g.floor = int(self.removed), int(self.floor)
+        if self.gated:
+            g.gate_db, g.width_db = self.gate_db, self.width
+            g.floor_gate_db, g.floor_width_db = (self.floor_gate_db,
+                                                 self.floor_width)
+            g.beta, g.rise, g.beta_tot = self.beta, self.rise, self.beta_t
+            g.floor_bias, g.eps = FLOOR_BIAS, _EPS
         return a
 
     def _check_shared_memory(self) -> None:
-        """What this kernel can take: the activations of one block's tile
-        of streams in its shared memory."""
+        """What this kernel can take: the activations and the state of
+        one block's tile of streams in its shared memory."""
         limit = torch.cuda.get_device_properties(
             self.device).shared_memory_per_block_optin
         need = int(self._lib.adt_fused_hop_smem_bytes(
@@ -229,29 +402,56 @@ class FusedHop:
                 f"the fused hop needs {need} B of shared memory per block; "
                 f"this card allows {limit} B")
 
-    def _launch(self, state: FusedHopState, chunk: torch.Tensor
+    def _stream(self) -> int:
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+    def _launch(self, state: FusedHopState, chunks: torch.Tensor
                 ) -> Tuple[FusedHopState, torch.Tensor]:
-        ins = [t.contiguous() for t in (state.ring, state.ola, state.hx,
-                                        chunk)]
-        new = FusedHopState(*(torch.empty_like(t) for t in ins[:3]))
-        out = torch.empty_like(ins[3])
+        multi = self.hops_per_call > 1
+        if not multi:
+            chunks = _from_pcm(chunks)
+        chunks = chunks.contiguous()
+        ins = {k: v.contiguous() for k, v in state._asdict().items()
+               if v is not None}
+        new = {k: torch.empty_like(v) for k, v in ins.items()}
+        out = torch.empty_like(chunks)
         a = _Args.from_buffer_copy(self._base_args)
-        a.batch = chunk.shape[0]
-        a.ring, a.ola, a.hx, a.chunk = (t.data_ptr() for t in ins)
-        a.ring_out, a.ola_out, a.hx_out = (t.data_ptr() for t in new)
-        a.out = out.data_ptr()
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        err = self._lib.adt_fused_hop(ctypes.byref(a), stream)
+        a.batch = chunks.shape[-2]
+        for name in ins:
+            setattr(a.state_in, name, ins[name].data_ptr())
+            setattr(a.state_out, name, new[name].data_ptr())
+        a.chunk, a.out = chunks.data_ptr(), out.data_ptr()
+        fn = self._lib.adt_fused_hop_multi if multi else self._lib.adt_fused_hop
+        err = fn(ctypes.byref(a), self._stream())
         if err != 0:
             raise RuntimeError(f"fused hop launch failed: cudaError {err}")
         self.launches += 1
-        return new, out
+        if not multi:
+            out = _to_pcm(out, self.io_dtype)
+        return FusedHopState(**new), out
+
+
+def _from_pcm(chunk: torch.Tensor) -> torch.Tensor:
+    """s16 -> float32 x 1/32768 (app2.py:177's scale); float32 as it is."""
+    if chunk.dtype == torch.int16:
+        return chunk.to(torch.float32) * (1.0 / 32768.0)
+    return chunk
+
+
+def _to_pcm(out: torch.Tensor, io_dtype) -> torch.Tensor:
+    """float32 -> s16: clip to [-1, 1], x 32767, truncated toward zero
+    (app2.py:246-247)."""
+    if io_dtype == torch.int16:
+        return (torch.clamp(out, -1.0, 1.0) * 32767.0).to(torch.int16)
+    return out
 
 
 def make_fused_hop(cfg: Config, plan,
                    device: Optional[Union[str, torch.device]] = None,
                    hops_per_call: int = 1, io_dtype=torch.float32,
                    compute_dtype=torch.float32) -> FusedHop:
-    """One-kernel serving hop on ``device`` (the card unless ``"cpu"``)."""
+    """One-kernel serving hop(s) on ``device`` (the card unless
+    ``"cpu"``); see the module docstring."""
     _check_supported(cfg, plan, hops_per_call, io_dtype, compute_dtype)
-    return FusedHop(cfg, plan, resolve_device(device))
+    return FusedHop(cfg, plan, resolve_device(device), hops_per_call,
+                    io_dtype)

@@ -34,6 +34,11 @@ from audio_denoising_torch.ops.kernels.fused_hop import (
     fused_hop_init_state, make_fused_hop)
 from audio_denoising_torch.ops.kernels.webrtc_hop import (
     make_webrtc_hop, webrtc_hop_init_state)
+from audio_denoising_torch.ops.noisefloor import (
+    FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB, FloorState, RemovedState,
+    floor_rise_per_frame, floor_step, gate_alpha, gate_planes,
+    removed_powers, removed_snr_db, removed_step, smooth_beta_per_frame,
+    snr_db_from_floor, total_beta_per_frame)
 from audio_denoising_torch.ops.windows import wola_envelope
 from audio_denoising_torch.pipeline import (
     fp32_convs, make_webrtc_step, serving_model, webrtc_init_state)
@@ -41,20 +46,23 @@ from audio_denoising_torch.runtime.plan import build_cell_plan
 
 
 class FastState(NamedTuple):
-    """JAX counterpart engine.py:34, without the gate and lookahead
-    planes (not ported)."""
+    """JAX counterpart engine.py:34, without the lookahead planes (not
+    ported). The SNR-gate planes are present only when
+    ``serving.snr_gate_db`` is set: estimator 'floor' carries the nf_*
+    planes, 'removed' the em_* EMAs, 'both' all five."""
     ring: torch.Tensor   # (B, n_fft) analysis window
     ola: torch.Tensor    # (B, n_fft) synthesis accumulator
     hx: torch.Tensor     # the model's carry: (B, hidden, comp) for the zoo
                          # model, (B, hidden*comp) for a PlanModel
+    nf_smooth: Optional[torch.Tensor] = None   # (B, F)
+    nf_floor: Optional[torch.Tensor] = None    # (B, F)
+    nf_total: Optional[torch.Tensor] = None    # (B,) long power EMA
+    em_out: Optional[torch.Tensor] = None      # (B,) output-power EMA
+    em_rem: Optional[torch.Tensor] = None      # (B,) removed-power EMA
 
 
 def _check_fast_supported(cfg: Config) -> None:
     """What the JAX fast step serves and the port's does not yet."""
-    if cfg.serving.snr_gate_db is not None:
-        raise NotImplementedError(
-            "the fast step's SNR gate (serving.snr_gate_db) is not ported "
-            "yet (ROADMAP A3)")
     if getattr(cfg.model, "lookahead_frames", 0):
         raise NotImplementedError(
             "the fast step's lookahead delay rings "
@@ -75,25 +83,75 @@ def _check_fast_supported(cfg: Config) -> None:
 def fast_init_state(cfg: Config, model, batch: int,
                     device: Union[str, torch.device] = "cpu") -> FastState:
     _check_fast_supported(cfg)
-    n_fft = cfg.dsp.n_fft
+    n_fft, F = cfg.dsp.n_fft, cfg.dsp.n_stft
+    removed, floor = gate_planes(cfg.serving)
     init = getattr(model, "init_carry", None) or model.init_state
+    z = lambda *shape: torch.zeros(shape, device=device)
     return FastState(
-        ring=torch.zeros((batch, n_fft), device=device),
-        ola=torch.zeros((batch, n_fft), device=device),
-        hx=init(batch, device=device))
+        ring=z(batch, n_fft), ola=z(batch, n_fft),
+        hx=init(batch, device=device),
+        nf_smooth=z(batch, F) if floor else None,
+        nf_floor=z(batch, F) if floor else None,
+        nf_total=z(batch) if floor else None,
+        em_out=z(batch) if removed else None,
+        em_rem=z(batch) if removed else None)
+
+
+def make_snr_gate(cfg: Config):
+    """``gate(state, mag, lin) -> (planes, lin')`` for ``cfg``'s SNR gate
+    (JAX engine.py:178-216), or None without one: the estimator steps on
+    this hop's input power ``mag**2`` and the output power ``lin**2``,
+    then each stream's output magnitude blends toward its input by
+    ``gate_alpha``. ``planes`` holds the state fields the gate updated."""
+    srv, dsp = cfg.serving, cfg.dsp
+    if srv.snr_gate_db is None:
+        return None
+    removed, floor = gate_planes(srv)
+    hop, sr = dsp.hop_length, dsp.sample_rate
+    beta_t = total_beta_per_frame(hop, sr, srv.snr_gate_tau_s)
+    beta, rise = smooth_beta_per_frame(hop, sr), floor_rise_per_frame(hop, sr)
+
+    def gate(state, mag, lin):
+        power = mag * mag
+        planes, alpha = {}, None
+        if removed:
+            rs = removed_step(RemovedState(state.em_out, state.em_rem),
+                              *removed_powers(power, lin * lin), beta_t)
+            planes.update(em_out=rs.out, em_rem=rs.rem)
+            alpha = gate_alpha(removed_snr_db(rs), srv.snr_gate_db,
+                               srv.snr_gate_width_db)
+        if floor:
+            fs = floor_step(FloorState(state.nf_smooth, state.nf_floor,
+                                       state.nf_total), power, beta, rise,
+                            beta_t)
+            planes.update(nf_smooth=fs.smooth, nf_floor=fs.floor,
+                          nf_total=fs.total)
+            snr_f = snr_db_from_floor(fs.total, fs.floor.mean(dim=-1))
+            if alpha is None:
+                alpha = gate_alpha(snr_f, srv.snr_gate_db,
+                                   srv.snr_gate_width_db)
+            else:   # 'both': the floor tracker vetoes false cleans
+                alpha = torch.maximum(alpha, gate_alpha(
+                    snr_f, FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB))
+        alpha = alpha[:, None]
+        return planes, alpha * lin + (1.0 - alpha) * mag
+
+    return gate
 
 
 def make_fast_step(cfg: Config, model,
                    device: Optional[Union[str, torch.device]] = None):
     """Build ``step(state, chunk (B, hop)) -> (state', out (B, hop))`` on
     ``device`` (the card unless ``"cpu"``; JAX counterpart
-    engine.py:95-228, ungated, no lookahead, mel domain).
+    engine.py:95-228, no lookahead, mel domain).
 
     Per hop: one windowed rfft (no center padding), mel log1p, one model
     cell on the carried state, leaky-ReLU 0.2 of the residual, expm1,
     inverse mel, the output gain, the state decay (the model's
     ``decay_carry`` where it has one), noisy-phase resynthesis and WOLA
-    divided by the window envelope. ``model`` is a zoo model or a
+    divided by the window envelope; with ``serving.snr_gate_db`` set,
+    the SNR gate (``make_snr_gate``) blends the output magnitude toward
+    the input's before resynthesis. ``model`` is a zoo model or a
     PlanModel (``fused=True`` runs its cell as the hand-written kernel)."""
     _check_fast_supported(cfg)
     dsp, srv = cfg.dsp, cfg.serving
@@ -108,18 +166,23 @@ def make_fast_step(cfg: Config, model,
         hann_window(n_fft, dtype=torch.float64).numpy(), n_fft, hop)
     ).to(device)
     decay = getattr(model, "decay_carry", None) or (lambda h, f: h * f)
+    gate = make_snr_gate(cfg)
 
     def step(state: FastState, chunk: torch.Tensor
              ) -> Tuple[FastState, torch.Tensor]:
         ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
         spec = torch.fft.rfft(ring * win, n=n_fft, dim=-1)    # (B, F)
-        x_t = torch.log1p(mel_scale(spec.abs()[..., None], fb))[..., 0]
+        mag = spec.abs()
+        x_t = torch.log1p(mel_scale(mag[..., None], fb))[..., 0]
         with torch.no_grad(), fp32_convs():
             resid, hx = model.cell(x_t, state.hx)
         rec = torch.nn.functional.leaky_relu(x_t - resid, 0.2)
         mel_mag = torch.clamp(torch.expm1(rec), min=0.0)[..., None]
         lin = inverse_mel_scale(mel_mag, inv)[..., 0] * srv.output_gain
         hx = decay(hx, srv.state_decay)
+        planes = {}
+        if gate is not None:
+            planes, lin = gate(state, mag, lin)
         # angle(0) is 0, so a silent bin is rebuilt as lin + 0j
         synth = torch.fft.irfft(torch.polar(lin, torch.angle(spec)),
                                 n=n_fft, dim=-1) * win
@@ -127,7 +190,7 @@ def make_fast_step(cfg: Config, model,
         out = acc[:, :hop] / env_hop
         ola = torch.cat([acc[:, hop:], torch.zeros_like(acc[:, :hop])],
                         dim=-1)
-        return FastState(ring=ring, ola=ola, hx=hx), out
+        return state._replace(ring=ring, ola=ola, hx=hx, **planes), out
 
     return step
 
@@ -166,10 +229,13 @@ class StreamEngine:
                 f"engine mode {mode!r} does not support lookahead "
                 f"checkpoints (ModelConfig.lookahead_frames > 0)")
         if cfg.serving.snr_gate_db is not None and mode == "fused-webrtc":
+            # the JAX engine downgrades to mode 'webrtc', whose op-by-op
+            # step carries the gate; the port's webrtc step has no gate yet
             raise ValueError(
                 "the fused webrtc kernel has no SNR gate "
-                "(serving.snr_gate_db is set); the JAX engine downgrades to "
-                "mode 'webrtc' here, the port does not")
+                "(serving.snr_gate_db is set), and the webrtc step's gate "
+                "that the JAX engine downgrades to is not ported yet "
+                "(ROADMAP A3)")
         if cfg.serving.dtype == "int8" and mode not in ("fast", "fused"):
             raise ValueError(
                 f"serving dtype 'int8' is implemented for the fused hop "

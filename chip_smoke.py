@@ -51,15 +51,39 @@ raises on failure (so the script exits non-zero and prints no result):
 12. ``EngineDaemon`` mode ``fast`` on 127.0.0.1 serving gruunet2-good to
     4 clients x 16 streams x 25 chunks, each stream's replies against its
     own sequence replayed through the fast step on the CPU;
-13. CUDA-event timing at 256 streams: each kernel, its plain version, and
-    the bound from its operations and bytes; the fast step per hop with
+13. the fused-hop kernel with the SNR gate against its plain version, on
+    gruunet2-stream16k and on the unit-gain hidden-40 checkpoint (its
+    recommended gate), estimators 'removed', 'floor' and 'both', at 256
+    streams and at 3 over 20 hops of a synthetic vowel over per-stream
+    noise levels (the share of stream-hops whose gate blends, 0 < alpha
+    < 1, printed and required above 0); and against the gated fast step
+    on the card;
+14. the resident K-hop kernel at 256 streams and K = 50, ungated and with
+    the tuned gate: two calls carrying the state and one with int16 IO,
+    each one launch; then against 50 launches of the single-hop kernel
+    (every plane, 0 expected), its plain version, the int16 plain path
+    (1 LSB) and the float32 K-hop clipped and scaled (2 LSB);
+15. ``StreamEngine`` mode ``fused`` on the hidden-40 checkpoint with its
+    recommended gate, 256 slots for 30 ticks with skipped slots, against
+    the same run on the CPU, idle slots bit-identical;
+16. ``EngineDaemon`` mode ``fused`` with the auto gate on that checkpoint,
+    4 clients x 16 streams x 25 chunks, each stream's replies against its
+    own sequence through the plain version on the CPU;
+17. ``EngineDaemon`` with its defaults (mode ``fast``, auto gate) on the
+    unit-gain 48 kHz gruunet2-mrstft-50k, the same clients, against the
+    gated fast step on the CPU;
+18. CUDA-event timing at 256 streams: each kernel, its plain version, and
+    the bound from its operations and bytes; the gated single hop; the
+    K-hop kernel per call and per hop in float32, with the gate and with
+    int16 IO, beside 50 single-hop launches; the fast step per hop with
     the zoo model and with the fused cell; torch.profiler breakdowns.
 
-Phases 4 to 7 and 9 to 12 are the main paths: each kernel's launch
-counter is set to 0 just before each (a new wrapper starts at 0) and read
-just after (the WebRTC hop counts its three kernels). Mode ``fast`` with
-the zoo model (phases 11, 12) runs no hand-written kernel, as the JAX
-package's mode ``fast`` runs no Pallas kernel. Griffin-Lim with carried
+Phases 4 to 7, 9 to 12 and 15 to 17, and phase 14's first three calls,
+are the main paths: each kernel's launch counter is set to 0 just before
+each (a new wrapper starts at 0) and read just after (the WebRTC hop
+counts its three kernels). Mode ``fast`` with the zoo model (phases 11,
+12, 17) runs no hand-written kernel, as the JAX package's mode ``fast``
+runs no Pallas kernel. Griffin-Lim with carried
 phases is chaotic where a frame's rebuilt spectrum nears zero: fp32
 round-off there flips a phase, and the carried phases spread it, so two
 correct fp32 versions that each carry their own state part ways within a
@@ -109,6 +133,22 @@ KERNELS = ("fused_hop", "webrtc_hop", "fused_cell")
 # trained checkpoints of other widths, held in phase 2 besides the main one
 OTHER_CHECKPOINTS = ("gruunet2s16kw40-mrstft-idp-50k.npz",
                      "gruunet2mel128d5w64-mrstft-50k.npz")
+# unit-gain checkpoints, which the daemons serve with the tuned SNR gate:
+# the only trained 16 kHz one mode fused can serve, and a 48 kHz one for
+# mode fast
+GATED_CHECKPOINT = "gruunet2s16kw40-mrstft-idp-50k.npz"
+FAST_CHECKPOINT = "gruunet2-mrstft-50k.npz"
+# (gate dB, width dB) per estimator on gruunet2-stream16k (x3 gain, where
+# 'removed' reads 15-40 dB); the unit-gain checkpoint takes its
+# recommended 1 dB / 6 with each estimator
+GATE_POINTS = {"removed": (30.0, 10.0), "floor": (10.0, 4.0),
+               "both": (10.0, 4.0)}
+PLANE_RTOL = 2e-4    # the gate's planes, relative (tests/test_fused_hop.py)
+PLANE_ATOL = 1e-9
+GATED_OUT_ATOL = 3e-4  # gated kernel vs the gated fast step (JAX's bound)
+K_HOPS = 50          # hops per call of the resident kernel (bench.py's K)
+KHOP_EXACT = 1e-6    # K-hop kernel vs K single-hop launches (0 expected)
+GATE_FLOPS_PER_BIN = 20   # the gate's EMAs, means and blend, per bin
 
 
 def say(*parts):
@@ -205,7 +245,13 @@ def webrtc_chunks(torch, batch, hops, seed, hop_len):
 
 
 def to(state, device, dtype=None):
-    return type(state)(*(t.to(device, dtype) for t in state))
+    return type(state)(*(None if t is None else t.to(device, dtype)
+                         for t in state))
+
+
+def planes(state):
+    """The state's present planes by name (absent gate planes left out)."""
+    return {k: v for k, v in state._asdict().items() if v is not None}
 
 
 def float64_plain(torch, cfg, plan):
@@ -488,7 +534,8 @@ def phase_engine(torch, cfg, model):
         worst = max(worst, max(float(np.abs(a[s] - b[s]).max())
                                for s in chunks))
     launches = gpu.hop_step.launches
-    st = max(max_err(x.cpu(), y) for x, y in zip(gpu.state, cpu.state))
+    st = max(max_err(x.cpu(), planes(cpu.state)[k])
+             for k, x in planes(gpu.state).items())
     say(f"  {n} streams x {ticks} ticks: out {worst:.3e} (bound {OUT_ATOL:g}),"
         f" state {st:.3e} (bound {STATE_ATOL:g}); {launches} launches")
     if worst > OUT_ATOL or st > STATE_ATOL:
@@ -670,7 +717,7 @@ def phase_daemon(torch):
         fused_hop_init_state, make_fused_hop)
     clients, streams, n_chunks = 4, 16, 25
     daemon = EngineDaemon("gruunet2-stream16k", max_streams=SLOTS,
-                          address=("127.0.0.1", 0))
+                          address=("127.0.0.1", 0), mode="fused")
     hop_len = daemon.cfg.dsp.hop_length
     rng = np.random.default_rng(4)
     data = (0.1 * rng.standard_normal(
@@ -871,14 +918,15 @@ def phase_engine_fast(torch, cfg, model):
                         ).astype(np.float32)
                   for i, sid in enumerate(sids) if (7 * i + t) % 5}
         idle = [gpu.slots[s] for s in sids if s not in chunks]
-        before = [x[idle].clone() for x in gpu.state]
+        before = {k: x[idle].clone() for k, x in planes(gpu.state).items()}
         a, b = gpu.process(chunks), cpu.process(chunks)
-        for x, y in zip(before, gpu.state):
-            if not torch.equal(x, y[idle]):
+        for k, x in before.items():
+            if not torch.equal(x, planes(gpu.state)[k][idle]):
                 raise AssertionError("an idle slot's state moved")
         worst = max(worst, max(float(np.abs(a[s] - b[s]).max())
                                for s in chunks))
-    st = max(max_err(x.cpu(), y) for x, y in zip(gpu.state, cpu.state))
+    st = max(max_err(x.cpu(), planes(cpu.state)[k])
+             for k, x in planes(gpu.state).items())
     say(f"  {n} streams x {ticks} ticks: out {worst:.3e} (bound "
         f"{OUT_ATOL:g}), state {st:.3e} (bound {STATE_ATOL:g}); idle slots "
         f"bit-identical; no hand-written kernel on this path")
@@ -915,6 +963,356 @@ def phase_daemon_fast(torch):
         raise AssertionError("daemon output disagrees with the fast step")
 
 
+# -- the SNR gate and the resident K-hop kernel -------------------------------
+
+def with_gate(cfg, estimator, gate_db, width_db):
+    return dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, snr_gate_db=gate_db, snr_gate_width_db=width_db,
+        snr_gate_estimator=estimator))
+
+
+def voiced(n, sr):
+    """A synthetic vowel: a glottal pulse train (f0 140 +- 30 Hz) through
+    three formant resonators (700, 1220, 2600 Hz), in syllables at 4 Hz,
+    peak 0.3. The models keep it, so the gate's estimators read clean
+    streams as clean (a steady tone reads as noise to them)."""
+    t = np.arange(n) / sr
+    f0 = 140 + 30 * np.sin(2 * np.pi * 1.5 * t)
+    cycles = np.floor(np.cumsum(f0) / sr)
+    x = (np.diff(cycles, prepend=0) > 0).astype(np.float64)
+    for freq, bw in ((700, 130), (1220, 70), (2600, 160)):
+        r = math.exp(-math.pi * bw / sr)
+        c1, c2 = 2 * r * math.cos(2 * math.pi * freq / sr), -r * r
+        y, y1, y2 = np.empty_like(x), 0.0, 0.0
+        for i in range(n):
+            y1, y2 = (1 - r) * x[i] + c1 * y1 + c2 * y2, y1
+            y[i] = y1
+        x = y
+    x *= 0.5 * (1 - np.cos(2 * np.pi * 4 * t))
+    return 0.3 * x / np.abs(x).max()
+
+
+def voiced_chunks(batch, hops, hop_len, sr, seed):
+    """(hops, batch, hop_len) float32: the vowel over per-stream noise
+    levels from 1e-3 to 1 (seeded), which spread the gate's alpha over
+    (0, 1) in the manner of tests/test_fused_hop.py's _bursty."""
+    rng = np.random.default_rng(seed)
+    x = voiced(hops * hop_len, sr)
+    lv = np.geomspace(1e-3, 1.0, batch)[:, None]
+    sig = x[None] + lv * rng.standard_normal((batch, hops * hop_len))
+    return np.ascontiguousarray(sig.reshape(batch, hops, hop_len)
+                                .transpose(1, 0, 2)).astype(np.float32)
+
+
+def plane_errors(got, want):
+    """{plane: error} of two states on their present planes: max abs for
+    ring, ola and hx; for the gate's planes the largest
+    |a - b| / (PLANE_ATOL / PLANE_RTOL + |b|), which stays under
+    PLANE_RTOL exactly when |a - b| <= PLANE_ATOL + PLANE_RTOL |b|."""
+    errs = {}
+    for k, a in planes(got).items():
+        b = planes(want)[k].to(a.device)
+        if k in ("ring", "ola", "hx"):
+            errs[k] = max_err(a, b)
+        else:
+            d = (a.double() - b.double()).abs()
+            errs[k] = float((d / (PLANE_ATOL / PLANE_RTOL
+                                  + b.double().abs())).max().cpu())
+    return errs
+
+
+def check_state(errs, label):
+    bad = {k: v for k, v in errs.items()
+           if v > (STATE_ATOL if k in ("ring", "ola", "hx") else PLANE_RTOL)}
+    if bad:
+        raise AssertionError(f"{label}: state planes out of bounds {bad}")
+
+
+def fmt(errs):
+    return ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+
+
+def check_gated_hop(torch, cfg, plan, batch):
+    """Gated kernel against its plain version, each carrying its own
+    state over HOPS hops of voiced_chunks; returns (out error, alpha share
+    in (0, 1))."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    hop = make_fused_hop(cfg, plan, "cuda")
+    chunks = torch.from_numpy(voiced_chunks(batch, HOPS, hop.hop,
+                                            cfg.dsp.sample_rate, batch)).cuda()
+    s_k = s_p = fused_hop_init_state(cfg, plan, batch, "cuda")
+    e_out, alphas = 0.0, []
+    for c in chunks:
+        s_k, o_k = hop(s_k, c)
+        s_p, o_p = hop.reference(s_p, c)
+        e_out = max(e_out, max_err(o_k, o_p))
+        alphas.append(hop.alpha(s_p))
+    torch.cuda.synchronize()
+    alphas = torch.cat(alphas)
+    share = float(((alphas > 0) & (alphas < 1)).double().mean().cpu())
+    errs = plane_errors(s_k, s_p)
+    srv = cfg.serving
+    say(f"    {srv.snr_gate_estimator:7s} gate {srv.snr_gate_db:g} dB width "
+        f"{srv.snr_gate_width_db:g}, B={batch:3d}: out {e_out:.3e} (bound "
+        f"{OUT_ATOL:g}); {fmt(errs)}; alpha in (0, 1) on {share:.1%} of "
+        f"stream-hops")
+    if e_out > OUT_ATOL or not bool(torch.isfinite(s_k.ola).all()):
+        raise AssertionError(f"gated fused hop disagrees with its plain "
+                             f"version at B={batch}")
+    check_state(errs, "gated fused hop")
+    if share <= 0:
+        raise AssertionError("the gate never blended: alpha in {0, 1} on "
+                             "every stream-hop")
+    return e_out, share
+
+
+def check_gated_against_fast(torch, cfg, model, plan):
+    """The gated kernel against the gated fast step (the zoo model on the
+    card), each carrying its own state over HOPS hops at SLOTS streams."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    from audio_denoising_torch.runtime.engine import (
+        fast_init_state, make_fast_step)
+    hop = make_fused_hop(cfg, plan, "cuda")
+    fast = make_fast_step(cfg, model)
+    chunks = torch.from_numpy(voiced_chunks(
+        SLOTS, HOPS, hop.hop, cfg.dsp.sample_rate, 17)).cuda()
+    s_k = fused_hop_init_state(cfg, plan, SLOTS, "cuda")
+    s_f = fast_init_state(cfg, model, SLOTS, "cuda")
+    worst = 0.0
+    for c in chunks:
+        s_k, o_k = hop(s_k, c)
+        s_f, o_f = fast(s_f, c)
+        worst = max(worst, max_err(o_k, o_f))
+    say(f"    kernel vs the gated fast step ({cfg.serving.snr_gate_estimator},"
+        f" B={SLOTS}, {HOPS} hops): out {worst:.3e} (bound "
+        f"{GATED_OUT_ATOL:g})")
+    if worst > GATED_OUT_ATOL:
+        raise AssertionError("gated fused hop disagrees with the gated fast "
+                             "step")
+
+
+def phase_gated_hop(torch, checkpoints):
+    """The gated kernel on each (name, cfg, model, plan, {estimator:
+    (gate, width)}); returns the largest output error."""
+    worst = 0.0
+    for name, cfg, model, plan, points in checkpoints:
+        say(f"  {name}:")
+        for estimator, (gate_db, width_db) in points.items():
+            gcfg = with_gate(cfg, estimator, gate_db, width_db)
+            for batch in (SLOTS, 3):
+                worst = max(worst, check_gated_hop(torch, gcfg, plan,
+                                                   batch)[0])
+        check_gated_against_fast(torch, with_gate(cfg, "both",
+                                                  *points["both"]),
+                                 model, plan)
+    return worst
+
+
+def check_multi(torch, cfg, plan, label, chunks):
+    """The K-hop kernel on the main path (two calls carrying the state, in
+    float32 and with int16 IO, each one launch), then against K launches
+    of the single-hop kernel (0 expected), its plain version, the int16
+    plain path (1 LSB) and the float32 K-hop clipped and scaled (2 LSB).
+    Returns (launches, largest output error against the plain version)."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    K, B = chunks.shape[:2]
+    multi = make_fused_hop(cfg, plan, "cuda", hops_per_call=K)
+    multi16 = make_fused_hop(cfg, plan, "cuda", hops_per_call=K,
+                             io_dtype=torch.int16)
+    pcm = (torch.clamp(chunks, -1, 1) * 32767).to(torch.int16)
+    s0 = fused_hop_init_state(cfg, plan, B, "cuda")
+    # the main path: each call one launch
+    multi.launches = multi16.launches = 0
+    s_m, outs_m = multi(s0, chunks)
+    s_m2, outs_m2 = multi(s_m, chunks)
+    s_16, outs_16 = multi16(s0, pcm)
+    torch.cuda.synchronize()
+    launches = multi.launches + multi16.launches
+    if multi.launches != 2 or multi16.launches != 1:
+        raise AssertionError(f"{label}: {multi.launches} and "
+                             f"{multi16.launches} launches for 2 and 1 calls")
+    # K launches of the single-hop kernel on the same chunks
+    single = make_fused_hop(cfg, plan, "cuda")
+    s_s, outs_s = run_hops(single, s0, chunks)
+    outs_s = torch.stack(outs_s)
+    exact = {k: max_err(planes(s_m)[k], v) for k, v in planes(s_s).items()}
+    exact["out"] = max_err(outs_m, outs_s)
+    # the plain version, over both calls
+    s_p, outs_p = multi.plain(s0, chunks)
+    s_p2, outs_p2 = multi.plain(s_p, chunks)
+    e_plain = max(max_err(outs_m, outs_p), max_err(outs_m2, outs_p2))
+    errs = plane_errors(s_m2, s_p2)
+    # int16 IO
+    _, outs_16p = multi16.plain(s0, pcm)
+    lsb_plain = int((outs_16.int() - outs_16p.int()).abs().max().cpu())
+    s_f, outs_f = multi(s0, pcm.float() * (1.0 / 32768.0))
+    scaled = torch.clamp(outs_f, -1, 1) * 32767
+    lsb_f32 = float((outs_16.float() - scaled).abs().max().cpu())
+    torch.cuda.synchronize()
+    say(f"  {label}, B={B}, K={K}: K-hop vs {K} single-hop launches: "
+        f"{fmt(exact)} (bound {KHOP_EXACT:g}, 0 expected); vs the plain "
+        f"version over 2 calls: out {e_plain:.3e} (bound {OUT_ATOL:g}), "
+        f"{fmt(errs)}; int16 IO vs its plain path {lsb_plain} LSB (bound 1), "
+        f"vs the float32 K-hop clipped and scaled {lsb_f32:.2f} LSB (bound "
+        f"2); {launches} launches for 3 calls")
+    if max(exact.values()) > KHOP_EXACT:
+        raise AssertionError(f"{label}: the K-hop kernel differs from K "
+                             f"single hops")
+    if e_plain > OUT_ATOL:
+        raise AssertionError(f"{label}: the K-hop kernel disagrees with "
+                             f"its plain version")
+    check_state(errs, f"{label} K-hop")
+    if lsb_plain > 1 or lsb_f32 > 2:
+        raise AssertionError(f"{label}: int16 IO out of bounds")
+    return launches, e_plain
+
+
+def phase_multi(torch, cfg, plan):
+    """Phase 14 at bench.py's headline shape: ungated (fused_hop_resident)
+    and with the tuned gate, estimator 'both' (fused_hop_gated_both)."""
+    chunks = torch.from_numpy(voiced_chunks(
+        SLOTS, K_HOPS, cfg.dsp.hop_length, cfg.dsp.sample_rate, 14)).cuda()
+    launches = worst = 0
+    for label, c in (("ungated", cfg), ("gated both", tuned_gate(cfg))):
+        n, e = check_multi(torch, c, plan, label, chunks)
+        launches += n
+        worst = max(worst, e)
+    return launches, worst
+
+
+def tuned_gate(cfg):
+    """bench.py's fused_hop_gated_both: with_snr_gate(cfg, 1.0)."""
+    import warnings
+    from audio_denoising_torch.config import with_snr_gate
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")    # the x3 gain's level warning
+        return with_snr_gate(cfg, 1.0)
+
+
+def phase_engine_gated(torch, cfg, model):
+    """Mode fused with the checkpoint's recommended gate, card vs CPU,
+    each carrying its own state; idle slots bit-identical on the card."""
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    n, ticks = SLOTS, 30
+    gpu = StreamEngine(cfg, model, mode="fused", max_streams=n)
+    cpu = StreamEngine(cfg, model, mode="fused", max_streams=n, device="cpu")
+    sids = [f"s{i}" for i in range(n)]
+    for sid in sids:
+        gpu.add_stream(sid)
+        cpu.add_stream(sid)
+    data = voiced_chunks(n, ticks, cfg.dsp.hop_length, cfg.dsp.sample_rate,
+                         15)
+    worst = 0.0
+    gpu.hop_step.launches = 0
+    for t in range(ticks):
+        chunks = {sid: data[t, i] for i, sid in enumerate(sids)
+                  if (7 * i + t) % 5}
+        idle = [gpu.slots[s] for s in sids if s not in chunks]
+        before = {k: x[idle].clone() for k, x in planes(gpu.state).items()}
+        a, b = gpu.process(chunks), cpu.process(chunks)
+        for k, x in before.items():
+            if not torch.equal(x, planes(gpu.state)[k][idle]):
+                raise AssertionError(f"an idle slot's {k} moved")
+        worst = max(worst, max(float(np.abs(a[s] - b[s]).max())
+                               for s in chunks))
+    launches = gpu.hop_step.launches
+    errs = plane_errors(gpu.state, cpu.state)
+    say(f"  {n} streams x {ticks} ticks ({cfg.serving.snr_gate_estimator}, "
+        f"gate {cfg.serving.snr_gate_db:g} dB): out {worst:.3e} (bound "
+        f"{OUT_ATOL:g}), {fmt(errs)}; idle slots bit-identical; {launches} "
+        f"launches")
+    if worst > OUT_ATOL:
+        raise AssertionError("gated engine on the card disagrees with the "
+                             "CPU run")
+    check_state(errs, "gated engine")
+    if launches != ticks:
+        raise AssertionError(f"expected {ticks} kernel launches, saw "
+                             f"{launches}")
+    return launches
+
+
+def replay(step, state, data):
+    """Each stream's chunks (clients, streams, chunks, hop) through
+    ``step`` from ``state``, on the CPU; (clients * streams, chunks, hop)."""
+    import torch
+    seqs = data.reshape(-1, data.shape[2], data.shape[3])
+    want = []
+    for k in range(seqs.shape[1]):
+        state, out = step(state, torch.from_numpy(seqs[:, k].copy()))
+        want.append(out.numpy())
+    return np.stack(want, axis=1)
+
+
+def daemon_data(cfg, clients, streams, n_chunks, seed):
+    """Voiced streams at spread noise levels, (clients, streams, chunks,
+    hop)."""
+    hop = cfg.dsp.hop_length
+    v = voiced_chunks(clients * streams, n_chunks, hop, cfg.dsp.sample_rate,
+                      seed)
+    return np.ascontiguousarray(v.transpose(1, 0, 2).reshape(
+        clients, streams, n_chunks, hop))
+
+
+def phase_daemon_gated(torch, spec):
+    """EngineDaemon mode fused with auto gate on a unit-gain checkpoint;
+    every reply against its stream's sequence through the CPU step."""
+    from audio_denoising_torch.apps.engine_serve import EngineDaemon
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    clients, streams, n_chunks = 4, 16, 25
+    daemon = EngineDaemon(spec, max_streams=SLOTS, address=("127.0.0.1", 0),
+                          mode="fused")
+    srv = daemon.cfg.serving
+    if srv.snr_gate_db is None:
+        raise AssertionError("auto gate did not gate a unit-gain checkpoint")
+    data = daemon_data(daemon.cfg, clients, streams, n_chunks, 16)
+    got, _, rounds, launches, wall = serve_clients(daemon, data,
+                                                   daemon.engine.hop_step)
+    plan = daemon.engine.plan
+    want = replay(make_fused_hop(daemon.cfg, plan, "cpu"),
+                  fused_hop_init_state(daemon.cfg, plan, clients * streams),
+                  data)
+    err = float(np.abs(got - want).max())
+    say(f"  gate {srv.snr_gate_db:g} dB, width {srv.snr_gate_width_db:g}, "
+        f"{srv.snr_gate_estimator}: out {err:.3e} (bound {OUT_ATOL:g}); "
+        + latency_line(data, rounds, launches, wall))
+    if err > OUT_ATOL:
+        raise AssertionError("gated daemon disagrees with the plain version")
+    if launches <= 0:
+        raise AssertionError("the daemon never launched the kernel")
+    return launches
+
+
+def phase_daemon_defaults(torch, spec):
+    """EngineDaemon(spec) with the JAX daemon's defaults (mode fast, auto
+    gate) on a unit-gain 48 kHz checkpoint; every reply against its
+    stream's sequence through the gated fast step on the CPU."""
+    from audio_denoising_torch.apps.engine_serve import EngineDaemon
+    from audio_denoising_torch.runtime.engine import (
+        fast_init_state, make_fast_step)
+    clients, streams, n_chunks = 4, 16, 25
+    daemon = EngineDaemon(spec, max_streams=SLOTS, address=("127.0.0.1", 0))
+    srv = daemon.cfg.serving
+    if daemon.engine.mode != "fast" or srv.snr_gate_db is None:
+        raise AssertionError("the daemon's defaults are not mode fast with "
+                             "the gate")
+    data = daemon_data(daemon.cfg, clients, streams, n_chunks, 18)
+    got, _, rounds, launches, wall = serve_clients(daemon, data, None)
+    want = replay(make_fast_step(daemon.cfg, daemon.model, "cpu"),
+                  fast_init_state(daemon.cfg, daemon.model,
+                                  clients * streams), data)
+    err = float(np.abs(got - want).max())
+    say(f"  mode {daemon.engine.mode}, gate {srv.snr_gate_db:g} dB, "
+        f"{srv.snr_gate_estimator}, n_fft {daemon.cfg.dsp.n_fft}: out "
+        f"{err:.3e} (bound {OUT_ATOL:g}); "
+        + latency_line(data, rounds, launches, wall))
+    if err > OUT_ATOL or not np.all(np.isfinite(got)):
+        raise AssertionError("daemon output disagrees with the fast step")
+
+
 # -- timing -------------------------------------------------------------------
 
 def time_launches(torch, fn, n):
@@ -932,19 +1330,26 @@ def time_launches(torch, fn, n):
 
 
 def hop_work(hop, batch):
-    """(flops, bytes) one hop needs: 2 per multiply-add of the mel pair
-    and the plan cell's matmuls, the transform and its inverse at the cost
-    of a real FFT of n_fft points (2.5 N log2 N each), and each input read
-    and output written once (no DFT matrices). The kernel itself takes
-    the transforms as dense matmuls, about twice this work."""
+    """(flops, bytes) one call of ``hop`` needs for ``batch`` streams: per
+    hop 2 per multiply-add of the mel pair and the plan cell's matmuls,
+    the transform and its inverse at the cost of a real FFT of n_fft
+    points (2.5 N log2 N each), and with the SNR gate GATE_FLOPS_PER_BIN
+    per bin; the weights (no DFT matrices) and every state plane read and
+    written once per call, and each hop's chunk read and output written
+    (2 bytes a sample with int16 IO). The kernel itself takes the
+    transforms as dense matmuls, about twice this work."""
+    K = hop.hops_per_call
     macs = 2 * hop.F * hop.M + sum(w.numel() for w in hop.weights
                                    if w.dim() == 2)
     ffts = 2 * 2.5 * hop.n_fft * math.log2(hop.n_fft)
+    gate = GATE_FLOPS_PER_BIN * hop.F if hop.gated else 0
     weights = (sum(w.numel() for w in hop.weights)
                + sum(t.numel() for t in (hop.mel, hop.imel, hop.win,
                                          hop.env)))
-    per_stream = 2 * 2 * hop.n_fft + 2 * hop.n + 2 * hop.hop
-    return batch * (2 * macs + ffts), 4 * (batch * per_stream + weights)
+    state = 2 * sum(hop.widths.values())
+    io = 2 * K * hop.hop * hop.io_dtype.itemsize
+    return (batch * K * (2 * macs + ffts + gate),
+            4 * (batch * state + weights) + batch * io)
 
 
 def webrtc_hop_work(hop, batch):
@@ -991,25 +1396,31 @@ def hop_inputs(torch, hop, init, batch):
     """Random state and chunk on the card for timing a hop."""
     g = torch.Generator(device="cuda").manual_seed(5)
     state = init(batch)
-    state = type(state)(*(0.1 * torch.randn(t.shape, generator=g,
-                                            device="cuda") for t in state))
+    state = state._replace(**{
+        k: 0.1 * torch.randn(t.shape, generator=g, device="cuda")
+        for k, t in planes(state).items()})
     chunk = 0.1 * torch.randn((batch, hop.hop), generator=g, device="cuda")
     return state, chunk
 
 
-def timed(torch, run, plain, work, batch, launches):
-    """Kernel and plain times (ms) of ``run`` and ``plain``, and the bound
-    from ``work`` = (flops, bytes); prints the kernel breakdown."""
+def timed(torch, run, plain, work, batch, launches, plain_launches=None,
+          hops=1):
+    """Kernel and plain times (ms per call) of ``run`` and ``plain``, and
+    the bound from ``work`` = (flops, bytes); prints them (also per hop
+    for ``hops`` hops per call) and the kernel breakdown."""
     ms = time_launches(torch, run, launches)
-    plain_ms = time_launches(torch, plain, launches)
+    plain_ms = time_launches(torch, plain, plain_launches or launches)
     flops, nbytes = work
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     bound_ms = max(t_ops, t_bytes)
+    per_hop = (f" = {ms * 1e3 / hops:.2f} us/hop, plain "
+               f"{plain_ms * 1e3 / hops:.1f}, bound "
+               f"{bound_ms * 1e3 / hops:.2f} us/hop" if hops > 1 else "")
     say(f"  B={batch}: kernel {ms * 1e3:.1f} us/call, plain "
         f"{plain_ms * 1e3:.1f} us/call; bound {bound_ms * 1e3:.2f} us "
         f"({flops / 1e6:.1f} MFLOP -> {t_ops * 1e3:.2f} us, "
         f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us); kernel at "
-        f"{bound_ms / ms:.1%} of the bound")
+        f"{bound_ms / ms:.1%} of the bound{per_hop}")
     print_breakdown(device_breakdown(torch, run, 20), "call")
     return ms, plain_ms, bound_ms, ("operations" if t_ops >= t_bytes
                                     else "bytes")
@@ -1060,11 +1471,54 @@ def time_fast_step(torch, cfg, model, label):
     return ms
 
 
+def time_fused_hops(torch, cfg, plan, smi):
+    """The gated single hop, and the K-hop kernel per call (and per hop)
+    in float32 (bench.py's fused_hop_resident), with the tuned gate
+    (fused_hop_gated_both) and with int16 IO, each against its plain
+    version and bound; then K_HOPS single-hop launches for comparison.
+    bench.py's chunks: 0.1 x standard normal. Returns the float32 K-hop's
+    (ms, plain ms, bound ms, bound by) per call."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    chunks = 0.1 * torch.randn((K_HOPS, SLOTS, cfg.dsp.hop_length),
+                               generator=g, device="cuda")
+    gcfg = tuned_gate(cfg)
+    g_hop = make_fused_hop(gcfg, plan, "cuda")
+    state, _ = run_hops(g_hop, fused_hop_init_state(gcfg, plan, SLOTS, "cuda"),
+                        chunks[:5])
+    say(f"  fused hop with the tuned gate (both, 1 dB) ({smi}):")
+    timed(torch, lambda: g_hop(state, chunks[0]),
+          lambda: g_hop.reference(state, chunks[0]), hop_work(g_hop, SLOTS),
+          SLOTS, TIMED_LAUNCHES)
+    results = {}
+    for label, c, io in (("float32 (fused_hop_resident)", cfg, torch.float32),
+                         ("tuned gate, both (fused_hop_gated_both)", gcfg,
+                          torch.float32),
+                         ("int16 IO", cfg, torch.int16)):
+        multi = make_fused_hop(c, plan, "cuda", hops_per_call=K_HOPS,
+                               io_dtype=io)
+        s0 = fused_hop_init_state(c, plan, SLOTS, "cuda")
+        x = chunks if io == torch.float32 else (
+            torch.clamp(chunks, -1, 1) * 32767).to(torch.int16)
+        say(f"  K-hop kernel, K={K_HOPS}, {label} ({smi}):")
+        results[label] = timed(
+            torch, lambda: multi(s0, x), lambda: multi.plain(s0, x),
+            hop_work(multi, SLOTS), SLOTS, 20, plain_launches=3, hops=K_HOPS)
+    single = make_fused_hop(cfg, plan, "cuda")
+    s0 = fused_hop_init_state(cfg, plan, SLOTS, "cuda")
+    ms = time_launches(torch, lambda: run_hops(single, s0, chunks), 5)
+    say(f"  {K_HOPS} single-hop launches carrying the state ({smi}): "
+        f"{ms * 1e3:.1f} us, {ms * 1e3 / K_HOPS:.2f} us/hop")
+    return results["float32 (fused_hop_resident)"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from audio_denoising_torch.config import recommended_serving
     from audio_denoising_torch.hub import load_pretrained
     from audio_denoising_torch.ops.kernels.build import load_kernel_libraries
     from audio_denoising_torch.ops.kernels.fused_hop import (
@@ -1137,7 +1591,31 @@ def main() -> int:
     say("phase 12: EngineDaemon mode fast on 127.0.0.1")
     phase_daemon_fast(torch)
 
-    say("phase 13: timing")
+    gated_path = os.path.join(REPO, "runs", GATED_CHECKPOINT)
+    w40_cfg, w40 = load_pretrained(gated_path)
+    w40_cfg = recommended_serving(w40_cfg)
+    srv = w40_cfg.serving
+    say("phase 13: the gated fused hop kernel vs its plain version on the "
+        "card")
+    g_err = phase_gated_hop(torch, [
+        ("gruunet2-stream16k", cfg, model, plan, GATE_POINTS),
+        (GATED_CHECKPOINT, w40_cfg, w40, build_cell_plan(w40),
+         {e: (srv.snr_gate_db, srv.snr_gate_width_db)
+          for e in ("removed", "floor", "both")})])
+    say(f"phase 14: the resident K-hop kernel (gruunet2-stream16k, {SLOTS} "
+        f"streams, K={K_HOPS})")
+    m_launches, m_err = phase_multi(torch, cfg, plan)
+    say(f"phase 15: StreamEngine mode fused, gated ({GATED_CHECKPOINT}), "
+        f"{SLOTS} slots, card vs CPU")
+    launches += phase_engine_gated(torch, w40_cfg, w40)
+    say(f"phase 16: EngineDaemon mode fused, auto gate ({GATED_CHECKPOINT}) "
+        "on 127.0.0.1")
+    launches += phase_daemon_gated(torch, gated_path)
+    say(f"phase 17: EngineDaemon with its defaults (mode fast, auto gate) on "
+        f"{FAST_CHECKPOINT}, 127.0.0.1")
+    phase_daemon_defaults(torch, os.path.join(REPO, "runs", FAST_CHECKPOINT))
+
+    say("phase 18: timing")
     say(f"  fused hop ({smi}):")
     state, chunk = hop_inputs(
         torch, hop, lambda b: fused_hop_init_state(cfg, plan, b, "cuda"),
@@ -1164,16 +1642,21 @@ def main() -> int:
     say(f"  mode fast, gruunet2-good ({smi}):")
     time_fast_step(torch, good_cfg, good, "zoo model")
     time_fast_step(torch, good_cfg, pm, "PlanModel(fused=True)")
+    multi = time_fused_hops(torch, cfg, plan, smi)
 
     rows = []
-    for name, replaces, n, e, (ms, plain_ms, bound_ms, bound_by) in (
-            ("fused_hop", "fused_hop.py:242", launches, err, fused),
-            ("webrtc_hop", "webrtc_hop.py:331", w_launches, w_err, webrtc),
-            ("fused_cell", "gruunet_cell.py:58", c_launches, c_err,
-             fused_cell)):
+    for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by) in (
+            ("fused_hop", "fused_hop", "fused_hop.py:242", launches,
+             max(err, g_err), fused),
+            ("fused_hop_multi", "fused_hop", "fused_hop.py:384", m_launches,
+             m_err, multi),
+            ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331", w_launches,
+             w_err, webrtc),
+            ("fused_cell", "fused_cell", "gruunet_cell.py:58", c_launches,
+             c_err, fused_cell)):
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"audio_denoising_torch/csrc/{name}.cu",
+            "source": f"audio_denoising_torch/csrc/{source}.cu",
             "replaces": f"audio_denoising_tpu/ops/pallas/{replaces}",
             "launches": n, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})

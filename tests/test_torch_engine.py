@@ -3,6 +3,7 @@ StreamEngine mode 'fused' (masked commit, ingress sanitization, slot
 reuse, snapshot/restore) and the EngineDaemon's wire protocol. Mode
 'fast' is held in tests/test_torch_fast.py."""
 
+import inspect
 import os
 import threading
 from multiprocessing.connection import Client
@@ -14,11 +15,13 @@ import torch
 from audio_denoising_tpu.hub import load_pretrained as jax_load_pretrained
 from audio_denoising_tpu.runtime.engine import StreamEngine as JaxEngine
 
-from audio_denoising_torch.apps.engine_serve import EngineDaemon
+from audio_denoising_torch.apps.engine_serve import (
+    EngineDaemon, daemon_from_args, parser)
 from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.ops.kernels.fused_hop import (
     fused_hop_init_state, make_fused_hop)
-from audio_denoising_torch.runtime.engine import StreamEngine
+from audio_denoising_torch.runtime.engine import (
+    StreamEngine, fast_init_state, make_fast_step)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = "gruunet2-stream16k"
@@ -105,9 +108,11 @@ def test_masked_commit_leaves_idle_slots_untouched(engines):
         engine.process({"x": np.ones(hop, np.float32),
                         "y": np.ones(hop, np.float32)})
         y_slot = engine.slots["y"]
-        before = [t[y_slot].clone() for t in engine.state]
+        # the state's present planes (the ungated gate planes are None)
+        before = [t[y_slot].clone() for t in engine.state if t is not None]
         engine.process({"x": np.ones(hop, np.float32)})
-        for a, b in zip(before, engine.state):
+        after = [t for t in engine.state if t is not None]
+        for a, b in zip(before, after):
             assert torch.equal(a, b[y_slot])
     finally:
         engine.remove_stream("x")
@@ -169,16 +174,91 @@ def test_engine_refuses_unported_modes():
 
 
 def test_daemon_refuses_a_profile_it_cannot_serve():
-    """A unit-gain checkpoint's recommended profile turns the SNR gate on,
-    which the port's fused hop and fast step lack: the daemon refuses it
-    in both modes rather than serve it ungated."""
-    path = os.path.join(REPO, "runs", "gruunet2s16kw40-mrstft-idp-50k.npz")
-    with pytest.raises(NotImplementedError, match="SNR gate"):
-        EngineDaemon(path, max_streams=2, address=("127.0.0.1", 0),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="SNR gate"):
-        EngineDaemon(path, max_streams=2, address=("127.0.0.1", 0),
-                     mode="fast", device="cpu")
+    """A gated fused-webrtc: the JAX engine downgrades it to mode
+    'webrtc', whose gate the port has not ported yet (ROADMAP A3), so the
+    port refuses it rather than serve it ungated."""
+    with pytest.raises(ValueError, match="webrtc step's gate.*ROADMAP A3"):
+        EngineDaemon("gruunet2-dari_tult", max_streams=2,
+                     address=("127.0.0.1", 0), mode="fused-webrtc",
+                     device="cpu", snr_gate_db=1.0)
+
+
+UNIT_GAIN = os.path.join(REPO, "runs", "gruunet2s16kw40-mrstft-idp-50k.npz")
+
+
+@pytest.mark.parametrize("mode", ["fused", "fast"])
+def test_daemon_gates_a_unit_gain_checkpoint(mode):
+    """Under auto gate a gain-1 checkpoint serves the tuned gate (1 dB,
+    width 6, 'both'), as the JAX daemon does, and its engine carries all
+    five planes; a few ticks agree with the gated step run alone."""
+    daemon = EngineDaemon(UNIT_GAIN, max_streams=2, address=("127.0.0.1", 0),
+                          mode=mode, device="cpu")
+    srv = daemon.cfg.serving
+    assert (srv.snr_gate_db, srv.snr_gate_width_db,
+            srv.snr_gate_estimator) == (1.0, 6.0, "both")
+    eng = daemon.engine
+    assert eng.mode == mode
+    for name in ("nf_smooth", "nf_floor", "nf_total", "em_out", "em_rem"):
+        assert getattr(eng.state, name) is not None, name
+    if mode == "fused":
+        step = make_fused_hop(daemon.cfg, eng.plan, "cpu")
+        state = fused_hop_init_state(daemon.cfg, eng.plan, 2)
+    else:
+        step = make_fast_step(daemon.cfg, daemon.model, "cpu")
+        state = fast_init_state(daemon.cfg, daemon.model, 2)
+    eng.add_stream("a")
+    eng.add_stream("b")
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        chunks = (0.1 * rng.standard_normal((2, eng.hop))).astype(np.float32)
+        got = eng.process({"a": chunks[0], "b": chunks[1]})
+        state, want = step(state, torch.from_numpy(chunks))
+        np.testing.assert_allclose(np.stack([got["a"], got["b"]]),
+                                   want.numpy(), atol=1e-6)
+
+
+def _daemon(*argv):
+    return daemon_from_args(parser().parse_args(
+        ["--model", UNIT_GAIN, "--max-streams", "2", "--device", "cpu",
+         "--port", "0", *argv]))
+
+
+@pytest.mark.parametrize("mode", ["fused", "fast"])
+def test_cli_no_snr_gate_serves_ungated(mode):
+    daemon = _daemon("--mode", mode, "--no-snr-gate")
+    assert daemon.cfg.serving.snr_gate_db is None
+    assert daemon.engine.state.em_out is None
+    assert daemon.engine.state.nf_floor is None
+
+
+def test_cli_gate_flags_set_all_three():
+    daemon = _daemon("--mode", "fused", "--snr-gate", "3",
+                     "--snr-gate-width", "4", "--snr-gate-estimator",
+                     "removed")
+    srv = daemon.cfg.serving
+    assert (srv.snr_gate_db, srv.snr_gate_width_db,
+            srv.snr_gate_estimator) == (3.0, 4.0, "removed")
+    assert daemon.engine.state.em_out.shape == (2, 1)
+    assert daemon.engine.state.nf_floor is None
+
+
+def test_bare_engine_serves_the_jax_daemons_defaults():
+    """A bare ``engine`` parses to gruunet2-good in mode fast, the JAX
+    daemon's defaults; EngineDaemon() with no arguments matches."""
+    from audio_denoising_tpu.apps.engine_serve import (
+        EngineDaemon as JaxDaemon, main as jax_main)
+    args = parser().parse_args([])
+    assert (args.model, args.mode) == ("gruunet2-good", "fast")
+    ours = inspect.signature(EngineDaemon).parameters
+    theirs = inspect.signature(JaxDaemon).parameters
+    for name in ("spec", "mode", "max_streams", "snr_gate_db",
+                 "snr_gate_width_db", "snr_gate_estimator", "auto_gate"):
+        assert ours[name].default == theirs[name].default, name
+    assert "gruunet2-good" in inspect.getsource(jax_main)
+    daemon = EngineDaemon(max_streams=2, device="cpu")
+    assert daemon.engine.mode == "fast"
+    assert daemon.cfg.dsp.n_fft == 1024 and daemon.cfg.serving.output_gain \
+        == 3.0 and daemon.cfg.serving.snr_gate_db is None
 
 
 def _recv(conn):
@@ -189,7 +269,7 @@ def _recv(conn):
 
 def test_daemon_serves_two_clients():
     daemon = EngineDaemon(SPEC, max_streams=8, address=("127.0.0.1", 0),
-                          device="cpu")
+                          mode="fused", device="cpu")
     server = threading.Thread(target=daemon.serve_forever, daemon=True)
     server.start()
     try:

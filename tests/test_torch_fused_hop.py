@@ -1,7 +1,10 @@
 """The port's fused hop: its plain PyTorch version against the JAX
-package's Pallas kernel (interpret mode) fed the identical plan, and the
-wrapper's checks. The CUDA kernel itself is held against the plain
-version on the card by chip_smoke.py."""
+package's Pallas kernel (interpret mode) fed the identical plan, with and
+without the SNR gate, in the single-hop and the resident K-hop form and
+with int16 IO; the gated hop against the port's gated fast step; engine
+mode 'fused' gated against the JAX engine; and the wrapper's checks. The
+CUDA kernels themselves are held against the plain version on the card
+by chip_smoke.py."""
 
 import dataclasses
 
@@ -13,17 +16,30 @@ import jax.numpy as jnp
 from audio_denoising_tpu.hub import load_pretrained as jax_load_pretrained
 from audio_denoising_tpu.ops.pallas.fused_hop import (
     fused_hop_init_state as jax_init_state, make_fused_hop as jax_make_hop)
+from audio_denoising_tpu.runtime.engine import StreamEngine as JaxEngine
 from audio_denoising_tpu.runtime.plan import (
     build_cell_plan as jax_build_cell_plan)
 
 from audio_denoising_torch.config import PRESETS
+from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.ops.kernels.fused_hop import (
     FusedHopState, fused_hop_init_state, make_fused_hop)
+from audio_denoising_torch.runtime.engine import (
+    StreamEngine, fast_init_state, make_fast_step)
 from audio_denoising_torch.runtime.plan import plan_from_numpy
 
-SPEC = "gruunet2-stream16k"
+SPEC = "gruunet2-stream16k"   # gruunet2-good's weights at 16 kHz, 640/320
 OUT_ATOL = 2e-4      # tests/test_fused_hop.py's bounds for the fused hop
 STATE_ATOL = 2e-5
+GATED_OUT_ATOL = 3e-4    # tests/test_fused_hop.py's bounds with the gate
+PLANE_RTOL, PLANE_ATOL = 2e-4, 1e-9
+LSB = 1              # int16 outputs: at most one step apart
+ESTIMATORS = ("removed", "floor", "both")
+# (gate, width) per estimator: tests/test_fused_hop.py's 10 dB / 4 where
+# the bursty input spreads alpha over (0, 1) with it; 'removed' reads
+# 15-41 dB on this x3-gain checkpoint, so its ramp sits higher
+GATE_POINTS = {"removed": (30.0, 10.0), "floor": (10.0, 4.0),
+               "both": (10.0, 4.0)}
 
 
 @pytest.fixture(scope="module")
@@ -31,6 +47,48 @@ def plans():
     cfg, model, params = jax_load_pretrained(SPEC)
     jplan = jax_build_cell_plan(model, params)
     return cfg, jplan, PRESETS[SPEC], plan_from_numpy(jplan)
+
+
+def _gated(cfg, estimator, gate_db=None, width_db=None):
+    """``cfg`` (either package's Config) with the gate on at
+    GATE_POINTS[estimator] unless given."""
+    point = GATE_POINTS[estimator]
+    return dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, snr_gate_db=point[0] if gate_db is None else gate_db,
+        snr_gate_width_db=point[1] if width_db is None else width_db,
+        snr_gate_estimator=estimator))
+
+
+def _bursty(rng, B, hop, t):
+    """tests/test_fused_hop.py's _bursty: a tone on every other 3 hops
+    over per-stream noise levels that spread alpha over (0, 1)."""
+    t_ax = np.arange(t * hop, (t + 1) * hop) / 16000.0
+    base = (0.3 * np.sin(2 * np.pi * 440 * t_ax)
+            * (1.0 if (t // 3) % 2 else 0.0))
+    lv = np.array([0.001, 0.01, 0.1, 0.3])[:B, None]
+    return (base[None, :] + lv * rng.standard_normal((B, hop))
+            ).astype(np.float32)
+
+
+def _assert_state_close(state, jstate, plane_only=False):
+    """ring/ola/hx within STATE_ATOL; the gate's (B, F) planes relative,
+    its per-stream planes against the JAX kernel's column 0."""
+    for name, t in state._asdict().items():
+        if t is None:
+            assert getattr(jstate, name) is None, name
+            continue
+        want = np.asarray(getattr(jstate, name))
+        got = t.numpy()
+        if name in ("ring", "ola", "hx"):
+            if not plane_only:
+                np.testing.assert_allclose(got, want, atol=STATE_ATOL,
+                                           err_msg=name)
+        elif got.shape[1] == 1:
+            np.testing.assert_allclose(got[:, 0], want[:, 0],
+                                       rtol=PLANE_RTOL, err_msg=name)
+        else:
+            np.testing.assert_allclose(got, want, rtol=PLANE_RTOL,
+                                       atol=PLANE_ATOL, err_msg=name)
 
 
 @pytest.mark.parametrize("batch", [4, 3])
@@ -80,32 +138,223 @@ def test_wrapper_rejects_bad_inputs(plans, case):
         hop(state, chunk)
 
 
-def _with(cfg, **serving):
-    return dataclasses.replace(
-        cfg, serving=dataclasses.replace(cfg.serving, **serving))
+@pytest.mark.parametrize("estimator", ESTIMATORS)
+def test_gated_plain_hop_matches_jax_kernel(plans, estimator):
+    """12 bursty hops at B=4 (tests/test_fused_hop.py's gated setup): the
+    gate blends (0 < alpha < 1 on some stream-hops) and the plain version
+    follows the Pallas kernel's gate."""
+    jcfg, jplan, cfg, plan = plans
+    jcfg, cfg = _gated(jcfg, estimator), _gated(cfg, estimator)
+    B, hop_len = 4, cfg.dsp.hop_length
+    jax_hop = jax_make_hop(jcfg, jplan, interpret=True)
+    hop = make_fused_hop(cfg, plan, device="cpu")
+    js = jax_init_state(jcfg, jplan, B)
+    s = fused_hop_init_state(cfg, plan, B)
+    rng = np.random.default_rng(0)
+    alphas = []
+    for t in range(12):
+        chunk = _bursty(rng, B, hop_len, t)
+        js, jout = jax_hop(js, jnp.asarray(chunk))
+        s, out = hop(s, torch.from_numpy(chunk))
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   atol=GATED_OUT_ATOL)
+        alphas.append(hop.alpha(s).numpy())
+    _assert_state_close(s, js)
+    alphas = np.concatenate(alphas)
+    assert np.any((alphas > 0) & (alphas < 1)), alphas.ravel()
 
 
-@pytest.mark.parametrize("case", ["gate", "raw", "bf16", "int8", "multi",
-                                  "int16", "delta"])
+@pytest.mark.parametrize("estimator", ESTIMATORS)
+def test_gated_hop_matches_the_gated_fast_step(plans, estimator):
+    """The independent oracle, as tests/test_fused_hop.py uses it: the
+    port's op-by-op fast step with the same gate (out 3e-4, planes
+    relative 2e-4)."""
+    _, _, cfg, plan = plans
+    cfg = _gated(cfg, estimator)
+    _, model = load_pretrained(SPEC)
+    B, hop_len = 4, cfg.dsp.hop_length
+    fast = make_fast_step(cfg, model, "cpu")
+    hop = make_fused_hop(cfg, plan, device="cpu")
+    s0 = fast_init_state(cfg, model, B)
+    s1 = fused_hop_init_state(cfg, plan, B)
+    rng = np.random.default_rng(1)
+    for t in range(12):
+        chunk = torch.from_numpy(_bursty(rng, B, hop_len, t))
+        s0, out0 = fast(s0, chunk)
+        s1, out1 = hop(s1, chunk)
+        np.testing.assert_allclose(out1.numpy(), out0.numpy(),
+                                   atol=GATED_OUT_ATOL)
+    for name in ("nf_smooth", "nf_floor", "nf_total", "em_out", "em_rem"):
+        a, b = getattr(s1, name), getattr(s0, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_allclose(a.reshape(b.shape).numpy(), b.numpy(),
+                                       rtol=PLANE_RTOL, atol=PLANE_ATOL,
+                                       err_msg=name)
+
+
+def _multi_case(case):
+    """(estimator or None, io dtype) of a K-hop test case."""
+    return {"ungated": (None, torch.float32), "both": ("both", torch.float32),
+            "int16": ("both", torch.int16)}[case]
+
+
+def _pcm(rng, K, B, hop):
+    return (np.clip(np.stack([_bursty(rng, B, hop, t) for t in range(K)]),
+                    -1, 1) * 32767).astype(np.int16)
+
+
+@pytest.mark.parametrize("case", ["ungated", "both", "int16"])
+def test_multi_hop_matches_jax_kernel(plans, case):
+    """K=4 hops in one call at B=3 against JAX's resident kernel
+    (hops_per_call=4): out 2e-4 and state 2e-5, the gate's planes
+    relative 2e-4; with int16 IO the outputs at most 1 LSB apart."""
+    jcfg, jplan, cfg, plan = plans
+    estimator, io = _multi_case(case)
+    if estimator:
+        jcfg, cfg = _gated(jcfg, estimator), _gated(cfg, estimator)
+    K, B, hop_len = 4, 3, cfg.dsp.hop_length
+    jio = jnp.int16 if io == torch.int16 else jnp.float32
+    jax_multi = jax_make_hop(jcfg, jplan, interpret=True, hops_per_call=K,
+                             io_dtype=jio)
+    multi = make_fused_hop(cfg, plan, device="cpu", hops_per_call=K,
+                           io_dtype=io)
+    rng = np.random.default_rng(2)
+    js, s = jax_init_state(jcfg, jplan, B), fused_hop_init_state(cfg, plan, B)
+    for _ in range(2):            # the second call starts from carried state
+        if io == torch.int16:
+            chunks = _pcm(rng, K, B, hop_len)
+        else:
+            chunks = np.stack([_bursty(rng, B, hop_len, t) for t in range(K)])
+        js, jouts = jax_multi(js, jnp.asarray(chunks))
+        s, outs = multi(s, torch.from_numpy(chunks))
+        assert outs.shape == (K, B, hop_len) and outs.dtype == io
+        if io == torch.int16:
+            diff = np.abs(outs.numpy().astype(np.int32)
+                          - np.asarray(jouts).astype(np.int32))
+            assert diff.max() <= LSB
+        else:
+            np.testing.assert_allclose(outs.numpy(), np.asarray(jouts),
+                                       atol=OUT_ATOL)
+        _assert_state_close(s, js)
+    assert multi.launches == 0      # the plain version is not a launch
+
+
+@pytest.mark.parametrize("case", ["ungated", "both", "int16"])
+def test_multi_hop_equals_single_hops(plans, case):
+    """On the CPU a K-hop call is K single hops of the plain version, with
+    the int16 conversion at each hop's boundary: exactly equal."""
+    _, _, cfg, plan = plans
+    estimator, io = _multi_case(case)
+    if estimator:
+        cfg = _gated(cfg, estimator)
+    K, B, hop_len = 4, 3, cfg.dsp.hop_length
+    multi = make_fused_hop(cfg, plan, device="cpu", hops_per_call=K,
+                           io_dtype=io)
+    single = make_fused_hop(cfg, plan, device="cpu", io_dtype=io)
+    rng = np.random.default_rng(3)
+    chunks = (_pcm(rng, K, B, hop_len) if io == torch.int16 else
+              np.stack([_bursty(rng, B, hop_len, t) for t in range(K)]))
+    chunks = torch.from_numpy(chunks)
+    s_m, outs = multi(fused_hop_init_state(cfg, plan, B), chunks)
+    s_s = fused_hop_init_state(cfg, plan, B)
+    for k in range(K):
+        s_s, out = single(s_s, chunks[k])
+        assert torch.equal(outs[k], out)
+    for a, b in zip(s_m, s_s):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["gate", "multi", "int16"])
+def test_gate_multi_and_int16_are_served(plans, case):
+    """What the first slices refused: a gated configuration, K hops per
+    call and int16 IO each build and run a call on the CPU."""
+    _, _, cfg, plan = plans
+    kw, B, hop_len = {}, 2, cfg.dsp.hop_length
+    shape, dtype = (B, hop_len), torch.float32
+    if case == "gate":
+        cfg = _gated(cfg, "both", gate_db=1.0, width_db=6.0)
+    elif case == "multi":
+        kw["hops_per_call"] = 50
+        shape = (50, B, hop_len)
+    else:
+        kw["io_dtype"] = dtype = torch.int16
+    hop = make_fused_hop(cfg, plan, device="cpu", **kw)
+    state = fused_hop_init_state(cfg, plan, B)
+    assert (state.em_out is not None) == (case == "gate")
+    new, out = hop(state, torch.ones(shape, dtype=dtype))
+    assert out.shape == shape and out.dtype == dtype
+    assert bool(torch.isfinite(new.ola).all())
+
+
+@pytest.mark.parametrize("case", ["raw", "bf16", "int8", "delta"])
 def test_later_slices_raise(plans, case):
     _, _, cfg, plan = plans
     kw = {}
-    if case == "gate":
-        cfg = _with(cfg, snr_gate_db=1.0)
-    elif case == "raw":
+    if case == "raw":
         cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
             cfg.dsp, domain="raw"))
     elif case in ("bf16", "int8"):
         kw["compute_dtype"] = {"bf16": torch.bfloat16,
                                "int8": torch.int8}[case]
-    elif case == "multi":
-        kw["hops_per_call"] = 50
-    elif case == "int16":
-        kw["io_dtype"] = torch.int16
     else:
         plan = plan._replace(delta=True)
-    with pytest.raises(NotImplementedError, match="does not implement"):
+    with pytest.raises(NotImplementedError,
+                       match="does not implement.*ROADMAP B[34]"):
         make_fused_hop(cfg, plan, device="cpu", **kw)
+
+
+def test_wrapper_rejects_missing_gate_planes(plans):
+    _, _, cfg, plan = plans
+    hop = make_fused_hop(_gated(cfg, "both"), plan, device="cpu")
+    with pytest.raises(ValueError, match="nf_smooth is missing"):
+        hop(fused_hop_init_state(cfg, plan, 2), torch.zeros(2, 320))
+
+
+@pytest.mark.parametrize("estimator", ["both", "removed"])
+def test_engine_fused_gated_matches_jax_with_masked_commit(estimator):
+    """Engine mode 'fused' with the gate against the JAX engine (its
+    kernel in interpret mode), 2 slots: 'b' idles for 4 ticks and its
+    planes stay bit-identical (tests/test_fused_hop.py's masked-commit
+    tests); then 'b' leaves and 'c' takes its slot with zeroed planes."""
+    jcfg, jmodel, jparams = jax_load_pretrained(SPEC)
+    cfg, model = load_pretrained(SPEC)
+    jcfg, cfg = _gated(jcfg, estimator), _gated(cfg, estimator)
+    jeng = JaxEngine(jcfg, jmodel, jparams, mode="fused", max_streams=2,
+                     pallas_interpret=True)
+    eng = StreamEngine(cfg, model, mode="fused", max_streams=2, device="cpu")
+    assert jeng.mode == eng.mode == "fused"
+    rng = np.random.default_rng(4)
+    hop_len = cfg.dsp.hop_length
+    for e in (jeng, eng):
+        e.add_stream("a")
+        e.add_stream("b")
+    for t in range(8):
+        if t == 6:
+            for e in (jeng, eng):
+                e.remove_stream("b")
+                assert e.add_stream("c") == eng.slots["a"] ^ 1
+            slot = eng.slots["c"]
+            for name in ("em_out", "em_rem", "nf_floor"):
+                plane = getattr(eng.state, name)
+                if plane is not None:
+                    assert not bool(plane[slot].any()), name
+        both = _bursty(rng, 2, hop_len, t)
+        chunks = {"a": both[0]}
+        if t == 0 or t >= 5:
+            chunks["b" if t < 6 else "c"] = both[1]
+        idle = eng.slots["b"] if "b" not in chunks and "b" in eng.slots \
+            else None
+        before = {k: v.clone() for k, v in eng.state._asdict().items()
+                  if v is not None}
+        want, got = jeng.process(chunks), eng.process(chunks)
+        for sid in chunks:
+            np.testing.assert_allclose(got[sid], want[sid],
+                                       atol=GATED_OUT_ATOL)
+        if idle is not None:
+            for k, v in before.items():
+                assert torch.equal(getattr(eng.state, k)[idle], v[idle]), k
+        _assert_state_close(eng.state, jeng.state, plane_only=True)
 
 
 def test_hop_needs_a_card_unless_cpu_is_asked(plans, monkeypatch):

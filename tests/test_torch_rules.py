@@ -55,6 +55,16 @@ def test_fast_slice_modules_are_found(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "audio_denoising_torch.ops.noisefloor",
+    "audio_denoising_torch.ops.kernels.fused_hop",
+    "audio_denoising_torch.runtime.engine"])
+def test_gate_slice_modules_are_found(module):
+    """The fourth slice's modules (the SNR gate, the K-hop fused hop)
+    fall under the import check below."""
+    assert module in _port_modules()
+
+
 @pytest.mark.parametrize("source", sorted(
     f for f in os.listdir(os.path.join(PKG, "csrc"))
     if f.endswith((".cu", ".cuh"))))

@@ -141,3 +141,74 @@ def test_cell_bound_counts_the_plan(smoke):
     assert flops == 2 * 710_192 * 256
     assert nbytes == 4 * (712_568 + 256 * 2 * (64 + 68))
     assert flops / smoke.FP32_FLOPS > nbytes / smoke.HBM_BYTES_S
+
+
+def test_hop_bound_counts_k_hops_the_gate_and_int16(smoke):
+    """chip_smoke's bound of the fused hop at gruunet2-stream16k and 256
+    streams: 392.3 MFLOP per hop; K hops per call move the weights and
+    the state once and K chunks in and out (2 bytes a sample with int16
+    IO); the gate adds GATE_FLOPS_PER_BIN per bin and its 2F + 3 floats
+    of state."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.ops.kernels.fused_hop import make_fused_hop
+    cfg, model = load_pretrained("gruunet2-stream16k")
+    plan = build_cell_plan(model)
+    B, K, F, hop = 256, smoke.K_HOPS, cfg.dsp.n_stft, cfg.dsp.hop_length
+    one = smoke.hop_work(make_fused_hop(cfg, plan, "cpu"), B)
+    multi = smoke.hop_work(make_fused_hop(cfg, plan, "cpu", hops_per_call=K),
+                           B)
+    pcm = smoke.hop_work(make_fused_hop(cfg, plan, "cpu", hops_per_call=K,
+                                        io_dtype=torch.int16), B)
+    gated = smoke.hop_work(make_fused_hop(smoke.tuned_gate(cfg), plan, "cpu",
+                                          hops_per_call=K), B)
+    assert one[0] / 1e6 == pytest.approx(392.3, abs=0.05)
+    assert multi[0] == pytest.approx(K * one[0])
+    assert multi[1] - one[1] == B * (K - 1) * 2 * hop * 4
+    assert multi[1] - pcm[1] == B * K * 2 * hop * 2
+    assert gated[0] - multi[0] == pytest.approx(
+        B * K * smoke.GATE_FLOPS_PER_BIN * F)
+    assert gated[1] - multi[1] == B * 2 * (2 * F + 3) * 4
+    # bound by operations: 293 us of FMA per call against 12 us of bytes
+    assert multi[0] / smoke.FP32_FLOPS * 1e6 == pytest.approx(292.8, abs=0.1)
+    assert multi[1] / smoke.HBM_BYTES_S * 1e6 < 12
+
+
+def test_voiced_chunks_spread_the_gate(smoke):
+    """The input the gated phases use makes the gate blend (0 < alpha < 1)
+    on the unit-gain checkpoint with its recommended gate, where a steady
+    or bursty tone reads as noise."""
+    from audio_denoising_torch.config import recommended_serving
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    cfg, model = load_pretrained(os.path.join(REPO, "runs",
+                                              smoke.GATED_CHECKPOINT))
+    cfg = recommended_serving(cfg)
+    assert cfg.serving.snr_gate_db == 1.0
+    plan = build_cell_plan(model)
+    hop = make_fused_hop(cfg, plan, "cpu")
+    chunks = smoke.voiced_chunks(3, 12, hop.hop, cfg.dsp.sample_rate, 3)
+    assert chunks.shape == (12, 3, hop.hop) and chunks.dtype == np.float32
+    state, alphas = fused_hop_init_state(cfg, plan, 3), []
+    for c in chunks:
+        state, _ = hop(state, torch.from_numpy(c))
+        alphas.append(hop.alpha(state))
+    alphas = torch.cat(alphas)
+    assert bool(((alphas > 0) & (alphas < 1)).any())
+
+
+def test_plane_errors_hold_the_gate_planes_relative(smoke):
+    """ring/ola/hx by max abs; a gate plane passes check_state exactly when
+    |a - b| <= PLANE_ATOL + PLANE_RTOL |b| elementwise."""
+    from audio_denoising_torch.ops.kernels.fused_hop import FusedHopState
+    b = torch.tensor([[1e3, 1e-3, 0.0]])
+    want = FusedHopState(ring=b, ola=b, hx=b, nf_floor=b)
+    ok = b + 0.9 * (smoke.PLANE_ATOL + smoke.PLANE_RTOL * b.abs())
+    bad = b + 1.1 * (smoke.PLANE_ATOL + smoke.PLANE_RTOL * b.abs())
+    errs = smoke.plane_errors(want._replace(nf_floor=ok), want)
+    assert errs["ring"] == 0 and errs["nf_floor"] < smoke.PLANE_RTOL
+    smoke.check_state(errs, "ok")
+    errs = smoke.plane_errors(want._replace(nf_floor=bad), want)
+    assert errs["nf_floor"] > smoke.PLANE_RTOL
+    with pytest.raises(AssertionError, match="nf_floor"):
+        smoke.check_state(errs, "bad")
