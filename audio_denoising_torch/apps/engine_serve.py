@@ -9,7 +9,8 @@ WebRTC-hop kernels in mode ``fused-webrtc``, or the op-by-op Griffin-Lim
 hop in mode ``webrtc``. As in the JAX package, a bare daemon serves
 ``gruunet2-good`` in mode ``fast``, and in modes ``fast`` and ``fused`` a
 unit-gain causal checkpoint gets the tuned SNR gate unless the caller
-sets one (``--snr-gate``) or turns it off (``--no-snr-gate``).
+sets one (``--snr-gate``) or turns it off (``--no-snr-gate``); mode
+``webrtc`` serves the gate that ``--snr-gate`` sets.
 
 Protocol (multiprocessing.connection, length-prefixed pickle):
 
@@ -66,8 +67,8 @@ class EngineDaemon:
             self.cfg = with_snr_gate(self.cfg, snr_gate_db,
                                      snr_gate_width_db, snr_gate_estimator)
         elif auto_gate and mode in ("fast", "fused"):
-            # the measured-best profile of the phase-reuse hops; the
-            # Griffin-Lim modes have no gated reconstruction
+            # the measured-best profile of the phase-reuse hops, as the
+            # JAX daemon serves it; mode webrtc is gated only on request
             self.cfg = recommended_serving(self.cfg)
         self.engine = StreamEngine(self.cfg, self.model, mode=mode,
                                    max_streams=max_streams, device=device)

@@ -18,7 +18,10 @@
 // each thread's chain of dependent steps, and add the partial sums in
 // shared memory in a fixed order. The epilogue adds the bias and applies
 // the stage's activation. Rows past the batch (the ragged edge) compute on
-// zeros and are never stored by the callers.
+// zeros and are never stored by the callers. `gemm` and `plan_cell` run on
+// the whole block, or on a group of its threads (`Lanes`) that waits at a
+// named barrier of its own, as webrtc_hop.cu's K-hop kernel runs them on
+// kThreads of its threads.
 
 #pragma once
 
@@ -48,6 +51,26 @@ constexpr int kThreads = 512;
 constexpr int kTile = 2;  // streams per block
 
 enum Epilogue { kNone = 0, kRelu = 1, kLog1p = 2, kLinGain = 3 };
+
+// The threads that run a stage together: this thread's lane, the group's
+// size, and the barrier the group waits at: 0 is the whole block
+// (__syncthreads), any other id a named barrier of exactly n threads.
+struct Lanes {
+  int id;
+  int n;
+  int bar;
+};
+
+__device__ __forceinline__ Lanes block_lanes() {
+  return Lanes{(int)threadIdx.x, (int)blockDim.x, 0};
+}
+
+__device__ __forceinline__ void group_sync(const Lanes& g) {
+  if (g.bar == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(g.bar), "r"(g.n) : "memory");
+}
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
@@ -183,11 +206,11 @@ __device__ __forceinline__ float epilogue(const Gemm& g, float v, int col) {
 // contiguous k ranges of the two sources laid end to end. Narrow stages
 // split k (ks_n > 1) until the items fill the block; their partial sums
 // meet in shared memory and are added in a fixed order.
-__device__ void gemm(const Gemm& g) {
+__device__ void gemm(const Gemm& g, const Lanes& t) {
   const int ldw = round4(g.n);
   const int n4 = ldw / 4;
   const int ktot = g.k1 + g.k2;
-  const int nt = blockDim.x;
+  const int nt = t.n;
   // fewest dependent steps per thread: rounds of items times k per item,
   // with at least 16 k per item and the partial sums within the scratch
   int ks_n = 1;
@@ -202,7 +225,7 @@ __device__ void gemm(const Gemm& g) {
   }
   const int chunk = round4((ktot + ks_n - 1) / ks_n);
   const int items = n4 * ks_n;
-  for (int it = threadIdx.x; it < items; it += nt) {
+  for (int it = t.id; it < items; it += nt) {
     const int q = it % n4, ks = it / n4;
     const int lo = ks * chunk, hi = min(ktot, lo + chunk);
     float acc[kTile][4];
@@ -226,17 +249,19 @@ __device__ void gemm(const Gemm& g) {
       }
   }
   if (ks_n > 1) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * ldw; e += nt) {
+    group_sync(t);
+    for (int e = t.id; e < kTile * ldw; e += nt) {
       const int r = e / ldw, col = e % ldw;
       float v = 0.f;
       for (int ks = 0; ks < ks_n; ++ks)
         v += g.scratch[(ks * kTile + r) * ldw + col];
       g.c[r * g.ldc + col] = epilogue(g, v, col);
     }
-    __syncthreads();  // the scratch is free for the next gemm
+    group_sync(t);  // the scratch is free for the next gemm
   }
 }
+
+__device__ __forceinline__ void gemm(const Gemm& g) { gemm(g, block_lanes()); }
 
 __device__ inline Gemm make_gemm(const float* a1, int lda1, int k1,
                                  const float* w1, int n, const float* bias,
@@ -262,26 +287,28 @@ __device__ inline Gemm make_gemm(const float* a1, int lda1, int k1,
 
 __device__ inline float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
-// One cell step: reads x = smem d[0] and hx, leaves hi in smem and
-// returns the buffer holding y (width n_mels, leading dimension ld_pp).
+// One cell step on the threads `t`: reads x = smem d[0] and hx, leaves hi
+// in smem and returns the buffer holding y (width n_mels, leading
+// dimension ld_pp).
 __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
-                            float* smem) {
+                            float* smem, const Lanes& t) {
   const int L = a.levels;
   const int n = a.n_hidden;
   for (int i = 0; i < L; ++i) {
     gemm(make_gemm(smem + l.d[i], l.ld_d[i], a.down_n[i], a.down_w[i],
                       a.down_n[i + 1], a.down_b[i], kRelu, smem + l.d[i + 1],
-                      l.ld_d[i + 1], smem + l.scratch));
+                      l.ld_d[i + 1], smem + l.scratch), t);
     if (i == 0)  // the reset gate reads only hx: share the first barrier
       gemm(make_gemm(smem + l.hx, l.ld_n, n, a.reset_w, 3 * n, a.reset_b,
-                        kRelu, smem + l.gh, round4(3 * n), smem + l.scratch));
-    __syncthreads();
+                        kRelu, smem + l.gh, round4(3 * n), smem + l.scratch),
+           t);
+    group_sync(t);
   }
   const float* gx = smem + l.d[L];
   const float* gh = smem + l.gh;
   const int ld_gx = l.ld_d[L];
   const int ld_gh = round4(3 * n);
-  for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
+  for (int e = t.id; e < kTile * n; e += t.n) {
     const int s = e / n, j = e % n;
     const float* x = gx + s * ld_gx;
     const float* h = gh + s * ld_gh;
@@ -291,7 +318,7 @@ __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
     const float hxv = smem[l.hx + s * l.ld_n + j];
     smem[l.hi + s * l.ld_n + j] = newgate + inputgate * (hxv - newgate);
   }
-  __syncthreads();
+  group_sync(t);
   const float* h = smem + l.hi;
   int ldh = l.ld_n;
   int kh = n;
@@ -307,13 +334,18 @@ __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
       g.k2 = a.down_n[L - i];
       g.w2 = a.up_s[i];
     }
-    gemm(g);
-    __syncthreads();
+    gemm(g, t);
+    group_sync(t);
     h = dst;
     ldh = l.ld_pp;
     kh = a.up_n[i + 1];
   }
   return dst;
+}
+
+__device__ __forceinline__ float* plan_cell(const AdtPlan& a,
+                                           const CellLayout& l, float* smem) {
+  return plan_cell(a, l, smem, block_lanes());
 }
 
 }  // namespace

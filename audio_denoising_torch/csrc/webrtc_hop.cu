@@ -1,9 +1,12 @@
 // The whole WebRTC serving hop, warm-start Griffin-Lim included, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): one hop per call, or K hops per call with the state
+// resident on the card.
 //
-// Replaces audio_denoising_tpu/ops/pallas/webrtc_hop.py::make_webrtc_hop's
-// single-hop Pallas kernel (`kernel`, webrtc_hop.py:331) in its fp32 form.
-// The plain PyTorch version of the same function is WebRTCHop.reference in
+// Replaces two Pallas kernels of audio_denoising_tpu/ops/pallas/
+// webrtc_hop.py::make_webrtc_hop in their fp32 form: the single-hop
+// `kernel` (webrtc_hop.py:331) and the resident multi-hop `kernel_multi`
+// (webrtc_hop.py:344). The plain PyTorch version of the same function is
+// WebRTCHop.reference (one hop) and WebRTCHop.plain (a call) in
 // audio_denoising_torch/ops/kernels/webrtc_hop.py.
 //
 // Per stream and hop (hop = n_fft / 2, so one analysis window holds
@@ -25,21 +28,40 @@
 // 12.9 MFLOP per stream, 3.3 GFLOP per hop, 49 us against 67 TFLOP/s of
 // fp32; its bytes (state, chunk, output and the 2.85 MB of cell weights)
 // are about 20 MB, 6 us at 3.35 TB/s. The hop is bound by operations,
-// most of them in the Griffin-Lim transforms. Parity with the reference
-// needs fp32, so the kernel uses FMA, not TF32 tensor cores.
+// most of them in the Griffin-Lim transforms; K hops in one call move the
+// weights and the state once, so the call stays bound by operations.
+// Parity with the reference needs fp32, so the kernels use FMA, not TF32
+// tensor cores.
 //
-// Design: three launches on the caller's stream.
-// 1. `analysis_kernel`, one block per stream: ring shift, peak, the
-//    3-frame STFT as in-kernel FFTs, mel and log1p; writes the features
-//    and the peak to scratch.
-// 2. `cell_kernel`, one block per kTile streams: the three plan-cell
-//    steps on plan_cell.cuh's small-GEMM routine (the weights come from
-//    L2, each block reads them once per step), then the residual; writes
-//    the mel magnitudes to scratch and hx.
-// 3. `gl_kernel`, one block per stream: inverse mel, the warm seed, the
-//    Griffin-Lim loop and the synthesis, with the magnitudes, phases,
+// The hop runs as three stages, each a device function kept out of line so
+// that every entry point runs the same instructions, with the same lanes
+// per stream; K hops in one call therefore equal K single hops bit for bit
+// (warm Griffin-Lim on trained weights is chaotic, so any other rounding
+// would part ways within a few hops):
+// 1. `analysis_stage`, kFftThreads lanes per stream: ring shift, peak, the
+//    3-frame STFT as in-kernel FFTs, mel and log1p; the features and the
+//    peak.
+// 2. `cell_stage`, kThreads lanes per tile of kTile streams: the three
+//    plan-cell steps on plan_cell.cuh's small-GEMM routine (the weights
+//    come from L2, each tile reads them once per step), then the
+//    residual; the mel magnitudes and hx.
+// 3. `gl_stage`, kFftThreads lanes per stream: inverse mel, the warm seed,
+//    the Griffin-Lim loop and the synthesis, with the magnitudes, phases,
 //    previous rebuilt spectrum and time signal in shared memory (about
-//    87 KB at n_fft 1536, so two blocks share an SM).
+//    89 KB at n_fft 1536).
+// One hop per call is three launches on the caller's stream, one per
+// stage (`analysis_kernel`, `cell_kernel`, `gl_kernel`), with the features,
+// mel magnitudes and peaks in scratch. K hops per call are one launch of
+// `webrtc_hop_multi_kernel`: a block of kTile * kFftThreads threads owns a
+// tile of kTile streams (one block per SM at n_fft 1536, about 210 KB of
+// shared memory); it loads the tile's ring, OLA buffer, hx and both phase
+// planes into shared memory once, runs the three stages K times (threads
+// [kFftThreads s, kFftThreads (s + 1)) run stream s's transforms and wait
+// at a named barrier of their own; the first kThreads run the cell, whose
+// buffers alias stream 0's transform buffers), reading chunk k of
+// (K, B, hop) and writing output k, and stores the state once: the
+// counterpart of the Pallas kernel's VMEM scratch carried across its K
+// grid steps. A ragged last tile leaves its missing stream's lanes idle.
 // The transforms are real FFTs of n_fft points done as complex FFTs of
 // n_fft / 2 points (Stockham autosort, radix 4, 2 and 3 passes, ping-pong
 // buffers in shared memory) plus the real-input split; the three frames
@@ -59,14 +81,14 @@ struct AdtWebRTCHopArgs {
   const float* hx;      // (B, n_hidden) cell state
   const float* ang_re;  // (B, 3 n_bins) carried phases, frame t at t n_bins
   const float* ang_im;  // (B, 3 n_bins)
-  const float* chunk;   // (B, hop) new samples
+  const float* chunk;   // (hops, B, hop) new samples
   float* ring_out;
   float* ola_out;
   float* hx_out;
   float* ang_re_out;
   float* ang_im_out;
-  float* out;           // (B, hop)
-  float* feat;          // (B, 3, n_mels) scratch: log-mel features
+  float* out;           // (hops, B, hop)
+  float* feat;          // (B, 3, n_mels) scratch of one hop: log-mel features
   float* mel_mag;       // (B, 3, n_mels) scratch: the cell's mel magnitudes
   float* peak;          // (B,) scratch: each window's peak
   const float* win;     // (n_fft,) Hann window
@@ -81,6 +103,7 @@ struct AdtWebRTCHopArgs {
   int n_bins;
   int n_mels;
   int n_iter;
+  int hops;             // hops per call: 1 (three launches) or K (one)
   float momentum;       // m / (1 + m) of the configured momentum m
   float output_gain;
   float state_decay;
@@ -89,8 +112,11 @@ struct AdtWebRTCHopArgs {
 namespace {
 
 constexpr int kFrames = 3;
-constexpr int kFftThreads = 384;
+constexpr int kFftThreads = 384;  // lanes per stream of the FFT stages
+constexpr int kMultiThreads = kTile * kFftThreads;
+constexpr int kCellBarrier = 1 + kTile;  // named barriers 1..kTile: streams
 constexpr int kMaxPasses = 16;
+static_assert(kThreads <= kMultiThreads, "the cell's lanes fit the block");
 
 // The radices of the complex FFT of m = n_fft / 2 points.
 struct FftPlan {
@@ -146,10 +172,10 @@ __device__ __forceinline__ float2 twiddle_m(const float2* tw, int q) {
 // radices.
 template <bool kInverse, int R>
 __device__ void fft_pass(const float2* in, float2* out, int m, int ns,
-                         const float2* tw) {
+                         const float2* tw, const Lanes& g) {
   const int stride = m / R;
   const int L = ns * R;
-  for (int e = threadIdx.x; e < kFrames * stride; e += blockDim.x) {
+  for (int e = g.id; e < kFrames * stride; e += g.n) {
     const int f = e / stride, j = e % stride;
     const float2* src = in + f * m;
     float2* dst = out + f * m;
@@ -186,24 +212,24 @@ __device__ void fft_pass(const float2* in, float2* out, int m, int ns,
 #pragma unroll
     for (int r = 0; r < R; ++r) dst[base + r * ns] = v[r];
   }
-  __syncthreads();
+  group_sync(g);
 }
 
 // Complex FFT (unnormalized) of the kFrames sequences in buf[0]; returns
 // the buffer that holds the result (buf[0] or buf[1]).
 template <bool kInverse>
 __device__ float2* fft(float2* buf0, float2* buf1, const FftPlan& p,
-                       const float2* tw) {
+                       const float2* tw, const Lanes& g) {
   float2* in = buf0;
   float2* out = buf1;
   int ns = 1;
   for (int i = 0; i < p.passes; ++i) {
     if (p.radix[i] == 4)
-      fft_pass<kInverse, 4>(in, out, p.m, ns, tw);
+      fft_pass<kInverse, 4>(in, out, p.m, ns, tw, g);
     else if (p.radix[i] == 2)
-      fft_pass<kInverse, 2>(in, out, p.m, ns, tw);
+      fft_pass<kInverse, 2>(in, out, p.m, ns, tw, g);
     else
-      fft_pass<kInverse, 3>(in, out, p.m, ns, tw);
+      fft_pass<kInverse, 3>(in, out, p.m, ns, tw, g);
     ns *= p.radix[i];
     float2* t = in;
     in = out;
@@ -212,11 +238,13 @@ __device__ float2* fft(float2* buf0, float2* buf1, const FftPlan& p,
   return in;
 }
 
-// Per-stream shared-memory layout of the FFT kernels, in floats.
+// Per-stream shared-memory layout of the FFT stages, in floats. The
+// analysis uses the buffers up to `mag`; Griffin-Lim all of them.
 struct SpecLayout {
   int n_fft, m, F;
-  int time;        // n_fft floats: a window in the time domain
   int buf0, buf1;  // kFrames * m float2 each
+  int time;        // n_fft floats: a window in the time domain
+  int red;         // kFftThreads floats: the analysis's partial results
   int mag, are, aim, tre, tim;  // kFrames * F floats each
   int total;
 };
@@ -234,6 +262,8 @@ __host__ __device__ inline SpecLayout make_spec_layout(int n_fft, int F,
   off += 2 * kFrames * l.m;
   l.time = off;
   off += round4(n_fft);
+  l.red = off;
+  off += kFftThreads;
   l.mag = off;
   off += round4(kFrames * F);
   l.are = l.aim = l.tre = l.tim = off;
@@ -255,11 +285,12 @@ __host__ __device__ inline SpecLayout make_spec_layout(int n_fft, int F,
 // windowed and packed as m complex points (even samples real, odd
 // imaginary), then the forward FFT. Returns the buffer with the result.
 __device__ float2* stft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
-                         const SpecLayout& l, float* smem) {
+                         const SpecLayout& l, float* smem, const Lanes& g) {
   const float* x = smem + l.time;
   float2* buf0 = reinterpret_cast<float2*>(smem + l.buf0);
   const int n_fft = l.n_fft, hop = a.hop, m = l.m;
-  for (int e = threadIdx.x; e < kFrames * m; e += blockDim.x) {
+  const float* win = a.win;
+  for (int e = g.id; e < kFrames * m; e += g.n) {
     const int t = e / m, q = e % m;
     float s[2];
     for (int h = 0; h < 2; ++h) {
@@ -271,13 +302,13 @@ __device__ float2* stft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
         src = i;
       else  // [x[hop] .. x[n_fft - 1], x[n_fft - 2] .. x[hop - 1]]
         src = i < hop ? i + hop : n_fft + hop - 2 - i;
-      s[h] = x[src] * __ldg(a.win + i);
+      s[h] = x[src] * __ldg(win + i);
     }
     buf0[e] = make_float2(s[0], s[1]);
   }
-  __syncthreads();
+  group_sync(g);
   return fft<false>(buf0, reinterpret_cast<float2*>(smem + l.buf1), p,
-                    a.twiddle);
+                    a.twiddle, g);
 }
 
 // Bin k (0 <= k <= m) of the real FFT from the half-length complex FFT Z
@@ -297,13 +328,15 @@ __device__ __forceinline__ float2 real_bin(const float2* Z, int m, int k,
 // dropped), window, overlap-add over the trim region [hop, hop + n_fft),
 // divide by the envelope.
 __device__ void istft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
-                       const SpecLayout& l, float* smem) {
+                       const SpecLayout& l, float* smem, const Lanes& g) {
   float2* buf0 = reinterpret_cast<float2*>(smem + l.buf0);
   const float* mag = smem + l.mag;
   const float* are = smem + l.are;
   const float* aim = smem + l.aim;
   const int m = l.m, F = l.F, n_fft = l.n_fft, hop = a.hop;
-  for (int e = threadIdx.x; e < kFrames * m; e += blockDim.x) {
+  const float *win = a.win, *env = a.env;
+  const float2* tw = a.twiddle;
+  for (int e = g.id; e < kFrames * m; e += g.n) {
     const int t = e / m, k = e % m;
     const int o = t * F;
     float2 xk = make_float2(mag[o + k] * are[o + k], mag[o + k] * aim[o + k]);
@@ -314,146 +347,166 @@ __device__ void istft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
       xc.y = 0.f;
     }
     const float2 ev = cadd(xk, xc);
-    const float2 od = cmul(csub(xk, xc), conjf2(__ldg(a.twiddle + k)));
+    const float2 od = cmul(csub(xk, xc), conjf2(__ldg(tw + k)));
     buf0[e] = cadd(ev, rot90<true>(od));
   }
-  __syncthreads();
+  group_sync(g);
   const float* fr = reinterpret_cast<const float*>(
-      fft<true>(buf0, reinterpret_cast<float2*>(smem + l.buf1), p,
-                a.twiddle));
+      fft<true>(buf0, reinterpret_cast<float2*>(smem + l.buf1), p, tw, g));
   const float scale = 1.f / (float)n_fft;
   float* x = smem + l.time;
-  for (int j = threadIdx.x; j < n_fft; j += blockDim.x) {
+  for (int j = g.id; j < n_fft; j += g.n) {
     float v;
     if (j < hop)
-      v = fr[j + hop] * __ldg(a.win + j + hop) +
-          fr[n_fft + j] * __ldg(a.win + j);
+      v = fr[j + hop] * __ldg(win + j + hop) + fr[n_fft + j] * __ldg(win + j);
     else
-      v = fr[n_fft + j] * __ldg(a.win + j) +
-          fr[2 * n_fft + j - hop] * __ldg(a.win + j - hop);
-    x[j] = v * scale / __ldg(a.env + j);
+      v = fr[n_fft + j] * __ldg(win + j) +
+          fr[2 * n_fft + j - hop] * __ldg(win + j - hop);
+    x[j] = v * scale / __ldg(env + j);
   }
-  __syncthreads();
+  group_sync(g);
 }
 
-__global__ void __launch_bounds__(kFftThreads)
-    analysis_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
-                    const __grid_constant__ FftPlan p) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float red[kFftThreads];
+// Stage 1 for one stream, its layout at dynamic shared memory + base: the
+// window (ring_in shifted by one hop, then the chunk) is staged in the
+// time buffer and kept in ring_out (which may be ring_in); the window's
+// peak; the normalized, pre-windowed 3-frame STFT, its magnitude, mel and
+// log1p into feat (kFrames * n_mels). Ends on the group's barrier.
+__device__ __noinline__ void analysis_stage(
+    const AdtWebRTCHopArgs& a, const FftPlan& p, int base, Lanes g,
+    const float* ring_in, const float* chunk, float* ring_out, float* feat,
+    float* peak_out) {
+  extern __shared__ __align__(16) float dyn[];
+  float* smem = dyn + base;
   const SpecLayout l = make_spec_layout(a.n_fft, a.n_bins, false);
-  const size_t b = blockIdx.x;
   const int n_fft = a.n_fft, hop = a.hop, keep = n_fft - hop;
   const int F = a.n_bins, M = a.n_mels;
   float* x = smem + l.time;
+  float* red = smem + l.red;
 
   // ring shift and the window's peak
   float peak = 0.f;
-  for (int i = threadIdx.x; i < n_fft; i += blockDim.x) {
-    const float v = i < keep ? a.ring[b * n_fft + i + hop]
-                             : a.chunk[b * hop + i - keep];
-    a.ring_out[b * n_fft + i] = v;
+  for (int i = g.id; i < n_fft; i += g.n) {
+    const float v = i < keep ? ring_in[i + hop] : chunk[i - keep];
     x[i] = v;
     peak = fmaxf(peak, fabsf(v));
   }
-  red[threadIdx.x] = peak;
-  __syncthreads();
+  red[g.id] = peak;
+  group_sync(g);
   int half = 1;
-  while (2 * half < (int)blockDim.x) half *= 2;
+  while (2 * half < g.n) half *= 2;
   for (int s = half; s > 0; s >>= 1) {
-    if ((int)threadIdx.x < s && (int)threadIdx.x + s < (int)blockDim.x)
-      red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
-    __syncthreads();
+    if (g.id < s && g.id + s < g.n)
+      red[g.id] = fmaxf(red[g.id], red[g.id + s]);
+    group_sync(g);
   }
   const bool ok = red[0] > 1e-6f;
   peak = ok ? red[0] : 1.f;
-  if (threadIdx.x == 0) a.peak[b] = peak;
-  // normalize and pre-window
-  for (int i = threadIdx.x; i < n_fft; i += blockDim.x)
-    x[i] = (ok ? x[i] / peak : x[i]) * __ldg(a.win + i);
-  __syncthreads();
+  if (g.id == 0) *peak_out = peak;
+  // keep the window; normalize and pre-window
+  const float* win = a.win;
+  for (int i = g.id; i < n_fft; i += g.n) {
+    ring_out[i] = x[i];
+    x[i] = (ok ? x[i] / peak : x[i]) * __ldg(win + i);
+  }
+  group_sync(g);
 
-  const float2* Z = stft3(a, p, l, smem);
+  const float2* Z = stft3(a, p, l, smem, g);
   float* mag = smem + l.mag;
-  for (int e = threadIdx.x; e < kFrames * F; e += blockDim.x) {
+  const float2* tw = a.twiddle;
+  for (int e = g.id; e < kFrames * F; e += g.n) {
     const int t = e / F, k = e % F;
-    const float2 v = real_bin(Z + t * l.m, l.m, k, a.twiddle);
+    const float2 v = real_bin(Z + t * l.m, l.m, k, tw);
     mag[e] = sqrtf(v.x * v.x + v.y * v.y);
   }
-  __syncthreads();
+  group_sync(g);
 
   // feat = log(1 + mag @ mel), k split over `split` partial sums
   const int outs = kFrames * M;
-  const int split = max(1, min((int)blockDim.x / outs, kFftThreads / outs));
-  const int chunk = (F + split - 1) / split;
-  for (int e = threadIdx.x; e < outs * split; e += blockDim.x) {
+  const int split = max(1, min(g.n / outs, kFftThreads / outs));
+  const int span = (F + split - 1) / split;
+  const float* mel = a.mel;
+  for (int e = g.id; e < outs * split; e += g.n) {
     const int s = e / outs, o = e % outs;
     const int t = o / M, mm = o % M;
-    const int lo = s * chunk, hi = min(F, lo + chunk);
+    const int lo = s * span, hi = min(F, lo + span);
     float acc = 0.f;
     for (int k = lo; k < hi; ++k)
-      acc = fmaf(mag[t * F + k], __ldg(a.mel + (size_t)k * M + mm), acc);
+      acc = fmaf(mag[t * F + k], __ldg(mel + (size_t)k * M + mm), acc);
     red[e] = acc;
   }
-  __syncthreads();
-  for (int o = threadIdx.x; o < outs; o += blockDim.x) {
+  group_sync(g);
+  for (int o = g.id; o < outs; o += g.n) {
     float v = 0.f;
     for (int s = 0; s < split; ++s) v += red[s * outs + o];
-    a.feat[b * outs + o] = logf(1.f + v);
+    feat[o] = logf(1.f + v);
   }
+  group_sync(g);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    cell_kernel(const __grid_constant__ AdtWebRTCHopArgs a) {
-  extern __shared__ __align__(16) float smem[];
+// Stage 2 for a tile of kTile streams (`rows` of them real), the cell's
+// layout at dynamic shared memory + base: hx from hx_in (n_hidden a
+// stream), the features from feat (kFrames * n_mels a stream), the mel
+// magnitudes to mel_mag, hx decayed to hx_out (which may be hx_in). Ends
+// on the group's barrier.
+__device__ __noinline__ void cell_stage(const AdtWebRTCHopArgs& a, int base,
+                                        Lanes g, int rows,
+                                        const float* hx_in, const float* feat,
+                                        float* mel_mag, float* hx_out) {
+  extern __shared__ __align__(16) float dyn[];
+  float* smem = dyn + base;
   CellLayout l;
   int off = 0;
   make_cell_layout(a.plan, &l, &off);
-  const int b0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.batch - b0);
   const int M = a.n_mels, n = a.plan.n_hidden;
 
-  for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
+  for (int e = g.id; e < kTile * n; e += g.n) {
     const int s = e / n, j = e % n;
-    smem[l.hx + s * l.ld_n + j] =
-        s < rows ? a.hx[(size_t)(b0 + s) * n + j] : 0.f;
+    smem[l.hx + s * l.ld_n + j] = s < rows ? hx_in[s * n + j] : 0.f;
   }
   for (int t = 0; t < kFrames; ++t) {
-    for (int e = threadIdx.x; e < kTile * M; e += blockDim.x) {
+    for (int e = g.id; e < kTile * M; e += g.n) {
       const int s = e / M, mm = e % M;
       smem[l.d[0] + s * l.ld_d[0] + mm] =
-          s < rows ? a.feat[((size_t)(b0 + s) * kFrames + t) * M + mm] : 0.f;
+          s < rows ? feat[(s * kFrames + t) * M + mm] : 0.f;
     }
-    __syncthreads();
-    const float* y = plan_cell(a.plan, l, smem);
+    group_sync(g);
+    const float* y = plan_cell(a.plan, l, smem, g);
     // mel magnitude: max(exp(leaky_relu(x - y, 0.2)) - 1, 0)
-    for (int e = threadIdx.x; e < rows * M; e += blockDim.x) {
+    for (int e = g.id; e < rows * M; e += g.n) {
       const int s = e / M, mm = e % M;
       float r = smem[l.d[0] + s * l.ld_d[0] + mm] - y[s * l.ld_pp + mm];
       r = r >= 0.f ? r : 0.2f * r;
-      a.mel_mag[((size_t)(b0 + s) * kFrames + t) * M + mm] =
-          fmaxf(expf(r) - 1.f, 0.f);
+      mel_mag[(s * kFrames + t) * M + mm] = fmaxf(expf(r) - 1.f, 0.f);
     }
     // hi is the next step's hx
-    for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
+    for (int e = g.id; e < kTile * n; e += g.n) {
       const int s = e / n, j = e % n;
       smem[l.hx + s * l.ld_n + j] = smem[l.hi + s * l.ld_n + j];
     }
-    __syncthreads();
+    group_sync(g);
   }
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
+  for (int e = g.id; e < rows * n; e += g.n) {
     const int s = e / n, j = e % n;
-    a.hx_out[(size_t)(b0 + s) * n + j] =
-        smem[l.hx + s * l.ld_n + j] * a.state_decay;
+    hx_out[s * n + j] = smem[l.hx + s * l.ld_n + j] * a.state_decay;
   }
+  group_sync(g);
 }
 
-__global__ void __launch_bounds__(kFftThreads, 2)
-    gl_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
-              const __grid_constant__ FftPlan p) {
-  extern __shared__ __align__(16) float smem[];
+// Stage 3 for one stream, its layout at dynamic shared memory + base: the
+// target magnitudes from mel_mag, the warm seed from the carried phases
+// (ang_re, ang_im; they may be this layout's are and aim), Griffin-Lim,
+// the synthesis times the peak; emits ola_in[:hop] to out and the shifted
+// OLA buffer plus the frame to ola_out (which may be ola_in), the
+// converged phases to ang_re_out, ang_im_out. Ends on the group's barrier.
+__device__ __noinline__ void gl_stage(
+    const AdtWebRTCHopArgs& a, const FftPlan& p, int base, Lanes g,
+    const float* mel_mag, float peak, const float* ang_re,
+    const float* ang_im, const float* ola_in, float* out, float* ola_out,
+    float* ang_re_out, float* ang_im_out) {
+  extern __shared__ __align__(16) float dyn[];
+  float* smem = dyn + base;
   const SpecLayout l = make_spec_layout(a.n_fft, a.n_bins, true);
-  const size_t b = blockIdx.x;
   const int n_fft = a.n_fft, hop = a.hop, F = a.n_bins, M = a.n_mels;
   const int nb = kFrames * F;
   float* mag = smem + l.mag;
@@ -462,61 +515,212 @@ __global__ void __launch_bounds__(kFftThreads, 2)
   float* tre = smem + l.tre;
   float* tim = smem + l.tim;
 
-  // inverse mel: the target magnitudes, from the mel magnitudes staged
-  // in the time buffer
+  // the mel magnitudes staged in the time buffer; the carried phases in
+  // the previous-spectrum buffers
   float* mm = smem + l.time;
-  for (int e = threadIdx.x; e < kFrames * M; e += blockDim.x)
-    mm[e] = a.mel_mag[b * kFrames * M + e];
-  __syncthreads();
-  for (int e = threadIdx.x; e < nb; e += blockDim.x) {
+  for (int e = g.id; e < kFrames * M; e += g.n) mm[e] = mel_mag[e];
+  for (int e = g.id; e < nb; e += g.n) {
+    tre[e] = ang_re[e];
+    tim[e] = ang_im[e];
+  }
+  group_sync(g);
+  // inverse mel: the target magnitudes
+  const float* imel = a.imel;
+  const float gain = a.output_gain;
+  for (int e = g.id; e < nb; e += g.n) {
     const int t = e / F, k = e % F;
     float acc = 0.f;
     for (int j = 0; j < M; ++j)
-      acc = fmaf(mm[t * M + j], __ldg(a.imel + (size_t)j * F + k), acc);
-    mag[e] = fmaxf(acc, 0.f) * a.output_gain;
+      acc = fmaf(mm[t * M + j], __ldg(imel + (size_t)j * F + k), acc);
+    mag[e] = fmaxf(acc, 0.f) * gain;
   }
   // warm seed: shift one frame; the newest is the last advanced one hop
-  for (int e = threadIdx.x; e < nb; e += blockDim.x) {
+  for (int e = g.id; e < nb; e += g.n) {
     const int t = e / F, k = e % F;
-    const size_t src = b * nb + (t < kFrames - 1 ? e + F : e);
+    const int src = t < kFrames - 1 ? e + F : e;
     const float sign = (t == kFrames - 1 && (k & 1)) ? -1.f : 1.f;
-    are[e] = sign * a.ang_re[src];
-    aim[e] = sign * a.ang_im[src];
+    are[e] = sign * tre[src];
+    aim[e] = sign * tim[src];
+  }
+  group_sync(g);
+  for (int e = g.id; e < nb; e += g.n) {
     tre[e] = 0.f;
     tim[e] = 0.f;
   }
-  __syncthreads();
+  group_sync(g);
 
+  const float2* tw = a.twiddle;
+  const float momentum = a.momentum;
   for (int it = 0; it < a.n_iter; ++it) {
-    istft3(a, p, l, smem);
-    const float2* Z = stft3(a, p, l, smem);
-    for (int e = threadIdx.x; e < nb; e += blockDim.x) {
+    istft3(a, p, l, smem, g);
+    const float2* Z = stft3(a, p, l, smem, g);
+    for (int e = g.id; e < nb; e += g.n) {
       const int t = e / F, k = e % F;
-      const float2 r = real_bin(Z + t * l.m, l.m, k, a.twiddle);
-      const float ur = r.x - a.momentum * tre[e];
-      const float ui = r.y - a.momentum * tim[e];
+      const float2 r = real_bin(Z + t * l.m, l.m, k, tw);
+      const float ur = r.x - momentum * tre[e];
+      const float ui = r.y - momentum * tim[e];
       const float nrm = sqrtf(ur * ur + ui * ui) + 1e-16f;
       are[e] = ur / nrm;
       aim[e] = ui / nrm;
       tre[e] = r.x;
       tim[e] = r.y;
     }
+    group_sync(g);
+  }
+  istft3(a, p, l, smem, g);
+
+  // emit, then the shifted OLA buffer plus the frame, staged in place of
+  // the frame
+  float* frame = smem + l.time;
+  for (int i = g.id; i < n_fft; i += g.n) {
+    if (i < hop) out[i] = ola_in[i];
+    const float shifted = i < n_fft - hop ? ola_in[i + hop] : 0.f;
+    frame[i] = shifted + frame[i] * peak;
+  }
+  group_sync(g);
+  for (int i = g.id; i < n_fft; i += g.n) ola_out[i] = frame[i];
+  for (int e = g.id; e < nb; e += g.n) {
+    ang_re_out[e] = are[e];
+    ang_im_out[e] = aim[e];
+  }
+  group_sync(g);
+}
+
+__global__ void __launch_bounds__(kFftThreads)
+    analysis_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
+                    const __grid_constant__ FftPlan p) {
+  const size_t b = blockIdx.x;
+  analysis_stage(a, p, 0, block_lanes(), a.ring + b * a.n_fft,
+                 a.chunk + b * a.hop, a.ring_out + b * a.n_fft,
+                 a.feat + b * kFrames * a.n_mels, a.peak + b);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    cell_kernel(const __grid_constant__ AdtWebRTCHopArgs a) {
+  const size_t b0 = (size_t)blockIdx.x * kTile;
+  const int rows = min(kTile, a.batch - (int)b0);
+  const size_t n = a.plan.n_hidden, nf = kFrames * a.n_mels;
+  cell_stage(a, 0, block_lanes(), rows, a.hx + b0 * n, a.feat + b0 * nf,
+             a.mel_mag + b0 * nf, a.hx_out + b0 * n);
+}
+
+__global__ void __launch_bounds__(kFftThreads, 2)
+    gl_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
+              const __grid_constant__ FftPlan p) {
+  const size_t b = blockIdx.x;
+  const size_t nb = kFrames * a.n_bins;
+  gl_stage(a, p, 0, block_lanes(), a.mel_mag + b * kFrames * a.n_mels,
+           a.peak[b], a.ang_re + b * nb, a.ang_im + b * nb,
+           a.ola + b * a.n_fft, a.out + b * a.hop, a.ola_out + b * a.n_fft,
+           a.ang_re_out + b * nb, a.ang_im_out + b * nb);
+}
+
+// The K-hop kernel's shared memory, in floats: each stream's SpecLayout
+// (its are and aim hold the carried phases), then the tile's state and
+// the stages' hand-offs, each kTile rows; the cell's layout aliases
+// stream 0's transform buffers where it fits (they are dead while the
+// cell runs), else it follows.
+struct MultiLayout {
+  SpecLayout spec;
+  int stream[kTile];
+  int ld_t;                            // ring and OLA rows
+  int ring, ola, hx, feat, mel_mag, peak;
+  int cell;
+  int total;
+};
+
+__host__ __device__ inline MultiLayout make_multi_layout(
+    const AdtWebRTCHopArgs& a) {
+  MultiLayout l;
+  l.spec = make_spec_layout(a.n_fft, a.n_bins, true);
+  int off = 0;
+  for (int s = 0; s < kTile; ++s) l.stream[s] = take(&off, 1, l.spec.total);
+  l.ld_t = round4(a.n_fft);
+  l.ring = take(&off, kTile, l.ld_t);
+  l.ola = take(&off, kTile, l.ld_t);
+  l.hx = take(&off, 1, round4(kTile * a.plan.n_hidden));
+  l.feat = take(&off, 1, round4(kTile * kFrames * a.n_mels));
+  l.mel_mag = take(&off, 1, round4(kTile * kFrames * a.n_mels));
+  l.peak = take(&off, 1, round4(kTile));
+  CellLayout cl;
+  int cell = 0;
+  make_cell_layout(a.plan, &cl, &cell);
+  l.cell = cell <= l.spec.are ? l.stream[0] : take(&off, 1, cell);
+  l.total = off;
+  return l;
+}
+
+// The resident K-hop kernel (webrtc_hop.py:344): a.hops hops of a tile of
+// kTile streams with its state in shared memory throughout.
+__global__ void __launch_bounds__(kMultiThreads, 1)
+    webrtc_hop_multi_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
+                            const __grid_constant__ FftPlan p) {
+  extern __shared__ __align__(16) float smem[];
+  const MultiLayout l = make_multi_layout(a);
+  const int b0 = blockIdx.x * kTile;
+  const int rows = min(kTile, a.batch - b0);
+  const int n_fft = a.n_fft, hop = a.hop, n = a.plan.n_hidden;
+  const int nf = kFrames * a.n_mels, nb = kFrames * a.n_bins;
+  const int tid = threadIdx.x, s = tid / kFftThreads;
+  const Lanes fft_lanes{tid % kFftThreads, kFftThreads, 1 + s};
+  const Lanes cell_lanes{tid, kThreads, kCellBarrier};
+  float* ring = smem + l.ring + s * l.ld_t;
+  float* ola = smem + l.ola + s * l.ld_t;
+  float* are = smem + l.stream[s] + l.spec.are;
+  float* aim = smem + l.stream[s] + l.spec.aim;
+  float* hx = smem + l.hx;
+  float* feat = smem + l.feat;
+  float* mel_mag = smem + l.mel_mag;
+  float* peak = smem + l.peak;
+
+  // the tile's state, once
+  for (int e = tid; e < rows * n_fft; e += blockDim.x) {
+    const int r = e / n_fft, i = e % n_fft;
+    const size_t g = (size_t)(b0 + r) * n_fft + i;
+    smem[l.ring + r * l.ld_t + i] = a.ring[g];
+    smem[l.ola + r * l.ld_t + i] = a.ola[g];
+  }
+  for (int e = tid; e < rows * nb; e += blockDim.x) {
+    const int r = e / nb, i = e % nb;
+    const size_t g = (size_t)(b0 + r) * nb + i;
+    smem[l.stream[r] + l.spec.are + i] = a.ang_re[g];
+    smem[l.stream[r] + l.spec.aim + i] = a.ang_im[g];
+  }
+  for (int e = tid; e < rows * n; e += blockDim.x)
+    hx[e] = a.hx[(size_t)b0 * n + e];
+  __syncthreads();
+
+  const size_t b = b0 + s;  // this thread's stream in the FFT stages
+  for (int k = 0; k < a.hops; ++k) {
+    const size_t row = ((size_t)k * a.batch + b) * hop;
+    if (s < rows)
+      analysis_stage(a, p, l.stream[s], fft_lanes, ring, a.chunk + row, ring,
+                     feat + s * nf, peak + s);
+    __syncthreads();
+    if (tid < kThreads)
+      cell_stage(a, l.cell, cell_lanes, rows, hx, feat, mel_mag, hx);
+    __syncthreads();
+    if (s < rows)
+      gl_stage(a, p, l.stream[s], fft_lanes, mel_mag + s * nf, peak[s], are,
+               aim, ola, a.out + row, ola, are, aim);
     __syncthreads();
   }
-  istft3(a, p, l, smem);
 
-  const float peak = a.peak[b];
-  const float* frame = smem + l.time;
-  for (int i = threadIdx.x; i < n_fft; i += blockDim.x) {
-    const float prev = a.ola[b * n_fft + i];
-    if (i < hop) a.out[b * hop + i] = prev;
-    const float shifted = i < n_fft - hop ? a.ola[b * n_fft + i + hop] : 0.f;
-    a.ola_out[b * n_fft + i] = shifted + frame[i] * peak;
+  // and back, once
+  for (int e = tid; e < rows * n_fft; e += blockDim.x) {
+    const int r = e / n_fft, i = e % n_fft;
+    const size_t g = (size_t)(b0 + r) * n_fft + i;
+    a.ring_out[g] = smem[l.ring + r * l.ld_t + i];
+    a.ola_out[g] = smem[l.ola + r * l.ld_t + i];
   }
-  for (int e = threadIdx.x; e < nb; e += blockDim.x) {
-    a.ang_re_out[b * nb + e] = are[e];
-    a.ang_im_out[b * nb + e] = aim[e];
+  for (int e = tid; e < rows * nb; e += blockDim.x) {
+    const int r = e / nb, i = e % nb;
+    const size_t g = (size_t)(b0 + r) * nb + i;
+    a.ang_re_out[g] = smem[l.stream[r] + l.spec.are + i];
+    a.ang_im_out[g] = smem[l.stream[r] + l.spec.aim + i];
   }
+  for (int e = tid; e < rows * n; e += blockDim.x)
+    a.hx_out[(size_t)b0 * n + e] = hx[e];
 }
 
 size_t spec_bytes(const AdtWebRTCHopArgs& a, bool gl) {
@@ -531,11 +735,21 @@ size_t cell_bytes(const AdtWebRTCHopArgs& a) {
   return (size_t)off * sizeof(float);
 }
 
+size_t multi_bytes(const AdtWebRTCHopArgs& a) {
+  return (size_t)make_multi_layout(a).total * sizeof(float);
+}
+
 bool args_ok(const AdtWebRTCHopArgs& a, FftPlan* p) {
   return plan_ok(a.plan, a.n_mels) && a.n_fft == 2 * a.hop &&
-         a.n_bins == a.hop + 1 && a.n_iter >= 0 &&
+         a.n_bins == a.hop + 1 && a.n_iter >= 0 && a.hops >= 1 &&
          kFrames * a.n_mels <= a.n_fft &&
          kFrames * a.n_mels <= kFftThreads && make_fft_plan(a.hop, p);
+}
+
+cudaError_t set_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 cudaError_t launch(const AdtWebRTCHopArgs& a, const FftPlan& p,
@@ -543,15 +757,9 @@ cudaError_t launch(const AdtWebRTCHopArgs& a, const FftPlan& p,
   const size_t sa = spec_bytes(a, false), sc = cell_bytes(a),
                sg = spec_bytes(a, true);
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(analysis_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)sa)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(cell_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)sc)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(gl_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)sg)) != cudaSuccess)
+  if ((err = set_smem((const void*)analysis_kernel, sa)) != cudaSuccess ||
+      (err = set_smem((const void*)cell_kernel, sc)) != cudaSuccess ||
+      (err = set_smem((const void*)gl_kernel, sg)) != cudaSuccess)
     return err;
   analysis_kernel<<<a.batch, kFftThreads, sa, stream>>>(a, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -561,29 +769,50 @@ cudaError_t launch(const AdtWebRTCHopArgs& a, const FftPlan& p,
   return cudaGetLastError();
 }
 
+cudaError_t launch_multi(const AdtWebRTCHopArgs& a, const FftPlan& p,
+                         cudaStream_t stream) {
+  const size_t sm = multi_bytes(a);
+  cudaError_t err = set_smem((const void*)webrtc_hop_multi_kernel, sm);
+  if (err != cudaSuccess) return err;
+  webrtc_hop_multi_kernel<<<(a.batch + kTile - 1) / kTile, kMultiThreads, sm,
+                            stream>>>(a, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int adt_webrtc_hop_args_size() { return (int)sizeof(AdtWebRTCHopArgs); }
 
-// The largest dynamic shared memory one block of the three kernels needs;
-// -1 if the arguments are not ones the kernels take.
+// The largest dynamic shared memory one block needs in a call with these
+// arguments (the three single-hop kernels for a->hops == 1, the K-hop
+// kernel else); -1 if the arguments are not ones the kernels take.
 long long adt_webrtc_hop_smem_bytes(const AdtWebRTCHopArgs* a) {
   FftPlan p;
   if (!args_ok(*a, &p)) return -1;
+  if (a->hops > 1) return (long long)multi_bytes(*a);
   size_t most = spec_bytes(*a, true);
   if (cell_bytes(*a) > most) most = cell_bytes(*a);
   return (long long)most;
 }
 
-// Launches the hop on `stream` without synchronising; returns the first
-// failing launch's cudaError_t (0 on success).
+// Launches one hop (a->hops == 1, three kernels) on `stream` without
+// synchronising; returns the first failing launch's cudaError_t (0 on
+// success).
 int adt_webrtc_hop(const AdtWebRTCHopArgs* a, void* stream) {
+  FftPlan p;
+  if (!args_ok(*a, &p) || a->hops != 1) return (int)cudaErrorInvalidValue;
+  if (a->batch <= 0) return (int)cudaSuccess;
+  return (int)launch(*a, p, static_cast<cudaStream_t>(stream));
+}
+
+// Launches a->hops hops as one kernel on `stream` without synchronising.
+int adt_webrtc_hop_multi(const AdtWebRTCHopArgs* a, void* stream) {
   FftPlan p;
   if (!args_ok(*a, &p)) return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  return (int)launch(*a, p, static_cast<cudaStream_t>(stream));
+  return (int)launch_multi(*a, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,23 +1,30 @@
 """The whole WebRTC hop, warm-start Griffin-Lim included (JAX counterpart
-ops/pallas/webrtc_hop.py, single-hop ``kernel`` at :331).
+ops/pallas/webrtc_hop.py: the single-hop ``kernel`` at :331 and the
+resident multi-hop ``kernel_multi`` at :344).
 
 ``make_webrtc_hop(cfg, plan, device)`` returns a ``WebRTCHop``: calling it
 runs one hop for a batch of streams, ``step(state, chunk (B, hop)) ->
 (state', out (B, hop))``, with the semantics of
 ``pipeline.make_webrtc_step`` under ``dsp.griffin_lim_warm_start`` and the
-model run through the matrixized plan. For CPU tensors it runs
-``reference``, the plain PyTorch version that follows ``_hop_math``
-(webrtc_hop.py:190-327); for CUDA tensors it launches the hand-written
-kernels of ``csrc/webrtc_hop.cu`` or raises. ``launches`` counts the
-kernels launched on the card: three per hop (analysis, plan cell,
-Griffin-Lim and synthesis).
+model run through the matrixized plan. With ``hops_per_call=K > 1`` a call
+runs K hops, ``step(state, chunks (K, B, hop)) -> (state', outs (K, B,
+hop))``, as one launch whose state stays in the card's shared memory
+across the K hops; its hops equal K single hops bit for bit. For CPU
+tensors a call runs ``plain`` (K hops of ``reference``, the plain PyTorch
+version that follows ``_hop_math``, webrtc_hop.py:190-327); for CUDA
+tensors it launches the hand-written kernels of ``csrc/webrtc_hop.cu`` or
+raises. ``launches`` counts the kernels launched on the card: three per
+single hop (analysis, plan cell, Griffin-Lim and synthesis), one per
+K-hop call.
 
 The carried phases are ``(B, 3 * n_bins)`` planes with frame t at
 ``[t * n_bins, (t + 1) * n_bins)``; the JAX kernel pads each frame to 128
-lanes, which the port does not need.
+lanes, which the port does not need. The port does not take JAX's
+``block_b``: the K-hop kernel's tile of 2 streams is fixed and its ragged
+last tile masked, so B is not padded.
 
-This slice ports the fp32 hop. The bf16 Griffin-Lim mode and the resident
-multi-hop form raise NotImplementedError.
+This module ports the fp32 hop. The bf16 Griffin-Lim mode raises
+NotImplementedError (ROADMAP B5).
 """
 
 import ctypes
@@ -81,7 +88,7 @@ class _Args(ctypes.Structure):
             "mel_mag", "peak", "win", "env", "mel", "imel", "twiddle")]
         + [("plan", PlanArgs)]
         + [(f, ctypes.c_int) for f in (
-            "batch", "n_fft", "hop", "n_bins", "n_mels", "n_iter")]
+            "batch", "n_fft", "hop", "n_bins", "n_mels", "n_iter", "hops")]
         + [(f, ctypes.c_float) for f in (
             "momentum", "output_gain", "state_decay")])
 
@@ -101,24 +108,23 @@ def _check_supported(cfg: Config, plan, hops_per_call: int,
                          "delta (MOMO3) plans")
     if len(plan.down_mats) > MAX_LEVELS:
         raise ValueError(f"the kernel takes at most {MAX_LEVELS} levels")
-    later = []
+    if hops_per_call < 1:
+        raise ValueError(f"hops_per_call must be >= 1, got {hops_per_call}")
     if compute_dtype != torch.float32:
-        later.append(f"compute dtype {compute_dtype} (the bf16 GL mode)")
-    if hops_per_call != 1:
-        later.append("hops_per_call > 1 (the resident multi-hop kernel)")
-    if later:
         raise NotImplementedError(
-            "the port's webrtc hop does not implement " + ", ".join(later)
-            + " yet")
+            f"the port's webrtc hop does not implement compute dtype "
+            f"{compute_dtype} (the bf16 GL mode, ROADMAP B5) yet")
 
 
 class WebRTCHop:
-    """One WebRTC hop for a batch of streams on ``device``; see the module
-    docstring."""
+    """One WebRTC hop (or ``hops_per_call`` hops) for a batch of streams on
+    ``device``; see the module docstring."""
 
-    def __init__(self, cfg: Config, plan, device: torch.device):
+    def __init__(self, cfg: Config, plan, device: torch.device,
+                 hops_per_call: int = 1):
         dsp, srv = cfg.dsp, cfg.serving
         self.device = device
+        self.hops_per_call = hops_per_call
         self.n_fft, self.hop = dsp.n_fft, dsp.hop_length
         self.F, self.M = dsp.n_stft, dsp.n_mels
         self.n = plan.hidden * plan.compressed
@@ -147,18 +153,23 @@ class WebRTCHop:
         if device.type == "cuda":
             from audio_denoising_torch.ops.kernels.build import (
                 load_kernel_library)
-            self._lib = load_kernel_library("webrtc_hop").lib
-            self._lib.adt_webrtc_hop_args_size.restype = ctypes.c_int
-            self._lib.adt_webrtc_hop_smem_bytes.argtypes = [ctypes.c_void_p]
-            self._lib.adt_webrtc_hop_smem_bytes.restype = ctypes.c_longlong
-            self._lib.adt_webrtc_hop.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p]
-            self._lib.adt_webrtc_hop.restype = ctypes.c_int
-            if self._lib.adt_webrtc_hop_args_size() != ctypes.sizeof(_Args):
-                raise RuntimeError("csrc/webrtc_hop.cu and _Args disagree "
-                                   "on the argument layout")
-            self._base_args = self._args()
-            self._check_shared_memory()
+            self._bind(load_kernel_library("webrtc_hop").lib)
+
+    def _bind(self, lib) -> None:
+        """Binds the built library's C functions and fills the launch
+        arguments that do not change from call to call."""
+        self._lib = lib
+        lib.adt_webrtc_hop_args_size.restype = ctypes.c_int
+        lib.adt_webrtc_hop_smem_bytes.argtypes = [ctypes.c_void_p]
+        lib.adt_webrtc_hop_smem_bytes.restype = ctypes.c_longlong
+        for fn in (lib.adt_webrtc_hop, lib.adt_webrtc_hop_multi):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        if lib.adt_webrtc_hop_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError("csrc/webrtc_hop.cu and _Args disagree on "
+                               "the argument layout")
+        self._base_args = self._args()
+        self._check_shared_memory()
 
     # -- the plain PyTorch version ------------------------------------------
     def targets(self, state: WebRTCHopState, chunk: torch.Tensor
@@ -213,36 +224,52 @@ class WebRTCHop:
                               angles.real.contiguous(),
                               angles.imag.contiguous()), out
 
-    # -- the wrapper -----------------------------------------------------------
-    def __call__(self, state: WebRTCHopState, chunk: torch.Tensor
-                 ) -> Tuple[WebRTCHopState, torch.Tensor]:
-        self._check(state, chunk)
-        if chunk.device.type == "cpu":
-            return self.reference(state, chunk)
-        return self._launch(state, chunk)
+    def plain(self, state: WebRTCHopState, chunks: torch.Tensor
+              ) -> Tuple[WebRTCHopState, torch.Tensor]:
+        """What one call computes, on the plain version: ``hops_per_call``
+        hops of ``reference``, the state carried from hop to hop."""
+        if self.hops_per_call == 1:
+            return self.reference(state, chunks)
+        outs = []
+        for chunk in chunks:
+            state, out = self.reference(state, chunk)
+            outs.append(out)
+        return state, torch.stack(outs)
 
-    def _check(self, state: WebRTCHopState, chunk: torch.Tensor) -> None:
-        if chunk.dim() != 2 or chunk.shape[1] != self.hop:
-            raise ValueError(f"chunk must be (B, {self.hop}), got "
-                             f"{tuple(chunk.shape)}")
-        b = chunk.shape[0]
+    # -- the wrapper -----------------------------------------------------------
+    def __call__(self, state: WebRTCHopState, chunks: torch.Tensor
+                 ) -> Tuple[WebRTCHopState, torch.Tensor]:
+        self._check(state, chunks)
+        if chunks.device.type == "cpu":
+            return self.plain(state, chunks)
+        return self._launch(state, chunks)
+
+    def _check(self, state: WebRTCHopState, chunks: torch.Tensor) -> None:
+        K = self.hops_per_call
+        lead = (K,) if K > 1 else ()
+        if chunks.dim() != len(lead) + 2 or chunks.shape[-1] != self.hop \
+                or tuple(chunks.shape[:len(lead)]) != lead:
+            want = f"({K}, B, {self.hop})" if K > 1 else f"(B, {self.hop})"
+            raise ValueError(f"chunks must be {want}, got "
+                             f"{tuple(chunks.shape)}")
+        b = chunks.shape[-2]
         nb = FRAMES * self.F
-        want = {"chunk": (b, self.hop), "ring": (b, self.n_fft),
+        want = {"chunks": lead + (b, self.hop), "ring": (b, self.n_fft),
                 "ola": (b, self.n_fft), "hx": (b, self.n),
                 "ang_re": (b, nb), "ang_im": (b, nb)}
-        got = {"chunk": chunk, **state._asdict()}
+        got = {"chunks": chunks, **state._asdict()}
         for name, t in got.items():
             if t.dtype != torch.float32:
                 raise TypeError(f"{name} must be float32, got {t.dtype}")
             if tuple(t.shape) != want[name]:
                 raise ValueError(f"{name} must be {want[name]}, got "
                                  f"{tuple(t.shape)}")
-            if t.device != chunk.device:
-                raise ValueError(f"{name} is on {t.device}, chunk on "
-                                 f"{chunk.device}")
-        if chunk.device.type != self.device.type:
+            if t.device != chunks.device:
+                raise ValueError(f"{name} is on {t.device}, chunks on "
+                                 f"{chunks.device}")
+        if chunks.device.type != self.device.type:
             raise ValueError(f"this hop was built for {self.device}; got "
-                             f"tensors on {chunk.device}")
+                             f"tensors on {chunks.device}")
 
     def _args(self) -> _Args:
         """The launch arguments that do not change from hop to hop; the
@@ -264,6 +291,7 @@ class WebRTCHop:
         a.n_fft, a.hop, a.n_bins, a.n_mels = self.n_fft, self.hop, self.F, \
             self.M
         a.n_iter = self.n_iter
+        a.hops = self.hops_per_call
         a.momentum = self.momentum / (1.0 + self.momentum)
         a.output_gain, a.state_decay = self.output_gain, self.state_decay
         return a
@@ -286,28 +314,32 @@ class WebRTCHop:
                 f"the webrtc hop needs {need} B of shared memory per block; "
                 f"this card allows {limit} B")
 
-    def _launch(self, state: WebRTCHopState, chunk: torch.Tensor
+    def _launch(self, state: WebRTCHopState, chunks: torch.Tensor
                 ) -> Tuple[WebRTCHopState, torch.Tensor]:
-        ins = [t.contiguous() for t in (*state, chunk)]
+        multi = self.hops_per_call > 1
+        ins = [t.contiguous() for t in (*state, chunks)]
         new = WebRTCHopState(*(torch.empty_like(t) for t in ins[:5]))
         out = torch.empty_like(ins[5])
-        b = chunk.shape[0]
-        feat = torch.empty((b, FRAMES, self.M), device=chunk.device)
-        mel_mag = torch.empty_like(feat)
-        peak = torch.empty((b,), device=chunk.device)
         a = _Args.from_buffer_copy(self._base_args)
-        a.batch = b
+        a.batch = b = chunks.shape[-2]
         (a.ring, a.ola, a.hx, a.ang_re, a.ang_im,
          a.chunk) = (t.data_ptr() for t in ins)
         (a.ring_out, a.ola_out, a.hx_out, a.ang_re_out,
          a.ang_im_out) = (t.data_ptr() for t in new)
-        a.out, a.feat, a.mel_mag, a.peak = (
-            t.data_ptr() for t in (out, feat, mel_mag, peak))
+        a.out = out.data_ptr()
+        if not multi:   # the hand-offs between the three launches
+            feat = torch.empty((b, FRAMES, self.M), device=chunks.device)
+            mel_mag = torch.empty_like(feat)
+            peak = torch.empty((b,), device=chunks.device)
+            a.feat, a.mel_mag, a.peak = (
+                t.data_ptr() for t in (feat, mel_mag, peak))
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        err = self._lib.adt_webrtc_hop(ctypes.byref(a), stream)
+        fn = self._lib.adt_webrtc_hop_multi if multi else \
+            self._lib.adt_webrtc_hop
+        err = fn(ctypes.byref(a), stream)
         if err != 0:
             raise RuntimeError(f"webrtc hop launch failed: cudaError {err}")
-        self.launches += KERNELS_PER_HOP
+        self.launches += 1 if multi else KERNELS_PER_HOP
         return new, out
 
 
@@ -315,6 +347,7 @@ def make_webrtc_hop(cfg: Config, plan,
                     device: Optional[Union[str, torch.device]] = None,
                     compute_dtype=torch.float32,
                     hops_per_call: int = 1) -> WebRTCHop:
-    """One-kernel WebRTC hop on ``device`` (the card unless ``"cpu"``)."""
+    """The WebRTC hop (or ``hops_per_call`` hops per call) on ``device``
+    (the card unless ``"cpu"``); see the module docstring."""
     _check_supported(cfg, plan, hops_per_call, compute_dtype)
-    return WebRTCHop(cfg, plan, resolve_device(device))
+    return WebRTCHop(cfg, plan, resolve_device(device), hops_per_call)

@@ -18,13 +18,14 @@ stream's SNR.
 false cleans at the fixed ``FLOOR_VETO_GATE_DB``/``FLOOR_VETO_WIDTH_DB``.
 
 The gate blends each stream's output magnitude toward its input
-magnitude with ``gate_alpha`` (1 denoises fully, 0 passes through).
-Every carry that is all zero (a freshly admitted engine slot) latches to
-the current frame instead of staying pinned at 0.
+magnitude with ``gate_alpha`` (1 denoises fully, 0 passes through);
+``make_gate_estimator`` is the per-hop decision that the fast step and the
+webrtc step share. Every carry that is all zero (a freshly admitted
+engine slot) latches to the current frame instead of staying pinned at 0.
 """
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -182,3 +183,74 @@ def removed_snr_scan(p_out: torch.Tensor, p_rem: torch.Tensor,
         state = removed_step(state, p_out[:, t], p_rem[:, t], beta_tot)
         snrs.append(removed_snr_db(state))
     return torch.stack(snrs, dim=1), state
+
+
+def gate_state(serving, batch: int, n_bins: int,
+               device="cpu") -> Dict[str, torch.Tensor]:
+    """The gate's planes of a fresh (B-stream) state for ``serving``, by
+    name: zeros, which latch to the first frame; {} without a gate."""
+    removed, floor = gate_planes(serving)
+    z = lambda *shape: torch.zeros(shape, device=device)
+    planes = {}
+    if floor:
+        planes.update(nf_smooth=z(batch, n_bins), nf_floor=z(batch, n_bins),
+                      nf_total=z(batch))
+    if removed:
+        planes.update(em_out=z(batch), em_rem=z(batch))
+    return planes
+
+
+def gate_weight(serving, state) -> torch.Tensor:
+    """(B,) each stream's denoise weight from the gate planes ``state``
+    carries (of nf_smooth, nf_floor, nf_total, em_out, em_rem, by name),
+    read after the estimators stepped: 'removed' decides, 'floor' decides,
+    or under 'both' the floor tracker vetoes the removed-power decision's
+    false cleans (JAX pipeline.py:598-614)."""
+    removed, floor = gate_planes(serving)
+    gate_db, width_db = serving.snr_gate_db, serving.snr_gate_width_db
+    alpha = None
+    if removed:
+        alpha = gate_alpha(removed_snr_db(RemovedState(state.em_out,
+                                                       state.em_rem)),
+                           gate_db, width_db)
+    if floor:
+        snr_f = snr_db_from_floor(state.nf_total,
+                                  state.nf_floor.mean(dim=-1))
+        if alpha is None:
+            alpha = gate_alpha(snr_f, gate_db, width_db)
+        else:
+            alpha = torch.maximum(alpha, gate_alpha(
+                snr_f, FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB))
+    return alpha
+
+
+def make_gate_estimator(serving, hop_length: int, sample_rate: int):
+    """The SNR gate's per-hop decision for ``serving`` (JAX engine.py:178-216
+    and pipeline.py:583-614), or None without a gate: ``step(state,
+    power_in (B, F), power_out (B, F)) -> (planes, alpha (B,))`` steps the
+    estimators on one frame's input and output power and returns the
+    state fields it updated (``state`` is a NamedTuple that carries the
+    gate planes by name) and each stream's ``gate_weight``."""
+    if serving.snr_gate_db is None:
+        return None
+    removed, floor = gate_planes(serving)
+    beta_t = total_beta_per_frame(hop_length, sample_rate,
+                                  serving.snr_gate_tau_s)
+    beta = smooth_beta_per_frame(hop_length, sample_rate)
+    rise = floor_rise_per_frame(hop_length, sample_rate)
+
+    def step(state, power_in: torch.Tensor, power_out: torch.Tensor):
+        planes = {}
+        if removed:
+            rs = removed_step(RemovedState(state.em_out, state.em_rem),
+                              *removed_powers(power_in, power_out), beta_t)
+            planes.update(em_out=rs.out, em_rem=rs.rem)
+        if floor:
+            fs = floor_step(FloorState(state.nf_smooth, state.nf_floor,
+                                       state.nf_total), power_in, beta,
+                            rise, beta_t)
+            planes.update(nf_smooth=fs.smooth, nf_floor=fs.floor,
+                          nf_total=fs.total)
+        return planes, gate_weight(serving, state._replace(**planes))
+
+    return step

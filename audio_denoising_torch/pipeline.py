@@ -10,8 +10,10 @@ inverse mel, Griffin-Lim, peak de-normalization and overlap-add. With
 ``dsp.griffin_lim_warm_start`` the converged GL phases are carried from
 hop to hop and re-seeded one frame later (RTISI-style streaming GL).
 This is engine mode ``webrtc`` and the oracle of the fused WebRTC hop
-(ops/kernels/webrtc_hop.py). The SNR gate is not ported: a config that
-sets ``serving.snr_gate_db`` raises NotImplementedError.
+(ops/kernels/webrtc_hop.py). With ``serving.snr_gate_db`` set, the SNR
+gate (ops/noisefloor.py) steps its estimators on the un-normalized newest
+frame of each hop and blends the Griffin-Lim target magnitudes toward the
+input's, carrying its planes in the state.
 
 ``make_server_step``: one server.py recv message (server.py:200-216), a
 centered STFT over the whole chunk, the model, ReLU on its residual, the
@@ -33,6 +35,8 @@ from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops import (
     griffin_lim, hann_window, inverse_mel_matrix, inverse_mel_scale,
     istft, mel_filterbank, mel_scale, num_frames, stft)
+from audio_denoising_torch.ops.noisefloor import (
+    gate_state, make_gate_estimator)
 
 
 def serving_model(model, device: torch.device):
@@ -80,6 +84,14 @@ class WebRTCState(NamedTuple):
     # carried GL phases as real (B, F, T, 2) [..., (re, im)] planes, the
     # JAX package's layout; None unless dsp.griffin_lim_warm_start
     gl_angles: Optional[torch.Tensor] = None
+    # the SNR gate's planes, present only when serving.snr_gate_db is set:
+    # estimator 'floor' the nf_* planes, 'removed' the em_* EMAs, 'both'
+    # all five; tracked on the un-normalized newest frame of each hop
+    nf_smooth: Optional[torch.Tensor] = None   # (B, F)
+    nf_floor: Optional[torch.Tensor] = None    # (B, F)
+    nf_total: Optional[torch.Tensor] = None    # (B,) long power EMA
+    em_out: Optional[torch.Tensor] = None      # (B,) output-power EMA
+    em_rem: Optional[torch.Tensor] = None      # (B,) removed-power EMA
 
 
 def _webrtc_frames(cfg: Config) -> int:
@@ -101,24 +113,23 @@ def webrtc_init_state(cfg: Config, model, batch: int,
         ring=torch.zeros((batch, n_fft), device=device),
         ola=torch.zeros((batch, n_fft), device=device),
         hx=model.init_state(batch, device=device),
-        gl_angles=angles)
+        gl_angles=angles,
+        **gate_state(cfg.serving, batch, cfg.dsp.n_stft, device))
 
 
 def make_webrtc_step(cfg: Config, model,
                      device: Optional[Union[str, torch.device]] = None):
     """Build ``step(state, chunk (B, hop)) -> (state', out (B, hop))`` on
     ``device`` (the card unless ``"cpu"``). The output segment is emitted
-    before the new frame enters the OLA buffer (app2.py:226-231)."""
+    before the new frame enters the OLA buffer (app2.py:226-231). With the
+    SNR gate, ``state`` carries its planes (``webrtc_init_state``)."""
     dsp = cfg.dsp
     if getattr(cfg.model, "lookahead_frames", 0):
         raise ValueError(
             "lookahead checkpoints (ModelConfig.lookahead_frames > 0) "
             "stream via the delayed phase-reuse path; the Griffin-Lim "
             "webrtc path has no delayed magnitude ring")
-    if cfg.serving.snr_gate_db is not None:
-        raise NotImplementedError(
-            "the SNR gate (serving.snr_gate_db) of the webrtc step is not "
-            "ported yet")
+    gate = make_gate_estimator(cfg.serving, dsp.hop_length, dsp.sample_rate)
     device = resolve_device(device)
     model = serving_model(model, device)
     n_fft, hop = dsp.n_fft, dsp.hop_length
@@ -148,6 +159,15 @@ def make_webrtc_step(cfg: Config, model,
         recon = torch.nn.functional.leaky_relu(x - resid, 0.2)
         mel_mag = torch.clamp(torch.expm1(recon.transpose(-1, -2)), min=0.0)
         lin_mag = inverse_mel_scale(mel_mag, inv)
+        planes = {}
+        if gate is not None:
+            # the estimators read the newest frame at the input's scale;
+            # the blend moves the GL targets of all three frames toward
+            # the input's magnitudes
+            planes, alpha = gate(state, (mag[..., -1] * peak) ** 2,
+                                 (lin_mag[..., -1] * peak) ** 2)
+            alpha = alpha[:, None, None]
+            lin_mag = alpha * lin_mag + (1.0 - alpha) * mag
         if dsp.griffin_lim_warm_start:
             # re-seed from the carried phases shifted one frame; the new
             # frame reuses the last one's, advanced by one hop
@@ -172,7 +192,8 @@ def make_webrtc_step(cfg: Config, model,
         ola = torch.cat([state.ola[:, hop:],
                          torch.zeros_like(state.ola[:, :hop])], dim=-1)
         ola = ola + frame
-        return WebRTCState(ring=ring, ola=ola, hx=hx, gl_angles=angles), out
+        return state._replace(ring=ring, ola=ola, hx=hx, gl_angles=angles,
+                              **planes), out
 
     return step
 

@@ -9,7 +9,8 @@ Modes of the port:
 - ``fused``        — the phase-reuse hop as one kernel launch per tick
                      (ops/kernels/fused_hop.py);
 - ``webrtc``       — the reference's Griffin-Lim WebRTC hop op by op
-                     (pipeline.make_webrtc_step), cold or warm GL;
+                     (pipeline.make_webrtc_step), cold or warm GL, with
+                     the SNR gate where the config sets one;
 - ``fused-webrtc`` — the same hop with warm-start GL in the hand-written
                      kernels of ops/kernels/webrtc_hop.py.
 
@@ -35,10 +36,7 @@ from audio_denoising_torch.ops.kernels.fused_hop import (
 from audio_denoising_torch.ops.kernels.webrtc_hop import (
     make_webrtc_hop, webrtc_hop_init_state)
 from audio_denoising_torch.ops.noisefloor import (
-    FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB, FloorState, RemovedState,
-    floor_rise_per_frame, floor_step, gate_alpha, gate_planes,
-    removed_powers, removed_snr_db, removed_step, smooth_beta_per_frame,
-    snr_db_from_floor, total_beta_per_frame)
+    gate_state, make_gate_estimator)
 from audio_denoising_torch.ops.windows import wola_envelope
 from audio_denoising_torch.pipeline import (
     fp32_convs, make_webrtc_step, serving_model, webrtc_init_state)
@@ -83,56 +81,29 @@ def _check_fast_supported(cfg: Config) -> None:
 def fast_init_state(cfg: Config, model, batch: int,
                     device: Union[str, torch.device] = "cpu") -> FastState:
     _check_fast_supported(cfg)
-    n_fft, F = cfg.dsp.n_fft, cfg.dsp.n_stft
-    removed, floor = gate_planes(cfg.serving)
+    n_fft = cfg.dsp.n_fft
     init = getattr(model, "init_carry", None) or model.init_state
-    z = lambda *shape: torch.zeros(shape, device=device)
     return FastState(
-        ring=z(batch, n_fft), ola=z(batch, n_fft),
+        ring=torch.zeros((batch, n_fft), device=device),
+        ola=torch.zeros((batch, n_fft), device=device),
         hx=init(batch, device=device),
-        nf_smooth=z(batch, F) if floor else None,
-        nf_floor=z(batch, F) if floor else None,
-        nf_total=z(batch) if floor else None,
-        em_out=z(batch) if removed else None,
-        em_rem=z(batch) if removed else None)
+        **gate_state(cfg.serving, batch, cfg.dsp.n_stft, device))
 
 
 def make_snr_gate(cfg: Config):
     """``gate(state, mag, lin) -> (planes, lin')`` for ``cfg``'s SNR gate
-    (JAX engine.py:178-216), or None without one: the estimator steps on
-    this hop's input power ``mag**2`` and the output power ``lin**2``,
-    then each stream's output magnitude blends toward its input by
-    ``gate_alpha``. ``planes`` holds the state fields the gate updated."""
-    srv, dsp = cfg.serving, cfg.dsp
-    if srv.snr_gate_db is None:
+    (JAX engine.py:178-216), or None without one: the estimators step on
+    this hop's input power ``mag**2`` and the output power ``lin**2``
+    (``noisefloor.make_gate_estimator``), then each stream's output
+    magnitude blends toward its input by its alpha. ``planes`` holds the
+    state fields the gate updated."""
+    estimate = make_gate_estimator(cfg.serving, cfg.dsp.hop_length,
+                                   cfg.dsp.sample_rate)
+    if estimate is None:
         return None
-    removed, floor = gate_planes(srv)
-    hop, sr = dsp.hop_length, dsp.sample_rate
-    beta_t = total_beta_per_frame(hop, sr, srv.snr_gate_tau_s)
-    beta, rise = smooth_beta_per_frame(hop, sr), floor_rise_per_frame(hop, sr)
 
     def gate(state, mag, lin):
-        power = mag * mag
-        planes, alpha = {}, None
-        if removed:
-            rs = removed_step(RemovedState(state.em_out, state.em_rem),
-                              *removed_powers(power, lin * lin), beta_t)
-            planes.update(em_out=rs.out, em_rem=rs.rem)
-            alpha = gate_alpha(removed_snr_db(rs), srv.snr_gate_db,
-                               srv.snr_gate_width_db)
-        if floor:
-            fs = floor_step(FloorState(state.nf_smooth, state.nf_floor,
-                                       state.nf_total), power, beta, rise,
-                            beta_t)
-            planes.update(nf_smooth=fs.smooth, nf_floor=fs.floor,
-                          nf_total=fs.total)
-            snr_f = snr_db_from_floor(fs.total, fs.floor.mean(dim=-1))
-            if alpha is None:
-                alpha = gate_alpha(snr_f, srv.snr_gate_db,
-                                   srv.snr_gate_width_db)
-            else:   # 'both': the floor tracker vetoes false cleans
-                alpha = torch.maximum(alpha, gate_alpha(
-                    snr_f, FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB))
+        planes, alpha = estimate(state, mag * mag, lin * lin)
         alpha = alpha[:, None]
         return planes, alpha * lin + (1.0 - alpha) * mag
 
@@ -230,12 +201,11 @@ class StreamEngine:
                 f"checkpoints (ModelConfig.lookahead_frames > 0)")
         if cfg.serving.snr_gate_db is not None and mode == "fused-webrtc":
             # the JAX engine downgrades to mode 'webrtc', whose op-by-op
-            # step carries the gate; the port's webrtc step has no gate yet
+            # step carries the gate; the port serves only the mode asked
             raise ValueError(
                 "the fused webrtc kernel has no SNR gate "
-                "(serving.snr_gate_db is set), and the webrtc step's gate "
-                "that the JAX engine downgrades to is not ported yet "
-                "(ROADMAP A3)")
+                "(serving.snr_gate_db is set); engine mode 'webrtc' serves "
+                "the gate on the op-by-op Griffin-Lim step")
         if cfg.serving.dtype == "int8" and mode not in ("fast", "fused"):
             raise ValueError(
                 f"serving dtype 'int8' is implemented for the fused hop "

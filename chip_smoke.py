@@ -76,14 +76,38 @@ raises on failure (so the script exits non-zero and prints no result):
     the bound from its operations and bytes; the gated single hop; the
     K-hop kernel per call and per hop in float32, with the gate and with
     int16 IO, beside 50 single-hop launches; the fast step per hop with
-    the zoo model and with the fused cell; torch.profiler breakdowns.
+    the zoo model and with the fused cell; the K-hop WebRTC kernel per
+    call and per hop at GL-8 and GL-32 (K = 25), beside 25 single-hop
+    calls; torch.profiler breakdowns;
+19. the resident K-hop WebRTC kernel on gruunet2-dari_tult at 256
+    streams and K = 25, GL-8 (bench.py's fused_webrtc_gl8_resident_k25)
+    and GL-32: two calls carrying the state, each one launch, against 50
+    single-hop calls from the same state (0 on every output and plane);
+20. the same at 255 and 3 streams (the ragged tile), one call;
+21. the K-hop kernel against its plain version at K = 2, GL-32 and GL-8,
+    256 and 3 streams: every call from the plain version's state, what
+    the call adds to the output stream held against the float64 plain
+    version as phase 3 holds one hop (``forced_floor``), hx, unit phases;
+22. the K-hop kernel against its plain version at the JAX tests' small
+    geometry: one call of 6 hops at GL-32 (256 and 3 streams) and of 40
+    hops at GL-4 (64 streams), waveform held;
+23. ``StreamEngine`` mode ``webrtc`` with the tuned SNR gate (1 dB, width
+    6, 'both') on gruunet2-dari_tult (cold GL-32), 256 slots for 8 ticks
+    of a synthetic vowel with skipped slots, against the CPU engine given
+    the card's state before every tick (outputs, hx, the gate's planes,
+    what each slot adds to its OLA buffer, idle slots, the gate's blend);
+24. ``EngineDaemon`` from ``--mode webrtc --snr-gate 1`` on
+    gruunet2-dari_tult, 4 clients x 16 streams x 8 chunks, each stream's
+    replies against its chunks replayed through the gated step on the
+    card, hx and the gate's planes against the same replay on the CPU.
 
-Phases 4 to 7, 9 to 12 and 15 to 17, and phase 14's first three calls,
-are the main paths: each kernel's launch counter is set to 0 just before
-each (a new wrapper starts at 0) and read just after (the WebRTC hop
-counts its three kernels). Mode ``fast`` with the zoo model (phases 11,
-12, 17) runs no hand-written kernel, as the JAX package's mode ``fast``
-runs no Pallas kernel. Griffin-Lim with carried
+Phases 4 to 7, 9 to 12 and 15 to 17, phase 14's first three calls and
+phase 19's calls are the main paths: each kernel's launch counter is set
+to 0 just before each (a new wrapper starts at 0) and read just after
+(the single WebRTC hop counts its three kernels, the K-hop call one).
+Mode ``fast`` with the zoo model (phases 11, 12, 17) and mode ``webrtc``
+(phases 23, 24) run no hand-written kernel, as the JAX package's modes
+``fast`` and ``webrtc`` run no Pallas kernel. Griffin-Lim with carried
 phases is chaotic where a frame's rebuilt spectrum nears zero: fp32
 round-off there flips a phase, and the carried phases spread it, so two
 correct fp32 versions that each carry their own state part ways within a
@@ -149,6 +173,12 @@ GATED_OUT_ATOL = 3e-4  # gated kernel vs the gated fast step (JAX's bound)
 K_HOPS = 50          # hops per call of the resident kernel (bench.py's K)
 KHOP_EXACT = 1e-6    # K-hop kernel vs K single-hop launches (0 expected)
 GATE_FLOPS_PER_BIN = 20   # the gate's EMAs, means and blend, per bin
+# the resident K-hop WebRTC hop: bench.py's fused_webrtc_gl8_resident_k25
+# (256 streams, K = 25, GL-8) and the served GL-32; it must equal K
+# single-hop launches exactly
+WEBRTC_K = 25
+WEBRTC_GL = (8, 32)
+FORCED_K = 2         # hops per call where each call starts from a shared state
 
 
 def say(*parts):
@@ -254,11 +284,11 @@ def planes(state):
     return {k: v for k, v in state._asdict().items() if v is not None}
 
 
-def float64_plain(torch, cfg, plan):
+def float64_plain(torch, cfg, plan, hops_per_call=1):
     """The plain version on the CPU in float64: a witness of how far each
     fp32 version departs."""
     from audio_denoising_torch.ops.kernels.webrtc_hop import make_webrtc_hop
-    hop = make_webrtc_hop(cfg, plan, "cpu")
+    hop = make_webrtc_hop(cfg, plan, "cpu", hops_per_call=hops_per_call)
     for name in ("win", "env", "mel", "imel"):
         setattr(hop, name, getattr(hop, name).double())
     hop.rot = hop.rot.to(torch.complex128)
@@ -273,6 +303,18 @@ def added_frame(state_in, state_out, hop_len):
     shifted = ola.roll(-hop_len, dims=1)
     shifted[:, -hop_len:] = 0
     return (state_out.ola.double().cpu() - shifted).numpy()
+
+
+def call_signal(state_in, state_out, outs, hop_len):
+    """What one call of K hops adds to the output stream, float64 on the
+    CPU, (B, (K + 1) hop): outputs 1 to K - 1 and the final OLA buffer
+    laid end to end (the K frames overlap-added), less the input OLA
+    buffer's share (n_fft = 2 hop: its second half, in the first hop)."""
+    import torch
+    y = torch.cat([*outs[1:].double().cpu(), *state_out.ola.double().cpu()
+                   .reshape(-1, 2, hop_len).transpose(0, 1)], dim=1)
+    y[:, :hop_len] -= state_in.ola.double().cpu()[:, hop_len:]
+    return y.numpy()
 
 
 def spectral_convergence(torch, hop, frame, peak, lin):
@@ -1313,6 +1355,276 @@ def phase_daemon_defaults(torch, spec):
         raise AssertionError("daemon output disagrees with the fast step")
 
 
+# -- the resident K-hop WebRTC hop and the gated webrtc step -----------------
+
+def check_webrtc_multi_exact(torch, cfg, plan, batch, calls):
+    """``calls`` calls of the K-hop kernel (K = WEBRTC_K) carrying the
+    state, each one launch (the main path where batch = SLOTS), against
+    the same hops as single-hop calls from the same state: every output
+    and every plane must be equal (0 expected). Returns the launches."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    multi = make_webrtc_hop(cfg, plan, "cuda", hops_per_call=WEBRTC_K)
+    single = make_webrtc_hop(cfg, plan, "cuda")
+    chunks = [torch.stack(webrtc_chunks(torch, batch, WEBRTC_K, batch + c,
+                                        multi.hop)).cuda()
+              for c in range(calls)]
+    s0 = webrtc_hop_init_state(cfg, plan, batch, "cuda")
+    multi.launches = 0
+    s_m, outs_m = s0, []
+    for c in chunks:
+        s_m, o = multi(s_m, c)
+        outs_m.append(o)
+    torch.cuda.synchronize()
+    launches = multi.launches
+    s_s, outs_s = run_hops(single, s0, torch.cat(chunks))
+    exact = {k: max_err(getattr(s_m, k), v) for k, v in planes(s_s).items()}
+    exact["out"] = max_err(torch.cat(outs_m), torch.stack(outs_s))
+    say(f"  GL-{multi.n_iter:<2d} B={batch:3d}: {calls} calls of K={WEBRTC_K} "
+        f"vs {calls * WEBRTC_K} single-hop calls: {fmt(exact)} (0 "
+        f"expected); {launches} launches for {calls} calls; phases unit")
+    if max(exact.values()) != 0 or not phases_ok(torch, s_m):
+        raise AssertionError(f"the K-hop webrtc kernel differs from single "
+                             f"hops (GL-{multi.n_iter}, B={batch})")
+    if launches != calls:
+        raise AssertionError(f"{launches} K-hop launches for {calls} calls")
+    return launches
+
+
+def check_webrtc_multi_forced(torch, cfg, plan, batch, calls, bound):
+    """The K-hop kernel (K = FORCED_K) against its plain version by the
+    forced-state rule: every call starts from the plain version's state,
+    and the kernel, the plain version and the float64 plain version each
+    run its K hops; from the second call on, ``forced_floor`` holds what
+    the call adds to the output stream (``call_signal``); at every call
+    hx within HX_ATOL and unit phases. Returns the largest error of the
+    kernel's OLA buffer against the plain version's."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    multi = make_webrtc_hop(cfg, plan, "cuda", hops_per_call=FORCED_K)
+    f64 = float64_plain(torch, cfg, plan, FORCED_K)
+    s = webrtc_hop_init_state(cfg, plan, batch, "cuda")
+    rules, worst_hx, worst_ola = [], 0.0, 0.0
+    for t in range(calls):
+        c = torch.stack(webrtc_chunks(torch, batch, FORCED_K, batch + 31 + t,
+                                      multi.hop))
+        s_k, o_k = multi(s, c.cuda())
+        s_p, o_p = multi.plain(s, c.cuda())
+        s_d, o_d = f64.plain(to(s, "cpu", torch.float64), c.double())
+        torch.cuda.synchronize()
+        worst_hx = max(worst_hx, max_err(s_k.hx, s_p.hx))
+        worst_ola = max(worst_ola, max_err(s_k.ola, s_p.ola))
+        if not phases_ok(torch, s_k) or not bool(torch.isfinite(
+                s_k.ola).all()):
+            raise AssertionError(f"K-hop webrtc kernel: non-unit phases or "
+                                 f"a non-finite frame at call {t}")
+        if t >= 1:         # a stream's first window is half silence
+            rules.append(forced_floor(
+                *(call_signal(s, x, o, multi.hop)
+                  for x, o in ((s_k, o_k), (s_p, o_p), (s_d, o_d))), bound))
+        s = s_p
+    worst = min(rules, key=lambda r: r[0] - r[2])
+    say(f"  GL-{multi.n_iter:<2d} B={batch:3d}, K={FORCED_K}, {calls} calls "
+        f"each from the plain version's state: median over streams of "
+        f"kernel/f64 >= min({bound:g}, plain/f64 - {WITNESS_DB:g}) on calls 1-"
+        f"{calls - 1}: lowest {min(r[0] for r in rules):.1f} dB, closest "
+        f"call {worst[0]:.1f} (plain/f64 {worst[1]:.1f}, floor {worst[2]:.1f})"
+        f" dB; hx {worst_hx:.3e} (bound {HX_ATOL:g}); ola {worst_ola:.3e}; "
+        f"phases unit")
+    if worst_hx > HX_ATOL or any(k < f for k, _, f in rules):
+        raise AssertionError(f"K-hop webrtc kernel disagrees with its plain "
+                             f"version (GL-{multi.n_iter}, B={batch})")
+    return worst_ola
+
+
+def check_webrtc_multi_small(torch, cfg, plan, batch, K, snr_bound,
+                             mag_rel=None, label=""):
+    """At the JAX tests' small geometry one call of K hops from the
+    initial state against the plain version's K hops: the waveform SNR of
+    hops 2 on (and with ``mag_rel`` each hop's output rfft magnitudes),
+    hx and unit phases, as ``check_webrtc_small`` holds the single hop."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    multi = make_webrtc_hop(cfg, plan, "cuda", hops_per_call=K)
+    chunks = torch.stack(webrtc_chunks(torch, batch, K, batch + 7,
+                                       multi.hop)).cuda()
+    s0 = webrtc_hop_init_state(cfg, plan, batch, "cuda")
+    s_k, o_k = multi(s0, chunks)
+    s_p, o_p = multi.plain(s0, chunks)
+    o_k, o_p = o_k.cpu().numpy(), o_p.cpu().numpy()
+    hx = max_err(s_k.hx, s_p.hx)
+    snrs = [snr_db(p, k) for p, k in zip(o_p[2:], o_k[2:])]
+    if not phases_ok(torch, s_k) or not np.all(np.isfinite(o_k)):
+        raise AssertionError("K-hop webrtc kernel: non-unit phases or a "
+                             "non-finite output")
+    if mag_rel is not None:
+        m0 = np.abs(np.fft.rfft(o_p, axis=-1))
+        m1 = np.abs(np.fft.rfft(o_k, axis=-1))
+        if np.abs(m1 - m0).max() > mag_rel * max(1.0, m0.max()):
+            raise AssertionError("K-hop webrtc kernel: output magnitudes "
+                                 "drift")
+    say(f"  {label} B={batch:3d}, one call of K={K}: hx {hx:.3e} (bound "
+        f"{HX_ATOL:g}); waveform SNR on hops 2-{K - 1} min {min(snrs):.1f} "
+        f"dB (bound {snr_bound:g}); phases unit")
+    if hx > HX_ATOL or min(snrs) < snr_bound:
+        raise AssertionError(f"K-hop webrtc kernel disagrees with its plain "
+                             f"version ({label}, B={batch})")
+
+
+def phase_webrtc_multi(torch, cfg, plan):
+    """Phases 19 to 22; returns (launches on the main path, the largest
+    OLA error against the plain version of the forced GL-32 run at
+    B=SLOTS)."""
+    say(f"phase 19: the resident K-hop WebRTC hop (gruunet2-dari_tult, "
+        f"{SLOTS} streams, K={WEBRTC_K}) vs single-hop calls, bit for bit")
+    launches = sum(check_webrtc_multi_exact(torch, warm_cfg(cfg, n), plan,
+                                            SLOTS, 2) for n in WEBRTC_GL)
+    say("phase 20: the K-hop WebRTC hop on ragged batches")
+    for b in (SLOTS - 1, 3):
+        check_webrtc_multi_exact(torch, warm_cfg(cfg, WEBRTC_GL[0]), plan, b,
+                                 1)
+    say("phase 21: the K-hop WebRTC hop vs its plain version, each call from "
+        "a shared state")
+    err = max(check_webrtc_multi_forced(torch, warm_cfg(cfg, n), plan, b, 4,
+                                        SNR_GL32_DB)
+              for n in WEBRTC_GL for b in (SLOTS, 3))
+    say("phase 22: the K-hop WebRTC hop vs its plain version at the JAX "
+        "tests' geometry (n_fft 64, 16 mels, hidden (5, 5)), random weights")
+    from audio_denoising_torch.runtime.plan import build_cell_plan
+    small_cfg, small = small_webrtc_model(torch, 32)
+    small_plan = build_cell_plan(small)
+    for b in (SLOTS, 3):
+        check_webrtc_multi_small(torch, small_cfg, small_plan, b, WEBRTC_HOPS,
+                                 SNR_GL32_DB, label="GL-32")
+    check_webrtc_multi_small(torch, warm_cfg(small_cfg, 4), small_plan, 64, 40,
+                             SNR_GL4_DB, MAG_REL, label="GL-4 ")
+    return launches, err
+
+
+def phase_engine_webrtc_gated(torch, cfg, model):
+    """Mode webrtc with the SNR gate (the op-by-op step; no hand-written
+    kernel on this path) on the card against the CPU engine, the CPU
+    engine given the card's state before every tick, as phase 6 holds
+    mode fused-webrtc: each tick's outputs equal, hx within HX_ATOL, the
+    gate's planes within PLANE_RTOL, idle slots bit-identical, and from
+    tick 2 on the median over the active slots of the SNR of what each
+    adds to its OLA buffer, card vs CPU, at least SNR_GL32_DB (a few
+    streams per hop flip a near-zero bin's phase in any fp32 version);
+    the gate blends on some stream-ticks."""
+    from audio_denoising_torch.ops.noisefloor import gate_weight
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    n, ticks = SLOTS, 8
+    gpu = StreamEngine(cfg, model, mode="webrtc", max_streams=n)
+    cpu = StreamEngine(cfg, model, mode="webrtc", max_streams=n,
+                       device="cpu")
+    sids = [f"s{i}" for i in range(n)]
+    for sid in sids:
+        gpu.add_stream(sid)
+        cpu.add_stream(sid)
+    data = voiced_chunks(n, ticks, cfg.dsp.hop_length, cfg.dsp.sample_rate,
+                         23)
+    worst_hx, medians, alphas, worst_planes = 0.0, [], [], {}
+    for t in range(ticks):
+        chunks = {sid: data[t, i] for i, sid in enumerate(sids)
+                  if (7 * i + t) % 5}
+        active = [gpu.slots[s] for s in sids if s in chunks]
+        idle = [gpu.slots[s] for s in sids if s not in chunks]
+        before = to(gpu.state, "cpu")
+        cpu.state = type(before)(*(None if x is None else x.clone()
+                                   for x in before))
+        a, b = gpu.process(chunks), cpu.process(chunks)
+        after = to(gpu.state, "cpu")
+        for k, x in planes(before).items():
+            if not torch.equal(x[idle], getattr(after, k)[idle]):
+                raise AssertionError(f"an idle slot's {k} moved")
+        for sid in chunks:
+            if not np.array_equal(a[sid], b[sid]) or not np.all(
+                    np.isfinite(a[sid])):
+                raise AssertionError("engine outputs differ from the CPU "
+                                     "engine's on the same state")
+        worst_hx = max(worst_hx, max_err(after.hx, cpu.state.hx))
+        for k, v in plane_errors(after, cpu.state).items():
+            worst_planes[k] = max(worst_planes.get(k, 0.0), v)
+        alphas.append(gate_weight(cfg.serving, after)[active])
+        if t >= 2:
+            f_gpu, f_cpu = (added_frame(before, x, cfg.dsp.hop_length)[active]
+                            for x in (after, cpu.state))
+            medians.append(float(np.median(stream_snrs(f_cpu, f_gpu))))
+    alphas = torch.cat(alphas)
+    share = float(((alphas > 0) & (alphas < 1)).double().mean())
+    srv = cfg.serving
+    gate_errs = {k: v for k, v in worst_planes.items()
+                 if k not in ("ring", "ola", "hx")}
+    say(f"  {n} streams x {ticks} ticks ({srv.snr_gate_estimator}, gate "
+        f"{srv.snr_gate_db:g} dB, width {srv.snr_gate_width_db:g}, GL-"
+        f"{cfg.dsp.griffin_lim_iters}), the CPU engine given the card's state "
+        f"each tick: outputs equal; hx {worst_hx:.3e} (bound {HX_ATOL:g}); "
+        f"{fmt(gate_errs)} (bound {PLANE_RTOL:g}); idle slots bit-identical; "
+        f"median over streams of the added frames' SNR card vs CPU on ticks "
+        f"2-{ticks - 1}: " + ", ".join(f"{v:.1f}" for v in medians)
+        + f" dB (bound {SNR_GL32_DB:g}); alpha in (0, 1) on {share:.1%} of "
+        f"stream-ticks; no hand-written kernel on this path")
+    if worst_hx > HX_ATOL or min(medians) < SNR_GL32_DB:
+        raise AssertionError("gated webrtc engine on the card disagrees with "
+                             "the CPU engine")
+    check_state(gate_errs, "gated webrtc engine")
+    if share <= 0:
+        raise AssertionError("the gate never blended in mode webrtc")
+
+
+def phase_daemon_webrtc_gated(torch, spec):
+    """EngineDaemon mode webrtc with ``--snr-gate`` (the tuned 1 dB, width
+    6, 'both') on ``spec``: every reply in time and each stream's replies
+    equal to its chunks replayed through the gated step on the card at
+    the daemon's slot count, the streams at their slots (a stream's hop
+    reads only its own row); hx and the gate's planes against the same
+    replay on the CPU."""
+    from audio_denoising_torch.apps.engine_serve import (
+        daemon_from_args, parser)
+    from audio_denoising_torch.pipeline import (
+        make_webrtc_step, webrtc_init_state)
+    clients, streams, n_chunks = 4, 16, 8
+    daemon = daemon_from_args(parser().parse_args(
+        ["--model", spec, "--mode", "webrtc", "--snr-gate", "1",
+         "--max-streams", str(SLOTS), "--host", "127.0.0.1", "--port", "0"]))
+    srv, cfg = daemon.cfg.serving, daemon.cfg
+    data = daemon_data(cfg, clients, streams, n_chunks, 24)
+    # streams close only once every client is done, so no slot is reused
+    # before its final state is read
+    got, slots, rounds, launches, wall = serve_clients(
+        daemon, data, None, threading.Barrier(clients))
+    seqs = data.reshape(clients * streams, n_chunks, -1)
+    want = {}
+    for device in ("cuda", "cpu"):
+        step = make_webrtc_step(cfg, daemon.model, device)
+        state = webrtc_init_state(cfg, daemon.model, SLOTS, device)
+        outs = []
+        for k in range(n_chunks):
+            batch = torch.zeros((SLOTS, seqs.shape[2]))
+            batch[slots] = torch.from_numpy(seqs[:, k].copy())
+            state, out = step(state, batch.to(device))
+            outs.append(out[slots].cpu().numpy())
+        want[device] = (state, np.stack(outs, axis=1))
+    replay = float(np.abs(got - want["cuda"][1]).max())
+    final = daemon.engine.state._replace(**{
+        k: v[slots] for k, v in planes(daemon.engine.state).items()})
+    ref = want["cpu"][0]._replace(**{
+        k: v[slots] for k, v in planes(want["cpu"][0]).items()})
+    hx_err = max_err(final.hx.cpu(), ref.hx)
+    gate_errs = {k: v for k, v in plane_errors(final, ref).items()
+                 if k not in ("ring", "ola", "hx")}
+    say(f"  gate {srv.snr_gate_db:g} dB, width {srv.snr_gate_width_db:g}, "
+        f"{srv.snr_gate_estimator}: replies vs the gated step replayed on the "
+        f"card {replay:.3e} (bound {REPLAY_ATOL:g}); hx vs the CPU replay "
+        f"{hx_err:.3e} (bound {HX_ATOL:g}); {fmt(gate_errs)} (bound "
+        f"{PLANE_RTOL:g}); " + latency_line(data, rounds, launches, wall))
+    if replay > REPLAY_ATOL or hx_err > HX_ATOL or not np.all(
+            np.isfinite(got)):
+        raise AssertionError("gated webrtc daemon disagrees with the gated "
+                             "step")
+    check_state(gate_errs, "gated webrtc daemon")
+
+
 # -- timing -------------------------------------------------------------------
 
 def time_launches(torch, fn, n):
@@ -1353,12 +1665,15 @@ def hop_work(hop, batch):
 
 
 def webrtc_hop_work(hop, batch):
-    """(flops, bytes) one WebRTC hop needs per ``batch`` streams: each of
-    the 3 (n_iter + 2) real transforms of n_fft points at FFT cost
-    (2.5 N log2 N: the analysis STFT, n_iter rounds of inverse STFT and
-    STFT, the synthesis), 2 per multiply-add of the three plan-cell steps
-    and of the mel pair over three frames; each input read and output
-    written once (state, chunk, output, weights and tables)."""
+    """(flops, bytes) one call of the WebRTC hop (K = hops_per_call hops)
+    needs per ``batch`` streams: per hop each of the 3 (n_iter + 2) real
+    transforms of n_fft points at FFT cost (2.5 N log2 N: the analysis
+    STFT, n_iter rounds of inverse STFT and STFT, the synthesis), 2 per
+    multiply-add of the three plan-cell steps and of the mel pair over
+    three frames; the state (ring, OLA, hx, both phase planes), the
+    weights and tables read and the state written once per call, and each
+    hop's chunk read and output written."""
+    K = hop.hops_per_call
     transforms = 3 * (2 * hop.n_iter + 2)
     ffts = transforms * 2.5 * hop.n_fft * math.log2(hop.n_fft)
     cell = sum(w.numel() for w in hop.weights if w.dim() == 2)
@@ -1367,8 +1682,9 @@ def webrtc_hop_work(hop, batch):
                + sum(t.numel() for t in (hop.mel, hop.imel, hop.win,
                                          hop.env)))
     per_stream = (2 * 2 * hop.n_fft + 2 * hop.n + 2 * 2 * 3 * hop.F
-                  + 2 * hop.hop)
-    return batch * (ffts + 2 * macs), 4 * (batch * per_stream + weights)
+                  + K * 2 * hop.hop)
+    return (batch * K * (ffts + 2 * macs),
+            4 * (batch * per_stream + weights))
 
 
 def device_breakdown(torch, fn, n):
@@ -1513,6 +1829,37 @@ def time_fused_hops(torch, cfg, plan, smi):
     return results["float32 (fused_hop_resident)"]
 
 
+def time_webrtc_multi(torch, cfg, plan, smi):
+    """The K-hop WebRTC kernel per call and per hop at B=SLOTS, K=WEBRTC_K,
+    at each of WEBRTC_GL rounds (GL-8 is bench.py's
+    fused_webrtc_gl8_resident_k25), against its plain version and bound;
+    then the same hops as WEBRTC_K chained single-hop calls. Returns {GL:
+    (ms, plain ms, bound ms, bound by)} per call."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    results = {}
+    for n in WEBRTC_GL:
+        c = warm_cfg(cfg, n)
+        multi = make_webrtc_hop(c, plan, "cuda", hops_per_call=WEBRTC_K)
+        single = make_webrtc_hop(c, plan, "cuda")
+        state, _ = hop_inputs(
+            torch, multi, lambda b: webrtc_hop_init_state(c, plan, b, "cuda"),
+            SLOTS)
+        chunks = 0.2 * torch.randn((WEBRTC_K, SLOTS, multi.hop), generator=g,
+                                   device="cuda")
+        say(f"  K-hop webrtc kernel, GL-{n}, K={WEBRTC_K} ({smi}):")
+        results[n] = timed(torch, lambda: multi(state, chunks),
+                           lambda: multi.plain(state, chunks),
+                           webrtc_hop_work(multi, SLOTS), SLOTS, 10,
+                           plain_launches=2, hops=WEBRTC_K)
+        ms = time_launches(torch, lambda: run_hops(single, state, chunks), 5)
+        say(f"  {WEBRTC_K} single-hop calls carrying the state, GL-{n} "
+            f"({smi}): {ms * 1e3:.1f} us, {ms * 1e3 / WEBRTC_K:.2f} us/hop; "
+            f"the K-hop call at {results[n][0] / ms:.1%} of it")
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1643,6 +1990,16 @@ def main() -> int:
     time_fast_step(torch, good_cfg, good, "zoo model")
     time_fast_step(torch, good_cfg, pm, "PlanModel(fused=True)")
     multi = time_fused_hops(torch, cfg, plan, smi)
+    w_multi = time_webrtc_multi(torch, dari_cfg, dari_plan, smi)
+
+    wm_launches, wm_err = phase_webrtc_multi(torch, dari_cfg, dari_plan)
+    dari_gated = tuned_gate(load_pretrained("gruunet2-dari_tult")[0])
+    say(f"phase 23: StreamEngine mode webrtc with the SNR gate "
+        f"(gruunet2-dari_tult), {SLOTS} slots, card vs CPU")
+    phase_engine_webrtc_gated(torch, dari_gated, dari)
+    say("phase 24: EngineDaemon mode webrtc --snr-gate 1 (gruunet2-dari_tult) "
+        "on 127.0.0.1")
+    phase_daemon_webrtc_gated(torch, "gruunet2-dari_tult")
 
     rows = []
     for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by) in (
@@ -1652,6 +2009,8 @@ def main() -> int:
              m_err, multi),
             ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331", w_launches,
              w_err, webrtc),
+            ("webrtc_hop_multi", "webrtc_hop", "webrtc_hop.py:344",
+             wm_launches, wm_err, w_multi[WEBRTC_GL[0]]),
             ("fused_cell", "fused_cell", "gruunet_cell.py:58", c_launches,
              c_err, fused_cell)):
         rows.append({

@@ -1,7 +1,8 @@
 """The port's serving slice against the JAX package on the CPU:
 StreamEngine mode 'fused' (masked commit, ingress sanitization, slot
-reuse, snapshot/restore) and the EngineDaemon's wire protocol. Mode
-'fast' is held in tests/test_torch_fast.py."""
+reuse, snapshot/restore), the EngineDaemon's wire protocol and its gate
+flags (in modes 'fused', 'fast' and 'webrtc'). Mode 'fast' is held in
+tests/test_torch_fast.py, mode 'webrtc' in tests/test_torch_webrtc.py."""
 
 import inspect
 import os
@@ -20,6 +21,8 @@ from audio_denoising_torch.apps.engine_serve import (
 from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.ops.kernels.fused_hop import (
     fused_hop_init_state, make_fused_hop)
+from audio_denoising_torch.pipeline import (
+    make_webrtc_step, webrtc_init_state)
 from audio_denoising_torch.runtime.engine import (
     StreamEngine, fast_init_state, make_fast_step)
 
@@ -175,9 +178,10 @@ def test_engine_refuses_unported_modes():
 
 def test_daemon_refuses_a_profile_it_cannot_serve():
     """A gated fused-webrtc: the JAX engine downgrades it to mode
-    'webrtc', whose gate the port has not ported yet (ROADMAP A3), so the
-    port refuses it rather than serve it ungated."""
-    with pytest.raises(ValueError, match="webrtc step's gate.*ROADMAP A3"):
+    'webrtc', which serves the gate; the port serves only the mode asked,
+    so it refuses it, naming mode 'webrtc', rather than serve it ungated
+    or in another mode."""
+    with pytest.raises(ValueError, match="engine mode 'webrtc' serves"):
         EngineDaemon("gruunet2-dari_tult", max_streams=2,
                      address=("127.0.0.1", 0), mode="fused-webrtc",
                      device="cpu", snr_gate_db=1.0)
@@ -239,6 +243,44 @@ def test_cli_gate_flags_set_all_three():
     assert (srv.snr_gate_db, srv.snr_gate_width_db,
             srv.snr_gate_estimator) == (3.0, 4.0, "removed")
     assert daemon.engine.state.em_out.shape == (2, 1)
+    assert daemon.engine.state.nf_floor is None
+
+
+@pytest.mark.parametrize("estimator", ["removed", "floor", "both"])
+def test_cli_gate_flags_serve_mode_webrtc(estimator):
+    """``--mode webrtc --snr-gate G --snr-gate-width W
+    --snr-gate-estimator E`` serves the gated op-by-op Griffin-Lim step:
+    the engine carries the estimator's planes, and a few ticks agree with
+    the gated step run alone."""
+    daemon = _daemon("--mode", "webrtc", "--snr-gate", "3",
+                     "--snr-gate-width", "4", "--snr-gate-estimator",
+                     estimator)
+    srv, eng = daemon.cfg.serving, daemon.engine
+    assert (srv.snr_gate_db, srv.snr_gate_width_db,
+            srv.snr_gate_estimator) == (3.0, 4.0, estimator)
+    assert eng.mode == "webrtc"
+    assert (eng.state.em_out is not None) == (estimator != "floor")
+    assert (eng.state.nf_floor is not None) == (estimator != "removed")
+    step = make_webrtc_step(daemon.cfg, daemon.model, "cpu")
+    state = webrtc_init_state(daemon.cfg, daemon.model, 2)
+    eng.add_stream("a")
+    eng.add_stream("b")
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        chunks = (0.1 * rng.standard_normal((2, eng.hop))).astype(np.float32)
+        got = eng.process({"a": chunks[0], "b": chunks[1]})
+        state, want = step(state, torch.from_numpy(chunks))
+        np.testing.assert_allclose(np.stack([got["a"], got["b"]]),
+                                   want.numpy(), atol=1e-6)
+
+
+def test_auto_gate_leaves_mode_webrtc_ungated():
+    """The JAX daemon's auto gate covers modes fast and fused only
+    (engine_serve.py:58): in mode webrtc a unit-gain checkpoint is served
+    ungated unless ``--snr-gate`` asks."""
+    daemon = _daemon("--mode", "webrtc")
+    assert daemon.cfg.serving.snr_gate_db is None
+    assert daemon.engine.state.em_out is None
     assert daemon.engine.state.nf_floor is None
 
 

@@ -3,6 +3,7 @@ chip_smoke.py fails (with no result line) without a card or outside a
 checkout of the repo."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -82,6 +83,29 @@ def test_kernel_sources_are_hand_written(source):
     code = "\n".join(line.split("//")[0] for line in text.splitlines())
     for word in ("cufft", "cublas", "cutlass", "cute::", "at::"):
         assert word not in code.lower(), word
+
+
+@pytest.mark.parametrize("struct,module", [
+    ("AdtWebRTCHopArgs", "webrtc_hop"), ("AdtPlan", "common")])
+def test_ctypes_mirrors_name_the_kernel_fields(struct, module):
+    """The ctypes mirrors of the kernels' argument structs list the C
+    fields in order (the card checks their sizes agree; this checks the
+    names here, without a compiler)."""
+    import importlib
+    mod = importlib.import_module(
+        f"audio_denoising_torch.ops.kernels.{module}")
+    mirror = {"AdtWebRTCHopArgs": "_Args", "AdtPlan": "PlanArgs"}[struct]
+    src = "webrtc_hop.cu" if module == "webrtc_hop" else "plan_cell.cuh"
+    with open(os.path.join(PKG, "csrc", src)) as f:
+        text = f.read()
+    body = text[text.index(f"struct {struct} {{"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    fields = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            fields.append(re.search(r"(\w+)\s*(\[[^\]]*\])?$", decl)[1])
+    assert fields == [f[0] for f in getattr(mod, mirror)._fields_]
 
 
 def test_port_and_chip_smoke_import_no_jax():

@@ -212,3 +212,50 @@ def test_plane_errors_hold_the_gate_planes_relative(smoke):
     assert errs["nf_floor"] > smoke.PLANE_RTOL
     with pytest.raises(AssertionError, match="nf_floor"):
         smoke.check_state(errs, "bad")
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_call_signal_is_what_a_call_adds(smoke, K):
+    """What a call of K hops adds to the output stream is its K frames
+    overlap-added: at K = 1 the frame added_frame reads; at any K the
+    outputs of the next call (zero chunks aside) start with its tail."""
+    cfg, plan = _small(smoke, 4)
+    multi = make_webrtc_hop(cfg, plan, "cpu", hops_per_call=K)
+    single = make_webrtc_hop(cfg, plan, "cpu")
+    s = webrtc_hop_init_state(cfg, plan, 2)
+    for c in _chunks(2, 2, multi.hop, seed=4):     # a state with an OLA tail
+        s, _ = single(s, c)
+    chunks = torch.stack(_chunks(K, 2, multi.hop, seed=5))
+    s2, outs = multi(s, chunks[0] if K == 1 else chunks)
+    outs = outs.reshape(K, 2, multi.hop)
+    y = smoke.call_signal(s, s2, outs, multi.hop)
+    assert y.shape == (2, (K + 1) * multi.hop)
+    frames, st = [], s
+    for c in chunks:
+        st2, _ = single(st, c)
+        frames.append(smoke.added_frame(st, st2, multi.hop))
+        st = st2
+    want = np.zeros_like(y)
+    for k, f in enumerate(frames):
+        want[:, k * multi.hop:(k + 2) * multi.hop] += f
+    np.testing.assert_allclose(y, want, atol=1e-6 * np.abs(want).max())
+
+
+def test_webrtc_bound_counts_k_hops(smoke):
+    """chip_smoke's bound of the WebRTC hop at gruunet2-dari_tult and 256
+    streams: 3302.3 MFLOP per hop at GL-32, 1803.9 at GL-8 (bench.py's
+    resident shape), each bound by operations; K hops per call do K times
+    the operations and move the state once and K chunks in and out."""
+    from audio_denoising_torch.hub import load_pretrained
+    cfg, model = load_pretrained("gruunet2-dari_tult")
+    plan = build_cell_plan(model)
+    B, K, hop = 256, smoke.WEBRTC_K, cfg.dsp.hop_length
+    for n_iter, mflop in ((32, 3302.3), (8, 1803.9)):
+        c = smoke.warm_cfg(cfg, n_iter)
+        one = smoke.webrtc_hop_work(make_webrtc_hop(c, plan, "cpu"), B)
+        multi = smoke.webrtc_hop_work(
+            make_webrtc_hop(c, plan, "cpu", hops_per_call=K), B)
+        assert one[0] / 1e6 == pytest.approx(mflop, abs=0.05)
+        assert multi[0] == pytest.approx(K * one[0])
+        assert multi[1] - one[1] == B * (K - 1) * 2 * hop * 4
+        assert multi[0] / smoke.FP32_FLOPS > multi[1] / smoke.HBM_BYTES_S

@@ -1,9 +1,10 @@
 """The port's WebRTC slice against the JAX package on the CPU: the STFT,
 mel and Griffin-Lim ops, the op-by-op webrtc step (also against the
-reference goldens), the WebRTC hop's plain version against the JAX
-kernel (interpret mode) fed the identical plan, the engine modes
-``webrtc`` and ``fused-webrtc``, and the daemon serving them. The CUDA
-kernels themselves are held against the plain version on the card by
+reference goldens) and its SNR gate, the WebRTC hop's plain version
+against the JAX kernel (interpret mode) fed the identical plan, one hop
+and K hops per call, the engine modes ``webrtc`` (also gated) and
+``fused-webrtc``, and the daemon serving them. The CUDA kernels
+themselves are held against the plain version on the card by
 chip_smoke.py."""
 
 import dataclasses
@@ -44,6 +45,7 @@ from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.models import build_model
 from audio_denoising_torch.ops.kernels.webrtc_hop import (
     WebRTCHopState, make_webrtc_hop, webrtc_hop_init_state)
+from audio_denoising_torch.ops.noisefloor import gate_weight
 from audio_denoising_torch.pipeline import (
     make_webrtc_step, webrtc_init_state)
 from audio_denoising_torch.runtime.engine import StreamEngine
@@ -62,6 +64,14 @@ KERNEL_HX = 5e-4
 KERNEL_PHASES = 2e-3   # zero-iteration path (test_webrtc_hop.py:95-112)
 RECV_TIMEOUT_S = 30.0
 SMALL = dict(n_fft=64, hop_length=32, n_mels=16)   # _small_setup's sizes
+# the gate's planes, relative, as tests/test_torch_fast.py holds them
+PLANE_RTOL, PLANE_ATOL = 2e-4, 1e-9
+GATE_PLANES = ("nf_smooth", "nf_floor", "nf_total", "em_out", "em_rem")
+# (gate, width) per estimator at the small geometry: its random weights
+# remove little, so 'removed' reads 75-86 dB there and 'floor' 16-54 dB on
+# _bursty's streams; each ramp sits inside its range, so alpha spreads
+GATE_POINTS = {"removed": (80.0, 6.0), "floor": (30.0, 10.0),
+               "both": (80.0, 6.0)}
 
 
 def _snr(ref, got):
@@ -213,6 +223,9 @@ def test_webrtc_step_matches_jax(rng, warm):
 
 
 def test_webrtc_step_refuses_lookahead_and_the_gate():
+    """Lookahead checkpoints are refused, as in the JAX package; the SNR
+    gate, refused until the fifth slice, is now served: the gated step
+    builds, its state carries the estimator's planes, and a hop runs."""
     _, (cfg, model, _) = _small()
     la = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, lookahead_frames=1))
@@ -220,8 +233,12 @@ def test_webrtc_step_refuses_lookahead_and_the_gate():
         make_webrtc_step(la, model, "cpu")
     gated = dataclasses.replace(cfg, serving=dataclasses.replace(
         cfg.serving, snr_gate_db=1.0))
-    with pytest.raises(NotImplementedError, match="SNR gate"):
-        make_webrtc_step(gated, model, "cpu")
+    step = make_webrtc_step(gated, model, "cpu")
+    state = webrtc_init_state(gated, model, 2)
+    for name in GATE_PLANES:
+        assert getattr(state, name) is not None, name
+    state, out = step(state, torch.full((2, 32), 0.1))
+    assert out.shape == (2, 32) and bool(torch.isfinite(state.ola).all())
 
 
 # -- the webrtc step on gruunet2-dari_tult against the reference goldens -----
@@ -403,10 +420,11 @@ def test_hop_wrapper_rejects_bad_inputs(case):
 @pytest.mark.parametrize("case,err", [
     ("cold", ValueError), ("hop", ValueError), ("raw", ValueError),
     ("delta", ValueError), ("bf16", NotImplementedError),
-    ("multi", NotImplementedError)])
+    ("multi", ValueError)])
 def test_hop_refuses_what_it_cannot_serve(case, err):
     """What the JAX kernel refuses, with ValueError; what the port has not
-    ported yet, with NotImplementedError."""
+    ported yet (the bf16 GL mode), with NotImplementedError. K hops per
+    call are served (test_multi_hop_*); a call of no hops is refused."""
     _, (cfg, _, plan) = _small()
     kw = {}
     dsp = cfg.dsp
@@ -421,7 +439,7 @@ def test_hop_refuses_what_it_cannot_serve(case, err):
     elif case == "bf16":
         kw["compute_dtype"] = torch.bfloat16
     else:
-        kw["hops_per_call"] = 25
+        kw["hops_per_call"] = 0
     with pytest.raises(err):
         make_webrtc_hop(dataclasses.replace(cfg, dsp=dsp), plan, "cpu", **kw)
 
@@ -440,6 +458,99 @@ def test_cpu_hop_refuses_tensors_it_was_not_built_for():
                              for w in (64, 64, 20, 99, 99)))
     with pytest.raises(ValueError, match="built for cpu"):
         hop(state, torch.empty(2, 32, device="meta"))
+
+
+# -- K hops per call ----------------------------------------------------------
+
+@pytest.mark.parametrize("n_iter", [0, 4])
+@pytest.mark.parametrize("batch,K", [(3, 4), (5, 2)])
+def test_multi_hop_matches_jax_kernel(rng, batch, K, n_iter):
+    """K hops per call (the plain version) against JAX's resident kernel
+    (hops_per_call=K, interpret mode), two calls, the second from the
+    carried state; B=5 is ragged against the JAX kernel's tile of 8 (its
+    padding). Held at test_plain_hop_matches_jax_kernel's bounds: outputs
+    within its rtol and atol of each hop's scale (the B=9 form: over 8
+    hops the JAX kernel's bf16 3-pass error leaves the elementwise bound),
+    hx within KERNEL_HX, the ring exact; the phases elementwise with no GL
+    round (KERNEL_PHASES), unit vectors with one."""
+    (jcfg, _, _, jplan), (cfg, _, plan) = _small(n_iter=n_iter)
+    jax_multi = jax_make_hop(jcfg, jplan, interpret=True, block_b=8,
+                             hops_per_call=K)
+    multi = make_webrtc_hop(cfg, plan, "cpu", hops_per_call=K)
+    js = jax_hop_init_state(jcfg, jplan, batch)
+    s = webrtc_hop_init_state(cfg, plan, batch)
+    F = cfg.dsp.n_stft
+    for _ in range(2):
+        chunks = np.stack(_chunks(rng, batch, 32, K))
+        js, jouts = jax_multi(js, jnp.asarray(chunks))
+        s, outs = multi(s, torch.from_numpy(chunks))
+        assert outs.shape == (K, batch, 32) and outs.dtype == torch.float32
+        for got, want in zip(outs.numpy(), np.asarray(jouts)):
+            assert np.abs(got - want).max() <= \
+                KERNEL_OUT["rtol"] * np.abs(want).max() + KERNEL_OUT["atol"]
+        np.testing.assert_allclose(s.hx.numpy(), np.asarray(js.hx),
+                                   atol=KERNEL_HX)
+        np.testing.assert_array_equal(s.ring.numpy(), np.asarray(js.ring))
+        np.testing.assert_allclose(
+            s.ola.numpy(), np.asarray(js.ola),
+            atol=KERNEL_OUT["rtol"] * np.abs(np.asarray(js.ola)).max()
+            + KERNEL_OUT["atol"])
+        if n_iter == 0:
+            for got, want in ((s.ang_re, js.ang_re), (s.ang_im, js.ang_im)):
+                np.testing.assert_allclose(got.numpy(), _jax_planes(want, F),
+                                           atol=KERNEL_PHASES)
+        nrm = np.hypot(s.ang_re.numpy(), s.ang_im.numpy())
+        assert np.all((np.abs(nrm - 1) < 1e-3) | (nrm < 1e-3))
+    assert multi.launches == 0      # the plain version is not a launch
+
+
+@pytest.mark.parametrize("n_iter", [0, 4])
+def test_multi_hop_equals_single_hops(rng, n_iter):
+    """On the CPU a K-hop call is K single hops of the plain version,
+    the state carried: exactly equal, outputs and every plane."""
+    _, (cfg, _, plan) = _small(n_iter=n_iter)
+    K, B = 4, 3
+    multi = make_webrtc_hop(cfg, plan, "cpu", hops_per_call=K)
+    single = make_webrtc_hop(cfg, plan, "cpu")
+    chunks = torch.from_numpy(np.stack(_chunks(rng, B, 32, K)))
+    s_m, outs = multi(webrtc_hop_init_state(cfg, plan, B), chunks)
+    s_s = webrtc_hop_init_state(cfg, plan, B)
+    for k in range(K):
+        s_s, out = single(s_s, chunks[k])
+        assert torch.equal(outs[k], out)
+    for a, b in zip(s_m, s_s):
+        assert torch.equal(a, b)
+
+
+def _bad_multi_inputs(cfg, plan, K):
+    s = webrtc_hop_init_state(cfg, plan, 2)
+    c = torch.zeros(K, 2, cfg.dsp.hop_length)
+    return {
+        "hops": (s, torch.zeros(K + 1, 2, 32), ValueError),
+        "one hop": (s, torch.zeros(2, 32), ValueError),
+        "chunk width": (s, torch.zeros(K, 2, 33), ValueError),
+        "chunk dtype": (s, c.double(), TypeError),
+        "state batch": (webrtc_hop_init_state(cfg, plan, 3), c, ValueError),
+        "phase dtype": (s._replace(ang_im=s.ang_im.half()), c, TypeError),
+        "device": (WebRTCHopState(*(torch.empty(2, w, device="meta")
+                                    for w in (64, 64, 20, 99, 99))),
+                   torch.empty(K, 2, 32, device="meta"), ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", ["hops", "one hop", "chunk width",
+                                  "chunk dtype", "state batch",
+                                  "phase dtype", "device"])
+def test_multi_hop_wrapper_rejects_bad_inputs(case):
+    """chunks must be (K, B, hop) float32 with K = hops_per_call (JAX's
+    step_multi asserts the same), the state planes (B, width) float32 on
+    the device the hop was built for."""
+    _, (cfg, _, plan) = _small()
+    K = 3
+    multi = make_webrtc_hop(cfg, plan, "cpu", hops_per_call=K)
+    state, chunks, err = _bad_multi_inputs(cfg, plan, K)[case]
+    with pytest.raises(err):
+        multi(state, chunks)
 
 
 # -- the engine modes ----------------------------------------------------------
@@ -562,7 +673,7 @@ def test_add_stream_resets_the_warm_seed(rng):
 
 @pytest.mark.parametrize("case,mode,err", [
     ("gate", "fused-webrtc", ValueError),
-    ("gate", "webrtc", NotImplementedError),
+    ("gate", "webrtc", None),
     ("int8", "fused-webrtc", ValueError),
     ("int8", "webrtc", ValueError),
     ("lookahead", "fused-webrtc", ValueError),
@@ -571,7 +682,9 @@ def test_add_stream_resets_the_warm_seed(rng):
     ("bf16", "fused-webrtc", NotImplementedError)])
 def test_engine_raises_where_jax_downgrades(case, mode, err):
     """The JAX engine downgrades these (engine.py:257-341) or its kernel
-    refuses them; the port raises and never serves another mode."""
+    refuses them; the port raises and never serves another mode. A gated
+    fused-webrtc, which JAX downgrades to mode webrtc, is refused with a
+    message naming that mode; mode webrtc itself serves the gate."""
     _, (cfg, model, _) = _small()
     srv, dsp, mc = cfg.serving, cfg.dsp, cfg.model
     if case == "gate":
@@ -584,7 +697,13 @@ def test_engine_raises_where_jax_downgrades(case, mode, err):
     else:
         dsp = dataclasses.replace(dsp, griffin_lim_warm_start=False)
     cfg = dataclasses.replace(cfg, serving=srv, dsp=dsp, model=mc)
-    with pytest.raises(err):
+    if err is None:
+        engine = StreamEngine(cfg, model, mode=mode, max_streams=2,
+                              device="cpu")
+        assert engine.mode == mode and engine.state.em_out is not None
+        return
+    with pytest.raises(err, match="mode 'webrtc'" if case == "gate"
+                       else None):
         StreamEngine(cfg, model, mode=mode, max_streams=2, device="cpu")
 
 
@@ -594,6 +713,146 @@ def test_webrtc_engines_need_a_card_unless_cpu_is_asked(monkeypatch):
     for mode in ("webrtc", "fused-webrtc"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             StreamEngine(cfg, model, mode=mode, max_streams=2)
+
+
+# -- the SNR gate of the webrtc step ------------------------------------------
+
+def _gated(cfg, estimator, gate_db=None, width_db=None):
+    points = GATE_POINTS[estimator]
+    return dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, snr_gate_db=points[0] if gate_db is None else gate_db,
+        snr_gate_width_db=points[1] if width_db is None else width_db,
+        snr_gate_estimator=estimator))
+
+
+def _bursty(rng, B, hop, t, sr=16000):
+    """A tone on every other 3 hops over per-stream noise levels (the
+    JAX gate tests' bursty input): the estimators read the streams apart."""
+    t_ax = np.arange(t * hop, (t + 1) * hop) / sr
+    base = (0.3 * np.sin(2 * np.pi * 440 * t_ax)
+            * (1.0 if (t // 3) % 2 else 0.0))
+    lv = np.array([0.001, 0.01, 0.1, 0.3])[:B, None]
+    return (base[None, :] + lv * rng.standard_normal((B, hop))
+            ).astype(np.float32)
+
+
+def _assert_planes_close(state, jstate):
+    for name in GATE_PLANES:
+        got, want = getattr(state, name), getattr(jstate, name)
+        assert (got is None) == (want is None), name
+        if got is not None:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=PLANE_RTOL, atol=PLANE_ATOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("estimator", ["removed", "floor", "both"])
+def test_gated_webrtc_step_matches_jax(estimator, warm):
+    """The gated op-by-op step against JAX's over 12 hops of bursty input
+    on 4 streams, at test_webrtc_step_matches_jax's bounds (out SNR_DB
+    from hop 2 on, hx HX_ATOL) and the gate's planes relative PLANE_RTOL;
+    the gate blends (alpha in (0, 1)) on some stream-hops."""
+    (jcfg, jmodel, params, _), (cfg, model, _) = _small(warm=warm)
+    jcfg, cfg = _gated(jcfg, estimator), _gated(cfg, estimator)
+    jstep = jax_make_step(jcfg, jmodel)
+    step = make_webrtc_step(cfg, model, "cpu")
+    js = jax_step_init(jcfg, jmodel, 4)
+    s = webrtc_init_state(cfg, model, 4)
+    rng = np.random.default_rng(11)
+    alphas = []
+    for t in range(12):
+        c = _bursty(rng, 4, 32, t)
+        js, jout = jstep(params, js, jnp.asarray(c))
+        s, out = step(s, torch.from_numpy(c))
+        np.testing.assert_allclose(s.hx.numpy(), np.asarray(js.hx),
+                                   atol=HX_ATOL)
+        if t >= 2:
+            assert _snr(np.asarray(jout), out.numpy()) > SNR_DB
+        _assert_planes_close(s, js)
+        alphas.append(gate_weight(cfg.serving, s))
+    alphas = torch.cat(alphas)
+    assert bool(((alphas > 0) & (alphas < 1)).any())
+
+
+def test_gate_in_webrtc_gl_mode_on_dari(dari):
+    """tests/test_noisefloor.py::test_gate_in_webrtc_gl_mode with the
+    port's engine: on gruunet2-dari_tult (cold GL-32), a passthrough gate
+    (-60 dB: alpha 0) makes the GL targets the input's magnitudes, so the
+    output's RMS comes back within 2x of the input's, while a never-pass
+    gate (200 dB: alpha 1) leaves the suppressing model's output under a
+    tenth of it. RMS, not samples: GL rebuilds its own phase."""
+    cfg0, model = dari
+
+    def run(gate_db):
+        cfg = _gated(cfg0, "removed", gate_db, 1.0)
+        eng = StreamEngine(cfg, model, mode="webrtc", max_streams=1,
+                           device="cpu")
+        eng.add_stream("a")
+        assert eng.state.em_out is not None and eng.state.nf_floor is None
+        hop, n_ticks = cfg.dsp.hop_length, 30
+        t_ax = np.arange(n_ticks * hop, dtype=np.float32)
+        audio = (0.3 * np.sin(2 * np.pi * 500 * t_ax / 48000)
+                 + 0.01 * np.random.default_rng(7).standard_normal(
+                     n_ticks * hop)).astype(np.float32)
+        out = np.concatenate(
+            [eng.process({"a": audio[t * hop:(t + 1) * hop]})["a"]
+             for t in range(n_ticks)])
+        return audio, out
+
+    _, out_denoise = run(200.0)
+    audio, out_pass = run(-60.0)
+    half = len(audio) // 2
+    rms = lambda x: float(np.sqrt(np.mean(x[half:] ** 2)))
+    assert 0.5 * rms(audio) < rms(out_pass) < 2.0 * rms(audio)
+    assert rms(out_denoise) < 0.1 * rms(out_pass)
+
+
+@pytest.mark.parametrize("estimator", ["removed", "floor", "both"])
+def test_gated_engine_webrtc_matches_jax(rng, estimator):
+    """Mode webrtc with the gate against the JAX engine over _schedule's
+    ticks (idle slots, a stream leaving and another admitted to its slot,
+    a NaN chunk): outputs at SNR_DB after a stream's first two hops, hx
+    and the gate's planes of every slot at the end; admission resets a
+    slot's planes and the masked commit leaves an idle slot's as they
+    were."""
+    (jcfg, jmodel, params, _), (cfg, model, _) = _small(n_iter=2)
+    jcfg, cfg = _gated(jcfg, estimator), _gated(cfg, estimator)
+    jax_engine = JaxEngine(jcfg, jmodel, params, mode="webrtc",
+                           max_streams=4)
+    engine = StreamEngine(cfg, model, mode="webrtc", max_streams=4,
+                          device="cpu")
+    assert jax_engine.mode == engine.mode == "webrtc"
+    ticks = _schedule(rng, 32)
+    planes = [n for n in GATE_PLANES if getattr(engine.state, n) is not None]
+    for e in (jax_engine, engine):
+        for sid in "abc":
+            e.add_stream(sid)
+    seen = {}
+    for t, chunks in enumerate(ticks):
+        if t == 3:
+            for e in (jax_engine, engine):
+                e.remove_stream("b")
+                e.add_stream("e")
+            slot = engine.slots["e"]
+            for name in planes:      # admission zeroes the new stream's planes
+                assert not bool(getattr(engine.state, name)[slot].any())
+        idle = [engine.slots[s] for s in engine.slots if s not in chunks]
+        before = {n: getattr(engine.state, n)[idle].clone() for n in planes}
+        oj, ot = jax_engine.process(chunks), engine.process(chunks)
+        for n, v in before.items():
+            assert torch.equal(getattr(engine.state, n)[idle], v), n
+        assert set(ot) == set(oj)
+        for sid in ot:
+            seen[sid] = seen.get(sid, 0) + 1
+            assert np.all(np.isfinite(ot[sid]))
+            if seen[sid] > 2:
+                assert _snr(oj[sid], ot[sid]) > SNR_DB
+    assert engine.slots == jax_engine.slots
+    np.testing.assert_allclose(
+        engine.state.hx.numpy().reshape(4, -1),
+        np.asarray(jax_engine.state.hx).reshape(4, -1), atol=HX_ATOL)
+    _assert_planes_close(engine.state, jax_engine.state)
 
 
 # -- hub, checkpoints and the daemon ---------------------------------------------
