@@ -63,11 +63,30 @@
 // counterpart of the Pallas kernel's VMEM scratch carried across its K
 // grid steps. A ragged last tile leaves its missing stream's lanes idle.
 // The transforms are real FFTs of n_fft points done as complex FFTs of
-// n_fft / 2 points (Stockham autosort, radix 4, 2 and 3 passes, ping-pong
-// buffers in shared memory) plus the real-input split; the three frames
-// of a window are transformed side by side. The inverse drops the
-// imaginary parts of the DC and Nyquist bins, as irfft does. Twiddles come
-// from a table of e^{-2 pi i t / n_fft} built in float64 by the wrapper.
+// m = n_fft / 2 points plus the real-input split; the three frames of a
+// window are transformed side by side, 288 lanes (9 warps) per stream.
+// The complex FFT is a Stockham autosort in a few wide passes: each lane
+// loads an item's R points from shared memory, twiddles them, runs the
+// R-point DFT in registers (8 and 12 as four-point DFTs and a second
+// level) and stores them; ping-pong buffers in shared memory, one barrier
+// per pass. At m = 768 the passes are 8 x 8 x 12 (a radix-8 pass is one
+// item per lane), at m = 512 8 x 8 x 8. The first pass reads its points
+// through the transform's input: the forward's reflect-indexed, windowed
+// frames packed two samples a point, the inverse's real-input pre-twiddle
+// of mag * (are + i aim); so a Griffin-Lim round waits at 8 barriers (3
+// passes and the overlap-add for the inverse, 3 passes for the forward,
+// the phase update). The inverse drops the imaginary parts of the DC and
+// Nyquist bins, as irfft does. The passes' twiddles come from a table
+// laid out pass by pass (neighbouring lanes read neighbouring entries),
+// the real-input split's from a table of e^{-2 pi i t / n_fft}, both
+// built in float64 by the wrapper; the in-register DFTs' own twiddles are
+// compile-time constants. The element loops of the transforming stages
+// stride by the constant kFftThreads. The geometry is compiled
+// in: the stages that transform are templates on M = n_fft / 2, with
+// instantiations for 768, 512 and 32 whose radices, strides and counts
+// are constants (no division at run time), and M = 0, the same code with
+// the geometry read from FftPlan at run time, for any other m that
+// factors into 2 and 3.
 
 #include <cuda_runtime.h>
 
@@ -95,7 +114,9 @@ struct AdtWebRTCHopArgs {
   const float* env;     // (n_fft,) istft envelope over the trim region
   const float* mel;     // (n_bins, n_mels)
   const float* imel;    // (n_mels, n_bins)
-  const float2* twiddle;  // (n_fft,) e^{-2 pi i t / n_fft}
+  // (n_fft + max(m - 1, 1),): e^{-2 pi i t / n_fft} for t < n_fft, then
+  // the passes' twiddles of the FFT of m = n_fft / 2 points (pass_twiddle)
+  const float2* twiddle;
   AdtPlan plan;
   int batch;
   int n_fft;
@@ -112,13 +133,34 @@ struct AdtWebRTCHopArgs {
 namespace {
 
 constexpr int kFrames = 3;
-constexpr int kFftThreads = 384;  // lanes per stream of the FFT stages
+// Lanes per stream of the FFT stages: 9 warps, so a radix-8 pass over the
+// three frames at M = 768 (3 x 96 items) is one item per lane.
+constexpr int kFftThreads = 288;
+constexpr int kMaxMelOuts = 384;  // kFrames * n_mels at most (128 mels)
+// the analysis's partial results: the peak tree's lanes, the mel outputs
+constexpr int kRed = kMaxMelOuts > kFftThreads ? kMaxMelOuts : kFftThreads;
 constexpr int kMultiThreads = kTile * kFftThreads;
 constexpr int kCellBarrier = 1 + kTile;  // named barriers 1..kTile: streams
 constexpr int kMaxPasses = 16;
 static_assert(kThreads <= kMultiThreads, "the cell's lanes fit the block");
+static_assert(kFftThreads % 32 == 0, "a named barrier counts whole warps");
 
-// The radices of the complex FFT of m = n_fft / 2 points.
+// The radix of the next pass when `rest` points are left to combine: rest
+// itself where the passes take it as one radix (12, 8, 4, 3, 2), else the
+// first of 8, 4, 2 and 3 that divides it; 0 if rest has another prime
+// factor. M = 768 runs 8 x 8 x 12, M = 512 8 x 8 x 8, M = 32 8 x 4.
+__host__ __device__ constexpr int next_radix(int rest) {
+  return rest == 12 || rest == 8 || rest == 4 || rest == 3 || rest == 2
+             ? rest
+         : rest % 8 == 0 ? 8
+         : rest % 4 == 0 ? 4
+         : rest % 2 == 0 ? 2
+         : rest % 3 == 0 ? 3
+                         : 0;
+}
+
+// The radices of the complex FFT of m = n_fft / 2 points, read at run time
+// by the M = 0 instantiation (see `fft`); m = 1 is one pass of radix 1.
 struct FftPlan {
   int m;
   int passes;
@@ -130,12 +172,23 @@ bool make_fft_plan(int m, FftPlan* p) {
   p->passes = 0;
   int rest = m;
   while (rest > 1 && p->passes < kMaxPasses) {
-    int r = rest % 4 == 0 ? 4 : rest % 2 == 0 ? 2 : rest % 3 == 0 ? 3 : 0;
+    const int r = next_radix(rest);
     if (r == 0) return false;
     p->radix[p->passes++] = r;
     rest /= r;
   }
+  if (p->passes == 0) p->radix[p->passes++] = 1;
   return rest == 1;
+}
+
+// The half-lengths M = n_fft / 2 with an instantiation of their own, whose
+// geometry (radices, strides, frame and bin counts) is compile-time
+// constant: 768 (n_fft 1536, every 48 kHz WebRTC preset), 512 (n_fft
+// 1024) and 32 (n_fft 64, the JAX tests' geometry). Any other M that
+// `args_ok` accepts runs the M = 0 instantiation, the same code with the
+// geometry read from FftPlan at run time.
+int fft_instance(int m) {
+  return m == 768 || m == 512 || m == 32 ? m : 0;
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -160,54 +213,145 @@ __device__ __forceinline__ float2 rot90(float2 a) {
   return kInverse ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
 }
 
-// e^{-+2 pi i q / m} from the n_fft-point table (n_fft = 2 m)
+// Twiddle r of item k of a pass after passes of product ns, span L = ns R:
+// e^{-+2 pi i k r / L}, entry r ns + k - 1 of the passes' table (which
+// follows the n_fft-point table in AdtWebRTCHopArgs::twiddle). Pass i's
+// entries (1 <= r < R, k < ns) fill [ns - 1, L - 1), so the passes of an
+// FFT of m points fill m - 1 entries, and the lanes of a pass (k runs
+// with the lane) read neighbouring entries.
 template <bool kInverse>
-__device__ __forceinline__ float2 twiddle_m(const float2* tw, int q) {
-  const float2 w = __ldg(tw + 2 * q);
+__device__ __forceinline__ float2 pass_twiddle(const float2* ptw, int r,
+                                               int ns, int k) {
+  const float2 w = __ldg(ptw + r * ns + k - 1);
   return kInverse ? conjf2(w) : w;
 }
 
-// One Stockham pass of radix R over kFrames complex sequences of m points
-// laid end to end: in -> out. ns is the product of the earlier passes'
-// radices.
+// cos(2 pi t / n), for the compiler to evaluate: the Taylor series in
+// double after reducing the angle to [-pi, pi].
+__host__ __device__ constexpr double cos_turn(int t, int n) {
+  const double pi = 3.14159265358979323846;
+  double x = 2 * pi * (double)(((t % n) + n) % n) / n;
+  if (x > pi) x -= 2 * pi;
+  double term = 1, sum = 1;
+  for (int k = 1; k < 24; ++k) {
+    term *= -x * x / ((2 * k - 1) * (2 * k));
+    sum += term;
+  }
+  return sum;
+}
+
+// v e^{-+2 pi i q / R} for a compile-time q: nothing, a sign change or a
+// quarter turn where the factor is 1, -1 or -+i, else a product by
+// constants.
+template <bool kInverse, int R, int q>
+__device__ __forceinline__ float2 rotate(float2 v) {
+  constexpr int t = q % R;
+  if constexpr (t == 0) {
+    return v;
+  } else if constexpr (4 * t == R) {
+    return rot90<kInverse>(v);
+  } else if constexpr (2 * t == R) {
+    return make_float2(-v.x, -v.y);
+  } else if constexpr (4 * t == 3 * R) {
+    return rot90<!kInverse>(v);
+  } else {
+    constexpr float c = (float)cos_turn(t, R);
+    constexpr float s = (float)cos_turn(4 * t - R, 4 * R);  // sin(2 pi t / R)
+    return cmul(v, make_float2(c, kInverse ? s : -s));
+  }
+}
+
+// The DFT of R points in registers, in place and in natural order:
+// v[s] <- sum_r v[r] e^{-+2 pi i r s / R}, R = 1, 2, 3, 4, 8 or 12. 8 and
+// 12 run four-point DFTs over the R / 4 subsequences v[n2 + (R / 4) n1],
+// twiddle them by e^{-+2 pi i n2 k1 / R}, and finish with R / 4-point DFTs
+// across the subsequences.
 template <bool kInverse, int R>
-__device__ void fft_pass(const float2* in, float2* out, int m, int ns,
-                         const float2* tw, const Lanes& g) {
+__device__ __forceinline__ void dft(float2 (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = v[0], b = v[1];
+    v[0] = cadd(a, b);
+    v[1] = csub(a, b);
+  } else if constexpr (R == 3) {
+    const float2 s = cadd(v[1], v[2]);
+    const float2 d = rot90<kInverse>(csub(v[1], v[2]));
+    const float2 mid = make_float2(v[0].x - 0.5f * s.x, v[0].y - 0.5f * s.y);
+    const float c = 0.86602540378443864676f;  // sqrt(3) / 2
+    v[0] = cadd(v[0], s);
+    v[1] = make_float2(mid.x + c * d.x, mid.y + c * d.y);
+    v[2] = make_float2(mid.x - c * d.x, mid.y - c * d.y);
+  } else if constexpr (R == 4) {
+    const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+    const float2 t2 = cadd(v[1], v[3]);
+    const float2 t3 = rot90<kInverse>(csub(v[1], v[3]));
+    v[0] = cadd(t0, t2);
+    v[1] = cadd(t1, t3);
+    v[2] = csub(t0, t2);
+    v[3] = csub(t1, t3);
+  } else if constexpr (R == 8 || R == 12) {
+    constexpr int Q = R / 4;
+    float2 y[Q][4];
+#pragma unroll
+    for (int n2 = 0; n2 < Q; ++n2) {
+      float2 u[4] = {v[n2], v[Q + n2], v[2 * Q + n2], v[3 * Q + n2]};
+      dft<kInverse, 4>(u);
+#pragma unroll
+      for (int k1 = 0; k1 < 4; ++k1) y[n2][k1] = u[k1];
+    }
+    y[1][1] = rotate<kInverse, R, 1>(y[1][1]);
+    y[1][2] = rotate<kInverse, R, 2>(y[1][2]);
+    y[1][3] = rotate<kInverse, R, 3>(y[1][3]);
+    if constexpr (Q == 3) {
+      y[2][1] = rotate<kInverse, R, 2>(y[2][1]);
+      y[2][2] = rotate<kInverse, R, 4>(y[2][2]);
+      y[2][3] = rotate<kInverse, R, 6>(y[2][3]);
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) {
+      float2 z[Q];
+#pragma unroll
+      for (int n2 = 0; n2 < Q; ++n2) z[n2] = y[n2][k1];
+      dft<kInverse, Q>(z);
+#pragma unroll
+      for (int k2 = 0; k2 < Q; ++k2) v[k1 + 4 * k2] = z[k2];
+    }
+  } else {
+    static_assert(R == 1, "radices 1, 2, 3, 4, 8 and 12");
+  }
+}
+
+// A pass's input read from a buffer of kFrames sequences of m points.
+struct BufLoad {
+  const float2* in;
+  int m;
+  __device__ __forceinline__ float2 operator()(int f, int q) const {
+    return in[f * m + q];
+  }
+};
+
+// One Stockham pass of radix R over kFrames complex sequences of m points
+// laid end to end: each lane loads an item's R points (point q of frame f
+// is load(f, q)), twiddles them, runs the R-point DFT in registers and
+// stores the R results to out; the group's barrier closes the pass. ns is
+// the product of the earlier passes' radices, ptw the passes' twiddles.
+template <bool kInverse, int R, class Load>
+__device__ __forceinline__ void fft_pass(const Load& load, float2* out,
+                                         int m, int ns, const float2* ptw,
+                                         const Lanes& g) {
   const int stride = m / R;
   const int L = ns * R;
   for (int e = g.id; e < kFrames * stride; e += g.n) {
     const int f = e / stride, j = e % stride;
-    const float2* src = in + f * m;
-    float2* dst = out + f * m;
     const int k = j % ns;
     float2 v[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      v[r] = src[j + r * stride];
+      v[r] = load(f, j + r * stride);
       if (r > 0 && k > 0)
-        v[r] = cmul(v[r], twiddle_m<kInverse>(tw, k * r * (m / L)));
+        v[r] = cmul(v[r], pass_twiddle<kInverse>(ptw, r, ns, k));
     }
-    if constexpr (R == 2) {
-      const float2 a = v[0], b = v[1];
-      v[0] = cadd(a, b);
-      v[1] = csub(a, b);
-    } else if constexpr (R == 4) {
-      const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
-      const float2 t2 = cadd(v[1], v[3]);
-      const float2 t3 = rot90<kInverse>(csub(v[1], v[3]));
-      v[0] = cadd(t0, t2);
-      v[1] = cadd(t1, t3);
-      v[2] = csub(t0, t2);
-      v[3] = csub(t1, t3);
-    } else {  // R == 3
-      const float2 s = cadd(v[1], v[2]);
-      const float2 d = rot90<kInverse>(csub(v[1], v[2]));
-      const float2 mid = make_float2(v[0].x - 0.5f * s.x, v[0].y - 0.5f * s.y);
-      const float c = 0.86602540378443864676f;  // sqrt(3) / 2
-      v[0] = cadd(v[0], s);
-      v[1] = make_float2(mid.x + c * d.x, mid.y + c * d.y);
-      v[2] = make_float2(mid.x - c * d.x, mid.y - c * d.y);
-    }
+    dft<kInverse, R>(v);
+    float2* dst = out + f * m;
     const int base = (j / ns) * L + k;
 #pragma unroll
     for (int r = 0; r < R; ++r) dst[base + r * ns] = v[r];
@@ -215,27 +359,81 @@ __device__ void fft_pass(const float2* in, float2* out, int m, int ns,
   group_sync(g);
 }
 
-// Complex FFT (unnormalized) of the kFrames sequences in buf[0]; returns
-// the buffer that holds the result (buf[0] or buf[1]).
-template <bool kInverse>
-__device__ float2* fft(float2* buf0, float2* buf1, const FftPlan& p,
-                       const float2* tw, const Lanes& g) {
-  float2* in = buf0;
-  float2* out = buf1;
-  int ns = 1;
-  for (int i = 0; i < p.passes; ++i) {
-    if (p.radix[i] == 4)
-      fft_pass<kInverse, 4>(in, out, p.m, ns, tw, g);
-    else if (p.radix[i] == 2)
-      fft_pass<kInverse, 2>(in, out, p.m, ns, tw, g);
-    else
-      fft_pass<kInverse, 3>(in, out, p.m, ns, tw, g);
-    ns *= p.radix[i];
-    float2* t = in;
-    in = out;
-    out = t;
+// The passes of a compile-time M from the one of width kNs on, in -> out
+// and back: each pass's radix, stride and span are constants, and the
+// recursion unrolls them.
+template <bool kInverse, int kM, int kNs>
+__device__ __forceinline__ float2* fft_fixed(float2* in, float2* out,
+                                             const float2* ptw,
+                                             const Lanes& g) {
+  if constexpr (kNs == kM) {
+    return in;
+  } else {
+    constexpr int R = next_radix(kM / kNs);
+    static_assert(R != 0, "M factors into 2 and 3");
+    fft_pass<kInverse, R>(BufLoad{in, kM}, out, kM, kNs, ptw, g);
+    return fft_fixed<kInverse, kM, kNs * R>(out, in, ptw, g);
   }
-  return in;
+}
+
+// A pass of the radix read at run time (the M = 0 instantiation).
+template <bool kInverse, class Load>
+__device__ __forceinline__ void runtime_pass(int radix, const Load& load,
+                                             float2* out, int m, int ns,
+                                             const float2* ptw,
+                                             const Lanes& g) {
+  switch (radix) {
+    case 12:
+      return fft_pass<kInverse, 12>(load, out, m, ns, ptw, g);
+    case 8:
+      return fft_pass<kInverse, 8>(load, out, m, ns, ptw, g);
+    case 4:
+      return fft_pass<kInverse, 4>(load, out, m, ns, ptw, g);
+    case 3:
+      return fft_pass<kInverse, 3>(load, out, m, ns, ptw, g);
+    case 2:
+      return fft_pass<kInverse, 2>(load, out, m, ns, ptw, g);
+    default:
+      return fft_pass<kInverse, 1>(load, out, m, ns, ptw, g);
+  }
+}
+
+// Complex FFT (unnormalized) of kFrames sequences of m points whose input
+// point q of frame f is first(f, q): the first pass reads its points
+// through `first` (the windowing or the real-input pre-twiddle fused into
+// it) and writes buf0, the later passes ping-pong between buf0 and buf1.
+// Returns the buffer that holds the result. kM = m = n_fft / 2, or 0 to
+// read the radices from p.
+template <bool kInverse, int kM, class Load>
+__device__ __forceinline__ float2* fft(const Load& first, float2* buf0,
+                                       float2* buf1, const FftPlan& p,
+                                       const float2* ptw, const Lanes& g) {
+  if constexpr (kM > 0) {
+    constexpr int R = next_radix(kM);
+    fft_pass<kInverse, R>(first, buf0, kM, 1, ptw, g);
+    return fft_fixed<kInverse, kM, R>(buf0, buf1, ptw, g);
+  } else {
+    runtime_pass<kInverse>(p.radix[0], first, buf0, p.m, 1, ptw, g);
+    float2* in = buf0;
+    float2* out = buf1;
+    int ns = p.radix[0];
+    for (int i = 1; i < p.passes; ++i) {
+      runtime_pass<kInverse>(p.radix[i], BufLoad{in, p.m}, out, p.m, ns, ptw,
+                             g);
+      ns *= p.radix[i];
+      float2* t = in;
+      in = out;
+      out = t;
+    }
+    return in;
+  }
+}
+
+// n_fft / 2: kM, a compile-time constant, or p.m for kM = 0. hop = m,
+// n_fft = 2 m and n_bins = m + 1 follow from it (args_ok).
+template <int kM>
+__device__ __forceinline__ int half_length(const FftPlan& p) {
+  return kM > 0 ? kM : p.m;
 }
 
 // Per-stream shared-memory layout of the FFT stages, in floats. The
@@ -244,7 +442,7 @@ struct SpecLayout {
   int n_fft, m, F;
   int buf0, buf1;  // kFrames * m float2 each
   int time;        // n_fft floats: a window in the time domain
-  int red;         // kFftThreads floats: the analysis's partial results
+  int red;         // kRed floats: the analysis's partial results
   int mag, are, aim, tre, tim;  // kFrames * F floats each
   int total;
 };
@@ -263,7 +461,7 @@ __host__ __device__ inline SpecLayout make_spec_layout(int n_fft, int F,
   l.time = off;
   off += round4(n_fft);
   l.red = off;
-  off += kFftThreads;
+  off += kRed;
   l.mag = off;
   off += round4(kFrames * F);
   l.are = l.aim = l.tre = l.tim = off;
@@ -283,16 +481,19 @@ __host__ __device__ inline SpecLayout make_spec_layout(int n_fft, int F,
 
 // The centered reflect-padded STFT of the window in `time`: each frame
 // windowed and packed as m complex points (even samples real, odd
-// imaginary), then the forward FFT. Returns the buffer with the result.
-__device__ float2* stft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
-                         const SpecLayout& l, float* smem, const Lanes& g) {
+// imaginary), then the forward FFT, whose first pass reads the window
+// through that packing. Returns the buffer with the result.
+template <int kM>
+__device__ __forceinline__ float2* stft3(const AdtWebRTCHopArgs& a,
+                                         const FftPlan& p,
+                                         const SpecLayout& l, float* smem,
+                                         const Lanes& g) {
   const float* x = smem + l.time;
-  float2* buf0 = reinterpret_cast<float2*>(smem + l.buf0);
-  const int n_fft = l.n_fft, hop = a.hop, m = l.m;
+  const int m = half_length<kM>(p), n_fft = 2 * m, hop = m;
   const float* win = a.win;
-  for (int e = g.id; e < kFrames * m; e += g.n) {
-    const int t = e / m, q = e % m;
+  const auto frame = [=](int t, int q) {
     float s[2];
+#pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = 2 * q + h;
       int src;
@@ -304,11 +505,11 @@ __device__ float2* stft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
         src = i < hop ? i + hop : n_fft + hop - 2 - i;
       s[h] = x[src] * __ldg(win + i);
     }
-    buf0[e] = make_float2(s[0], s[1]);
-  }
-  group_sync(g);
-  return fft<false>(buf0, reinterpret_cast<float2*>(smem + l.buf1), p,
-                    a.twiddle, g);
+    return make_float2(s[0], s[1]);
+  };
+  return fft<false, kM>(frame, reinterpret_cast<float2*>(smem + l.buf0),
+                        reinterpret_cast<float2*>(smem + l.buf1), p,
+                        a.twiddle + n_fft, g);
 }
 
 // Bin k (0 <= k <= m) of the real FFT from the half-length complex FFT Z
@@ -325,19 +526,22 @@ __device__ __forceinline__ float2 real_bin(const float2* Z, int m, int k,
 
 // The centered inverse STFT of the three frames mag * (are + i aim) into
 // `time`: irfft of each frame (imaginary parts of DC and Nyquist
-// dropped), window, overlap-add over the trim region [hop, hop + n_fft),
+// dropped; the inverse FFT's first pass builds its input from the three
+// planes), window, overlap-add over the trim region [hop, hop + n_fft),
 // divide by the envelope.
-__device__ void istft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
-                       const SpecLayout& l, float* smem, const Lanes& g) {
-  float2* buf0 = reinterpret_cast<float2*>(smem + l.buf0);
+template <int kM>
+__device__ __forceinline__ void istft3(const AdtWebRTCHopArgs& a,
+                                       const FftPlan& p, const SpecLayout& l,
+                                       float* smem, const Lanes& g) {
   const float* mag = smem + l.mag;
   const float* are = smem + l.are;
   const float* aim = smem + l.aim;
-  const int m = l.m, F = l.F, n_fft = l.n_fft, hop = a.hop;
+  const int m = half_length<kM>(p), F = m + 1, n_fft = 2 * m, hop = m;
   const float *win = a.win, *env = a.env;
   const float2* tw = a.twiddle;
-  for (int e = g.id; e < kFrames * m; e += g.n) {
-    const int t = e / m, k = e % m;
+  // point k of frame t of the packed input: the pre-twiddle that makes the
+  // half-length inverse FFT an irfft, read by the first pass
+  const auto spectrum = [=](int t, int k) {
     const int o = t * F;
     float2 xk = make_float2(mag[o + k] * are[o + k], mag[o + k] * aim[o + k]);
     float2 xc = make_float2(mag[o + m - k] * are[o + m - k],
@@ -348,13 +552,15 @@ __device__ void istft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
     }
     const float2 ev = cadd(xk, xc);
     const float2 od = cmul(csub(xk, xc), conjf2(__ldg(tw + k)));
-    buf0[e] = cadd(ev, rot90<true>(od));
-  }
-  group_sync(g);
+    return cadd(ev, rot90<true>(od));
+  };
   const float* fr = reinterpret_cast<const float*>(
-      fft<true>(buf0, reinterpret_cast<float2*>(smem + l.buf1), p, tw, g));
+      fft<true, kM>(spectrum, reinterpret_cast<float2*>(smem + l.buf0),
+                    reinterpret_cast<float2*>(smem + l.buf1), p,
+                    a.twiddle + n_fft, g));
   const float scale = 1.f / (float)n_fft;
   float* x = smem + l.time;
+#pragma unroll
   for (int j = g.id; j < n_fft; j += g.n) {
     float v;
     if (j < hop)
@@ -372,15 +578,18 @@ __device__ void istft3(const AdtWebRTCHopArgs& a, const FftPlan& p,
 // time buffer and kept in ring_out (which may be ring_in); the window's
 // peak; the normalized, pre-windowed 3-frame STFT, its magnitude, mel and
 // log1p into feat (kFrames * n_mels). Ends on the group's barrier.
+template <int kM>
 __device__ __noinline__ void analysis_stage(
     const AdtWebRTCHopArgs& a, const FftPlan& p, int base, Lanes g,
     const float* ring_in, const float* chunk, float* ring_out, float* feat,
     float* peak_out) {
   extern __shared__ __align__(16) float dyn[];
   float* smem = dyn + base;
-  const SpecLayout l = make_spec_layout(a.n_fft, a.n_bins, false);
-  const int n_fft = a.n_fft, hop = a.hop, keep = n_fft - hop;
-  const int F = a.n_bins, M = a.n_mels;
+  g.n = kFftThreads;  // what both entry points give a stream: a constant
+  const int m = half_length<kM>(p);
+  const int n_fft = 2 * m, hop = m, keep = n_fft - hop;
+  const int F = m + 1, M = a.n_mels;
+  const SpecLayout l = make_spec_layout(n_fft, F, false);
   float* x = smem + l.time;
   float* red = smem + l.red;
 
@@ -411,12 +620,12 @@ __device__ __noinline__ void analysis_stage(
   }
   group_sync(g);
 
-  const float2* Z = stft3(a, p, l, smem, g);
+  const float2* Z = stft3<kM>(a, p, l, smem, g);
   float* mag = smem + l.mag;
   const float2* tw = a.twiddle;
   for (int e = g.id; e < kFrames * F; e += g.n) {
     const int t = e / F, k = e % F;
-    const float2 v = real_bin(Z + t * l.m, l.m, k, tw);
+    const float2 v = real_bin(Z + t * m, m, k, tw);
     mag[e] = sqrtf(v.x * v.x + v.y * v.y);
   }
   group_sync(g);
@@ -431,6 +640,8 @@ __device__ __noinline__ void analysis_stage(
     const int t = o / M, mm = o % M;
     const int lo = s * span, hi = min(F, lo + span);
     float acc = 0.f;
+    // the weights come from L2: unrolled, a lane keeps 16 loads in flight
+#pragma unroll 16
     for (int k = lo; k < hi; ++k)
       acc = fmaf(mag[t * F + k], __ldg(mel + (size_t)k * M + mm), acc);
     red[e] = acc;
@@ -499,6 +710,7 @@ __device__ __noinline__ void cell_stage(const AdtWebRTCHopArgs& a, int base,
 // the synthesis times the peak; emits ola_in[:hop] to out and the shifted
 // OLA buffer plus the frame to ola_out (which may be ola_in), the
 // converged phases to ang_re_out, ang_im_out. Ends on the group's barrier.
+template <int kM>
 __device__ __noinline__ void gl_stage(
     const AdtWebRTCHopArgs& a, const FftPlan& p, int base, Lanes g,
     const float* mel_mag, float peak, const float* ang_re,
@@ -506,8 +718,10 @@ __device__ __noinline__ void gl_stage(
     float* ang_re_out, float* ang_im_out) {
   extern __shared__ __align__(16) float dyn[];
   float* smem = dyn + base;
-  const SpecLayout l = make_spec_layout(a.n_fft, a.n_bins, true);
-  const int n_fft = a.n_fft, hop = a.hop, F = a.n_bins, M = a.n_mels;
+  g.n = kFftThreads;  // what both entry points give a stream: a constant
+  const int m = half_length<kM>(p);
+  const int n_fft = 2 * m, hop = m, F = m + 1, M = a.n_mels;
+  const SpecLayout l = make_spec_layout(n_fft, F, true);
   const int nb = kFrames * F;
   float* mag = smem + l.mag;
   float* are = smem + l.are;
@@ -530,6 +744,7 @@ __device__ __noinline__ void gl_stage(
   for (int e = g.id; e < nb; e += g.n) {
     const int t = e / F, k = e % F;
     float acc = 0.f;
+#pragma unroll 16
     for (int j = 0; j < M; ++j)
       acc = fmaf(mm[t * M + j], __ldg(imel + (size_t)j * F + k), acc);
     mag[e] = fmaxf(acc, 0.f) * gain;
@@ -552,11 +767,11 @@ __device__ __noinline__ void gl_stage(
   const float2* tw = a.twiddle;
   const float momentum = a.momentum;
   for (int it = 0; it < a.n_iter; ++it) {
-    istft3(a, p, l, smem, g);
-    const float2* Z = stft3(a, p, l, smem, g);
+    istft3<kM>(a, p, l, smem, g);
+    const float2* Z = stft3<kM>(a, p, l, smem, g);
     for (int e = g.id; e < nb; e += g.n) {
       const int t = e / F, k = e % F;
-      const float2 r = real_bin(Z + t * l.m, l.m, k, tw);
+      const float2 r = real_bin(Z + t * m, m, k, tw);
       const float ur = r.x - momentum * tre[e];
       const float ui = r.y - momentum * tim[e];
       const float nrm = sqrtf(ur * ur + ui * ui) + 1e-16f;
@@ -567,7 +782,7 @@ __device__ __noinline__ void gl_stage(
     }
     group_sync(g);
   }
-  istft3(a, p, l, smem, g);
+  istft3<kM>(a, p, l, smem, g);
 
   // emit, then the shifted OLA buffer plus the frame, staged in place of
   // the frame
@@ -586,11 +801,12 @@ __device__ __noinline__ void gl_stage(
   group_sync(g);
 }
 
+template <int kM>
 __global__ void __launch_bounds__(kFftThreads)
     analysis_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
                     const __grid_constant__ FftPlan p) {
   const size_t b = blockIdx.x;
-  analysis_stage(a, p, 0, block_lanes(), a.ring + b * a.n_fft,
+  analysis_stage<kM>(a, p, 0, block_lanes(), a.ring + b * a.n_fft,
                  a.chunk + b * a.hop, a.ring_out + b * a.n_fft,
                  a.feat + b * kFrames * a.n_mels, a.peak + b);
 }
@@ -604,12 +820,13 @@ __global__ void __launch_bounds__(kThreads, 1)
              a.mel_mag + b0 * nf, a.hx_out + b0 * n);
 }
 
+template <int kM>
 __global__ void __launch_bounds__(kFftThreads, 2)
     gl_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
               const __grid_constant__ FftPlan p) {
   const size_t b = blockIdx.x;
   const size_t nb = kFrames * a.n_bins;
-  gl_stage(a, p, 0, block_lanes(), a.mel_mag + b * kFrames * a.n_mels,
+  gl_stage<kM>(a, p, 0, block_lanes(), a.mel_mag + b * kFrames * a.n_mels,
            a.peak[b], a.ang_re + b * nb, a.ang_im + b * nb,
            a.ola + b * a.n_fft, a.out + b * a.hop, a.ola_out + b * a.n_fft,
            a.ang_re_out + b * nb, a.ang_im_out + b * nb);
@@ -652,6 +869,7 @@ __host__ __device__ inline MultiLayout make_multi_layout(
 
 // The resident K-hop kernel (webrtc_hop.py:344): a.hops hops of a tile of
 // kTile streams with its state in shared memory throughout.
+template <int kM>
 __global__ void __launch_bounds__(kMultiThreads, 1)
     webrtc_hop_multi_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
                             const __grid_constant__ FftPlan p) {
@@ -694,15 +912,15 @@ __global__ void __launch_bounds__(kMultiThreads, 1)
   for (int k = 0; k < a.hops; ++k) {
     const size_t row = ((size_t)k * a.batch + b) * hop;
     if (s < rows)
-      analysis_stage(a, p, l.stream[s], fft_lanes, ring, a.chunk + row, ring,
-                     feat + s * nf, peak + s);
+      analysis_stage<kM>(a, p, l.stream[s], fft_lanes, ring, a.chunk + row,
+                         ring, feat + s * nf, peak + s);
     __syncthreads();
     if (tid < kThreads)
       cell_stage(a, l.cell, cell_lanes, rows, hx, feat, mel_mag, hx);
     __syncthreads();
     if (s < rows)
-      gl_stage(a, p, l.stream[s], fft_lanes, mel_mag + s * nf, peak[s], are,
-               aim, ola, a.out + row, ola, are, aim);
+      gl_stage<kM>(a, p, l.stream[s], fft_lanes, mel_mag + s * nf, peak[s],
+                   are, aim, ola, a.out + row, ola, are, aim);
     __syncthreads();
   }
 
@@ -743,7 +961,7 @@ bool args_ok(const AdtWebRTCHopArgs& a, FftPlan* p) {
   return plan_ok(a.plan, a.n_mels) && a.n_fft == 2 * a.hop &&
          a.n_bins == a.hop + 1 && a.n_iter >= 0 && a.hops >= 1 &&
          kFrames * a.n_mels <= a.n_fft &&
-         kFrames * a.n_mels <= kFftThreads && make_fft_plan(a.hop, p);
+         kFrames * a.n_mels <= kMaxMelOuts && make_fft_plan(a.hop, p);
 }
 
 cudaError_t set_smem(const void* kernel, size_t bytes) {
@@ -752,31 +970,48 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <int kM>
 cudaError_t launch(const AdtWebRTCHopArgs& a, const FftPlan& p,
                    cudaStream_t stream) {
   const size_t sa = spec_bytes(a, false), sc = cell_bytes(a),
                sg = spec_bytes(a, true);
   cudaError_t err;
-  if ((err = set_smem((const void*)analysis_kernel, sa)) != cudaSuccess ||
+  if ((err = set_smem((const void*)analysis_kernel<kM>, sa)) != cudaSuccess ||
       (err = set_smem((const void*)cell_kernel, sc)) != cudaSuccess ||
-      (err = set_smem((const void*)gl_kernel, sg)) != cudaSuccess)
+      (err = set_smem((const void*)gl_kernel<kM>, sg)) != cudaSuccess)
     return err;
-  analysis_kernel<<<a.batch, kFftThreads, sa, stream>>>(a, p);
+  analysis_kernel<kM><<<a.batch, kFftThreads, sa, stream>>>(a, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   cell_kernel<<<(a.batch + kTile - 1) / kTile, kThreads, sc, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  gl_kernel<<<a.batch, kFftThreads, sg, stream>>>(a, p);
+  gl_kernel<kM><<<a.batch, kFftThreads, sg, stream>>>(a, p);
   return cudaGetLastError();
 }
 
+template <int kM>
 cudaError_t launch_multi(const AdtWebRTCHopArgs& a, const FftPlan& p,
                          cudaStream_t stream) {
   const size_t sm = multi_bytes(a);
-  cudaError_t err = set_smem((const void*)webrtc_hop_multi_kernel, sm);
+  cudaError_t err = set_smem((const void*)webrtc_hop_multi_kernel<kM>, sm);
   if (err != cudaSuccess) return err;
-  webrtc_hop_multi_kernel<<<(a.batch + kTile - 1) / kTile, kMultiThreads, sm,
-                            stream>>>(a, p);
+  webrtc_hop_multi_kernel<kM>
+      <<<(a.batch + kTile - 1) / kTile, kMultiThreads, sm, stream>>>(a, p);
   return cudaGetLastError();
+}
+
+// The instantiation for a.hop (fft_instance): one hop or a.hops hops.
+cudaError_t dispatch(const AdtWebRTCHopArgs& a, const FftPlan& p, bool multi,
+                     cudaStream_t stream) {
+  switch (fft_instance(a.hop)) {
+    case 768:
+      return (multi ? launch_multi<768> : launch<768>)(a, p, stream);
+    case 512:
+      return (multi ? launch_multi<512> : launch<512>)(a, p, stream);
+    case 32:
+      return (multi ? launch_multi<32> : launch<32>)(a, p, stream);
+    default:
+      return (multi ? launch_multi<0> : launch<0>)(a, p, stream);
+  }
 }
 
 }  // namespace
@@ -797,6 +1032,24 @@ long long adt_webrtc_hop_smem_bytes(const AdtWebRTCHopArgs* a) {
   return (long long)most;
 }
 
+// The half-length M = n_fft / 2 whose instantiation runs a call with these
+// arguments (768, 512 or 32), 0 for the one that reads the geometry at
+// run time, -1 if the arguments are not ones the kernels take.
+int adt_webrtc_hop_fft_instance(const AdtWebRTCHopArgs* a) {
+  FftPlan p;
+  return args_ok(*a, &p) ? fft_instance(a->hop) : -1;
+}
+
+// The radices of the passes the kernels run for a complex FFT of m
+// points, into radix[0..kMaxPasses); returns their count, -1 if m does not
+// factor into 2 and 3.
+int adt_webrtc_hop_fft_radices(int m, int* radix) {
+  FftPlan p;
+  if (m < 1 || !make_fft_plan(m, &p)) return -1;
+  for (int i = 0; i < p.passes; ++i) radix[i] = p.radix[i];
+  return p.passes;
+}
+
 // Launches one hop (a->hops == 1, three kernels) on `stream` without
 // synchronising; returns the first failing launch's cudaError_t (0 on
 // success).
@@ -804,7 +1057,7 @@ int adt_webrtc_hop(const AdtWebRTCHopArgs* a, void* stream) {
   FftPlan p;
   if (!args_ok(*a, &p) || a->hops != 1) return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  return (int)launch(*a, p, static_cast<cudaStream_t>(stream));
+  return (int)dispatch(*a, p, false, static_cast<cudaStream_t>(stream));
 }
 
 // Launches a->hops hops as one kernel on `stream` without synchronising.
@@ -812,7 +1065,7 @@ int adt_webrtc_hop_multi(const AdtWebRTCHopArgs* a, void* stream) {
   FftPlan p;
   if (!args_ok(*a, &p)) return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  return (int)launch_multi(*a, p, static_cast<cudaStream_t>(stream));
+  return (int)dispatch(*a, p, true, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

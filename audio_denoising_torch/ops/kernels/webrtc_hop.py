@@ -23,6 +23,13 @@ lanes, which the port does not need. The port does not take JAX's
 ``block_b``: the K-hop kernel's tile of 2 streams is fixed and its ragged
 last tile masked, so B is not padded.
 
+The kernels' transforms are FFTs of n_fft / 2 points in a few wide
+passes (``fft_radices``; their twiddles ``twiddle_table`` and
+``pass_twiddle_table``, which the wrapper hands over); ``fft_passes``,
+``real_bins`` and ``inverse_input`` mirror the passes and the real-input
+formulas in plain PyTorch for the tests, and ``fft_instance`` names the
+instantiation a bound hop runs (M = n_fft / 2 compiled in, or 0).
+
 This module ports the fp32 hop. The bf16 Griffin-Lim mode raises
 NotImplementedError (ROADMAP B5).
 """
@@ -77,6 +84,121 @@ def _istft_envelope(win: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
         env[t * hop:t * hop + n_fft] += win * win
     env = env[hop:hop + n_fft]
     return np.where(np.abs(env) > 1e-11, env, 1.0).astype(np.float32)
+
+
+# -- the kernels' transform schedule: its tables, and a plain PyTorch
+# -- mirror of its passes for the tests ---------------------------------------
+
+PASS_RADICES = (12, 8, 4, 3, 2)   # a rest the kernels take as one pass
+MAX_PASSES = 16                   # kMaxPasses in csrc/webrtc_hop.cu
+
+
+def fft_radices(m: int) -> List[int]:
+    """The radices of the passes ``csrc/webrtc_hop.cu`` runs for a complex
+    FFT of ``m = n_fft / 2`` points (its ``next_radix``): the rest itself
+    where it is one of PASS_RADICES, else the first of 8, 4, 2 and 3 that
+    divides it; ``m = 1`` is one pass of radix 1. 768 gives 8 x 8 x 12."""
+    if m == 1:
+        return [1]
+    radices, rest = [], m
+    while rest > 1:
+        r = rest if rest in PASS_RADICES else next(
+            (r for r in (8, 4, 2, 3) if rest % r == 0), 0)
+        if r == 0:
+            raise ValueError(f"{m} has a prime factor other than 2 and 3")
+        radices.append(r)
+        rest //= r
+    return radices
+
+
+def twiddle_table(n_fft: int) -> np.ndarray:
+    """(n_fft, 2) float64: e^{-2 pi i t / n_fft} as (cos, -sin), the
+    table the wrapper hands to the kernels (in float32)."""
+    t = np.arange(n_fft) * (2 * np.pi / n_fft)
+    return np.stack([np.cos(t), -np.sin(t)], axis=1)
+
+
+def pass_twiddle_table(m: int) -> np.ndarray:
+    """(max(m - 1, 1), 2) float64: the twiddles of the passes of an FFT of
+    m points, as (cos, -sin), the table the wrapper hands to the kernels
+    (in float32). A pass of radix R after passes of product ns multiplies
+    point r of item k by e^{-2 pi i k r / (ns R)}, entry r ns + k - 1
+    (1 <= r < R, k < ns): pass by pass the entries fill [ns - 1,
+    ns R - 1); m = 1 has one unused entry, 1."""
+    if m == 1:
+        return np.array([[1.0, 0.0]])
+    table = np.full((m - 1, 2), np.nan)
+    ns = 1
+    for R in fft_radices(m):
+        k, r = np.meshgrid(np.arange(ns), np.arange(1, R), indexing="ij")
+        angle = 2 * np.pi * k * r / (ns * R)
+        table[r * ns + k - 1] = np.stack([np.cos(angle), -np.sin(angle)],
+                                         axis=-1)
+        ns *= R
+    return table
+
+
+def _complex_table(twiddle: torch.Tensor, dtype) -> torch.Tensor:
+    return torch.complex(twiddle[:, 0], twiddle[:, 1]).to(dtype)
+
+
+def fft_passes(z: torch.Tensor, pass_twiddle: torch.Tensor,
+               inverse: bool = False) -> torch.Tensor:
+    """The kernels' complex FFT (unnormalized; conjugate twiddles for the
+    inverse) of each row of ``z`` (frames, m), pass by pass as the kernels
+    run it: Stockham autosort over ``fft_radices(m)``, item j of a pass of
+    radix R after passes of product ns reading points j + r m / R, point
+    r > 0 twiddled by entry r ns + k - 1 (k = j mod ns) of
+    ``pass_twiddle`` (``pass_twiddle_table(m)``), an R-point DFT, and the
+    results stored at (j div ns) ns R + k + s ns."""
+    m = z.shape[-1]
+    tw = torch.cat([torch.ones(1, dtype=z.dtype),
+                    _complex_table(pass_twiddle, z.dtype)])  # 1 at k r = 0
+    if inverse:
+        tw = tw.conj()
+    x, ns = z, 1
+    for R in fft_radices(m):
+        stride, L = m // R, ns * R
+        j = torch.arange(stride)
+        k = j % ns
+        r = torch.arange(R)
+        v = x[:, j[None, :] + r[:, None] * stride]            # (F, R, stride)
+        v = v * tw[torch.where((k[None, :] > 0) & (r[:, None] > 0),
+                               r[:, None] * ns + k[None, :], 0)]
+        sign = 1.0 if inverse else -1.0
+        dft = torch.from_numpy(np.exp(sign * 2j * np.pi * np.outer(
+            np.arange(R), np.arange(R)) / R)).to(z.dtype)     # (s, r)
+        y = torch.einsum("sr,frj->fsj", dft, v)
+        out = torch.empty_like(x)
+        out[:, ((j // ns) * L + k)[None, :] + r[:, None] * ns] = y
+        x, ns = out, L
+    return x
+
+
+def real_bins(z: torch.Tensor, twiddle: torch.Tensor) -> torch.Tensor:
+    """Bins 0..m of the real FFT of each frame from ``z`` (frames, m), the
+    complex FFT of the frame packed as m points (even samples real, odd
+    imaginary): the kernels' ``real_bin``."""
+    m = z.shape[-1]
+    tw = _complex_table(twiddle, z.dtype)
+    k = torch.arange(m + 1)
+    zk, zc = z[:, k % m], z[:, (m - k) % m].conj()
+    return 0.5 * (zk + zc) + tw[k] * (-0.5j * (zk - zc))
+
+
+def inverse_input(spec: torch.Tensor, twiddle: torch.Tensor
+                  ) -> torch.Tensor:
+    """The m packed points the kernels' inverse transform starts from,
+    given bins 0..m of each frame (frames, m + 1): the imaginary parts of
+    DC and Nyquist dropped, the real-input pre-twiddle that the inverse
+    FFT's first pass applies. Their inverse complex FFT, its points read
+    as (even, odd) sample pairs, is n_fft times ``irfft(spec)``."""
+    m = spec.shape[-1] - 1
+    tw = _complex_table(twiddle, spec.dtype)
+    k = torch.arange(m)
+    xk, xc = spec[:, k].clone(), spec[:, m - k].conj()
+    xk[:, 0], xc[:, 0] = xk[:, 0].real, xc[:, 0].real
+    return (xk + xc) + 1j * ((xk - xc) * tw[k].conj())
 
 
 class _Args(ctypes.Structure):
@@ -150,6 +272,7 @@ class WebRTCHop:
         self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]
 
         self._lib = None
+        self.fft_instance = None   # set when a kernel library is bound
         if device.type == "cuda":
             from audio_denoising_torch.ops.kernels.build import (
                 load_kernel_library)
@@ -162,6 +285,11 @@ class WebRTCHop:
         lib.adt_webrtc_hop_args_size.restype = ctypes.c_int
         lib.adt_webrtc_hop_smem_bytes.argtypes = [ctypes.c_void_p]
         lib.adt_webrtc_hop_smem_bytes.restype = ctypes.c_longlong
+        lib.adt_webrtc_hop_fft_instance.argtypes = [ctypes.c_void_p]
+        lib.adt_webrtc_hop_fft_instance.restype = ctypes.c_int
+        lib.adt_webrtc_hop_fft_radices.argtypes = [ctypes.c_int,
+                                                   ctypes.c_void_p]
+        lib.adt_webrtc_hop_fft_radices.restype = ctypes.c_int
         for fn in (lib.adt_webrtc_hop, lib.adt_webrtc_hop_multi):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -170,6 +298,10 @@ class WebRTCHop:
                                "the argument layout")
         self._base_args = self._args()
         self._check_shared_memory()
+        # the M = n_fft / 2 of the kernels' FFT instantiation, 0 for the
+        # one that reads the geometry at run time
+        self.fft_instance = int(lib.adt_webrtc_hop_fft_instance(
+            ctypes.byref(self._base_args)))
 
     # -- the plain PyTorch version ------------------------------------------
     def targets(self, state: WebRTCHopState, chunk: torch.Tensor
@@ -273,13 +405,16 @@ class WebRTCHop:
 
     def _args(self) -> _Args:
         """The launch arguments that do not change from hop to hop; the
-        operands (and the twiddle table, e^{-2 pi i t / n_fft} built in
-        float64) are kept alive on the hop."""
+        operands (and the twiddle tables, ``twiddle_table`` and
+        ``pass_twiddle_table``, built in float64) are kept alive on the
+        hop."""
         self._kernel_tensors: List[torch.Tensor] = []
         keep = self._kernel_tensors
-        t = np.arange(self.n_fft) * (2 * np.pi / self.n_fft)
-        twiddle = torch.as_tensor(np.stack([np.cos(t), -np.sin(t)], axis=1),
-                                  dtype=torch.float32).to(self.device)
+        # the n_fft-point table, then the passes' table
+        twiddle = torch.as_tensor(
+            np.concatenate([twiddle_table(self.n_fft),
+                            pass_twiddle_table(self.hop)]),
+            dtype=torch.float32).to(self.device)
         a = _Args()
         # read element by element, at their own widths: not padded
         for name, t in (("win", self.win), ("env", self.env),
@@ -295,6 +430,15 @@ class WebRTCHop:
         a.momentum = self.momentum / (1.0 + self.momentum)
         a.output_gain, a.state_decay = self.output_gain, self.state_decay
         return a
+
+    def kernel_radices(self, m: int) -> List[int]:
+        """The radices of the passes the bound kernels run for a complex
+        FFT of m points (``fft_radices`` mirrors them)."""
+        out = (ctypes.c_int * MAX_PASSES)()
+        n = self._lib.adt_webrtc_hop_fft_radices(m, out)
+        if n < 0:
+            raise ValueError(f"the kernels take no FFT of {m} points")
+        return list(out[:n])
 
     def _check_shared_memory(self) -> None:
         """What these kernels can take on this card: a block's working set

@@ -13,7 +13,10 @@ raises on failure (so the script exits non-zero and prints no result):
    at 256 streams and at 3 (the ragged edge), over 20 hops; then at 64
    streams on two trained checkpoints of other widths (hidden 40; 128
    mels, n_fft 1024, five levels, hidden 64);
-3. the WebRTC-hop kernels against their plain version on the card, on
+3. the WebRTC-hop kernels against their plain version on the card (each
+   check names the FFT instantiation that ran, M = n_fft / 2 compiled in
+   or M = 0 for the geometry read at run time), after the kernels' FFT
+   pass radices against ``fft_radices``, on
    gruunet2-dari_tult with warm-start Griffin-Lim at 256 streams and at
    3: with no GL round, each carrying its own state over 6 hops (every
    surface exact); with the configured 32 rounds, every hop taken from
@@ -23,7 +26,10 @@ raises on failure (so the script exits non-zero and prints no result):
    with 32 rounds, each carrying its own state (hx, two kernel runs
    bit-identical; the waveform SNR of every pair of versions printed);
    then GL-32 and GL-4 at the JAX tests' small geometry, each carrying
-   its own state, waveform held;
+   its own state, waveform held; GL-4 at n_fft 96 (the M = 0
+   instantiation, chaotic there), each hop from the plain version's
+   state; the 128-mel checkpoint of phase 2 with no GL round (its shared
+   memory for one hop and for K hops printed);
 4. ``StreamEngine`` mode ``fused`` with 256 slots and 256 streams for 50
    ticks, some streams skipping ticks, against the same run on the CPU;
 5. ``EngineDaemon`` mode ``fused`` on 127.0.0.1 serving
@@ -78,7 +84,8 @@ raises on failure (so the script exits non-zero and prints no result):
     int16 IO, beside 50 single-hop launches; the fast step per hop with
     the zoo model and with the fused cell; the K-hop WebRTC kernel per
     call and per hop at GL-8 and GL-32 (K = 25), beside 25 single-hop
-    calls; torch.profiler breakdowns;
+    calls; torch.profiler breakdowns; one GL round's transforms on cuFFT
+    (irfft then rfft) beside the GL launch's time per round;
 19. the resident K-hop WebRTC kernel on gruunet2-dari_tult at 256
     streams and K = 25, GL-8 (bench.py's fused_webrtc_gl8_resident_k25)
     and GL-32: two calls carrying the state, each one launch, against 50
@@ -90,7 +97,8 @@ raises on failure (so the script exits non-zero and prints no result):
     version as phase 3 holds one hop (``forced_floor``), hx, unit phases;
 22. the K-hop kernel against its plain version at the JAX tests' small
     geometry: one call of 6 hops at GL-32 (256 and 3 streams) and of 40
-    hops at GL-4 (64 streams), waveform held;
+    hops at GL-4 (64 streams), waveform held; and at n_fft 96 (M = 0)
+    four calls of K = 2 at GL-4, each from the plain version's state;
 23. ``StreamEngine`` mode ``webrtc`` with the tuned SNR gate (1 dB, width
     6, 'both') on gruunet2-dari_tult (cold GL-32), 256 slots for 8 ticks
     of a synthetic vowel with skipped slots, against the CPU engine given
@@ -120,6 +128,7 @@ and ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout of the repo, the script fails.
 """
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -178,6 +187,8 @@ GATE_FLOPS_PER_BIN = 20   # the gate's EMAs, means and blend, per bin
 # single-hop launches exactly
 WEBRTC_K = 25
 WEBRTC_GL = (8, 32)
+RUNTIME_FFT = 96     # n_fft whose M = 48 has no instantiation of its own
+FFT_SIZES = (768, 512, 32, RUNTIME_FFT // 2)   # the checks' n_fft / 2
 FORCED_K = 2         # hops per call where each call starts from a shared state
 
 
@@ -244,15 +255,16 @@ def warm_cfg(cfg, n_iter=None):
     return dataclasses.replace(cfg, dsp=dsp)
 
 
-def small_webrtc_model(torch, n_iter):
+def small_webrtc_model(torch, n_iter, n_fft=64):
     """The JAX webrtc tests' geometry (tests/test_webrtc_hop.py
     _small_setup: n_fft 64, 16 mels, hidden (5, 5)) with random weights
     from a seed: a point where warm GL is not chaotic, so the waveform is
-    a surface to hold."""
+    a surface to hold. Another ``n_fft`` keeps the model and weights."""
     from audio_denoising_torch.config import Config, DSPConfig, ModelConfig
     from audio_denoising_torch.models import build_model
     cfg = Config(
-        dsp=DSPConfig(sample_rate=16000, n_fft=64, hop_length=32, n_mels=16,
+        dsp=DSPConfig(sample_rate=16000, n_fft=n_fft, hop_length=n_fft // 2,
+                      n_mels=16,
                       reconstruction="griffin_lim", griffin_lim_iters=n_iter,
                       griffin_lim_warm_start=True),
         model=ModelConfig(arch="GRUUNet2", num_compressed_bins=4,
@@ -260,6 +272,13 @@ def small_webrtc_model(torch, n_iter):
                           strides=(2, 2), paddings=(1, 1), num_gaussians=3))
     torch.manual_seed(0)
     return cfg, build_model(cfg.model, num_bins=cfg.dsp.n_mels)
+
+
+def fft_label(hop) -> str:
+    """Which FFT instantiation of csrc/webrtc_hop.cu ran ``hop``: M =
+    n_fft / 2 compiled in, or M = 0, the geometry read at run time."""
+    m = hop.fft_instance
+    return "FFT M=0 (runtime geometry)" if m == 0 else f"FFT M={m}"
 
 
 def phases_ok(torch, state) -> bool:
@@ -354,8 +373,9 @@ def check_webrtc_exact(torch, cfg, plan, batch):
                           max_err(s_k.ang_im, s_p.ang_im))
         if max_err(s_k.ring, s_p.ring) != 0:
             raise AssertionError("webrtc kernel's ring differs")
-    say(f"  GL-0  B={batch:3d}: out {e['out']:.3e} (bound {OUT_ATOL:g}), "
-        f"ola {e['ola']:.3e} (bound {STATE_ATOL:g}), hx {e['hx']:.3e} "
+    say(f"  GL-0  B={batch:3d}, {fft_label(hop)}: out {e['out']:.3e} (bound "
+        f"{OUT_ATOL:g}), ola {e['ola']:.3e} (bound {STATE_ATOL:g}), hx "
+        f"{e['hx']:.3e} "
         f"(bound {HX_ATOL:g}), phases {e['phases']:.3e} (bound "
         f"{PHASE_ATOL:g})")
     if (e["out"] > OUT_ATOL or e["ola"] > STATE_ATOL or e["hx"] > HX_ATOL
@@ -423,9 +443,9 @@ def check_webrtc_forced(torch, cfg, plan, batch, hops, bound):
             sc_p = spectral_convergence(torch, f64, fp, peak, lin)
             sc_err.append(float(np.abs(sc_k - sc_p).max()))
         s = s_p
-    say(f"  GL-{hop.n_iter} B={batch:3d}, each hop from the plain version's "
-        f"state, hops 2-{hops - 1}: SNR of the added frame, over the batch "
-        f"and the lowest stream:")
+    say(f"  GL-{hop.n_iter} B={batch:3d}, {fft_label(hop)}, each hop from the "
+        f"plain version's state, hops 2-{hops - 1}: SNR of the added frame, "
+        f"over the batch and the lowest stream:")
     for k in pairs:
         say(f"    {k:15s} batch min {min(batch_snr[k]):.1f}, median "
             f"{float(np.median(batch_snr[k])):.1f} dB; lowest stream "
@@ -523,17 +543,59 @@ def check_webrtc_small(torch, cfg, plan, batch, hops, snr_bound,
             if np.abs(m1 - m0).max() > mag_rel * max(1.0, m0.max()):
                 raise AssertionError(f"webrtc kernel: output magnitudes "
                                      f"drift at hop {t}")
-    say(f"  {label} B={batch:3d} x {hops} hops: hx {worst_hx:.3e} (bound "
-        f"{HX_ATOL:g}); waveform SNR on hops 2-{hops - 1} min "
+    say(f"  {label} B={batch:3d} x {hops} hops, {fft_label(hop)}: hx "
+        f"{worst_hx:.3e} (bound {HX_ATOL:g}); waveform SNR on hops 2-{hops - 1} min "
         f"{min(snrs):.1f} dB (bound {snr_bound:g}); phases unit")
     if worst_hx > HX_ATOL or min(snrs) < snr_bound:
         raise AssertionError(f"webrtc kernel disagrees with its plain "
                              f"version ({label}, B={batch})")
 
 
+def check_fft_plans(hop):
+    """The kernels' pass radices for each FFT size the checks run equal
+    ``fft_radices``, the plain schedule the CPU tests hold against
+    torch.fft."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import fft_radices
+    for m in FFT_SIZES:
+        got = hop.kernel_radices(m)
+        say(f"  FFT of {m} points: passes of radix "
+            f"{' x '.join(map(str, got))}")
+        if got != fft_radices(m):
+            raise AssertionError(f"the kernels' passes for {m} points "
+                                 f"{got} differ from fft_radices "
+                                 f"{fft_radices(m)}")
+
+
+def check_mel128(torch):
+    """The 128-mel checkpoint (n_fft 1024, 3 x 128 mel outputs, more than
+    the 288 lanes a stream has) in the single WebRTC hop: the shared
+    memory a block needs for one hop and for K hops (printed), and with no
+    GL round every surface exact to fp32 round-off."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.ops.kernels.webrtc_hop import make_webrtc_hop
+    from audio_denoising_torch.runtime.plan import build_cell_plan
+    cfg, model = load_pretrained(os.path.join(REPO, "runs",
+                                              OTHER_CHECKPOINTS[1]))
+    cfg, plan = warm_cfg(cfg), build_cell_plan(model)
+    h = make_webrtc_hop(cfg, plan, "cuda")
+    multi = type(h._base_args).from_buffer_copy(h._base_args)
+    multi.hops = WEBRTC_K
+    need = [h._lib.adt_webrtc_hop_smem_bytes(ctypes.byref(a))
+            for a in (h._base_args, multi)]
+    say(f"  {OTHER_CHECKPOINTS[1]} (n_fft {h.n_fft}, {h.M} mels, "
+        f"{fft_label(h)}): shared memory per block {need[0]} B for one "
+        f"hop, {need[1]} B for K={WEBRTC_K} (the card allows "
+        f"{torch.cuda.get_device_properties(0).shared_memory_per_block_optin}"
+        f" B)")
+    for b in (SLOTS, 3):
+        check_webrtc_exact(torch, cfg, plan, b)
+
+
 def phase_webrtc_kernel(torch, cfg, plan):
     """Phase 3; returns the largest ola error of the served GL-n run at
     B=SLOTS, each hop from the plain version's state."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import make_webrtc_hop
+    check_fft_plans(make_webrtc_hop(cfg, plan, "cuda"))
     for b in (SLOTS, 3):
         check_webrtc_exact(torch, cfg, plan, b)
     err = max(check_webrtc_forced(torch, cfg, plan, b, WEBRTC_HOPS,
@@ -551,6 +613,11 @@ def phase_webrtc_kernel(torch, cfg, plan):
                            SNR_GL32_DB, label="GL-32")
     check_webrtc_small(torch, warm_cfg(small_cfg, 4), small_plan, 64, 40,
                        SNR_GL4_DB, MAG_REL, label="GL-4 ")
+    say(f"  n_fft {RUNTIME_FFT} (no compiled-in M), the same weights; warm GL "
+        f"is chaotic there, so each hop from the plain version's state:")
+    odd_cfg, _ = small_webrtc_model(torch, 4, RUNTIME_FFT)
+    check_webrtc_forced(torch, odd_cfg, small_plan, 64, 8, SNR_GL4_DB)
+    check_mel128(torch)
     return err
 
 
@@ -1380,7 +1447,8 @@ def check_webrtc_multi_exact(torch, cfg, plan, batch, calls):
     s_s, outs_s = run_hops(single, s0, torch.cat(chunks))
     exact = {k: max_err(getattr(s_m, k), v) for k, v in planes(s_s).items()}
     exact["out"] = max_err(torch.cat(outs_m), torch.stack(outs_s))
-    say(f"  GL-{multi.n_iter:<2d} B={batch:3d}: {calls} calls of K={WEBRTC_K} "
+    say(f"  GL-{multi.n_iter:<2d} B={batch:3d}, {fft_label(multi)}: {calls} "
+        f"calls of K={WEBRTC_K} "
         f"vs {calls * WEBRTC_K} single-hop calls: {fmt(exact)} (0 "
         f"expected); {launches} launches for {calls} calls; phases unit")
     if max(exact.values()) != 0 or not phases_ok(torch, s_m):
@@ -1424,7 +1492,8 @@ def check_webrtc_multi_forced(torch, cfg, plan, batch, calls, bound):
                   for x, o in ((s_k, o_k), (s_p, o_p), (s_d, o_d))), bound))
         s = s_p
     worst = min(rules, key=lambda r: r[0] - r[2])
-    say(f"  GL-{multi.n_iter:<2d} B={batch:3d}, K={FORCED_K}, {calls} calls "
+    say(f"  GL-{multi.n_iter:<2d} B={batch:3d}, {fft_label(multi)}, "
+        f"K={FORCED_K}, {calls} calls "
         f"each from the plain version's state: median over streams of "
         f"kernel/f64 >= min({bound:g}, plain/f64 - {WITNESS_DB:g}) on calls 1-"
         f"{calls - 1}: lowest {min(r[0] for r in rules):.1f} dB, closest "
@@ -1463,7 +1532,8 @@ def check_webrtc_multi_small(torch, cfg, plan, batch, K, snr_bound,
         if np.abs(m1 - m0).max() > mag_rel * max(1.0, m0.max()):
             raise AssertionError("K-hop webrtc kernel: output magnitudes "
                                  "drift")
-    say(f"  {label} B={batch:3d}, one call of K={K}: hx {hx:.3e} (bound "
+    say(f"  {label} B={batch:3d}, {fft_label(multi)}, one call of K={K}: hx "
+        f"{hx:.3e} (bound "
         f"{HX_ATOL:g}); waveform SNR on hops 2-{K - 1} min {min(snrs):.1f} "
         f"dB (bound {snr_bound:g}); phases unit")
     if hx > HX_ATOL or min(snrs) < snr_bound:
@@ -1498,6 +1568,10 @@ def phase_webrtc_multi(torch, cfg, plan):
                                  SNR_GL32_DB, label="GL-32")
     check_webrtc_multi_small(torch, warm_cfg(small_cfg, 4), small_plan, 64, 40,
                              SNR_GL4_DB, MAG_REL, label="GL-4 ")
+    say(f"  n_fft {RUNTIME_FFT} (no compiled-in M), each call from the plain "
+        f"version's state:")
+    odd_cfg, _ = small_webrtc_model(torch, 4, RUNTIME_FFT)
+    check_webrtc_multi_forced(torch, odd_cfg, small_plan, 64, 4, SNR_GL4_DB)
     return launches, err
 
 
@@ -1742,6 +1816,35 @@ def timed(torch, run, plain, work, batch, launches, plain_launches=None,
                                     else "bytes")
 
 
+def gl_round_yardstick(torch, hop, state, chunk, smi):
+    """cuFFT's time for the transforms of one Griffin-Lim round at
+    B=SLOTS: torch.fft.irfft of (B, 3, n_bins) complex to (B, 3, n_fft)
+    real, then torch.fft.rfft back; beside it the single hop's GL launch
+    per round (its profiler time over n_iter rounds). A stage yardstick
+    only: no window, overlap-add or phase update, and the port never
+    calls it."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    spec = torch.randn((SLOTS, 3, hop.F), dtype=torch.complex64,
+                       generator=g, device="cuda")
+    run = lambda: torch.fft.rfft(torch.fft.irfft(spec, n=hop.n_fft))
+    ms = time_launches(torch, run, TIMED_LAUNCHES)
+    fft_rows = device_breakdown(torch, run, TIMED_LAUNCHES)
+    cufft = sum(fft_rows.values())
+    rows = device_breakdown(torch, lambda: hop(state, chunk), 20)
+    gl = sum(us for name, us in rows.items() if "gl_kernel" in name)
+    if not cufft or not gl:
+        say("  one GL round's transforms on cuFFT: not measured (no "
+            "profiler rows)")
+        return
+    say(f"  one GL round's transforms on cuFFT ({smi}): irfft + rfft of "
+        f"({SLOTS}, 3, {hop.F}) <-> ({SLOTS}, 3, {hop.n_fft}) {cufft:.2f} "
+        f"us of device time ({len(fft_rows)} kernels; {ms * 1e3:.2f} us "
+        f"per round by CUDA events, the host's dispatch included); the "
+        f"GL launch {gl:.1f} us / {hop.n_iter} rounds = "
+        f"{gl / hop.n_iter:.2f} us per round, {gl / hop.n_iter / cufft:.2f}x"
+        f" cuFFT's device time")
+
+
 def print_breakdown(rows, unit):
     if not rows:
         say("  torch.profiler saw no device time: breakdown not measured")
@@ -1979,6 +2082,7 @@ def main() -> int:
     webrtc = timed(torch, lambda: w_hop(w_state, w_chunk),
                    lambda: w_hop.reference(w_state, w_chunk),
                    webrtc_hop_work(w_hop, SLOTS), SLOTS, 50)
+    gl_round_yardstick(torch, w_hop, w_state, w_chunk, smi)
     pm = PlanModel(good, fused=True)
     cell = pm.fused_cell
     say(f"  fused cell, gruunet2-good ({smi}):")

@@ -44,7 +44,8 @@ from audio_denoising_torch.config import (
 from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.models import build_model
 from audio_denoising_torch.ops.kernels.webrtc_hop import (
-    WebRTCHopState, make_webrtc_hop, webrtc_hop_init_state)
+    WebRTCHopState, fft_passes, fft_radices, inverse_input, make_webrtc_hop,
+    pass_twiddle_table, real_bins, twiddle_table, webrtc_hop_init_state)
 from audio_denoising_torch.ops.noisefloor import gate_weight
 from audio_denoising_torch.pipeline import (
     make_webrtc_step, webrtc_init_state)
@@ -167,6 +168,70 @@ def test_griffin_lim_random_init_takes_a_generator():
                                generator=g, return_angles=True)
     assert out.shape == (2, 128) and torch.isfinite(out).all()
     assert torch.allclose(ang.abs(), torch.ones(()), atol=1e-5)
+
+
+# -- the kernels' transform schedule (csrc/webrtc_hop.cu's passes) -----------
+
+FFT_REL = 1e-5   # fp32 passes against torch.fft, relative to a frame's peak
+
+
+@pytest.mark.parametrize("m,radices", [(768, [8, 8, 12]), (512, [8, 8, 8]),
+                                       (32, [8, 4])])
+def test_fft_pass_schedule_matches_torch_fft(m, radices):
+    """The kernels' complex FFT pass by pass (their radices, twiddle
+    indices and Stockham order) on three complex64 frames, with the
+    float32 pass-twiddle table the wrapper hands to the kernels, against
+    torch.fft.fft and m * ifft."""
+    assert fft_radices(m) == radices
+    rng = np.random.default_rng(m)
+    z = torch.from_numpy(rng.standard_normal((3, m))
+                         + 1j * rng.standard_normal((3, m))).to(
+                             torch.complex64)
+    tw = torch.from_numpy(pass_twiddle_table(m)).float()
+    for inverse, want in ((False, torch.fft.fft(z)),
+                          (True, torch.fft.ifft(z) * m)):
+        got = fft_passes(z, tw, inverse)
+        peak = want.abs().amax(dim=1, keepdim=True)
+        assert float(((got - want).abs() / peak).max()) < FFT_REL, inverse
+
+
+@pytest.mark.parametrize("m", [1, 6, 24, 48, 96, 384, 1152])
+def test_fft_radices_factor_every_half_length(m):
+    """Any m of 2s and 3s splits into passes the kernels take, whose
+    product is m, and their twiddles fill the m - 1 entries of the pass
+    table, each once; another prime factor is refused."""
+    radices = fft_radices(m)
+    assert int(np.prod(radices)) == m
+    assert set(radices) <= {1, 2, 3, 4, 8, 12}
+    table = pass_twiddle_table(m)     # unfilled entries would be NaN
+    assert len(table) == max(m - 1, 1)
+    assert np.allclose(np.hypot(table[:, 0], table[:, 1]), 1.0)
+    with pytest.raises(ValueError):
+        fft_radices(5 * m)
+
+
+@pytest.mark.parametrize("n_fft", [1536, 1024, 64])
+def test_real_split_and_pre_twiddle_give_rfft_and_irfft(n_fft):
+    """The kernels' real-input formulas around the half-length FFT, in
+    float64: ``real_bins`` of the packed frame's FFT is rfft of the frame;
+    the inverse FFT of ``inverse_input`` read as sample pairs, over n_fft,
+    is irfft (DC's and Nyquist's imaginary parts dropped)."""
+    rng = np.random.default_rng(n_fft)
+    x = torch.from_numpy(rng.standard_normal((3, n_fft)))
+    tw = torch.from_numpy(twiddle_table(n_fft))
+    ptw = torch.from_numpy(pass_twiddle_table(n_fft // 2))
+    spec = real_bins(fft_passes(torch.complex(x[:, 0::2], x[:, 1::2]), ptw),
+                     tw)
+    want = torch.fft.rfft(x)
+    assert float((spec - want).abs().max()) < 1e-10 * float(
+        want.abs().max())
+    want = want.clone()
+    want[:, 0] += 0.3j
+    want[:, -1] -= 0.2j
+    back = fft_passes(inverse_input(want, tw), ptw, inverse=True)
+    y = torch.stack([back.real, back.imag], dim=-1).reshape(3, n_fft) / n_fft
+    ref = torch.fft.irfft(want, n=n_fft)
+    assert float((y - ref).abs().max()) < 1e-10 * float(ref.abs().max())
 
 
 # -- the small setup: tests/test_webrtc_hop.py::_small_setup ----------------
