@@ -17,24 +17,29 @@
 // operations. Parity with the reference needs fp32, so the kernel uses
 // FMA, not TF32 tensor cores.
 //
-// Design: the `plan_cell` routine of plan_cell.cuh, which the fused hop and
-// the WebRTC hop's cell launch share, launched on its own. One block of
-// kThreads threads owns a tile of kTile streams, loads their rows of x and
-// hx into shared memory (about 4.7 k floats per stream at gruunet2-good,
-// 20 k at the five-level hidden-64 mel-128 plan, both well inside a
-// block's 227 KB), walks the cell's matmuls in order with every activation
-// on chip, and writes y and hx'. The weights stay in global memory and are
-// served from the 50 MB L2, each block reading each weight once per step;
-// the small-GEMM routine spends them as float4 loads that each feed
-// 4 kTile FMAs and splits the narrow stages over k (plan_cell.cuh says
-// how). The ragged last tile computes on zero rows and stores only the
-// rows it owns, so the batch is not padded. The tile is the shared
-// header's (2 streams), which measured best for the fused hop on an H100:
-// at B = 256 the step is 128 blocks, one per SM.
+// Design: the `plan_cell` walk of plan_cell.cuh, which the fused hop and
+// the WebRTC hop's cell launch share, with its weights from the weight
+// ring of weight_ring.cuh. One block of kThreads threads owns a tile of
+// kTile = 2 streams, loads their rows of x and hx into shared memory
+// (about 4.7 k floats per stream at gruunet2-good, 20 k at the five-level
+// hidden-64 mel-128 plan), walks the cell's matmuls in order with every
+// activation on chip on 15 consumer warps, and writes y and hx'. The
+// last warp streams the plan's matrices into a ring of shared-memory
+// stages in the slab order the wrapper computed, one bulk copy a slab
+// multicast to a cluster of C = 2 blocks; the ring takes what the layout
+// leaves of the block's 227 KB (3 stages of 64,944 B at gruunet2-good, 2
+// of 35,808 B at the mel-128 plan, where the widest rows are 16 KB). The
+// ragged last tile, and a block past the batch that rounds the grid up to
+// whole clusters, compute on zero rows, take part in every barrier and
+// store only the rows they own, so the batch is not padded.
+//
+// What bounds it now (NVIDIA H100 80GB HBM3, 700 W, B = 256): the ring's
+// copies, 56 GB/s into each SM (weight_ring.cuh); 58.4 us a step against
+// 71 with the threads streaming the weights from L2.
 
 #include <cuda_runtime.h>
 
-#include "plan_cell.cuh"
+#include "weight_ring.cuh"
 
 // Mirrored field by field by _Args in ops/kernels/fused_cell.py;
 // adt_fused_cell_args_size lets the wrapper check the layouts agree.
@@ -44,11 +49,19 @@ struct AdtFusedCellArgs {
   float* y;         // (B, n_feat) residual prediction
   float* hx_out;    // (B, n_hidden) the new state, not decayed
   AdtPlan plan;
+  AdtRing ring;     // the plan's matrices as a slab schedule
   int batch;
   int n_feat;
 };
 
 namespace {
+
+__host__ __device__ inline int cell_layout_floats(const AdtPlan& p) {
+  CellLayout l;
+  int off = 0;
+  make_cell_layout(p, &l, &off);
+  return off;
+}
 
 __global__ void __launch_bounds__(kThreads, 1)
     fused_cell_kernel(const __grid_constant__ AdtFusedCellArgs a) {
@@ -56,8 +69,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   CellLayout l;
   int off = 0;
   make_cell_layout(a.plan, &l, &off);
+  const RingSmem ring = ring_smem(a.ring, smem, off);
+  ring_init(a.ring, ring);
   const int b0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.batch - b0);
+  const int rows = max(0, min(kTile, a.batch - b0));  // 0 past the batch
   const int F = a.n_feat, n = a.plan.n_hidden;
 
   for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
@@ -70,18 +85,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     smem[l.hx + s * l.ld_n + j] =
         s < rows ? a.hx[(size_t)(b0 + s) * n + j] : 0.f;
   }
-  __syncthreads();
+  cluster_sync();  // the ring's barriers ready in every block; x, hx loaded
 
-  const float* y = plan_cell(a.plan, l, smem);
-
-  for (int e = threadIdx.x; e < rows * F; e += blockDim.x) {
-    const int s = e / F, f = e % F;
-    a.y[(size_t)(b0 + s) * F + f] = y[s * l.ld_pp + f];
+  if (is_producer()) {
+    if (threadIdx.x == kConsumers) ring_produce(a.ring, ring, 1);
+  } else {
+    const Lanes t = consumer_lanes();
+    RingWeights w(a.ring, ring);
+    const float* y = plan_cell(a.plan, l, smem, t, w);
+    for (int e = t.id; e < rows * F; e += t.n) {
+      const int s = e / F, f = e % F;
+      a.y[(size_t)(b0 + s) * F + f] = y[s * l.ld_pp + f];
+    }
+    for (int e = t.id; e < rows * n; e += t.n) {
+      const int s = e / n, j = e % n;
+      a.hx_out[(size_t)(b0 + s) * n + j] = smem[l.hi + s * l.ld_n + j];
+    }
   }
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-    const int s = e / n, j = e % n;
-    a.hx_out[(size_t)(b0 + s) * n + j] = smem[l.hi + s * l.ld_n + j];
-  }
+  __syncwarp();
+  cluster_sync();  // no block leaves while the cluster copies into it
 }
 
 }  // namespace
@@ -90,30 +112,32 @@ extern "C" {
 
 int adt_fused_cell_args_size() { return (int)sizeof(AdtFusedCellArgs); }
 
-// Dynamic shared memory one block of kTile streams needs; -1 if the plan
-// is not one the kernel takes.
+// Dynamic shared memory of one block's own layout (kTile streams' buffers,
+// without the ring); -1 if the plan is not one the kernel takes.
 long long adt_fused_cell_smem_bytes(const AdtFusedCellArgs* a) {
   if (!plan_ok(a->plan, a->n_feat)) return -1;
-  CellLayout l;
-  int off = 0;
-  make_cell_layout(a->plan, &l, &off);
-  return (long long)off * (long long)sizeof(float);
+  return (long long)cell_layout_floats(a->plan) * (long long)sizeof(float);
 }
 
 // Launches one cell step on `stream` without synchronising; returns the
 // launch's cudaError_t (0 on success).
 int adt_fused_cell(const AdtFusedCellArgs* a, void* stream) {
-  const long long smem = adt_fused_cell_smem_bytes(a);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const long long layout = adt_fused_cell_smem_bytes(a);
+  if (layout < 0 || !ring_ok(a->ring)) return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a->batch + kTile - 1) / kTile);
-  fused_cell_kernel<<<grid, kThreads, (size_t)smem,
-                      static_cast<cudaStream_t>(stream)>>>(*a);
-  return (int)cudaGetLastError();
+  return (int)launch_clusters(fused_cell_kernel, *a,
+                              (a->batch + kTile - 1) / kTile, a->ring.cluster,
+                              (size_t)(layout + ring_smem_bytes(a->ring)),
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of the launch for `blocks` blocks that the card holds at once
+// (cudaOccupancyMaxActiveClusters); -1 on an error.
+int adt_fused_cell_max_clusters(const AdtFusedCellArgs* a, int blocks) {
+  const long long layout = adt_fused_cell_smem_bytes(a);
+  if (layout < 0 || !ring_ok(a->ring)) return -1;
+  return max_active_clusters(fused_cell_kernel, blocks, a->ring.cluster,
+                             (size_t)(layout + ring_smem_bytes(a->ring)));
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 // JAX package; plain PyTorch version ops/kernels/common.py::plan_cell_math)
 // for a tile of kTile streams per block, on one small-GEMM routine.
 //
-// Included by fused_hop.cu and webrtc_hop.cu, each a separate shared
-// library: everything here has internal linkage.
+// Included by fused_hop.cu, webrtc_hop.cu and (through weight_ring.cuh)
+// fused_cell.cu, each a separate shared library: everything here has
+// internal linkage.
 //
 // Design: one block of kThreads threads owns kTile streams and walks the
 // cell's matmuls in order, with every activation in dynamic shared memory.
@@ -21,7 +22,11 @@
 // zeros and are never stored by the callers. `gemm` and `plan_cell` run on
 // the whole block, or on a group of its threads (`Lanes`) that waits at a
 // named barrier of its own, as webrtc_hop.cu's K-hop kernel runs them on
-// kThreads of its threads.
+// kThreads of its threads. `plan_cell` is one walk, parametrised on how
+// the weights arrive: `L2Weights` runs `gemm` (the fused hop and the
+// WebRTC hop); weight_ring.cuh's `RingWeights` reads them from slabs that
+// a producer warp copies into shared memory ahead of use (the fused
+// cell).
 
 #pragma once
 
@@ -141,6 +146,14 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// A row's column quad of W: from global memory through L2 (kShared false)
+// or from a slab already in shared memory (weight_ring.cuh).
+template <bool kShared>
+__device__ __forceinline__ float4 load_w4(const float* p) {
+  if (kShared) return *reinterpret_cast<const float4*>(p);
+  return ldg4(p);
+}
+
 __device__ __forceinline__ void fma_row(float (&acc)[kTile][4],
                                         const float* a, int lda, int k,
                                         float4 w) {
@@ -155,6 +168,7 @@ __device__ __forceinline__ void fma_row(float (&acc)[kTile][4],
 }
 
 // acc[r][c] += sum_{k in [lo, hi)} a[r][k] * w[k][4q + c]
+template <bool kShared = false>
 __device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
                                            const float* a, int lda,
                                            const float* __restrict__ w,
@@ -162,13 +176,13 @@ __device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
   const float* wq = w + 4 * q;
   int k = lo;
   for (; k < hi && (k & 3); ++k)
-    fma_row(acc, a, lda, k, ldg4(wq + (size_t)k * ldw));
+    fma_row(acc, a, lda, k, load_w4<kShared>(wq + (size_t)k * ldw));
 #pragma unroll 2
   for (; k + 4 <= hi; k += 4) {
-    const float4 w0 = ldg4(wq + (size_t)(k + 0) * ldw);
-    const float4 w1 = ldg4(wq + (size_t)(k + 1) * ldw);
-    const float4 w2 = ldg4(wq + (size_t)(k + 2) * ldw);
-    const float4 w3 = ldg4(wq + (size_t)(k + 3) * ldw);
+    const float4 w0 = load_w4<kShared>(wq + (size_t)(k + 0) * ldw);
+    const float4 w1 = load_w4<kShared>(wq + (size_t)(k + 1) * ldw);
+    const float4 w2 = load_w4<kShared>(wq + (size_t)(k + 2) * ldw);
+    const float4 w3 = load_w4<kShared>(wq + (size_t)(k + 3) * ldw);
 #pragma unroll
     for (int r = 0; r < kTile; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(a + r * lda + k);
@@ -191,7 +205,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
     }
   }
   for (; k < hi; ++k)
-    fma_row(acc, a, lda, k, ldg4(wq + (size_t)k * ldw));
+    fma_row(acc, a, lda, k, load_w4<kShared>(wq + (size_t)k * ldw));
 }
 
 __device__ __forceinline__ float epilogue(const Gemm& g, float v, int col) {
@@ -200,6 +214,40 @@ __device__ __forceinline__ float epilogue(const Gemm& g, float v, int col) {
   else if (g.epi == kLog1p) v = logf(1.f + v);
   else if (g.epi == kLinGain) v = fmaxf(v, 0.f) * g.gain;
   return v;
+}
+
+// A work item's sums: C through the epilogue when k is not split
+// (ks_n == 1), else its partial sums into the scratch.
+__device__ __forceinline__ void store_item(const Gemm& g,
+                                           const float (&acc)[kTile][4],
+                                           int q, int ks, int ks_n, int ldw) {
+#pragma unroll
+  for (int r = 0; r < kTile; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = 4 * q + c;
+      if (ks_n == 1)
+        g.c[r * g.ldc + col] = epilogue(g, acc[r][c], col);
+      else
+        g.scratch[(ks * kTile + r) * ldw + col] = acc[r][c];
+    }
+}
+
+// With k split (ks_n > 1): C = epilogue(the partial sums added in the
+// order ks = 0, 1, ...), after the group's barrier.
+__device__ __forceinline__ void reduce_partials(const Gemm& g, const Lanes& t,
+                                                int ks_n, int ldw) {
+  if (ks_n > 1) {
+    group_sync(t);
+    for (int e = t.id; e < kTile * ldw; e += t.n) {
+      const int r = e / ldw, col = e % ldw;
+      float v = 0.f;
+      for (int ks = 0; ks < ks_n; ++ks)
+        v += g.scratch[(ks * kTile + r) * ldw + col];
+      g.c[r * g.ldc + col] = epilogue(g, v, col);
+    }
+    group_sync(t);  // the scratch is free for the next gemm
+  }
 }
 
 // A work item is four output columns (q) for all kTile rows over one of ks_n
@@ -237,28 +285,9 @@ __device__ void gemm(const Gemm& g, const Lanes& t) {
     if (g.a2 != nullptr && max(lo, g.k1) < hi)
       accumulate(acc, g.a2, g.lda2, g.w2, ldw, q, max(lo, g.k1) - g.k1,
                     hi - g.k1);
-#pragma unroll
-    for (int r = 0; r < kTile; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = 4 * q + c;
-        if (ks_n == 1)
-          g.c[r * g.ldc + col] = epilogue(g, acc[r][c], col);
-        else
-          g.scratch[(ks * kTile + r) * ldw + col] = acc[r][c];
-      }
+    store_item(g, acc, q, ks, ks_n, ldw);
   }
-  if (ks_n > 1) {
-    group_sync(t);
-    for (int e = t.id; e < kTile * ldw; e += nt) {
-      const int r = e / ldw, col = e % ldw;
-      float v = 0.f;
-      for (int ks = 0; ks < ks_n; ++ks)
-        v += g.scratch[(ks * kTile + r) * ldw + col];
-      g.c[r * g.ldc + col] = epilogue(g, v, col);
-    }
-    group_sync(t);  // the scratch is free for the next gemm
-  }
+  reduce_partials(g, t, ks_n, ldw);
 }
 
 __device__ __forceinline__ void gemm(const Gemm& g) { gemm(g, block_lanes()); }
@@ -287,19 +316,31 @@ __device__ inline Gemm make_gemm(const float* a1, int lda1, int k1,
 
 __device__ inline float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
+// How the weights reach `gemm` when the threads stream them from L2
+// themselves; weight_ring.cuh's RingWeights has them copied into shared
+// memory ahead of use. `run` computes one Gemm on the threads `t`.
+struct L2Weights {
+  __device__ __forceinline__ void run(const Gemm& g, const Lanes& t) {
+    gemm(g, t);
+  }
+};
+
 // One cell step on the threads `t`: reads x = smem d[0] and hx, leaves hi
 // in smem and returns the buffer holding y (width n_mels, leading
-// dimension ld_pp).
+// dimension ld_pp). `w` runs the matmuls in the order weight_ring.cuh's
+// slab schedule lists them: down_w[0], reset_w, down_w[1..L-1], then
+// up_w[i] and up_s[i] per decoder level.
+template <class Weights>
 __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
-                            float* smem, const Lanes& t) {
+                            float* smem, const Lanes& t, Weights& w) {
   const int L = a.levels;
   const int n = a.n_hidden;
   for (int i = 0; i < L; ++i) {
-    gemm(make_gemm(smem + l.d[i], l.ld_d[i], a.down_n[i], a.down_w[i],
+    w.run(make_gemm(smem + l.d[i], l.ld_d[i], a.down_n[i], a.down_w[i],
                       a.down_n[i + 1], a.down_b[i], kRelu, smem + l.d[i + 1],
                       l.ld_d[i + 1], smem + l.scratch), t);
     if (i == 0)  // the reset gate reads only hx: share the first barrier
-      gemm(make_gemm(smem + l.hx, l.ld_n, n, a.reset_w, 3 * n, a.reset_b,
+      w.run(make_gemm(smem + l.hx, l.ld_n, n, a.reset_w, 3 * n, a.reset_b,
                         kRelu, smem + l.gh, round4(3 * n), smem + l.scratch),
            t);
     group_sync(t);
@@ -334,13 +375,19 @@ __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
       g.k2 = a.down_n[L - i];
       g.w2 = a.up_s[i];
     }
-    gemm(g, t);
+    w.run(g, t);
     group_sync(t);
     h = dst;
     ldh = l.ld_pp;
     kh = a.up_n[i + 1];
   }
   return dst;
+}
+
+__device__ inline float* plan_cell(const AdtPlan& a, const CellLayout& l,
+                                   float* smem, const Lanes& t) {
+  L2Weights w;
+  return plan_cell(a, l, smem, t, w);
 }
 
 __device__ __forceinline__ float* plan_cell(const AdtPlan& a,

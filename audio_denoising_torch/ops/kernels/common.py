@@ -8,7 +8,7 @@ routine; ``plan_args`` fills that header's ``AdtPlan`` for a launch.
 """
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
@@ -93,23 +93,36 @@ def pack_plan_weights(plan) -> Tuple[List[torch.Tensor], List[bool]]:
     return weights, skip_flags
 
 
+def dense_gemm(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               bias: torch.Tensor) -> torch.Tensor:
+    """a_0 @ w_0 + bias + a_1 @ w_1 + ...: the reference's matmuls."""
+    (a, w), rest = pairs[0], pairs[1:]
+    out = a @ w + bias
+    for a, w in rest:
+        out = out + a @ w
+    return out
+
+
 def plan_cell_math(w: Sequence[torch.Tensor], skip_flags: Sequence[bool],
-                   n: int, x: torch.Tensor, hx: torch.Tensor
+                   n: int, x: torch.Tensor, hx: torch.Tensor,
+                   gemm: Callable = dense_gemm
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One cell step. ``w``: pack_plan_weights order; ``x``: (B, feat);
     ``hx``: (B, n). Returns (y (B, feat), hi (B, n)); the caller applies
-    the state decay."""
+    the state decay. ``gemm(pairs, bias)`` computes each matmul from its
+    (activation, matrix) pairs; weight_ring.ring_gemm adds as the
+    kernel's consumers do."""
     L = len(skip_flags)
     it = iter(w)
     h = x
     skips = [h]
     for _ in range(L):
         m, b = next(it), next(it)
-        h = torch.relu(h @ m + b)
+        h = torch.relu(gemm([(h, m)], b))
         skips.append(h)
     gate_x = h
     m, b = next(it), next(it)
-    gate_h = torch.relu(hx @ m + b)
+    gate_h = torch.relu(gemm([(hx, m)], b))
     i_r, i_i, i_n = gate_x[:, :n], gate_x[:, n:2 * n], gate_x[:, 2 * n:]
     h_r, h_i, h_n = gate_h[:, :n], gate_h[:, n:2 * n], gate_h[:, 2 * n:]
     inputgate = torch.sigmoid(i_i + h_i)
@@ -119,8 +132,9 @@ def plan_cell_math(w: Sequence[torch.Tensor], skip_flags: Sequence[bool],
     h = hi
     for i in range(L):
         m, b = next(it), next(it)
-        out = h @ m + b
+        pairs = [(h, m)]
         if skip_flags[i]:
-            out = out + skips[L - i] @ next(it)
+            pairs.append((skips[L - i], next(it)))
+        out = gemm(pairs, b)
         h = torch.relu(out) if i != L - 1 else out
     return h, hi

@@ -7,7 +7,10 @@ one cell step for a batch of streams, ``cell(x (B, F), hx (B, H)) ->
 applies it, as ``PlanModel.decay_carry`` does). For CPU tensors it runs
 ``reference``, the plain PyTorch version (``plan_cell_math``); for CUDA
 tensors it launches the hand-written kernel in ``csrc/fused_cell.cu`` or
-raises. ``launches`` counts kernel launches.
+raises. The kernel takes the plan's matrices through a weight ring in
+shared memory, fed by bulk copies multicast over a cluster of blocks; the
+wrapper computes its slab schedule once (``ops/kernels/weight_ring.py``).
+``launches`` counts kernel launches.
 
 The JAX wrapper pads B to a multiple of its 128-row tile; the kernel
 masks its ragged last tile instead, so nothing is padded here. Delta
@@ -22,12 +25,14 @@ import torch
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.kernels.common import (
     MAX_LEVELS, PlanArgs, pack_plan_weights, plan_args, plan_cell_math)
+from audio_denoising_torch.ops.kernels.weight_ring import (
+    RingArgs, WeightRing, cell_layout_floats, cell_matrices)
 
 
 class _Args(ctypes.Structure):
     """Field-for-field mirror of AdtFusedCellArgs in csrc/fused_cell.cu."""
     _fields_ = ([(f, ctypes.c_void_p) for f in ("x", "hx", "y", "hx_out")]
-                + [("plan", PlanArgs)]
+                + [("plan", PlanArgs), ("ring", RingArgs)]
                 + [(f, ctypes.c_int) for f in ("batch", "n_feat")])
 
 
@@ -40,6 +45,7 @@ class FusedCell:
         self.n = plan.hidden * plan.compressed
         self.n_feat = plan.down_mats[0].shape[0]
         self.launches = 0
+        self.ring = None   # the WeightRing, on the card
         plan = plan.to(device=device, dtype=torch.float32)
         weights, self.skip_flags = pack_plan_weights(plan)
         self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]
@@ -48,24 +54,31 @@ class FusedCell:
         if device.type == "cuda":
             from audio_denoising_torch.ops.kernels.build import (
                 load_kernel_library)
-            self._lib = load_kernel_library("fused_cell").lib
-            self._lib.adt_fused_cell_args_size.restype = ctypes.c_int
-            self._lib.adt_fused_cell_smem_bytes.argtypes = [ctypes.c_void_p]
-            self._lib.adt_fused_cell_smem_bytes.restype = ctypes.c_longlong
-            self._lib.adt_fused_cell.argtypes = [ctypes.c_void_p,
-                                                 ctypes.c_void_p]
-            self._lib.adt_fused_cell.restype = ctypes.c_int
-            if self._lib.adt_fused_cell_args_size() != ctypes.sizeof(_Args):
-                raise RuntimeError("csrc/fused_cell.cu and _Args disagree "
-                                   "on the argument layout")
-            # the padded operand copies (kernel_operand) live on the cell
-            self._kernel_tensors: List[torch.Tensor] = []
-            self._base_args = _Args()
-            self._base_args.plan = plan_args(
-                self.weights, self.skip_flags, self.n_feat, self.n,
-                self._kernel_tensors)
-            self._base_args.n_feat = self.n_feat
-            self._check_shared_memory()
+            self._bind(load_kernel_library("fused_cell").lib)
+
+    def _bind(self, lib) -> None:
+        """Binds the built library's C functions and fills the launch
+        arguments that do not change from call to call."""
+        self._lib = lib
+        lib.adt_fused_cell_args_size.restype = ctypes.c_int
+        lib.adt_fused_cell_smem_bytes.argtypes = [ctypes.c_void_p]
+        lib.adt_fused_cell_smem_bytes.restype = ctypes.c_longlong
+        lib.adt_fused_cell.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.adt_fused_cell.restype = ctypes.c_int
+        lib.adt_fused_cell_max_clusters.argtypes = [ctypes.c_void_p,
+                                                    ctypes.c_int]
+        lib.adt_fused_cell_max_clusters.restype = ctypes.c_int
+        if lib.adt_fused_cell_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError("csrc/fused_cell.cu and _Args disagree on "
+                               "the argument layout")
+        # the padded operand copies (kernel_operand) live on the cell
+        self._kernel_tensors: List[torch.Tensor] = []
+        self._base_args = _Args()
+        self._base_args.plan = plan_args(
+            self.weights, self.skip_flags, self.n_feat, self.n,
+            self._kernel_tensors)
+        self._base_args.n_feat = self.n_feat
+        self._check_shared_memory()
 
     # -- the plain PyTorch version ------------------------------------------
     def reference(self, x: torch.Tensor, hx: torch.Tensor
@@ -97,19 +110,32 @@ class FusedCell:
                              f"tensors on {x.device}")
 
     def _check_shared_memory(self) -> None:
-        """What this kernel can take: one block's tile of activations in
-        its shared memory. Raises; there is no other path to fall back
-        to."""
+        """What this kernel can take: one block's tile of activations and
+        a weight ring of at least 2 stages in its shared memory. Sets up
+        the ring; raises, as there is no other path to fall back to."""
+        layout = int(self._lib.adt_fused_cell_smem_bytes(
+            ctypes.byref(self._base_args)))
+        if layout < 0:
+            raise ValueError("csrc/fused_cell.cu does not take this plan")
+        plan = self._base_args.plan
+        if layout != 4 * cell_layout_floats(plan):
+            raise RuntimeError("csrc/fused_cell.cu and weight_ring."
+                               "cell_layout_floats disagree on the layout")
+        self.ring = WeightRing(cell_matrices(plan), layout, self.device)
+        self._kernel_tensors.append(self.ring.table)
+        self._base_args.ring = self.ring.args
         limit = torch.cuda.get_device_properties(
             self.device).shared_memory_per_block_optin
-        need = int(self._lib.adt_fused_cell_smem_bytes(
-            ctypes.byref(self._base_args)))
-        if need < 0:
-            raise ValueError("csrc/fused_cell.cu does not take this plan")
-        if need > limit:
+        if self.ring.smem_bytes > limit:
             raise RuntimeError(
-                f"the fused cell needs {need} B of shared memory per block; "
-                f"this card allows {limit} B")
+                f"the fused cell needs {self.ring.smem_bytes} B of shared "
+                f"memory per block; this card allows {limit} B")
+
+    def max_active_clusters(self, blocks: int) -> int:
+        """cudaOccupancyMaxActiveClusters of a launch of ``blocks``
+        blocks."""
+        return int(self._lib.adt_fused_cell_max_clusters(
+            ctypes.byref(self._base_args), blocks))
 
     def _launch(self, x: torch.Tensor, hx: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,7 +8,9 @@ nvcc per source, all at once), then runs these phases, each of which
 raises on failure (so the script exits non-zero and prints no result):
 
 1. the card's name and power limit, and the kernel builds (nvcc's
-   register and shared-memory lines, build seconds);
+   register and shared-memory lines, build seconds); the fused cell's
+   weight ring on gruunet2-good: tile, cluster size, stages, slab bytes,
+   and how many clusters of the 128-block grid the card holds at once;
 2. the fused-hop kernel against its plain PyTorch version on the card,
    at 256 streams and at 3 (the ragged edge), over 20 hops; then at 64
    streams on two trained checkpoints of other widths (hidden 40; 128
@@ -1963,6 +1965,21 @@ def time_webrtc_multi(torch, cfg, plan, smi):
     return results
 
 
+def ring_line(label, kernel):
+    """Phase 1: the weight ring the fused cell's wrapper set up, and how
+    many of its clusters the card holds at once for SLOTS streams."""
+    from audio_denoising_torch.ops.kernels.weight_ring import KTILE
+    r = kernel.ring
+    blocks = SLOTS // KTILE
+    cluster = r.args.cluster
+    say(f"  {label}: weight ring kTile {KTILE}, C {cluster}, S "
+        f"{r.stages} stages of {r.stage_bytes} B, {len(r.slabs)} slabs of "
+        f"{min(x.nbytes for x in r.slabs)}-{max(x.nbytes for x in r.slabs)} "
+        f"B, {r.smem_bytes} B of shared memory a block; "
+        f"cudaOccupancyMaxActiveClusters for {blocks} blocks: "
+        f"{kernel.max_active_clusters(blocks)} clusters of {cluster}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1971,6 +1988,7 @@ def main() -> int:
     from audio_denoising_torch.config import recommended_serving
     from audio_denoising_torch.hub import load_pretrained
     from audio_denoising_torch.ops.kernels.build import load_kernel_libraries
+    from audio_denoising_torch.ops.kernels.fused_cell import make_fused_cell
     from audio_denoising_torch.ops.kernels.fused_hop import (
         fused_hop_init_state, make_fused_hop)
     from audio_denoising_torch.ops.kernels.webrtc_hop import (
@@ -1996,6 +2014,10 @@ def main() -> int:
     cfg, model = load_pretrained("gruunet2-stream16k")
     plan = build_cell_plan(model)
     hop = make_fused_hop(cfg, plan, "cuda")
+    good_cfg, good = load_pretrained("gruunet2-good")
+    ring_line("fused cell, gruunet2-good",
+              make_fused_cell(build_cell_plan(good), "cuda"))
+
     say("phase 2: fused hop kernel vs its plain version on the card")
     err = phase_kernel_vs_plain(torch, hop, cfg, plan, (SLOTS, 3))
     other_plans = []
@@ -2027,7 +2049,6 @@ def main() -> int:
     say("phase 7: EngineDaemon mode fused-webrtc on 127.0.0.1")
     w_launches += phase_daemon_webrtc(torch, dari_cfg, dari)
 
-    good_cfg, good = load_pretrained("gruunet2-good")
     say("phase 8: fused cell kernel vs its plain version on the card")
     c_err = phase_fused_cell(torch, [("gruunet2-good", build_cell_plan(good))]
                              + other_plans)
