@@ -6,7 +6,9 @@
 // runs: the encoder matmul chain with ReLU, the reset-gate matmul on hx,
 // the GRU gating hx' = n + z (hx - n), then the decoder matmuls with split
 // skip matmuls. The state decay is left to the caller (PlanModel's
-// decay_carry). This slice covers non-delta plans in fp32. The plain
+// decay_carry). It takes GRUUNet2, MOMO2 and MOMO3 plans in fp32; for a
+// delta (MOMO3) plan (gruunet_cell.py:60-83) it loads the previous frame
+// beside x, and level 0 runs over cat(x, prev) (plan_cell.cuh). The plain
 // PyTorch version of the same function is FusedCell.reference in
 // audio_denoising_torch/ops/kernels/fused_cell.py.
 //
@@ -36,6 +38,13 @@
 // What bounds it now (NVIDIA H100 80GB HBM3, 700 W, B = 256): the ring's
 // copies, 56 GB/s into each SM (weight_ring.cuh); 58.4 us a step against
 // 71 with the threads streaming the weights from L2.
+//
+// MOMO3-4d4ea0 (B = 256): 80,000 multiply-adds per stream, 41 MFLOP in
+// all, 0.61 us against 67 TFLOP/s; its 0.33 MB of weights and 0.16 MB of
+// x, prev, hx, y and hx' over 3.35 TB/s are 0.15 us. Its nine matrices
+// (320 KB) stream through a ring of four stages as 14 slabs; the plan is
+// so narrow that most of the 480 consumer threads idle in every matmul
+// (the widest has 44 column quads), which is left as it is.
 
 #include <cuda_runtime.h>
 
@@ -44,8 +53,9 @@
 // Mirrored field by field by _Args in ops/kernels/fused_cell.py;
 // adt_fused_cell_args_size lets the wrapper check the layouts agree.
 struct AdtFusedCellArgs {
-  const float* x;   // (B, n_feat) features
-  const float* hx;  // (B, n_hidden) cell state
+  const float* x;     // (B, n_feat) features
+  const float* hx;    // (B, n_hidden) cell state
+  const float* prev;  // (B, n_feat) the previous features (delta plans)
   float* y;         // (B, n_feat) residual prediction
   float* hx_out;    // (B, n_hidden) the new state, not decayed
   AdtPlan plan;
@@ -75,10 +85,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rows = max(0, min(kTile, a.batch - b0));  // 0 past the batch
   const int F = a.n_feat, n = a.plan.n_hidden;
 
-  for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
-    const int s = e / F, f = e % F;
+  // d[0] = x, or x | prev for a delta plan
+  const int in = a.plan.delta ? 2 * F : F;
+  for (int e = threadIdx.x; e < kTile * in; e += blockDim.x) {
+    const int s = e / in, f = e % in;
+    const float* src = f < F ? a.x : a.prev;
     smem[l.d[0] + s * l.ld_d[0] + f] =
-        s < rows ? a.x[(size_t)(b0 + s) * F + f] : 0.f;
+        s < rows ? src[(size_t)(b0 + s) * F + f % F] : 0.f;
   }
   for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
     const int s = e / n, j = e % n;
@@ -123,7 +136,8 @@ long long adt_fused_cell_smem_bytes(const AdtFusedCellArgs* a) {
 // launch's cudaError_t (0 on success).
 int adt_fused_cell(const AdtFusedCellArgs* a, void* stream) {
   const long long layout = adt_fused_cell_smem_bytes(a);
-  if (layout < 0 || !ring_ok(a->ring)) return (int)cudaErrorInvalidValue;
+  if (layout < 0 || !ring_ok(a->ring) || (a->plan.delta && !a->prev))
+    return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
   return (int)launch_clusters(fused_cell_kernel, *a,
                               (a->batch + kTile - 1) / kTile, a->ring.cluster,

@@ -4,21 +4,26 @@
 // fused_hop.py::make_fused_hop: the single-hop `kernel` (fused_hop.py:242)
 // and the resident multi-hop `kernel_multi` (fused_hop.py:384), with the
 // cell math of ops/pallas/common.py::plan_cell_math as plan_cell.cuh's
-// `plan_cell` routine. This file covers their fp32, mel-domain forms with
-// the SNR gate (estimators 'removed', 'floor' and 'both') and int16 IO,
-// and no delta carry. The plain PyTorch version of the same function is
-// FusedHop.reference in audio_denoising_torch/ops/kernels/fused_hop.py.
+// `plan_cell` routine. This file covers their fp32 forms in the mel and
+// the raw-spectrogram domain, with the MOMO3 delta carry, the SNR gate
+// (estimators 'removed', 'floor' and 'both') and int16 IO. The plain
+// PyTorch version of the same function is FusedHop.reference in
+// audio_denoising_torch/ops/kernels/fused_hop.py.
 //
 // Per stream and hop: shift the analysis ring, apply the Hann window,
 // take the DFT as cos/sin matmuls and the magnitude, project to mel and
-// take log(1 + .), run the plan cell (encoder matmuls with ReLU, the
-// reset-gate matmul, GRU gating, decoder matmuls with split skips),
-// subtract the residual, leaky-ReLU 0.2, exp - 1 clamped at 0, inverse
-// mel clamped at 0 times the output gain, the SNR gate (ops/noisefloor.py:
+// take log(1 + .) (in the raw domain log(1 + .) of the magnitude itself,
+// fused_hop.py:164-168), run the plan cell (encoder matmuls with ReLU, the
+// reset-gate matmul, GRU gating, decoder matmuls with split skips; a
+// delta plan's level 0 over cat(x, prev), with prev the previous hop's
+// feature, kept as a state plane), subtract the residual, leaky-ReLU 0.2,
+// exp - 1 clamped at 0, inverse mel clamped at 0 (none in the raw domain)
+// times the output gain, the SNR gate (ops/noisefloor.py:
 // per-stream EMAs of the output and removed power and the per-bin noise
 // floor, then the output magnitude blended toward the input's), reuse the
 // noisy phase by scaling the complex bins, inverse DFT, window,
-// overlap-add divided by the window envelope, and decay the hidden state.
+// overlap-add divided by the window envelope, and decay the hidden state
+// (prev' = this hop's feature, not decayed).
 //
 // What bounds it on an H100 (gruunet2-stream16k, B = 256 streams): the
 // function needs about 393 MFLOP per hop (plan cell 364 M, mel pair 21 M,
@@ -52,6 +57,15 @@
 // thread less dependent work. At B = 256 on an H100, tile 2 measured best
 // of tiles 1, 2, 4 and 8 (PERF.md); the kernel then pulls about 800 MB per
 // hop from L2.
+//
+// MOMO3-4d4ea0 (48 kHz, n_fft 42, hop 21, 22 raw bins, B = 256): the
+// plan cell's 80,000 multiply-adds a stream per hop (the transforms add
+// 1.1 kFLOP at FFT cost), 41 MFLOP in all, 0.62 us against 67 TFLOP/s;
+// its 0.68 MB of weights and state over 3.35 TB/s are 0.20 us: bound by
+// operations again. Its DFT matrices (42 x 22) and plan (0.33 MB) are
+// small: a hop is a chain of short dependent stages with most of the 512
+// threads idle in each (the widest matmul has 44 column quads), which is
+// left as it is. The real-time budget of one hop is 437.5 us.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +77,7 @@ struct AdtHopState {
   float* ring;       // (B, n_fft) analysis ring
   float* ola;        // (B, n_fft) synthesis accumulator
   float* hx;         // (B, n_hidden) cell state
+  float* prev;       // (B, n_mels) delta plans: the previous hop's feature
   float* nf_smooth;  // (B, n_bins) estimator 'floor': smoothed power
   float* nf_floor;   // (B, n_bins) estimator 'floor': tracked floor
   float* nf_total;   // (B,) estimator 'floor': long power EMA
@@ -97,8 +112,8 @@ struct AdtFusedHopArgs {
   const float* sf;     // (n_fft, n_bins) forward DFT, imaginary part
   const float* ic;     // (n_bins, n_fft) inverse DFT from the real part
   const float* is_;    // (n_bins, n_fft) inverse DFT from the imaginary part
-  const float* mel;    // (n_bins, n_mels)
-  const float* imel;   // (n_mels, n_bins)
+  const float* mel;    // (n_bins, n_mels); null in the raw domain
+  const float* imel;   // (n_mels, n_bins); null in the raw domain
   const float* win;    // (n_fft,)
   const float* env;    // (hop,) overlap-add envelope
   AdtPlan plan;
@@ -107,7 +122,8 @@ struct AdtFusedHopArgs {
   int n_fft;
   int hop;
   int n_bins;
-  int n_mels;
+  int n_mels;          // the model's features: n_bins in the raw domain
+  int raw;             // raw-spectrogram domain: no mel pair
   int hops;            // hops per call (the multi-hop kernel)
   int pcm16;           // chunks and outputs are int16 (the multi-hop kernel)
   float output_gain;
@@ -129,9 +145,9 @@ constexpr float kDbPerNeper = 4.342944819032518f;  // 10 / ln 10
 // activations, the tile's state, then the cell's (plan_cell.cuh), each
 // kTile rows of a leading dimension rounded up to 4 floats.
 struct Layout {
-  int ld_t, ld_f;
+  int ld_t, ld_f, ld_m;
   int frame, re, im, mag, lin;
-  int ring, ola, nfs, nff, sc, red;
+  int ring, ola, prev, nfs, nff, sc, red;
   CellLayout cell;
   int total;
 };
@@ -141,6 +157,7 @@ __host__ __device__ inline void make_layout(const AdtFusedHopArgs& a,
   int off = 0;
   l->ld_t = round4(a.n_fft);
   l->ld_f = round4(a.n_bins);
+  l->ld_m = round4(a.n_mels);
   l->frame = take(&off, kTile, l->ld_t);
   l->re = take(&off, kTile, l->ld_f);
   l->im = take(&off, kTile, l->ld_f);
@@ -148,6 +165,7 @@ __host__ __device__ inline void make_layout(const AdtFusedHopArgs& a,
   l->lin = take(&off, kTile, l->ld_f);
   l->ring = take(&off, kTile, l->ld_t);
   l->ola = take(&off, kTile, l->ld_t);
+  l->prev = a.plan.delta ? take(&off, kTile, l->ld_m) : 0;
   l->nfs = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
   l->nff = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
   l->sc = take(&off, kTile, kScalars);
@@ -193,6 +211,7 @@ __device__ inline void move_state(const AdtFusedHopArgs& a, const Layout& l,
   move(st.ring, n_fft, l.ring, l.ld_t);
   move(st.ola, n_fft, l.ola, l.ld_t);
   move(st.hx, n, l.cell.hx, l.cell.ld_n);
+  if (a.plan.delta) move(st.prev, a.n_mels, l.prev, l.ld_m);
   if (a.gate.floor) {
     move(st.nf_smooth, F, l.nfs, l.ld_f);
     move(st.nf_floor, F, l.nff, l.ld_f);
@@ -285,7 +304,12 @@ __device__ void gate_alphas(const AdtFusedHopArgs& a, const Layout& l,
 }
 
 // One hop of the tile on its state in shared memory: chunk k in, output k
-// out. Kept out of line so both kernels run the same instructions.
+// out. Kept out of line so both kernels run the same instructions; the
+// domain and the delta carry are template parameters, so each
+// configuration runs only its own stages (read at run time, they made
+// the GRUUNet K-hop 2% slower: 128.5 against 125.9 us a hop on an H100,
+// chip_ab.py).
+template <bool kRaw, bool kDelta>
 __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
                                       const Layout& l, float* smem, int k,
                                       int b0, int rows) {
@@ -328,9 +352,26 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   }
   __syncthreads();
 
-  // x = log(1 + mag @ mel), the model's feature and first skip
-  gemm(make_gemm(smem + l.mag, l.ld_f, F, a.mel, M, nullptr, kLog1p,
-                 smem + l.cell.d[0], l.cell.ld_d[0], smem + l.cell.scratch));
+  // x = log(1 + mag @ mel), or log(1 + mag) in the raw domain: the
+  // model's feature, in the cell's input d[0]
+  float* x = smem + l.cell.d[0];
+  const int ldx = l.cell.ld_d[0];
+  if (kRaw) {
+    for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
+      const int s = e / F, f = e % F;
+      x[s * ldx + f] = logf(1.f + smem[l.mag + s * l.ld_f + f]);
+    }
+  } else {
+    gemm(make_gemm(smem + l.mag, l.ld_f, F, a.mel, M, nullptr, kLog1p, x,
+                   ldx, smem + l.cell.scratch));
+  }
+  if (kDelta) {  // prev beside x, after the mel gemm's padding columns
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTile * M; e += blockDim.x) {
+      const int s = e / M, m = e % M;
+      x[s * ldx + M + m] = smem[l.prev + s * l.ld_m + m];
+    }
+  }
   __syncthreads();
 
   float* y = plan_cell(a.plan, l.cell, smem);
@@ -340,22 +381,30 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
     const int o = (e / n) * l.cell.ld_n + e % n;
     smem[l.cell.hx + o] = smem[l.cell.hi + o] * a.state_decay;
   }
-  // residual: y <- max(exp(leaky_relu(x - y, 0.2)) - 1, 0)
+  // residual: max(exp(leaky_relu(x - y, 0.2)) - 1, 0), into y, or in the
+  // raw domain times the gain into lin; prev' = x
+  const int ldy = l.cell.ld_pp;
   for (int e = threadIdx.x; e < kTile * M; e += blockDim.x) {
     const int s = e / M, m = e % M;
-    const int ldy = l.cell.ld_pp;
-    float r = smem[l.cell.d[0] + s * l.cell.ld_d[0] + m] - y[s * ldy + m];
+    const float xv = x[s * ldx + m];
+    float r = xv - y[s * ldy + m];
     r = r >= 0.f ? r : 0.2f * r;
-    y[s * ldy + m] = fmaxf(expf(r) - 1.f, 0.f);
+    const float v = fmaxf(expf(r) - 1.f, 0.f);
+    if (kRaw)
+      smem[l.lin + s * l.ld_f + m] = v * a.output_gain;
+    else
+      y[s * ldy + m] = v;
+    if (kDelta) smem[l.prev + s * l.ld_m + m] = xv;
   }
   __syncthreads();
 
-  // lin = max(feat @ imel, 0) * gain
-  Gemm gl = make_gemm(y, l.cell.ld_pp, M, a.imel, F, nullptr, kLinGain,
-                      smem + l.lin, l.ld_f, smem + l.cell.scratch);
-  gl.gain = a.output_gain;
-  gemm(gl);
-  __syncthreads();
+  if (!kRaw) {  // lin = max(feat @ imel, 0) * gain
+    Gemm gl = make_gemm(y, ldy, M, a.imel, F, nullptr, kLinGain,
+                        smem + l.lin, l.ld_f, smem + l.cell.scratch);
+    gl.gain = a.output_gain;
+    gemm(gl);
+    __syncthreads();
+  }
 
   if (gated) gate_alphas(a, l, smem);
 
@@ -402,6 +451,14 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   __syncthreads();  // the frame buffer is free for the next hop
 }
 
+template <bool kRaw, bool kDelta>
+__device__ __forceinline__ void hops_of(const AdtFusedHopArgs& a,
+                                        const Layout& l, float* smem,
+                                        int hops, int b0, int rows) {
+  for (int k = 0; k < hops; ++k)
+    hop_body<kRaw, kDelta>(a, l, smem, k, b0, rows);
+}
+
 // Loads the tile's state, runs `hops` hops and writes the state back.
 __device__ __forceinline__ void run_hops(const AdtFusedHopArgs& a, int hops) {
   extern __shared__ __align__(16) float smem[];
@@ -411,7 +468,14 @@ __device__ __forceinline__ void run_hops(const AdtFusedHopArgs& a, int hops) {
   const int rows = min(kTile, a.batch - b0);
   move_state(a, l, smem, a.in, b0, rows, true);
   __syncthreads();
-  for (int k = 0; k < hops; ++k) hop_body(a, l, smem, k, b0, rows);
+  if (a.raw && a.plan.delta)
+    hops_of<true, true>(a, l, smem, hops, b0, rows);
+  else if (a.raw)
+    hops_of<true, false>(a, l, smem, hops, b0, rows);
+  else if (a.plan.delta)
+    hops_of<false, true>(a, l, smem, hops, b0, rows);
+  else
+    hops_of<false, false>(a, l, smem, hops, b0, rows);
   move_state(a, l, smem, a.out_state, b0, rows, false);
 }
 
@@ -440,13 +504,16 @@ cudaError_t launch(void (*kernel)(AdtFusedHopArgs), const AdtFusedHopArgs& a,
 
 bool args_ok(const AdtFusedHopArgs& a) {
   const bool state_ok =
+      (!a.plan.delta || (a.in.prev && a.out_state.prev)) &&
       (!a.gate.floor || (a.in.nf_smooth && a.in.nf_floor && a.in.nf_total &&
                          a.out_state.nf_smooth && a.out_state.nf_floor &&
                          a.out_state.nf_total)) &&
       (!a.gate.removed || (a.in.em_out && a.in.em_rem &&
                            a.out_state.em_out && a.out_state.em_rem));
+  const bool domain_ok =
+      a.raw ? a.n_mels == a.n_bins : (a.mel != nullptr && a.imel != nullptr);
   return plan_ok(a.plan, a.n_mels) && a.n_fft % a.hop == 0 && state_ok &&
-         a.hops >= 1;
+         domain_ok && a.hops >= 1;
 }
 
 }  // namespace

@@ -1,7 +1,13 @@
 // The plan cell shared by the port's serving kernels: one step of the
-// matrixized GRUUNet2 cell (ops/pallas/common.py::plan_cell_math in the
-// JAX package; plain PyTorch version ops/kernels/common.py::plan_cell_math)
-// for a tile of kTile streams per block, on one small-GEMM routine.
+// matrixized GRUUNet2 or MOMO cell (ops/pallas/common.py::plan_cell_math
+// in the JAX package; plain PyTorch version
+// ops/kernels/common.py::plan_cell_math) for a tile of kTile streams per
+// block, on one small-GEMM routine. A delta (MOMO3) plan's level 0 reads
+// cat(x, prev): the callers stage the previous feature beside x in d[0],
+// which is then 2 n_feat wide, and level 0 is one matmul of depth
+// 2 n_feat over W0's rows in their natural order, so the weight ring
+// streams W0 as it streams any matrix (JAX splits the product as
+// x @ W0[:F] + prev @ W0[F:]; the sums agree to fp32 round-off).
 //
 // Included by fused_hop.cu, webrtc_hop.cu and (through weight_ring.cuh)
 // fused_cell.cu, each a separate shared library: everything here has
@@ -44,10 +50,11 @@ struct AdtPlan {
   const float* up_w[ADT_MAX_LEVELS];    // (up_n[i], up_n[i+1])
   const float* up_s[ADT_MAX_LEVELS];    // (down_n[levels-i], up_n[i+1]) or null
   const float* up_b[ADT_MAX_LEVELS];
-  int down_n[ADT_MAX_LEVELS + 1];       // [n_mels, level widths..., 3 n_hidden]
-  int up_n[ADT_MAX_LEVELS + 1];         // [n_hidden, level widths..., n_mels]
+  int down_n[ADT_MAX_LEVELS + 1];       // [n_in, level widths..., 3 n_hidden]
+  int up_n[ADT_MAX_LEVELS + 1];         // [n_hidden, level widths..., n_feat]
   int levels;
   int n_hidden;
+  int delta;  // MOMO3: n_in = 2 n_feat, level 0 reads cat(x, prev)
 };
 
 namespace {
@@ -91,14 +98,16 @@ __host__ __device__ inline int take(int* off, int rows, int ld) {
 struct CellLayout {
   int ld_n, ld_pp;
   int ld_d[ADT_MAX_LEVELS + 1];
-  int d[ADT_MAX_LEVELS + 1];  // d[0] is the cell's input x
+  int d[ADT_MAX_LEVELS + 1];  // d[0] is the cell's input: x, or x | prev
   int gh, hx, hi, pp0, pp1, scratch;
 };
 
-__host__ __device__ inline bool plan_ok(const AdtPlan& p, int n_mels) {
+// n_feat: the features x and y carry (mel bins, or raw bins).
+__host__ __device__ inline bool plan_ok(const AdtPlan& p, int n_feat) {
   return p.levels >= 1 && p.levels <= ADT_MAX_LEVELS &&
-         p.down_n[0] == n_mels && p.down_n[p.levels] == 3 * p.n_hidden &&
-         p.up_n[0] == p.n_hidden && p.up_n[p.levels] == n_mels;
+         p.down_n[0] == (p.delta ? 2 : 1) * n_feat &&
+         p.down_n[p.levels] == 3 * p.n_hidden && p.up_n[0] == p.n_hidden &&
+         p.up_n[p.levels] == n_feat;
 }
 
 // Lays the cell's buffers out from *off on and advances it.
@@ -325,11 +334,11 @@ struct L2Weights {
   }
 };
 
-// One cell step on the threads `t`: reads x = smem d[0] and hx, leaves hi
-// in smem and returns the buffer holding y (width n_mels, leading
-// dimension ld_pp). `w` runs the matmuls in the order weight_ring.cuh's
-// slab schedule lists them: down_w[0], reset_w, down_w[1..L-1], then
-// up_w[i] and up_s[i] per decoder level.
+// One cell step on the threads `t`: reads x (and prev) = smem d[0] and
+// hx, leaves hi in smem and returns the buffer holding y (width n_feat,
+// leading dimension ld_pp). `w` runs the matmuls in the order
+// weight_ring.cuh's slab schedule lists them: down_w[0], reset_w,
+// down_w[1..L-1], then up_w[i] and up_s[i] per decoder level.
 template <class Weights>
 __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
                             float* smem, const Lanes& t, Weights& w) {

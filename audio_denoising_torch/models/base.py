@@ -1,8 +1,11 @@
-"""Shared model building blocks (host-side constants)."""
+"""Shared model building blocks (host-side constants, checkpoint
+loading)."""
 
-from typing import List, Sequence
+from typing import List, Mapping, Sequence
 
 import numpy as np
+import torch
+from torch import nn
 
 
 def gaussian_smearing(num_bins: int, num_gaussians: int = 6,
@@ -29,3 +32,19 @@ def down_bin_sizes(num_bins: int, kernels: Sequence[int],
     for k, s, p in zip(kernels, strides, paddings):
         sizes.append(conv_out_len(sizes[-1], k, s, p))
     return sizes
+
+
+def load_reference_params(module: nn.Module,
+                          params: Mapping[str, torch.Tensor],
+                          num_gaussians: int) -> nn.Module:
+    """Load a reference state dict into ``module``. Its GaussianSmearing
+    offsets (``*.gs.offset``) are checked against the constants the port
+    computes and not loaded; every other key must match exactly."""
+    params = dict(params)
+    want = np.linspace(0.0, 1.0, num_gaussians)
+    for k in [k for k in params if k.endswith(".gs.offset")]:
+        got = np.asarray(params.pop(k), dtype=np.float64)
+        if got.shape != want.shape or not np.allclose(got, want, atol=1e-6):
+            raise ValueError(f"{k} holds offsets {got}, expected {want}")
+    module.load_state_dict(params, strict=True)
+    return module

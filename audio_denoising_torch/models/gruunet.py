@@ -12,7 +12,6 @@ dict). Parameter names are the reference's state-dict keys, so the
 
 from typing import Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -141,18 +140,9 @@ class GRUUNet2(nn.Module):
         self.cell = GRUUNet2Cell(config, num_bins)
 
     def load_params(self, params: Mapping[str, torch.Tensor]) -> "GRUUNet2":
-        """Load a reference state dict. Its GaussianSmearing offsets
-        (``*.gs.offset``) are checked against the constants this module
-        computes and not loaded; every other key must match exactly."""
-        params = dict(params)
-        want = np.linspace(0.0, 1.0, self.config.num_gaussians)
-        for k in [k for k in params if k.endswith(".gs.offset")]:
-            got = np.asarray(params.pop(k), dtype=np.float64)
-            if got.shape != want.shape or not np.allclose(got, want,
-                                                          atol=1e-6):
-                raise ValueError(f"{k} holds offsets {got}, expected {want}")
-        self.load_state_dict(params, strict=True)
-        return self
+        """Load a reference state dict (``base.load_reference_params``)."""
+        return base.load_reference_params(self, params,
+                                          self.config.num_gaussians)
 
     def init_state(self, batch: int, dtype=torch.float32,
                    device=None) -> torch.Tensor:

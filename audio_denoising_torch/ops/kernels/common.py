@@ -1,5 +1,5 @@
 """The plan cell shared by the serving kernels (JAX counterpart
-ops/pallas/common.py:22-160, fp32 branch).
+ops/pallas/common.py:22-160, fp32 branch, with the delta level 0).
 
 ``pack_plan_weights`` flattens a CellPlan into the fixed operand order the
 kernels walk; ``plan_cell_math`` is the plain PyTorch version of the cell
@@ -8,7 +8,7 @@ routine; ``plan_args`` fills that header's ``AdtPlan`` for a launch.
 """
 
 import ctypes
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,7 +25,8 @@ class PlanArgs(ctypes.Structure):
                 ("up_b", ctypes.c_void_p * MAX_LEVELS),
                 ("down_n", ctypes.c_int * (MAX_LEVELS + 1)),
                 ("up_n", ctypes.c_int * (MAX_LEVELS + 1)),
-                ("levels", ctypes.c_int), ("n_hidden", ctypes.c_int)]
+                ("levels", ctypes.c_int), ("n_hidden", ctypes.c_int),
+                ("delta", ctypes.c_int)]
 
 
 def kernel_operand(t: torch.Tensor, keep: List[torch.Tensor],
@@ -45,15 +46,16 @@ def kernel_operand(t: torch.Tensor, keep: List[torch.Tensor],
 
 
 def plan_args(weights: Sequence[torch.Tensor], skip_flags: Sequence[bool],
-              n_mels: int, n_hidden: int, keep: List[torch.Tensor]
-              ) -> PlanArgs:
-    """``AdtPlan`` for weights in pack_plan_weights order (on the card)."""
+              n_feat: int, n_hidden: int, keep: List[torch.Tensor],
+              delta: bool = False) -> PlanArgs:
+    """``AdtPlan`` for weights in pack_plan_weights order (on the card);
+    a delta plan's level 0 reads 2 ``n_feat`` columns, cat(x, prev)."""
     levels = len(skip_flags)
     if levels > MAX_LEVELS:
         raise ValueError(f"the kernels take at most {MAX_LEVELS} levels")
     p = PlanArgs()
     it = iter(weights)
-    down_n, up_n = [n_mels], [n_hidden]
+    down_n, up_n = [(2 if delta else 1) * n_feat], [n_hidden]
     for i in range(levels):
         m = next(it)
         down_n.append(m.shape[1])
@@ -71,15 +73,30 @@ def plan_args(weights: Sequence[torch.Tensor], skip_flags: Sequence[bool],
         p.down_n[i] = v
     for i, v in enumerate(up_n):
         p.up_n[i] = v
-    p.levels, p.n_hidden = levels, n_hidden
+    p.levels, p.n_hidden, p.delta = levels, n_hidden, int(delta)
     return p
+
+
+def check_plan(plan, n_feat: int) -> None:
+    """Raises unless ``plan`` maps ``n_feat`` features to ``n_feat``: level
+    0 takes n_feat rows, 2 n_feat (cat(x, prev)) for a delta plan."""
+    rows = plan.down_mats[0].shape[0]
+    want = (2 if plan.delta else 1) * n_feat
+    if rows != want or plan.up_h_mats[-1].shape[1] != n_feat:
+        kind = "delta " if plan.delta else ""
+        raise ValueError(
+            f"a {kind}plan for {n_feat} features needs {want} level-0 rows "
+            f"and {n_feat} outputs; this one has {rows} and "
+            f"{plan.up_h_mats[-1].shape[1]}")
+    if len(plan.down_mats) > MAX_LEVELS:
+        raise ValueError(f"the kernels take at most {MAX_LEVELS} levels")
 
 
 def pack_plan_weights(plan) -> Tuple[List[torch.Tensor], List[bool]]:
     """Operand order: down (mat, bias) per level, reset (mat, bias), then
-    up (mat, bias[, skip_mat]) per level; plus the per-level skip flags."""
-    if plan.delta:
-        raise NotImplementedError("delta (MOMO3) plans are a later slice")
+    up (mat, bias[, skip_mat]) per level; plus the per-level skip flags.
+    A delta plan's level-0 matrix keeps its 2F rows in order: x's, then
+    prev's."""
     weights: List[torch.Tensor] = []
     for m, b in zip(plan.down_mats, plan.down_biases):
         weights += [m, b]
@@ -105,16 +122,20 @@ def dense_gemm(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
 
 def plan_cell_math(w: Sequence[torch.Tensor], skip_flags: Sequence[bool],
                    n: int, x: torch.Tensor, hx: torch.Tensor,
-                   gemm: Callable = dense_gemm
+                   gemm: Callable = dense_gemm,
+                   prev: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One cell step. ``w``: pack_plan_weights order; ``x``: (B, feat);
-    ``hx``: (B, n). Returns (y (B, feat), hi (B, n)); the caller applies
-    the state decay. ``gemm(pairs, bias)`` computes each matmul from its
-    (activation, matrix) pairs; weight_ring.ring_gemm adds as the
-    kernel's consumers do."""
+    ``hx``: (B, n); ``prev``: (B, feat), the previous feature, for a delta
+    plan. Returns (y (B, feat), hi (B, n)); the caller applies the state
+    decay and carries prev' = x. ``gemm(pairs, bias)`` computes each
+    matmul from its (activation, matrix) pairs; weight_ring.ring_gemm
+    adds as the kernel's consumers do. A delta plan's level 0 is one
+    matmul over cat(x, prev), as the kernels stage it (JAX splits it into
+    x @ W0[:feat] + prev @ W0[feat:])."""
     L = len(skip_flags)
     it = iter(w)
-    h = x
+    h = x if prev is None else torch.cat([x, prev], dim=-1)
     skips = [h]
     for _ in range(L):
         m, b = next(it), next(it)

@@ -2,9 +2,12 @@
 ops/pallas/gruunet_cell.py, ``make_fused_cell.kernel`` at :58).
 
 ``make_fused_cell(plan, device)`` returns a ``FusedCell``: calling it runs
-one cell step for a batch of streams, ``cell(x (B, F), hx (B, H)) ->
-(y (B, F), hx' (B, H))``, with hx' before the state decay (the caller
-applies it, as ``PlanModel.decay_carry`` does). For CPU tensors it runs
+one cell step for a batch of streams, ``cell(x (B, F), hx (B, H)[, prev
+(B, F)]) -> (y (B, F), hx' (B, H))``, with hx' before the state decay
+(the caller applies it, as ``PlanModel.decay_carry`` does). A delta
+(MOMO3) plan takes the previous frame ``prev`` (JAX ``gruunet_cell.py``
+:60-83): the kernel stages it beside x in shared memory and runs level 0
+as one matmul over cat(x, prev). For CPU tensors it runs
 ``reference``, the plain PyTorch version (``plan_cell_math``); for CUDA
 tensors it launches the hand-written kernel in ``csrc/fused_cell.cu`` or
 raises. The kernel takes the plan's matrices through a weight ring in
@@ -13,8 +16,7 @@ wrapper computes its slab schedule once (``ops/kernels/weight_ring.py``).
 ``launches`` counts kernel launches.
 
 The JAX wrapper pads B to a multiple of its 128-row tile; the kernel
-masks its ragged last tile instead, so nothing is padded here. Delta
-(MOMO3) plans raise NotImplementedError.
+masks its ragged last tile instead, so nothing is padded here.
 """
 
 import ctypes
@@ -24,14 +26,15 @@ import torch
 
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.kernels.common import (
-    MAX_LEVELS, PlanArgs, pack_plan_weights, plan_args, plan_cell_math)
+    PlanArgs, check_plan, pack_plan_weights, plan_args, plan_cell_math)
 from audio_denoising_torch.ops.kernels.weight_ring import (
     RingArgs, WeightRing, cell_layout_floats, cell_matrices)
 
 
 class _Args(ctypes.Structure):
     """Field-for-field mirror of AdtFusedCellArgs in csrc/fused_cell.cu."""
-    _fields_ = ([(f, ctypes.c_void_p) for f in ("x", "hx", "y", "hx_out")]
+    _fields_ = ([(f, ctypes.c_void_p)
+                 for f in ("x", "hx", "prev", "y", "hx_out")]
                 + [("plan", PlanArgs), ("ring", RingArgs)]
                 + [(f, ctypes.c_int) for f in ("batch", "n_feat")])
 
@@ -43,7 +46,8 @@ class FusedCell:
     def __init__(self, plan, device: torch.device):
         self.device = device
         self.n = plan.hidden * plan.compressed
-        self.n_feat = plan.down_mats[0].shape[0]
+        self.n_feat = plan.up_h_mats[-1].shape[1]
+        self.delta = plan.delta
         self.launches = 0
         self.ring = None   # the WeightRing, on the card
         plan = plan.to(device=device, dtype=torch.float32)
@@ -76,35 +80,47 @@ class FusedCell:
         self._base_args = _Args()
         self._base_args.plan = plan_args(
             self.weights, self.skip_flags, self.n_feat, self.n,
-            self._kernel_tensors)
+            self._kernel_tensors, self.delta)
         self._base_args.n_feat = self.n_feat
         self._check_shared_memory()
 
     # -- the plain PyTorch version ------------------------------------------
-    def reference(self, x: torch.Tensor, hx: torch.Tensor
+    def reference(self, x: torch.Tensor, hx: torch.Tensor,
+                  prev: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return plan_cell_math(self.weights, self.skip_flags, self.n, x, hx)
+        return plan_cell_math(self.weights, self.skip_flags, self.n, x, hx,
+                              prev=prev)
 
     # -- the wrapper ----------------------------------------------------------
-    def __call__(self, x: torch.Tensor, hx: torch.Tensor
+    def __call__(self, x: torch.Tensor, hx: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        self._check(x, hx)
+        self._check(x, hx, prev)
         if x.device.type == "cpu":
-            return self.reference(x, hx)
-        return self._launch(x, hx)
+            return self.reference(x, hx, prev)
+        return self._launch(x, hx, prev)
 
-    def _check(self, x: torch.Tensor, hx: torch.Tensor) -> None:
+    def _check(self, x: torch.Tensor, hx: torch.Tensor,
+               prev: Optional[torch.Tensor]) -> None:
         if x.dim() != 2 or x.shape[1] != self.n_feat:
             raise ValueError(f"x must be (B, {self.n_feat}), got "
                              f"{tuple(x.shape)}")
         if tuple(hx.shape) != (x.shape[0], self.n):
             raise ValueError(f"hx must be ({x.shape[0]}, {self.n}), got "
                              f"{tuple(hx.shape)}")
-        for name, t in (("x", x), ("hx", hx)):
+        if (prev is None) == self.delta:
+            raise ValueError("a delta (MOMO3) plan takes prev, any other "
+                             "plan does not")
+        if prev is not None and prev.shape != x.shape:
+            raise ValueError(f"prev must be {tuple(x.shape)}, got "
+                             f"{tuple(prev.shape)}")
+        for name, t in (("x", x), ("hx", hx), ("prev", prev)):
+            if t is None:
+                continue
             if t.dtype != torch.float32:
                 raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if hx.device != x.device:
-            raise ValueError(f"hx is on {hx.device}, x on {x.device}")
+            if t.device != x.device:
+                raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if x.device.type != self.device.type:
             raise ValueError(f"this cell was built for {self.device}; got "
                              f"tensors on {x.device}")
@@ -137,7 +153,8 @@ class FusedCell:
         return int(self._lib.adt_fused_cell_max_clusters(
             ctypes.byref(self._base_args), blocks))
 
-    def _launch(self, x: torch.Tensor, hx: torch.Tensor
+    def _launch(self, x: torch.Tensor, hx: torch.Tensor,
+                prev: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x, hx = x.contiguous(), hx.contiguous()
         y = torch.empty_like(x)
@@ -145,6 +162,9 @@ class FusedCell:
         a = _Args.from_buffer_copy(self._base_args)
         a.batch = x.shape[0]
         a.x, a.hx, a.y, a.hx_out = (t.data_ptr() for t in (x, hx, y, hx_out))
+        if self.delta:
+            prev = prev.contiguous()
+            a.prev = prev.data_ptr()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = self._lib.adt_fused_cell(ctypes.byref(a), stream)
         if err != 0:
@@ -156,10 +176,5 @@ class FusedCell:
 def make_fused_cell(plan, device: Optional[Union[str, torch.device]] = None
                     ) -> FusedCell:
     """One-kernel cell step on ``device`` (the card unless ``"cpu"``)."""
-    if plan.delta:
-        raise NotImplementedError(
-            "the fused cell's delta (MOMO3) branch is not ported yet "
-            "(ROADMAP A4)")
-    if len(plan.down_mats) > MAX_LEVELS:
-        raise ValueError(f"the kernel takes at most {MAX_LEVELS} levels")
+    check_plan(plan, plan.up_h_mats[-1].shape[1])
     return FusedCell(plan, resolve_device(device))

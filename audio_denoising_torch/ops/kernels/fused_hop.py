@@ -15,6 +15,12 @@ version that follows ``_hop_math``, fused_hop.py:256-371, with the same
 int16 conversion); for CUDA tensors it launches the hand-written kernels
 in ``csrc/fused_hop.cu`` or raises. ``launches`` counts kernel launches.
 
+The model's feature is log(1 + mag @ mel) in the mel domain and log(1 +
+mag) in the raw-spectrogram domain (MOMO3's, no mel pair; JAX
+fused_hop.py:164-168). A delta (MOMO3) plan carries the previous hop's
+feature as the state plane ``prev`` (B, feat): the cell's level 0 reads
+cat(x, prev), and prev' = x.
+
 The hop carries the SNR gate (``serving.snr_gate_db``; ops/noisefloor.py)
 on extra state planes: estimator 'removed' two per-stream EMAs, 'floor'
 the per-bin smoothed power and floor and a per-stream EMA, 'both' all
@@ -24,9 +30,8 @@ as (B, 128) broadcasts of the TPU's lane width.
 The port does not take JAX's ``hops_per_step`` (hops unrolled per grid
 step: its outputs are bit-identical, and the Hopper kernel has no grid
 step along K) or ``block_b`` (the kernel's tile of 2 streams is fixed and
-its ragged last tile masked, so B is not padded). Delta (MOMO3) plans and
-the raw domain (ROADMAP B3, A4) and bf16/int8 compute (B4) raise
-NotImplementedError.
+its ragged last tile masked, so B is not padded). bf16/int8 compute
+(ROADMAP B4) raises NotImplementedError.
 """
 
 import ctypes
@@ -38,7 +43,7 @@ import torch
 from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.kernels.common import (
-    MAX_LEVELS, PlanArgs, kernel_operand, pack_plan_weights, plan_args,
+    PlanArgs, check_plan, kernel_operand, pack_plan_weights, plan_args,
     plan_cell_math)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.noisefloor import (
@@ -54,6 +59,7 @@ class FusedHopState(NamedTuple):
     ring: torch.Tensor   # (B, n_fft) analysis window
     ola: torch.Tensor    # (B, n_fft) synthesis accumulator
     hx: torch.Tensor     # (B, hidden*compressed) cell state
+    prev: Optional[torch.Tensor] = None        # (B, feat) delta plans
     # the SNR gate's planes, present only when serving.snr_gate_db is set
     nf_smooth: Optional[torch.Tensor] = None   # (B, F) estimator 'floor'
     nf_floor: Optional[torch.Tensor] = None    # (B, F) estimator 'floor'
@@ -62,12 +68,19 @@ class FusedHopState(NamedTuple):
     em_rem: Optional[torch.Tensor] = None      # (B, 1) estimator 'removed'
 
 
+def _feat_width(cfg: Config) -> int:
+    """The model's feature width: mel bins, or raw bins (n_stft)."""
+    return cfg.dsp.n_stft if cfg.dsp.domain == "raw" else cfg.dsp.n_mels
+
+
 def _plane_widths(cfg: Config, plan) -> dict:
     """Width of each state plane ``cfg`` carries, in FusedHopState order."""
     removed, floor = gate_planes(cfg.serving)
     n_fft, F = cfg.dsp.n_fft, cfg.dsp.n_stft
     widths = {"ring": n_fft, "ola": n_fft,
               "hx": plan.hidden * plan.compressed}
+    if plan.delta:
+        widths["prev"] = _feat_width(cfg)
     if floor:
         widths.update(nf_smooth=F, nf_floor=F, nf_total=1)
     if removed:
@@ -78,7 +91,8 @@ def _plane_widths(cfg: Config, plan) -> dict:
 def fused_hop_init_state(cfg: Config, plan, batch: int,
                          device: Union[str, torch.device] = "cpu"
                          ) -> FusedHopState:
-    """Zeros: a zero gate plane latches to the first hop's value."""
+    """Zeros: a zero gate plane latches to the first hop's value, and a
+    delta plan's prev starts at zeros, as the analysis ring does."""
     return FusedHopState(**{
         name: torch.zeros((batch, w), dtype=torch.float32, device=device)
         for name, w in _plane_widths(cfg, plan).items()})
@@ -121,24 +135,21 @@ class _Args(ctypes.Structure):
             "env")]
         + [("plan", PlanArgs), ("gate", _GateArgs)]
         + [(f, ctypes.c_int) for f in (
-            "batch", "n_fft", "hop", "n_bins", "n_mels", "hops", "pcm16")]
+            "batch", "n_fft", "hop", "n_bins", "n_mels", "raw", "hops",
+            "pcm16")]
         + [("output_gain", ctypes.c_float), ("state_decay", ctypes.c_float)])
 
 
 def _check_supported(cfg: Config, plan, hops_per_call: int, io_dtype,
                      compute_dtype) -> None:
     dsp = cfg.dsp
-    later = []
-    if plan.delta:
-        later.append("delta (MOMO3) plans (ROADMAP B3, A4)")
     if compute_dtype != torch.float32:
-        later.append(f"compute dtype {compute_dtype} (ROADMAP B4)")
-    if dsp.domain == "raw":
-        later.append("the raw-spectrogram domain (ROADMAP B3, A4)")
-    if later:
         raise NotImplementedError(
-            "the port's fused hop does not implement " + ", ".join(later)
-            + " yet")
+            f"the port's fused hop does not implement compute dtype "
+            f"{compute_dtype} (ROADMAP B4) yet")
+    if dsp.domain == "raw" and dsp.n_mels != dsp.n_stft:
+        raise ValueError("raw domain: n_mels must equal n_stft (feature "
+                         "width)")
     if io_dtype not in (torch.float32, torch.int16):
         raise ValueError(f"io_dtype must be float32 or int16, got {io_dtype}")
     if hops_per_call < 1:
@@ -146,8 +157,7 @@ def _check_supported(cfg: Config, plan, hops_per_call: int, io_dtype,
     if dsp.n_fft % dsp.hop_length or dsp.n_fft % 2:
         raise ValueError("the fused hop needs an even n_fft that the hop "
                          "divides (WOLA)")
-    if len(plan.down_mats) > MAX_LEVELS:
-        raise ValueError(f"the kernel takes at most {MAX_LEVELS} levels")
+    check_plan(plan, _feat_width(cfg))
     gate_planes(cfg.serving)   # raises on an unknown estimator
 
 
@@ -162,7 +172,9 @@ class FusedHop:
         self.hops_per_call = hops_per_call
         self.io_dtype = io_dtype
         self.n_fft, self.hop = dsp.n_fft, dsp.hop_length
-        self.F, self.M = dsp.n_stft, dsp.n_mels
+        self.raw = dsp.domain == "raw"
+        self.F, self.M = dsp.n_stft, _feat_width(cfg)
+        self.delta = plan.delta
         self.n = plan.hidden * plan.compressed
         self.output_gain = float(srv.output_gain)
         self.state_decay = float(srv.state_decay)
@@ -175,9 +187,12 @@ class FusedHop:
         f32 = lambda a: torch.as_tensor(
             np.ascontiguousarray(a), dtype=torch.float32).to(device)
         self.cf, self.sf, self.ic, self.is_ = map(f32, (CF, SF, IC, IS))
-        self.mel = mel_filterbank(self.F, self.M, dsp.sample_rate).to(device)
-        self.imel = inverse_mel_matrix(
-            self.F, self.M, dsp.sample_rate).T.contiguous().to(device)
+        self.mel = self.imel = None    # the raw domain has no mel pair
+        if not self.raw:
+            self.mel = mel_filterbank(self.F, self.M,
+                                      dsp.sample_rate).to(device)
+            self.imel = inverse_mel_matrix(
+                self.F, self.M, dsp.sample_rate).T.contiguous().to(device)
         self.win = f32(win)
         self.env = f32(wola_envelope(win, self.n_fft, self.hop))
         plan = plan.to(device=device, dtype=torch.float32)
@@ -235,18 +250,24 @@ class FusedHop:
         re = frame @ self.cf
         im = frame @ self.sf
         mag = torch.sqrt(re * re + im * im)
-        x = torch.log(1.0 + mag @ self.mel)
+        x = torch.log(1.0 + (mag if self.raw else mag @ self.mel))
         h, hi = plan_cell_math(self.weights, self.skip_flags, self.n, x,
-                               state.hx)
+                               state.hx, prev=state.prev)
         rec = x - h
         rec = torch.where(rec >= 0, rec, 0.2 * rec)
         feat_mag = torch.clamp(torch.exp(rec) - 1.0, min=0.0)
-        # the mel pseudo-inverse projects some bins negative: clamp, as
-        # inverse_mel_scale does, or they resynthesize with inverted phase
-        lin = torch.clamp(feat_mag @ self.imel, min=0.0) * self.output_gain
-        planes = {}
+        if self.raw:
+            lin = feat_mag * self.output_gain
+        else:
+            # the mel pseudo-inverse projects some bins negative: clamp, as
+            # inverse_mel_scale does, or they resynthesize with inverted
+            # phase
+            lin = torch.clamp(feat_mag @ self.imel, min=0.0) * \
+                self.output_gain
+        planes = {"prev": x} if self.delta else {}
         if self.gated:
-            planes, lin = self._gate(state, mag, lin)
+            estimated, lin = self._gate(state, mag, lin)
+            planes.update(estimated)
         # phase reuse as complex scaling; at mag ~ 0 the bin is lin + 0j
         safe = mag > 1e-8
         scale = lin / torch.where(safe, mag, torch.ones_like(mag))
@@ -351,7 +372,8 @@ class FusedHop:
                 raise ValueError(
                     f"state plane {name} is "
                     f"{'missing' if t is None else 'not carried by this hop'}"
-                    f" (the SNR gate's configuration decides the planes)")
+                    f" (the plan's delta carry and the SNR gate's "
+                    f"configuration decide the planes)")
             if t is None:
                 continue
             if t.dtype != torch.float32:
@@ -370,12 +392,14 @@ class FusedHop:
         self._kernel_tensors: List[torch.Tensor] = []
         a = _Args()
         for name in ("cf", "sf", "ic", "is_", "mel", "imel", "win", "env"):
-            setattr(a, name, kernel_operand(getattr(self, name),
-                                            self._kernel_tensors))
+            t = getattr(self, name)
+            if t is not None:
+                setattr(a, name, kernel_operand(t, self._kernel_tensors))
         a.plan = plan_args(self.weights, self.skip_flags, self.M, self.n,
-                           self._kernel_tensors)
+                           self._kernel_tensors, self.delta)
         a.n_fft, a.hop, a.n_bins, a.n_mels = self.n_fft, self.hop, self.F, \
             self.M
+        a.raw = int(self.raw)
         a.hops = self.hops_per_call
         a.pcm16 = int(self.hops_per_call > 1
                       and self.io_dtype == torch.int16)

@@ -4,8 +4,9 @@
 Modes of the port:
 
 - ``fast``         — the phase-reuse hop op by op (``make_fast_step``):
-                     one windowed rfft, mel log1p, one model cell, inverse
-                     mel, noisy-phase resynthesis, WOLA;
+                     one windowed rfft, mel log1p (raw log1p in the raw
+                     domain), one model cell, inverse mel, noisy-phase
+                     resynthesis, WOLA;
 - ``fused``        — the phase-reuse hop as one kernel launch per tick
                      (ops/kernels/fused_hop.py);
 - ``webrtc``       — the reference's Griffin-Lim WebRTC hop op by op
@@ -18,7 +19,9 @@ Every tick advances all slots and commits state only for the slots that
 received a chunk. Per-stream state lives at a slot index of batched
 device tensors; slots are admitted and evicted by index, and inactive
 slots compute on zeros. Where the JAX engine downgrades a mode that
-cannot serve a config, the port raises.
+cannot serve a config, the port raises. Modes ``fast`` and ``fused``
+serve the GRUUNet and MOMO families (MOMO v1 in mode ``fast`` only, as
+it has no plan); the webrtc modes GRUUNet2.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple, Union
@@ -45,13 +48,16 @@ from audio_denoising_torch.runtime.plan import build_cell_plan
 
 class FastState(NamedTuple):
     """JAX counterpart engine.py:34, without the lookahead planes (not
-    ported). The SNR-gate planes are present only when
+    ported). JAX keeps a MOMO3 carry (hx, prev) as a tuple in ``hx``; here
+    prev is a plane of its own, so slot resets and masked commits walk
+    named tensors. The SNR-gate planes are present only when
     ``serving.snr_gate_db`` is set: estimator 'floor' carries the nf_*
     planes, 'removed' the em_* EMAs, 'both' all five."""
     ring: torch.Tensor   # (B, n_fft) analysis window
     ola: torch.Tensor    # (B, n_fft) synthesis accumulator
-    hx: torch.Tensor     # the model's carry: (B, hidden, comp) for the zoo
+    hx: torch.Tensor     # the model's state: (B, hidden, comp) for the zoo
                          # model, (B, hidden*comp) for a PlanModel
+    prev: Optional[torch.Tensor] = None        # (B, F) MOMO3's prev frame
     nf_smooth: Optional[torch.Tensor] = None   # (B, F)
     nf_floor: Optional[torch.Tensor] = None    # (B, F)
     nf_total: Optional[torch.Tensor] = None    # (B,) long power EMA
@@ -66,10 +72,9 @@ def _check_fast_supported(cfg: Config) -> None:
             "the fast step's lookahead delay rings "
             "(ModelConfig.lookahead_frames > 0) are not ported yet "
             "(ROADMAP A10)")
-    if cfg.dsp.domain == "raw":
-        raise NotImplementedError(
-            "the fast step's raw-spectrogram domain is not ported yet "
-            "(ROADMAP A4)")
+    if cfg.dsp.domain == "raw" and cfg.dsp.n_mels != cfg.dsp.n_stft:
+        raise ValueError("raw domain: n_mels must equal n_stft (feature "
+                         "width)")
     if cfg.serving.dtype == "int8":
         raise NotImplementedError(
             "int8 serving in mode 'fast' (the quantized PlanModel) is not "
@@ -83,11 +88,17 @@ def fast_init_state(cfg: Config, model, batch: int,
     _check_fast_supported(cfg)
     n_fft = cfg.dsp.n_fft
     init = getattr(model, "init_carry", None) or model.init_state
+    hx, prev = _split_carry(init(batch, device=device))
     return FastState(
         ring=torch.zeros((batch, n_fft), device=device),
         ola=torch.zeros((batch, n_fft), device=device),
-        hx=init(batch, device=device),
+        hx=hx, prev=prev,
         **gate_state(cfg.serving, batch, cfg.dsp.n_stft, device))
+
+
+def _split_carry(carry):
+    """A model's carry as (hx, prev): prev None unless it carries one."""
+    return carry if isinstance(carry, tuple) else (carry, None)
 
 
 def make_snr_gate(cfg: Config):
@@ -114,12 +125,15 @@ def make_fast_step(cfg: Config, model,
                    device: Optional[Union[str, torch.device]] = None):
     """Build ``step(state, chunk (B, hop)) -> (state', out (B, hop))`` on
     ``device`` (the card unless ``"cpu"``; JAX counterpart
-    engine.py:95-228, no lookahead, mel domain).
+    engine.py:95-228, no lookahead).
 
-    Per hop: one windowed rfft (no center padding), mel log1p, one model
-    cell on the carried state, leaky-ReLU 0.2 of the residual, expm1,
-    inverse mel, the output gain, the state decay (the model's
-    ``decay_carry`` where it has one), noisy-phase resynthesis and WOLA
+    Per hop: one windowed rfft (no center padding), mel log1p (in the raw
+    domain log1p of the magnitude at n_stft bins, no mel pair), one model
+    cell on the carried state (MOMO3's full carry (hx, prev): ``apply``
+    would restart the delta every hop), leaky-ReLU 0.2 of the residual,
+    expm1, inverse mel (none in the raw domain), the output gain, the
+    state decay (the model's ``decay_carry`` where it has one: hx only),
+    noisy-phase resynthesis and WOLA
     divided by the window envelope; with ``serving.snr_gate_db`` set,
     the SNR gate (``make_snr_gate``) blends the output magnitude toward
     the input's before resynthesis. ``model`` is a zoo model or a
@@ -129,9 +143,12 @@ def make_fast_step(cfg: Config, model,
     device = resolve_device(device)
     model = serving_model(model, device)
     n_fft, hop = dsp.n_fft, dsp.hop_length
-    fb = mel_filterbank(dsp.n_stft, dsp.n_mels, dsp.sample_rate).to(device)
-    inv = inverse_mel_matrix(dsp.n_stft, dsp.n_mels,
-                             dsp.sample_rate).to(device)
+    raw = dsp.domain == "raw"
+    if not raw:
+        fb = mel_filterbank(dsp.n_stft, dsp.n_mels,
+                            dsp.sample_rate).to(device)
+        inv = inverse_mel_matrix(dsp.n_stft, dsp.n_mels,
+                                 dsp.sample_rate).to(device)
     win = hann_window(n_fft).to(device)
     env_hop = torch.from_numpy(wola_envelope(
         hann_window(n_fft, dtype=torch.float64).numpy(), n_fft, hop)
@@ -144,13 +161,21 @@ def make_fast_step(cfg: Config, model,
         ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
         spec = torch.fft.rfft(ring * win, n=n_fft, dim=-1)    # (B, F)
         mag = spec.abs()
-        x_t = torch.log1p(mel_scale(mag[..., None], fb))[..., 0]
+        if raw:
+            x_t = torch.log1p(mag)
+        else:
+            x_t = torch.log1p(mel_scale(mag[..., None], fb))[..., 0]
+        carry = state.hx if state.prev is None else (state.hx, state.prev)
         with torch.no_grad(), fp32_convs():
-            resid, hx = model.cell(x_t, state.hx)
+            resid, carry = model.cell(x_t, carry)
         rec = torch.nn.functional.leaky_relu(x_t - resid, 0.2)
-        mel_mag = torch.clamp(torch.expm1(rec), min=0.0)[..., None]
-        lin = inverse_mel_scale(mel_mag, inv)[..., 0] * srv.output_gain
-        hx = decay(hx, srv.state_decay)
+        feat_mag = torch.clamp(torch.expm1(rec), min=0.0)
+        if raw:
+            lin = feat_mag * srv.output_gain
+        else:
+            lin = inverse_mel_scale(feat_mag[..., None], inv)[..., 0] * \
+                srv.output_gain
+        hx, prev = _split_carry(decay(carry, srv.state_decay))
         planes = {}
         if gate is not None:
             planes, lin = gate(state, mag, lin)
@@ -161,7 +186,8 @@ def make_fast_step(cfg: Config, model,
         out = acc[:, :hop] / env_hop
         ola = torch.cat([acc[:, hop:], torch.zeros_like(acc[:, :hop])],
                         dim=-1)
-        return state._replace(ring=ring, ola=ola, hx=hx, **planes), out
+        return state._replace(ring=ring, ola=ola, hx=hx, prev=prev,
+                              **planes), out
 
     return step
 
@@ -181,7 +207,9 @@ class StreamEngine:
     to the mode's initial state on add). ``device`` is the card unless
     ``"cpu"`` is passed, which runs the kernels' plain PyTorch versions.
     In mode ``fast`` ``model`` may be a zoo model or a PlanModel; the other
-    modes take a GRUUNet2 zoo model."""
+    modes take a zoo model: GRUUNet2, MOMO2 or MOMO3 in mode ``fused``
+    (``build_cell_plan`` compiles either family), GRUUNet2 in the webrtc
+    modes."""
 
     def __init__(self, cfg: Config, model, mode: str = "fused",
                  max_streams: Optional[int] = None,

@@ -1,5 +1,5 @@
-"""Matrixized serving plan for GRUUNet-family cells (JAX counterpart
-runtime/plan.py:31-275).
+"""Matrixized serving plan for the GRUUNet and MOMO families' cells (JAX
+counterpart runtime/plan.py:31-338).
 
 Serving weights are static, so the whole cell is compiled once per
 checkpoint into an affine plan:
@@ -9,7 +9,10 @@ checkpoint into an affine plan:
   the dense matrix is recovered by probing the conv ops with a basis
   batch, which keeps padding, strides and output_padding exact;
 - decoder skip-concats become split matmuls:
-  ``conv_T(cat(h, skip)) = h @ U_h + skip @ U_s + c``.
+  ``conv_T(cat(h, skip)) = h @ U_h + skip @ U_s + c``;
+- MOMO2/MOMO3 smear once at the input, and MOMO3's level 0 reads
+  ``stack([x_t, x_t - prev])``: affine in ``(x_t, prev)`` jointly, so its
+  matrix takes the 2F vector ``cat(x_t, prev)`` (``CellPlan.delta``).
 
 Probing runs on the CPU in float64 and the plan is cast to float32
 afterwards, so no TF32 convolution (cuDNN's default on the card) can leak
@@ -41,6 +44,7 @@ class CellPlan(NamedTuple):
     up_biases: Tuple[torch.Tensor, ...]
     hidden: int
     compressed: int
+    # MOMO3: down_mats[0] has 2F rows and reads cat(x_t, prev)
     delta: bool = False
 
     def to(self, device=None, dtype=None) -> "CellPlan":
@@ -67,7 +71,15 @@ def _probe_affine(fn: Callable[[torch.Tensor], torch.Tensor], n_in: int
 
 
 def build_cell_plan(model) -> CellPlan:
-    """Compile a GRUUNet2 model into a float32 CellPlan on the CPU."""
+    """Compile a GRUUNet2, MOMO2 or MOMO3 model into a float32 CellPlan on
+    the CPU (``build_cell_plan_momo`` for the MOMO family)."""
+    from audio_denoising_torch.models.momo import MOMO, MOMO3
+    if isinstance(model, MOMO3):
+        return build_cell_plan_momo(model)
+    if isinstance(model, MOMO):
+        raise ValueError(
+            "MOMO v1 keeps a full-resolution state and has no plan; serve "
+            "its zoo model in mode 'fast'")
     cell = copy.deepcopy(model.cell).to("cpu", torch.float64)
     c = model.config
     L = cell.levels
@@ -136,6 +148,89 @@ def build_cell_plan(model) -> CellPlan:
     return plan.to(dtype=torch.float32)
 
 
+def build_cell_plan_momo(model) -> CellPlan:
+    """Compile a MOMO2/MOMO3 model into a float32 CellPlan on the CPU (JAX
+    counterpart plan.py:141-234): GRUUNet2's topology, smeared once at the
+    input and with no smear on the decoder; MOMO3's level 0 takes the 2F
+    vector cat(x_t, prev)."""
+    cell = copy.deepcopy(model.cell).to("cpu", torch.float64)
+    c = model.config
+    L = cell.levels
+    sizes = cell.bin_sizes
+    F = model.num_bins
+
+    def smear(s, b):
+        return s[None].expand(b, -1, -1)
+
+    def g0(v):
+        if cell.delta:
+            x, prev = v[:, :F], v[:, F:]
+            xin = torch.stack([x, x - prev], dim=1)
+        else:
+            xin = v[:, None, :]
+        conv = cell.input_gate.downs[0].conv
+        out = conv1d(torch.cat([xin, smear(cell.smear_in, v.shape[0])],
+                               dim=1),
+                     conv.weight, conv.bias, stride=c.strides[0],
+                     padding=c.paddings[0])
+        return out.reshape(v.shape[0], -1)
+
+    m, b = _probe_affine(g0, 2 * F if cell.delta else F)
+    down_mats, down_biases = [m], [b]
+    chans = list(c.hidden_sizes[:-1]) + [3 * cell.hidden]
+    for i in range(1, L):
+        conv = cell.input_gate.downs[i].conv
+
+        def g(v, i=i, C_in=chans[i - 1], L_in=sizes[i], conv=conv):
+            out = conv1d(v.reshape(v.shape[0], C_in, L_in), conv.weight,
+                         conv.bias, stride=c.strides[i],
+                         padding=c.paddings[i])
+            return out.reshape(v.shape[0], -1)
+
+        m, b = _probe_affine(g, chans[i - 1] * sizes[i])
+        down_mats.append(m)
+        down_biases.append(b)
+
+    comp, hidden = cell.compressed, cell.hidden
+    rconv = cell.reset_gate.downs[0].conv
+
+    def g_reset(v):
+        hx = v.reshape(v.shape[0], hidden, comp)
+        out = conv1d(torch.cat([hx, smear(cell.smear_hx, v.shape[0])],
+                               dim=1),
+                     rconv.weight, rconv.bias, stride=1, padding=1)
+        return out.reshape(v.shape[0], -1)
+
+    reset_mat, reset_bias = _probe_affine(g_reset, hidden * comp)
+
+    up_h_mats, up_s_mats, up_biases = [], [], []
+    rev = ([1] + list(c.hidden_sizes))[::-1]
+    for i in range(L):
+        C_h, C_s, L_in = rev[i], 0 if i == 0 else rev[i], sizes[L - i]
+        n_h, n_s = C_h * L_in, C_s * L_in
+        conv = cell.output_gate.ups[i].conv
+
+        def g(v, i=i, C=C_h + C_s, L_in=L_in, conv=conv):
+            out = conv_transpose1d(
+                v.reshape(v.shape[0], C, L_in), conv.weight, conv.bias,
+                stride=c.strides[::-1][i], padding=c.paddings[::-1][i],
+                output_padding=cell.up_output_paddings[i])
+            return out.reshape(v.shape[0], -1)
+
+        m, b = _probe_affine(g, n_h + n_s)
+        up_h_mats.append(m[:n_h])
+        up_s_mats.append(m[n_h:] if n_s else None)
+        up_biases.append(b)
+
+    plan = CellPlan(
+        down_mats=tuple(down_mats), down_biases=tuple(down_biases),
+        reset_mat=reset_mat, reset_bias=reset_bias,
+        up_h_mats=tuple(up_h_mats), up_s_mats=tuple(up_s_mats),
+        up_biases=tuple(up_biases), hidden=hidden, compressed=comp,
+        delta=cell.delta)
+    return plan.to(dtype=torch.float32)
+
+
 def plan_from_numpy(plan) -> CellPlan:
     """The JAX package's CellPlan (any object with its fields, leaves
     convertible by ``np.asarray``) as the port's float32 CellPlan, so
@@ -188,13 +283,24 @@ def _decode(plan: CellPlan, h: torch.Tensor, skips: List[torch.Tensor]
     return h
 
 
-def plan_cell(plan: CellPlan, x_t: torch.Tensor, hx: torch.Tensor
+def _level0_input(plan: CellPlan, x: torch.Tensor,
+                  prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """What level 0 reads: x, or cat(x, prev) for a delta plan."""
+    if not plan.delta:
+        return x
+    if prev is None:
+        raise ValueError("a delta (MOMO3) plan needs the previous frame "
+                         "(prev)")
+    return torch.cat([x, prev], dim=-1)
+
+
+def plan_cell(plan: CellPlan, x_t: torch.Tensor, hx: torch.Tensor,
+              prev: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame through the plan. x_t: (B, F); hx: (B, hidden*comp)
-    flattened. Returns (y (B, F), hx')."""
-    if plan.delta:
-        raise NotImplementedError("delta (MOMO3) plans are a later slice")
-    skips = _encode(plan, x_t)
+    flattened; prev: the previous frame (B, F), for delta plans only.
+    Returns (y (B, F), hx')."""
+    skips = _encode(plan, _level0_input(plan, x_t, prev))
     hi = _gate(plan, skips[-1], hx)
     return _decode(plan, hi, skips), hi
 
@@ -204,13 +310,15 @@ def plan_apply_parallel(plan: CellPlan, x: torch.Tensor, hx: torch.Tensor
     """Sequence mode with the recurrence minimized (JAX counterpart
     plan.py:277-339). x: (B, T, F); hx: (B, hidden*comp).
 
-    The encoder depends only on x_t and the decoder only on (hi_t,
-    skips_t), so both run as one matmul chain over all B*T frames; only
-    the reset-gate matmul and the gating loop over T."""
-    if plan.delta:
-        raise NotImplementedError("delta (MOMO3) plans are a later slice")
+    The encoder depends only on x_t (and, for a delta plan, on prev_t =
+    x_{t-1} with prev_0 = x_0, known for the whole sequence) and the
+    decoder only on (hi_t, skips_t), so both run as one matmul chain over
+    all B*T frames; only the reset-gate matmul and the gating loop over
+    T."""
     B, T, F = x.shape
-    skips = _encode(plan, x.reshape(B * T, F))
+    prev = torch.cat([x[:, :1], x[:, :-1]], dim=1) if plan.delta else None
+    flat = _level0_input(plan, x, prev)
+    skips = _encode(plan, flat.reshape(B * T, flat.shape[-1]))
     gate_x = skips[-1].reshape(B, T, -1)
     his = []
     for t in range(T):
@@ -223,7 +331,8 @@ def plan_apply_parallel(plan: CellPlan, x: torch.Tensor, hx: torch.Tensor
 class PlanModel:
     """The zoo models' interface (``init_state``, ``init_carry``,
     ``decay_carry``, ``cell``, ``apply``) on the matrixized plan of a
-    GRUUNet2 ``model``, on ``device`` (the card unless ``"cpu"``).
+    GRUUNet2, MOMO2 or MOMO3 ``model``, on ``device`` (the card unless
+    ``"cpu"``). A MOMO3 plan carries ``(hx, prev)``.
 
     ``fused=True`` runs the cell as the hand-written kernel
     (``self.fused_cell``, a ``FusedCell``); on a CPU tensor that wrapper
@@ -237,6 +346,7 @@ class PlanModel:
         self.num_bins = model.num_bins
         self.device = resolve_device(device)
         self.plan = build_cell_plan(model).to(device=self.device)
+        self.is_momo = hasattr(model, "delta")    # MOMO2 or MOMO3
         self.fused_cell = None
         if fused:
             from audio_denoising_torch.ops.kernels.fused_cell import (
@@ -244,7 +354,8 @@ class PlanModel:
             self.fused_cell = make_fused_cell(self.plan, self.device)
             self._cell = self.fused_cell
         else:
-            self._cell = lambda x, hx: plan_cell(self.plan, x, hx)
+            self._cell = lambda x, hx, prev=None: plan_cell(self.plan, x, hx,
+                                                            prev)
 
     def init_state(self, batch: int, dtype=torch.float32,
                    device=None) -> torch.Tensor:
@@ -252,31 +363,43 @@ class PlanModel:
                            dtype=dtype,
                            device=self.device if device is None else device)
 
-    def init_carry(self, batch: int, dtype=torch.float32,
-                   device=None) -> torch.Tensor:
-        return self.init_state(batch, dtype, device)
+    def init_carry(self, batch: int, dtype=torch.float32, device=None):
+        """hx, or (hx, prev) with prev zeros for a delta plan."""
+        hx = self.init_state(batch, dtype, device)
+        if self.plan.delta:
+            return hx, torch.zeros((batch, self.num_bins), dtype=dtype,
+                                   device=hx.device)
+        return hx
 
-    def decay_carry(self, carry: torch.Tensor, factor: float
-                    ) -> torch.Tensor:
+    def decay_carry(self, carry, factor: float):
+        """The state decay on hx; prev is the previous frame, kept."""
+        if self.plan.delta:
+            hx, prev = carry
+            return hx * factor, prev
         return carry * factor
 
-    def cell(self, x_t: torch.Tensor, carry: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One frame: x_t (B, F), carry (B, hidden*comp) -> (y_t, hx')."""
+    def cell(self, x_t: torch.Tensor, carry):
+        """One frame: x_t (B, F), carry hx (B, hidden*comp) or (hx, prev)
+        for a delta plan -> (y_t, carry')."""
+        if self.plan.delta:
+            hx, prev = carry
+            y, hx = self._cell(x_t, hx, prev)
+            return y, (hx, x_t)
         return self._cell(x_t, carry)
 
     def apply(self, x: torch.Tensor, hx: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, T, F) or (T, F) -> (y (B, T, F), hx'). A single frame
-        goes through the cell (and so the kernel when fused); longer
-        sequences through ``plan_apply_parallel``."""
+        of a non-delta plan goes through the cell (and so the kernel when
+        fused); longer sequences, and every sequence of a delta plan
+        (prev_0 = x_0), through ``plan_apply_parallel``."""
         if x.dim() == 2:
             x = x[None]
         if hx is None:
             hx = self.init_state(x.shape[0], x.dtype, x.device)
         if hx.dim() == 3:                     # accept model-layout state
             hx = hx.reshape(hx.shape[0], -1)
-        if x.shape[1] == 1:
+        if x.shape[1] == 1 and not self.plan.delta:
             y, hx = self._cell(x[:, 0], hx)
             return y[:, None], hx
         return plan_apply_parallel(self.plan, x, hx)

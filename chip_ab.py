@@ -231,13 +231,13 @@ def fused_ab(torch, kernel, makers, smi, batches, cluster, other_tile):
                        f"{cell.max_active_clusters(blocks)} clusters fit "
                        f"for {blocks} blocks")
         cs.say(f"1. this against other on one random state (B={B}):")
-        x, hx = cs.cell_inputs(torch, B, c.n_feat, c.n, 7)
+        x, hx, _ = cs.cell_inputs(torch, B, c.n_feat, c.n, 7)
         (y_a, h_a), (y_b, h_b) = (cells[n](x, hx) for n in ("this", "other"))
         cs.say(f"  cell step: y {cs.max_err(y_a, y_b):.3e}, hx' "
                f"{cs.max_err(h_a, h_b):.3e}")
         cs.say(f"2. times in turns {', '.join(TURNS)} ({smi}):")
         for b in batches:
-            x, hx = cs.cell_inputs(torch, b, c.n_feat, c.n, 7)
+            x, hx, _ = cs.cell_inputs(torch, b, c.n_feat, c.n, 7)
             for turn in TURNS:
                 ms = cs.time_launches(torch, lambda: cells[turn](x, hx),
                                       FUSED_TIMED)

@@ -87,7 +87,10 @@ raises on failure (so the script exits non-zero and prints no result):
     the zoo model and with the fused cell; the K-hop WebRTC kernel per
     call and per hop at GL-8 and GL-32 (K = 25), beside 25 single-hop
     calls; torch.profiler breakdowns; one GL round's transforms on cuFFT
-    (irfft then rfft) beside the GL launch's time per round;
+    (irfft then rfft) beside the GL launch's time per round; on MOMO3
+    (momo3-4d4ea0) the single hop ungated and gated, the K-hop kernel per
+    call and per hop, the delta fused cell and mode fast per hop, each
+    beside the 437.5 us real-time budget of one hop;
 19. the resident K-hop WebRTC kernel on gruunet2-dari_tult at 256
     streams and K = 25, GL-8 (bench.py's fused_webrtc_gl8_resident_k25)
     and GL-32: two calls carrying the state, each one launch, against 50
@@ -109,25 +112,48 @@ raises on failure (so the script exits non-zero and prints no result):
 24. ``EngineDaemon`` from ``--mode webrtc --snr-gate 1`` on
     gruunet2-dari_tult, 4 clients x 16 streams x 8 chunks, each stream's
     replies against its chunks replayed through the gated step on the
-    card, hx and the gate's planes against the same replay on the CPU.
+    card, hx and the gate's planes against the same replay on the CPU;
+25. the fused-hop kernel on the MOMO family (the raw-spectrogram domain,
+    no mel pair, and the delta carry's plane prev) against its plain
+    version over 20 hops: momo3-4d4ea0 at 256 and 3 streams (every plane,
+    prev included); runs/momo3-realnoise.npz with its recommended gate on
+    voiced input (the blending share printed and required above 0); MOMO2
+    (no delta) on the weights of tests/goldens/model_MOMO2-rand.npz;
+26. the K-hop kernel on momo3-4d4ea0 at 256 streams and K = 50 (bench.py's
+    fused_hop_momo3_raw), as phase 14 runs it: two calls carrying the
+    state and one with int16 IO, each one launch; against 50 single-hop
+    launches (0 on every plane, prev included), its plain version and the
+    int16 plain path (1 LSB);
+27. the fused cell's delta branch against its plain version at 1, 3 and
+    256 streams (and MOMO2's plan); then the fast step with
+    ``PlanModel(fused=True)`` on the card against the zoo MOMO3's fast
+    step on the CPU, 256 streams over 20 hops (output, hx and prev);
+28. ``StreamEngine`` modes ``fused`` and ``fast`` on momo3-4d4ea0, 256
+    slots for 50 ticks with skipped slots, against the same run on the
+    CPU, idle slots' planes (hx and prev among them) bit-identical;
+29. ``EngineDaemon`` mode ``fused`` with the auto gate (1 dB, width 6,
+    'both') on runs/momo3-realnoise.npz, 4 clients x 16 streams x 25
+    chunks, each stream against its own sequence through the plain
+    version on the CPU, the reply latency per round printed.
 
-Phases 4 to 7, 9 to 12 and 15 to 17, phase 14's first three calls and
-phase 19's calls are the main paths: each kernel's launch counter is set
-to 0 just before each (a new wrapper starts at 0) and read just after
-(the single WebRTC hop counts its three kernels, the K-hop call one).
-Mode ``fast`` with the zoo model (phases 11, 12, 17) and mode ``webrtc``
-(phases 23, 24) run no hand-written kernel, as the JAX package's modes
-``fast`` and ``webrtc`` run no Pallas kernel. Griffin-Lim with carried
-phases is chaotic where a frame's rebuilt spectrum nears zero: fp32
-round-off there flips a phase, and the carried phases spread it, so two
-correct fp32 versions that each carry their own state part ways within a
-few hops (the plain version on the card, on the CPU and the kernel all
-part from a float64 run alike). So
-the served geometry's waveform is held one hop at a time from a shared
-state, with a float64 witness, beside the surfaces no phase reaches (hx,
-spectral convergence). The last two lines are the ``kernels`` JSON line
-and ``{"ok": true, "device": {...}}``. Without a card, or outside a
-checkout of the repo, the script fails.
+Phases 4 to 7, 9 to 12, 15 to 17 and 27 to 29, the first three calls of
+phases 14 and 26 and phase 19's calls are the main paths: each kernel's
+launch counter is set to 0 just before each (a new wrapper starts at 0)
+and read just after (the single WebRTC hop counts its three kernels, the
+K-hop call one). Mode ``fast`` with the zoo model (phases 11, 12, 17,
+28) and mode ``webrtc`` (phases 23, 24) run no hand-written kernel, as
+the JAX package's modes ``fast`` and ``webrtc`` run no Pallas kernel.
+Griffin-Lim with carried phases is chaotic where a frame's rebuilt
+spectrum nears zero: fp32 round-off there flips a phase, and the carried
+phases spread it, so two correct fp32 versions that each carry their own
+state part ways within a few hops (the plain version on the card, on the
+CPU and the kernel all part from a float64 run alike). So the served
+geometry's waveform is held one hop at a time from a shared state, with
+a float64 witness, beside the surfaces no phase reaches (hx, spectral
+convergence). The last two lines are the ``kernels`` JSON line (each
+entry with the variants checked, the MOMO3 ones with their times) and
+``{"ok": true, "device": {...}}``. Without a card, or outside a checkout
+of the repo, the script fails.
 """
 
 import ctypes
@@ -179,6 +205,7 @@ FAST_CHECKPOINT = "gruunet2-mrstft-50k.npz"
 GATE_POINTS = {"removed": (30.0, 10.0), "floor": (10.0, 4.0),
                "both": (10.0, 4.0)}
 PLANE_RTOL = 2e-4    # the gate's planes, relative (tests/test_fused_hop.py)
+ABS_PLANES = ("ring", "ola", "hx", "prev")   # held at STATE_ATOL
 PLANE_ATOL = 1e-9
 GATED_OUT_ATOL = 3e-4  # gated kernel vs the gated fast step (JAX's bound)
 K_HOPS = 50          # hops per call of the resident kernel (bench.py's K)
@@ -192,6 +219,9 @@ WEBRTC_GL = (8, 32)
 RUNTIME_FFT = 96     # n_fft whose M = 48 has no instantiation of its own
 FFT_SIZES = (768, 512, 32, RUNTIME_FFT // 2)   # the checks' n_fft / 2
 FORCED_K = 2         # hops per call where each call starts from a shared state
+MOMO_SPEC = "momo3-4d4ea0"
+MOMO_TRAINED = "momo3-realnoise.npz"
+MOMO2_GOLDEN = "model_MOMO2-rand.npz"
 
 
 def say(*parts):
@@ -218,7 +248,8 @@ def run_hops(step, state, chunks):
 
 def phase_kernel_vs_plain(torch, hop, cfg, plan, batches):
     """Kernel against its plain version on the same inputs, each carrying
-    its own state; returns the largest output error seen."""
+    its own state; every plane held (ring, ola, hx and, for a delta plan,
+    prev); returns the largest output error seen."""
     from audio_denoising_torch.ops.kernels.fused_hop import (
         fused_hop_init_state)
     worst = 0.0
@@ -234,11 +265,10 @@ def phase_kernel_vs_plain(torch, hop, cfg, plan, batches):
             hop, fused_hop_init_state(cfg, plan, batch, "cuda"), chunks)
         torch.cuda.synchronize()
         e_out = max(max_err(a, b) for a, b in zip(o_k, o_ref))
-        e_state = {k: max_err(getattr(s_k, k), getattr(s_ref, k))
-                   for k in ("ring", "ola", "hx")}
-        say(f"  B={batch:3d}: out {e_out:.3e} (bound {OUT_ATOL:g}); ring "
-            f"{e_state['ring']:.3e} ola {e_state['ola']:.3e} hx "
-            f"{e_state['hx']:.3e} (bound {STATE_ATOL:g})")
+        e_state = {k: max_err(v, planes(s_ref)[k])
+                   for k, v in planes(s_k).items()}
+        say(f"  B={batch:3d}: out {e_out:.3e} (bound {OUT_ATOL:g}); "
+            f"{fmt(e_state)} (bound {STATE_ATOL:g})")
         if e_out > OUT_ATOL or max(e_state.values()) > STATE_ATOL:
             raise AssertionError(
                 f"fused hop kernel disagrees with its plain version at "
@@ -914,29 +944,33 @@ def phase_daemon_webrtc(torch, cfg, model):
 
 # -- the fused cell and mode fast ---------------------------------------------
 
-def cell_inputs(torch, batch, n_feat, n, seed):
+def cell_inputs(torch, batch, n_feat, n, seed, delta=False):
     """Features as the hop makes them (log1p of a magnitude, >= 0) and a
-    state in the gating's range (-1, 1), on the card."""
+    state in the gating's range (-1, 1), on the card; for a delta plan
+    also the previous features (else None)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.log1p(4 * torch.rand((batch, n_feat), generator=g,
                                    device="cuda"))
     hx = 2 * torch.rand((batch, n), generator=g, device="cuda") - 1
-    return x, hx
+    prev = torch.log1p(4 * torch.rand((batch, n_feat), generator=g,
+                                      device="cuda")) if delta else None
+    return x, hx, prev
 
 
 def phase_fused_cell(torch, plans):
-    """Phase 8: the kernel against its plain version on the same inputs,
-    at CELL_BATCHES streams, for each (name, plan); returns the largest
-    error seen."""
+    """Phases 8 and 27: the kernel against its plain version on the same
+    inputs, at CELL_BATCHES streams, for each (name, plan); returns the
+    largest error seen."""
     from audio_denoising_torch.ops.kernels.fused_cell import make_fused_cell
     worst = 0.0
     for name, plan in plans:
         cell = make_fused_cell(plan, "cuda")
         errs = []
         for batch in CELL_BATCHES:
-            x, hx = cell_inputs(torch, batch, cell.n_feat, cell.n, batch)
-            y_k, h_k = cell(x, hx)
-            y_p, h_p = cell.reference(x, hx)
+            x, hx, prev = cell_inputs(torch, batch, cell.n_feat, cell.n,
+                                      batch, cell.delta)
+            y_k, h_k = cell(x, hx, prev)
+            y_p, h_p = cell.reference(x, hx, prev)
             torch.cuda.synchronize()
             e = (max_err(y_k, y_p), max_err(h_k, h_p))
             errs.append(f"B={batch} y {e[0]:.3e} hx' {e[1]:.3e}")
@@ -974,9 +1008,9 @@ def phase_profile(torch):
 
 
 def phase_fast_step(torch, cfg, model):
-    """Phase 10: the fast step with the fused cell on the card against the
-    zoo model's fast step on the CPU, each carrying its own state; returns
-    the cell's launches."""
+    """Phases 10 and 27: the fast step with the fused cell on the card
+    against the zoo model's fast step on the CPU, each carrying its own
+    state; returns the cell's launches."""
     from audio_denoising_torch.runtime.engine import (
         fast_init_state, make_fast_step)
     from audio_denoising_torch.runtime.plan import PlanModel
@@ -997,12 +1031,15 @@ def phase_fast_step(torch, cfg, model):
         s_c, o_c = cpu(s_c, c)
         e_out = max(e_out, max_err(o_k.cpu(), o_c))
         e_hx = max(e_hx, max_err(s_k.hx.cpu(), s_c.hx.reshape(SLOTS, -1)))
+        if s_c.prev is not None:     # MOMO3's previous frame
+            e_hx = max(e_hx, max_err(s_k.prev.cpu(), s_c.prev))
         if not bool(torch.isfinite(o_k).all()):
             raise AssertionError(f"fast step: non-finite output at hop {t}")
     launches = pm.fused_cell.launches
+    carried = "hx" if s_c.prev is None else "hx and prev"
     say(f"  {SLOTS} streams x {HOPS} hops: out {e_out:.3e} (bound "
-        f"{OUT_ATOL:g}), hx {e_hx:.3e} (bound {HX_ATOL:g}); {launches} "
-        f"fused-cell launches")
+        f"{OUT_ATOL:g}), {carried} {e_hx:.3e} (bound {HX_ATOL:g}); "
+        f"{launches} fused-cell launches")
     if e_out > OUT_ATOL or e_hx > HX_ATOL:
         raise AssertionError("fast step on the card disagrees with the CPU")
     if launches != HOPS:
@@ -1117,13 +1154,13 @@ def voiced_chunks(batch, hops, hop_len, sr, seed):
 
 def plane_errors(got, want):
     """{plane: error} of two states on their present planes: max abs for
-    ring, ola and hx; for the gate's planes the largest
+    ring, ola, hx and prev (ABS_PLANES); for the gate's planes the largest
     |a - b| / (PLANE_ATOL / PLANE_RTOL + |b|), which stays under
     PLANE_RTOL exactly when |a - b| <= PLANE_ATOL + PLANE_RTOL |b|."""
     errs = {}
     for k, a in planes(got).items():
         b = planes(want)[k].to(a.device)
-        if k in ("ring", "ola", "hx"):
+        if k in ABS_PLANES:
             errs[k] = max_err(a, b)
         else:
             d = (a.double() - b.double()).abs()
@@ -1134,7 +1171,7 @@ def plane_errors(got, want):
 
 def check_state(errs, label):
     bad = {k: v for k, v in errs.items()
-           if v > (STATE_ATOL if k in ("ring", "ola", "hx") else PLANE_RTOL)}
+           if v > (STATE_ATOL if k in ABS_PLANES else PLANE_RTOL)}
     if bad:
         raise AssertionError(f"{label}: state planes out of bounds {bad}")
 
@@ -1701,6 +1738,153 @@ def phase_daemon_webrtc_gated(torch, spec):
     check_state(gate_errs, "gated webrtc daemon")
 
 
+# -- the MOMO family: the delta carry and the raw domain ----------------------
+
+def momo2_model():
+    """MOMO2 (raw domain, no delta) at MOMO3's geometry on the weights of
+    tests/goldens/model_MOMO2-rand.npz: (cfg, model)."""
+    from audio_denoising_torch.compat import params_from_jax
+    from audio_denoising_torch.config import ModelConfig
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.models import build_model
+    g = np.load(os.path.join(REPO, "tests", "goldens", MOMO2_GOLDEN))
+    mc = ModelConfig(arch="MOMO2", num_compressed_bins=3,
+                     hidden_sizes=(16, 16, 16), kernel_sizes=(3, 3, 3),
+                     strides=(2, 2, 2), paddings=(1, 0, 1))
+    model = build_model(mc, 22).load_params(params_from_jax(
+        {k[3:]: g[k] for k in g.files if k.startswith("sd.")}))
+    cfg = load_pretrained(MOMO_SPEC)[0]
+    return dataclasses.replace(cfg, model=mc), model
+
+
+def phase_momo_hop(torch, momo, trained, momo2):
+    """Phase 25: the fused hop on each ``(name, cfg, plan)``: MOMO3 ungated
+    at SLOTS and 3 streams, every plane with prev; the trained MOMO3 with
+    its recommended gate on voiced input (the gate must blend); MOMO2.
+    Returns the largest output error."""
+    from audio_denoising_torch.ops.kernels.fused_hop import make_fused_hop
+    name, cfg, plan = momo
+    say(f"  {name} (raw, delta), {cfg.dsp.n_fft}/{cfg.dsp.hop_length} at "
+        f"{cfg.dsp.sample_rate} Hz, {cfg.dsp.n_stft} bins:")
+    worst = phase_kernel_vs_plain(torch, make_fused_hop(cfg, plan, "cuda"),
+                                  cfg, plan, (SLOTS, 3))
+    name, cfg, plan = trained
+    say(f"  {name}, its recommended gate:")
+    for batch in (SLOTS, 3):
+        worst = max(worst, check_gated_hop(torch, cfg, plan, batch)[0])
+    name, cfg, plan = momo2
+    say(f"  {name} (raw, no delta):")
+    return max(worst, phase_kernel_vs_plain(
+        torch, make_fused_hop(cfg, plan, "cuda"), cfg, plan, (SLOTS,)))
+
+
+def momo_chunks(torch, cfg, hops, seed):
+    """bench.py's fused_hop_momo3_raw shape, (hops, SLOTS, hop): 0.1 x
+    standard normal from ``seed``, on the card."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((0.1 * rng.standard_normal(
+        (hops, SLOTS, cfg.dsp.hop_length))).astype(np.float32)).cuda()
+
+
+def phase_engine_idle(torch, cfg, model, mode, ticks, seed):
+    """StreamEngine ``mode`` on the card against the CPU engine, each
+    carrying its own state, SLOTS slots for ``ticks`` ticks with skipped
+    slots: outputs and every plane, and on the card the idle slots'
+    planes (hx and prev among them) bit-identical. Returns the kernel's
+    launches in mode fused (None in mode fast: the zoo model runs no
+    hand-written kernel)."""
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    gpu = StreamEngine(cfg, model, mode=mode, max_streams=SLOTS)
+    cpu = StreamEngine(cfg, model, mode=mode, max_streams=SLOTS,
+                       device="cpu")
+    sids = [f"s{i}" for i in range(SLOTS)]
+    for sid in sids:
+        gpu.add_stream(sid)
+        cpu.add_stream(sid)
+    rng = np.random.default_rng(seed)
+    kernel = gpu.hop_step if mode == "fused" else None
+    if kernel is not None:
+        kernel.launches = 0
+    worst = 0.0
+    for t in range(ticks):
+        chunks = {sid: (0.1 * rng.standard_normal(cfg.dsp.hop_length)
+                        ).astype(np.float32)
+                  for i, sid in enumerate(sids) if (7 * i + t) % 5}
+        idle = [gpu.slots[s] for s in sids if s not in chunks]
+        before = {k: x[idle].clone() for k, x in planes(gpu.state).items()}
+        a, b = gpu.process(chunks), cpu.process(chunks)
+        for k, x in before.items():
+            if not torch.equal(x, planes(gpu.state)[k][idle]):
+                raise AssertionError(f"mode {mode}: an idle slot's {k} "
+                                     f"moved")
+        worst = max(worst, max(float(np.abs(a[s] - b[s]).max())
+                               for s in chunks))
+    launches = None if kernel is None else kernel.launches
+    errs = plane_errors(gpu.state, cpu.state)
+    counted = ("no hand-written kernel on this path" if launches is None
+               else f"{launches} launches")
+    say(f"  mode {mode}, {SLOTS} streams x {ticks} ticks: out {worst:.3e} "
+        f"(bound {OUT_ATOL:g}), {fmt(errs)}; idle slots bit-identical "
+        f"({', '.join(before)}); {counted}")
+    if worst > OUT_ATOL:
+        raise AssertionError(f"mode {mode} on the card disagrees with the "
+                             f"CPU run")
+    check_state(errs, f"engine mode {mode}")
+    if launches is not None and launches != ticks:
+        raise AssertionError(f"expected {ticks} kernel launches, saw "
+                             f"{launches}")
+    return launches
+
+
+def time_momo(torch, cfg, model, plan, smi):
+    """Phase 18 on MOMO3 at SLOTS streams: the single hop ungated and with
+    the tuned gate, the K-hop kernel per call and per hop, the delta fused
+    cell, and mode fast per hop (zoo model, fused cell), each beside the
+    real-time budget of one hop. Returns {label: (ms, plain ms, bound ms,
+    bound by)}."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    from audio_denoising_torch.runtime.plan import PlanModel
+    budget_us = cfg.dsp.hop_length / cfg.dsp.sample_rate * 1e6
+    say(f"  MOMO3 ({MOMO_SPEC}), real-time budget of one hop "
+        f"{budget_us:.1f} us ({smi}):")
+    out = {}
+    for label, c in (("hop", cfg), ("hop, tuned gate", tuned_gate(cfg))):
+        hop = make_fused_hop(c, plan, "cuda")
+        state, chunk = hop_inputs(
+            torch, hop, lambda b: fused_hop_init_state(c, plan, b, "cuda"),
+            SLOTS)
+        say(f"  MOMO3 fused {label}:")
+        out[label] = timed(torch, lambda: hop(state, chunk),
+                           lambda: hop.reference(state, chunk),
+                           hop_work(hop, SLOTS), SLOTS, TIMED_LAUNCHES)
+    multi = make_fused_hop(cfg, plan, "cuda", hops_per_call=K_HOPS)
+    s0 = fused_hop_init_state(cfg, plan, SLOTS, "cuda")
+    chunks = momo_chunks(torch, cfg, K_HOPS, 181)
+    say(f"  MOMO3 K-hop kernel, K={K_HOPS} (fused_hop_momo3_raw):")
+    out["K-hop"] = timed(torch, lambda: multi(s0, chunks),
+                         lambda: multi.plain(s0, chunks),
+                         hop_work(multi, SLOTS), SLOTS, 20,
+                         plain_launches=3, hops=K_HOPS)
+    pm = PlanModel(model, fused=True)
+    cell = pm.fused_cell
+    x, hx, prev = cell_inputs(torch, SLOTS, cell.n_feat, cell.n, 182, True)
+    say("  MOMO3 fused cell (delta):")
+    out["cell"] = timed(torch, lambda: cell(x, hx, prev),
+                        lambda: cell.reference(x, hx, prev),
+                        cell_work(cell, SLOTS), SLOTS, TIMED_LAUNCHES)
+    fast = {"zoo model": time_fast_step(torch, cfg, model, "MOMO3 zoo model"),
+            "fused cell": time_fast_step(torch, cfg, pm,
+                                         "MOMO3 PlanModel(fused=True)")}
+    per_hop = {f"fused {k}": v[0] for k, v in out.items() if k != "cell"}
+    per_hop["K-hop, per hop"] = out["K-hop"][0] / K_HOPS
+    per_hop.update({f"mode fast, {k}": v for k, v in fast.items()})
+    say("  against the real-time budget of one hop: " + "; ".join(
+        f"{k} {ms * 1e3:.2f} us ({ms * 1e3 / budget_us:.1%})"
+        for k, ms in per_hop.items()))
+    return out
+
+
 # -- timing -------------------------------------------------------------------
 
 def time_launches(torch, fn, n):
@@ -1719,7 +1903,8 @@ def time_launches(torch, fn, n):
 
 def hop_work(hop, batch):
     """(flops, bytes) one call of ``hop`` needs for ``batch`` streams: per
-    hop 2 per multiply-add of the mel pair and the plan cell's matmuls,
+    hop 2 per multiply-add of the mel pair (none in the raw domain) and
+    the plan cell's matmuls,
     the transform and its inverse at the cost of a real FFT of n_fft
     points (2.5 N log2 N each), and with the SNR gate GATE_FLOPS_PER_BIN
     per bin; the weights (no DFT matrices) and every state plane read and
@@ -1727,13 +1912,13 @@ def hop_work(hop, batch):
     (2 bytes a sample with int16 IO). The kernel itself takes the
     transforms as dense matmuls, about twice this work."""
     K = hop.hops_per_call
-    macs = 2 * hop.F * hop.M + sum(w.numel() for w in hop.weights
-                                   if w.dim() == 2)
+    mel = 0 if hop.raw else 2 * hop.F * hop.M    # no mel pair when raw
+    macs = mel + sum(w.numel() for w in hop.weights if w.dim() == 2)
     ffts = 2 * 2.5 * hop.n_fft * math.log2(hop.n_fft)
     gate = GATE_FLOPS_PER_BIN * hop.F if hop.gated else 0
     weights = (sum(w.numel() for w in hop.weights)
                + sum(t.numel() for t in (hop.mel, hop.imel, hop.win,
-                                         hop.env)))
+                                         hop.env) if t is not None))
     state = 2 * sum(hop.widths.values())
     io = 2 * K * hop.hop * hop.io_dtype.itemsize
     return (batch * K * (2 * macs + ffts + gate),
@@ -1856,12 +2041,12 @@ def print_breakdown(rows, unit):
 
 def cell_work(cell, batch):
     """(flops, bytes) one cell step needs: 2 per multiply-add of the
-    plan's matmuls; x and hx read, y and hx' written once per stream, and
-    the plan's weights read once."""
+    plan's matmuls; x, hx (and prev for a delta plan) read, y and hx'
+    written once per stream, and the plan's weights read once."""
     macs = sum(w.numel() for w in cell.weights if w.dim() == 2)
     weights = sum(w.numel() for w in cell.weights)
-    return (2 * macs * batch,
-            4 * (2 * batch * (cell.n_feat + cell.n) + weights))
+    io = 2 * (cell.n_feat + cell.n) + (cell.n_feat if cell.delta else 0)
+    return 2 * macs * batch, 4 * (batch * io + weights)
 
 
 def time_fast_step(torch, cfg, model, label):
@@ -2107,7 +2292,7 @@ def main() -> int:
     pm = PlanModel(good, fused=True)
     cell = pm.fused_cell
     say(f"  fused cell, gruunet2-good ({smi}):")
-    x, hx = cell_inputs(torch, SLOTS, cell.n_feat, cell.n, 7)
+    x, hx, _ = cell_inputs(torch, SLOTS, cell.n_feat, cell.n, 7)
     fused_cell = timed(torch, lambda: cell(x, hx),
                        lambda: cell.reference(x, hx), cell_work(cell, SLOTS),
                        SLOTS, TIMED_LAUNCHES)
@@ -2116,6 +2301,9 @@ def main() -> int:
     time_fast_step(torch, good_cfg, pm, "PlanModel(fused=True)")
     multi = time_fused_hops(torch, cfg, plan, smi)
     w_multi = time_webrtc_multi(torch, dari_cfg, dari_plan, smi)
+    momo_cfg, momo = load_pretrained(MOMO_SPEC)
+    momo_plan = build_cell_plan(momo)
+    momo_t = time_momo(torch, momo_cfg, momo, momo_plan, smi)
 
     wm_launches, wm_err = phase_webrtc_multi(torch, dari_cfg, dari_plan)
     dari_gated = tuned_gate(load_pretrained("gruunet2-dari_tult")[0])
@@ -2126,24 +2314,82 @@ def main() -> int:
         "on 127.0.0.1")
     phase_daemon_webrtc_gated(torch, "gruunet2-dari_tult")
 
+    trained_path = os.path.join(REPO, "runs", MOMO_TRAINED)
+    trained_cfg, trained = load_pretrained(trained_path)
+    trained_cfg = recommended_serving(trained_cfg)
+    momo2_cfg, momo2 = momo2_model()
+    say("phase 25: the fused hop kernel on the MOMO family (the raw domain "
+        "and the delta carry) vs its plain version on the card")
+    mh_err = phase_momo_hop(
+        torch, (MOMO_SPEC, momo_cfg, momo_plan),
+        (MOMO_TRAINED, trained_cfg, build_cell_plan(trained)),
+        ("MOMO2, " + MOMO2_GOLDEN, momo2_cfg, build_cell_plan(momo2)))
+    say(f"phase 26: the resident K-hop kernel ({MOMO_SPEC}, {SLOTS} streams, "
+        f"K={K_HOPS}; bench.py's fused_hop_momo3_raw)")
+    mm_launches, mm_err = check_multi(
+        torch, momo_cfg, momo_plan, MOMO_SPEC,
+        momo_chunks(torch, momo_cfg, K_HOPS, 26))
+    say(f"phase 27: the fused cell's delta branch vs its plain version, "
+        f"then the fast step with the fused cell on the card vs the zoo "
+        f"MOMO3 on the CPU ({SLOTS} streams)")
+    mc_err = phase_fused_cell(torch, [(MOMO_SPEC, momo_plan),
+                                      ("MOMO2", build_cell_plan(momo2))])
+    mc_launches = phase_fast_step(torch, momo_cfg, momo)
+    say(f"phase 28: StreamEngine modes fused and fast ({MOMO_SPEC}), "
+        f"{SLOTS} slots, card vs CPU")
+    me_launches = phase_engine_idle(torch, momo_cfg, momo, "fused", 50, 28)
+    phase_engine_idle(torch, momo_cfg, momo, "fast", 50, 29)
+    say(f"phase 29: EngineDaemon mode fused, auto gate ({MOMO_TRAINED}) on "
+        "127.0.0.1")
+    me_launches += phase_daemon_gated(torch, trained_path)
+
+    def variant(label, checked, timing=None, n=None):
+        v = {"name": label, "checked": checked}
+        if timing is not None:
+            v.update(ms=timing[0], plain_ms=timing[1], bound_ms=timing[2],
+                     bound_by=timing[3])
+        if n is not None:
+            v["launches"] = n
+        return v
+
+    momo_checked = "phases 25, 28, 29: ungated, gated, MOMO2, 256 and 3"
     rows = []
-    for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by) in (
-            ("fused_hop", "fused_hop", "fused_hop.py:242", launches,
-             max(err, g_err), fused),
-            ("fused_hop_multi", "fused_hop", "fused_hop.py:384", m_launches,
-             m_err, multi),
+    for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by), \
+            variants in (
+            ("fused_hop", "fused_hop", "fused_hop.py:242",
+             launches + me_launches, max(err, g_err, mh_err), fused,
+             [variant("mel, gruunet2-stream16k and two runs/ widths",
+                      "phases 2, 4, 5, 13, 15, 16"),
+              variant(f"raw + delta, {MOMO_SPEC}", momo_checked,
+                      momo_t["hop"], me_launches),
+              variant(f"raw + delta, {MOMO_SPEC}, tuned gate", momo_checked,
+                      momo_t["hop, tuned gate"])]),
+            ("fused_hop_multi", "fused_hop", "fused_hop.py:384",
+             m_launches + mm_launches, max(m_err, mm_err), multi,
+             [variant("mel, gruunet2-stream16k, ungated and gated, fp32 and "
+                      "int16 IO", "phase 14"),
+              variant(f"raw + delta, {MOMO_SPEC}, fp32 and int16 IO",
+                      "phase 26", momo_t["K-hop"], mm_launches)]),
             ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331", w_launches,
-             w_err, webrtc),
+             w_err, webrtc,
+             [variant("mel, gruunet2-dari_tult, warm GL", "phases 3, 6, 7; "
+                      "not on a MOMO path (JAX refuses delta and raw)")]),
             ("webrtc_hop_multi", "webrtc_hop", "webrtc_hop.py:344",
-             wm_launches, wm_err, w_multi[WEBRTC_GL[0]]),
-            ("fused_cell", "fused_cell", "gruunet_cell.py:58", c_launches,
-             c_err, fused_cell)):
+             wm_launches, wm_err, w_multi[WEBRTC_GL[0]],
+             [variant("mel, gruunet2-dari_tult, GL-8 and GL-32",
+                      "phases 19-22; not on a MOMO path")]),
+            ("fused_cell", "fused_cell", "gruunet_cell.py:58",
+             c_launches + mc_launches, max(c_err, mc_err), fused_cell,
+             [variant("gruunet2-good and two runs/ widths", "phases 8-10"),
+              variant(f"delta, {MOMO_SPEC}; MOMO2", "phase 27",
+                      momo_t["cell"], mc_launches)])):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"audio_denoising_torch/csrc/{source}.cu",
             "replaces": f"audio_denoising_tpu/ops/pallas/{replaces}",
             "launches": n, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "variants": variants})
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

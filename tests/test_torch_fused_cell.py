@@ -2,7 +2,8 @@
 ``FusedCell``'s plain version and ``PlanModel`` (fused and not, one frame
 and sequences through ``plan_apply_parallel``) against JAX's
 ``make_fused_cell`` kernel in interpret mode and its ``PlanModel``, on
-the same weights, and the wrapper's checks. The CUDA kernel itself is
+the same weights, also with a MOMO3 plan's delta branch (``prev``), and
+the wrapper's checks. The CUDA kernel itself is
 held against the plain version on the card by chip_smoke.py."""
 
 import numpy as np
@@ -17,10 +18,12 @@ from audio_denoising_tpu.models import build_model as jax_build_model
 from audio_denoising_tpu.ops.pallas.gruunet_cell import (
     make_fused_cell as jax_make_fused_cell)
 from audio_denoising_tpu.runtime.plan import (
-    PlanModel as JaxPlanModel, build_cell_plan as jax_build_cell_plan)
+    PlanModel as JaxPlanModel, build_cell_plan as jax_build_cell_plan,
+    build_cell_plan_momo as jax_build_cell_plan_momo)
 
 from audio_denoising_torch.compat import params_from_jax
 from audio_denoising_torch.config import ModelConfig
+from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.models import build_model
 from audio_denoising_torch.ops.kernels.fused_cell import (
     FusedCell, make_fused_cell)
@@ -156,8 +159,11 @@ def test_plan_model_needs_a_card_unless_cpu_is_asked(good, monkeypatch):
 
 
 def test_fused_cell_refuses_delta_plans(good):
+    """A delta plan whose level 0 does not take 2 x its output width
+    (cat(x, prev)) is refused; well-formed delta plans are served
+    (tests/test_torch_momo.py, test_delta_reference_matches_jax_kernel)."""
     plan = build_cell_plan(good[2])._replace(delta=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(ValueError, match="needs 128 level-0 rows"):
         make_fused_cell(plan, "cpu")
 
 
@@ -177,3 +183,59 @@ def test_fused_cell_checks_its_inputs(good, case):
     with pytest.raises(err):
         cell(x, hx)
     assert isinstance(cell, FusedCell) and cell.launches == 0
+
+
+# -- the delta (MOMO3) branch ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def momo3():
+    _, jmodel, params = jax_load_pretrained("momo3-4d4ea0")
+    return (jax_build_cell_plan_momo(jmodel, params),
+            build_cell_plan(load_pretrained("momo3-4d4ea0")[1]))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 130])
+def test_delta_reference_matches_jax_kernel(momo3, batch):
+    """FusedCell.reference with prev against JAX's make_fused_cell in
+    interpret mode (gruunet_cell.py:60-83: level 0 split over x and
+    prev), 1e-5."""
+    jplan, plan = momo3
+    assert plan.delta and plan.down_mats[0].shape == (44, 176)
+    jcell = jax_make_fused_cell(jplan, interpret=True)
+    cell = make_fused_cell(plan, "cpu")
+    assert cell.delta and cell.n_feat == 22 and cell.n == 48
+    rng = np.random.default_rng(batch)
+    x = np.log1p(4 * rng.random((batch, 22))).astype(np.float32)
+    prev = np.log1p(4 * rng.random((batch, 22))).astype(np.float32)
+    hx = (2 * rng.random((batch, 48)) - 1).astype(np.float32)
+    jy, jh = jcell(jnp.asarray(x), jnp.asarray(hx), jnp.asarray(prev))
+    y, h = cell(torch.from_numpy(x), torch.from_numpy(hx),
+                torch.from_numpy(prev))
+    assert y.shape == (batch, 22) and h.shape == (batch, 48)
+    _close(y, jy)
+    _close(h, jh)
+    ry, rh = cell.reference(torch.from_numpy(x), torch.from_numpy(hx),
+                            torch.from_numpy(prev))
+    assert torch.equal(ry, y) and torch.equal(rh, h)
+    assert cell.launches == 0
+
+
+@pytest.mark.parametrize("case", ["no prev", "prev to a plain plan",
+                                  "prev width", "prev dtype"])
+def test_delta_cell_checks_prev(momo3, good, case):
+    _, plan = momo3
+    cell = make_fused_cell(plan, "cpu")
+    x, hx, prev = torch.zeros(2, 22), torch.zeros(2, 48), torch.zeros(2, 22)
+    err = ValueError
+    if case == "no prev":
+        prev = None
+    elif case == "prev to a plain plan":
+        cell = make_fused_cell(build_cell_plan(good[2]), "cpu")
+        x, hx, prev = torch.zeros(2, 64), torch.zeros(2, 68), torch.zeros(2,
+                                                                          64)
+    elif case == "prev width":
+        prev = torch.zeros(2, 21)
+    else:
+        prev, err = prev.double(), TypeError
+    with pytest.raises(err):
+        cell(x, hx, prev)

@@ -1,7 +1,8 @@
 """The port's fused hop: its plain PyTorch version against the JAX
 package's Pallas kernel (interpret mode) fed the identical plan, with and
 without the SNR gate, in the single-hop and the resident K-hop form and
-with int16 IO; the gated hop against the port's gated fast step; engine
+with int16 IO, on gruunet2-stream16k and on MOMO3 (the delta carry and
+the raw domain); the gated hop against the port's gated fast step; engine
 mode 'fused' gated against the JAX engine; and the wrapper's checks. The
 CUDA kernels themselves are held against the plain version on the card
 by chip_smoke.py."""
@@ -18,7 +19,8 @@ from audio_denoising_tpu.ops.pallas.fused_hop import (
     fused_hop_init_state as jax_init_state, make_fused_hop as jax_make_hop)
 from audio_denoising_tpu.runtime.engine import StreamEngine as JaxEngine
 from audio_denoising_tpu.runtime.plan import (
-    build_cell_plan as jax_build_cell_plan)
+    build_cell_plan as jax_build_cell_plan,
+    build_cell_plan_momo as jax_build_cell_plan_momo)
 
 from audio_denoising_torch.config import PRESETS
 from audio_denoising_torch.hub import load_pretrained
@@ -79,7 +81,7 @@ def _assert_state_close(state, jstate, plane_only=False):
             continue
         want = np.asarray(getattr(jstate, name))
         got = t.numpy()
-        if name in ("ring", "ola", "hx"):
+        if name in ("ring", "ola", "hx", "prev"):
             if not plane_only:
                 np.testing.assert_allclose(got, want, atol=STATE_ATOL,
                                            err_msg=name)
@@ -289,18 +291,24 @@ def test_gate_multi_and_int16_are_served(plans, case):
 
 @pytest.mark.parametrize("case", ["raw", "bf16", "int8", "delta"])
 def test_later_slices_raise(plans, case):
+    """bf16 and int8 compute are a later slice (ROADMAP B4); the raw domain
+    and delta plans are served (the MOMO3 tests below), but a raw config
+    whose n_mels is not n_stft, or a delta plan whose level 0 does not
+    take cat(x, prev), is refused."""
     _, _, cfg, plan = plans
     kw = {}
+    err, match = NotImplementedError, "does not implement.*ROADMAP B4"
     if case == "raw":
         cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
             cfg.dsp, domain="raw"))
+        err, match = ValueError, "n_mels must equal n_stft"
     elif case in ("bf16", "int8"):
         kw["compute_dtype"] = {"bf16": torch.bfloat16,
                                "int8": torch.int8}[case]
     else:
         plan = plan._replace(delta=True)
-    with pytest.raises(NotImplementedError,
-                       match="does not implement.*ROADMAP B[34]"):
+        err, match = ValueError, "needs 128 level-0 rows"
+    with pytest.raises(err, match=match):
         make_fused_hop(cfg, plan, device="cpu", **kw)
 
 
@@ -371,3 +379,158 @@ def test_cpu_hop_refuses_cuda_tensors_it_was_not_built_for(plans):
                             for w in (640, 640, 68)))
     with pytest.raises(ValueError, match="built for cpu"):
         hop(state, torch.empty(2, 320, device="meta"))
+
+
+# -- MOMO3: the delta carry and the raw-spectrogram domain -------------------
+
+MOMO_SPEC = "momo3-4d4ea0"
+REALNOISE = "runs/momo3-realnoise.npz"
+MOMO_ATOL = 1e-5     # tests/test_fused_hop.py:233-243 (kernel vs fast step)
+KHOP_ATOL = 1e-6     # :245-265 (K hops in one call vs K single hops)
+
+
+def _momo(spec):
+    """JAX (cfg, plan), the port's (cfg, the identical plan), and the
+    port's zoo model, for a MOMO3 checkpoint."""
+    jcfg, jmodel, params = jax_load_pretrained(spec)
+    jplan = jax_build_cell_plan_momo(jmodel, params)
+    cfg, model = load_pretrained(spec)
+    return jcfg, jplan, cfg, plan_from_numpy(jplan), model
+
+
+@pytest.fixture(scope="module")
+def momo():
+    return _momo(MOMO_SPEC)
+
+
+def _momo_chunks(rng, K, B):
+    return (0.1 * rng.standard_normal((K, B, 21))).astype(np.float32)
+
+
+@pytest.mark.parametrize("batch", [4, 3])
+def test_momo3_plain_hop_matches_jax_kernel(momo, batch):
+    """Every plane, prev included, and the output over 8 hops."""
+    jcfg, jplan, cfg, plan, _ = momo
+    assert plan.delta and cfg.dsp.domain == "raw"
+    jax_hop = jax_make_hop(jcfg, jplan, interpret=True)
+    hop = make_fused_hop(cfg, plan, device="cpu")
+    assert hop.mel is None and hop.imel is None and hop.M == 22
+    js, s = jax_init_state(jcfg, jplan, batch), fused_hop_init_state(
+        cfg, plan, batch)
+    assert s.prev.shape == (batch, 22) and not s.prev.any()
+    for chunk in _momo_chunks(np.random.default_rng(batch), 8, batch):
+        js, jout = jax_hop(js, jnp.asarray(chunk))
+        s, out = hop(s, torch.from_numpy(chunk))
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   atol=MOMO_ATOL)
+        for name in ("ring", "ola", "hx", "prev"):
+            np.testing.assert_allclose(getattr(s, name).numpy(),
+                                       np.asarray(getattr(js, name)),
+                                       atol=MOMO_ATOL, err_msg=name)
+    assert hop.launches == 0
+
+
+def test_momo3_plain_hop_matches_the_fast_step(momo):
+    """The raw-domain fast step with the zoo model's (hx, prev) carry as
+    the oracle (tests/test_fused_hop.py:220-243): output, hx and prev."""
+    _, _, cfg, plan, model = momo
+    B = 4
+    fast, hop = make_fast_step(cfg, model, "cpu"), make_fused_hop(
+        cfg, plan, device="cpu")
+    s0, s1 = fast_init_state(cfg, model, B), fused_hop_init_state(cfg, plan,
+                                                                  B)
+    for chunk in _momo_chunks(np.random.default_rng(5), 5, B):
+        s0, out0 = fast(s0, torch.from_numpy(chunk))
+        s1, out1 = hop(s1, torch.from_numpy(chunk))
+        np.testing.assert_allclose(out1.numpy(), out0.numpy(),
+                                   atol=MOMO_ATOL)
+        np.testing.assert_allclose(s1.hx.numpy(),
+                                   s0.hx.reshape(B, -1).numpy(),
+                                   atol=MOMO_ATOL)
+        np.testing.assert_allclose(s1.prev.numpy(), s0.prev.numpy(),
+                                   atol=MOMO_ATOL)
+
+
+@pytest.mark.parametrize("case", ["ungated", "both", "int16"])
+def test_momo3_multi_hop_matches_jax_kernel(momo, case):
+    """K=4 hops in one call at B=3, two calls carrying the state, against
+    JAX's resident kernel; with int16 IO at most 1 LSB apart."""
+    jcfg, jplan, cfg, plan, _ = momo
+    estimator, io = _multi_case(case)
+    if estimator:
+        jcfg, cfg = (_gated(c, estimator, 1.0, 6.0) for c in (jcfg, cfg))
+    K, B = 4, 3
+    jio = jnp.int16 if io == torch.int16 else jnp.float32
+    jax_multi = jax_make_hop(jcfg, jplan, interpret=True, hops_per_call=K,
+                             io_dtype=jio)
+    multi = make_fused_hop(cfg, plan, device="cpu", hops_per_call=K,
+                           io_dtype=io)
+    rng = np.random.default_rng(6)
+    js, s = jax_init_state(jcfg, jplan, B), fused_hop_init_state(cfg, plan, B)
+    for _ in range(2):
+        chunks = _momo_chunks(rng, K, B)
+        if io == torch.int16:
+            chunks = (np.clip(3 * chunks, -1, 1) * 32767).astype(np.int16)
+        js, jouts = jax_multi(js, jnp.asarray(chunks))
+        s, outs = multi(s, torch.from_numpy(chunks))
+        if io == torch.int16:
+            diff = np.abs(outs.numpy().astype(np.int32)
+                          - np.asarray(jouts).astype(np.int32))
+            assert diff.max() <= LSB
+        else:
+            np.testing.assert_allclose(outs.numpy(), np.asarray(jouts),
+                                       atol=MOMO_ATOL)
+        for name in ("hx", "prev"):
+            np.testing.assert_allclose(getattr(s, name).numpy(),
+                                       np.asarray(getattr(js, name)),
+                                       atol=MOMO_ATOL, err_msg=name)
+        _assert_state_close(s, js, plane_only=True)
+
+
+def test_momo3_multi_hop_equals_single_hops(momo):
+    """K hops in one call against K single hops, prev included."""
+    _, _, cfg, plan, _ = momo
+    K, B = 4, 3
+    multi = make_fused_hop(cfg, plan, device="cpu", hops_per_call=K)
+    single = make_fused_hop(cfg, plan, device="cpu")
+    chunks = torch.from_numpy(_momo_chunks(np.random.default_rng(7), K, B))
+    s_m, outs = multi(fused_hop_init_state(cfg, plan, B), chunks)
+    s_s = fused_hop_init_state(cfg, plan, B)
+    for k in range(K):
+        s_s, out = single(s_s, chunks[k])
+        np.testing.assert_allclose(outs[k].numpy(), out.numpy(),
+                                   atol=KHOP_ATOL)
+    for name, a in s_m._asdict().items():
+        b = getattr(s_s, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=KHOP_ATOL,
+                                       err_msg=name)
+
+
+def test_momo3_gated_plain_hop_matches_jax_kernel():
+    """The training checkpoint with the daemon's auto gate (1 dB, width 6,
+    'both'): the gated hop with the delta carry and the raw domain
+    together, 12 bursty hops at B=4; the gate blends on some
+    stream-hops."""
+    from audio_denoising_torch.config import recommended_serving
+    jcfg, jplan, cfg, plan, _ = _momo(REALNOISE)
+    cfg = recommended_serving(cfg)
+    jcfg = _gated(jcfg, cfg.serving.snr_gate_estimator,
+                  cfg.serving.snr_gate_db, cfg.serving.snr_gate_width_db)
+    B = 4
+    jax_hop = jax_make_hop(jcfg, jplan, interpret=True)
+    hop = make_fused_hop(cfg, plan, device="cpu")
+    js, s = jax_init_state(jcfg, jplan, B), fused_hop_init_state(cfg, plan, B)
+    rng = np.random.default_rng(8)
+    alphas = []
+    for t in range(12):
+        chunk = _bursty(rng, B, 21, t)
+        js, jout = jax_hop(js, jnp.asarray(chunk))
+        s, out = hop(s, torch.from_numpy(chunk))
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   atol=GATED_OUT_ATOL)
+        alphas.append(hop.alpha(s).numpy())
+    _assert_state_close(s, js)
+    alphas = np.concatenate(alphas)
+    assert np.any((alphas > 0) & (alphas < 1)), alphas.ravel()

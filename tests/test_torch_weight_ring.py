@@ -20,7 +20,8 @@ from audio_denoising_tpu.ops.pallas.common import (
 from audio_denoising_tpu.ops.pallas.gruunet_cell import (
     make_fused_cell as jax_make_fused_cell)
 from audio_denoising_tpu.runtime.plan import (
-    build_cell_plan as jax_build_cell_plan)
+    build_cell_plan as jax_build_cell_plan,
+    build_cell_plan_momo as jax_build_cell_plan_momo)
 
 from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.ops.kernels import weight_ring as wr
@@ -33,7 +34,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RUNS = os.path.join(HERE, "..", "runs")
 ATOL = 1e-5    # tests/test_torch_fused_cell.py's bound on the cell
 PLANS = ["gruunet2-good", "gruunet2s16kw40-mrstft-idp-50k.npz",
-         "gruunet2mel128d5w64-mrstft-50k.npz"]
+         "gruunet2mel128d5w64-mrstft-50k.npz", "momo3-4d4ea0"]
 
 
 def _spec(name):
@@ -51,7 +52,7 @@ def served():
             _spec(name))[1]), "cpu")
         keep = []
         p = plan_args(cell.weights, cell.skip_flags, cell.n_feat, cell.n,
-                      keep)
+                      keep, cell.delta)
         mats, layout = wr.cell_matrices(p), 4 * wr.cell_layout_floats(p)
         out[name] = (cell, mats, layout,
                      wr.WeightRing(mats, layout, torch.device("cpu")), keep)
@@ -140,10 +141,16 @@ def test_ring_matmul_is_the_matmul(shape):
                                    atol=1e-4, rtol=1e-5)
 
 
-def _cell_inputs(batch, n_feat, n, seed):
+def _cell_inputs(batch, n_feat, n, seed, delta=False):
+    """(x, hx), and prev for a delta plan: features >= 0 as the hop makes
+    them, a state in (-1, 1)."""
     rng = np.random.default_rng(seed)
-    return (np.log1p(4 * rng.random((batch, n_feat))).astype(np.float32),
-            (2 * rng.random((batch, n)) - 1).astype(np.float32))
+    x = np.log1p(4 * rng.random((batch, n_feat))).astype(np.float32)
+    hx = (2 * rng.random((batch, n)) - 1).astype(np.float32)
+    if not delta:
+        return x, hx
+    return x, hx, np.log1p(4 * rng.random((batch, n_feat))).astype(
+        np.float32)
 
 
 @pytest.mark.parametrize("name", PLANS)
@@ -152,11 +159,12 @@ def test_ring_mirror_matches_the_reference(served, name):
     wrapper builds, against FusedCell.reference."""
     cell, _, _, ring, _ = served[name]
     for batch in (1, 3, 64):
-        x, hx = map(torch.from_numpy,
-                    _cell_inputs(batch, cell.n_feat, cell.n, batch))
+        x, hx, *prev = map(torch.from_numpy, _cell_inputs(
+            batch, cell.n_feat, cell.n, batch, cell.delta))
+        prev = prev[0] if prev else None
         y, h = plan_cell_math(cell.weights, cell.skip_flags, cell.n, x, hx,
-                              wr.ring_gemm(ring.stage_bytes))
-        ry, rh = cell.reference(x, hx)
+                              wr.ring_gemm(ring.stage_bytes), prev=prev)
+        ry, rh = cell.reference(x, hx, prev)
         torch.testing.assert_close(y, ry, rtol=0, atol=ATOL)
         torch.testing.assert_close(h, rh, rtol=0, atol=ATOL)
 
@@ -168,15 +176,35 @@ def test_ring_mirror_matches_jax(served, name):
     kernel tile)."""
     cell, _, _, ring, _ = served[name]
     _, jmodel, params = jax_load_pretrained(_spec(name))
-    jplan = jax_build_cell_plan(jmodel, params)
+    jplan = (jax_build_cell_plan_momo if cell.delta
+             else jax_build_cell_plan)(jmodel, params)
     jw, jflags = jax_pack_plan_weights(jplan)
-    x, hx = _cell_inputs(3, cell.n_feat, cell.n, 11)
+    x, hx, *prev = _cell_inputs(3, cell.n_feat, cell.n, 11, cell.delta)
+    jprev = [jnp.asarray(p) for p in prev]
     y, h = plan_cell_math(cell.weights, cell.skip_flags, cell.n,
                           torch.from_numpy(x), torch.from_numpy(hx),
-                          wr.ring_gemm(ring.stage_bytes))
-    jy, jh = jax_plan_cell_math(jw, jflags, cell.n, cell.n_feat, False,
-                                jnp.asarray(x), jnp.asarray(hx))
-    ky, kh = jax_make_fused_cell(jplan, interpret=True)(jnp.asarray(x),
-                                                        jnp.asarray(hx))
+                          wr.ring_gemm(ring.stage_bytes),
+                          prev=torch.from_numpy(prev[0]) if prev else None)
+    jy, jh = jax_plan_cell_math(jw, jflags, cell.n, cell.n_feat, cell.delta,
+                                jnp.asarray(x), jnp.asarray(hx), *jprev)
+    ky, kh = jax_make_fused_cell(jplan, interpret=True)(
+        jnp.asarray(x), jnp.asarray(hx), *jprev)
     for got, want in ((y, jy), (h, jh), (y, ky), (h, kh)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_momo3_plan_is_one_pass_of_small_slabs(served):
+    """MOMO3-4d4ea0's nine matrices (320 KB padded) against the ring its
+    wrapper builds: level 0 reads cat(x, prev), 44 rows, and is streamed
+    as any matrix; the whole plan is one pass of slabs that each fit a
+    stage."""
+    cell, mats, layout, ring, _ = served["momo3-4d4ea0"]
+    assert cell.delta and mats[0].k == 2 * cell.n_feat == 44
+    assert [(m.k, m.n) for m in mats] == [
+        (44, 176), (48, 144), (176, 80), (80, 144), (48, 80), (80, 176),
+        (80, 176), (176, 22), (176, 22)]
+    plan_bytes = sum(4 * m.k * wr.round4(m.n) for m in mats)
+    assert 300_000 < plan_bytes < 340_000
+    assert sum(s.nbytes for s in ring.slabs) == plan_bytes
+    assert ring.stages == 4 and len(ring.slabs) > ring.stages
+    assert layout + ring.stages * (ring.stage_bytes + 16) <= 232448
