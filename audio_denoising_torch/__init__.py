@@ -6,14 +6,19 @@ names follow the JAX package so each counterpart is easy to find:
 - ``config``              — the shared config tree (a copy; stdlib only).
 - ``compat``              — ``.npz`` checkpoints and JAX parameter import.
 - ``ops``                 — host-side DSP: windows, the mel pair, STFT,
-                            Griffin-Lim, conv wrappers.
+                            Griffin-Lim, the resampler, conv wrappers.
 - ``ops.kernels``         — the hand-written sm_90a CUDA kernels (the
                             fused hop, the WebRTC hop), each with its
                             plain PyTorch version beside it.
-- ``pipeline``            — the WebRTC-path step, op by op.
+- ``io``                  — host audio I/O (a copy of the JAX package's:
+                            WAV, the codec libraries, the cache, stream
+                            helpers, the WebSocket frame codec).
+- ``pipeline``            — the offline full-clip denoise and the
+                            streaming steps, op by op.
 - ``models``              — GRUUNet2 as an ``nn.Module``.
 - ``runtime``             — the matrixized cell plan, ``StreamEngine``,
                             batching tick and serving metrics.
+- ``apps.offline``        — offline file denoising (CLI ``denoise``).
 - ``apps.engine_serve``   — the batched multi-stream engine daemon.
 
 The port imports ``torch`` and numpy, never ``jax`` and nothing of

@@ -1,12 +1,14 @@
 """Top-level CLI: ``python -m audio_denoising_torch <command> ...``.
 
-The port's commands so far: ``engine`` (the batched multi-stream daemon)
-and ``profile`` (per-hop latency of a serving step).
+The port's commands so far: ``denoise`` (an audio file to a denoised
+WAV), ``engine`` (the batched multi-stream daemon) and ``profile``
+(per-hop latency of a serving step).
 """
 
 import sys
 
 COMMANDS = {
+    "denoise": "audio_denoising_torch.apps.offline",
     "engine": "audio_denoising_torch.apps.engine_serve",
     "profile": "audio_denoising_torch.apps.profile_app",
 }

@@ -1,6 +1,18 @@
-"""The op-by-op streaming steps (JAX counterpart pipeline.py: the webrtc
-part, ``_transforms`` :37, ``WebRTCState`` :464, ``webrtc_init_state``
-:490, ``make_webrtc_step`` :520; and ``make_server_step`` :653).
+"""The offline full-clip denoise and the op-by-op streaming steps (JAX
+counterpart pipeline.py: ``_transforms`` :37, ``_to_features`` :51,
+``_to_linear`` :57, ``_apply_snr_gate`` :66, ``offline_denoise`` :115,
+``jit_offline_denoiser`` :454; the webrtc part, ``WebRTCState`` :464,
+``webrtc_init_state`` :490, ``make_webrtc_step`` :520; and
+``make_server_step`` :653).
+
+``offline_denoise``: a whole clip at once, STFT, features (log1p of the
+mel-scaled or raw magnitude), the model over all frames, residual
+subtract, leaky_relu(0.2), expm1, inverse mel, the optional SNR gate over
+the whole clip, then phase reuse or full-clip Griffin-Lim. A
+bounded-lookahead checkpoint gets ``la`` hops of silence to flush its
+tail and its output re-aligned. ``offline_denoiser`` binds it to a
+device. It runs no hand-written kernel, as the JAX graph reaches no
+Pallas kernel.
 
 ``make_webrtc_step``: one hop of the reference's app2.py recv loop
 (app2.py:174-233), op by op: ring buffer, per-window peak normalization,
@@ -36,7 +48,10 @@ from audio_denoising_torch.ops import (
     griffin_lim, hann_window, inverse_mel_matrix, inverse_mel_scale,
     istft, mel_filterbank, mel_scale, num_frames, stft)
 from audio_denoising_torch.ops.noisefloor import (
-    gate_state, make_gate_estimator)
+    FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB, floor_rise_per_frame,
+    gate_alpha, gate_state, make_gate_estimator, noise_floor_scan,
+    removed_powers, removed_snr_scan, smooth_beta_per_frame,
+    snr_db_from_floor, total_beta_per_frame)
 
 
 def serving_model(model, device: torch.device):
@@ -75,6 +90,130 @@ def _transforms(cfg: Config, device: Union[str, torch.device] = "cpu"):
     inv = inverse_mel_matrix(dsp.n_stft, dsp.n_mels,
                              dsp.sample_rate).to(device)
     return fb, inv, win
+
+
+def _to_features(cfg: Config, mag: torch.Tensor, fb) -> torch.Tensor:
+    """(B, F, T) magnitude -> (B, M, T) model features per cfg.dsp.domain."""
+    if cfg.dsp.domain == "raw":
+        return torch.log1p(mag)   # signed-log clamp == log1p on magnitudes
+    return torch.log1p(mel_scale(mag, fb))
+
+
+def _to_linear(cfg: Config, feat_out: torch.Tensor, inv) -> torch.Tensor:
+    """(B, M, T) reconstructed features -> (B, F, T) linear magnitude."""
+    lin = torch.clamp(torch.expm1(feat_out), min=0.0)
+    if cfg.dsp.domain == "raw":
+        return lin
+    return inverse_mel_scale(lin, inv)
+
+
+def offline_gate_alpha(cfg: Config, mag: torch.Tensor,
+                       lin_mag: torch.Tensor) -> Optional[torch.Tensor]:
+    """(B, T) per-frame denoise weight in [0, 1] of the SNR gate over a
+    whole clip (ops/noisefloor.py: the causal estimators scanned over all
+    frames), or None without a gate. mag/lin_mag: (B, F, T) linear
+    input/output magnitudes."""
+    srv = cfg.serving
+    if srv.snr_gate_db is None:
+        return None
+    power = mag * mag
+    hop, sr = cfg.dsp.hop_length, cfg.dsp.sample_rate
+    beta_tot = total_beta_per_frame(hop, sr, srv.snr_gate_tau_s)
+
+    def removed_alpha():
+        p_out, p_rem = removed_powers(power, lin_mag * lin_mag, axis=-2)
+        snr, _ = removed_snr_scan(p_out, p_rem, beta_tot)      # (B, T)
+        return gate_alpha(snr, srv.snr_gate_db, srv.snr_gate_width_db)
+
+    def floor_alpha(gate_db, width_db):
+        floors, totals, _ = noise_floor_scan(
+            power, floor_rise_per_frame(hop, sr),
+            smooth_beta_per_frame(hop, sr), beta_tot)
+        snr = snr_db_from_floor(totals, floors.mean(dim=-2))
+        return gate_alpha(snr, gate_db, width_db)
+
+    est = srv.snr_gate_estimator
+    if est == "removed":
+        alpha = removed_alpha()
+    elif est == "floor":
+        alpha = floor_alpha(srv.snr_gate_db, srv.snr_gate_width_db)
+    else:  # 'both': the floor tracker vetoes the removed decision
+        alpha = torch.maximum(
+            removed_alpha(),
+            floor_alpha(FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB))
+    return alpha
+
+
+def _apply_snr_gate(cfg: Config, mag: torch.Tensor,
+                    lin_mag: torch.Tensor) -> torch.Tensor:
+    """The gated output blend: frames read as near-clean lean toward the
+    input magnitude (with the reused noisy phase, passthrough-exact).
+    No-op without a gate."""
+    alpha = offline_gate_alpha(cfg, mag, lin_mag)
+    if alpha is None:
+        return lin_mag
+    alpha = alpha[:, None, :]
+    return alpha * lin_mag + (1.0 - alpha) * mag
+
+
+def offline_denoise(cfg: Config, model, audio: torch.Tensor,
+                    hx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """audio: (B, L) or (L,) -> denoised audio of the same shape, on the
+    device and in the dtype of ``audio`` (where ``model`` must be too).
+    The DSP constants follow the audio's dtype, so a float64 clip with a
+    float64 model runs the whole chain in float64."""
+    dsp = cfg.dsp
+    squeeze = audio.dim() == 1
+    if squeeze:
+        audio = audio[None]
+    length = audio.shape[-1]
+    fb, inv, win = (None if t is None else t.to(audio.dtype)
+                    for t in _transforms(cfg, audio.device))
+
+    la = getattr(cfg.model, "lookahead_frames", 0)
+    if la:
+        # the model's output at step t targets frame t - la: feed la hops
+        # of silence to flush the tail, as the stream does when the input
+        # ends, and re-align below
+        audio = torch.nn.functional.pad(audio, (0, la * dsp.hop_length))
+    spec = stft(audio, dsp.n_fft, dsp.hop_length, dsp.win, window=win)
+    mag = spec.abs()
+    x = _to_features(cfg, mag, fb).transpose(-1, -2)          # (B, T, M)
+    with torch.no_grad(), fp32_convs():
+        resid, _ = model.apply(x, hx)
+    if la:
+        t_use = x.shape[1] - la            # frame count of the raw input
+        resid = resid[:, la:]              # pred[t + la] targets frame t
+        x = x[:, :t_use]
+        spec = spec[..., :t_use]
+        mag = mag[..., :t_use]
+    recon = torch.nn.functional.leaky_relu(x - resid, 0.2)
+    lin_mag = _to_linear(cfg, recon.transpose(-1, -2), inv)   # (B, F, T)
+    lin_mag = _apply_snr_gate(cfg, mag, lin_mag)
+
+    if dsp.reconstruction == "phase":
+        out = istft(torch.polar(lin_mag, torch.angle(spec)), dsp.n_fft,
+                    dsp.hop_length, dsp.win, window=win, length=length)
+    else:
+        out = griffin_lim(lin_mag, dsp.n_fft, dsp.hop_length, dsp.win,
+                          window=win, n_iter=dsp.griffin_lim_iters,
+                          momentum=dsp.griffin_lim_momentum, length=length)
+    return out[0] if squeeze else out
+
+
+def offline_denoiser(cfg: Config, model,
+                     device: Optional[Union[str, torch.device]] = None):
+    """``fn(audio) -> audio``: ``offline_denoise`` with the model copied
+    to ``device`` (the card unless ``"cpu"``) once; ``audio`` (B, L) or
+    (L,), a tensor or an array, is taken to that device as float32."""
+    device = resolve_device(device)
+    model = serving_model(model, device)
+
+    def fn(audio) -> torch.Tensor:
+        return offline_denoise(cfg, model, torch.as_tensor(
+            audio, dtype=torch.float32, device=device))
+
+    return fn
 
 
 class WebRTCState(NamedTuple):

@@ -134,7 +134,39 @@ raises on failure (so the script exits non-zero and prints no result):
 29. ``EngineDaemon`` mode ``fused`` with the auto gate (1 dB, width 6,
     'both') on runs/momo3-realnoise.npz, 4 clients x 16 streams x 25
     chunks, each stream against its own sequence through the plain
-    version on the CPU, the reply latency per round printed.
+    version on the CPU, the reply latency per round printed;
+30. ``apps.offline.denoise_file`` with the default device (the card) on a
+    WAV the script writes, 20 s of 44.1 kHz stereo 16-bit PCM (the vowel
+    under per-quarter noise levels), gruunet2-good with no gate argument
+    (its recommended profile, a no-op at output gain 3), against the same
+    call with ``device="cpu"``: the peak-normalized outputs within
+    OFFLINE_ATOL, the written 48 kHz mono WAVs within one LSB;
+31. full-clip Griffin-Lim (GL-32, momentum 0.99) on gruunet2-dari_tult,
+    10 s at 48 kHz through ``offline_denoiser`` on the card and the CPU,
+    each against the same chain in float64 on the CPU: the waveform's SNR
+    and the spectral convergence held;
+32. the offline SNR gate on the unit-gain runs/gruunet2-mrstft-50k.npz:
+    ``denoise_file`` with its recommended gate (1 dB, width 6, 'both'),
+    then the CLI's ``--snr-gate 1`` with estimators 'removed' and 'floor'
+    in process, card against CPU, the share of frames whose alpha lies
+    strictly between 0 and 1 printed (above 0 required for the
+    recommended gate);
+33. the lookahead branch (runs/gruunet2mel128w64-mrstft-la4-50k.npz, 10 s)
+    and MOMO3 (momo3-4d4ea0: the raw domain, the delta carry; 2 s)
+    through ``offline_denoiser``, card against CPU, the output as long as
+    the input;
+34. ``python -m audio_denoising_torch denoise in.wav out.wav`` in a
+    subprocess with the default device on phase 30's input: exit 0, a 48
+    kHz mono WAV of the resampled length, equal to phase 30's (one LSB);
+    then the offline timing: ``denoise_array`` on 60 s of 44.1 kHz stereo
+    (wall seconds, real-time factor, the card's busy share by
+    torch.profiler), the chain stage by stage (resample, STFT, the model
+    scan, residual and inverse mel, the gate scans on phase 32's
+    checkpoint, the iSTFT), and ``offline_denoiser`` on 16 clips of 10 s.
+
+Phases 30-34 drive the offline path, which launches none of the
+hand-written kernels: the JAX offline graph reaches no Pallas kernel
+(``offline_denoise`` runs ``model.apply``, JAX pipeline.py:140).
 
 Phases 4 to 7, 9 to 12, 15 to 17 and 27 to 29, the first three calls of
 phases 14 and 26 and phase 19's calls are the main paths: each kernel's
@@ -156,6 +188,7 @@ entry with the variants checked, the MOMO3 ones with their times) and
 of the repo, the script fails.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -222,6 +255,27 @@ FORCED_K = 2         # hops per call where each call starts from a shared state
 MOMO_SPEC = "momo3-4d4ea0"
 MOMO_TRAINED = "momo3-realnoise.npz"
 MOMO2_GOLDEN = "model_MOMO2-rand.npz"
+# the offline path (phases 30-34): denoise_file at gruunet2-good's full
+# width on 44.1 kHz stereo input, resampled to the model's 48 kHz
+OFFLINE_SPEC = "gruunet2-good"
+OFFLINE_IN_RATE = 44100
+OFFLINE_ATOL = 1e-4  # card vs CPU on the peak-normalized output
+WAV_LSB = 1          # 16-bit WAVs of two such outputs: one rounding edge
+OFFLINE_GL_SPEC = "gruunet2-dari_tult"
+# full-clip GL-32 with momentum 0.99 against float64; fp32 on the CPU
+# reaches 49.2 dB and spectral convergence 2.1e-4 on this input
+OFFLINE_GL_SNR_DB = 30.0
+OFFLINE_LA_CHECKPOINT = "gruunet2mel128w64-mrstft-la4-50k.npz"
+OFFLINE_LEVELS = (0.003, 0.1, 0.01, 0.3)   # noise level per quarter clip
+OFFLINE_FILE_S = 20
+OFFLINE_GL_S = 10
+OFFLINE_GATE_S = 10
+OFFLINE_LA_S = 10
+OFFLINE_MOMO_S = 2   # 4,571 frames of MOMO3's 21-sample hop
+OFFLINE_TIMED_S = 60
+OFFLINE_TIMED_CALLS = 3   # the host's clock varies from call to call
+OFFLINE_BATCH = 16
+OFFLINE_BATCH_S = 10
 
 
 def say(*parts):
@@ -1885,6 +1939,347 @@ def time_momo(torch, cfg, model, plan, smi):
     return out
 
 
+# -- the offline path -----------------------------------------------------------
+
+@contextlib.contextmanager
+def normalized_outputs():
+    """Collect, in call order, the peak-normalized output (on the CPU) of
+    every ``offline_denoise`` that ``apps.offline``'s chain runs, so two
+    runs of an entry point are compared before de-normalization."""
+    from audio_denoising_torch.apps import offline
+    real, seen = offline.offline_denoise, []
+
+    def spy(cfg, model, audio, *args, **kw):
+        y = real(cfg, model, audio, *args, **kw)
+        seen.append(y.detach().cpu())
+        return y
+
+    offline.offline_denoise = spy
+    try:
+        yield seen
+    finally:
+        offline.offline_denoise = real
+
+
+@contextlib.contextmanager
+def gate_alphas():
+    """Collect, in call order, the per-frame alpha (on the CPU) of every
+    offline SNR gate that ``pipeline`` evaluates."""
+    from audio_denoising_torch import pipeline
+    real, seen = pipeline.offline_gate_alpha, []
+
+    def spy(cfg, mag, lin_mag):
+        alpha = real(cfg, mag, lin_mag)
+        seen.append(None if alpha is None else alpha.cpu())
+        return alpha
+
+    pipeline.offline_gate_alpha = spy
+    try:
+        yield seen
+    finally:
+        pipeline.offline_gate_alpha = real
+
+
+def noisy_voice(n, sr, seed, channels=1):
+    """(channels, n) float32: the vowel (``voiced``) under white noise
+    whose level steps through OFFLINE_LEVELS, one level per quarter of
+    the clip, each channel its own noise; peak at most 1."""
+    rng = np.random.default_rng(seed)
+    quarter = -(-n // len(OFFLINE_LEVELS))
+    levels = np.repeat(OFFLINE_LEVELS, quarter)[:n]
+    x = voiced(n, sr)[None] + levels * rng.standard_normal((channels, n))
+    return (x / max(1.0, np.abs(x).max())).astype(np.float32)
+
+
+def resampled_length(n, orig, new):
+    g = math.gcd(orig, new)
+    return math.ceil(n * (new // g) / (orig // g))
+
+
+def check_offline(label, card, plain, length=None):
+    """Hold the card's peak-normalized output against the CPU's."""
+    err = max_err(card, plain)
+    shape = tuple(card.shape)
+    finite = bool(np.isfinite(card.numpy()).all())
+    say(f"  {label}: {shape}, max abs error card vs CPU {err:.3e} (bound "
+        f"{OFFLINE_ATOL:g})")
+    if not finite or err > OFFLINE_ATOL or tuple(plain.shape) != shape or (
+            length is not None and shape[-1] != length):
+        raise AssertionError(f"offline {label}: card and CPU disagree or "
+                             f"the output is malformed")
+
+
+def phase_offline_file(torch, tmp):
+    """Phase 30: ``denoise_file`` on the card (the default device) and on
+    the CPU on a WAV it writes: OFFLINE_FILE_S s of 44.1 kHz stereo
+    16-bit PCM. Returns (the input path, the card's written samples)."""
+    from audio_denoising_torch.apps import offline
+    from audio_denoising_torch.io import read_wav, write_wav
+    n = OFFLINE_FILE_S * OFFLINE_IN_RATE
+    src = os.path.join(tmp, "in.wav")
+    write_wav(src, noisy_voice(n, OFFLINE_IN_RATE, 30, channels=2),
+              OFFLINE_IN_RATE)
+    card_path, cpu_path = (os.path.join(tmp, f) for f in ("card.wav",
+                                                          "cpu.wav"))
+    with normalized_outputs() as outs:
+        offline.denoise_file(OFFLINE_SPEC, src, card_path)
+        offline.denoise_file(OFFLINE_SPEC, src, cpu_path, device="cpu")
+    length = resampled_length(n, OFFLINE_IN_RATE, 48000)
+    check_offline(f"{OFFLINE_SPEC}, {OFFLINE_FILE_S} s 44.1 kHz stereo -> "
+                  "48 kHz mono", outs[0], outs[1], length)
+    card, sr = read_wav(card_path)
+    plain, _ = read_wav(cpu_path)
+    lsb = float(np.abs(card - plain).max()) * 32768
+    say(f"  written WAVs: {sr} Hz, {card.shape}, card vs CPU {lsb:.0f} LSB "
+        f"(bound {WAV_LSB})")
+    if sr != 48000 or card.shape != (1, length) or lsb > WAV_LSB:
+        raise AssertionError("denoise_file's WAVs on the card and the CPU "
+                             "differ")
+    return src, card
+
+
+def spectral_distance(torch, cfg, got, want):
+    """|| |STFT(got)| - |STFT(want)| || / || |STFT(want)| || in float64 at
+    the model's geometry: the spectral convergence of ``got`` against
+    ``want``."""
+    from audio_denoising_torch.ops import hann_window, stft
+    dsp = cfg.dsp
+    win = hann_window(dsp.win).double()
+
+    def mag(y):
+        return stft(y.double().cpu(), dsp.n_fft, dsp.hop_length, dsp.win,
+                    window=win).abs()
+
+    m = mag(want)
+    return float(torch.linalg.norm(mag(got) - m) / torch.linalg.norm(m))
+
+
+def phase_offline_gl(torch):
+    """Phase 31: full-clip Griffin-Lim (GL-32, momentum 0.99, init
+    'ones') on gruunet2-dari_tult, OFFLINE_GL_S s at 48 kHz: the card and
+    the CPU in float32 against the same chain in float64 on the CPU (the
+    waveform's SNR, the spectral convergence)."""
+    import copy
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.pipeline import (
+        offline_denoise, offline_denoiser)
+    cfg, model = load_pretrained(OFFLINE_GL_SPEC)
+    sr = cfg.dsp.sample_rate
+    x = noisy_voice(OFFLINE_GL_S * sr, sr, 31)[0]
+    card = offline_denoiser(cfg, model)(x).cpu()
+    plain = offline_denoiser(cfg, model, "cpu")(x)
+    wide = offline_denoise(cfg, copy.deepcopy(model).double(),
+                           torch.from_numpy(x).double())
+    snr = {k: snr_db(wide.numpy(), v.numpy())
+           for k, v in (("card", card), ("CPU", plain))}
+    sc = {k: spectral_distance(torch, cfg, v, wide)
+          for k, v in (("card", card), ("CPU", plain))}
+    say(f"  {OFFLINE_GL_SPEC}, n_fft {cfg.dsp.n_fft}, hop "
+        f"{cfg.dsp.hop_length}, GL-{cfg.dsp.griffin_lim_iters}, momentum "
+        f"{cfg.dsp.griffin_lim_momentum}, {OFFLINE_GL_S} s: against float64 "
+        f"SNR card {snr['card']:.1f} dB, CPU {snr['CPU']:.1f} dB (bound "
+        f"{OFFLINE_GL_SNR_DB:g}); spectral convergence card "
+        f"{sc['card']:.2e}, CPU {sc['CPU']:.2e} (bound {SC_TOL:g}); card "
+        f"vs CPU SNR {snr_db(plain.numpy(), card.numpy()):.1f} dB")
+    if (card.shape != x.shape or snr["card"] < OFFLINE_GL_SNR_DB
+            or sc["card"] > SC_TOL):
+        raise AssertionError("offline Griffin-Lim on the card parts from "
+                             "the float64 chain")
+
+
+def phase_offline_gate(torch, tmp):
+    """Phase 32: the offline SNR gate on the unit-gain 48 kHz
+    FAST_CHECKPOINT, OFFLINE_GATE_S s of the vowel over per-quarter noise
+    levels: ``denoise_file`` with no gate argument (the recommended gate:
+    1 dB, width 6, 'both'), then the CLI's ``--snr-gate 1 --snr-gate-width
+    6`` with estimators 'removed' and 'floor' in process, each on the
+    card and on the CPU; the share of frames the gate blends (0 < alpha <
+    1) printed, and required above 0 for the recommended gate."""
+    from audio_denoising_torch.apps import offline
+    from audio_denoising_torch.io import write_wav
+    spec = os.path.join(REPO, "runs", FAST_CHECKPOINT)
+    src = os.path.join(tmp, "gate.wav")
+    write_wav(src, noisy_voice(OFFLINE_GATE_S * 48000, 48000, 32), 48000)
+    out = os.path.join(tmp, "gated.wav")
+    runs = [("recommended gate ('both')",
+             lambda dev: offline.denoise_file(spec, src, out, device=dev))]
+    for est in ("removed", "floor"):
+        argv = [src, out, "--model", spec, "--snr-gate", "1",
+                "--snr-gate-width", "6", "--snr-gate-estimator", est]
+        runs.append((f"--snr-gate 1 --snr-gate-estimator {est}",
+                     lambda dev, argv=argv: offline.main(
+                         argv + ([] if dev is None else ["--device", dev]))))
+    for label, run in runs:
+        with normalized_outputs() as outs, gate_alphas() as alphas:
+            run(None)
+            run("cpu")
+        check_offline(label, outs[0], outs[1])
+        a = alphas[0]
+        blend = float(((a > 0) & (a < 1)).double().mean())
+        say(f"    alpha card vs CPU {max_err(a, alphas[1]):.3e}; frames "
+            f"blending (0 < alpha < 1): {blend:.1%}, alpha 1: "
+            f"{float((a == 1).double().mean()):.1%}, alpha 0: "
+            f"{float((a == 0).double().mean()):.1%}")
+        if label.startswith("recommended") and not blend > 0:
+            raise AssertionError("the recommended offline gate never blends")
+
+
+def phase_offline_lookahead(torch):
+    """Phase 33: the bounded-lookahead branch on OFFLINE_LA_CHECKPOINT
+    (OFFLINE_LA_S s), then MOMO3 (raw domain, delta carry) on
+    OFFLINE_MOMO_S s, through ``offline_denoiser`` on the card and the
+    CPU; the output keeps the input's length."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.pipeline import offline_denoiser
+    for spec, seconds, seed in (
+            (os.path.join(REPO, "runs", OFFLINE_LA_CHECKPOINT), OFFLINE_LA_S,
+             33), (MOMO_SPEC, OFFLINE_MOMO_S, 34)):
+        cfg, model = load_pretrained(spec)
+        sr = cfg.dsp.sample_rate
+        x = noisy_voice(seconds * sr, sr, seed)[0]
+        card = offline_denoiser(cfg, model)(x).cpu()
+        plain = offline_denoiser(cfg, model, "cpu")(x)
+        check_offline(f"{os.path.basename(spec)} (lookahead "
+                      f"{cfg.model.lookahead_frames}, {cfg.dsp.domain} "
+                      f"domain), {seconds} s", card, plain, x.shape[-1])
+
+
+def phase_offline_cli(torch, tmp, src, card):
+    """Phase 34: ``python -m audio_denoising_torch denoise in.wav out.wav``
+    in a subprocess with the default device, on phase 30's input: exit 0,
+    and the WAV it writes equals phase 30's (index_add_'s atomics on the
+    card may move a sample across a rounding edge: WAV_LSB)."""
+    from audio_denoising_torch.io import read_wav
+    out = os.path.join(tmp, "cli.wav")
+    proc = subprocess.run(
+        [sys.executable, "-m", "audio_denoising_torch", "denoise", src, out],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"denoise exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    got, sr = read_wav(out)
+    lsb = float(np.abs(got - card).max()) * 32768 if got.shape == \
+        card.shape else math.inf
+    say(f"  exit 0, {out}: {sr} Hz, {got.shape}; against phase 30's "
+        f"in-process output {lsb:.0f} LSB (bound {WAV_LSB})")
+    if sr != 48000 or got.shape != card.shape or lsb > WAV_LSB:
+        raise AssertionError("the CLI's output differs from denoise_file's")
+
+
+def time_offline(torch, smi):
+    """The offline path's timing on the card: ``denoise_array`` on
+    OFFLINE_TIMED_S s of 44.1 kHz stereo (gruunet2-good): wall seconds,
+    the real-time factor and the share of the call the card is busy (by
+    torch.profiler); the chain stage by stage; ``offline_denoiser`` on a
+    batch of OFFLINE_BATCH clips of OFFLINE_BATCH_S s."""
+    from audio_denoising_torch import pipeline
+    from audio_denoising_torch.apps import offline
+    from audio_denoising_torch.config import recommended_serving
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.ops import istft, stft
+    from audio_denoising_torch.ops.resample import resample
+    cfg, model = load_pretrained(OFFLINE_SPEC)
+    dsp = cfg.dsp
+    secs = OFFLINE_TIMED_S
+    x = noisy_voice(secs * OFFLINE_IN_RATE, OFFLINE_IN_RATE, 35, channels=2)
+    offline.denoise_array(cfg, model, x[:, :OFFLINE_IN_RATE],
+                          OFFLINE_IN_RATE)                      # warm-up
+    walls = []
+    for _ in range(OFFLINE_TIMED_CALLS):
+        t0 = time.perf_counter()
+        offline.denoise_array(cfg, model, x, OFFLINE_IN_RATE)
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[len(walls) // 2]
+    rows, prof_wall = profiled(torch, lambda: offline.denoise_array(
+        cfg, model, x, OFFLINE_IN_RATE))
+    busy = sum(rows.values()) / 1e6
+    frames = resampled_length(x.shape[-1], OFFLINE_IN_RATE,
+                              dsp.sample_rate) // dsp.hop_length + 1
+    say(f"  denoise_array, {OFFLINE_SPEC}, {secs} s of 44.1 kHz stereo, "
+        f"{frames} frames ({smi}): calls of "
+        + ", ".join(f"{w:.3f}" for w in walls)
+        + f" s wall, median {wall:.3f} s: real-time factor "
+        f"{wall / secs:.4f} ({secs / wall:.1f}x real time); the card "
+        f"busy {busy:.3f} s by torch.profiler, {busy / wall:.1%} of the "
+        f"median call ({prof_wall:.3f} s under the profiler), "
+        f"{len(rows)} kernels; top:")
+    print_breakdown(dict(sorted(rows.items(), key=lambda kv: -kv[1])[:6]),
+                    "call")
+
+    dev_model = pipeline.serving_model(model, torch.device("cuda"))
+    gcfg = recommended_serving(load_pretrained(
+        os.path.join(REPO, "runs", FAST_CHECKPOINT))[0])
+    fb, inv, win = pipeline._transforms(cfg, "cuda")
+    times = {}
+
+    def stage(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        return out
+
+    with torch.no_grad(), pipeline.fp32_convs():
+        xm = torch.from_numpy(x).cuda().mean(dim=0)
+        y = stage("resample", lambda: resample(
+            xm[None], OFFLINE_IN_RATE, dsp.sample_rate)[0])
+        y = y / y.abs().max()
+
+        def analysis():
+            spec = stft(y, dsp.n_fft, dsp.hop_length, dsp.win, window=win)
+            mag = spec.abs()
+            return spec, mag, pipeline._to_features(cfg, mag, fb)
+
+        spec, mag, feats = stage("STFT and features", analysis)
+        feats = feats.transpose(-1, -2)
+        resid = stage("model scan", lambda: dev_model.apply(feats[None])[0])
+        lin = stage("residual and inverse mel", lambda: pipeline._to_linear(
+            cfg, torch.nn.functional.leaky_relu(
+                feats[None] - resid, 0.2).transpose(-1, -2), inv))
+        stage("gate scans (recommended gate)",
+              lambda: pipeline._apply_snr_gate(gcfg, mag[None], lin))
+        stage("iSTFT", lambda: istft(
+            torch.polar(lin, torch.angle(spec)[None]), dsp.n_fft,
+            dsp.hop_length, dsp.win, window=win, length=y.shape[-1]))
+    say(f"  the chain by stage ({frames} frames, CUDA-synchronized wall "
+        f"times): " + "; ".join(f"{k} {v * 1e3:.1f} ms ({v / frames * 1e6:.1f}"
+                                f" us/frame)" for k, v in times.items()))
+
+    fn = pipeline.offline_denoiser(cfg, model)
+    xb = noisy_voice(OFFLINE_BATCH_S * dsp.sample_rate, dsp.sample_rate, 36,
+                     channels=OFFLINE_BATCH)
+    fn(xb[:, :dsp.sample_rate])                                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(xb)
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    clip_s = OFFLINE_BATCH * OFFLINE_BATCH_S
+    say(f"  offline_denoiser, B={OFFLINE_BATCH} clips of {OFFLINE_BATCH_S} s "
+        f"at 48 kHz: {bwall:.3f} s wall, {clip_s / bwall:.1f} s of audio a "
+        f"second (real-time factor {bwall / clip_s:.4f} per clip-second)")
+
+
+def profiled(torch, fn):
+    """({kernel: device us} summed over one call of ``fn``, the call's
+    wall seconds) under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rows[e.name] = rows.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return rows, wall
+
+
 # -- timing -------------------------------------------------------------------
 
 def time_launches(torch, fn, n):
@@ -2342,6 +2737,25 @@ def main() -> int:
     say(f"phase 29: EngineDaemon mode fused, auto gate ({MOMO_TRAINED}) on "
         "127.0.0.1")
     me_launches += phase_daemon_gated(torch, trained_path)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        say(f"phase 30: denoise_file on the card ({OFFLINE_SPEC}, "
+            f"{OFFLINE_FILE_S} s of 44.1 kHz stereo 16-bit PCM) vs the CPU")
+        src, card_wav = phase_offline_file(torch, tmp)
+        say(f"phase 31: offline Griffin-Lim ({OFFLINE_GL_SPEC}) on the card "
+            "and the CPU vs float64")
+        phase_offline_gl(torch)
+        say(f"phase 32: the offline SNR gate ({FAST_CHECKPOINT}), card vs "
+            "CPU")
+        phase_offline_gate(torch, tmp)
+        say(f"phase 33: offline lookahead ({OFFLINE_LA_CHECKPOINT}) and "
+            f"MOMO3 ({MOMO_SPEC}), card vs CPU")
+        phase_offline_lookahead(torch)
+        say("phase 34: python -m audio_denoising_torch denoise in.wav "
+            "out.wav, in a subprocess on the card")
+        phase_offline_cli(torch, tmp, src, card_wav)
+    say(f"offline timing, beside phase 30 ({smi}):")
+    time_offline(torch, smi)
 
     def variant(label, checked, timing=None, n=None):
         v = {"name": label, "checked": checked}

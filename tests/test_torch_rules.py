@@ -66,6 +66,20 @@ def test_gate_slice_modules_are_found(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "audio_denoising_torch.io", "audio_denoising_torch.io.native",
+    "audio_denoising_torch.io.wavio", "audio_denoising_torch.io.flac",
+    "audio_denoising_torch.io.ffmpeg", "audio_denoising_torch.io.avdec",
+    "audio_denoising_torch.io.codec", "audio_denoising_torch.io.cache",
+    "audio_denoising_torch.io.stream", "audio_denoising_torch.io.websocket",
+    "audio_denoising_torch.io.playback", "audio_denoising_torch.ops.resample",
+    "audio_denoising_torch.apps.offline"])
+def test_offline_slice_modules_are_found(module):
+    """The tenth slice's modules (host audio I/O, the resampler, the
+    offline app) fall under the import check below."""
+    assert module in _port_modules()
+
+
 @pytest.mark.parametrize("source", sorted(
     f for f in os.listdir(os.path.join(PKG, "csrc"))
     if f.endswith((".cu", ".cuh"))))
@@ -154,6 +168,26 @@ def test_cli_lists_only_ported_commands():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0
     assert "engine" in proc.stdout and "profile" in proc.stdout
+    assert "denoise" in proc.stdout
+
+
+def test_cli_denoise_without_a_card_writes_nothing(tmp_path):
+    """Without a card and without --device cpu, denoise fails before it
+    reads or writes a file."""
+    import wave
+    src, out = tmp_path / "in.wav", tmp_path / "out.wav"
+    with wave.open(str(src), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(b"\x00\x00" * 1600)
+    proc = subprocess.run([sys.executable, "-m", "audio_denoising_torch",
+                           "denoise", str(src), str(out)], cwd=REPO,
+                          env=_clean_env(CUDA_VISIBLE_DEVICES=""),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not out.exists()
 
 
 @pytest.mark.parametrize("argv", [["profile", "--mode", "unet"],
