@@ -10,7 +10,9 @@ hop in mode ``webrtc``. As in the JAX package, a bare daemon serves
 ``gruunet2-good`` in mode ``fast``, and in modes ``fast`` and ``fused`` a
 unit-gain causal checkpoint gets the tuned SNR gate unless the caller
 sets one (``--snr-gate``) or turns it off (``--no-snr-gate``); mode
-``webrtc`` serves the gate that ``--snr-gate`` sets.
+``webrtc`` serves the gate that ``--snr-gate`` sets. ``--dtype`` sets the
+serving compute: the fused hop in bfloat16 or int8 (W8A8) in mode
+``fused``, the quantized plan at int8 in mode ``fast``.
 
 Protocol (multiprocessing.connection, length-prefixed pickle):
 
@@ -28,6 +30,7 @@ trusted network only, as the reference package's daemon does.
 """
 
 import argparse
+import dataclasses
 import queue
 import socket
 import threading
@@ -50,7 +53,9 @@ class EngineDaemon:
     explicit ``snr_gate_db`` turns the SNR gate on (``with_snr_gate``);
     without one, modes ``fast`` and ``fused`` serve the recommended
     profile (the tuned gate on unit-gain causal checkpoints) unless
-    ``auto_gate`` is False."""
+    ``auto_gate`` is False. ``dtype`` ("float32", "bfloat16" or "int8";
+    None keeps the checkpoint's own) replaces ``serving.dtype`` after the
+    gate profile, as in the JAX daemon (engine_serve.py:73-76)."""
 
     def __init__(self, spec: str = "gruunet2-good",
                  max_streams: int = 256,
@@ -61,7 +66,7 @@ class EngineDaemon:
                  snr_gate_db: Optional[float] = None,
                  snr_gate_width_db: Optional[float] = None,
                  snr_gate_estimator: Optional[str] = None,
-                 auto_gate: bool = True):
+                 auto_gate: bool = True, dtype: Optional[str] = None):
         self.cfg, self.model = load_pretrained(spec)
         if snr_gate_db is not None:
             self.cfg = with_snr_gate(self.cfg, snr_gate_db,
@@ -70,6 +75,10 @@ class EngineDaemon:
             # the measured-best profile of the phase-reuse hops, as the
             # JAX daemon serves it; mode webrtc is gated only on request
             self.cfg = recommended_serving(self.cfg)
+        if dtype is not None:
+            self.cfg = dataclasses.replace(
+                self.cfg,
+                serving=dataclasses.replace(self.cfg.serving, dtype=dtype))
         self.engine = StreamEngine(self.cfg, self.model, mode=mode,
                                    max_streams=max_streams, device=device)
         self.address = address
@@ -231,6 +240,13 @@ def parser() -> argparse.ArgumentParser:
                    choices=("removed", "floor", "both"),
                    help="the gate's SNR estimator (default 'both': the "
                    "model-informed decision with the floor tracker's veto)")
+    p.add_argument("--dtype", choices=["float32", "bfloat16", "int8"],
+                   default=None,
+                   help="serving compute dtype (default: the checkpoint's "
+                   "own): mode fused runs the fused hop in bfloat16 (bf16 "
+                   "matrices, fp32 sums) or int8 (W8A8 plan, bf16 DSP); "
+                   "mode fast serves the quantized plan at int8 and "
+                   "float32 otherwise")
     return p
 
 
@@ -241,7 +257,7 @@ def daemon_from_args(args: argparse.Namespace) -> EngineDaemon:
                         device=args.device, snr_gate_db=args.snr_gate,
                         snr_gate_width_db=args.snr_gate_width,
                         snr_gate_estimator=args.snr_gate_estimator,
-                        auto_gate=not args.no_snr_gate)
+                        auto_gate=not args.no_snr_gate, dtype=args.dtype)
 
 
 def main(argv=None) -> int:

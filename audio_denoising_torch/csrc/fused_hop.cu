@@ -4,11 +4,23 @@
 // fused_hop.py::make_fused_hop: the single-hop `kernel` (fused_hop.py:242)
 // and the resident multi-hop `kernel_multi` (fused_hop.py:384), with the
 // cell math of ops/pallas/common.py::plan_cell_math as plan_cell.cuh's
-// `plan_cell` routine. This file covers their fp32 forms in the mel and
-// the raw-spectrogram domain, with the MOMO3 delta carry, the SNR gate
+// `plan_cell` routine. This file covers their three compute modes (fp32,
+// bf16 and W8A8 int8; fused_hop.py:138-153, :205-223) in the mel and the
+// raw-spectrogram domain, with the MOMO3 delta carry, the SNR gate
 // (estimators 'removed', 'floor' and 'both') and int16 IO. The plain
 // PyTorch version of the same function is FusedHop.reference in
 // audio_denoising_torch/ops/kernels/fused_hop.py.
+//
+// Compute modes (AdtFusedHopArgs.compute): in bf16 the DFT pair, the mel
+// pair and the plan's matrices are bf16 and every matmul rounds its
+// activation to bf16, with fp32 sums; in int8 the plan's matrices are
+// int8 with fp32 column scales (plan_cell.cuh's gemm_q: per-row dynamic
+// quantization, dp4a into int32, rank-1 dequant) and the DSP matmuls run
+// as in bf16. Windows, biases, scales and every state plane stay fp32.
+// Each mode is its own instantiation of both kernels, so the fp32 ones
+// run the code they ran before the modes were added. The weight bytes a
+// block streams per hop fall with the mode: at gruunet2-stream16k 6.3 MB
+// in fp32, 3.2 MB in bf16, 1.8 MB in int8 (the DSP pair stays bf16).
 //
 // Per stream and hop: shift the analysis ring, apply the Hann window,
 // take the DFT as cos/sin matmuls and the magnitude, project to mel and
@@ -108,15 +120,16 @@ struct AdtFusedHopArgs {
   AdtHopState out_state;
   const void* chunk;   // (hops, B, hop) float32, or int16 when pcm16
   void* out;           // (hops, B, hop), the chunk's type
-  const float* cf;     // (n_fft, n_bins) forward DFT, real part
-  const float* sf;     // (n_fft, n_bins) forward DFT, imaginary part
-  const float* ic;     // (n_bins, n_fft) inverse DFT from the real part
-  const float* is_;    // (n_bins, n_fft) inverse DFT from the imaginary part
-  const float* mel;    // (n_bins, n_mels); null in the raw domain
-  const float* imel;   // (n_mels, n_bins); null in the raw domain
+  // the DSP matrices: float32 in the fp32 mode, bf16 in the others
+  const void* cf;      // (n_fft, n_bins) forward DFT, real part
+  const void* sf;      // (n_fft, n_bins) forward DFT, imaginary part
+  const void* ic;      // (n_bins, n_fft) inverse DFT from the real part
+  const void* is_;     // (n_bins, n_fft) inverse DFT from the imaginary part
+  const void* mel;     // (n_bins, n_mels); null in the raw domain
+  const void* imel;    // (n_mels, n_bins); null in the raw domain
   const float* win;    // (n_fft,)
   const float* env;    // (hop,) overlap-add envelope
-  AdtPlan plan;
+  AdtPlan plan;        // matrices float32, bf16 or int8, as `compute`
   AdtGate gate;
   int batch;
   int n_fft;
@@ -128,9 +141,30 @@ struct AdtFusedHopArgs {
   int pcm16;           // chunks and outputs are int16 (the multi-hop kernel)
   float output_gain;
   float state_decay;
+  AdtPlanScales scales;  // the int8 plan's column scales
+  int compute;           // 0 fp32, 1 bf16, 2 int8 (W8A8)
 };
 
 namespace {
+
+enum Compute { kFp32 = 0, kBf16 = 1, kInt8 = 2 };
+
+// The weight elements of each mode: the DSP matrices', the plan's.
+template <int kCompute>
+struct Types {
+  using Dsp = bf16_t;
+  using Plan = i8;
+};
+template <>
+struct Types<kFp32> {
+  using Dsp = float;
+  using Plan = float;
+};
+template <>
+struct Types<kBf16> {
+  using Dsp = bf16_t;
+  using Plan = bf16_t;
+};
 
 // Per-stream scalars in shared memory, and the partial sums of the gate's
 // four bin means (32 per mean and stream).
@@ -170,7 +204,7 @@ __host__ __device__ inline void make_layout(const AdtFusedHopArgs& a,
   l->nff = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
   l->sc = take(&off, kTile, kScalars);
   l->red = take(&off, kTile, kMeans * kLanes);
-  make_cell_layout(a.plan, &l->cell, &off);
+  make_cell_layout(a.plan, &l->cell, &off, a.compute == kInt8);
   l->total = off;
 }
 
@@ -308,11 +342,19 @@ __device__ void gate_alphas(const AdtFusedHopArgs& a, const Layout& l,
 // domain and the delta carry are template parameters, so each
 // configuration runs only its own stages (read at run time, they made
 // the GRUUNet K-hop 2% slower: 128.5 against 125.9 us a hop on an H100,
-// chip_ab.py).
-template <bool kRaw, bool kDelta>
+// chip_ab.py), and so is the compute mode.
+template <bool kRaw, bool kDelta, int kCompute>
 __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
                                       const Layout& l, float* smem, int k,
                                       int b0, int rows) {
+  using Dsp = typename Types<kCompute>::Dsp;
+  using PlanW = typename Types<kCompute>::Plan;
+  const float* cf = static_cast<const float*>(a.cf);
+  const float* sf = static_cast<const float*>(a.sf);
+  const float* ic = static_cast<const float*>(a.ic);
+  const float* is = static_cast<const float*>(a.is_);
+  const float* mel = static_cast<const float*>(a.mel);
+  const float* imel = static_cast<const float*>(a.imel);
   const int n_fft = a.n_fft, hop = a.hop, F = a.n_bins, M = a.n_mels;
   const int n = a.plan.n_hidden;
   const int keep = n_fft - hop;
@@ -340,10 +382,10 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   __syncthreads();
 
   // DFT as two matmuls, then the magnitude
-  gemm(make_gemm(frame, l.ld_t, n_fft, a.cf, F, nullptr, kNone,
-                 smem + l.re, l.ld_f, smem + l.cell.scratch));
-  gemm(make_gemm(frame, l.ld_t, n_fft, a.sf, F, nullptr, kNone,
-                 smem + l.im, l.ld_f, smem + l.cell.scratch));
+  gemm<Dsp>(make_gemm(frame, l.ld_t, n_fft, cf, F, nullptr, kNone,
+                      smem + l.re, l.ld_f, smem + l.cell.scratch));
+  gemm<Dsp>(make_gemm(frame, l.ld_t, n_fft, sf, F, nullptr, kNone,
+                      smem + l.im, l.ld_f, smem + l.cell.scratch));
   __syncthreads();
   for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
     const int o = (e / F) * l.ld_f + e % F;
@@ -362,8 +404,8 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
       x[s * ldx + f] = logf(1.f + smem[l.mag + s * l.ld_f + f]);
     }
   } else {
-    gemm(make_gemm(smem + l.mag, l.ld_f, F, a.mel, M, nullptr, kLog1p, x,
-                   ldx, smem + l.cell.scratch));
+    gemm<Dsp>(make_gemm(smem + l.mag, l.ld_f, F, mel, M, nullptr, kLog1p,
+                        x, ldx, smem + l.cell.scratch));
   }
   if (kDelta) {  // prev beside x, after the mel gemm's padding columns
     __syncthreads();
@@ -374,7 +416,9 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   }
   __syncthreads();
 
-  float* y = plan_cell(a.plan, l.cell, smem);
+  L2Weights<PlanW> weights;
+  float* y = plan_cell(a.plan, l.cell, smem, block_lanes(), weights,
+                       kCompute == kInt8 ? &a.scales : nullptr);
 
   // the new state: hi decayed
   for (int e = threadIdx.x; e < kTile * n; e += blockDim.x) {
@@ -399,10 +443,10 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   __syncthreads();
 
   if (!kRaw) {  // lin = max(feat @ imel, 0) * gain
-    Gemm gl = make_gemm(y, ldy, M, a.imel, F, nullptr, kLinGain,
+    Gemm gl = make_gemm(y, ldy, M, imel, F, nullptr, kLinGain,
                         smem + l.lin, l.ld_f, smem + l.cell.scratch);
     gl.gain = a.output_gain;
-    gemm(gl);
+    gemm<Dsp>(gl);
     __syncthreads();
   }
 
@@ -427,13 +471,13 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   __syncthreads();
 
   // inverse DFT from both parts in one accumulation
-  Gemm gs = make_gemm(smem + l.re, l.ld_f, F, a.ic, n_fft, nullptr, kNone,
+  Gemm gs = make_gemm(smem + l.re, l.ld_f, F, ic, n_fft, nullptr, kNone,
                       frame, l.ld_t, smem + l.cell.scratch);
   gs.a2 = smem + l.im;
   gs.lda2 = l.ld_f;
   gs.k2 = F;
-  gs.w2 = a.is_;
-  gemm(gs);
+  gs.w2 = is;
+  gemm<Dsp>(gs);
   __syncthreads();
 
   // window and overlap-add; the finished hop divided by the envelope
@@ -451,15 +495,16 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   __syncthreads();  // the frame buffer is free for the next hop
 }
 
-template <bool kRaw, bool kDelta>
+template <bool kRaw, bool kDelta, int kCompute>
 __device__ __forceinline__ void hops_of(const AdtFusedHopArgs& a,
                                         const Layout& l, float* smem,
                                         int hops, int b0, int rows) {
   for (int k = 0; k < hops; ++k)
-    hop_body<kRaw, kDelta>(a, l, smem, k, b0, rows);
+    hop_body<kRaw, kDelta, kCompute>(a, l, smem, k, b0, rows);
 }
 
 // Loads the tile's state, runs `hops` hops and writes the state back.
+template <int kCompute>
 __device__ __forceinline__ void run_hops(const AdtFusedHopArgs& a, int hops) {
   extern __shared__ __align__(16) float smem[];
   Layout l;
@@ -469,27 +514,29 @@ __device__ __forceinline__ void run_hops(const AdtFusedHopArgs& a, int hops) {
   move_state(a, l, smem, a.in, b0, rows, true);
   __syncthreads();
   if (a.raw && a.plan.delta)
-    hops_of<true, true>(a, l, smem, hops, b0, rows);
+    hops_of<true, true, kCompute>(a, l, smem, hops, b0, rows);
   else if (a.raw)
-    hops_of<true, false>(a, l, smem, hops, b0, rows);
+    hops_of<true, false, kCompute>(a, l, smem, hops, b0, rows);
   else if (a.plan.delta)
-    hops_of<false, true>(a, l, smem, hops, b0, rows);
+    hops_of<false, true, kCompute>(a, l, smem, hops, b0, rows);
   else
-    hops_of<false, false>(a, l, smem, hops, b0, rows);
+    hops_of<false, false, kCompute>(a, l, smem, hops, b0, rows);
   move_state(a, l, smem, a.out_state, b0, rows, false);
 }
 
 // The single-hop kernel (fused_hop.py:242): one hop, float32 IO.
+template <int kCompute>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_hop_kernel(const __grid_constant__ AdtFusedHopArgs a) {
-  run_hops(a, 1);
+  run_hops<kCompute>(a, 1);
 }
 
 // The resident multi-hop kernel (fused_hop.py:384): a.hops hops with the
 // state in shared memory throughout.
+template <int kCompute>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_hop_multi_kernel(const __grid_constant__ AdtFusedHopArgs a) {
-  run_hops(a, a.hops);
+  run_hops<kCompute>(a, a.hops);
 }
 
 cudaError_t launch(void (*kernel)(AdtFusedHopArgs), const AdtFusedHopArgs& a,
@@ -512,8 +559,35 @@ bool args_ok(const AdtFusedHopArgs& a) {
                            a.out_state.em_out && a.out_state.em_rem));
   const bool domain_ok =
       a.raw ? a.n_mels == a.n_bins : (a.mel != nullptr && a.imel != nullptr);
+  bool scales_ok = a.compute >= kFp32 && a.compute <= kInt8;
+  if (a.compute == kInt8) {
+    const AdtPlanScales& s = a.scales;
+    scales_ok = s.reset != nullptr;
+    for (int i = 0; i < a.plan.levels; ++i)
+      scales_ok = scales_ok && s.down[i] != nullptr && s.up[i] != nullptr &&
+                  (a.plan.up_s[i] == nullptr) == (s.skip[i] == nullptr);
+  }
   return plan_ok(a.plan, a.n_mels) && a.n_fft % a.hop == 0 && state_ok &&
-         domain_ok && a.hops >= 1;
+         domain_ok && scales_ok && a.hops >= 1;
+}
+
+// The single-hop or the multi-hop kernel of the mode a.compute.
+cudaError_t launch_mode(const AdtFusedHopArgs& a, bool multi,
+                        size_t smem_bytes, cudaStream_t stream) {
+  switch (a.compute) {
+    case kBf16:
+      return launch(multi ? fused_hop_multi_kernel<kBf16>
+                          : fused_hop_kernel<kBf16>,
+                    a, smem_bytes, stream);
+    case kInt8:
+      return launch(multi ? fused_hop_multi_kernel<kInt8>
+                          : fused_hop_kernel<kInt8>,
+                    a, smem_bytes, stream);
+    default:
+      return launch(multi ? fused_hop_multi_kernel<kFp32>
+                          : fused_hop_kernel<kFp32>,
+                    a, smem_bytes, stream);
+  }
 }
 
 }  // namespace
@@ -535,18 +609,16 @@ int adt_fused_hop(const AdtFusedHopArgs* a, void* stream) {
   if (!args_ok(*a) || a->hops != 1 || a->pcm16)
     return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  return (int)launch(fused_hop_kernel, *a,
-                     (size_t)adt_fused_hop_smem_bytes(a),
-                     static_cast<cudaStream_t>(stream));
+  return (int)launch_mode(*a, false, (size_t)adt_fused_hop_smem_bytes(a),
+                          static_cast<cudaStream_t>(stream));
 }
 
 // Launches a->hops hops in one kernel on `stream` without synchronising.
 int adt_fused_hop_multi(const AdtFusedHopArgs* a, void* stream) {
   if (!args_ok(*a)) return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  return (int)launch(fused_hop_multi_kernel, *a,
-                     (size_t)adt_fused_hop_smem_bytes(a),
-                     static_cast<cudaStream_t>(stream));
+  return (int)launch_mode(*a, true, (size_t)adt_fused_hop_smem_bytes(a),
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -33,12 +33,41 @@
 // WebRTC hop); weight_ring.cuh's `RingWeights` reads them from slabs that
 // a producer warp copies into shared memory ahead of use (the fused
 // cell).
+//
+// Compute types (the fused hop's three modes, JAX common.py:56-160): the
+// walk and `gemm` are templates on the weight element. `float` is the fp32
+// path every kernel runs. `bf16_t`: a thread reads a row's four
+// columns as one 8-byte load and widens them, rounds each activation to
+// bf16 (round to nearest even) and widens it back, and adds the products
+// in fp32 by FMA; a product of two bf16 values is exact in fp32, so this
+// differs from the plain version only by the order of addition. `i8`
+// (W8A8, `gemm_q`): before each matmul the block finds each stream row's
+// |max| over the matmul's input (one reduction per input), stages the
+// input quantized to int8 in shared memory (sx = |max| / 127, rint(a / sx)
+// clipped to +-127, IEEE division: no --use_fast_math), and each thread
+// sums int8 x int8 products into int32 with dp4a, four k at a time (its
+// four columns' bytes of four weight rows transposed in registers by byte
+// permutes). Integer sums are exact in any order. The epilogue
+// dequantizes each input's sums with its own row scale and the matrix's
+// column scale, acc * sx * scale, and adds them and the bias in the
+// plain version's order, with no FMA contraction (__fmul_rn, __fadd_rn),
+// so the int8 matmul equals the plain version's whenever the staged
+// int8 inputs do. The plan's AdtPlan is the same struct in every mode:
+// its pointers carry bf16 or int8 matrices there, and the int8 column
+// scales come in a second struct, AdtPlanScales.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #define ADT_MAX_LEVELS 8
+
+// The reduced modes' element types: a bf16 value's bits (the top half of
+// a float's), and a signed byte.
+struct bf16_t {
+  unsigned short bits;
+};
+using i8 = signed char;
 
 // The plan's matrices, mirrored field by field by PlanArgs in
 // ops/kernels/common.py. Rows are padded to round4(columns) floats.
@@ -55,6 +84,18 @@ struct AdtPlan {
   int levels;
   int n_hidden;
   int delta;  // MOMO3: n_in = 2 n_feat, level 0 reads cat(x, prev)
+};
+
+// The int8 plan's column scale rows, (1, round4(columns)) fp32 each, one
+// per matrix of AdtPlan; mirrored by PlanScaleArgs in ops/kernels/common.py.
+// The int8 matrices have their rows padded to a multiple of 4 too, and a
+// delta plan's level-0 matrix holds its x rows, padded, then its prev
+// rows, padded.
+struct AdtPlanScales {
+  const float* down[ADT_MAX_LEVELS];  // of down_w[i]
+  const float* reset;                 // of reset_w
+  const float* up[ADT_MAX_LEVELS];    // of up_w[i]
+  const float* skip[ADT_MAX_LEVELS];  // of up_s[i], or null
 };
 
 namespace {
@@ -94,12 +135,14 @@ __host__ __device__ inline int take(int* off, int rows, int ld) {
 
 // Offsets (in floats) of the cell's shared-memory buffers; every buffer
 // holds kTile rows of a leading dimension rounded up to 4 floats, so each
-// row starts 16-byte aligned for float4 reads.
+// row starts 16-byte aligned for float4 reads. The int8 plan adds the
+// staged quantized inputs of one matmul (q) and their row scales (qsx).
 struct CellLayout {
   int ld_n, ld_pp;
   int ld_d[ADT_MAX_LEVELS + 1];
   int d[ADT_MAX_LEVELS + 1];  // d[0] is the cell's input: x, or x | prev
   int gh, hx, hi, pp0, pp1, scratch;
+  int q, qsx;                 // int8 only; 0 otherwise
 };
 
 // n_feat: the features x and y carry (mel bins, or raw bins).
@@ -110,9 +153,33 @@ __host__ __device__ inline bool plan_ok(const AdtPlan& p, int n_feat) {
          p.up_n[p.levels] == n_feat;
 }
 
-// Lays the cell's buffers out from *off on and advances it.
+// Bytes of one int8 matmul's staged inputs: kTile rows of its first
+// input padded to a multiple of 4, then its second.
+__host__ __device__ inline int q_bytes(int k1, int k2) {
+  return kTile * (round4(k1) + round4(k2));
+}
+
+// The most any matmul of the plan stages (a delta level 0 stages x and
+// prev apart; a decoder level its input and its skip).
+__host__ __device__ inline int plan_q_bytes(const AdtPlan& p) {
+  const int L = p.levels;
+  int most = q_bytes(p.n_hidden, 0);
+  for (int i = 0; i < L; ++i) {
+    const int k = p.down_n[i];
+    const int b = (i == 0 && p.delta) ? q_bytes(k / 2, k / 2) : q_bytes(k, 0);
+    most = b > most ? b : most;
+    const int u = q_bytes(p.up_n[i], p.up_s[i] != nullptr ? p.down_n[L - i]
+                                                         : 0);
+    most = u > most ? u : most;
+  }
+  return most;
+}
+
+// Lays the cell's buffers out from *off on and advances it; `quant` adds
+// the int8 plan's staging buffers.
 __host__ __device__ inline void make_cell_layout(const AdtPlan& p,
-                                                 CellLayout* l, int* off) {
+                                                 CellLayout* l, int* off,
+                                                 bool quant = false) {
   l->ld_n = round4(p.n_hidden);
   int widest = 0;
   for (int i = 1; i <= p.levels; ++i)
@@ -128,6 +195,11 @@ __host__ __device__ inline void make_cell_layout(const AdtPlan& p,
   l->pp0 = take(off, kTile, l->ld_pp);
   l->pp1 = take(off, kTile, l->ld_pp);
   l->scratch = take(off, kTile, 4 * kThreads);
+  l->q = l->qsx = 0;
+  if (quant) {
+    l->q = take(off, 1, round4((plan_q_bytes(p) + 3) / 4));
+    l->qsx = take(off, 1, round4(2 * kTile));
+  }
 }
 
 // C[kTile, n] = epilogue(A1[kTile, k1] @ W1 + A2[kTile, k2] @ W2 + bias);
@@ -149,26 +221,64 @@ struct Gemm {
   float* c;
   int ldc;
   float* scratch;  // split-K partial sums, 4 * kThreads * kTile floats
+  // the int8 plan (gemm_q): the column scale rows of w1 and w2, the
+  // staging buffers, and whether the two dequantized inputs are added
+  // before the bias (a delta level 0) or the second after it (a skip)
+  const float* s1;
+  const float* s2;
+  i8* q;
+  float* qsx;
+  int pair_first;
 };
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// A row's four bf16 weights, widened: a bf16 is the top half of a float.
+__device__ __forceinline__ float4 ldg4(const bf16_t* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// The activation as the matmul reads it: as it is against fp32 weights,
+// rounded to bf16 against bf16 ones.
+__device__ __forceinline__ float act(float v, const float*) { return v; }
+__device__ __forceinline__ float act(float v, const bf16_t*) {
+  // round to nearest even at bf16's 8 significant bits, as
+  // cvt.rn.bf16.f32 (and PyTorch's .bfloat16()) round a finite value
+  unsigned u = __float_as_uint(v);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+template <class W>
+__device__ __forceinline__ float4 act4(float4 v, const W* w) {
+  return make_float4(act(v.x, w), act(v.y, w), act(v.z, w), act(v.w, w));
+}
+
 // A row's column quad of W: from global memory through L2 (kShared false)
-// or from a slab already in shared memory (weight_ring.cuh).
+// or from a slab already in shared memory (weight_ring.cuh, fp32 only).
 template <bool kShared>
 __device__ __forceinline__ float4 load_w4(const float* p) {
   if (kShared) return *reinterpret_cast<const float4*>(p);
   return ldg4(p);
 }
+template <bool kShared>
+__device__ __forceinline__ float4 load_w4(const bf16_t* p) {
+  static_assert(!kShared, "bf16 weights stream from L2");
+  return ldg4(p);
+}
 
+template <class W>
 __device__ __forceinline__ void fma_row(float (&acc)[kTile][4],
                                         const float* a, int lda, int k,
-                                        float4 w) {
+                                        float4 w, const W* wt) {
 #pragma unroll
   for (int r = 0; r < kTile; ++r) {
-    const float v = a[r * lda + k];
+    const float v = act(a[r * lda + k], wt);
     acc[r][0] = fmaf(v, w.x, acc[r][0]);
     acc[r][1] = fmaf(v, w.y, acc[r][1]);
     acc[r][2] = fmaf(v, w.z, acc[r][2]);
@@ -176,16 +286,17 @@ __device__ __forceinline__ void fma_row(float (&acc)[kTile][4],
   }
 }
 
-// acc[r][c] += sum_{k in [lo, hi)} a[r][k] * w[k][4q + c]
-template <bool kShared = false>
+// acc[r][c] += sum_{k in [lo, hi)} a[r][k] * w[k][4q + c], W float or
+// bf16 (the activation then rounded to bf16)
+template <bool kShared = false, class W = float>
 __device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
                                            const float* a, int lda,
-                                           const float* __restrict__ w,
+                                           const W* __restrict__ w,
                                            int ldw, int q, int lo, int hi) {
-  const float* wq = w + 4 * q;
+  const W* wq = w + 4 * q;
   int k = lo;
   for (; k < hi && (k & 3); ++k)
-    fma_row(acc, a, lda, k, load_w4<kShared>(wq + (size_t)k * ldw));
+    fma_row(acc, a, lda, k, load_w4<kShared>(wq + (size_t)k * ldw), w);
 #pragma unroll 2
   for (; k + 4 <= hi; k += 4) {
     const float4 w0 = load_w4<kShared>(wq + (size_t)(k + 0) * ldw);
@@ -194,7 +305,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
     const float4 w3 = load_w4<kShared>(wq + (size_t)(k + 3) * ldw);
 #pragma unroll
     for (int r = 0; r < kTile; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(a + r * lda + k);
+      const float4 v =
+          act4(*reinterpret_cast<const float4*>(a + r * lda + k), w);
       acc[r][0] = fmaf(v.x, w0.x, acc[r][0]);
       acc[r][1] = fmaf(v.x, w0.y, acc[r][1]);
       acc[r][2] = fmaf(v.x, w0.z, acc[r][2]);
@@ -214,7 +326,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
     }
   }
   for (; k < hi; ++k)
-    fma_row(acc, a, lda, k, load_w4<kShared>(wq + (size_t)k * ldw));
+    fma_row(acc, a, lda, k, load_w4<kShared>(wq + (size_t)k * ldw), w);
 }
 
 __device__ __forceinline__ float epilogue(const Gemm& g, float v, int col) {
@@ -262,7 +374,9 @@ __device__ __forceinline__ void reduce_partials(const Gemm& g, const Lanes& t,
 // A work item is four output columns (q) for all kTile rows over one of ks_n
 // contiguous k ranges of the two sources laid end to end. Narrow stages
 // split k (ks_n > 1) until the items fill the block; their partial sums
-// meet in shared memory and are added in a fixed order.
+// meet in shared memory and are added in a fixed order. W is the weight
+// element, float or bf16 (the Gemm's pointers carry it).
+template <class W = float>
 __device__ void gemm(const Gemm& g, const Lanes& t) {
   const int ldw = round4(g.n);
   const int n4 = ldw / 4;
@@ -290,16 +404,210 @@ __device__ void gemm(const Gemm& g, const Lanes& t) {
     for (int r = 0; r < kTile; ++r)
       acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
     if (lo < min(hi, g.k1))
-      accumulate(acc, g.a1, g.lda1, g.w1, ldw, q, lo, min(hi, g.k1));
+      accumulate(acc, g.a1, g.lda1, reinterpret_cast<const W*>(g.w1), ldw,
+                 q, lo, min(hi, g.k1));
     if (g.a2 != nullptr && max(lo, g.k1) < hi)
-      accumulate(acc, g.a2, g.lda2, g.w2, ldw, q, max(lo, g.k1) - g.k1,
-                    hi - g.k1);
+      accumulate(acc, g.a2, g.lda2, reinterpret_cast<const W*>(g.w2), ldw,
+                 q, max(lo, g.k1) - g.k1, hi - g.k1);
     store_item(g, acc, q, ks, ks_n, ldw);
   }
   reduce_partials(g, t, ks_n, ldw);
 }
 
-__device__ __forceinline__ void gemm(const Gemm& g) { gemm(g, block_lanes()); }
+template <class W = float>
+__device__ __forceinline__ void gemm(const Gemm& g) {
+  gemm<W>(g, block_lanes());
+}
+
+// -- the int8 plan (W8A8) ---------------------------------------------------
+
+// Stages a matmul's inputs quantized per row: each row's |max| by warp
+// shuffles and one pass over the warps' maxima (the order of a max does
+// not matter), sx = |max| / 127 (1 for a zero row) into g.qsx[src kTile +
+// r], then rint(a / sx) clipped to +-127 into g.q, kTile rows of
+// round4(k1) + round4(k2) bytes, zeros past each input's width. Needs
+// whole warps; ends at the group's barrier.
+__device__ void quantize_inputs(const Gemm& g, const Lanes& t) {
+  const int srcs = g.a2 != nullptr ? 2 : 1;
+  const int kp1 = round4(g.k1);
+  const int kq = kp1 + (srcs == 2 ? round4(g.k2) : 0);
+  float mx[2][kTile];
+#pragma unroll
+  for (int src = 0; src < 2; ++src)
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      float m = 0.f;
+      if (src < srcs) {
+        const float* a = src ? g.a2 : g.a1;
+        const int lda = src ? g.lda2 : g.lda1, k = src ? g.k2 : g.k1;
+        for (int i = t.id; i < k; i += t.n)
+          m = fmaxf(m, fabsf(a[r * lda + i]));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      mx[src][r] = m;
+    }
+  float* red = g.scratch;  // [warp][src kTile + r]
+  const int warp = t.id >> 5, warps = t.n >> 5;
+  if ((t.id & 31) == 0)
+#pragma unroll
+    for (int src = 0; src < 2; ++src)
+#pragma unroll
+      for (int r = 0; r < kTile; ++r)
+        red[warp * 2 * kTile + src * kTile + r] = mx[src][r];
+  group_sync(t);
+  if (t.id < 2 * kTile) {
+    float m = 0.f;
+    for (int w = 0; w < warps; ++w) m = fmaxf(m, red[w * 2 * kTile + t.id]);
+    g.qsx[t.id] = m > 0.f ? __fdiv_rn(m, 127.f) : 1.f;
+  }
+  group_sync(t);
+  for (int e = t.id; e < kTile * kq; e += t.n) {
+    const int r = e / kq, i = e % kq;
+    const int src = i >= kp1 ? 1 : 0;
+    const int k = i - (src ? kp1 : 0);
+    float v = 0.f;
+    if (k < (src ? g.k2 : g.k1)) {
+      const float a = src ? g.a2[r * g.lda2 + k] : g.a1[r * g.lda1 + k];
+      v = fminf(fmaxf(rintf(__fdiv_rn(a, g.qsx[src * kTile + r])), -127.f),
+                127.f);
+    }
+    g.q[r * kq + i] = (i8)(int)v;
+  }
+  group_sync(t);
+}
+
+// acc[r][c] += sum_{k in [lo, hi)} q[r][k] * w[k][4q + c] over int8 rows
+// of stride kq (staged) and the int8 matrix of row stride ldw bytes; lo
+// and hi multiples of 4, the matrix's rows padded to one.
+__device__ __forceinline__ void accumulate_q(int (&acc)[kTile][4],
+                                             const i8* a, int kq,
+                                             const i8* __restrict__ w,
+                                             int ldw, int q, int lo, int hi) {
+  const i8* wq = w + 4 * q;
+#pragma unroll 2
+  for (int k = lo; k < hi; k += 4) {
+    const int w0 = __ldg(reinterpret_cast<const int*>(wq + (size_t)k * ldw));
+    const int w1 =
+        __ldg(reinterpret_cast<const int*>(wq + (size_t)(k + 1) * ldw));
+    const int w2 =
+        __ldg(reinterpret_cast<const int*>(wq + (size_t)(k + 2) * ldw));
+    const int w3 =
+        __ldg(reinterpret_cast<const int*>(wq + (size_t)(k + 3) * ldw));
+    // column c's bytes of rows k..k+3, one word each
+    const int t0 = __byte_perm(w0, w1, 0x5140);
+    const int t1 = __byte_perm(w2, w3, 0x5140);
+    const int t2 = __byte_perm(w0, w1, 0x7362);
+    const int t3 = __byte_perm(w2, w3, 0x7362);
+    const int c0 = __byte_perm(t0, t1, 0x5410);
+    const int c1 = __byte_perm(t0, t1, 0x7632);
+    const int c2 = __byte_perm(t2, t3, 0x5410);
+    const int c3 = __byte_perm(t2, t3, 0x7632);
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      const int v = *reinterpret_cast<const int*>(a + r * kq + k);
+      acc[r][0] = __dp4a(v, c0, acc[r][0]);
+      acc[r][1] = __dp4a(v, c1, acc[r][1]);
+      acc[r][2] = __dp4a(v, c2, acc[r][2]);
+      acc[r][3] = __dp4a(v, c3, acc[r][3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float dequant(int acc, float sx, float scale) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), scale);
+}
+
+// C[r][col] from each input's integer sum: the plain version's
+// acc * sx * scale per input, added with the bias in its order, then the
+// stage's activation; padding columns come out as the epilogue of 0.
+__device__ __forceinline__ float epilogue_q(const Gemm& g, int acc1,
+                                            int acc2, int r, int col) {
+  float v = 0.f;
+  if (col < g.n) {
+    const float d1 = dequant(acc1, g.qsx[r], __ldg(g.s1 + col));
+    const float b = g.bias != nullptr ? __ldg(g.bias + col) : 0.f;
+    if (g.a2 == nullptr) {
+      v = __fadd_rn(d1, b);
+    } else {
+      const float d2 = dequant(acc2, g.qsx[kTile + r], __ldg(g.s2 + col));
+      v = g.pair_first ? __fadd_rn(__fadd_rn(d1, d2), b)
+                       : __fadd_rn(__fadd_rn(d1, b), d2);
+    }
+  }
+  if (g.epi == kRelu) v = fmaxf(v, 0.f);
+  return v;
+}
+
+// The int8 matmul: quantize_inputs, then work items as `gemm` makes them
+// (four columns, one of ks_n k ranges of the staged inputs laid end to
+// end), an int32 sum per input; k split, the partial sums go to the
+// scratch as integers and are added per input before the epilogue. Ends
+// at the group's barrier (the staging and the scratch are free again).
+__device__ void gemm_q(const Gemm& g, const Lanes& t) {
+  quantize_inputs(g, t);
+  const int srcs = g.a2 != nullptr ? 2 : 1;
+  const int ldw = round4(g.n);
+  const int n4 = ldw / 4;
+  const int kp1 = round4(g.k1);
+  const int kq = kp1 + (srcs == 2 ? round4(g.k2) : 0);
+  const i8* w1 = reinterpret_cast<const i8*>(g.w1);
+  const i8* w2 = reinterpret_cast<const i8*>(g.w2);
+  int ks_n = 1;
+  int best = 0x7fffffff;
+  const int ks_max = max(1, min(kq / 16, 4 * kThreads / (srcs * ldw)));
+  for (int ks = 1; ks <= ks_max; ++ks) {
+    const int cost = ((n4 * ks + t.n - 1) / t.n) * ((kq + ks - 1) / ks);
+    if (cost < best) {
+      best = cost;
+      ks_n = ks;
+    }
+  }
+  const int chunk = round4((kq + ks_n - 1) / ks_n);
+  int* part = reinterpret_cast<int*>(g.scratch);  // [ks][src][r][col]
+  for (int it = t.id; it < n4 * ks_n; it += t.n) {
+    const int q = it % n4, ks = it / n4;
+    const int lo = ks * chunk, hi = min(kq, lo + chunk);
+    int acc[2][kTile][4];
+#pragma unroll
+    for (int src = 0; src < 2; ++src)
+#pragma unroll
+      for (int r = 0; r < kTile; ++r)
+        acc[src][r][0] = acc[src][r][1] = acc[src][r][2] = acc[src][r][3] = 0;
+    if (lo < min(hi, kp1))
+      accumulate_q(acc[0], g.q, kq, w1, ldw, q, lo, min(hi, kp1));
+    if (srcs == 2 && max(lo, kp1) < hi)
+      accumulate_q(acc[1], g.q + kp1, kq, w2, ldw, q, max(lo, kp1) - kp1,
+                   hi - kp1);
+#pragma unroll
+    for (int r = 0; r < kTile; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 4 * q + c;
+        if (ks_n == 1) {
+          g.c[r * g.ldc + col] = epilogue_q(g, acc[0][r][c], acc[1][r][c], r,
+                                            col);
+        } else {
+          for (int src = 0; src < srcs; ++src)
+            part[((ks * srcs + src) * kTile + r) * ldw + col] =
+                acc[src][r][c];
+        }
+      }
+  }
+  if (ks_n > 1) {
+    group_sync(t);
+    for (int e = t.id; e < kTile * ldw; e += t.n) {
+      const int r = e / ldw, col = e % ldw;
+      int sum[2] = {0, 0};
+      for (int ks = 0; ks < ks_n; ++ks)
+        for (int src = 0; src < srcs; ++src)
+          sum[src] += part[((ks * srcs + src) * kTile + r) * ldw + col];
+      g.c[r * g.ldc + col] = epilogue_q(g, sum[0], sum[1], r, col);
+    }
+  }
+  group_sync(t);
+}
 
 __device__ inline Gemm make_gemm(const float* a1, int lda1, int k1,
                                  const float* w1, int n, const float* bias,
@@ -320,38 +628,86 @@ __device__ inline Gemm make_gemm(const float* a1, int lda1, int k1,
   g.c = c;
   g.ldc = ldc;
   g.scratch = scratch;
+  g.s1 = g.s2 = nullptr;
+  g.q = nullptr;
+  g.qsx = nullptr;
+  g.pair_first = 0;
   return g;
 }
 
 __device__ inline float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
 // How the weights reach `gemm` when the threads stream them from L2
-// themselves; weight_ring.cuh's RingWeights has them copied into shared
-// memory ahead of use. `run` computes one Gemm on the threads `t`.
+// themselves, as W (float, bf16, or int8 through gemm_q);
+// weight_ring.cuh's RingWeights has them copied into shared memory ahead
+// of use. `run` computes one Gemm on the threads `t`.
+template <class W = float>
 struct L2Weights {
   __device__ __forceinline__ void run(const Gemm& g, const Lanes& t) {
-    gemm(g, t);
+    gemm<W>(g, t);
   }
 };
+template <>
+struct L2Weights<i8> {
+  __device__ __forceinline__ void run(const Gemm& g, const Lanes& t) {
+    gemm_q(g, t);
+  }
+};
+
+// The int8 plan's part of a Gemm: column scales s1 (and s2), the
+// staging buffers; none without scales (fp32, bf16).
+__device__ __forceinline__ Gemm with_scales(Gemm g, const CellLayout& l,
+                                            float* smem, const float* s1,
+                                            const float* s2) {
+  if (s1 != nullptr) {
+    g.s1 = s1;
+    g.s2 = s2;
+    g.q = reinterpret_cast<i8*>(smem + l.q);
+    g.qsx = smem + l.qsx;
+  }
+  return g;
+}
 
 // One cell step on the threads `t`: reads x (and prev) = smem d[0] and
 // hx, leaves hi in smem and returns the buffer holding y (width n_feat,
 // leading dimension ld_pp). `w` runs the matmuls in the order
 // weight_ring.cuh's slab schedule lists them: down_w[0], reset_w,
-// down_w[1..L-1], then up_w[i] and up_s[i] per decoder level.
+// down_w[1..L-1], then up_w[i] and up_s[i] per decoder level. `sc`, the
+// int8 plan's column scales, is null in the other modes; with it, a
+// delta level 0 is two inputs, x and prev, each quantized with its own
+// row scale (JAX common.py:128-136).
 template <class Weights>
 __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
-                            float* smem, const Lanes& t, Weights& w) {
+                            float* smem, const Lanes& t, Weights& w,
+                            const AdtPlanScales* sc = nullptr) {
   const int L = a.levels;
   const int n = a.n_hidden;
   for (int i = 0; i < L; ++i) {
-    w.run(make_gemm(smem + l.d[i], l.ld_d[i], a.down_n[i], a.down_w[i],
-                      a.down_n[i + 1], a.down_b[i], kRelu, smem + l.d[i + 1],
-                      l.ld_d[i + 1], smem + l.scratch), t);
+    Gemm g = make_gemm(smem + l.d[i], l.ld_d[i], a.down_n[i], a.down_w[i],
+                       a.down_n[i + 1], a.down_b[i], kRelu, smem + l.d[i + 1],
+                       l.ld_d[i + 1], smem + l.scratch);
+    if (sc != nullptr) {
+      g = with_scales(g, l, smem, sc->down[i], nullptr);
+      if (i == 0 && a.delta) {  // x's rows, then prev's, each padded
+        const int f = a.down_n[0] / 2;
+        g.k1 = g.k2 = f;
+        g.a2 = smem + l.d[0] + f;
+        g.lda2 = l.ld_d[0];
+        g.w2 = reinterpret_cast<const float*>(
+            reinterpret_cast<const i8*>(a.down_w[0]) +
+            (size_t)round4(f) * round4(a.down_n[1]));
+        g.s2 = sc->down[0];
+        g.pair_first = 1;
+      }
+    }
+    w.run(g, t);
     if (i == 0)  // the reset gate reads only hx: share the first barrier
-      w.run(make_gemm(smem + l.hx, l.ld_n, n, a.reset_w, 3 * n, a.reset_b,
-                        kRelu, smem + l.gh, round4(3 * n), smem + l.scratch),
-           t);
+      w.run(with_scales(make_gemm(smem + l.hx, l.ld_n, n, a.reset_w, 3 * n,
+                                  a.reset_b, kRelu, smem + l.gh,
+                                  round4(3 * n), smem + l.scratch),
+                        l, smem, sc != nullptr ? sc->reset : nullptr,
+                        nullptr),
+            t);
     group_sync(t);
   }
   const float* gx = smem + l.d[L];
@@ -384,6 +740,7 @@ __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
       g.k2 = a.down_n[L - i];
       g.w2 = a.up_s[i];
     }
+    if (sc != nullptr) g = with_scales(g, l, smem, sc->up[i], sc->skip[i]);
     w.run(g, t);
     group_sync(t);
     h = dst;
@@ -395,7 +752,7 @@ __device__ float* plan_cell(const AdtPlan& a, const CellLayout& l,
 
 __device__ inline float* plan_cell(const AdtPlan& a, const CellLayout& l,
                                    float* smem, const Lanes& t) {
-  L2Weights w;
+  L2Weights<> w;
   return plan_cell(a, l, smem, t, w);
 }
 

@@ -27,11 +27,21 @@ the per-bin smoothed power and floor and a per-stream EMA, 'both' all
 five. The per-stream EMAs are (B, 1) here; the Pallas kernel keeps them
 as (B, 128) broadcasts of the TPU's lane width.
 
+``compute_dtype`` picks one of JAX's three compute modes (fused_hop.py:
+138-153, :205-223, common.py:56-160): float32; ``torch.bfloat16``, where
+every matrix operand (the DFT pair, the mel pair, the plan's matrices) is
+stored in bf16 and each matmul's activation is rounded to bf16, with the
+products summed in fp32; ``torch.int8`` (W8A8), where the plan's
+matrices are int8 with one fp32 scale per column, each dot's activation
+is quantized per row from its live max, the integer products are summed
+exactly and dequantized rank-1, and the DSP matmuls run as in bf16. The
+window and envelope rows, the biases, the scale rows and every state
+plane stay fp32.
+
 The port does not take JAX's ``hops_per_step`` (hops unrolled per grid
 step: its outputs are bit-identical, and the Hopper kernel has no grid
 step along K) or ``block_b`` (the kernel's tile of 2 streams is fixed and
-its ragged last tile masked, so B is not padded). bf16/int8 compute
-(ROADMAP B4) raises NotImplementedError.
+its ragged last tile masked, so B is not padded).
 """
 
 import ctypes
@@ -43,8 +53,8 @@ import torch
 from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.kernels.common import (
-    PlanArgs, check_plan, kernel_operand, pack_plan_weights, plan_args,
-    plan_cell_math)
+    PlanArgs, PlanScaleArgs, check_plan, kernel_operand, pack_plan_weights,
+    plan_args, plan_args_q, plan_cell_math)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.noisefloor import (
     _EPS, FLOOR_BIAS, FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB,
@@ -53,6 +63,8 @@ from audio_denoising_torch.ops.noisefloor import (
 from audio_denoising_torch.ops.windows import hann_window, wola_envelope
 
 DB_PER_NEPER = 10.0 / np.log(10.0)
+# compute_dtype -> the kernel's AdtFusedHopArgs.compute
+COMPUTE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 class FusedHopState(NamedTuple):
@@ -137,16 +149,16 @@ class _Args(ctypes.Structure):
         + [(f, ctypes.c_int) for f in (
             "batch", "n_fft", "hop", "n_bins", "n_mels", "raw", "hops",
             "pcm16")]
-        + [("output_gain", ctypes.c_float), ("state_decay", ctypes.c_float)])
+        + [("output_gain", ctypes.c_float), ("state_decay", ctypes.c_float),
+           ("scales", PlanScaleArgs), ("compute", ctypes.c_int)])
 
 
 def _check_supported(cfg: Config, plan, hops_per_call: int, io_dtype,
                      compute_dtype) -> None:
     dsp = cfg.dsp
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"the port's fused hop does not implement compute dtype "
-            f"{compute_dtype} (ROADMAP B4) yet")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype must be float32, bfloat16 or int8, "
+                         f"got {compute_dtype}")
     if dsp.domain == "raw" and dsp.n_mels != dsp.n_stft:
         raise ValueError("raw domain: n_mels must equal n_stft (feature "
                          "width)")
@@ -166,11 +178,15 @@ class FusedHop:
     on ``device``; see the module docstring."""
 
     def __init__(self, cfg: Config, plan, device: torch.device,
-                 hops_per_call: int = 1, io_dtype=torch.float32):
+                 hops_per_call: int = 1, io_dtype=torch.float32,
+                 compute_dtype=torch.float32):
         dsp, srv = cfg.dsp, cfg.serving
         self.device = device
         self.hops_per_call = hops_per_call
         self.io_dtype = io_dtype
+        self.compute_dtype = compute_dtype
+        # the DSP matmuls run in bf16 in both reduced modes
+        self.dsp_bf16 = compute_dtype != torch.float32
         self.n_fft, self.hop = dsp.n_fft, dsp.hop_length
         self.raw = dsp.domain == "raw"
         self.F, self.M = dsp.n_stft, _feat_width(cfg)
@@ -184,19 +200,27 @@ class FusedHop:
 
         win = hann_window(self.n_fft, dtype=torch.float64).numpy()
         CF, SF, IC, IS = _dft_matrices(self.n_fft)
+        # the DSP matrices in float32, holding bf16 values in the reduced
+        # modes; the kernel's bf16 operands are the same values
+        dsp_round = ((lambda t: t.bfloat16().float()) if self.dsp_bf16
+                     else (lambda t: t))
         f32 = lambda a: torch.as_tensor(
             np.ascontiguousarray(a), dtype=torch.float32).to(device)
-        self.cf, self.sf, self.ic, self.is_ = map(f32, (CF, SF, IC, IS))
+        self.cf, self.sf, self.ic, self.is_ = (
+            dsp_round(f32(m)) for m in (CF, SF, IC, IS))
         self.mel = self.imel = None    # the raw domain has no mel pair
         if not self.raw:
-            self.mel = mel_filterbank(self.F, self.M,
-                                      dsp.sample_rate).to(device)
-            self.imel = inverse_mel_matrix(
-                self.F, self.M, dsp.sample_rate).T.contiguous().to(device)
+            self.mel = dsp_round(mel_filterbank(self.F, self.M,
+                                                dsp.sample_rate).to(device))
+            self.imel = dsp_round(inverse_mel_matrix(
+                self.F, self.M, dsp.sample_rate).T.contiguous().to(device))
         self.win = f32(win)
         self.env = f32(wola_envelope(win, self.n_fft, self.hop))
         plan = plan.to(device=device, dtype=torch.float32)
-        weights, self.skip_flags = pack_plan_weights(plan)
+        weights, self.skip_flags = pack_plan_weights(
+            plan, quantize=compute_dtype == torch.int8)
+        if compute_dtype == torch.bfloat16:   # matrices bf16, biases fp32
+            weights = [w.bfloat16() if w.dim() == 2 else w for w in weights]
         self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]
 
         self._lib = None
@@ -241,18 +265,24 @@ class FusedHop:
         self._check_shared_memory()
 
     # -- the plain PyTorch version ------------------------------------------
+    def _dsp(self, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        """A DSP matmul: in the reduced modes the activation rounded to
+        bf16 against the bf16-valued matrix, summed in fp32."""
+        return (a.bfloat16().float() if self.dsp_bf16 else a) @ m
+
     def reference(self, state: FusedHopState, chunk: torch.Tensor
                   ) -> Tuple[FusedHopState, torch.Tensor]:
-        """One float32 hop."""
+        """One hop in the hop's compute dtype (float32 IO and state)."""
         hop = self.hop
         ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
         frame = ring * self.win
-        re = frame @ self.cf
-        im = frame @ self.sf
+        re = self._dsp(frame, self.cf)
+        im = self._dsp(frame, self.sf)
         mag = torch.sqrt(re * re + im * im)
-        x = torch.log(1.0 + (mag if self.raw else mag @ self.mel))
+        x = torch.log(1.0 + (mag if self.raw else self._dsp(mag, self.mel)))
         h, hi = plan_cell_math(self.weights, self.skip_flags, self.n, x,
-                               state.hx, prev=state.prev)
+                               state.hx, prev=state.prev,
+                               compute_dtype=self.compute_dtype)
         rec = x - h
         rec = torch.where(rec >= 0, rec, 0.2 * rec)
         feat_mag = torch.clamp(torch.exp(rec) - 1.0, min=0.0)
@@ -262,7 +292,7 @@ class FusedHop:
             # the mel pseudo-inverse projects some bins negative: clamp, as
             # inverse_mel_scale does, or they resynthesize with inverted
             # phase
-            lin = torch.clamp(feat_mag @ self.imel, min=0.0) * \
+            lin = torch.clamp(self._dsp(feat_mag, self.imel), min=0.0) * \
                 self.output_gain
         planes = {"prev": x} if self.delta else {}
         if self.gated:
@@ -273,7 +303,8 @@ class FusedHop:
         scale = lin / torch.where(safe, mag, torch.ones_like(mag))
         rec_re = torch.where(safe, re * scale, lin)
         rec_im = torch.where(safe, im * scale, torch.zeros_like(im))
-        synth = (rec_re @ self.ic + rec_im @ self.is_) * self.win
+        synth = (self._dsp(rec_re, self.ic)
+                 + self._dsp(rec_im, self.is_)) * self.win
         acc = state.ola + synth
         out = acc[:, :hop] / self.env
         ola = torch.cat([acc[:, hop:], torch.zeros_like(acc[:, :hop])],
@@ -390,13 +421,21 @@ class FusedHop:
         padded operand copies (kernel_operand) are kept alive on the
         hop."""
         self._kernel_tensors: List[torch.Tensor] = []
+        keep = self._kernel_tensors
         a = _Args()
-        for name in ("cf", "sf", "ic", "is_", "mel", "imel", "win", "env"):
+        dsp = torch.bfloat16 if self.dsp_bf16 else torch.float32
+        for name in ("cf", "sf", "ic", "is_", "mel", "imel"):
             t = getattr(self, name)
             if t is not None:
-                setattr(a, name, kernel_operand(t, self._kernel_tensors))
-        a.plan = plan_args(self.weights, self.skip_flags, self.M, self.n,
-                           self._kernel_tensors, self.delta)
+                setattr(a, name, kernel_operand(t.to(dsp), keep))
+        a.win, a.env = (kernel_operand(t, keep) for t in (self.win, self.env))
+        if self.compute_dtype == torch.int8:
+            a.plan, a.scales = plan_args_q(self.weights, self.skip_flags,
+                                           self.M, self.n, keep, self.delta)
+        else:
+            a.plan = plan_args(self.weights, self.skip_flags, self.M, self.n,
+                               keep, self.delta)
+        a.compute = COMPUTE_DTYPES[self.compute_dtype]
         a.n_fft, a.hop, a.n_bins, a.n_mels = self.n_fft, self.hop, self.F, \
             self.M
         a.raw = int(self.raw)
@@ -478,4 +517,4 @@ def make_fused_hop(cfg: Config, plan,
     ``"cpu"``); see the module docstring."""
     _check_supported(cfg, plan, hops_per_call, io_dtype, compute_dtype)
     return FusedHop(cfg, plan, resolve_device(device), hops_per_call,
-                    io_dtype)
+                    io_dtype, compute_dtype)

@@ -43,7 +43,7 @@ from audio_denoising_torch.ops.noisefloor import (
 from audio_denoising_torch.ops.windows import wola_envelope
 from audio_denoising_torch.pipeline import (
     fp32_convs, make_webrtc_step, serving_model, webrtc_init_state)
-from audio_denoising_torch.runtime.plan import build_cell_plan
+from audio_denoising_torch.runtime.plan import PlanModel, build_cell_plan
 
 
 class FastState(NamedTuple):
@@ -75,10 +75,6 @@ def _check_fast_supported(cfg: Config) -> None:
     if cfg.dsp.domain == "raw" and cfg.dsp.n_mels != cfg.dsp.n_stft:
         raise ValueError("raw domain: n_mels must equal n_stft (feature "
                          "width)")
-    if cfg.serving.dtype == "int8":
-        raise NotImplementedError(
-            "int8 serving in mode 'fast' (the quantized PlanModel) is not "
-            "ported yet (ROADMAP A13)")
     if cfg.dsp.n_fft % cfg.dsp.hop_length:
         raise ValueError("fast mode expects hop | n_fft (WOLA)")
 
@@ -195,6 +191,19 @@ def make_fast_step(cfg: Config, model,
 MODES = ("fast", "fused", "webrtc", "fused-webrtc")
 
 
+def _quantized_model(model, device):
+    """Mode ``fast`` at ``serving.dtype="int8"`` serves the W8A8 plan in
+    place of the zoo model (JAX engine.py:344-350), with the same cell
+    interface; a PlanModel passed in must already be quantized."""
+    if isinstance(model, torch.nn.Module):
+        return PlanModel(model, device=device, quantized=True)
+    if not getattr(model, "quantized", False):
+        raise ValueError("serving dtype 'int8' in mode 'fast' serves the "
+                         "quantized plan: pass the zoo model or "
+                         "PlanModel(..., quantized=True)")
+    return model
+
+
 def _fields(state: NamedTuple) -> Dict[str, torch.Tensor]:
     """The state's tensors by name; absent (None) fields left out."""
     return {k: v for k, v in state._asdict().items() if v is not None}
@@ -209,7 +218,10 @@ class StreamEngine:
     In mode ``fast`` ``model`` may be a zoo model or a PlanModel; the other
     modes take a zoo model: GRUUNet2, MOMO2 or MOMO3 in mode ``fused``
     (``build_cell_plan`` compiles either family), GRUUNet2 in the webrtc
-    modes."""
+    modes. ``serving.dtype`` picks the compute: mode ``fused`` runs the
+    fused hop in it (float32, bfloat16 or int8); mode ``fast`` serves the
+    quantized plan at int8 and float32 otherwise, as JAX's fast step
+    ignores bfloat16."""
 
     def __init__(self, cfg: Config, model, mode: str = "fused",
                  max_streams: Optional[int] = None,
@@ -235,9 +247,11 @@ class StreamEngine:
                 "(serving.snr_gate_db is set); engine mode 'webrtc' serves "
                 "the gate on the op-by-op Griffin-Lim step")
         if cfg.serving.dtype == "int8" and mode not in ("fast", "fused"):
+            # the JAX engine warns and serves mode 'fast' (ROADMAP A7)
             raise ValueError(
-                f"serving dtype 'int8' is implemented for the fused hop "
-                f"only, not for engine mode {mode!r}")
+                f"serving dtype 'int8' is implemented in engine modes "
+                f"'fast' (the quantized plan) and 'fused' (the int8 fused "
+                f"hop), not in mode {mode!r}")
         self.cfg = cfg
         self.mode = mode
         self.n = max_streams or cfg.serving.max_streams
@@ -247,6 +261,8 @@ class StreamEngine:
         # device; on the card the kernel hops then check what the card can
         # take (a block's shared memory)
         if mode == "fast":
+            if cfg.serving.dtype == "int8":
+                model = _quantized_model(model, device)
             self.hop_step = make_fast_step(cfg, model, device)
             self.device = resolve_device(device)
             init = lambda b: fast_init_state(cfg, model, b, self.device)

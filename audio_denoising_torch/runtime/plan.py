@@ -20,8 +20,9 @@ into the plan matrices.
 
 ``PlanModel`` (JAX counterpart plan.py:341-455) serves the plan through
 the zoo models' interface, one frame at a time through the cell (the
-hand-written kernel of ``ops/kernels/fused_cell.py`` with ``fused=True``)
-and sequences through ``plan_apply_parallel``.
+hand-written kernel of ``ops/kernels/fused_cell.py`` with ``fused=True``,
+or the W8A8 plan of ``runtime/quant.py`` with ``quantized=True``) and
+sequences through ``plan_apply_parallel`` (``plan_apply_parallel_q``).
 """
 
 import copy
@@ -258,17 +259,23 @@ def _encode(plan: CellPlan, x: torch.Tensor) -> List[torch.Tensor]:
     return skips
 
 
-def _gate(plan: CellPlan, gate_x: torch.Tensor, hx: torch.Tensor
-          ) -> torch.Tensor:
-    """The reset-gate matmul on hx and the GRU gating hx' = n + z (hx - n)."""
-    n = plan.hidden * plan.compressed
-    gate_h = torch.relu(hx @ plan.reset_mat + plan.reset_bias)
+def gru_update(n: int, gate_x: torch.Tensor, gate_h: torch.Tensor,
+               hx: torch.Tensor) -> torch.Tensor:
+    """The GRU gating hx' = n + z (hx - n) from the input and reset-gate
+    projections (B, 3n); fp32 in every compute dtype."""
     i_r, i_i, i_n = gate_x[:, :n], gate_x[:, n:2 * n], gate_x[:, 2 * n:]
     h_r, h_i, h_n = gate_h[:, :n], gate_h[:, n:2 * n], gate_h[:, 2 * n:]
     inputgate = torch.sigmoid(i_i + h_i)
     resetgate = torch.sigmoid(i_r + h_r)
     newgate = torch.tanh(i_n + resetgate * h_n)
     return newgate + inputgate * (hx - newgate)
+
+
+def _gate(plan: CellPlan, gate_x: torch.Tensor, hx: torch.Tensor
+          ) -> torch.Tensor:
+    """The reset-gate matmul on hx and the GRU gating."""
+    gate_h = torch.relu(hx @ plan.reset_mat + plan.reset_bias)
+    return gru_update(plan.hidden * plan.compressed, gate_x, gate_h, hx)
 
 
 def _decode(plan: CellPlan, h: torch.Tensor, skips: List[torch.Tensor]
@@ -339,16 +346,31 @@ class PlanModel:
     runs its plain version. The JAX class falls back to the op-by-op plan
     where the plan outgrows a TPU's VMEM; the kernel streams its weights
     through L2 and has no such limit, and where a tile's activations do
-    not fit in a block's shared memory the FusedCell raises here."""
+    not fit in a block's shared memory the FusedCell raises here.
+
+    ``quantized=True`` serves the W8A8 plan (``runtime/quant.py``: every
+    plan matmul in int8 with per-frame activation scales, in plain
+    PyTorch, as JAX runs it outside any kernel); it does not compose with
+    ``fused=True``, as in JAX."""
 
     def __init__(self, model, fused: bool = False,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 quantized: bool = False):
+        if quantized and fused:
+            raise ValueError("quantized=True requires fused=False")
         self.num_bins = model.num_bins
         self.device = resolve_device(device)
         self.plan = build_cell_plan(model).to(device=self.device)
         self.is_momo = hasattr(model, "delta")    # MOMO2 or MOMO3
+        self.quantized = quantized
         self.fused_cell = None
-        if fused:
+        if quantized:
+            from audio_denoising_torch.runtime.quant import (
+                plan_cell_q, quantize_plan)
+            self.qplan = quantize_plan(self.plan)
+            self._cell = lambda x, hx, prev=None: plan_cell_q(self.qplan, x,
+                                                              hx, prev)
+        elif fused:
             from audio_denoising_torch.ops.kernels.fused_cell import (
                 make_fused_cell)
             self.fused_cell = make_fused_cell(self.plan, self.device)
@@ -402,4 +424,8 @@ class PlanModel:
         if x.shape[1] == 1 and not self.plan.delta:
             y, hx = self._cell(x[:, 0], hx)
             return y[:, None], hx
+        if self.quantized:
+            from audio_denoising_torch.runtime.quant import (
+                plan_apply_parallel_q)
+            return plan_apply_parallel_q(self.qplan, x, hx)
         return plan_apply_parallel(self.plan, x, hx)

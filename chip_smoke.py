@@ -90,7 +90,8 @@ raises on failure (so the script exits non-zero and prints no result):
     (irfft then rfft) beside the GL launch's time per round; on MOMO3
     (momo3-4d4ea0) the single hop ungated and gated, the K-hop kernel per
     call and per hop, the delta fused cell and mode fast per hop, each
-    beside the 437.5 us real-time budget of one hop;
+    beside the 437.5 us real-time budget of one hop; and the bf16 and
+    int8 timing of phases 35-38;
 19. the resident K-hop WebRTC kernel on gruunet2-dari_tult at 256
     streams and K = 25, GL-8 (bench.py's fused_webrtc_gl8_resident_k25)
     and GL-32: two calls carrying the state, each one launch, against 50
@@ -162,19 +163,57 @@ raises on failure (so the script exits non-zero and prints no result):
     (wall seconds, real-time factor, the card's busy share by
     torch.profiler), the chain stage by stage (resample, STFT, the model
     scan, residual and inverse mel, the gate scans on phase 32's
-    checkpoint, the iSTFT), and ``offline_denoiser`` on 16 clips of 10 s.
+    checkpoint, the iSTFT), and ``offline_denoiser`` on 16 clips of 10 s;
+35. the fused-hop kernel in its reduced compute modes, bf16 and W8A8
+    int8, against its plain version on the card over 20 hops (every
+    hop's outputs and every plane but the ring by SNR, the ring exact):
+    each hop from the plain version's state at ``FORCED_DB``, and the
+    kernel carrying its own state by each stream's SNR over the run, its
+    median and its worst at ``FREE_DB`` (the plain version carries its
+    own in both); the control, the plain fp32 hop in the kernel's place,
+    must fail both: gruunet2-stream16k at 256 and 3 streams, ungated
+    and with the tuned gate ('both', voiced input, the blending share
+    printed and required above 0); bench.py's quality
+    flagship runs/gruunet2mel128w64-mrstft-50k.npz (48 kHz, n_fft 1024,
+    128 mels, hidden 64) at 256 streams, first in fp32 as phase 2 holds
+    it; momo3-4d4ea0 at 256 and 3 (prev included; in int8 level 0
+    quantizes x and prev each with its own row scale);
+36. the K-hop kernel at K = 50 in both modes on stream16k, the flagship
+    and MOMO3 at 256 streams: two calls carrying the state and one with
+    int16 IO, each one launch; against 50 single-hop launches (0 on every
+    output and plane), its plain version and the int16 plain path (each
+    stream's SNR, as phase 35's free runs) and the float32-IO K-hop
+    clipped and scaled (2 LSB);
+37. ``StreamEngine`` mode ``fused`` at serving.dtype bfloat16 and int8
+    (gruunet2-stream16k) and mode ``fast`` at int8 (gruunet2-good on the
+    quantized plan, ``PlanModel(quantized=True)``), 256 slots for 50
+    ticks with skipped slots, against the same run on the CPU (each
+    stream's SNR), idle slots bit-identical;
+38. ``EngineDaemon`` from ``engine --dtype int8`` (mode fused,
+    gruunet2-stream16k) and ``engine --dtype int8 --mode fast`` (the
+    daemon's default model), 4 clients x 16 streams x 25 chunks, each
+    stream against its own sequence replayed on the CPU. Their timing is
+    in phase 18: CUDA events at 256 streams for the single hop and the
+    K-hop call (per hop) in fp32, bf16 and int8 on stream16k, the
+    flagship and MOMO3, each beside its plain version and its bound (each
+    product at its type's published peak: bf16 989 TFLOP/s, int8 1,979
+    TOP/s; each operand's bytes at its own size) and the yardstick of
+    the kernel's own instructions (fp32 FMA, dp4a), and mode fast on the
+    quantized plan per hop with the card's busy share.
 
 Phases 30-34 drive the offline path, which launches none of the
 hand-written kernels: the JAX offline graph reaches no Pallas kernel
 (``offline_denoise`` runs ``model.apply``, JAX pipeline.py:140).
 
-Phases 4 to 7, 9 to 12, 15 to 17 and 27 to 29, the first three calls of
-phases 14 and 26 and phase 19's calls are the main paths: each kernel's
+Phases 4 to 7, 9 to 12, 15 to 17, 27 to 29, 37 and 38, the first three
+calls of phases 14, 26 and of each case of 36, and phase 19's calls are
+the main paths: each kernel's
 launch counter is set to 0 just before each (a new wrapper starts at 0)
 and read just after (the single WebRTC hop counts its three kernels, the
 K-hop call one). Mode ``fast`` with the zoo model (phases 11, 12, 17,
-28) and mode ``webrtc`` (phases 23, 24) run no hand-written kernel, as
-the JAX package's modes ``fast`` and ``webrtc`` run no Pallas kernel.
+28), mode ``fast`` on the quantized plan (phases 37, 38) and mode
+``webrtc`` (phases 23, 24) run no hand-written kernel, as the JAX
+package's modes ``fast`` and ``webrtc`` run no Pallas kernel.
 Griffin-Lim with carried phases is chaotic where a frame's rebuilt
 spectrum nears zero: fp32 round-off there flips a phase, and the carried
 phases spread it, so two correct fp32 versions that each carry their own
@@ -183,7 +222,8 @@ CPU and the kernel all part from a float64 run alike). So the served
 geometry's waveform is held one hop at a time from a shared state, with
 a float64 witness, beside the surfaces no phase reaches (hx, spectral
 convergence). The last two lines are the ``kernels`` JSON line (each
-entry with the variants checked, the MOMO3 ones with their times) and
+entry with the variants checked, the MOMO3, flagship, bf16 and int8 ones
+with their times) and
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout
 of the repo, the script fails.
 """
@@ -276,6 +316,48 @@ OFFLINE_TIMED_S = 60
 OFFLINE_TIMED_CALLS = 3   # the host's clock varies from call to call
 OFFLINE_BATCH = 16
 OFFLINE_BATCH_S = 10
+REDUCED = ("bfloat16", "int8")   # the fused hop's reduced compute modes
+FLAGSHIP = "gruunet2mel128w64-mrstft-50k.npz"   # bench.py's quality flagship
+S16K = "gruunet2-stream16k"
+# The reduced modes' kernel against its plain version on the card, by SNR
+# in dB. fp32 round-off upstream of a bf16 rounding or an int8 quant step
+# can move a value across the tie, and one element then moves by 2^-8 of
+# itself or 1/127 of its row's max. Each limit sits between the worst
+# reading of the sound runs and that of the control, the plain fp32 hop
+# in the kernel's place on the same inputs (phase 35 runs it and requires
+# every limit to fail it). On an NVIDIA H100 80GB HBM3 at 700 W, with
+# this script's inputs:
+# - one hop from the plain version's state (batch-wide, worst hop):
+#   bf16 56.5-95.5 dB, control 26.4-37.4; int8 50.9-123.2, control
+#   9.2-34.4 -> FORCED_DB;
+# - each side carrying its own state: a value that crossed a tie in one
+#   stream moves more values across ties downstream and, through hx, in
+#   later hops, until that stream differs at the mode's own noise level,
+#   while the others stay near the forced readings. So each stream's SNR
+#   over the run is held: its median at FREE_DB's first number, the
+#   midpoint between the sound runs' lowest median and the control's
+#   highest (stream16k bf16 96.9 and 52.0, int8 96.9 and 51.8; the
+#   flagship bf16 56.0 and 33.0 (the K = 50 calls spread the most: 35% of
+#   streams below 45 dB after 100 hops), int8 89.0 and 18.2; MOMO3 bf16
+#   147.6 and 50.9, int8 147.5 and 45.2), which a fault spread over every
+#   stream would miss; and its worst stream at the second, the control's
+#   worst stream less 6 dB (the mode's own noise: stream16k 35.2 and
+#   34.3, the flagship 27.3 and 12.4, MOMO3 49.8 and 43.1; the sound runs'
+#   worst streams 64.4, 49.4, 36.8, 24.9, 69.7, 61.5).
+FORCED_DB = {"bfloat16": 46.0, "int8": 45.0}
+FREE_DB = {(S16K, "bfloat16"): (74.0, 29.0), (S16K, "int8"): (74.0, 28.0),
+           (FLAGSHIP, "bfloat16"): (44.0, 21.0),
+           (FLAGSHIP, "int8"): (53.0, 6.0),
+           (MOMO_SPEC, "bfloat16"): (99.0, 43.0),
+           (MOMO_SPEC, "int8"): (96.0, 37.0)}
+BF16_FLOPS = 989e12   # H100 SXM bf16 dense tensor-core peak, NVIDIA data sheet
+INT8_OPS = 1979e12    # H100 SXM int8 dense tensor-core peak
+# dp4a: 64 per clock per SM on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput), 4 multiply-adds
+# each: twice the fp32 FMA rate in operations. A yardstick of the
+# instructions the kernel runs, not a bound
+DP4A_OPS = 2 * FP32_FLOPS
+PEAK_BY_ITEMSIZE = {4: FP32_FLOPS, 2: BF16_FLOPS, 1: INT8_OPS}
 
 
 def say(*parts):
@@ -300,35 +382,184 @@ def run_hops(step, state, chunks):
     return state, outs
 
 
-def phase_kernel_vs_plain(torch, hop, cfg, plan, batches):
-    """Kernel against its plain version on the same inputs, each carrying
-    its own state; every plane held (ring, ola, hx and, for a delta plan,
-    prev); returns the largest output error seen."""
+def dtype_name(dt) -> str:
+    return str(dt).rsplit(".", 1)[-1]
+
+
+def as_f64(x):
+    """A tensor (any device) or array as a float64 numpy array."""
+    if hasattr(x, "detach"):
+        return x.detach().double().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def tensor_db(ref, got) -> float:
+    """SNR of ``got`` against ``ref`` in dB (inf where they are equal)."""
+    ref, got = as_f64(ref), as_f64(got)
+    err = float(((got - ref) ** 2).sum())
+    if err == 0.0:
+        return math.inf
+    return 10 * math.log10(max(float((ref ** 2).sum()), 1e-30) / err)
+
+
+def stream_dbs(ref, got):
+    """Each stream's SNR in dB (stream_snrs) over a run of (T, B, ...)
+    outputs: (B,)."""
+    return stream_snrs(np.moveaxis(as_f64(ref), 1, 0),
+                       np.moveaxis(as_f64(got), 1, 0))
+
+
+def reduced_planes(got, want):
+    """{plane: SNR in dB} of two states (the ring: 0 or inf, exact)."""
+    dbs = {}
+    for k, a in planes(got).items():
+        b = planes(want)[k].to(a.device)
+        if k == "ring":
+            dbs[k] = math.inf if a.equal(b) else -math.inf
+        else:
+            dbs[k] = tensor_db(b, a)
+    return dbs
+
+
+def fmt_db(dbs):
+    return ", ".join(f"{k} {v:.1f}" for k, v in dbs.items())
+
+
+def limits_of(cfg):
+    """The model whose FREE_DB holds for ``cfg``: MOMO3's in the raw
+    domain, the flagship's at 128 mels, else stream16k's (gruunet2-good's
+    weights)."""
+    if cfg.dsp.domain == "raw":
+        return MOMO_SPEC
+    return FLAGSHIP if cfg.dsp.n_mels == 128 else S16K
+
+
+def free_verdict(dbs, cfg, dtype):
+    """(ok, text) for each stream's SNR ``dbs`` where each side carried
+    its own state: the median stream and the worst at FREE_DB."""
+    median, floor = FREE_DB[(limits_of(cfg), dtype)]
+    below = int((dbs < FORCED_DB[dtype]).sum())
+    ok = float(np.median(dbs)) >= median and float(dbs.min()) >= floor
+    return ok, (f"streams median {np.median(dbs):.1f} dB (limit "
+                f"{median:g}), worst {dbs.min():.1f} (limit {floor:g}), "
+                f"{below} of {len(dbs)} below {FORCED_DB[dtype]:g}")
+
+
+def hold_free(label, dtype, cfg, outs_ref, outs_got, s_ref=None,
+              s_got=None):
+    """``outs_got`` (and the state ``s_got``) against ``outs_ref``
+    (``s_ref``) where each side carried its own state; outputs (T, B,
+    ...). float32: the largest output error at OUT_ATOL, the planes at
+    theirs (check_state). bf16, int8: free_verdict on each stream's SNR,
+    every plane but the ring (exact) by SNR at FREE_DB's worst-stream
+    limit, all finite.
+    Returns (text, largest output error, worst stream dB)."""
+    ref, got = as_f64(outs_ref), as_f64(outs_got)
+    e_out = float(np.abs(got - ref).max())
+    if dtype == "float32":
+        errs = {} if s_ref is None else plane_errors(s_got, s_ref)
+        text = f"out {e_out:.3e} (bound {OUT_ATOL:g})" + (
+            f", {fmt(errs)}" if errs else "")
+        if e_out > OUT_ATOL:
+            raise AssertionError(f"{label}: {text}")
+        check_state(errs, label)
+        return text, e_out, None
+    dbs = stream_dbs(ref, got)
+    ok, text = free_verdict(dbs, cfg, dtype)
+    pl = {} if s_ref is None else reduced_planes(s_got, s_ref)
+    text = f"out {e_out:.3e}; {text}" + (
+        f"; planes {fmt_db(pl)}" if pl else "")
+    floor = FREE_DB[(limits_of(cfg), dtype)][1]
+    if (not ok or min(pl.values(), default=math.inf) < floor
+            or not np.isfinite(got).all()):
+        raise AssertionError(f"{label} ({dtype}): {text}")
+    return text, e_out, float(dbs.min())
+
+
+def phase_kernel_vs_plain(torch, hop, cfg, plan, batches, label="",
+                          voiced_input=False):
+    """Kernel against its plain version on the same inputs over HOPS hops,
+    each carrying its own state, every plane held (hold_free: ring, ola,
+    hx and, for a delta plan, prev). In bf16 and int8 also each hop from
+    the plain version's state, its outputs and new planes by SNR at
+    FORCED_DB; and the control: the plain fp32 hop in the kernel's place,
+    which both limits must fail; with a gate, the share of stream-hops
+    whose alpha blends (above 0). Returns (largest output error, worst
+    forced hop dB or None)."""
     from audio_denoising_torch.ops.kernels.fused_hop import (
-        fused_hop_init_state)
-    worst = 0.0
+        fused_hop_init_state, make_fused_hop)
+    dtype = dtype_name(hop.compute_dtype)
+    reduced = dtype != "float32"
+    fp32 = make_fused_hop(cfg, plan, "cuda") if reduced else None
+    worst_e, worst_db = 0.0, None
     for batch in batches:
-        rng = np.random.default_rng(batch)
-        chunks = [torch.from_numpy(
-            (0.1 * rng.standard_normal((batch, hop.hop))).astype(np.float32)
-        ).cuda() for _ in range(HOPS)]
-        s_ref, o_ref = run_hops(
-            hop.reference, fused_hop_init_state(cfg, plan, batch, "cuda"),
-            chunks)
-        s_k, o_k = run_hops(
-            hop, fused_hop_init_state(cfg, plan, batch, "cuda"), chunks)
+        if voiced_input:
+            chunks = torch.from_numpy(voiced_chunks(
+                batch, HOPS, hop.hop, cfg.dsp.sample_rate, batch)).cuda()
+        else:
+            rng = np.random.default_rng(batch)
+            chunks = torch.from_numpy((0.1 * rng.standard_normal(
+                (HOPS, batch, hop.hop))).astype(np.float32)).cuda()
+        s_k = s_p = s_c = fused_hop_init_state(cfg, plan, batch, "cuda")
+        o_k, o_p, o_c, alphas = [], [], [], []
+        forced, control, e_forced, dbs = math.inf, math.inf, 0.0, {}
+        for c in chunks:
+            s_k, out = hop(s_k, c)
+            o_k.append(out)
+            s_next, want = hop.reference(s_p, c)
+            o_p.append(want)
+            if reduced:
+                f_k, f_out = hop(s_p, c)      # one hop from the plain state
+                forced = min(forced, tensor_db(want, f_out))
+                e_forced = max(e_forced, max_err(f_out, want))
+                for k, v in reduced_planes(f_k, s_next).items():
+                    dbs[k] = min(dbs.get(k, math.inf), v)
+                control = min(control, tensor_db(want, fp32.reference(
+                    s_p, c)[1]))
+                s_c, out_c = fp32.reference(s_c, c)
+                o_c.append(out_c)
+            s_p = s_next
+            if hop.gated:
+                alphas.append(hop.alpha(s_p))
         torch.cuda.synchronize()
-        e_out = max(max_err(a, b) for a, b in zip(o_k, o_ref))
-        e_state = {k: max_err(v, planes(s_ref)[k])
-                   for k, v in planes(s_k).items()}
-        say(f"  B={batch:3d}: out {e_out:.3e} (bound {OUT_ATOL:g}); "
-            f"{fmt(e_state)} (bound {STATE_ATOL:g})")
-        if e_out > OUT_ATOL or max(e_state.values()) > STATE_ATOL:
-            raise AssertionError(
-                f"fused hop kernel disagrees with its plain version at "
-                f"B={batch}")
-        worst = max(worst, e_out)
-    return worst
+        text, e_free, _ = hold_free(f"{label} B={batch}", dtype, cfg,
+                                    torch.stack(o_p), torch.stack(o_k), s_p,
+                                    s_k)
+        blend = ""
+        if alphas:
+            share = float(((torch.cat(alphas) > 0) & (torch.cat(alphas) < 1)
+                           ).double().mean().cpu())
+            blend = f"; alpha in (0, 1) on {share:.1%} of stream-hops"
+            if share <= 0:
+                raise AssertionError(f"{label} ({dtype}): the gate never "
+                                     f"blended")
+        if not reduced:
+            say(f"  B={batch:3d}: {text}{blend}")
+            worst_e = max(worst_e, e_free)
+            continue
+        c_ok, c_text = free_verdict(stream_dbs(torch.stack(o_p),
+                                               torch.stack(o_c)), cfg, dtype)
+        say(f"    {label}, {dtype}, B={batch:3d}: from the plain state: out "
+            f"{e_forced:.3e}, worst hop {forced:.1f} dB, planes "
+            f"{fmt_db(dbs)} (limit {FORCED_DB[dtype]:g} dB); carrying its "
+            f"own: {text}{blend}; control, plain fp32 in its place: worst "
+            f"hop {control:.1f} dB from the plain state, {c_text}")
+        if min([forced] + list(dbs.values())) < FORCED_DB[dtype]:
+            raise AssertionError(f"{label} ({dtype}): the kernel disagrees "
+                                 f"with its plain version at B={batch}")
+        check_control(label, dtype, control, c_ok)
+        worst_e = max(worst_e, e_forced)
+        worst_db = forced if worst_db is None else min(worst_db, forced)
+    return worst_e, worst_db
+
+
+def check_control(label, dtype, forced_db, free_ok):
+    """Raises unless both checks fail the control (fp32 in the place of
+    the ``dtype`` kernel): its worst hop from the plain state below
+    FORCED_DB, and free_verdict rejecting its own run."""
+    if forced_db >= FORCED_DB[dtype] or free_ok:
+        raise AssertionError(f"{label} ({dtype}): the limits would pass "
+                             f"fp32 in the {dtype} kernel's place")
 
 
 # -- the WebRTC hop -----------------------------------------------------------
@@ -1312,18 +1543,22 @@ def phase_gated_hop(torch, checkpoints):
     return worst
 
 
-def check_multi(torch, cfg, plan, label, chunks):
-    """The K-hop kernel on the main path (two calls carrying the state, in
-    float32 and with int16 IO, each one launch), then against K launches
-    of the single-hop kernel (0 expected), its plain version, the int16
-    plain path (1 LSB) and the float32 K-hop clipped and scaled (2 LSB).
-    Returns (launches, largest output error against the plain version)."""
+def check_multi(torch, cfg, plan, label, chunks, dtype="float32"):
+    """The K-hop kernel in ``dtype`` on the main path (two calls carrying
+    the state, in float32 and with int16 IO, each one launch), then
+    against K launches of the single-hop kernel (0 expected on every
+    output and plane), its plain version over both calls and the int16
+    plain path (hold_free; in float32 the int16 path within 1 LSB) and the
+    float32 K-hop clipped and scaled (2 LSB). Returns (launches, largest
+    output error against the plain version, worst stream dB or None)."""
     from audio_denoising_torch.ops.kernels.fused_hop import (
         fused_hop_init_state, make_fused_hop)
+    dt = getattr(torch, dtype)
     K, B = chunks.shape[:2]
-    multi = make_fused_hop(cfg, plan, "cuda", hops_per_call=K)
+    multi = make_fused_hop(cfg, plan, "cuda", hops_per_call=K,
+                           compute_dtype=dt)
     multi16 = make_fused_hop(cfg, plan, "cuda", hops_per_call=K,
-                             io_dtype=torch.int16)
+                             io_dtype=torch.int16, compute_dtype=dt)
     pcm = (torch.clamp(chunks, -1, 1) * 32767).to(torch.int16)
     s0 = fused_hop_init_state(cfg, plan, B, "cuda")
     # the main path: each call one launch
@@ -1334,42 +1569,45 @@ def check_multi(torch, cfg, plan, label, chunks):
     torch.cuda.synchronize()
     launches = multi.launches + multi16.launches
     if multi.launches != 2 or multi16.launches != 1:
-        raise AssertionError(f"{label}: {multi.launches} and "
-                             f"{multi16.launches} launches for 2 and 1 calls")
+        raise AssertionError(f"{label} ({dtype}): {multi.launches} and "
+                             f"{multi16.launches} launches for 2 and 1 "
+                             f"calls")
     # K launches of the single-hop kernel on the same chunks
-    single = make_fused_hop(cfg, plan, "cuda")
+    single = make_fused_hop(cfg, plan, "cuda", compute_dtype=dt)
     s_s, outs_s = run_hops(single, s0, chunks)
-    outs_s = torch.stack(outs_s)
     exact = {k: max_err(planes(s_m)[k], v) for k, v in planes(s_s).items()}
-    exact["out"] = max_err(outs_m, outs_s)
+    exact["out"] = max_err(outs_m, torch.stack(outs_s))
     # the plain version, over both calls
     s_p, outs_p = multi.plain(s0, chunks)
     s_p2, outs_p2 = multi.plain(s_p, chunks)
-    e_plain = max(max_err(outs_m, outs_p), max_err(outs_m2, outs_p2))
-    errs = plane_errors(s_m2, s_p2)
+    if max(exact.values()) > KHOP_EXACT:
+        raise AssertionError(f"{label} ({dtype}): the K-hop kernel differs "
+                             f"from K single hops: {fmt(exact)}")
+    text, e_plain, db = hold_free(
+        f"{label} K-hop", dtype, cfg, torch.cat([outs_p, outs_p2]),
+        torch.cat([outs_m, outs_m2]), s_p2, s_m2)
     # int16 IO
     _, outs_16p = multi16.plain(s0, pcm)
-    lsb_plain = int((outs_16.int() - outs_16p.int()).abs().max().cpu())
+    if dtype == "float32":
+        lsb_plain = int((outs_16.int() - outs_16p.int()).abs().max().cpu())
+        text16 = f"{lsb_plain} LSB (bound 1)"
+        if lsb_plain > 1:
+            raise AssertionError(f"{label}: int16 IO out of bounds")
+    else:
+        text16 = hold_free(f"{label} int16 IO", dtype, cfg, outs_16p,
+                           outs_16)[0]
     s_f, outs_f = multi(s0, pcm.float() * (1.0 / 32768.0))
     scaled = torch.clamp(outs_f, -1, 1) * 32767
     lsb_f32 = float((outs_16.float() - scaled).abs().max().cpu())
     torch.cuda.synchronize()
-    say(f"  {label}, B={B}, K={K}: K-hop vs {K} single-hop launches: "
-        f"{fmt(exact)} (bound {KHOP_EXACT:g}, 0 expected); vs the plain "
-        f"version over 2 calls: out {e_plain:.3e} (bound {OUT_ATOL:g}), "
-        f"{fmt(errs)}; int16 IO vs its plain path {lsb_plain} LSB (bound 1), "
-        f"vs the float32 K-hop clipped and scaled {lsb_f32:.2f} LSB (bound "
-        f"2); {launches} launches for 3 calls")
-    if max(exact.values()) > KHOP_EXACT:
-        raise AssertionError(f"{label}: the K-hop kernel differs from K "
-                             f"single hops")
-    if e_plain > OUT_ATOL:
-        raise AssertionError(f"{label}: the K-hop kernel disagrees with "
-                             f"its plain version")
-    check_state(errs, f"{label} K-hop")
-    if lsb_plain > 1 or lsb_f32 > 2:
-        raise AssertionError(f"{label}: int16 IO out of bounds")
-    return launches, e_plain
+    say(f"  {label}, {dtype}, B={B}, K={K}: K-hop vs {K} single-hop "
+        f"launches: {fmt(exact)} (bound {KHOP_EXACT:g}, 0 expected); vs "
+        f"the plain version over 2 calls: {text}; int16 IO vs its plain "
+        f"path: {text16}; vs the float32 K-hop clipped and scaled "
+        f"{lsb_f32:.2f} LSB (bound 2); {launches} launches for 3 calls")
+    if lsb_f32 > 2:
+        raise AssertionError(f"{label} ({dtype}): int16 IO out of bounds")
+    return launches, e_plain, db
 
 
 def phase_multi(torch, cfg, plan):
@@ -1379,7 +1617,7 @@ def phase_multi(torch, cfg, plan):
         SLOTS, K_HOPS, cfg.dsp.hop_length, cfg.dsp.sample_rate, 14)).cuda()
     launches = worst = 0
     for label, c in (("ungated", cfg), ("gated both", tuned_gate(cfg))):
-        n, e = check_multi(torch, c, plan, label, chunks)
+        n, e, _ = check_multi(torch, c, plan, label, chunks)
         launches += n
         worst = max(worst, e)
     return launches, worst
@@ -1821,7 +2059,7 @@ def phase_momo_hop(torch, momo, trained, momo2):
     say(f"  {name} (raw, delta), {cfg.dsp.n_fft}/{cfg.dsp.hop_length} at "
         f"{cfg.dsp.sample_rate} Hz, {cfg.dsp.n_stft} bins:")
     worst = phase_kernel_vs_plain(torch, make_fused_hop(cfg, plan, "cuda"),
-                                  cfg, plan, (SLOTS, 3))
+                                  cfg, plan, (SLOTS, 3))[0]
     name, cfg, plan = trained
     say(f"  {name}, its recommended gate:")
     for batch in (SLOTS, 3):
@@ -1829,7 +2067,7 @@ def phase_momo_hop(torch, momo, trained, momo2):
     name, cfg, plan = momo2
     say(f"  {name} (raw, no delta):")
     return max(worst, phase_kernel_vs_plain(
-        torch, make_fused_hop(cfg, plan, "cuda"), cfg, plan, (SLOTS,)))
+        torch, make_fused_hop(cfg, plan, "cuda"), cfg, plan, (SLOTS,))[0])
 
 
 def momo_chunks(torch, cfg, hops, seed):
@@ -1843,10 +2081,12 @@ def momo_chunks(torch, cfg, hops, seed):
 def phase_engine_idle(torch, cfg, model, mode, ticks, seed):
     """StreamEngine ``mode`` on the card against the CPU engine, each
     carrying its own state, SLOTS slots for ``ticks`` ticks with skipped
-    slots: outputs and every plane, and on the card the idle slots'
-    planes (hx and prev among them) bit-identical. Returns the kernel's
-    launches in mode fused (None in mode fast: the zoo model runs no
-    hand-written kernel)."""
+    slots: outputs and every plane (hold_free, in the compute dtype the
+    engine serves: cfg.serving.dtype in mode fused, int8 or float32 in
+    mode fast), and on the card the idle slots' planes (hx and prev among
+    them) bit-identical. Returns the kernel's launches in mode fused (None
+    in mode fast: the zoo model and the quantized plan run no hand-written
+    kernel)."""
     from audio_denoising_torch.runtime.engine import StreamEngine
     gpu = StreamEngine(cfg, model, mode=mode, max_streams=SLOTS)
     cpu = StreamEngine(cfg, model, mode=mode, max_streams=SLOTS,
@@ -1859,7 +2099,8 @@ def phase_engine_idle(torch, cfg, model, mode, ticks, seed):
     kernel = gpu.hop_step if mode == "fused" else None
     if kernel is not None:
         kernel.launches = 0
-    worst = 0.0
+    got = np.zeros((ticks, SLOTS, cfg.dsp.hop_length))
+    want = np.zeros_like(got)
     for t in range(ticks):
         chunks = {sid: (0.1 * rng.standard_normal(cfg.dsp.hop_length)
                         ).astype(np.float32)
@@ -1871,19 +2112,19 @@ def phase_engine_idle(torch, cfg, model, mode, ticks, seed):
             if not torch.equal(x, planes(gpu.state)[k][idle]):
                 raise AssertionError(f"mode {mode}: an idle slot's {k} "
                                      f"moved")
-        worst = max(worst, max(float(np.abs(a[s] - b[s]).max())
-                               for s in chunks))
+        for i, sid in enumerate(sids):
+            if sid in chunks:
+                got[t, i], want[t, i] = a[sid], b[sid]
     launches = None if kernel is None else kernel.launches
-    errs = plane_errors(gpu.state, cpu.state)
     counted = ("no hand-written kernel on this path" if launches is None
                else f"{launches} launches")
-    say(f"  mode {mode}, {SLOTS} streams x {ticks} ticks: out {worst:.3e} "
-        f"(bound {OUT_ATOL:g}), {fmt(errs)}; idle slots bit-identical "
-        f"({', '.join(before)}); {counted}")
-    if worst > OUT_ATOL:
-        raise AssertionError(f"mode {mode} on the card disagrees with the "
-                             f"CPU run")
-    check_state(errs, f"engine mode {mode}")
+    dtype = cfg.serving.dtype
+    if dtype not in REDUCED or (mode == "fast" and dtype == "bfloat16"):
+        dtype = "float32"
+    text = hold_free(f"engine mode {mode}", dtype, cfg, want, got,
+                     cpu.state, gpu.state)[0]
+    say(f"  mode {mode}, {dtype}, {SLOTS} streams x {ticks} ticks: {text}; "
+        f"idle slots bit-identical ({', '.join(before)}); {counted}")
     if launches is not None and launches != ticks:
         raise AssertionError(f"expected {ticks} kernel launches, saw "
                              f"{launches}")
@@ -1936,6 +2177,141 @@ def time_momo(torch, cfg, model, plan, smi):
     say("  against the real-time budget of one hop: " + "; ".join(
         f"{k} {ms * 1e3:.2f} us ({ms * 1e3 / budget_us:.1%})"
         for k, ms in per_hop.items()))
+    return out
+
+
+# -- bf16 and int8 compute of the fused hop (phases 35-38) --------------------
+
+def phase_reduced_hop(torch, cases):
+    """Phase 35 on each (model, label, cfg, plan, batches, voiced): both
+    reduced modes (phase_kernel_vs_plain); returns {(model, dtype):
+    (worst forced hop dB, largest forced output error)}."""
+    from audio_denoising_torch.ops.kernels.fused_hop import make_fused_hop
+    worst = {}
+    for model, label, cfg, plan, batches, voiced_input in cases:
+        for dtype in REDUCED:
+            hop = make_fused_hop(cfg, plan, "cuda",
+                                 compute_dtype=getattr(torch, dtype))
+            e, db = phase_kernel_vs_plain(torch, hop, cfg, plan, batches,
+                                          label, voiced_input)
+            w = worst.get((model, dtype), (math.inf, 0.0))
+            worst[(model, dtype)] = (min(w[0], db), max(w[1], e))
+    return worst
+
+
+def phase_reduced_multi(torch, cases):
+    """Phase 36 on each (model, cfg, plan, chunks) in both reduced modes
+    (check_multi); returns {(model, dtype): (launches, largest output
+    error, worst stream dB)}."""
+    return {(model, dtype): check_multi(torch, cfg, plan, model, chunks,
+                                        dtype)
+            for model, cfg, plan, chunks in cases for dtype in REDUCED}
+
+
+def with_dtype(cfg, dtype):
+    return dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, dtype=dtype))
+
+
+def phase_daemon_dtype(torch, argv, seed):
+    """EngineDaemon from the CLI's ``engine`` arguments ``argv`` (with
+    ``--dtype``) on 127.0.0.1, 4 clients x 16 streams x 25 chunks; each
+    stream against its own sequence replayed on the CPU through the same
+    step (the plain fused hop in its dtype, or the fast step on the
+    quantized plan), by each stream's SNR (hold_free). Returns the
+    kernel's launches (None in mode fast)."""
+    from audio_denoising_torch.apps.engine_serve import (
+        daemon_from_args, parser)
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    from audio_denoising_torch.runtime.engine import (
+        fast_init_state, make_fast_step)
+    from audio_denoising_torch.runtime.plan import PlanModel
+    clients, streams, n_chunks = 4, 16, 25
+    daemon = daemon_from_args(parser().parse_args(
+        argv + ["--max-streams", str(SLOTS), "--host", "127.0.0.1",
+                "--port", "0"]))
+    cfg, eng = daemon.cfg, daemon.engine
+    dtype = cfg.serving.dtype
+    fused = eng.mode == "fused"
+    if fused and eng.hop_step.compute_dtype != getattr(torch, dtype):
+        raise AssertionError("the daemon's hop does not run --dtype")
+    data = daemon_data(cfg, clients, streams, n_chunks, seed)
+    got, _, rounds, launches, wall = serve_clients(
+        daemon, data, eng.hop_step if fused else None)
+    n = clients * streams
+    if fused:
+        step = make_fused_hop(cfg, eng.plan, "cpu",
+                              compute_dtype=getattr(torch, dtype))
+        state = fused_hop_init_state(cfg, eng.plan, n)
+    else:
+        pm = PlanModel(daemon.model, device="cpu", quantized=True)
+        step, state = make_fast_step(cfg, pm, "cpu"), fast_init_state(
+            cfg, pm, n)
+    want = replay(step, state, data)
+    text = hold_free(f"--dtype {dtype} daemon", dtype, cfg,
+                     want.transpose(1, 0, 2), got.transpose(1, 0, 2))[0]
+    say(f"  {' '.join(argv)}: mode {eng.mode}, {dtype}: {text}; "
+        + latency_line(data, rounds, launches, wall))
+    if fused and launches <= 0:
+        raise AssertionError("the daemon never launched the kernel")
+    return launches
+
+
+def time_reduced(torch, specs, good, smi):
+    """CUDA events at SLOTS streams for the single hop and the K-hop call
+    (per hop) in fp32, bf16 and int8 on each (label, cfg, plan), each
+    beside its plain version and its bound; then mode fast on the
+    quantized plan (gruunet2-good) per hop with the card's busy share.
+    Returns {(label, dtype, 'hop' or 'K-hop'): (ms, plain ms, bound ms,
+    bound by)}."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    from audio_denoising_torch.runtime.plan import PlanModel
+    out = {}
+    for label, cfg, plan in specs:
+        budget_us = cfg.dsp.hop_length / cfg.dsp.sample_rate * 1e6
+        g = torch.Generator(device="cuda").manual_seed(38)
+        chunks = 0.1 * torch.randn((K_HOPS, SLOTS, cfg.dsp.hop_length),
+                                   generator=g, device="cuda")
+        launches = 5 if cfg.dsp.n_mels > 64 else 50
+        for dtype in ("float32",) + REDUCED:
+            dt = getattr(torch, dtype)
+            hop = make_fused_hop(cfg, plan, "cuda", compute_dtype=dt)
+            s0 = fused_hop_init_state(cfg, plan, SLOTS, "cuda")
+            say(f"  fused hop, {label}, {dtype}, one hop (budget "
+                f"{budget_us:.1f} us) ({smi}):")
+            out[(label, dtype, "hop")] = timed(
+                torch, lambda: hop(s0, chunks[0]),
+                lambda: hop.reference(s0, chunks[0]), hop_work(hop, SLOTS),
+                SLOTS, launches, plain_launches=5)
+            multi = make_fused_hop(cfg, plan, "cuda", hops_per_call=K_HOPS,
+                                   compute_dtype=dt)
+            say(f"  K-hop kernel, {label}, {dtype}, K={K_HOPS} ({smi}):")
+            out[(label, dtype, "K-hop")] = timed(
+                torch, lambda: multi(s0, chunks),
+                lambda: multi.plain(s0, chunks), hop_work(multi, SLOTS),
+                SLOTS, 3, plain_launches=1, hops=K_HOPS)
+            say(f"  yardstick, not a bound: one hop's operations at the "
+                f"rates of the kernel's own instructions (fp32 FMA"
+                f"{', dp4a' if dtype == 'int8' else ''}, no tensor cores) "
+                f"{instruction_seconds(hop, SLOTS) * 1e6:.2f} us")
+    good_cfg, good_model = good
+    pm = PlanModel(good_model, quantized=True)
+    say(f"  mode fast on the quantized plan, gruunet2-good ({smi}); its "
+        f"matmuls run in fp32 and fp64 on cuBLAS, both 67 TFLOP/s on the "
+        f"H100 SXM:")
+    ms = time_fast_step(torch, with_dtype(good_cfg, "int8"), pm,
+                        "PlanModel(quantized=True)")
+    hop = make_fused_hop(good_cfg, pm.plan, "cuda", compute_dtype=torch.int8)
+    flops, nbytes, seconds = hop_work(hop, SLOTS, fp32_dsp=True)
+    bound_ms = max(seconds, nbytes / HBM_BYTES_S) * 1e3
+    say(f"  mode fast int8: {ms * 1e3:.1f} us/hop against the hop's bound "
+        f"{bound_ms * 1e3:.2f} us (the fused hop's work at gruunet2-good: "
+        f"fp32 DSP, int8 plan at {INT8_OPS / 1e12:g} TOP/s)")
+    out[("gruunet2-good", "int8", "fast")] = (
+        ms, None, bound_ms, "operations" if seconds >= nbytes / HBM_BYTES_S
+        else "bytes")
     return out
 
 
@@ -2296,28 +2672,59 @@ def time_launches(torch, fn, n):
     return start.elapsed_time(end) / n
 
 
-def hop_work(hop, batch):
-    """(flops, bytes) one call of ``hop`` needs for ``batch`` streams: per
-    hop 2 per multiply-add of the mel pair (none in the raw domain) and
-    the plan cell's matmuls,
-    the transform and its inverse at the cost of a real FFT of n_fft
-    points (2.5 N log2 N each), and with the SNR gate GATE_FLOPS_PER_BIN
-    per bin; the weights (no DFT matrices) and every state plane read and
-    written once per call, and each hop's chunk read and output written
-    (2 bytes a sample with int16 IO). The kernel itself takes the
-    transforms as dense matmuls, about twice this work."""
+def hop_ops(hop, batch):
+    """The operations one call of ``hop`` needs for ``batch`` streams, as
+    (DSP, gate, plan): per hop 2 per multiply-add of the mel pair (none in
+    the raw domain) and the transform and its inverse at the cost of a
+    real FFT of n_fft points (2.5 N log2 N each); with the SNR gate
+    GATE_FLOPS_PER_BIN per bin; 2 per multiply-add of the plan cell's
+    matmuls. The kernel itself takes the transforms as dense matmuls,
+    about twice this work; the int8 activations' quantization is not
+    counted."""
     K = hop.hops_per_call
     mel = 0 if hop.raw else 2 * hop.F * hop.M    # no mel pair when raw
-    macs = mel + sum(w.numel() for w in hop.weights if w.dim() == 2)
+    plan = sum(w.numel() for w in hop.weights
+               if w.dim() == 2 and w.shape[0] > 1)
     ffts = 2 * 2.5 * hop.n_fft * math.log2(hop.n_fft)
     gate = GATE_FLOPS_PER_BIN * hop.F if hop.gated else 0
-    weights = (sum(w.numel() for w in hop.weights)
-               + sum(t.numel() for t in (hop.mel, hop.imel, hop.win,
-                                         hop.env) if t is not None))
+    return (batch * K * (2 * mel + ffts), batch * K * gate,
+            batch * K * 2 * plan)
+
+
+def hop_work(hop, batch, fp32_dsp=False):
+    """(flops, bytes, seconds) one call of ``hop`` needs for ``batch``
+    streams: the operations of hop_ops; the weights (no DFT matrices) and
+    every state plane read and written once per call, and each hop's
+    chunk read and output written (2 bytes a sample with int16 IO), each
+    operand at its own size (bf16 matrices 2 bytes, int8 1, their scale
+    rows 4); and the least time the operations take at the published
+    peak of each product's type (PEAK_BY_ITEMSIZE): in bf16 and int8 the
+    DSP's products (bf16 DFT and mel matrices) at BF16_FLOPS and the
+    plan's at BF16_FLOPS or INT8_OPS, the gate at FP32_FLOPS.
+    ``fp32_dsp``: the DSP in fp32 (mode fast's)."""
+    K = hop.hops_per_call
+    dsp, gate, plan = hop_ops(hop, batch)
+    size = hop.compute_dtype.itemsize
+    dsp_bf16 = hop.dsp_bf16 and not fp32_dsp
+    seconds = (dsp / (BF16_FLOPS if dsp_bf16 else FP32_FLOPS)
+               + gate / FP32_FLOPS + plan / PEAK_BY_ITEMSIZE[size])
+    weights = (sum(w.numel() * w.element_size() for w in hop.weights)
+               + sum((2 if dsp_bf16 else 4) * t.numel()
+                     for t in (hop.mel, hop.imel) if t is not None)
+               + 4 * (hop.win.numel() + hop.env.numel()))
     state = 2 * sum(hop.widths.values())
     io = 2 * K * hop.hop * hop.io_dtype.itemsize
-    return (batch * K * (2 * macs + ffts + gate),
-            4 * (batch * state + weights) + batch * io)
+    return dsp + gate + plan, 4 * batch * state + weights + batch * io, \
+        seconds
+
+
+def instruction_seconds(hop, batch):
+    """A yardstick, not a bound: hop_ops at the rates of the instructions
+    the kernel runs them on (fp32 FMA; dp4a for the int8 plan)."""
+    dsp, gate, plan = hop_ops(hop, batch)
+    return ((dsp + gate) / FP32_FLOPS
+            + plan / (DP4A_OPS if hop.compute_dtype.itemsize == 1
+                      else FP32_FLOPS))
 
 
 def webrtc_hop_work(hop, batch):
@@ -2378,12 +2785,15 @@ def hop_inputs(torch, hop, init, batch):
 def timed(torch, run, plain, work, batch, launches, plain_launches=None,
           hops=1):
     """Kernel and plain times (ms per call) of ``run`` and ``plain``, and
-    the bound from ``work`` = (flops, bytes); prints them (also per hop
-    for ``hops`` hops per call) and the kernel breakdown."""
+    the bound from ``work`` = (flops, bytes[, seconds of the operations
+    at their types' peaks; else all at FP32_FLOPS]);
+    prints them (also per hop for ``hops`` hops per call) and the kernel
+    breakdown."""
     ms = time_launches(torch, run, launches)
     plain_ms = time_launches(torch, plain, plain_launches or launches)
-    flops, nbytes = work
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    flops, nbytes = work[:2]
+    t_ops = (work[2] if len(work) > 2 else flops / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     per_hop = (f" = {ms * 1e3 / hops:.2f} us/hop, plain "
                f"{plain_ms * 1e3 / hops:.1f}, bound "
@@ -2599,7 +3009,7 @@ def main() -> int:
               make_fused_cell(build_cell_plan(good), "cuda"))
 
     say("phase 2: fused hop kernel vs its plain version on the card")
-    err = phase_kernel_vs_plain(torch, hop, cfg, plan, (SLOTS, 3))
+    err = phase_kernel_vs_plain(torch, hop, cfg, plan, (SLOTS, 3))[0]
     other_plans = []
     for name in OTHER_CHECKPOINTS:
         other_cfg, other = load_pretrained(os.path.join(REPO, "runs", name))
@@ -2699,6 +3109,13 @@ def main() -> int:
     momo_cfg, momo = load_pretrained(MOMO_SPEC)
     momo_plan = build_cell_plan(momo)
     momo_t = time_momo(torch, momo_cfg, momo, momo_plan, smi)
+    flag_cfg, flag = load_pretrained(os.path.join(REPO, "runs", FLAGSHIP))
+    flag_plan = build_cell_plan(flag)
+    say(f"  bf16 and int8 ({smi}):")
+    r_t = time_reduced(torch, [("gruunet2-stream16k", cfg, plan),
+                               (FLAGSHIP, flag_cfg, flag_plan),
+                               (MOMO_SPEC, momo_cfg, momo_plan)],
+                       (good_cfg, good), smi)
 
     wm_launches, wm_err = phase_webrtc_multi(torch, dari_cfg, dari_plan)
     dari_gated = tuned_gate(load_pretrained("gruunet2-dari_tult")[0])
@@ -2721,7 +3138,7 @@ def main() -> int:
         ("MOMO2, " + MOMO2_GOLDEN, momo2_cfg, build_cell_plan(momo2)))
     say(f"phase 26: the resident K-hop kernel ({MOMO_SPEC}, {SLOTS} streams, "
         f"K={K_HOPS}; bench.py's fused_hop_momo3_raw)")
-    mm_launches, mm_err = check_multi(
+    mm_launches, mm_err, _ = check_multi(
         torch, momo_cfg, momo_plan, MOMO_SPEC,
         momo_chunks(torch, momo_cfg, K_HOPS, 26))
     say(f"phase 27: the fused cell's delta branch vs its plain version, "
@@ -2757,6 +3174,46 @@ def main() -> int:
     say(f"offline timing, beside phase 30 ({smi}):")
     time_offline(torch, smi)
 
+    say(f"phase 35: the fused hop kernel in bf16 and int8 vs its plain "
+        f"version on the card ({HOPS} hops; {FLAGSHIP}: n_fft "
+        f"{flag_cfg.dsp.n_fft}, {flag_cfg.dsp.n_mels} mels, hidden "
+        f"{flag_cfg.model.hidden_sizes}, in fp32 too)")
+    flag_err = phase_kernel_vs_plain(
+        torch, make_fused_hop(flag_cfg, flag_plan, "cuda"), flag_cfg,
+        flag_plan, (SLOTS,))[0]
+    r_err = phase_reduced_hop(torch, [
+        (S16K, S16K, cfg, plan, (SLOTS, 3), False),
+        (S16K, f"{S16K}, tuned gate (both)", tuned_gate(cfg), plan,
+         (SLOTS, 3), True),
+        (FLAGSHIP, FLAGSHIP, flag_cfg, flag_plan, (SLOTS,), False),
+        (MOMO_SPEC, MOMO_SPEC, momo_cfg, momo_plan, (SLOTS, 3), False)])
+    say(f"phase 36: the resident K-hop kernel in bf16 and int8 ({SLOTS} "
+        f"streams, K={K_HOPS})")
+    rng = np.random.default_rng(36)
+    flag_chunks = torch.from_numpy((0.1 * rng.standard_normal(
+        (K_HOPS, SLOTS, flag_cfg.dsp.hop_length))).astype(np.float32)).cuda()
+    r_multi = phase_reduced_multi(torch, [
+        (S16K, cfg, plan, torch.from_numpy(voiced_chunks(
+            SLOTS, K_HOPS, cfg.dsp.hop_length, cfg.dsp.sample_rate,
+            36)).cuda()),
+        (FLAGSHIP, flag_cfg, flag_plan, flag_chunks),
+        (MOMO_SPEC, momo_cfg, momo_plan, momo_chunks(torch, momo_cfg, K_HOPS,
+                                                     37))])
+    say(f"phase 37: StreamEngine modes fused (bf16, int8; "
+        f"gruunet2-stream16k) and fast (int8, the quantized plan; "
+        f"gruunet2-good), {SLOTS} slots, card vs CPU")
+    re_launches = {d: phase_engine_idle(
+        torch, with_dtype(cfg, d), model, "fused", 50, 370 + i)
+        for i, d in enumerate(REDUCED)}
+    phase_engine_idle(torch, with_dtype(good_cfg, "int8"), good, "fast", 50,
+                      373)
+    say("phase 38: EngineDaemon from engine --dtype int8 (modes fused and "
+        "fast) on 127.0.0.1")
+    re_launches["int8"] += phase_daemon_dtype(
+        torch, ["--model", "gruunet2-stream16k", "--mode", "fused",
+                "--dtype", "int8"], 381)
+    phase_daemon_dtype(torch, ["--dtype", "int8", "--mode", "fast"], 382)
+
     def variant(label, checked, timing=None, n=None):
         v = {"name": label, "checked": checked}
         if timing is not None:
@@ -2767,23 +3224,60 @@ def main() -> int:
         return v
 
     momo_checked = "phases 25, 28, 29: ungated, gated, MOMO2, 256 and 3"
+
+    def reduced(dtype, kind, n):
+        """The dtype's variants of a row on stream16k, the flagship and
+        MOMO3, each with its own time, worst reading (hop: the worst hop
+        from the plain version's state, against FORCED_DB; K-hop: the
+        worst stream carrying its own state, against FREE_DB's) and
+        largest output error; launches: the single hop's main paths run
+        on stream16k, each model's K-hop calls its own."""
+        out = []
+        for label in (S16K, FLAGSHIP, MOMO_SPEC):
+            if kind == "hop":
+                (db, e), limit = r_err[(label, dtype)], FORCED_DB[dtype]
+                checked = ("phases 35, 37, 38; stream16k (ungated, tuned "
+                           "gate), the flagship and MOMO3, 256 and 3")
+                runs = n if label == S16K else None
+            else:
+                runs, e, db = r_multi[(label, dtype)]
+                limit = FREE_DB[(label, dtype)][1]
+                checked = "phase 36; fp32 and int16 IO"
+            v = variant(f"{dtype}, {label}", checked,
+                        r_t[(label, dtype, kind)], runs)
+            v.update(max_abs_err=e, worst_db=db, limit_db=limit)
+            out.append(v)
+        return out
+
     rows = []
     for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by), \
             variants in (
             ("fused_hop", "fused_hop", "fused_hop.py:242",
-             launches + me_launches, max(err, g_err, mh_err), fused,
+             launches + me_launches + sum(re_launches.values()),
+             max(err, g_err, mh_err, flag_err,
+                 *(e for _, e in r_err.values())), fused,
              [variant("mel, gruunet2-stream16k and two runs/ widths",
                       "phases 2, 4, 5, 13, 15, 16"),
               variant(f"raw + delta, {MOMO_SPEC}", momo_checked,
                       momo_t["hop"], me_launches),
               variant(f"raw + delta, {MOMO_SPEC}, tuned gate", momo_checked,
-                      momo_t["hop, tuned gate"])]),
+                      momo_t["hop, tuned gate"]),
+              variant(f"float32, {FLAGSHIP}", "phase 35, 256 streams",
+                      r_t[(FLAGSHIP, "float32", "hop")])]
+             + reduced("bfloat16", "hop", re_launches["bfloat16"])
+             + reduced("int8", "hop", re_launches["int8"])),
             ("fused_hop_multi", "fused_hop", "fused_hop.py:384",
-             m_launches + mm_launches, max(m_err, mm_err), multi,
+             m_launches + mm_launches + sum(n for n, _, _ in
+                                            r_multi.values()),
+             max(m_err, mm_err, *(e for _, e, _ in r_multi.values())), multi,
              [variant("mel, gruunet2-stream16k, ungated and gated, fp32 and "
                       "int16 IO", "phase 14"),
               variant(f"raw + delta, {MOMO_SPEC}, fp32 and int16 IO",
-                      "phase 26", momo_t["K-hop"], mm_launches)]),
+                      "phase 26", momo_t["K-hop"], mm_launches),
+              variant(f"float32, {FLAGSHIP}", "timed beside phase 36",
+                      r_t[(FLAGSHIP, "float32", "K-hop")])]
+             + reduced("bfloat16", "K-hop", None)
+             + reduced("int8", "K-hop", None)),
             ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331", w_launches,
              w_err, webrtc,
              [variant("mel, gruunet2-dari_tult, warm GL", "phases 3, 6, 7; "

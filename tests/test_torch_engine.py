@@ -361,3 +361,96 @@ def test_daemon_serves_two_clients():
         state, out = hop(state, seqs[:, k].contiguous())
         np.testing.assert_allclose(got.reshape(4, 3, -1)[:, k], out.numpy(),
                                    atol=1e-6)
+
+
+# -- the serving compute dtype (--dtype) --------------------------------------
+
+@pytest.mark.parametrize("mode,dtype", [("fused", "bfloat16"),
+                                        ("fused", "int8"), ("fast", "int8")])
+def test_cli_dtype_serves_the_compute_mode(mode, dtype):
+    """``engine --dtype D``, the JAX daemon's flag (engine_serve.py:244-249):
+    set after the gate profile, so the unit-gain checkpoint keeps its auto
+    gate; mode fused runs the fused hop in D, mode fast at int8 the
+    quantized plan; a few ticks equal the step run alone."""
+    from audio_denoising_torch.runtime.plan import PlanModel
+    daemon = _daemon("--mode", mode, "--dtype", dtype)
+    srv, eng = daemon.cfg.serving, daemon.engine
+    assert srv.dtype == dtype and srv.snr_gate_db == 1.0
+    assert eng.mode == mode and eng.state.em_out is not None
+    if mode == "fused":
+        assert eng.hop_step.compute_dtype == getattr(torch, dtype)
+        step = make_fused_hop(daemon.cfg, eng.plan, "cpu",
+                              compute_dtype=getattr(torch, dtype))
+        state = fused_hop_init_state(daemon.cfg, eng.plan, 2)
+    else:
+        pm = PlanModel(daemon.model, device="cpu", quantized=True)
+        step, state = make_fast_step(daemon.cfg, pm, "cpu"), \
+            fast_init_state(daemon.cfg, pm, 2)
+    eng.add_stream("a")
+    eng.add_stream("b")
+    rng = np.random.default_rng(12)
+    for _ in range(3):
+        chunks = (0.1 * rng.standard_normal((2, eng.hop))).astype(np.float32)
+        got = eng.process({"a": chunks[0], "b": chunks[1]})
+        state, want = step(state, torch.from_numpy(chunks))
+        np.testing.assert_allclose(np.stack([got["a"], got["b"]]),
+                                   want.numpy(), atol=1e-6)
+
+
+def test_dtype_defaults_to_the_checkpoints_own():
+    """No ``--dtype``: the checkpoint's serving.dtype (float32), as the
+    JAX daemon's default None keeps it; EngineDaemon's default matches."""
+    from audio_denoising_tpu.apps.engine_serve import (
+        EngineDaemon as JaxDaemon)
+    assert parser().parse_args([]).dtype is None
+    assert inspect.signature(EngineDaemon).parameters["dtype"].default is \
+        inspect.signature(JaxDaemon).parameters["dtype"].default is None
+    daemon = _daemon("--mode", "fused")
+    assert daemon.cfg.serving.dtype == "float32"
+    assert daemon.engine.hop_step.compute_dtype == torch.float32
+    with pytest.raises(SystemExit):
+        parser().parse_args(["--dtype", "float16"])
+
+
+def test_dtype_int8_is_refused_outside_fast_and_fused():
+    """The JAX engine warns and serves mode fast (ROADMAP A7); the port
+    raises, naming the two modes that serve int8."""
+    with pytest.raises(ValueError, match="'fast'.*'fused'"):
+        _daemon("--mode", "webrtc", "--dtype", "int8")
+
+
+def test_daemon_serves_int8_over_the_wire():
+    """``--dtype int8`` in mode fused through the wire protocol: one
+    client, two streams, three chunks, each stream against its own
+    sequence through the plain int8 hop."""
+    daemon = _daemon("--mode", "fused", "--dtype", "int8", "--no-snr-gate",
+                     "--host", "127.0.0.1")
+    server = threading.Thread(target=daemon.serve_forever, daemon=True)
+    server.start()
+    try:
+        assert daemon.listening.wait(RECV_TIMEOUT_S)
+        rng = np.random.default_rng(13)
+        data = (0.1 * rng.standard_normal((2, 3, daemon.cfg.dsp.hop_length))
+                ).astype(np.float32)
+        got = np.zeros_like(data)
+        with Client(daemon.address) as conn:
+            for j in range(2):
+                conn.send(("open", f"s{j}"))
+                assert _recv(conn)[0] == "ok"
+            for k in range(3):
+                for j in range(2):
+                    conn.send(("chunk", f"s{j}", data[j, k]))
+                for _ in range(2):
+                    op, sid, out = _recv(conn)
+                    assert op == "out"
+                    got[int(sid[1]), k] = out
+    finally:
+        daemon.stop()
+        server.join(RECV_TIMEOUT_S)
+    assert not server.is_alive()
+    hop = make_fused_hop(daemon.cfg, daemon.engine.plan, "cpu",
+                         compute_dtype=torch.int8)
+    state = fused_hop_init_state(daemon.cfg, daemon.engine.plan, 2)
+    for k in range(3):
+        state, out = hop(state, torch.from_numpy(data[:, k].copy()))
+        np.testing.assert_allclose(got[:, k], out.numpy(), atol=1e-6)

@@ -80,6 +80,45 @@ def test_offline_slice_modules_are_found(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "audio_denoising_torch.runtime.quant",
+    "audio_denoising_torch.ops.kernels.common"])
+def test_quant_slice_modules_are_found(module):
+    """The eleventh slice's modules (the W8A8 plan, the reduced-precision
+    cell math) fall under the import check below."""
+    assert module in _port_modules()
+
+
+def _c_fields(source, struct):
+    with open(os.path.join(PKG, "csrc", source)) as f:
+        text = f.read()
+    body = text[text.index(f"struct {struct} {{"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    return [re.search(r"(\w+)\s*(\[[^\]]*\])?$", decl)[1]
+            for decl in (line.split("//")[0].strip().rstrip(";")
+                         for line in body.splitlines()) if decl]
+
+
+@pytest.mark.parametrize("struct,source,mirror", [
+    ("AdtPlanScales", "plan_cell.cuh", "common.PlanScaleArgs"),
+    ("AdtFusedHopArgs", "fused_hop.cu", "fused_hop._Args")])
+def test_reduced_mode_mirrors_name_the_kernel_fields(struct, source, mirror):
+    """The int8 plan's scale struct, field for field, and the fused hop's
+    argument struct's tail (its scales and compute mode, appended after
+    the fields the fp32 kernel reads) in their ctypes mirrors."""
+    import importlib
+    module, cls = mirror.split(".")
+    mod = importlib.import_module(
+        f"audio_denoising_torch.ops.kernels.{module}")
+    names = [f[0] for f in getattr(mod, cls)._fields_]
+    fields = _c_fields(source, struct)
+    if struct == "AdtPlanScales":
+        assert fields == names
+    else:
+        assert fields[-4:] == names[-4:] == [
+            "output_gain", "state_decay", "scales", "compute"]
+
+
 @pytest.mark.parametrize("source", sorted(
     f for f in os.listdir(os.path.join(PKG, "csrc"))
     if f.endswith((".cu", ".cuh"))))

@@ -173,6 +173,68 @@ def test_hop_bound_counts_k_hops_the_gate_and_int16(smoke):
     assert multi[1] / smoke.HBM_BYTES_S * 1e6 < 12
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_hop_bound_takes_each_types_peak(smoke, dtype):
+    """chip_smoke's bound of the fused hop in each compute mode: in fp32
+    every operation at the fp32 rate; in bf16 and int8 the DSP's products
+    (bf16 DFT and mel matrices) at the bf16 tensor-core peak and the
+    plan's at its type's peak, the gate at fp32; the plan's matrices at
+    their own bytes (bf16 2, int8 1 plus a 4-byte scale per column)."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.ops.kernels.fused_hop import make_fused_hop
+    cfg, model = load_pretrained("gruunet2-stream16k")
+    plan = build_cell_plan(model)
+    B = 256
+    hop = make_fused_hop(smoke.tuned_gate(cfg), plan, "cpu",
+                         compute_dtype=dtype)
+    fp32 = make_fused_hop(smoke.tuned_gate(cfg), plan, "cpu")
+    dsp, gate, ops = smoke.hop_ops(hop, B)
+    flops, nbytes, seconds = smoke.hop_work(hop, B)
+    assert (dsp, gate, ops) == smoke.hop_ops(fp32, B)
+    assert flops == dsp + gate + ops
+    peak = {torch.float32: smoke.FP32_FLOPS, torch.bfloat16:
+            smoke.BF16_FLOPS, torch.int8: smoke.INT8_OPS}[dtype]
+    dsp_peak = smoke.FP32_FLOPS if dtype == torch.float32 else \
+        smoke.BF16_FLOPS
+    assert seconds == pytest.approx(dsp / dsp_peak + gate / smoke.FP32_FLOPS
+                                    + ops / peak)
+    matrices = [*plan.down_mats, plan.reset_mat, *plan.up_h_mats,
+                *(m for m in plan.up_s_mats if m is not None)]
+    mats = sum(m.numel() for m in matrices)
+    cols = sum(m.shape[1] for m in matrices)
+    mel = hop.mel.numel() + hop.imel.numel()
+    saved = {torch.float32: 0, torch.bfloat16: 2 * mats + 2 * mel,
+             torch.int8: 3 * mats - 4 * cols + 2 * mel}[dtype]
+    assert smoke.hop_work(fp32, B)[1] - nbytes == saved
+    # the yardstick of the kernel's instructions is no bound
+    assert smoke.instruction_seconds(hop, B) >= seconds
+
+
+@pytest.mark.parametrize("case", ["sound", "cascades", "spread", "floor",
+                                  "control"])
+def test_free_verdict_holds_the_median_and_the_worst_stream(smoke, case):
+    """A reduced mode's free run passes where a few streams cascade to
+    the mode's own noise and the rest stay near the forced readings; it
+    fails where an error spreads over every stream (a fault, or the fp32
+    control) or one stream falls below the floor."""
+    from audio_denoising_torch.hub import load_pretrained
+    cfg, _ = load_pretrained("gruunet2-stream16k")
+    assert smoke.limits_of(cfg) == smoke.S16K
+    median, floor = smoke.FREE_DB[(smoke.S16K, "int8")]
+    dbs = np.full(256, 120.0)
+    if case == "cascades":
+        dbs[:25] = floor + 1
+    elif case == "spread":
+        dbs[:] = median - 1
+    elif case == "floor":
+        dbs[0] = floor - 1
+    elif case == "control":
+        dbs[:] = 40.0
+    ok, text = smoke.free_verdict(dbs, cfg, "int8")
+    assert ok == (case in ("sound", "cascades")), text
+
+
 def test_voiced_chunks_spread_the_gate(smoke):
     """The input the gated phases use makes the gate blend (0 < alpha < 1)
     on the unit-gain checkpoint with its recommended gate, where a steady
