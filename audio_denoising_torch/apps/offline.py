@@ -12,7 +12,7 @@ any decodable container (WAV natively, the rest through
 ``io.AudioCache``) and writes a 16-bit WAV at the model's rate.
 
 Not ported yet: ``--streamed`` and the ``--unet-*`` geometry (the U-Net
-segment family, ROADMAP A8) and ``.pth`` checkpoints (A7).
+segment family, ROADMAP A8) and ``.onnx`` models (A14).
 """
 
 import argparse
@@ -32,8 +32,6 @@ from audio_denoising_torch.pipeline import (
 
 UNET_REFUSAL = ("the U-Net segment family (--streamed, --unet-*) is not "
                 "ported yet (ROADMAP A8)")
-PTH_REFUSAL = (".pth checkpoints are not ported yet (ROADMAP A7): convert "
-               "one to .npz with the JAX package's convert command")
 
 
 def _check_fp32(device: torch.device) -> None:
@@ -94,8 +92,6 @@ def denoise_file(spec: str, in_path: str, out_path: str,
     if streamed or any(v is not None for v in (
             unet_seg_hops, unet_ctx, unet_xfade, unet_ctx_left)):
         raise NotImplementedError(UNET_REFUSAL)
-    if spec.lower().endswith(".pth"):
-        raise NotImplementedError(PTH_REFUSAL)
     device = resolve_device(device)
     cfg, model = load_pretrained(spec, cfg)
     if snr_gate_db is not None:
@@ -121,7 +117,8 @@ def parser() -> argparse.ArgumentParser:
                    "the codec libraries decode)")
     p.add_argument("output", help="output WAV path")
     p.add_argument("--model", default="gruunet2-good",
-                   help="a preset name or an .npz checkpoint")
+                   help="a preset name, an .npz or a reference .pth "
+                   "checkpoint")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="'cpu' runs the chain on the CPU")
     p.add_argument("--snr-gate", type=float, default=None,

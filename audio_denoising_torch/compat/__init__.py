@@ -1,4 +1,6 @@
-"""Checkpoint interop: the ``.npz`` store and JAX parameter import."""
+"""Checkpoint interop: the ``.npz`` store, the reference's torch ``.pth``
+checkpoints (read without unpickling arbitrary code) and JAX parameter
+import."""
 
 from typing import Dict, Mapping
 
@@ -7,6 +9,8 @@ import torch
 
 from audio_denoising_torch.compat.npz_store import (
     load_params_npz, save_params_npz)
+from audio_denoising_torch.compat.torch_loader import (
+    load_torch_checkpoint, load_torch_pickle, state_dict_to_params)
 
 
 def params_from_jax(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -19,4 +23,5 @@ def params_from_jax(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]
             for k, v in params.items()}
 
 
-__all__ = ["load_params_npz", "params_from_jax", "save_params_npz"]
+__all__ = ["load_params_npz", "load_torch_checkpoint", "load_torch_pickle",
+           "params_from_jax", "save_params_npz", "state_dict_to_params"]

@@ -1,21 +1,38 @@
 """Model hub: one call from a name or path to (cfg, model) (JAX
 counterpart hub.py).
 
-Resolves a preset name from ``config.PRESETS`` backed by a converted
-checkpoint in ``<repo>/checkpoints/<name>.npz`` (or the preset whose
-weights it reuses), or a path to a native ``.npz`` checkpoint. The model
-is a float32 ``nn.Module`` on the CPU with the checkpoint's weights.
+Resolves, in order:
+
+- a preset name from ``config.PRESETS`` backed by a converted checkpoint
+  in ``<repo>/checkpoints/<name>.npz`` (or the preset whose weights it
+  reuses);
+- a path to a native ``.npz`` checkpoint (params and JSON meta);
+- a path to a reference torch ``.pth`` checkpoint (the dict format of the
+  reference's save_model, app.py:43-91), read by the restricted reader of
+  ``compat.torch_loader``.
+
+The checkpoint's embedded full config is the source of truth when
+present; a checkpoint that carries only the model's hyperparameters
+(``arch``/``config``: the four shipped ``checkpoints/*.npz`` and every
+reference ``.pth``) is served with an assumed DSP, said on stderr, as the
+JAX hub does. The model is a float32 ``nn.Module`` on the CPU with the
+checkpoint's weights.
 """
 
 import dataclasses
 import json
 import os
-from typing import Optional, Tuple
+import sys
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 from torch import nn
 
-from audio_denoising_torch.compat import load_params_npz, params_from_jax
-from audio_denoising_torch.config import Config, PRESETS, ServingConfig
+from audio_denoising_torch.compat import (
+    load_params_npz, load_torch_checkpoint, params_from_jax,
+    state_dict_to_params)
+from audio_denoising_torch.config import (
+    Config, DSPConfig, ModelConfig, PRESETS, ServingConfig)
 from audio_denoising_torch.models import build_model
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,39 +42,103 @@ CHECKPOINT_DIR = os.path.join(_REPO_ROOT, "checkpoints")
 # bins, different DSP/serving config).
 _CKPT_ALIASES = {"gruunet2-stream16k": "gruunet2-good"}
 
+ONNX_REFUSAL = ("ONNX models (.onnx) are not ported yet (ROADMAP A14): "
+                "pass a preset name, an .npz or a .pth checkpoint")
+
 
 def load_pretrained(spec: str, cfg: Optional[Config] = None
                     ) -> Tuple[Config, nn.Module]:
-    """-> (cfg, model). ``spec`` is a preset name or an .npz path."""
+    """-> (cfg, model). ``spec`` is a preset name, an .npz path or a
+    reference .pth path."""
     if spec in PRESETS:
-        cfg = cfg or PRESETS[spec]
-        path = os.path.join(CHECKPOINT_DIR,
-                            f"{_CKPT_ALIASES.get(spec, spec)}.npz")
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"preset {spec!r} has no converted checkpoint at {path}")
-    elif spec.endswith(".npz"):
-        path = spec
-    else:
-        raise ValueError(
-            f"unknown model spec {spec!r}: expected a preset name "
-            f"({', '.join(sorted(PRESETS))}) or an .npz path")
-    params, meta = load_params_npz(path)
-    if cfg is None:
-        if "full_config" not in meta:
-            raise ValueError(f"{path} embeds no full config; pass cfg= or "
-                             f"use a preset name")
-        cfg = Config.from_json(json.dumps(meta["full_config"]))
-        # the gate tuning is a deployment property, not the weights':
-        # serve the current defaults, as the JAX hub does
-        d = ServingConfig()
-        cfg = dataclasses.replace(cfg, serving=dataclasses.replace(
-            cfg.serving, snr_gate_db=d.snr_gate_db,
-            snr_gate_width_db=d.snr_gate_width_db,
-            snr_gate_estimator=d.snr_gate_estimator,
-            snr_gate_tau_s=d.snr_gate_tau_s))
+        return _load_npz(checkpoint_path(spec), cfg or PRESETS[spec])
+    if spec.endswith(".npz"):
+        return _load_npz(spec, cfg)
+    if spec.endswith(".pth"):
+        return _load_pth(spec, cfg)
+    if spec.endswith(".onnx"):
+        raise NotImplementedError(ONNX_REFUSAL)
+    raise ValueError(
+        f"unknown model spec {spec!r}: expected a preset name "
+        f"({', '.join(sorted(PRESETS))}), a .npz or .pth path")
+
+
+def checkpoint_path(spec: str) -> str:
+    """The file that holds ``spec``'s weights: a preset's converted
+    checkpoint, or the path itself."""
+    if spec not in PRESETS:
+        return spec
+    path = os.path.join(CHECKPOINT_DIR,
+                        f"{_CKPT_ALIASES.get(spec, spec)}.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"preset {spec!r} has no converted checkpoint at {path}")
+    return path
+
+
+def _assumed_cfg(mc: ModelConfig, path: str) -> Config:
+    """A checkpoint without a full embedded config carries only the
+    model's hyperparameters; the DSP is not derivable from the weights.
+    Build the model at its architecture's reference bin count and assume
+    the reference socket-path DSP, on stderr (JAX hub.py:60-76)."""
+    bins = getattr(build_model(mc), "num_bins", 64)
+    dsp = dataclass_replace_dsp(n_fft=1024, hop_length=512, n_mels=bins,
+                                reconstruction="phase")
+    print(f"[hub] {path}: no DSP config embedded; assuming the reference "
+          f"socket-path DSP (n_fft={dsp.n_fft}, hop={dsp.hop_length}, "
+          f"n_mels={bins}) — pass cfg= to override", file=sys.stderr)
+    return Config(dsp=dsp, model=mc)
+
+
+def dataclass_replace_dsp(**kw) -> DSPConfig:
+    """The default DSPConfig with ``kw`` replaced (JAX hub.py:79)."""
+    return dataclasses.replace(DSPConfig(), **kw)
+
+
+def _reresolve_serving(cfg: Config) -> Config:
+    """The SNR gate's tuning and the streamed-segment geometry are
+    properties of the deployment, not of the weights: an embedded config
+    serves the current class defaults for them, as the JAX hub does; the
+    model-bound fields (output gain, state decay, dtype, chunk geometry)
+    stay the checkpoint's."""
+    d = ServingConfig()
+    return dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, snr_gate_db=d.snr_gate_db,
+        snr_gate_width_db=d.snr_gate_width_db,
+        snr_gate_estimator=d.snr_gate_estimator,
+        snr_gate_tau_s=d.snr_gate_tau_s,
+        unet_seg_hops=d.unet_seg_hops,
+        unet_ctx_samples=d.unet_ctx_samples,
+        unet_xfade_samples=d.unet_xfade_samples,
+        unet_ctx_left_samples=d.unet_ctx_left_samples))
+
+
+def _model(cfg: Config, params: Dict[str, np.ndarray]) -> nn.Module:
     # a training checkpoint stores its optimizer state beside the weights
     weights = {k: v for k, v in params.items() if not k.startswith("__opt__")}
     model = build_model(cfg.model, num_bins=cfg.dsp.n_mels)
     model.load_params(params_from_jax(weights))
-    return cfg, model.eval()
+    return model.eval()
+
+
+def _load_npz(path: str, cfg: Optional[Config]):
+    params, meta = load_params_npz(path)
+    if cfg is None:
+        if "full_config" in meta:
+            cfg = _reresolve_serving(
+                Config.from_json(json.dumps(meta["full_config"])))
+        elif "arch" in meta and "config" in meta:
+            cfg = _assumed_cfg(ModelConfig.from_reference_dict(
+                meta["arch"], meta["config"]), path)
+        else:
+            raise ValueError(f"{path} has no embedded config; pass cfg=")
+    return cfg, _model(cfg, params)
+
+
+def _load_pth(path: str, cfg: Optional[Config]):
+    ckpt = load_torch_checkpoint(path)
+    if cfg is None:
+        arch = ckpt.get("arch") or ckpt.get("model_class") or "GRUUNet2"
+        cfg = _assumed_cfg(ModelConfig.from_reference_dict(
+            arch, ckpt.get("config", {})), path)
+    return cfg, _model(cfg, state_dict_to_params(ckpt["model_state_dict"]))

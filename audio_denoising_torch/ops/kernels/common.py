@@ -12,7 +12,7 @@ and ``AdtPlanScales``.
 """
 
 import ctypes
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,6 +20,8 @@ from audio_denoising_torch.runtime.plan import gru_update
 from audio_denoising_torch.runtime.quant import QuantMat, qdot, quantize_mat
 
 MAX_LEVELS = 8          # ADT_MAX_LEVELS in csrc/plan_cell.cuh
+KTILE = 2               # streams per block (kTile)
+KTHREADS = 512          # threads per block of the plan cell (kThreads)
 
 
 class PlanArgs(ctypes.Structure):
@@ -45,7 +47,7 @@ class PlanScaleArgs(ctypes.Structure):
                 ("skip", ctypes.c_void_p * MAX_LEVELS)]
 
 
-def _round4(n: int) -> int:
+def round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
@@ -59,8 +61,8 @@ def kernel_operand(t: torch.Tensor, keep: List[torch.Tensor],
     appended to ``keep``, which the caller holds for as long as launches
     use the pointer."""
     if t.dim() == 2:
-        cols = _round4(t.shape[1]) - t.shape[1] if pad_columns else 0
-        rows = _round4(t.shape[0]) - t.shape[0] if pad_rows else 0
+        cols = round4(t.shape[1]) - t.shape[1] if pad_columns else 0
+        rows = round4(t.shape[0]) - t.shape[0] if pad_rows else 0
         if cols or rows:
             t = torch.nn.functional.pad(t, (0, cols, 0, rows))
     t = t.contiguous()
@@ -121,7 +123,7 @@ def plan_args_q(weights: Sequence[torch.Tensor],
         if split:
             f = q.shape[0] // 2
             pad = lambda m: torch.nn.functional.pad(
-                m, (0, 0, 0, _round4(f) - f))
+                m, (0, 0, 0, round4(f) - f))
             q = torch.cat([pad(q[:f]), pad(q[f:])])
         return (kernel_operand(q, keep, pad_rows=True),
                 kernel_operand(scale, keep), q.shape[1])
@@ -160,6 +162,62 @@ def check_plan(plan, n_feat: int) -> None:
             f"{plan.up_h_mats[-1].shape[1]}")
     if len(plan.down_mats) > MAX_LEVELS:
         raise ValueError(f"the kernels take at most {MAX_LEVELS} levels")
+
+
+class PlanShape(NamedTuple):
+    """The widths ``AdtPlan`` carries (csrc/plan_cell.cuh), read from a
+    CellPlan without building its operands: ``down_n`` = [n_in, level
+    widths..., 3 n_hidden], ``up_n`` = [n_hidden, level widths..., n_feat],
+    and which decoder levels have a skip matrix."""
+    down_n: Tuple[int, ...]
+    up_n: Tuple[int, ...]
+    skips: Tuple[bool, ...]
+    n_hidden: int
+    delta: bool
+
+    @property
+    def levels(self) -> int:
+        return len(self.skips)
+
+
+def plan_shape(plan, n_feat: int) -> PlanShape:
+    return PlanShape(
+        down_n=((2 if plan.delta else 1) * n_feat,
+                *(m.shape[1] for m in plan.down_mats)),
+        up_n=(plan.hidden * plan.compressed,
+              *(m.shape[1] for m in plan.up_h_mats)),
+        skips=tuple(m is not None for m in plan.up_s_mats),
+        n_hidden=plan.hidden * plan.compressed, delta=bool(plan.delta))
+
+
+def plan_q_floats(p: PlanShape) -> int:
+    """Floats of the int8 plan's staging buffer (``plan_q_bytes`` in
+    csrc/plan_cell.cuh, rounded up to floats): kTile rows of the widest
+    matmul input, each of its inputs padded to a multiple of 4 bytes."""
+    def q_bytes(k1: int, k2: int = 0) -> int:
+        return KTILE * (round4(k1) + round4(k2))
+
+    L, most = p.levels, q_bytes(p.n_hidden)
+    for i in range(L):
+        k = p.down_n[i]
+        most = max(most, q_bytes(k // 2, k // 2) if i == 0 and p.delta
+                   else q_bytes(k),
+                   q_bytes(p.up_n[i], p.down_n[L - i] if p.skips[i] else 0))
+    return round4((most + 3) // 4)
+
+
+def cell_layout_floats(p: PlanShape, quant: bool = False) -> int:
+    """Floats of ``make_cell_layout`` in csrc/plan_cell.cuh: kTile rows of
+    each level's input, the gates, hx and its update, two decoder
+    buffers, the split-K scratch; the int8 plan adds its staging buffer
+    and kTile row scales."""
+    widest = max(p.up_n[1:p.levels + 1])
+    floats = KTILE * (sum(round4(n) for n in p.down_n[:p.levels + 1])
+                      + round4(3 * p.n_hidden) + 2 * round4(p.n_hidden)
+                      + 2 * round4(widest) + 4 * KTHREADS)
+    if quant:
+        floats += plan_q_floats(p) + round4(2 * KTILE)
+    return floats
 
 
 def pack_plan_weights(plan, quantize: bool = False

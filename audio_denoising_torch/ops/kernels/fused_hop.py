@@ -53,8 +53,9 @@ import torch
 from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.kernels.common import (
-    PlanArgs, PlanScaleArgs, check_plan, kernel_operand, pack_plan_weights,
-    plan_args, plan_args_q, plan_cell_math)
+    KTILE, PlanArgs, PlanScaleArgs, cell_layout_floats, check_plan,
+    kernel_operand, pack_plan_weights, plan_args, plan_args_q,
+    plan_cell_math, plan_shape, round4)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.noisefloor import (
     _EPS, FLOOR_BIAS, FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB,
@@ -65,6 +66,9 @@ from audio_denoising_torch.ops.windows import hann_window, wola_envelope
 DB_PER_NEPER = 10.0 / np.log(10.0)
 # compute_dtype -> the kernel's AdtFusedHopArgs.compute
 COMPUTE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# per-stream scalars and the gate's reduction lanes (kScalars, kMeans and
+# kLanes in csrc/fused_hop.cu)
+SCALARS, MEANS, LANES = 4, 4, 32
 
 
 class FusedHopState(NamedTuple):
@@ -173,6 +177,28 @@ def _check_supported(cfg: Config, plan, hops_per_call: int, io_dtype,
     gate_planes(cfg.serving)   # raises on an unknown estimator
 
 
+def fused_hop_smem_bytes(cfg: Config, plan,
+                         compute_dtype=torch.float32) -> int:
+    """The dynamic shared memory one block of either fused-hop kernel
+    takes for ``cfg``, ``plan`` and ``compute_dtype``: a plain mirror of
+    ``make_layout`` in csrc/fused_hop.cu, so that what a card can take is
+    known before the library is built (the wrapper holds it equal to the
+    library's ``adt_fused_hop_smem_bytes`` on the card). kTile rows of:
+    the frame, the spectrum (re, im, mag, lin), ring and ola, a delta
+    plan's prev, the gate's two floor planes, the scalars and the gate's
+    reduction lanes; then the plan cell's layout (with the int8 plan's
+    staging buffers)."""
+    _, floor = gate_planes(cfg.serving)
+    M = _feat_width(cfg)
+    ld_t, ld_f, ld_m = (round4(n) for n in (cfg.dsp.n_fft, cfg.dsp.n_stft,
+                                            M))
+    floats = KTILE * (3 * ld_t + 4 * ld_f + (ld_m if plan.delta else 0)
+                      + (2 * ld_f if floor else 0) + SCALARS + MEANS * LANES)
+    floats += cell_layout_floats(plan_shape(plan, M),
+                                 quant=compute_dtype == torch.int8)
+    return 4 * floats
+
+
 class FusedHop:
     """One serving hop (or ``hops_per_call`` hops) for a batch of streams
     on ``device``; see the module docstring."""
@@ -195,6 +221,7 @@ class FusedHop:
         self.output_gain = float(srv.output_gain)
         self.state_decay = float(srv.state_decay)
         self.widths = _plane_widths(cfg, plan)
+        self.smem_bytes = fused_hop_smem_bytes(cfg, plan, compute_dtype)
         self.launches = 0
         self._gate_constants(cfg)
 
@@ -455,11 +482,16 @@ class FusedHop:
 
     def _check_shared_memory(self) -> None:
         """What this kernel can take: the activations and the state of
-        one block's tile of streams in its shared memory."""
+        one block's tile of streams in its shared memory, as the library
+        counts it and as ``fused_hop_smem_bytes`` does."""
         limit = torch.cuda.get_device_properties(
             self.device).shared_memory_per_block_optin
         need = int(self._lib.adt_fused_hop_smem_bytes(
             ctypes.byref(self._base_args)))
+        if need != self.smem_bytes:
+            raise RuntimeError(
+                f"csrc/fused_hop.cu counts {need} B of shared memory per "
+                f"block, fused_hop_smem_bytes {self.smem_bytes} B")
         if need > limit:
             raise RuntimeError(
                 f"the fused hop needs {need} B of shared memory per block; "

@@ -44,14 +44,18 @@ from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops.griffinlim import griffin_lim
 from audio_denoising_torch.ops.kernels.common import (
-    MAX_LEVELS, PlanArgs, kernel_operand, pack_plan_weights, plan_args,
-    plan_cell_math)
+    KTILE, MAX_LEVELS, PlanArgs, cell_layout_floats, kernel_operand,
+    pack_plan_weights, plan_args, plan_cell_math, plan_shape, round4)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.stft import stft
 from audio_denoising_torch.ops.windows import hann_window
 
 FRAMES = 3   # centered STFT frames of one window at hop = n_fft / 2
 KERNELS_PER_HOP = 3   # csrc/webrtc_hop.cu: analysis, cell, gl
+MAX_MEL_OUTS = 384    # kMaxMelOuts: FRAMES * n_mels at most
+# kRed: the analysis's partial results, the larger of the mel outputs and
+# the FFT stages' 288 lanes per stream
+RED = max(MAX_MEL_OUTS, 288)
 
 
 class WebRTCHopState(NamedTuple):
@@ -215,6 +219,53 @@ class _Args(ctypes.Structure):
             "momentum", "output_gain", "state_decay")])
 
 
+def _spec_floats(n_fft: int, F: int, gl: bool) -> Tuple[int, int]:
+    """(floats, offset of the GL planes) of ``make_spec_layout`` in
+    csrc/webrtc_hop.cu: two buffers of FRAMES complex transforms, a
+    window, the partial results, the frames' magnitudes, and for
+    Griffin-Lim the carried and target phases."""
+    are = 4 * FRAMES * (n_fft // 2) + round4(n_fft) + RED \
+        + round4(FRAMES * F)
+    return are + (4 * round4(FRAMES * F) if gl else 0), are
+
+
+def geometry_refusal(n_fft: int, n_mels: int) -> str:
+    return (f"the webrtc hop kernels do not take n_fft {n_fft} with "
+            f"{n_mels} mels (n_fft / 2 must factor into 2 and 3, and 3 * "
+            f"n_mels be at most n_fft and 384; ROADMAP B5)")
+
+
+def webrtc_hop_smem_bytes(cfg: Config, plan, hops_per_call: int = 1) -> int:
+    """The most dynamic shared memory one block of the WebRTC hop's
+    kernels takes for ``cfg`` and ``plan`` (the three single-hop kernels,
+    or the K-hop kernel where ``hops_per_call > 1``), or -1 where the
+    kernels do not take the geometry (n_fft / 2 factoring into 2 and 3,
+    3 * n_mels at most n_fft and 384): a plain mirror of
+    ``adt_webrtc_hop_smem_bytes`` in csrc/webrtc_hop.cu, which the
+    wrapper holds it equal to on the card."""
+    dsp = cfg.dsp
+    n_fft, F, M = dsp.n_fft, dsp.n_stft, dsp.n_mels
+    try:
+        fft_radices(n_fft // 2)
+    except ValueError:
+        return -1
+    if n_fft != 2 * dsp.hop_length or FRAMES * M > min(n_fft, MAX_MEL_OUTS):
+        return -1
+    spec, are = _spec_floats(n_fft, F, True)
+    shape = plan_shape(plan, M)
+    cell = cell_layout_floats(shape)
+    if hops_per_call == 1:
+        return 4 * max(spec, cell)
+    # make_multi_layout: each stream's spectra, the tile's ring and ola,
+    # hx, the features and mel magnitudes of the frames, the peaks; the
+    # cell reuses the first stream's spectra where it fits below its GL
+    # planes
+    floats = (KTILE * spec + 2 * KTILE * round4(n_fft)
+              + round4(KTILE * shape.n_hidden)
+              + 2 * round4(KTILE * FRAMES * M) + round4(KTILE))
+    return 4 * (floats + (0 if cell <= are else cell))
+
+
 def _check_supported(cfg: Config, plan, hops_per_call: int,
                      compute_dtype) -> None:
     dsp = cfg.dsp
@@ -254,6 +305,7 @@ class WebRTCHop:
         self.momentum = float(dsp.griffin_lim_momentum)
         self.output_gain = float(srv.output_gain)
         self.state_decay = float(srv.state_decay)
+        self.smem_bytes = webrtc_hop_smem_bytes(cfg, plan, hops_per_call)
         self.launches = 0
 
         win = hann_window(self.n_fft, dtype=torch.float64).numpy()
@@ -296,6 +348,8 @@ class WebRTCHop:
         if lib.adt_webrtc_hop_args_size() != ctypes.sizeof(_Args):
             raise RuntimeError("csrc/webrtc_hop.cu and _Args disagree on "
                                "the argument layout")
+        if self.smem_bytes < 0:
+            raise ValueError(geometry_refusal(self.n_fft, self.M))
         self._base_args = self._args()
         self._check_shared_memory()
         # the M = n_fft / 2 of the kernels' FFT instantiation, 0 for the
@@ -442,15 +496,14 @@ class WebRTCHop:
 
     def _check_shared_memory(self) -> None:
         """What these kernels can take on this card: a block's working set
-        in its shared memory, and transform sizes whose halves factor into
-        2, 3 and 4."""
+        in its shared memory, as the library counts it and as
+        ``webrtc_hop_smem_bytes`` does."""
         need = int(self._lib.adt_webrtc_hop_smem_bytes(
             ctypes.byref(self._base_args)))
-        if need < 0:
-            raise ValueError(
-                f"the webrtc hop kernels do not take n_fft {self.n_fft} "
-                f"with {self.M} mels (n_fft / 2 must factor into 2, 3 and "
-                f"4, and 3 * n_mels be at most n_fft and 384)")
+        if need != self.smem_bytes:
+            raise RuntimeError(
+                f"csrc/webrtc_hop.cu counts {need} B of shared memory per "
+                f"block, webrtc_hop_smem_bytes {self.smem_bytes} B")
         limit = torch.cuda.get_device_properties(
             self.device).shared_memory_per_block_optin
         if need > limit:

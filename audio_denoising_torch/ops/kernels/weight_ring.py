@@ -27,9 +27,10 @@ from typing import Callable, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from audio_denoising_torch.ops.kernels.common import (
+    KTHREADS, KTILE, cell_layout_floats, round4)
+
 SMEM_LIMIT = 232448      # an H100 block's opt-in shared memory, bytes
-KTILE = 2                # streams per block (kTile in csrc/plan_cell.cuh)
-KTHREADS = 512           # threads per block (kThreads)
 CONSUMERS = KTHREADS - 32   # kConsumers: the last warp is the producer
 CLUSTER = 2              # blocks per cluster the wrapper launches
 STAGE_TARGET = 49152     # bytes a stage aims at; the ring takes the rest
@@ -37,10 +38,6 @@ MAX_STAGES = 8
 MIN_STAGES = 2
 MBARRIER_BYTES = 2 * 8   # full and empty, per stage
 SLAB_ALIGN = 4           # rows a slab holds a multiple of, where it can
-
-
-def round4(x: int) -> int:
-    return (x + 3) & ~3
 
 
 class RingSlab(ctypes.Structure):
@@ -86,16 +83,6 @@ def cell_matrices(p) -> List[Matrix]:
         if p.up_s[i]:
             mats.append(Matrix(p.up_s[i], p.down_n[L - i], p.up_n[i + 1]))
     return mats
-
-
-def cell_layout_floats(p) -> int:
-    """Floats of csrc/plan_cell.cuh's ``make_cell_layout`` for a
-    ``PlanArgs``."""
-    L, n = p.levels, p.n_hidden
-    widest = max(p.up_n[i] for i in range(1, L + 1))
-    return KTILE * (sum(round4(p.down_n[i]) for i in range(L + 1))
-                    + round4(3 * n) + 2 * round4(n) + 2 * round4(widest)
-                    + 4 * KTHREADS)
 
 
 def consumer_split(n: int) -> int:

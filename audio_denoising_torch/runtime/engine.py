@@ -18,12 +18,15 @@ Modes of the port:
 Every tick advances all slots and commits state only for the slots that
 received a chunk. Per-stream state lives at a slot index of batched
 device tensors; slots are admitted and evicted by index, and inactive
-slots compute on zeros. Where the JAX engine downgrades a mode that
-cannot serve a config, the port raises. Modes ``fast`` and ``fused``
+slots compute on zeros. Where a mode cannot serve a config, the engine
+warns and serves another, as the JAX engine does (``_downgrade``,
+``_fit``; ``engine.mode`` names the mode served), except for bounded
+lookahead, which raises (ROADMAP A10). Modes ``fast`` and ``fused``
 serve the GRUUNet and MOMO families (MOMO v1 in mode ``fast`` only, as
 it has no plan); the webrtc modes GRUUNet2.
 """
 
+import warnings
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -35,9 +38,9 @@ from audio_denoising_torch.ops import (
     hann_window, inverse_mel_matrix, inverse_mel_scale, mel_filterbank,
     mel_scale)
 from audio_denoising_torch.ops.kernels.fused_hop import (
-    fused_hop_init_state, make_fused_hop)
+    fused_hop_init_state, fused_hop_smem_bytes, make_fused_hop)
 from audio_denoising_torch.ops.kernels.webrtc_hop import (
-    make_webrtc_hop, webrtc_hop_init_state)
+    make_webrtc_hop, webrtc_hop_init_state, webrtc_hop_smem_bytes)
 from audio_denoising_torch.ops.noisefloor import (
     gate_state, make_gate_estimator)
 from audio_denoising_torch.ops.windows import wola_envelope
@@ -204,6 +207,70 @@ def _quantized_model(model, device):
     return model
 
 
+def hop_smem_bytes(cfg: Config, plan, mode: str) -> int:
+    """The shared memory a block of mode ``mode``'s kernel takes for
+    ``cfg`` and ``plan`` (fused_hop_smem_bytes at ``serving.dtype``, or
+    webrtc_hop_smem_bytes: -1 where the WebRTC kernels do not take the
+    geometry)."""
+    if mode == "fused":
+        return fused_hop_smem_bytes(cfg, plan,
+                                    getattr(torch, cfg.serving.dtype))
+    return webrtc_hop_smem_bytes(cfg, plan)
+
+
+def shared_memory_limit(device: Optional[Union[str, torch.device]]
+                        ) -> Optional[int]:
+    """The shared memory a block may take on ``device`` (the card unless
+    ``"cpu"``): the card's opt-in limit; None on the CPU, which runs the
+    kernels' plain versions, and where there is no card (the hop's maker
+    then raises, after its own checks)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def _downgrade(cfg: Config, mode: str) -> str:
+    """The mode that serves ``cfg`` when ``mode`` cannot, with a warning
+    naming both, as the JAX engine does (engine.py:278-308): a gated
+    ``fused-webrtc`` is served by ``webrtc`` (the kernel has no gate; the
+    op-by-op step carries it); int8 outside ``fast``/``fused`` by ``fast``
+    (on the quantized plan)."""
+    if cfg.serving.snr_gate_db is not None and mode == "fused-webrtc":
+        warnings.warn("snr_gate_db is set but the fused webrtc kernel does "
+                      "not implement the gate; engine mode 'fused-webrtc' "
+                      "downgraded to 'webrtc'", stacklevel=3)
+        mode = "webrtc"
+    if cfg.serving.dtype == "int8" and mode not in ("fast", "fused"):
+        warnings.warn(f"serving dtype 'int8' is implemented for engine "
+                      f"modes 'fast' and 'fused' only; engine mode {mode!r} "
+                      f"downgraded to 'fast'", stacklevel=3)
+        mode = "fast"
+    return mode
+
+
+def _fit(cfg: Config, plan, mode: str, device) -> str:
+    """Mode ``mode`` (``fused`` or ``fused-webrtc``), or its op-by-op mode
+    with a warning where its kernel needs more shared memory per block
+    than the card has (``hop_smem_bytes`` against
+    ``shared_memory_limit``; the JAX engine counts VMEM, engine.py:310-
+    342). A geometry the WebRTC kernels do not take (-1) is not a
+    capacity case: the kernel's wrapper raises, naming B5."""
+    limit = shared_memory_limit(device)
+    if limit is None:
+        return mode
+    need = hop_smem_bytes(cfg, plan, mode)
+    if need <= limit:
+        return mode
+    fallback = "fast" if mode == "fused" else "webrtc"
+    warnings.warn(f"the {mode} kernel needs {need} B of shared memory per "
+                  f"block at serving dtype {cfg.serving.dtype}, over the "
+                  f"card's {limit} B; engine mode {mode!r} downgraded to "
+                  f"{fallback!r}", stacklevel=3)
+    return fallback
+
+
 def _fields(state: NamedTuple) -> Dict[str, torch.Tensor]:
     """The state's tensors by name; absent (None) fields left out."""
     return {k: v for k, v in state._asdict().items() if v is not None}
@@ -239,27 +306,18 @@ class StreamEngine:
             raise ValueError(
                 f"engine mode {mode!r} does not support lookahead "
                 f"checkpoints (ModelConfig.lookahead_frames > 0)")
-        if cfg.serving.snr_gate_db is not None and mode == "fused-webrtc":
-            # the JAX engine downgrades to mode 'webrtc', whose op-by-op
-            # step carries the gate; the port serves only the mode asked
-            raise ValueError(
-                "the fused webrtc kernel has no SNR gate "
-                "(serving.snr_gate_db is set); engine mode 'webrtc' serves "
-                "the gate on the op-by-op Griffin-Lim step")
-        if cfg.serving.dtype == "int8" and mode not in ("fast", "fused"):
-            # the JAX engine warns and serves mode 'fast' (ROADMAP A7)
-            raise ValueError(
-                f"serving dtype 'int8' is implemented in engine modes "
-                f"'fast' (the quantized plan) and 'fused' (the int8 fused "
-                f"hop), not in mode {mode!r}")
+        mode = _downgrade(cfg, mode)
+        plan = None
+        if mode in ("fused", "fused-webrtc"):
+            plan = build_cell_plan(model)
+            mode = _fit(cfg, plan, mode, device)
+        self.plan = plan if mode in ("fused", "fused-webrtc") else None
         self.cfg = cfg
         self.mode = mode
         self.n = max_streams or cfg.serving.max_streams
         self.hop = cfg.dsp.hop_length
-        self.plan = None
-        # each maker raises for what its hop lacks before it resolves the
-        # device; on the card the kernel hops then check what the card can
-        # take (a block's shared memory)
+        # each maker raises for what its hop lacks; on the card the kernel
+        # hops check again what _fit checked (a block's shared memory)
         if mode == "fast":
             if cfg.serving.dtype == "int8":
                 model = _quantized_model(model, device)
@@ -271,7 +329,6 @@ class StreamEngine:
             self.device = resolve_device(device)
             init = lambda b: webrtc_init_state(cfg, model, b, self.device)
         else:
-            self.plan = build_cell_plan(model)
             make, init_state = (
                 (make_fused_hop, fused_hop_init_state) if mode == "fused"
                 else (make_webrtc_hop, webrtc_hop_init_state))

@@ -199,21 +199,53 @@ raises on failure (so the script exits non-zero and prints no result):
     product at its type's published peak: bf16 989 TFLOP/s, int8 1,979
     TOP/s; each operand's bytes at its own size) and the yardstick of
     the kernel's own instructions (fp32 FMA, dp4a), and mode fast on the
-    quantized plan per hop with the card's busy share.
+    quantized plan per hop with the card's busy share;
+39. ``WSDaemon`` mode ``fused`` (the WebSocket browser-mic daemon) on
+    gruunet2-stream16k with 256 slots: ``GET /`` answers the page with
+    its placeholders replaced; 16 clients connect (client i in slot i),
+    then each streams 50 hops of int16 PCM in frames of odd sizes at the
+    audio's own pace; each client's int16 replies, in order, against its
+    sequence through the plain fused hop on the CPU (the same
+    ``pcm_to_float32`` chunks, ``float32_to_pcm16`` out) within WS_LSB;
+    ``stats`` reports the 16 streams; the reply latency per hop at the
+    client (p50, p99) printed beside the card's name and power limit;
+40. ``WSDaemon`` mode ``fused-webrtc`` on dari_tult with warm start (the
+    checkpoint phase 7 writes), 16 clients x 25 hops: each client's
+    replies against its chunks replayed through the kernel on the card
+    (1 LSB after int16), the slots' hx against the plain version on the
+    CPU within HX_ATOL, the latency per hop printed;
+41. ``SocketDaemon`` (``serve``, the reference's pickled ``(n, C)`` wire
+    format) on gruunet2-good on the card: 3 connections, interleaved
+    2-channel messages of several lengths, each reply's shape and values
+    against ``make_server_step`` on the CPU with a state per connection;
+    with ``--shared-state`` two connections against one state over both
+    (and away from a state per connection); the round trip per message;
+42. the engine's downgrades on the card, each asserting its warning and
+    ``engine.mode``: a gated ``fused-webrtc`` serves ``webrtc``, int8 in
+    mode ``webrtc`` serves ``fast`` on the quantized plan, the gated int8
+    flagship (its shared memory per block over the card's) in mode
+    ``fused`` serves ``fast``; each engine against its served mode's step
+    run alone on the card (0 expected). Then, for every configuration
+    the script builds, in each compute mode, gated and not, one hop and
+    K hops, the libraries' shared memory per block against the plain
+    mirrors the engine decides by (``fused_hop_smem_bytes``,
+    ``webrtc_hop_smem_bytes``; each kernel's wrapper also holds them
+    equal whenever it binds on the card).
 
 Phases 30-34 drive the offline path, which launches none of the
 hand-written kernels: the JAX offline graph reaches no Pallas kernel
 (``offline_denoise`` runs ``model.apply``, JAX pipeline.py:140).
 
-Phases 4 to 7, 9 to 12, 15 to 17, 27 to 29, 37 and 38, the first three
+Phases 4 to 7, 9 to 12, 15 to 17, 27 to 29, 37 to 40, the first three
 calls of phases 14, 26 and of each case of 36, and phase 19's calls are
 the main paths: each kernel's
 launch counter is set to 0 just before each (a new wrapper starts at 0)
 and read just after (the single WebRTC hop counts its three kernels, the
 K-hop call one). Mode ``fast`` with the zoo model (phases 11, 12, 17,
-28), mode ``fast`` on the quantized plan (phases 37, 38) and mode
-``webrtc`` (phases 23, 24) run no hand-written kernel, as the JAX
-package's modes ``fast`` and ``webrtc`` run no Pallas kernel.
+28), mode ``fast`` on the quantized plan (phases 37, 38, 42), mode
+``webrtc`` (phases 23, 24, 42) and the socket daemon's server step (phase
+41) run no hand-written kernel, as the JAX package's modes ``fast`` and
+``webrtc`` and its ``serve`` run no Pallas kernel.
 Griffin-Lim with carried phases is chaotic where a frame's rebuilt
 spectrum nears zero: fp32 round-off there flips a phase, and the carried
 phases spread it, so two correct fp32 versions that each carry their own
@@ -231,6 +263,7 @@ of the repo, the script fails.
 import contextlib
 import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -2970,6 +3003,581 @@ def ring_line(label, kernel):
         f"{kernel.max_active_clusters(blocks)} clusters of {cluster}")
 
 
+# -- the serving surface: the WebSocket and socket daemons, the downgrades ----
+
+WS_CLIENTS = 16      # WebSocket clients at once, one stream each
+WS_HOPS = 50         # hops each client streams in phase 39
+WS_WEBRTC_HOPS = 25  # hops each client streams in phase 40 (GL-32)
+# a frame's samples about the hop (the browser page sends hop-sized
+# frames), each odd at an even hop so the re-chunker carries residue
+WS_JITTER = (-63, 41, -17, 39, -1)
+# a reply in int16: OUT_ATOL in LSB plus one for the conversion's rounding
+WS_LSB = math.ceil(OUT_ATOL * 32767) + 1
+SOCKET_LENGTHS = (512, 1000, 2048, 777)   # samples per socket message
+
+
+def ws_connect(address):
+    """A browser's side of the WebSocket upgrade; -> the framed socket."""
+    import base64
+    import socket
+    from audio_denoising_torch.io import websocket as ws
+    sock = socket.create_connection(address, timeout=REPLY_DEADLINE_S)
+    key = base64.b64encode(os.urandom(16)).decode()
+    sock.sendall((f"GET /stream HTTP/1.1\r\nHost: {address[0]}\r\n"
+                  "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                  f"Sec-WebSocket-Key: {key}\r\n"
+                  "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+    resp = b""
+    while b"\r\n\r\n" not in resp:
+        part = sock.recv(4096)
+        if not part:
+            raise ConnectionError("the daemon closed the upgrade")
+        resp += part
+    head, leftover = resp.split(b"\r\n\r\n", 1)
+    if b" 101 " not in head.split(b"\r\n", 1)[0]:
+        raise ConnectionError(f"no upgrade: {head[:80]!r}")
+    return ws.Buffered(sock, leftover)
+
+
+def ws_send(conn, payload: bytes, text=False):
+    """One masked client frame (RFC 6455 5.1)."""
+    import struct
+    from audio_denoising_torch.io import websocket as ws
+    mask = os.urandom(4)
+    data = np.frombuffer(payload, np.uint8)
+    key = np.frombuffer((mask * (data.size // 4 + 1))[:data.size], np.uint8)
+    n = data.size
+    head = bytes([0x80 | (ws.OP_TEXT if text else ws.OP_BINARY)])
+    if n < 126:
+        head += bytes([0x80 | n])
+    elif n < (1 << 16):
+        head += bytes([0x80 | 126]) + struct.pack(">H", n)
+    else:
+        head += bytes([0x80 | 127]) + struct.pack(">Q", n)
+    conn.sendall(head + mask + (data ^ key).tobytes())
+
+
+def ws_frames(n, hop):
+    """Frame sizes summing to n: hop + WS_JITTER in turn, the last cut
+    short."""
+    sizes, left, i = [], n, 0
+    while left:
+        sizes.append(min(hop + WS_JITTER[i % len(WS_JITTER)], left))
+        left -= sizes[-1]
+        i += 1
+    return sizes
+
+
+def hop_latencies(sizes, sent, arrived, hop):
+    """Per hop, the seconds from sending the frame that completed the
+    hop's samples to the hop's reply arriving (the daemon replies one
+    frame per hop, in order)."""
+    ends = np.cumsum(sizes)
+    done = np.searchsorted(ends, hop * (np.arange(len(arrived)) + 1))
+    return np.asarray(arrived) - np.asarray(sent)[done]
+
+
+def ws_stream(conn, pcm, sr, hop, out, errors, cid):
+    """Stream ``pcm`` in frames of odd sizes at the audio's own pace (a
+    microphone's), while a second thread reads the replies; fills
+    ``out[cid]`` with (replies int16, per-hop latency seconds)."""
+    from audio_denoising_torch.io import websocket as ws
+    sizes = ws_frames(pcm.size, hop)
+    n_hops = pcm.size // hop
+    sent, arrived, got = [], [], []
+
+    def receive():
+        try:
+            while len(arrived) < n_hops:
+                _, op, payload = ws.recv_frame(conn)
+                if op != ws.OP_BINARY:
+                    raise RuntimeError(f"client {cid}: opcode {op} mid-stream")
+                arrived.append(time.perf_counter())
+                got.append(np.frombuffer(payload, np.int16))
+        except Exception as e:
+            errors.append(f"client {cid} receiving: {e!r}")
+
+    reader = threading.Thread(target=receive, daemon=True)
+    reader.start()
+    try:
+        t0, edge = time.perf_counter(), 0
+        for n in sizes:
+            edge += n
+            wait = t0 + edge / sr - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            ws_send(conn, pcm[edge - n:edge].tobytes())
+            sent.append(time.perf_counter())
+    except Exception as e:
+        errors.append(f"client {cid} sending: {e!r}")
+    reader.join(REPLY_DEADLINE_S)
+    if reader.is_alive() or len(got) != n_hops:
+        errors.append(f"client {cid}: {len(got)} of {n_hops} replies")
+        return
+    out[cid] = (np.concatenate(got), hop_latencies(sizes, sent, arrived, hop))
+
+
+def http_get(address, path):
+    import socket
+    with socket.create_connection(address, timeout=REPLY_DEADLINE_S) as s:
+        s.sendall(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+        data = b""
+        while part := s.recv(65536):
+            data += part
+    head, body = data.split(b"\r\n\r\n", 1)
+    return head.split(b"\r\n")[0], body.decode()
+
+
+def ws_stats(conn):
+    from audio_denoising_torch.io import websocket as ws
+    ws_send(conn, b"stats", text=True)
+    while True:
+        _, op, payload = ws.recv_frame(conn)
+        if op == ws.OP_TEXT:
+            return json.loads(payload)
+
+
+def ws_clients(address, pcm, sr, hop, pipe):
+    """The WebSocket clients, run in a process of their own so that their
+    work does not take the daemon's interpreter: connect one client per
+    row of ``pcm`` in order (the parent acknowledges each once the daemon
+    has admitted it, so client i holds slot i), wait for "go", stream
+    every client at once, ask for ``stats``, send back (replies (clients,
+    samples) int16, per-hop latencies, stats) and hold the connections
+    until "close"."""
+    conns, out, errors = [], {}, []
+    try:
+        for i in range(pcm.shape[0]):
+            conns.append(ws_connect(address))
+            pipe.send(("connected", i))
+            pipe.recv()
+        pipe.recv()
+        threads = [threading.Thread(target=ws_stream, args=(
+            conns[i], pcm[i], sr, hop, out, errors, i), daemon=True)
+            for i in range(pcm.shape[0])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(REPLY_DEADLINE_S + pcm.shape[1] / sr)
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError("; ".join(errors) or "a client did not finish")
+        pipe.send(("done", np.stack([out[i][0] for i in range(len(conns))]),
+                   np.concatenate([out[i][1] for i in range(len(conns))]),
+                   ws_stats(conns[0])))
+        pipe.recv()
+    except Exception as e:
+        pipe.send(("error", repr(e)))
+    finally:
+        for c in conns:
+            c.close()
+
+
+def serve_ws(daemon, pcm):
+    """Run ``daemon`` for one client per row of ``pcm`` (clients, samples
+    int16), the clients in a child process (``ws_clients``): the page
+    first, then every client connected in order, then all streaming at
+    once. Returns (replies (clients, samples) int16, per-hop latencies,
+    launches, the stats reply with every client connected, the slots in
+    client order)."""
+    import multiprocessing
+    kernel = daemon.engine.hop_step
+    server = threading.Thread(target=daemon.serve_forever, daemon=True)
+    server.start()
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_end = ctx.Pipe()
+    child = None
+
+    def recv():
+        if not pipe.poll(REPLY_DEADLINE_S + pcm.shape[1] / daemon.cfg.dsp
+                         .sample_rate):
+            raise TimeoutError("the clients' process did not answer")
+        msg = pipe.recv()
+        if msg[0] == "error":
+            raise RuntimeError(f"clients: {msg[1]}")
+        return msg
+
+    try:
+        if not daemon.listening.wait(60):
+            raise TimeoutError("daemon did not start listening")
+        status, page = http_get(daemon.address, "/")
+        marks = [m for m in ("__SAMPLE_RATE__", "__HOP__", "__MODEL__")
+                 if m in page]
+        want = (f"const SR = {daemon.cfg.dsp.sample_rate};",
+                f"const HOP = {daemon.hop};", f"<b>{daemon.spec}</b>")
+        if status != b"HTTP/1.1 200 OK" or marks or not all(
+                w in page for w in want):
+            raise AssertionError(f"GET / gave {status!r}, placeholders "
+                                 f"{marks} left")
+        proc = ctx.Process(target=ws_clients, args=(
+            daemon.address, pcm, daemon.cfg.dsp.sample_rate, daemon.hop,
+            child_end), daemon=True)
+        proc.start()
+        child = proc
+        for i in range(pcm.shape[0]):
+            recv()
+            deadline = time.monotonic() + REPLY_DEADLINE_S
+            while daemon.engine.active_streams < i + 1:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"client {i} was not admitted")
+                time.sleep(0.005)
+            pipe.send("ok")
+        slots = list(daemon.engine.slots.values())
+        kernel.launches = 0
+        pipe.send("go")
+        _, got, lat, stats = recv()
+        launches = kernel.launches
+        pipe.send("close")
+    finally:
+        if child is not None:
+            child.join(30)
+            if child.is_alive():
+                child.terminate()
+                child.join(10)
+        daemon.stop()
+        server.join(10)
+    if server.is_alive():
+        raise TimeoutError("the daemon did not stop")
+    return got, lat, launches, stats, slots
+
+
+def ws_latency_line(lat, clients, n_hops, smi):
+    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+    return (f"reply latency per hop at the client ({clients} clients x "
+            f"{n_hops} hops, streamed at the audio's pace): p50 {p50:.3f} "
+            f"ms, p99 {p99:.3f} ms ({smi})")
+
+
+def ws_pcm(clients, samples, seed):
+    rng = np.random.default_rng(seed)
+    return (np.clip(0.1 * rng.standard_normal((clients, samples)), -1, 1)
+            * 32767).astype(np.int16)
+
+
+def check_ws_stats(stats, clients):
+    if stats["active_streams"] != clients or not stats["counters"]["hops"]:
+        raise AssertionError(f"stats: {stats['active_streams']} active "
+                             f"streams, {clients} connected")
+
+
+def phase_ws_fused(torch, smi):
+    """WSDaemon mode fused on gruunet2-stream16k with 256 slots: each
+    client's int16 replies, in order, against its own sequence through
+    the plain fused hop on the CPU (the same pcm_to_float32 chunks, its
+    output through float32_to_pcm16), within WS_LSB."""
+    from audio_denoising_torch.apps.ws_serve import WSDaemon
+    from audio_denoising_torch.io.wavio import (
+        float32_to_pcm16, pcm_to_float32)
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    daemon = WSDaemon("gruunet2-stream16k", "127.0.0.1", 0,
+                      max_streams=SLOTS, mode="fused")
+    hop, plan = daemon.hop, daemon.engine.plan
+    pcm = ws_pcm(WS_CLIENTS, WS_HOPS * hop, 39)
+    got, lat, launches, stats, _ = serve_ws(daemon, pcm)
+    step = make_fused_hop(daemon.cfg, plan, "cpu")
+    state = fused_hop_init_state(daemon.cfg, plan, WS_CLIENTS)
+    chunks = pcm_to_float32(pcm.reshape(-1)).reshape(WS_CLIENTS, WS_HOPS, hop)
+    want = []
+    for k in range(WS_HOPS):
+        state, out = step(state, torch.from_numpy(chunks[:, k].copy()))
+        want.append(float32_to_pcm16(out.numpy()))
+    want = np.stack(want, axis=1).reshape(WS_CLIENTS, -1)
+    lsb = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+    say(f"  GET / 200, placeholders replaced; stats: "
+        f"{stats['active_streams']} active streams; int16 replies vs the "
+        f"plain hop on the CPU {lsb} LSB (bound {WS_LSB}); {launches} "
+        f"launches; " + ws_latency_line(lat, WS_CLIENTS, WS_HOPS, smi))
+    check_ws_stats(stats, WS_CLIENTS)
+    if lsb > WS_LSB:
+        raise AssertionError("WebSocket replies disagree with the plain hop")
+    if launches <= 0:
+        raise AssertionError("the daemon never launched the kernel")
+    return launches, np.percentile(lat, [50, 99]) * 1e3
+
+
+def phase_ws_webrtc(torch, cfg, model, smi):
+    """WSDaemon mode fused-webrtc on dari_tult with warm start (the
+    checkpoint write_warm_checkpoint writes), 256 slots: by
+    phase_daemon_webrtc's rule, each client's replies against its chunks
+    replayed through the kernel on the card (1 LSB after int16), and the
+    slots' hx against the plain version on the CPU within HX_ATOL."""
+    from audio_denoising_torch.apps.ws_serve import WSDaemon
+    from audio_denoising_torch.io.wavio import (
+        float32_to_pcm16, pcm_to_float32)
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = write_warm_checkpoint(model, cfg, tmp)
+        daemon = WSDaemon(spec, "127.0.0.1", 0, max_streams=SLOTS,
+                          mode="fused-webrtc")
+    hop, plan = daemon.hop, daemon.engine.plan
+    pcm = ws_pcm(WS_CLIENTS, WS_WEBRTC_HOPS * hop, 40)
+    got, lat, launches, stats, slots = serve_ws(daemon, pcm)
+    chunks = torch.from_numpy(pcm_to_float32(pcm.reshape(-1)).reshape(
+        WS_CLIENTS, WS_WEBRTC_HOPS, hop))
+    want = {}
+    for device in ("cuda", "cpu"):
+        step = make_webrtc_hop(daemon.cfg, plan, device)
+        state = webrtc_hop_init_state(daemon.cfg, plan, WS_CLIENTS, device)
+        outs = []
+        for k in range(WS_WEBRTC_HOPS):
+            state, out = step(state, chunks[:, k].contiguous().to(device))
+            outs.append(float32_to_pcm16(out.cpu().numpy()))
+        want[device] = (state, np.stack(outs, axis=1).reshape(WS_CLIENTS, -1))
+    lsb = int(np.abs(got.astype(np.int32)
+                     - want["cuda"][1].astype(np.int32)).max())
+    hx_err = max_err(daemon.engine.state.hx[slots].cpu(), want["cpu"][0].hx)
+    say(f"  stats: {stats['active_streams']} active streams; int16 replies "
+        f"vs the kernel replayed per stream {lsb} LSB (bound 1); hx vs the "
+        f"plain version on the CPU {hx_err:.3e} (bound {HX_ATOL:g}); "
+        f"{launches} launches; "
+        + ws_latency_line(lat, WS_CLIENTS, WS_WEBRTC_HOPS, smi))
+    check_ws_stats(stats, WS_CLIENTS)
+    if lsb > 1 or hx_err > HX_ATOL:
+        raise AssertionError("WebSocket replies disagree with the kernel "
+                             "replayed per stream or with the plain version")
+    if launches <= 0:
+        raise AssertionError("the daemon never launched the kernel")
+    return launches, np.percentile(lat, [50, 99]) * 1e3
+
+
+def socket_messages(seed, channels=2):
+    rng = np.random.default_rng(seed)
+    return [(0.1 * rng.standard_normal((n, channels))).astype(np.float32)
+            for n in SOCKET_LENGTHS]
+
+
+def socket_round(daemon, order, msgs):
+    """Send each (connection, message) of ``order`` in turn and wait for
+    its reply; -> replies per connection, round-trip seconds."""
+    from multiprocessing.connection import Client
+    conns = {c: Client(daemon.address) for c in {c for c, _ in order}}
+    got, rtt = {c: [] for c in conns}, []
+    try:
+        for c, k in order:
+            t0 = time.perf_counter()
+            conns[c].send(msgs[c][k])
+            if not conns[c].poll(REPLY_DEADLINE_S):
+                raise TimeoutError(f"connection {c}: no reply")
+            reply = conns[c].recv()
+            rtt.append(time.perf_counter() - t0)
+            if isinstance(reply, str):
+                raise RuntimeError(f"connection {c}: {reply}")
+            got[c].append(reply)
+        for conn in conns.values():
+            conn.send("close")
+    finally:
+        for conn in conns.values():
+            conn.close()
+    return got, rtt
+
+
+def server_replies(torch, step, model, msgs, hx=None):
+    """What SocketDaemon.process gives for ``msgs`` in turn: the first
+    channel through ``step`` on the CPU, repeated over the channels."""
+    hx = model.init_state(1) if hx is None else hx
+    out = []
+    for m in msgs:
+        hx, y = step(hx, torch.from_numpy(np.ascontiguousarray(m[:, 0][None])))
+        out.append(np.repeat(y.numpy()[0][:, None], m.shape[1], axis=1))
+    return out, hx
+
+
+def phase_serve(torch, smi):
+    """SocketDaemon (the reference's wire format) on gruunet2-good on the
+    card: three connections, interleaved (n, 2) messages of several
+    lengths, each reply against make_server_step on the CPU with a state
+    per connection; then --shared-state: two connections against one
+    state carried over both in arrival order (and away from a state per
+    connection)."""
+    from audio_denoising_torch.apps.serve import SocketDaemon
+    from audio_denoising_torch.pipeline import make_server_step
+
+    def run(shared, names):
+        daemon = SocketDaemon("gruunet2-good", ("127.0.0.1", 0),
+                              shared_state=shared)
+        server = threading.Thread(target=daemon.serve_forever, daemon=True)
+        server.start()
+        try:
+            if not daemon.listening.wait(60):
+                raise TimeoutError("socket daemon did not start listening")
+            msgs = {c: socket_messages(41 + i) for i, c in enumerate(names)}
+            order = [(c, k) for k in range(len(SOCKET_LENGTHS))
+                     for c in names]
+            got, rtt = socket_round(daemon, order, msgs)
+        finally:
+            daemon.stop()
+            server.join(10)
+        if daemon.device.type != "cuda":
+            raise AssertionError("the socket daemon did not run on the card")
+        return daemon, msgs, order, got, rtt
+
+    daemon, msgs, order, got, rtt = run(False, "abc")
+    step = make_server_step(daemon.cfg, daemon.model, "cpu")
+    err = 0.0
+    for c in "abc":
+        want, _ = server_replies(torch, step, daemon.model, msgs[c])
+        for g, w, m in zip(got[c], want, msgs[c]):
+            if g.shape != m.shape:
+                raise AssertionError(f"reply shape {g.shape} for {m.shape}")
+            err = max(err, float(np.abs(g - w).max()))
+    shared, smsgs, sorder, sgot, srtt = run(True, "ab")
+    seq, _ = server_replies(torch, step, daemon.model,
+                            [smsgs[c][k] for c, k in sorder])
+    s_err = max(float(np.abs(sgot[c][i] - seq[2 * i + (c == "b")]).max())
+                for c in "ab" for i in range(len(SOCKET_LENGTHS)))
+    own, _ = server_replies(torch, step, daemon.model, smsgs["b"])
+    apart = max(float(np.abs(g - w).max()) for g, w in zip(sgot["b"], own))
+    p50, p99 = np.percentile(rtt + srtt, [50, 99]) * 1e3
+    say(f"  3 connections x {len(SOCKET_LENGTHS)} messages of "
+        f"{SOCKET_LENGTHS} samples x 2 channels: replies vs make_server_step "
+        f"on the CPU {err:.3e} (bound {OUT_ATOL:g}); --shared-state vs one "
+        f"state over both connections {s_err:.3e}, vs a state per "
+        f"connection {apart:.3e}; round trip per message p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms ({smi}); no hand-written kernel on this path")
+    if err > OUT_ATOL or s_err > OUT_ATOL:
+        raise AssertionError("socket daemon disagrees with the server step")
+    if apart <= OUT_ATOL:
+        raise AssertionError("--shared-state did not share the state")
+
+
+def downgraded(make):
+    """``make()`` with its warnings caught; -> (engine, messages)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = make()
+    return eng, [str(w.message) for w in caught]
+
+
+def check_downgrade(label, eng, said, want_mode, phrase):
+    if eng.mode != want_mode or not any(phrase in m for m in said):
+        raise AssertionError(f"{label}: mode {eng.mode}, warnings {said}")
+
+
+def drive_against(torch, eng, step, state, ticks, seed, hop):
+    """``ticks`` ticks of every slot through the engine and through
+    ``step`` from ``state`` on the card; the largest output difference."""
+    rng = np.random.default_rng(seed)
+    err = 0.0
+    for _ in range(ticks):
+        batch = torch.from_numpy((0.1 * rng.standard_normal(
+            (eng.n, hop))).astype(np.float32)).cuda()
+        got = eng.process_batch(batch)
+        state, want = step(state, batch)
+        err = max(err, max_err(got, want))
+    return err
+
+
+def phase_downgrades(torch, dari_cfg, dari, good_cfg, good, flag_cfg, flag,
+                     flag_plan):
+    """The engine's downgrades on the card, each with its warning and
+    engine.mode naming the mode served, its outputs against that mode's
+    step run alone on the same chunks (0 expected: the same code)."""
+    from audio_denoising_torch.pipeline import (
+        make_webrtc_step, webrtc_init_state)
+    from audio_denoising_torch.runtime.engine import (
+        StreamEngine, fast_init_state, hop_smem_bytes, make_fast_step,
+        shared_memory_limit)
+    from audio_denoising_torch.runtime.plan import PlanModel
+    cfg = tuned_gate(dari_cfg)
+    eng, said = downgraded(lambda: StreamEngine(
+        cfg, dari, mode="fused-webrtc", max_streams=SLOTS))
+    check_downgrade("gated fused-webrtc", eng, said, "webrtc",
+                    "'fused-webrtc' downgraded to 'webrtc'")
+    e1 = drive_against(torch, eng, make_webrtc_step(cfg, dari, "cuda"),
+                       webrtc_init_state(cfg, dari, SLOTS, "cuda"), 3, 421,
+                       eng.hop)
+    say(f"  gated fused-webrtc (gruunet2-dari_tult, warm): mode {eng.mode}, "
+        f"warned; vs the gated webrtc step {e1:.3e}")
+    cfg = with_dtype(good_cfg, "int8")
+    eng, said = downgraded(lambda: StreamEngine(
+        cfg, good, mode="webrtc", max_streams=SLOTS))
+    check_downgrade("int8 webrtc", eng, said, "fast",
+                    "'webrtc' downgraded to 'fast'")
+    pm = PlanModel(good, quantized=True)
+    e2 = drive_against(torch, eng, make_fast_step(cfg, pm, "cuda"),
+                       fast_init_state(cfg, pm, SLOTS, "cuda"), 3, 422,
+                       eng.hop)
+    say(f"  int8 in mode webrtc (gruunet2-good): mode {eng.mode}, warned; "
+        f"vs the fast step on the quantized plan {e2:.3e}")
+    cfg = with_dtype(tuned_gate(flag_cfg), "int8")
+    need = hop_smem_bytes(cfg, flag_plan, "fused")
+    limit = shared_memory_limit("cuda")
+    eng, said = downgraded(lambda: StreamEngine(
+        cfg, flag, mode="fused", max_streams=SLOTS))
+    check_downgrade("gated int8 flagship", eng, said, "fast",
+                    "'fused' downgraded to 'fast'")
+    pm = PlanModel(flag, quantized=True)
+    e3 = drive_against(torch, eng, make_fast_step(cfg, pm, "cuda"),
+                       fast_init_state(cfg, pm, SLOTS, "cuda"), 2, 423,
+                       eng.hop)
+    say(f"  gated int8 {FLAGSHIP} in mode fused: {need} B of shared memory "
+        f"a block over the card's {limit} B: mode {eng.mode}, warned; vs "
+        f"the fast step on the quantized plan {e3:.3e}")
+    if max(e1, e2, e3) > REPLAY_ATOL:
+        raise AssertionError("a downgraded engine disagrees with the step "
+                             "of the mode it serves")
+
+
+def phase_smem_mirror(torch, cases, limit):
+    """The shared memory per block the built libraries count against
+    fused_hop_smem_bytes and webrtc_hop_smem_bytes (the plain mirrors the
+    engine decides by), for every configuration the script builds, in
+    every compute mode and with the gates, one hop and K hops (also those
+    over the card's limit, which no kernel can be built for: the
+    arguments are filled on the CPU). ``cases``: (kernel, label, cfg,
+    plan), kernel "fused_hop" or "webrtc_hop"."""
+    from audio_denoising_torch.ops.kernels.build import load_kernel_library
+    from audio_denoising_torch.ops.kernels.fused_hop import FusedHop
+    from audio_denoising_torch.ops.kernels.webrtc_hop import WebRTCHop
+    libs = {n: load_kernel_library(n).lib for n in ("fused_hop",
+                                                    "webrtc_hop")}
+    for name in libs:
+        fn = getattr(libs[name], f"adt_{name}_smem_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_longlong
+    cpu, checked, over = torch.device("cpu"), 0, []
+    for kind, label, cfg, plan in cases:
+        if kind == "fused_hop":
+            for est, dtype, k in itertools.product(
+                    (None, "removed", "floor", "both"),
+                    (torch.float32, torch.bfloat16, torch.int8),
+                    (1, K_HOPS)):
+                c = cfg if est is None else dataclasses.replace(
+                    cfg, serving=dataclasses.replace(
+                        cfg.serving, snr_gate_db=1.0,
+                        snr_gate_estimator=est))
+                hop = FusedHop(c, plan, cpu, hops_per_call=k,
+                               compute_dtype=dtype)
+                got = libs["fused_hop"].adt_fused_hop_smem_bytes(
+                    ctypes.byref(hop._args()))
+                if got != hop.smem_bytes:
+                    raise AssertionError(
+                        f"{label}, gate {est}, {dtype}, K={k}: the library "
+                        f"counts {got} B, fused_hop_smem_bytes "
+                        f"{hop.smem_bytes} B")
+                checked += 1
+                if got > limit:
+                    over.append(f"{label} {dtype_name(dtype)} gate {est} "
+                                f"K={k}: {got} B")
+        else:
+            for k in (1, WEBRTC_K):
+                hop = WebRTCHop(cfg, plan, cpu, hops_per_call=k)
+                got = libs["webrtc_hop"].adt_webrtc_hop_smem_bytes(
+                    ctypes.byref(hop._args()))
+                if got != hop.smem_bytes:
+                    raise AssertionError(
+                        f"{label}, K={k}: the library counts {got} B, "
+                        f"webrtc_hop_smem_bytes {hop.smem_bytes} B")
+                checked += 1
+                if got > limit:
+                    over.append(f"{label} webrtc K={k}: {got} B")
+    say(f"  {checked} configurations: the libraries' count equals the "
+        f"plain mirrors' on each; over the card's {limit} B: "
+        + "; ".join(over))
+    return checked
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3010,11 +3618,12 @@ def main() -> int:
 
     say("phase 2: fused hop kernel vs its plain version on the card")
     err = phase_kernel_vs_plain(torch, hop, cfg, plan, (SLOTS, 3))[0]
-    other_plans = []
+    other_plans, built = [], [("fused_hop", S16K, cfg, plan)]
     for name in OTHER_CHECKPOINTS:
         other_cfg, other = load_pretrained(os.path.join(REPO, "runs", name))
         other_plan = build_cell_plan(other)
         other_plans.append((name, other_plan))
+        built.append(("fused_hop", name, other_cfg, other_plan))
         say(f"  {name}: n_fft {other_cfg.dsp.n_fft}, {other_cfg.dsp.n_mels} "
             f"mels, hidden {other_cfg.model.hidden_sizes}")
         phase_kernel_vs_plain(
@@ -3214,6 +3823,36 @@ def main() -> int:
                 "--dtype", "int8"], 381)
     phase_daemon_dtype(torch, ["--dtype", "int8", "--mode", "fast"], 382)
 
+    say(f"phase 39: WSDaemon mode fused ({S16K}, {SLOTS} slots), "
+        f"{WS_CLIENTS} WebSocket clients on 127.0.0.1, int16 frames of odd "
+        f"sizes")
+    ws_launches, ws_lat = phase_ws_fused(torch, smi)
+    say(f"phase 40: WSDaemon mode fused-webrtc (gruunet2-dari_tult, warm "
+        f"GL-{dari_cfg.dsp.griffin_lim_iters}, {SLOTS} slots), {WS_CLIENTS} "
+        f"WebSocket clients on 127.0.0.1")
+    wws_launches, wws_lat = phase_ws_webrtc(torch, dari_cfg, dari, smi)
+    say("phase 41: SocketDaemon (serve, the reference's wire format) on "
+        "gruunet2-good, 127.0.0.1")
+    phase_serve(torch, smi)
+    say("phase 42: the engine's downgrades on the card; the shared memory "
+        "per block, the libraries against the plain mirrors")
+    phase_downgrades(torch, dari_cfg, dari, good_cfg, good, flag_cfg, flag,
+                     flag_plan)
+    small = [small_webrtc_model(torch, 4, n) for n in (64, RUNTIME_FFT)]
+    mel128_cfg, mel128 = load_pretrained(os.path.join(
+        REPO, "runs", OTHER_CHECKPOINTS[1]))
+    phase_smem_mirror(torch, built + [
+        ("fused_hop", FLAGSHIP, flag_cfg, flag_plan),
+        ("fused_hop", MOMO_SPEC, momo_cfg, momo_plan),
+        ("fused_hop", MOMO_TRAINED, trained_cfg, build_cell_plan(trained)),
+        ("fused_hop", "MOMO2", momo2_cfg, build_cell_plan(momo2)),
+        ("webrtc_hop", "gruunet2-dari_tult", dari_cfg, dari_plan),
+        ("webrtc_hop", OTHER_CHECKPOINTS[1], warm_cfg(mel128_cfg),
+         build_cell_plan(mel128))] + [
+        ("webrtc_hop", f"n_fft {c.dsp.n_fft}", c, build_cell_plan(m))
+        for c, m in small],
+        torch.cuda.get_device_properties(0).shared_memory_per_block_optin)
+
     def variant(label, checked, timing=None, n=None):
         v = {"name": label, "checked": checked}
         if timing is not None:
@@ -3253,11 +3892,16 @@ def main() -> int:
     for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by), \
             variants in (
             ("fused_hop", "fused_hop", "fused_hop.py:242",
-             launches + me_launches + sum(re_launches.values()),
+             launches + me_launches + sum(re_launches.values())
+             + ws_launches,
              max(err, g_err, mh_err, flag_err,
                  *(e for _, e in r_err.values())), fused,
              [variant("mel, gruunet2-stream16k and two runs/ widths",
                       "phases 2, 4, 5, 13, 15, 16"),
+              variant(f"WebSocket daemon, {S16K}", "phase 39: "
+                      f"{WS_CLIENTS} clients, int16 replies vs the plain "
+                      f"hop; reply p50 {ws_lat[0]:.3f} ms, p99 "
+                      f"{ws_lat[1]:.3f} ms", n=ws_launches),
               variant(f"raw + delta, {MOMO_SPEC}", momo_checked,
                       momo_t["hop"], me_launches),
               variant(f"raw + delta, {MOMO_SPEC}, tuned gate", momo_checked,
@@ -3278,10 +3922,15 @@ def main() -> int:
                       r_t[(FLAGSHIP, "float32", "K-hop")])]
              + reduced("bfloat16", "K-hop", None)
              + reduced("int8", "K-hop", None)),
-            ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331", w_launches,
-             w_err, webrtc,
+            ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331",
+             w_launches + wws_launches, w_err, webrtc,
              [variant("mel, gruunet2-dari_tult, warm GL", "phases 3, 6, 7; "
-                      "not on a MOMO path (JAX refuses delta and raw)")]),
+                      "not on a MOMO path (JAX refuses delta and raw)"),
+              variant("WebSocket daemon, gruunet2-dari_tult, warm GL",
+                      f"phase 40: {WS_CLIENTS} clients, replies vs the "
+                      f"kernel replayed per stream; reply p50 "
+                      f"{wws_lat[0]:.3f} ms, p99 {wws_lat[1]:.3f} ms",
+                      n=wws_launches)]),
             ("webrtc_hop_multi", "webrtc_hop", "webrtc_hop.py:344",
              wm_launches, wm_err, w_multi[WEBRTC_GL[0]],
              [variant("mel, gruunet2-dari_tult, GL-8 and GL-32",

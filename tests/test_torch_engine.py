@@ -177,14 +177,17 @@ def test_engine_refuses_unported_modes():
 
 
 def test_daemon_refuses_a_profile_it_cannot_serve():
-    """A gated fused-webrtc: the JAX engine downgrades it to mode
-    'webrtc', which serves the gate; the port serves only the mode asked,
-    so it refuses it, naming mode 'webrtc', rather than serve it ungated
-    or in another mode."""
-    with pytest.raises(ValueError, match="engine mode 'webrtc' serves"):
-        EngineDaemon("gruunet2-dari_tult", max_streams=2,
-                     address=("127.0.0.1", 0), mode="fused-webrtc",
-                     device="cpu", snr_gate_db=1.0)
+    """A bounded-lookahead checkpoint in mode fused: the JAX engine
+    downgrades it to mode fast, whose delay rings the port has not ported
+    (ROADMAP A10), so the port refuses it, naming A10, rather than serve
+    it without its delay. (A gated fused-webrtc, which this test refused
+    until the port served JAX's downgrades, is now served in mode webrtc:
+    tests/test_torch_serve.py.)"""
+    with pytest.raises(NotImplementedError, match="A10"):
+        EngineDaemon(os.path.join(REPO, "runs",
+                                  "gruunet2mel128w64-mrstft-la4-50k.npz"),
+                     max_streams=2, address=("127.0.0.1", 0), mode="fused",
+                     device="cpu")
 
 
 UNIT_GAIN = os.path.join(REPO, "runs", "gruunet2s16kw40-mrstft-idp-50k.npz")
@@ -413,10 +416,27 @@ def test_dtype_defaults_to_the_checkpoints_own():
 
 
 def test_dtype_int8_is_refused_outside_fast_and_fused():
-    """The JAX engine warns and serves mode fast (ROADMAP A7); the port
-    raises, naming the two modes that serve int8."""
-    with pytest.raises(ValueError, match="'fast'.*'fused'"):
-        _daemon("--mode", "webrtc", "--dtype", "int8")
+    """int8 in mode webrtc: the webrtc modes have no int8 variant, so the
+    engine warns and serves mode fast on the quantized plan, as the JAX
+    engine does (engine.py:296-308); a few ticks agree with the quantized
+    fast step run alone."""
+    from audio_denoising_torch.runtime.plan import PlanModel
+    with pytest.warns(UserWarning, match="'webrtc' downgraded to 'fast'"):
+        daemon = _daemon("--mode", "webrtc", "--dtype", "int8")
+    eng = daemon.engine
+    assert eng.mode == "fast" and eng.plan is None
+    pm = PlanModel(daemon.model, device="cpu", quantized=True)
+    step, state = make_fast_step(daemon.cfg, pm, "cpu"), \
+        fast_init_state(daemon.cfg, pm, 2)
+    eng.add_stream("a")
+    eng.add_stream("b")
+    rng = np.random.default_rng(14)
+    for _ in range(3):
+        chunks = (0.1 * rng.standard_normal((2, eng.hop))).astype(np.float32)
+        got = eng.process({"a": chunks[0], "b": chunks[1]})
+        state, want = step(state, torch.from_numpy(chunks))
+        np.testing.assert_allclose(np.stack([got["a"], got["b"]]),
+                                   want.numpy(), atol=1e-6)
 
 
 def test_daemon_serves_int8_over_the_wire():

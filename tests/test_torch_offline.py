@@ -31,7 +31,7 @@ from audio_denoising_tpu.pipeline import (
     offline_denoise as jax_offline_denoise)
 
 from audio_denoising_torch.apps import offline
-from audio_denoising_torch.compat import save_params_npz
+from audio_denoising_torch.compat import load_params_npz, save_params_npz
 from audio_denoising_torch.config import (
     Config, DSPConfig, ModelConfig, ServingConfig, with_snr_gate)
 from audio_denoising_torch.hub import load_pretrained
@@ -366,10 +366,14 @@ def test_denoise_file_gated_matches_jax(tmp_path):
     assert np.abs(got - want).max() <= 1 / 32768 + 1e-9
 
 
+# kw5 keeps its name from when a .pth spec was refused (A7): the port
+# serves .pth checkpoints now (test_denoise_file_serves_a_reference_pth),
+# and the case checks what the hub still refuses
 @pytest.mark.parametrize("kw,item", [
     ({"streamed": True}, "A8"), ({"unet_seg_hops": 4}, "A8"),
     ({"unet_ctx": 256}, "A8"), ({"unet_xfade": 64}, "A8"),
-    ({"unet_ctx_left": 128}, "A8"), ({"spec": "model.pth"}, "A7")])
+    ({"unet_ctx_left": 128}, "A8"),
+    pytest.param({"spec": "model.onnx"}, "A14", id="kw5-A7")])
 def test_denoise_file_refuses_what_is_not_ported(tmp_path, kw, item):
     out = tmp_path / "out.wav"
     kw = dict(kw)
@@ -425,9 +429,11 @@ def test_cli_device_cpu_matches_denoise_file(tmp_path, rng):
     np.testing.assert_array_equal(got, read_wav(ref)[0])
 
 
-@pytest.mark.parametrize("flags,item", [(["--streamed"], "A8"),
-                                        (["--unet-ctx", "64"], "A8"),
-                                        (["--model", "x.pth"], "A7")])
+# flags2 keeps its name from when a .pth model was refused (A7); the
+# case now checks the .onnx model the port still refuses
+@pytest.mark.parametrize("flags,item", [
+    (["--streamed"], "A8"), (["--unet-ctx", "64"], "A8"),
+    pytest.param(["--model", "x.onnx"], "A14", id="flags2-A7")])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     out = tmp_path / "out.wav"
     proc = _cli(str(tmp_path / "in.wav"), str(out), "--device", "cpu",
@@ -435,3 +441,42 @@ def test_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     assert proc.returncode == 2
     assert item in proc.stderr
     assert not out.exists()
+
+
+def _reference_pth(tmp_path):
+    """gruunet2-good's weights as a reference checkpoint.pth."""
+    from collections import OrderedDict
+    params, meta = load_params_npz(os.path.join(REPO, "checkpoints",
+                                                "gruunet2-good.npz"))
+    path = str(tmp_path / "checkpoint.pth")
+    torch.save({"arch": meta["arch"], "config": meta["config"],
+                "model_state_dict": OrderedDict(
+                    (k, torch.from_numpy(v.copy()))
+                    for k, v in params.items())}, path)
+    return path
+
+
+def test_denoise_file_serves_a_reference_pth(tmp_path):
+    """A .pth spec is served as the JAX command serves it: the hub's
+    assumed socket-path DSP at 48 kHz, the same WAV within one LSB."""
+    pth = _reference_pth(tmp_path)
+    src = str(tmp_path / "in.wav")
+    write_wav(src, (0.2 * np.random.default_rng(5).standard_normal(
+        (1, 12000))).astype(np.float32), 48000)
+    a, b = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
+    offline.denoise_file(pth, src, a, device="cpu")
+    jax_offline.denoise_file(pth, src, b)
+    got, want = read_wav(a)[0], jax_read_wav(b)[0]
+    assert got.shape == want.shape == (1, 12000)
+    assert np.abs(got - want).max() <= 1 / 32768 + 1e-9
+
+
+def test_cli_denoise_takes_a_reference_pth(tmp_path):
+    pth = _reference_pth(tmp_path)
+    src, out = str(tmp_path / "in.wav"), str(tmp_path / "out.wav")
+    write_wav(src, np.zeros((1, 4800), np.float32), 48000)
+    proc = _cli(src, out, "--device", "cpu", "--model", pth)
+    assert proc.returncode == 0, proc.stderr
+    assert "no DSP config embedded" in proc.stderr
+    got, sr = read_wav(out)
+    assert sr == 48000 and got.shape == (1, 4800)

@@ -2,6 +2,7 @@
 chip_smoke.py fails (with no result line) without a card or outside a
 checkout of the repo."""
 
+import json
 import os
 import re
 import shutil
@@ -36,6 +37,8 @@ def test_every_port_module_is_found():
     mods = _port_modules()
     assert "audio_denoising_torch.ops.kernels.fused_hop" in mods
     assert "audio_denoising_torch.apps.engine_serve" in mods
+    for mod in ("apps.ws_serve", "apps.serve", "compat.torch_loader"):
+        assert f"audio_denoising_torch.{mod}" in mods
     assert len(mods) >= 20
 
 
@@ -86,6 +89,16 @@ def test_offline_slice_modules_are_found(module):
 def test_quant_slice_modules_are_found(module):
     """The eleventh slice's modules (the W8A8 plan, the reduced-precision
     cell math) fall under the import check below."""
+    assert module in _port_modules()
+
+
+@pytest.mark.parametrize("module", [
+    "audio_denoising_torch.apps.ws_serve", "audio_denoising_torch.apps.serve",
+    "audio_denoising_torch.compat.torch_loader",
+    "audio_denoising_torch.hub", "audio_denoising_torch.cli"])
+def test_serving_slice_modules_are_found(module):
+    """The twelfth slice's modules (the daemons, the .pth reader, the hub
+    and the CLI) fall under the import check below."""
     assert module in _port_modules()
 
 
@@ -206,8 +219,33 @@ def test_cli_lists_only_ported_commands():
                            "--help"], cwd=REPO, env=_clean_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0
-    assert "engine" in proc.stdout and "profile" in proc.stdout
-    assert "denoise" in proc.stdout
+    listed = proc.stdout.split("commands: ", 1)[1].strip().split(", ")
+    assert sorted(listed) == ["convert", "denoise", "engine", "info",
+                              "models", "profile", "serve", "ws"]
+
+
+@pytest.mark.parametrize("command", ["ws", "serve"])
+def test_cli_daemons_without_a_card_fail_before_binding(command):
+    """Without a card and without --device cpu, ws and serve exit 1 with
+    the reason, before they load a model or bind a socket."""
+    proc = subprocess.run([sys.executable, "-m", "audio_denoising_torch",
+                           command, "--port", "0"], cwd=REPO,
+                          env=_clean_env(CUDA_VISIBLE_DEVICES=""),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "no CUDA device" in proc.stderr
+    assert "listening" not in proc.stdout and "ws://" not in proc.stdout
+
+
+def test_cli_tools_touch_no_device():
+    """info, models and convert run without a card, as in JAX."""
+    for argv in (["models"], ["info", "checkpoints/gruunet2-good.npz"]):
+        proc = subprocess.run([sys.executable, "-m", "audio_denoising_torch",
+                               *argv], cwd=REPO,
+                              env=_clean_env(CUDA_VISIBLE_DEVICES=""),
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        json.loads(proc.stdout)
 
 
 def test_cli_denoise_without_a_card_writes_nothing(tmp_path):
@@ -231,9 +269,15 @@ def test_cli_denoise_without_a_card_writes_nothing(tmp_path):
 
 @pytest.mark.parametrize("argv", [["profile", "--mode", "unet"],
                                   ["engine", "--mode", "unet"],
-                                  ["no-such-command"]])
+                                  ["no-such-command"],
+                                  ["ws", "--mode", "unet"],
+                                  ["ws", "--unet-seg-hops", "4"],
+                                  ["convert", "gruunet2-good", "x.onnx"]])
 def test_cli_refuses_what_is_not_ported(argv):
     proc = subprocess.run([sys.executable, "-m", "audio_denoising_torch",
                            *argv], cwd=REPO, env=_clean_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2
+    item = {"ws": "A8", "convert": "A14"}.get(argv[0])
+    if item:
+        assert item in proc.stderr

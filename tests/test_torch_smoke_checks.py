@@ -321,3 +321,42 @@ def test_webrtc_bound_counts_k_hops(smoke):
         assert multi[0] == pytest.approx(K * one[0])
         assert multi[1] - one[1] == B * (K - 1) * 2 * hop * 4
         assert multi[0] / smoke.FP32_FLOPS > multi[1] / smoke.HBM_BYTES_S
+
+
+@pytest.mark.parametrize("n,hop", [(320 * 50, 320), (768 * 25, 768),
+                                   (97, 320)])
+def test_ws_frames_are_odd_and_cover_the_stream(smoke, n, hop):
+    """Phases 39-40 send each client's PCM in frames about the hop (the
+    browser page's size) whose sizes sum to the stream and, but for the
+    last, are odd, so the daemon's re-chunker carries residue across
+    hops."""
+    sizes = smoke.ws_frames(n, hop)
+    assert sum(sizes) == n
+    assert all(s % 2 == 1 for s in sizes[:-1])
+    assert all(abs(s - hop) < hop // 4 for s in sizes[:-1])
+
+
+def test_hop_latencies_start_at_the_frame_that_completes_a_hop(smoke):
+    """A hop's latency runs from sending the frame that brought its last
+    sample to the hop's reply: frames of 5, 2, 5 samples at hop 4 end
+    hop 0 in frame 0 (5 >= 4), hop 1 in frame 2 (12 >= 8), hop 2 there
+    too."""
+    lat = smoke.hop_latencies([5, 2, 5], [1.0, 2.0, 3.0],
+                              [1.5, 3.25, 3.5], 4)
+    np.testing.assert_allclose(lat, [0.5, 0.25, 0.5])
+
+
+def test_server_replies_repeat_the_first_channel(smoke):
+    """What phase 41 holds the socket daemon to: the first channel
+    through the server step, repeated over the channels, shaped as each
+    message."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.pipeline import make_server_step
+    cfg, model = load_pretrained("gruunet2-good")
+    msgs = smoke.socket_messages(5)
+    out, hx = smoke.server_replies(torch, make_server_step(cfg, model, "cpu"),
+                                   model, msgs)
+    for o, m in zip(out, msgs):
+        assert o.shape == m.shape
+        np.testing.assert_array_equal(o[:, 0], o[:, 1])
+    assert tuple(hx.shape) == tuple(model.init_state(1).shape)

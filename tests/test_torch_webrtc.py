@@ -13,6 +13,7 @@ import os
 import subprocess
 import sys
 import threading
+import warnings
 from multiprocessing.connection import Client
 
 import numpy as np
@@ -736,20 +737,29 @@ def test_add_stream_resets_the_warm_seed(rng):
     assert torch.equal(engine.state.hx[slot], torch.zeros(20))
 
 
-@pytest.mark.parametrize("case,mode,err", [
-    ("gate", "fused-webrtc", ValueError),
-    ("gate", "webrtc", None),
-    ("int8", "fused-webrtc", ValueError),
-    ("int8", "webrtc", ValueError),
-    ("lookahead", "fused-webrtc", ValueError),
-    ("lookahead", "webrtc", ValueError),
-    ("cold", "fused-webrtc", ValueError),
-    ("bf16", "fused-webrtc", NotImplementedError)])
-def test_engine_raises_where_jax_downgrades(case, mode, err):
-    """The JAX engine downgrades these (engine.py:257-341) or its kernel
-    refuses them; the port raises and never serves another mode. A gated
-    fused-webrtc, which JAX downgrades to mode webrtc, is refused with a
-    message naming that mode; mode webrtc itself serves the gate."""
+# the ids are the cases' names from before the port served JAX's
+# downgrades, when every case but gate-webrtc raised
+@pytest.mark.parametrize("case,mode,err,served", [
+    pytest.param("gate", "fused-webrtc", None, "webrtc",
+                 id="gate-fused-webrtc-ValueError"),
+    pytest.param("gate", "webrtc", None, "webrtc", id="gate-webrtc-None"),
+    pytest.param("int8", "fused-webrtc", None, "fast",
+                 id="int8-fused-webrtc-ValueError"),
+    pytest.param("int8", "webrtc", None, "fast", id="int8-webrtc-ValueError"),
+    pytest.param("lookahead", "fused-webrtc", ValueError, None,
+                 id="lookahead-fused-webrtc-ValueError"),
+    pytest.param("lookahead", "webrtc", ValueError, None,
+                 id="lookahead-webrtc-ValueError"),
+    pytest.param("cold", "fused-webrtc", ValueError, None,
+                 id="cold-fused-webrtc-ValueError"),
+    pytest.param("bf16", "fused-webrtc", NotImplementedError, None,
+                 id="bf16-fused-webrtc-NotImplementedError")])
+def test_engine_raises_where_jax_downgrades(case, mode, err, served):
+    """Where the JAX engine downgrades (engine.py:278-308), the port now
+    warns and serves the same mode: a gated fused-webrtc in mode webrtc,
+    whose step carries the gate; int8 in mode fast on the quantized plan.
+    Where neither serves the config, or the port's kernel refuses it (the
+    bf16 GL mode, B5), it raises and never serves another mode."""
     _, (cfg, model, _) = _small()
     srv, dsp, mc = cfg.serving, cfg.dsp, cfg.model
     if case == "gate":
@@ -762,14 +772,22 @@ def test_engine_raises_where_jax_downgrades(case, mode, err):
     else:
         dsp = dataclasses.replace(dsp, griffin_lim_warm_start=False)
     cfg = dataclasses.replace(cfg, serving=srv, dsp=dsp, model=mc)
-    if err is None:
+    if err is not None:
+        with pytest.raises(err):
+            StreamEngine(cfg, model, mode=mode, max_streams=2, device="cpu")
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
         engine = StreamEngine(cfg, model, mode=mode, max_streams=2,
                               device="cpu")
-        assert engine.mode == mode and engine.state.em_out is not None
-        return
-    with pytest.raises(err, match="mode 'webrtc'" if case == "gate"
-                       else None):
-        StreamEngine(cfg, model, mode=mode, max_streams=2, device="cpu")
+    assert engine.mode == served
+    said = [str(w.message) for w in caught]
+    if served == mode:
+        assert not said
+    else:
+        assert any(f"{mode!r} downgraded to {served!r}" in m for m in said)
+    if case == "gate":
+        assert engine.state.em_out is not None
 
 
 def test_webrtc_engines_need_a_card_unless_cpu_is_asked(monkeypatch):
