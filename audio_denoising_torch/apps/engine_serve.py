@@ -189,9 +189,10 @@ class EngineDaemon:
                 listener._listener._socket.settimeout(POLL_S)
                 self.address = listener.address
                 self.listening.set()
-                print(f"engine listening on {self.address} (max "
-                      f"{self.engine.n} streams, hop {self.engine.hop}, "
-                      f"{self.engine.device})", flush=True)
+                print(f"engine listening on {self.address} (mode "
+                      f"{self.engine.mode}, max {self.engine.n} streams, "
+                      f"hop {self.engine.hop}, {self.engine.device})",
+                      flush=True)
                 while not self._stop.is_set():
                     try:
                         conn = listener.accept()

@@ -53,7 +53,9 @@
 // Design: one block of 512 threads owns a tile of kTile = 2 streams and
 // walks the chain's stages in order, with every activation and the tile's
 // whole state (ring, OLA buffer, hx, the gate's planes) in dynamic shared
-// memory. Both entry points load the state once, run `hop_body` (kept out
+// memory, except in the int8 mode the gate's two per-bin floor planes,
+// which stay in the state tensors in global memory (see make_layout).
+// Both entry points load the state once, run `hop_body` (kept out
 // of line, so the two run the same instructions and K hops in one call
 // equal K single hops bit for bit), and write the state back once: the
 // single-hop kernel runs one hop, the multi-hop kernel K, reading chunk k
@@ -178,6 +180,18 @@ constexpr float kDbPerNeper = 4.342944819032518f;  // 10 / ln 10
 // Offsets (in floats) of the per-block shared-memory buffers: the hop's
 // activations, the tile's state, then the cell's (plan_cell.cuh), each
 // kTile rows of a leading dimension rounded up to 4 floats.
+//
+// The int8 mode keeps the gate's two per-bin floor planes (nf_smooth,
+// nf_floor) out of shared memory (floor_in_global): its plan's staging
+// buffer brings the quality flagship (n_fft 1024, 128 mels, hidden 64) to
+// 231,600 B a block, and the planes' 2 x kTile x 516 floats would take it
+// to 239,856, over an H100's 232,448. Each bin's planes are read and
+// written once a hop, by the one thread that steps that bin's tracker
+// (gate_alphas), so in global memory they cost 8 KB of L2 traffic a block
+// per hop against the hop's megabytes of weights, and need no barrier:
+// hop 0 reads the input state and writes the output state, later hops of
+// the multi-hop kernel read back what the same thread wrote. The fp32 and
+// bf16 modes, which fit, keep them in shared memory.
 struct Layout {
   int ld_t, ld_f, ld_m;
   int frame, re, im, mag, lin;
@@ -185,6 +199,10 @@ struct Layout {
   CellLayout cell;
   int total;
 };
+
+__host__ __device__ inline bool floor_in_global(const AdtFusedHopArgs& a) {
+  return a.compute == kInt8;
+}
 
 __host__ __device__ inline void make_layout(const AdtFusedHopArgs& a,
                                             Layout* l) {
@@ -200,8 +218,9 @@ __host__ __device__ inline void make_layout(const AdtFusedHopArgs& a,
   l->ring = take(&off, kTile, l->ld_t);
   l->ola = take(&off, kTile, l->ld_t);
   l->prev = a.plan.delta ? take(&off, kTile, l->ld_m) : 0;
-  l->nfs = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
-  l->nff = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
+  const bool floor_smem = a.gate.floor && !floor_in_global(a);
+  l->nfs = floor_smem ? take(&off, kTile, l->ld_f) : 0;
+  l->nff = floor_smem ? take(&off, kTile, l->ld_f) : 0;
   l->sc = take(&off, kTile, kScalars);
   l->red = take(&off, kTile, kMeans * kLanes);
   make_cell_layout(a.plan, &l->cell, &off, a.compute == kInt8);
@@ -247,8 +266,10 @@ __device__ inline void move_state(const AdtFusedHopArgs& a, const Layout& l,
   move(st.hx, n, l.cell.hx, l.cell.ld_n);
   if (a.plan.delta) move(st.prev, a.n_mels, l.prev, l.ld_m);
   if (a.gate.floor) {
-    move(st.nf_smooth, F, l.nfs, l.ld_f);
-    move(st.nf_floor, F, l.nff, l.ld_f);
+    if (!floor_in_global(a)) {
+      move(st.nf_smooth, F, l.nfs, l.ld_f);
+      move(st.nf_floor, F, l.nff, l.ld_f);
+    }
     move(st.nf_total, 1, l.sc + kTot, kScalars);
   }
   if (a.gate.removed) {
@@ -258,10 +279,13 @@ __device__ inline void move_state(const AdtFusedHopArgs& a, const Layout& l,
 }
 
 // The SNR gate's estimators for the tile (noisefloor.removed_step,
-// floor_step, their SNRs and gate_alpha); leaves each stream's denoise
-// weight alpha in the scalars. The bin means run over exactly n_bins bins.
+// floor_step, their SNRs and gate_alpha) at hop k of the call; leaves each
+// stream's denoise weight alpha in the scalars. The bin means run over
+// exactly n_bins bins. kFloorGlobal: the floor planes are in the state
+// tensors (the int8 mode, make_layout), not in shared memory.
+template <bool kFloorGlobal>
 __device__ void gate_alphas(const AdtFusedHopArgs& a, const Layout& l,
-                            float* smem) {
+                            float* smem, int k, int b0, int rows) {
   const AdtGate& g = a.gate;
   const int F = a.n_bins;
   // one thread per (stream, mean, lane): partial sums over bins lane + 32j;
@@ -280,7 +304,7 @@ __device__ void gate_alphas(const AdtFusedHopArgs& a, const Layout& l,
       }
     } else if (q == 2 && g.floor) {
       for (int f = lane; f < F; f += kLanes) sum += mag[f] * mag[f];
-    } else if (q == 3 && g.floor) {
+    } else if (q == 3 && g.floor && !kFloorGlobal) {
       float* nfs = smem + l.nfs + s * l.ld_f;
       float* nff = smem + l.nff + s * l.ld_f;
       for (int f = lane; f < F; f += kLanes) {
@@ -288,6 +312,22 @@ __device__ void gate_alphas(const AdtFusedHopArgs& a, const Layout& l,
             g.beta * nfs[f] + (1.f - g.beta) * (mag[f] * mag[f]);
         const float fl =
             nff[f] <= 0.f ? smooth : fminf(smooth, nff[f] * g.rise);
+        nfs[f] = smooth;
+        nff[f] = fl;
+        sum += fl;
+      }
+    } else if (q == 3 && g.floor && s < rows) {  // kFloorGlobal
+      const AdtHopState& src = k == 0 ? a.in : a.out_state;
+      const size_t row = (size_t)(b0 + s) * F;
+      const float* nfs_in = src.nf_smooth + row;
+      const float* nff_in = src.nf_floor + row;
+      float* nfs = a.out_state.nf_smooth + row;
+      float* nff = a.out_state.nf_floor + row;
+      for (int f = lane; f < F; f += kLanes) {
+        const float smooth =
+            g.beta * nfs_in[f] + (1.f - g.beta) * (mag[f] * mag[f]);
+        const float fl =
+            nff_in[f] <= 0.f ? smooth : fminf(smooth, nff_in[f] * g.rise);
         nfs[f] = smooth;
         nff[f] = fl;
         sum += fl;
@@ -450,7 +490,7 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
     __syncthreads();
   }
 
-  if (gated) gate_alphas(a, l, smem);
+  if (gated) gate_alphas<kCompute == kInt8>(a, l, smem, k, b0, rows);
 
   // the gate's blend toward the input magnitude, then phase reuse as
   // complex scaling; at mag ~ 0 the bin becomes lin + 0j

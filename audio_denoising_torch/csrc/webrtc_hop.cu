@@ -3,11 +3,23 @@
 // resident on the card.
 //
 // Replaces two Pallas kernels of audio_denoising_tpu/ops/pallas/
-// webrtc_hop.py::make_webrtc_hop in their fp32 form: the single-hop
-// `kernel` (webrtc_hop.py:331) and the resident multi-hop `kernel_multi`
-// (webrtc_hop.py:344). The plain PyTorch version of the same function is
-// WebRTCHop.reference (one hop) and WebRTCHop.plain (a call) in
+// webrtc_hop.py::make_webrtc_hop in their fp32 form and their bf16
+// Griffin-Lim mode: the single-hop `kernel` (webrtc_hop.py:331) and the
+// resident multi-hop `kernel_multi` (webrtc_hop.py:344). The plain
+// PyTorch version of the same function is WebRTCHop.reference (one hop)
+// and WebRTCHop.plain (a call) in
 // audio_denoising_torch/ops/kernels/webrtc_hop.py.
+//
+// The bf16 GL mode (AdtWebRTCHopArgs.gl_bf16; JAX webrtc_hop.py:144,
+// :305-318) rounds each Griffin-Lim round's transform inputs to bf16,
+// where JAX's single bf16 matmul pass rounds its activations: the
+// inverse STFT's bins mag * phase times the irfft's bin weight (2 / n_fft,
+// 1 / n_fft at DC and Nyquist), then unweighted exactly, and the time
+// signal the forward STFT reads. The FFTs keep fp32 twiddles and sums (JAX
+// also rounds its window-folded DFT matrices); the analysis, the cell and
+// the final synthesis are the fp32 mode's. The Griffin-Lim stage reads the
+// flag once and runs the loop of its mode (`gl_rounds<kM, kBf16>`), so the
+// fp32 mode's loop is the code it was before the flag existed.
 //
 // Per stream and hop (hop = n_fft / 2, so one analysis window holds
 // exactly three centered STFT frames): shift the ring; peak-normalize
@@ -128,6 +140,7 @@ struct AdtWebRTCHopArgs {
   float momentum;       // m / (1 + m) of the configured momentum m
   float output_gain;
   float state_decay;
+  int gl_bf16;          // the Griffin-Lim rounds' transform inputs in bf16
 };
 
 namespace {
@@ -524,12 +537,20 @@ __device__ __forceinline__ float2 real_bin(const float2* Z, int m, int k,
   return cadd(e, cmul(__ldg(tw + k), o));
 }
 
+// A float rounded to bf16's 8 significant bits (to nearest even), kept as
+// a float.
+__device__ __forceinline__ float round_bf16(float v) {
+  return act(v, static_cast<const bf16_t*>(nullptr));
+}
+
 // The centered inverse STFT of the three frames mag * (are + i aim) into
 // `time`: irfft of each frame (imaginary parts of DC and Nyquist
 // dropped; the inverse FFT's first pass builds its input from the three
 // planes), window, overlap-add over the trim region [hop, hop + n_fft),
-// divide by the envelope.
-template <int kM>
+// divide by the envelope. kBf16: each bin times its irfft weight rounded
+// to bf16 and unweighted, and the time signal rounded to bf16 (the bf16
+// GL mode's rounds).
+template <int kM, bool kBf16>
 __device__ __forceinline__ void istft3(const AdtWebRTCHopArgs& a,
                                        const FftPlan& p, const SpecLayout& l,
                                        float* smem, const Lanes& g) {
@@ -539,6 +560,9 @@ __device__ __forceinline__ void istft3(const AdtWebRTCHopArgs& a,
   const int m = half_length<kM>(p), F = m + 1, n_fft = 2 * m, hop = m;
   const float *win = a.win, *env = a.env;
   const float2* tw = a.twiddle;
+  // the irfft's bin weights (as JAX's float32 row) and their exact inverses
+  const float w_mid = __fdiv_rn(2.f, (float)n_fft);
+  const float w_edge = __fdiv_rn(1.f, (float)n_fft);
   // point k of frame t of the packed input: the pre-twiddle that makes the
   // half-length inverse FFT an irfft, read by the first pass
   const auto spectrum = [=](int t, int k) {
@@ -546,6 +570,13 @@ __device__ __forceinline__ void istft3(const AdtWebRTCHopArgs& a,
     float2 xk = make_float2(mag[o + k] * are[o + k], mag[o + k] * aim[o + k]);
     float2 xc = make_float2(mag[o + m - k] * are[o + m - k],
                             -mag[o + m - k] * aim[o + m - k]);
+    if constexpr (kBf16) {  // bins k and m - k: DC and Nyquist, or inside
+      const float w = k == 0 ? w_edge : w_mid;
+      const float u = k == 0 ? (float)n_fft : (float)hop;
+      const auto r = [=](float v) { return round_bf16(v * w) * u; };
+      xk = make_float2(r(xk.x), r(xk.y));
+      xc = make_float2(r(xc.x), r(xc.y));
+    }
     if (k == 0) {
       xk.y = 0.f;
       xc.y = 0.f;
@@ -569,6 +600,7 @@ __device__ __forceinline__ void istft3(const AdtWebRTCHopArgs& a,
       v = fr[n_fft + j] * __ldg(win + j) +
           fr[2 * n_fft + j - hop] * __ldg(win + j - hop);
     x[j] = v * scale / __ldg(env + j);
+    if constexpr (kBf16) x[j] = round_bf16(x[j]);
   }
   group_sync(g);
 }
@@ -704,6 +736,41 @@ __device__ __noinline__ void cell_stage(const AdtWebRTCHopArgs& a, int base,
   group_sync(g);
 }
 
+// The Griffin-Lim rounds of stage 3 on the layout's phases (are, aim),
+// previous rebuilt spectrum (tre, tim) and target magnitudes: inverse
+// STFT, STFT, u = r - m tprev, a = u / (|u| + 1e-16). kBf16: the bf16 GL
+// mode's rounded transform inputs.
+template <int kM, bool kBf16>
+__device__ __forceinline__ void gl_rounds(const AdtWebRTCHopArgs& a,
+                                          const FftPlan& p,
+                                          const SpecLayout& l, float* smem,
+                                          const Lanes& g) {
+  const int m = half_length<kM>(p), F = m + 1;
+  const int nb = kFrames * F;
+  float* are = smem + l.are;
+  float* aim = smem + l.aim;
+  float* tre = smem + l.tre;
+  float* tim = smem + l.tim;
+  const float2* tw = a.twiddle;
+  const float momentum = a.momentum;
+  for (int it = 0; it < a.n_iter; ++it) {
+    istft3<kM, kBf16>(a, p, l, smem, g);
+    const float2* Z = stft3<kM>(a, p, l, smem, g);
+    for (int e = g.id; e < nb; e += g.n) {
+      const int t = e / F, k = e % F;
+      const float2 r = real_bin(Z + t * m, m, k, tw);
+      const float ur = r.x - momentum * tre[e];
+      const float ui = r.y - momentum * tim[e];
+      const float nrm = sqrtf(ur * ur + ui * ui) + 1e-16f;
+      are[e] = ur / nrm;
+      aim[e] = ui / nrm;
+      tre[e] = r.x;
+      tim[e] = r.y;
+    }
+    group_sync(g);
+  }
+}
+
 // Stage 3 for one stream, its layout at dynamic shared memory + base: the
 // target magnitudes from mel_mag, the warm seed from the carried phases
 // (ang_re, ang_im; they may be this layout's are and aim), Griffin-Lim,
@@ -764,25 +831,11 @@ __device__ __noinline__ void gl_stage(
   }
   group_sync(g);
 
-  const float2* tw = a.twiddle;
-  const float momentum = a.momentum;
-  for (int it = 0; it < a.n_iter; ++it) {
-    istft3<kM>(a, p, l, smem, g);
-    const float2* Z = stft3<kM>(a, p, l, smem, g);
-    for (int e = g.id; e < nb; e += g.n) {
-      const int t = e / F, k = e % F;
-      const float2 r = real_bin(Z + t * m, m, k, tw);
-      const float ur = r.x - momentum * tre[e];
-      const float ui = r.y - momentum * tim[e];
-      const float nrm = sqrtf(ur * ur + ui * ui) + 1e-16f;
-      are[e] = ur / nrm;
-      aim[e] = ui / nrm;
-      tre[e] = r.x;
-      tim[e] = r.y;
-    }
-    group_sync(g);
-  }
-  istft3<kM>(a, p, l, smem, g);
+  if (a.gl_bf16)
+    gl_rounds<kM, true>(a, p, l, smem, g);
+  else
+    gl_rounds<kM, false>(a, p, l, smem, g);
+  istft3<kM, false>(a, p, l, smem, g);
 
   // emit, then the shifted OLA buffer plus the frame, staged in place of
   // the frame

@@ -185,10 +185,12 @@ def fused_hop_smem_bytes(cfg: Config, plan,
     known before the library is built (the wrapper holds it equal to the
     library's ``adt_fused_hop_smem_bytes`` on the card). kTile rows of:
     the frame, the spectrum (re, im, mag, lin), ring and ola, a delta
-    plan's prev, the gate's two floor planes, the scalars and the gate's
-    reduction lanes; then the plan cell's layout (with the int8 plan's
-    staging buffers)."""
+    plan's prev, the gate's two floor planes (not at int8, which keeps
+    them in global memory), the scalars and the gate's reduction lanes;
+    then the plan cell's layout (with the int8 plan's staging
+    buffers)."""
     _, floor = gate_planes(cfg.serving)
+    floor = floor and compute_dtype != torch.int8
     M = _feat_width(cfg)
     ld_t, ld_f, ld_m = (round4(n) for n in (cfg.dsp.n_fft, cfg.dsp.n_stft,
                                             M))

@@ -30,11 +30,20 @@ passes (``fft_radices``; their twiddles ``twiddle_table`` and
 formulas in plain PyTorch for the tests, and ``fft_instance`` names the
 instantiation a bound hop runs (M = n_fft / 2 compiled in, or 0).
 
-This module ports the fp32 hop. The bf16 Griffin-Lim mode raises
-NotImplementedError (ROADMAP B5).
+``compute_dtype=torch.bfloat16`` is JAX's bf16 Griffin-Lim mode
+(webrtc_hop.py:123-124, :144, :305-318): inside the GL loop only, each
+transform takes its input rounded to bf16, where JAX's single bf16 pass
+rounds it: the inverse STFT's bins ``lin * angle`` times the irfft bin
+weight ``wN`` (2 / n_fft, 1 / n_fft at DC and Nyquist; JAX folds it into
+the activation), the forward STFT's time signal. The port keeps its FFTs
+with fp32 twiddles and fp32 sums, where JAX also rounds its window-folded
+DFT matrices to bf16; the analysis, the plan cell and the final synthesis
+stay fp32 in both. It buys no speed on the card: the rounding is extra
+work on the same FFTs.
 """
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -47,7 +56,7 @@ from audio_denoising_torch.ops.kernels.common import (
     KTILE, MAX_LEVELS, PlanArgs, cell_layout_floats, kernel_operand,
     pack_plan_weights, plan_args, plan_cell_math, plan_shape, round4)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
-from audio_denoising_torch.ops.stft import stft
+from audio_denoising_torch.ops.stft import istft, stft
 from audio_denoising_torch.ops.windows import hann_window
 
 FRAMES = 3   # centered STFT frames of one window at hop = n_fft / 2
@@ -216,7 +225,8 @@ class _Args(ctypes.Structure):
         + [(f, ctypes.c_int) for f in (
             "batch", "n_fft", "hop", "n_bins", "n_mels", "n_iter", "hops")]
         + [(f, ctypes.c_float) for f in (
-            "momentum", "output_gain", "state_decay")])
+            "momentum", "output_gain", "state_decay")]
+        + [("gl_bf16", ctypes.c_int)])
 
 
 def _spec_floats(n_fft: int, F: int, gl: bool) -> Tuple[int, int]:
@@ -283,10 +293,10 @@ def _check_supported(cfg: Config, plan, hops_per_call: int,
         raise ValueError(f"the kernel takes at most {MAX_LEVELS} levels")
     if hops_per_call < 1:
         raise ValueError(f"hops_per_call must be >= 1, got {hops_per_call}")
-    if compute_dtype != torch.float32:
+    if compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"the port's webrtc hop does not implement compute dtype "
-            f"{compute_dtype} (the bf16 GL mode, ROADMAP B5) yet")
+            f"the webrtc hop computes in float32 or with its Griffin-Lim "
+            f"loop in bfloat16, not {compute_dtype}")
 
 
 class WebRTCHop:
@@ -294,10 +304,12 @@ class WebRTCHop:
     ``device``; see the module docstring."""
 
     def __init__(self, cfg: Config, plan, device: torch.device,
-                 hops_per_call: int = 1):
+                 hops_per_call: int = 1, compute_dtype=torch.float32):
         dsp, srv = cfg.dsp, cfg.serving
         self.device = device
         self.hops_per_call = hops_per_call
+        self.compute_dtype = compute_dtype
+        self.gl_bf16 = compute_dtype == torch.bfloat16
         self.n_fft, self.hop = dsp.n_fft, dsp.hop_length
         self.F, self.M = dsp.n_stft, dsp.n_mels
         self.n = plan.hidden * plan.compressed
@@ -319,6 +331,12 @@ class WebRTCHop:
         # one-hop phase advance of the newest frame (pipeline.py:164-175)
         rot = np.exp(2j * np.pi * np.arange(self.F) * self.hop / self.n_fft)
         self.rot = torch.complex(f32(rot.real), f32(rot.imag))
+        # the irfft's bin weights, as JAX's float32 wN row, and the exact
+        # factors that undo them after the bf16 rounding
+        w = np.full(self.F, 2.0 / self.n_fft)
+        w[0] = w[-1] = 1.0 / self.n_fft
+        self.bin_weight = f32(w)[:, None]                     # (F, 1)
+        self.bin_unweight = f32(1.0 / w)[:, None]
         plan = plan.to(device=device, dtype=torch.float32)
         weights, self.skip_flags = pack_plan_weights(plan)
         self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]
@@ -396,10 +414,11 @@ class WebRTCHop:
         # warm seed: shift one frame, advance the newest by one hop
         a = torch.complex(state.ang_re, state.ang_im).reshape(b, FRAMES, F)
         seed = torch.cat([a[:, 1:], (a[:, -1] * self.rot)[:, None]], dim=1)
-        frame, angles = griffin_lim(
-            lin.transpose(1, 2), n_fft, hop, window=self.win,
-            n_iter=self.n_iter, momentum=self.momentum,
-            init_angles=seed.transpose(1, 2), return_angles=True)
+        gl = self._griffin_lim_bf16 if self.gl_bf16 else functools.partial(
+            griffin_lim, n_fft=n_fft, hop_length=hop, window=self.win,
+            n_iter=self.n_iter, momentum=self.momentum, return_angles=True)
+        frame, angles = gl(lin.transpose(1, 2),
+                           init_angles=seed.transpose(1, 2))
         angles = angles.transpose(1, 2).reshape(b, FRAMES * F)
 
         out = state.ola[:, :hop]
@@ -409,6 +428,33 @@ class WebRTCHop:
         return WebRTCHopState(ring, ola, hx * self.state_decay,
                               angles.real.contiguous(),
                               angles.imag.contiguous()), out
+
+    def _griffin_lim_bf16(self, mag: torch.Tensor,
+                          init_angles: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``griffin_lim`` (warm, ``return_angles``) in the bf16 GL mode:
+        the loop's inverse STFT takes each bin's ``mag * angle`` times its
+        irfft weight rounded to bf16 (then unweighted, exactly), its
+        forward STFT the time signal rounded to bf16; the final synthesis
+        is fp32. ``mag`` (B, F, 3), ``init_angles`` complex (B, F, 3)."""
+        n_fft, hop = self.n_fft, self.hop
+        mom = self.momentum / (1 + self.momentum)
+        bf16 = lambda x: x.to(torch.bfloat16).to(x.dtype)
+
+        def rounded(angles):
+            re, im = (bf16(mag * part * self.bin_weight) * self.bin_unweight
+                      for part in (angles.real, angles.imag))
+            return torch.complex(re, im)
+
+        angles = init_angles
+        tprev = torch.zeros_like(angles)
+        for _ in range(self.n_iter):
+            inverse = istft(rounded(angles), n_fft, hop, window=self.win)
+            rebuilt = stft(bf16(inverse), n_fft, hop, window=self.win)
+            upd = rebuilt - mom * tprev
+            angles = upd / (upd.abs() + 1e-16)
+            tprev = rebuilt
+        return istft(mag * angles, n_fft, hop, window=self.win), angles
 
     def plain(self, state: WebRTCHopState, chunks: torch.Tensor
               ) -> Tuple[WebRTCHopState, torch.Tensor]:
@@ -481,6 +527,7 @@ class WebRTCHop:
             self.M
         a.n_iter = self.n_iter
         a.hops = self.hops_per_call
+        a.gl_bf16 = int(self.gl_bf16)
         a.momentum = self.momentum / (1.0 + self.momentum)
         a.output_gain, a.state_decay = self.output_gain, self.state_decay
         return a
@@ -547,4 +594,5 @@ def make_webrtc_hop(cfg: Config, plan,
     """The WebRTC hop (or ``hops_per_call`` hops per call) on ``device``
     (the card unless ``"cpu"``); see the module docstring."""
     _check_supported(cfg, plan, hops_per_call, compute_dtype)
-    return WebRTCHop(cfg, plan, resolve_device(device), hops_per_call)
+    return WebRTCHop(cfg, plan, resolve_device(device), hops_per_call,
+                     compute_dtype)

@@ -20,10 +20,13 @@ received a chunk. Per-stream state lives at a slot index of batched
 device tensors; slots are admitted and evicted by index, and inactive
 slots compute on zeros. Where a mode cannot serve a config, the engine
 warns and serves another, as the JAX engine does (``_downgrade``,
-``_fit``; ``engine.mode`` names the mode served), except for bounded
-lookahead, which raises (ROADMAP A10). Modes ``fast`` and ``fused``
-serve the GRUUNet and MOMO families (MOMO v1 in mode ``fast`` only, as
-it has no plan); the webrtc modes GRUUNet2.
+``_fit``; ``engine.mode`` names the mode served): a bounded-lookahead
+checkpoint is served in mode ``fast`` (its delay rings; ``fused`` is
+downgraded to it, the webrtc modes refuse it), and the gated int8
+flagship stays in ``fused``. Modes ``fast`` and ``fused`` serve the
+GRUUNet and MOMO families (MOMO v1 in mode ``fast`` only, as it has no
+plan); the webrtc modes GRUUNet2, ``fused-webrtc`` in fp32 or with its
+Griffin-Lim loop in bf16 (``serving.dtype="bfloat16"``).
 """
 
 import warnings
@@ -50,12 +53,11 @@ from audio_denoising_torch.runtime.plan import PlanModel, build_cell_plan
 
 
 class FastState(NamedTuple):
-    """JAX counterpart engine.py:34, without the lookahead planes (not
-    ported). JAX keeps a MOMO3 carry (hx, prev) as a tuple in ``hx``; here
-    prev is a plane of its own, so slot resets and masked commits walk
-    named tensors. The SNR-gate planes are present only when
-    ``serving.snr_gate_db`` is set: estimator 'floor' carries the nf_*
-    planes, 'removed' the em_* EMAs, 'both' all five."""
+    """JAX counterpart engine.py:34. JAX keeps a MOMO3 carry (hx, prev)
+    as a tuple in ``hx``; here prev is a plane of its own, so slot resets
+    and masked commits walk named tensors. The SNR-gate planes are
+    present only when ``serving.snr_gate_db`` is set: estimator 'floor'
+    carries the nf_* planes, 'removed' the em_* EMAs, 'both' all five."""
     ring: torch.Tensor   # (B, n_fft) analysis window
     ola: torch.Tensor    # (B, n_fft) synthesis accumulator
     hx: torch.Tensor     # the model's state: (B, hidden, comp) for the zoo
@@ -66,15 +68,12 @@ class FastState(NamedTuple):
     nf_total: Optional[torch.Tensor] = None    # (B,) long power EMA
     em_out: Optional[torch.Tensor] = None      # (B,) output-power EMA
     em_rem: Optional[torch.Tensor] = None      # (B,) removed-power EMA
+    la_mag: Optional[torch.Tensor] = None      # (B, k, F)
+    la_phase: Optional[torch.Tensor] = None    # (B, k, F)
 
 
 def _check_fast_supported(cfg: Config) -> None:
-    """What the JAX fast step serves and the port's does not yet."""
-    if getattr(cfg.model, "lookahead_frames", 0):
-        raise NotImplementedError(
-            "the fast step's lookahead delay rings "
-            "(ModelConfig.lookahead_frames > 0) are not ported yet "
-            "(ROADMAP A10)")
+    """What the fast step refuses, as the JAX one asserts."""
     if cfg.dsp.domain == "raw" and cfg.dsp.n_mels != cfg.dsp.n_stft:
         raise ValueError("raw domain: n_mels must equal n_stft (feature "
                          "width)")
@@ -88,11 +87,16 @@ def fast_init_state(cfg: Config, model, batch: int,
     n_fft = cfg.dsp.n_fft
     init = getattr(model, "init_carry", None) or model.init_state
     hx, prev = _split_carry(init(batch, device=device))
+    la = cfg.model.lookahead_frames
+    rings = {}
+    if la:
+        rings = {k: torch.zeros((batch, la, cfg.dsp.n_stft), device=device)
+                 for k in ("la_mag", "la_phase")}
     return FastState(
         ring=torch.zeros((batch, n_fft), device=device),
         ola=torch.zeros((batch, n_fft), device=device),
         hx=hx, prev=prev,
-        **gate_state(cfg.serving, batch, cfg.dsp.n_stft, device))
+        **gate_state(cfg.serving, batch, cfg.dsp.n_stft, device), **rings)
 
 
 def _split_carry(carry):
@@ -124,7 +128,7 @@ def make_fast_step(cfg: Config, model,
                    device: Optional[Union[str, torch.device]] = None):
     """Build ``step(state, chunk (B, hop)) -> (state', out (B, hop))`` on
     ``device`` (the card unless ``"cpu"``; JAX counterpart
-    engine.py:95-228, no lookahead).
+    engine.py:95-228).
 
     Per hop: one windowed rfft (no center padding), mel log1p (in the raw
     domain log1p of the magnitude at n_stft bins, no mel pair), one model
@@ -135,8 +139,13 @@ def make_fast_step(cfg: Config, model,
     noisy-phase resynthesis and WOLA
     divided by the window envelope; with ``serving.snr_gate_db`` set,
     the SNR gate (``make_snr_gate``) blends the output magnitude toward
-    the input's before resynthesis. ``model`` is a zoo model or a
-    PlanModel (``fused=True`` runs its cell as the hand-written kernel)."""
+    the input's before resynthesis. With ``model.lookahead_frames`` = k
+    > 0 the cell still consumes the newest frame, but its residual
+    applies to frame t - k: the step pops that frame's magnitude and
+    phase from the delay rings and pushes the new frame's, and the
+    residual, the gate and the phase reuse all take the delayed frame.
+    ``model`` is a zoo model or a PlanModel (``fused=True`` runs its cell
+    as the hand-written kernel)."""
     _check_fast_supported(cfg)
     dsp, srv = cfg.dsp, cfg.serving
     device = resolve_device(device)
@@ -154,19 +163,31 @@ def make_fast_step(cfg: Config, model,
     ).to(device)
     decay = getattr(model, "decay_carry", None) or (lambda h, f: h * f)
     gate = make_snr_gate(cfg)
+    la = cfg.model.lookahead_frames
+
+    def features(mag):
+        if raw:
+            return torch.log1p(mag)
+        return torch.log1p(mel_scale(mag[..., None], fb))[..., 0]
 
     def step(state: FastState, chunk: torch.Tensor
              ) -> Tuple[FastState, torch.Tensor]:
         ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
         spec = torch.fft.rfft(ring * win, n=n_fft, dim=-1)    # (B, F)
-        mag = spec.abs()
-        if raw:
-            x_t = torch.log1p(mag)
-        else:
-            x_t = torch.log1p(mel_scale(mag[..., None], fb))[..., 0]
+        mag, phase = spec.abs(), torch.angle(spec)
+        x_t = features(mag)
         carry = state.hx if state.prev is None else (state.hx, state.prev)
         with torch.no_grad(), fp32_convs():
             resid, carry = model.cell(x_t, carry)
+        rings = {}
+        if la:
+            # the residual targets frame t - la: pop it, push frame t
+            rings = dict(
+                la_mag=torch.cat([state.la_mag[:, 1:], mag[:, None]], 1),
+                la_phase=torch.cat([state.la_phase[:, 1:], phase[:, None]],
+                                   1))
+            mag, phase = state.la_mag[:, 0], state.la_phase[:, 0]
+            x_t = features(mag)
         rec = torch.nn.functional.leaky_relu(x_t - resid, 0.2)
         feat_mag = torch.clamp(torch.expm1(rec), min=0.0)
         if raw:
@@ -179,14 +200,14 @@ def make_fast_step(cfg: Config, model,
         if gate is not None:
             planes, lin = gate(state, mag, lin)
         # angle(0) is 0, so a silent bin is rebuilt as lin + 0j
-        synth = torch.fft.irfft(torch.polar(lin, torch.angle(spec)),
+        synth = torch.fft.irfft(torch.polar(lin, phase),
                                 n=n_fft, dim=-1) * win
         acc = state.ola + synth
         out = acc[:, :hop] / env_hop
         ola = torch.cat([acc[:, hop:], torch.zeros_like(acc[:, :hop])],
                         dim=-1)
         return state._replace(ring=ring, ola=ola, hx=hx, prev=prev,
-                              **planes), out
+                              **planes, **rings), out
 
     return step
 
@@ -233,10 +254,23 @@ def shared_memory_limit(device: Optional[Union[str, torch.device]]
 
 def _downgrade(cfg: Config, mode: str) -> str:
     """The mode that serves ``cfg`` when ``mode`` cannot, with a warning
-    naming both, as the JAX engine does (engine.py:278-308): a gated
-    ``fused-webrtc`` is served by ``webrtc`` (the kernel has no gate; the
-    op-by-op step carries it); int8 outside ``fast``/``fused`` by ``fast``
-    (on the quantized plan)."""
+    naming both, as the JAX engine does (engine.py:260-308): a
+    bounded-lookahead checkpoint in ``fused`` is served by ``fast`` (only
+    the op-by-op step has the delay rings) and refused by the webrtc
+    modes; a gated ``fused-webrtc`` is served by ``webrtc`` (the kernel
+    has no gate; the op-by-op step carries it); int8 outside
+    ``fast``/``fused`` by ``fast`` (on the quantized plan)."""
+    if cfg.model.lookahead_frames and mode != "fast":
+        if mode != "fused":
+            raise ValueError(
+                f"engine mode {mode!r} does not support lookahead "
+                f"checkpoints (ModelConfig.lookahead_frames > 0); use "
+                f"mode 'fast'")
+        warnings.warn("lookahead checkpoints are served by the op-by-op "
+                      "fast step (the fused kernel has no delay rings); "
+                      "engine mode 'fused' downgraded to 'fast'",
+                      stacklevel=3)
+        mode = "fast"
     if cfg.serving.snr_gate_db is not None and mode == "fused-webrtc":
         warnings.warn("snr_gate_db is set but the fused webrtc kernel does "
                       "not implement the gate; engine mode 'fused-webrtc' "
@@ -296,16 +330,6 @@ class StreamEngine:
         if mode not in MODES:
             raise ValueError(f"engine mode {mode!r} is not ported yet; the "
                              f"port has {MODES}")
-        if getattr(cfg.model, "lookahead_frames", 0):
-            if mode in ("fast", "fused"):
-                # the JAX engine serves them in mode 'fast' (and downgrades
-                # 'fused' to it); the port's fast step has no delay rings
-                raise NotImplementedError(
-                    "bounded-lookahead checkpoints need the fast step's "
-                    "delay rings, which are not ported yet (ROADMAP A10)")
-            raise ValueError(
-                f"engine mode {mode!r} does not support lookahead "
-                f"checkpoints (ModelConfig.lookahead_frames > 0)")
         mode = _downgrade(cfg, mode)
         plan = None
         if mode in ("fused", "fused-webrtc"):
@@ -366,11 +390,16 @@ class StreamEngine:
     def algorithmic_latency_samples(self) -> int:
         """What the serving mode itself delays the audio by (JAX
         engine.py:513-541): in modes ``fast`` and ``fused`` the
-        hop-synchronous overlap-add holds ``n_fft - hop`` samples (the
-        lookahead term is 0: lookahead checkpoints are refused); in the
-        webrtc modes the segment leaves before the newest frame enters the
-        OLA buffer (app2.py:226-231), the same window tail."""
-        return self.cfg.dsp.n_fft - self.cfg.dsp.hop_length
+        hop-synchronous overlap-add holds ``n_fft - hop`` samples, plus
+        ``lookahead_frames * hop`` on a bounded-lookahead checkpoint (the
+        delay rings hold k frames before reconstruction); in the webrtc
+        modes the segment leaves before the newest frame enters the OLA
+        buffer (app2.py:226-231), the same window tail."""
+        dsp = self.cfg.dsp
+        base = dsp.n_fft - dsp.hop_length
+        if self.mode in ("fast", "fused"):
+            base += self.cfg.model.lookahead_frames * dsp.hop_length
+        return base
 
     @property
     def algorithmic_latency_ms(self) -> float:

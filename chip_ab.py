@@ -13,7 +13,7 @@ same nvcc flags (their ptxas register and spill lines printed) and bound
 to the same wrappers.
 
 ``--kernel webrtc_hop`` (the default), on gruunet2-dari_tult with
-warm-start Griffin-Lim at 256 streams:
+warm-start Griffin-Lim at 256 streams, in fp32:
 
 1. both run from one random state on the same chunks: the single hop at
    GL-32 over 3 hops, and one K-hop call (K = 25) at GL-8 and at GL-32;
@@ -27,21 +27,34 @@ warm-start Griffin-Lim at 256 streams:
    the single hop at GL-0, GL-8 and GL-32, and from them the time per
    round and the time outside the rounds.
 
-``--kernel fused_cell`` (gruunet2-good's plan) and ``--kernel fused_hop``
-(gruunet2-stream16k, ungated):
+``--kernel fused_cell`` (gruunet2-good's plan):
 
-1. both run on one random state (and, for the hop, the same chunks):
-   the cell step at 256 streams, the single hop over 3 hops and one K-hop
-   call (K = 50); the largest difference on every output and plane;
+1. both run on one random state: the cell step at 256 streams; the
+   largest difference on every output and plane;
 2. both are timed in turns, other, this, this, other, at each of
-   ``--batches`` streams (default 256): the cell step, or the single hop
-   (CUDA events over 200 launches); for the hop also the K-hop call per
-   hop at K = 50 at the largest batch (CUDA events over 5 calls).
+   ``--batches`` streams (default 256): the cell step (CUDA events over
+   200 launches).
+
+``--kernel fused_hop``, on gruunet2-stream16k, bench.py's quality
+flagship (runs/gruunet2mel128w64-mrstft-50k.npz) and MOMO3
+(momo3-4d4ea0), each in fp32, bf16 and int8, ungated and with the tuned
+gate ('both'):
+
+1. both run from a fresh state on the same voiced chunks at the largest
+   batch: the single hop over 3 hops, then one K-hop call (K = 50) from
+   the state they reached; the largest difference on every output and
+   plane (a configuration the other side cannot build, its shared memory
+   per block over the card's, is named and skipped);
+2. both are timed in turns, other, this, this, other, in each of those
+   configurations at the largest batch: the single hop (CUDA events over
+   200 launches, 20 on the flagship) and the K-hop call per hop (5 calls,
+   2 on the flagship); and the ungated fp32 single hop on stream16k at
+   each of ``--batches`` streams.
 
 ``OTHER_CSRC_DIR`` inside an earlier commit's ``audio_denoising_torch``
 tree (``git archive`` of the package) brings that tree's own wrappers for
-the fused kernels, so the two C interfaces may differ; a bare source
-directory is bound to this checkout's wrappers. For the fused cell,
+each kernel, so the two C interfaces may differ; a bare source directory
+is bound to this checkout's wrappers. For the fused cell,
 ``--cluster C`` launches each side that has a weight ring on clusters of
 C blocks, ``--stage-bytes N`` sizes the ring's stages at about N bytes,
 and ``--other-tile T`` lays a bare other source's ring out for T streams
@@ -87,14 +100,8 @@ def ptxas_lines(label, log):
             cs.say(f"  ptxas ({label}): {line.strip()}")
 
 
-def bound(hop, lib):
-    hop._bind(lib)
-    return hop
-
-
 def main() -> int:
     import argparse
-    import ctypes
 
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -116,35 +123,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 2
-    from audio_denoising_torch.ops.kernels.build import load_kernel_library
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     cs.say(smi)
-    if args.kernel != "webrtc_hop":
-        from audio_denoising_torch.ops.kernels import weight_ring
-        if args.stage_bytes is not None:
-            weight_ring.STAGE_TARGET = args.stage_bytes
-        batches = [int(b) for b in args.batches.split(",")]
-        makers = fused_makers(args.other, args.kernel, args.other_tile)
-        return fused_ab(torch, args.kernel, makers, smi, batches,
-                        args.cluster, args.other_tile)
-    proc, other_path = build_other(args.other, args.kernel)
-    this = load_kernel_library(args.kernel)
-    log = proc.communicate(timeout=600)[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {args.other}:\n{log}")
-    ptxas_lines("this", this.log)
-    ptxas_lines("other", log)
-    libs = {"this": this.lib, "other": ctypes.CDLL(str(other_path))}
-    return webrtc_ab(torch, libs, smi)
+    makers = kernel_makers(args.other, args.kernel, args.other_tile)
+    if args.kernel == "webrtc_hop":
+        return webrtc_ab(torch, makers, smi)
+    from audio_denoising_torch.ops.kernels import weight_ring
+    if args.stage_bytes is not None:
+        weight_ring.STAGE_TARGET = args.stage_bytes
+    batches = [int(b) for b in args.batches.split(",")]
+    if args.kernel == "fused_hop":
+        return fused_hop_ab(torch, makers, smi, batches)
+    return fused_ab(torch, makers, smi, batches, args.cluster,
+                    args.other_tile)
 
 
-def fused_makers(csrc, kernel, other_tile=None):
-    """{"this", "other"}: makers of ``kernel``'s wrapper (make_fused_cell
-    or make_fused_hop) on each source, built, their ptxas lines printed.
+def kernel_makers(csrc, kernel, other_tile=None):
+    """{"this", "other"}: makers of ``kernel``'s wrapper (make_fused_cell,
+    make_fused_hop or make_webrtc_hop) on each source, built, their ptxas
+    lines printed.
     Where ``csrc`` lies in a package tree with wrappers of its own (an
     earlier commit's ``audio_denoising_torch``, whose C interface may
     differ), the other side is that tree's wrapper, imported from a copy
@@ -202,12 +202,9 @@ def fused_makers(csrc, kernel, other_tile=None):
     return {"this": getattr(this_mod, maker), "other": other}
 
 
-def fused_ab(torch, kernel, makers, smi, batches, cluster, other_tile):
-    """Parts 1 and 2 for ``fused_cell`` or ``fused_hop`` (module
-    docstring)."""
+def fused_ab(torch, makers, smi, batches, cluster, other_tile):
+    """Parts 1 and 2 for ``fused_cell`` (module docstring)."""
     from audio_denoising_torch.hub import load_pretrained
-    from audio_denoising_torch.ops.kernels.fused_hop import (
-        fused_hop_init_state)
     from audio_denoising_torch.runtime.plan import build_cell_plan
 
     def make(name, *args, **kwargs):
@@ -217,92 +214,139 @@ def fused_ab(torch, kernel, makers, smi, batches, cluster, other_tile):
         return obj
 
     B = max(batches)
-    if kernel == "fused_cell":
-        plan = build_cell_plan(load_pretrained("gruunet2-good")[1])
-        cells = {n: make(n, plan, "cuda") for n in makers}
-        c = cells["this"]
-        for n, cell in cells.items():
-            if getattr(cell, "ring", None) is not None:
-                r, a = cell.ring, cell._base_args.ring
-                tile = other_tile if n == "other" and other_tile else 2
-                blocks = -(-B // tile)
-                cs.say(f"  {n}: weight ring C {a.cluster}, {r.stages} stages "
-                       f"of {r.stage_bytes} B, {len(r.slabs)} slabs; "
-                       f"{cell.max_active_clusters(blocks)} clusters fit "
-                       f"for {blocks} blocks")
-        cs.say(f"1. this against other on one random state (B={B}):")
-        x, hx, _ = cs.cell_inputs(torch, B, c.n_feat, c.n, 7)
-        (y_a, h_a), (y_b, h_b) = (cells[n](x, hx) for n in ("this", "other"))
-        cs.say(f"  cell step: y {cs.max_err(y_a, y_b):.3e}, hx' "
-               f"{cs.max_err(h_a, h_b):.3e}")
-        cs.say(f"2. times in turns {', '.join(TURNS)} ({smi}):")
-        for b in batches:
-            x, hx, _ = cs.cell_inputs(torch, b, c.n_feat, c.n, 7)
-            for turn in TURNS:
-                ms = cs.time_launches(torch, lambda: cells[turn](x, hx),
-                                      FUSED_TIMED)
-                cs.say(f"  B={b} {turn}: cell step {ms * 1e3:.1f} us")
-        return 0
-
-    cfg, model = load_pretrained("gruunet2-stream16k")
-    plan = build_cell_plan(model)
-    single = {n: make(n, cfg, plan, "cuda") for n in makers}
-    multi = {n: make(n, cfg, plan, "cuda", hops_per_call=FUSED_K)
-             for n in makers}
-    init = lambda b: fused_hop_init_state(cfg, plan, b, "cuda")
-    g = torch.Generator(device="cuda").manual_seed(23)
-    state, _ = cs.hop_inputs(torch, single["this"], init, B)
-    chunks = 0.1 * torch.randn((FUSED_K, B, single["this"].hop),
-                               generator=g, device="cuda")
-    cs.say(f"1. this against other from one state, the same chunks (B={B}):")
-    runs = {n: cs.run_hops(h, state, chunks[:SINGLE_HOPS])
-            for n, h in single.items()}
-    (s_a, o_a), (s_b, o_b) = runs["this"], runs["other"]
-    diff = {k: cs.max_err(v, getattr(s_b, k))
-            for k, v in cs.planes(s_a).items()}
-    diff["out"] = max(cs.max_err(a, b) for a, b in zip(o_a, o_b))
-    cs.say(f"  single hop, {SINGLE_HOPS} hops: {cs.fmt(diff)}")
-    (s_a, o_a), (s_b, o_b) = (multi[n](state, chunks)
-                              for n in ("this", "other"))
-    diff = {k: cs.max_err(v, getattr(s_b, k))
-            for k, v in cs.planes(s_a).items()}
-    diff["out"] = cs.max_err(o_a, o_b)
-    cs.say(f"  K-hop call, K={FUSED_K}: {cs.fmt(diff)}")
+    plan = build_cell_plan(load_pretrained("gruunet2-good")[1])
+    cells = {n: make(n, plan, "cuda") for n in makers}
+    c = cells["this"]
+    for n, cell in cells.items():
+        if getattr(cell, "ring", None) is not None:
+            r, a = cell.ring, cell._base_args.ring
+            tile = other_tile if n == "other" and other_tile else 2
+            blocks = -(-B // tile)
+            cs.say(f"  {n}: weight ring C {a.cluster}, {r.stages} stages "
+                   f"of {r.stage_bytes} B, {len(r.slabs)} slabs; "
+                   f"{cell.max_active_clusters(blocks)} clusters fit "
+                   f"for {blocks} blocks")
+    cs.say(f"1. this against other on one random state (B={B}):")
+    x, hx, _ = cs.cell_inputs(torch, B, c.n_feat, c.n, 7)
+    (y_a, h_a), (y_b, h_b) = (cells[n](x, hx) for n in ("this", "other"))
+    cs.say(f"  cell step: y {cs.max_err(y_a, y_b):.3e}, hx' "
+           f"{cs.max_err(h_a, h_b):.3e}")
     cs.say(f"2. times in turns {', '.join(TURNS)} ({smi}):")
     for b in batches:
-        s_b, _ = cs.hop_inputs(torch, single["this"], init, b)
+        x, hx, _ = cs.cell_inputs(torch, b, c.n_feat, c.n, 7)
         for turn in TURNS:
-            h = single[turn]
-            ms = cs.time_launches(torch, lambda: h(s_b, chunks[0, :b]),
+            ms = cs.time_launches(torch, lambda: cells[turn](x, hx),
                                   FUSED_TIMED)
-            cs.say(f"  B={b} {turn}: single hop {ms * 1e3:.1f} us/hop")
-    for turn in TURNS:
-        m = multi[turn]
-        ms = cs.time_launches(torch, lambda: m(state, chunks), TIMED_MULTI)
-        cs.say(f"  B={B} {turn}: K-hop K={FUSED_K} {ms * 1e3:.1f} us/call, "
-               f"{ms * 1e3 / FUSED_K:.2f} us/hop")
+            cs.say(f"  B={b} {turn}: cell step {ms * 1e3:.1f} us")
     return 0
 
 
-def webrtc_ab(torch, libs, smi):
+def hop_configs():
+    """(label, cfg, plan) of the fused hop's configurations: each model in
+    each compute mode, ungated and with the tuned gate."""
+    import torch
+
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.runtime.plan import build_cell_plan
+    for spec in (cs.S16K, os.path.join(cs.REPO, "runs", cs.FLAGSHIP),
+                 cs.MOMO_SPEC):
+        cfg, model = load_pretrained(spec)
+        plan = build_cell_plan(model)
+        for gated in (False, True):
+            c = cs.tuned_gate(cfg) if gated else cfg
+            for dtype in ("float32",) + cs.REDUCED:
+                label = (f"{os.path.basename(spec)}, {dtype}, "
+                         f"{'tuned gate' if gated else 'ungated'}")
+                yield label, c, plan, getattr(torch, dtype)
+
+
+def fused_hop_ab(torch, makers, smi, batches):
+    """Parts 1 and 2 for ``fused_hop`` (module docstring)."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state)
+    B = max(batches)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    pairs = []
+    cs.say(f"1. this against other from a fresh state, the same chunks "
+           f"(B={B}):")
+    for label, cfg, plan, dt in hop_configs():
+        hops = {}
+        for name, maker in makers.items():
+            try:
+                hops[name] = (maker(cfg, plan, "cuda", compute_dtype=dt),
+                              maker(cfg, plan, "cuda", hops_per_call=FUSED_K,
+                                    compute_dtype=dt))
+            except RuntimeError as e:
+                if "shared memory per block" not in str(e):
+                    raise
+                cs.say(f"  {label}: {name} cannot be built ({e}); skipped")
+        if len(hops) < 2:
+            continue
+        if hops["this"][0].smem_bytes > limit:
+            raise AssertionError(f"{label}: this checkout over the limit")
+        chunks = torch.from_numpy(cs.voiced_chunks(
+            B, FUSED_K, cfg.dsp.hop_length, cfg.dsp.sample_rate,
+            23)).cuda()
+        state = fused_hop_init_state(cfg, plan, B, "cuda")
+        runs = {n: cs.run_hops(h[0], state, chunks[:SINGLE_HOPS])
+                for n, h in hops.items()}
+        (s_a, o_a), (s_b, o_b) = runs["this"], runs["other"]
+        diff = {k: cs.max_err(v, getattr(s_b, k))
+                for k, v in cs.planes(s_a).items()}
+        diff["out"] = max(cs.max_err(a, b) for a, b in zip(o_a, o_b))
+        (m_a, mo_a), (m_b, mo_b) = (hops[n][1](s_a, chunks)
+                                    for n in ("this", "other"))
+        mdiff = {k: cs.max_err(v, getattr(m_b, k))
+                 for k, v in cs.planes(m_a).items()}
+        mdiff["out"] = cs.max_err(mo_a, mo_b)
+        cs.say(f"  {label}: single hop, {SINGLE_HOPS} hops: {cs.fmt(diff)}; "
+               f"then K-hop call, K={FUSED_K}: {cs.fmt(mdiff)}")
+        pairs.append((label, cfg, plan, hops, s_a, chunks))
+    cs.say(f"2. times in turns {', '.join(TURNS)} ({smi}):")
+    for label, cfg, plan, hops, state, chunks in pairs:
+        wide = cfg.dsp.n_mels > 64
+        times = []
+        for turn in TURNS:
+            single, multi = hops[turn]
+            ms = cs.time_launches(torch, lambda: single(state, chunks[0]),
+                                  20 if wide else FUSED_TIMED)
+            mk = cs.time_launches(torch, lambda: multi(state, chunks),
+                                  2 if wide else TIMED_MULTI)
+            times.append(f"{turn} {ms * 1e3:.1f} / "
+                         f"{mk * 1e3 / FUSED_K:.2f}")
+        cs.say(f"  {label}, B={B}, single hop / K-hop per hop (us): "
+               + "; ".join(times))
+    s16 = next(p for p in pairs if p[0].startswith(cs.S16K)
+               and "float32, ungated" in p[0])
+    _, cfg, plan, hops, _, chunks = s16
+    for b in batches:
+        s_b, _ = cs.hop_inputs(torch, hops["this"][0],
+                               lambda n: fused_hop_init_state(cfg, plan, n,
+                                                              "cuda"), b)
+        for turn in TURNS:
+            h = hops[turn][0]
+            ms = cs.time_launches(torch, lambda: h(s_b, chunks[0, :b]),
+                                  FUSED_TIMED)
+            cs.say(f"  {s16[0]}, B={b} {turn}: single hop "
+                   f"{ms * 1e3:.1f} us/hop")
+    return 0
+
+
+def webrtc_ab(torch, makers, smi):
     """Parts 1-3 for ``webrtc_hop`` (module docstring)."""
     from audio_denoising_torch.hub import load_pretrained
     from audio_denoising_torch.ops.kernels.webrtc_hop import (
-        make_webrtc_hop, webrtc_hop_init_state)
+        webrtc_hop_init_state)
     from audio_denoising_torch.runtime.plan import build_cell_plan
 
-    for name in ("adt_webrtc_hop_fft_instance", "adt_webrtc_hop_fft_radices"):
-        if not hasattr(libs["other"], name):   # an older source: report -1
-            setattr(libs["other"], name, lambda *args: -1)
     cfg, model = load_pretrained("gruunet2-dari_tult")
     plan = build_cell_plan(model)
     g = torch.Generator(device="cuda").manual_seed(23)
 
     def hop_pair(n_iter, K):
         c = cs.warm_cfg(cfg, n_iter)
-        return c, {name: bound(make_webrtc_hop(c, plan, "cuda",
-                                               hops_per_call=K), lib)
-                   for name, lib in libs.items()}
+        return c, {name: maker(c, plan, "cuda", hops_per_call=K)
+                   for name, maker in makers.items()}
 
     single_cfg, single = hop_pair(32, 1)
     state, _ = cs.hop_inputs(

@@ -222,29 +222,63 @@ raises on failure (so the script exits non-zero and prints no result):
     (and away from a state per connection); the round trip per message;
 42. the engine's downgrades on the card, each asserting its warning and
     ``engine.mode``: a gated ``fused-webrtc`` serves ``webrtc``, int8 in
-    mode ``webrtc`` serves ``fast`` on the quantized plan, the gated int8
-    flagship (its shared memory per block over the card's) in mode
-    ``fused`` serves ``fast``; each engine against its served mode's step
-    run alone on the card (0 expected). Then, for every configuration
-    the script builds, in each compute mode, gated and not, one hop and
-    K hops, the libraries' shared memory per block against the plain
-    mirrors the engine decides by (``fused_hop_smem_bytes``,
-    ``webrtc_hop_smem_bytes``; each kernel's wrapper also holds them
-    equal whenever it binds on the card).
+    mode ``webrtc`` serves ``fast`` on the quantized plan; each engine
+    against its served mode's step run alone on the card (0 expected);
+    the gated int8 flagship in mode ``fused`` stays ``fused``, within a
+    block's shared memory, with no warning. Then, for every
+    configuration the script builds, in each compute mode, gated and
+    not, one hop and K hops, the libraries' shared memory per block
+    against the plain mirrors the engine decides by
+    (``fused_hop_smem_bytes``, ``webrtc_hop_smem_bytes``; each kernel's
+    wrapper also holds them equal whenever it binds on the card);
+43. the bounded-lookahead checkpoint
+    runs/gruunet2mel128w64-mrstft-la4-50k.npz (4 frames, the flagship's
+    widths) in mode ``fast``, whose step carries the delay rings:
+    ``StreamEngine`` at 256 slots for 50 ticks with skipped slots on the
+    zoo model, then on ``PlanModel(fused=True)`` (the fused cell's
+    kernel, once a tick), each against the same run on the CPU, idle
+    slots' planes (the rings among them) bit-identical; ``profile --mode
+    fast --fused`` on it; ``engine --mode fused`` on it in a subprocess:
+    the warning that mode fused is downgraded to fast, the banner naming
+    mode fast, 2 clients x 4 streams x 12 chunks against the daemon's
+    engine replayed on the CPU; the hop time;
+44. the gated W8A8 fused hop on the quality flagship (the tuned gate,
+    'both'), which fits a block since its floor planes stay in global
+    memory: the libraries' shared memory per block; the single hop
+    against its plain version at 256 streams on voiced input as phase 35
+    holds the reduced modes (``FORCED_DB``, ``FREE_DB``, the control
+    failing both, the gate blending); the K-hop kernel at K = 50 as phase
+    36 runs it, and its control (the plain fp32 K-hop against the plain
+    int8 one) failing ``FREE_DB``; ``StreamEngine`` mode ``fused`` at int8
+    serving it at 256 slots for 20 ticks against the CPU; its times
+    beside rows 1i and 2i;
+45. the WebRTC hop's bf16 Griffin-Lim mode on gruunet2-dari_tult at 256
+    streams: the single hop at GL-32 and GL-8, each hop from the plain
+    bf16 version's state, the median over streams of the added frame's
+    SNR against the plain version at ``BF16_GL_DB`` and its SNR against
+    the bf16 mode's float64 witness less that against fp32's at
+    ``BF16_NEARER_DB`` (the control, the fp32 kernel in its place, must
+    miss both), the bf16 witness by ``forced_floor``, hx and unit phases,
+    the spectral convergence printed beside the control's (no limit
+    separates them); the K-hop kernel at K = 25, GL-8: two calls against
+    50 single bf16 hops (0); ``StreamEngine`` mode ``fused-webrtc`` at
+    serving.dtype bfloat16 as phase 6 holds fp32; the times.
 
 Phases 30-34 drive the offline path, which launches none of the
 hand-written kernels: the JAX offline graph reaches no Pallas kernel
 (``offline_denoise`` runs ``model.apply``, JAX pipeline.py:140).
 
-Phases 4 to 7, 9 to 12, 15 to 17, 27 to 29, 37 to 40, the first three
-calls of phases 14, 26 and of each case of 36, and phase 19's calls are
-the main paths: each kernel's
-launch counter is set to 0 just before each (a new wrapper starts at 0)
-and read just after (the single WebRTC hop counts its three kernels, the
-K-hop call one). Mode ``fast`` with the zoo model (phases 11, 12, 17,
-28), mode ``fast`` on the quantized plan (phases 37, 38, 42), mode
-``webrtc`` (phases 23, 24, 42) and the socket daemon's server step (phase
-41) run no hand-written kernel, as the JAX package's modes ``fast`` and
+Phases 4 to 7, 9 to 12, 15 to 17, 27 to 29, 37 to 40, the engines and
+the profile of phase 43, the engines of phases 44 and 45, the first
+three calls of phases 14, 26, 44 and of each case of 36, and the calls
+of phase 19 and of phase 45's K-hop kernel are the main paths: each
+kernel's launch counter is set to 0 just before each (a new wrapper
+starts at 0) and read just after (the single WebRTC hop counts its three
+kernels, the K-hop call one). Mode ``fast`` with the zoo model (phases
+11, 12, 17, 28, and 43 on the lookahead checkpoint), mode ``fast`` on
+the quantized plan (phases 37, 38, 42), mode ``webrtc`` (phases 23, 24,
+42) and the socket daemon's server step (phase 41) run no hand-written
+kernel, as the JAX package's modes ``fast`` and
 ``webrtc`` and its ``serve`` run no Pallas kernel.
 Griffin-Lim with carried phases is chaotic where a frame's rebuilt
 spectrum nears zero: fp32 round-off there flips a phase, and the carried
@@ -347,6 +381,9 @@ OFFLINE_LA_S = 10
 OFFLINE_MOMO_S = 2   # 4,571 frames of MOMO3's 21-sample hop
 OFFLINE_TIMED_S = 60
 OFFLINE_TIMED_CALLS = 3   # the host's clock varies from call to call
+# the clip torch.profiler records the card's busy share on: profiling all
+# of OFFLINE_TIMED_S took about 160 s of an H100 host's time
+OFFLINE_PROFILED_S = 15
 OFFLINE_BATCH = 16
 OFFLINE_BATCH_S = 10
 REDUCED = ("bfloat16", "int8")   # the fused hop's reduced compute modes
@@ -391,9 +428,36 @@ INT8_OPS = 1979e12    # H100 SXM int8 dense tensor-core peak
 # instructions the kernel runs, not a bound
 DP4A_OPS = 2 * FP32_FLOPS
 PEAK_BY_ITEMSIZE = {4: FP32_FLOPS, 2: BF16_FLOPS, 1: INT8_OPS}
+# phases 43-45
+LA_TICKS = 50        # the lookahead checkpoint's engine runs (phase 43)
+FLAG_TICKS = 20      # the gated int8 flagship's engine run (phase 44)
+# The bf16 GL mode's kernel against its plain version on the card, one
+# hop from the plain version's state (check_webrtc_bf16): the median over
+# streams of the added frame's SNR, by GL rounds. Each limit sits between
+# the kernel's lowest reading and the control's highest, the port's fp32
+# kernel in the bf16 kernel's place. On an NVIDIA H100 80GB HBM3 at 700 W
+# with this script's inputs, hops 2-5 at 256 streams: GL-32 the kernel
+# 23.7-24.5 dB, the control 19.7-21.4; GL-8 34.0-36.1 and 27.4-28.4. The
+# mode's bf16 roundings flip where the two fp32 FFTs differ in the last
+# place, and 32 rounds with momentum spread each flip: the plain bf16
+# hop reads 24.3-26.0 dB against its float64 witness on the CPU.
+BF16_GL_DB = {32: 22.5, 8: 31.0}
+# ... and the kernel's frame nearer the bf16 mode's float64 witness than
+# fp32's: the median over streams of the SNR against the first less that
+# against the second (the same runs: the kernel +2.1 to +2.9 dB at GL-32
+# and +6.1 to +6.9 at GL-8, the control -78.3 to -75.4)
+BF16_NEARER_DB = 0.0
+
+
+_T0 = time.perf_counter()
 
 
 def say(*parts):
+    """Print a line now; a phase's title line ("phase N: ...", "offline
+    timing ...", "done") ends with the seconds since the script started."""
+    if isinstance(parts[0], str) and parts[0].startswith(
+            ("phase ", "offline timing", "done")):
+        parts = (*parts, f"[{time.perf_counter() - _T0:.0f} s]")
     print(*parts, flush=True)
 
 
@@ -653,11 +717,15 @@ def planes(state):
     return {k: v for k, v in state._asdict().items() if v is not None}
 
 
-def float64_plain(torch, cfg, plan, hops_per_call=1):
+def float64_plain(torch, cfg, plan, hops_per_call=1,
+                  compute_dtype=None):
     """The plain version on the CPU in float64: a witness of how far each
-    fp32 version departs."""
+    fp32 version departs. ``compute_dtype=torch.bfloat16``: the bf16 GL
+    mode's witness, its GL rounds' transform inputs rounded to bf16 as the
+    mode defines, the rest in float64."""
     from audio_denoising_torch.ops.kernels.webrtc_hop import make_webrtc_hop
-    hop = make_webrtc_hop(cfg, plan, "cpu", hops_per_call=hops_per_call)
+    hop = make_webrtc_hop(cfg, plan, "cpu", hops_per_call=hops_per_call,
+                          compute_dtype=compute_dtype or torch.float32)
     for name in ("win", "env", "mel", "imel"):
         setattr(hop, name, getattr(hop, name).double())
     hop.rot = hop.rot.to(torch.complex128)
@@ -1005,23 +1073,27 @@ def phase_engine(torch, cfg, model):
     return launches
 
 
-def phase_engine_webrtc(torch, cfg, model):
+def phase_engine_webrtc(torch, cfg, model, bound=SNR_GL32_DB):
     """Mode fused-webrtc on the card against the CPU engine, the CPU engine
     given the card's state before every tick: each tick's outputs equal,
     hx within HX_ATOL, from tick 2 on the frame each active slot adds to
-    its OLA buffer held by ``forced_floor`` (the float64 plain version run
-    from the same state is the witness), idle slots untouched."""
+    its OLA buffer held by ``forced_floor`` at ``bound`` (the float64
+    plain version run from the same state, in the engine's GL mode, is
+    the witness), idle slots untouched."""
     from audio_denoising_torch.ops.kernels.webrtc_hop import KERNELS_PER_HOP
     from audio_denoising_torch.runtime.engine import StreamEngine
     n, ticks = SLOTS, 8
     gpu = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=n)
     cpu = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=n,
                        device="cpu")
+    if gpu.mode != "fused-webrtc":
+        raise AssertionError(f"mode fused-webrtc served as {gpu.mode}")
     sids = [f"s{i}" for i in range(n)]
     for sid in sids:
         gpu.add_stream(sid)
         cpu.add_stream(sid)
-    f64 = float64_plain(torch, cfg, gpu.plan)
+    f64 = float64_plain(torch, cfg, gpu.plan,
+                        compute_dtype=gpu.hop_step.compute_dtype)
     rng = np.random.default_rng(6)
     worst_hx, snrs, rules = 0.0, [], []
     gpu.hop_step.launches = 0
@@ -1051,7 +1123,7 @@ def phase_engine_webrtc(torch, cfg, model):
             s_d, _ = f64.reference(to(before, "cpu", torch.float64), batch)
             f_gpu, f_cpu, f_d = (added_frame(before, x, cfg.dsp.hop_length)
                                  [active] for x in (after, cpu.state, s_d))
-            rules.append(forced_floor(f_gpu, f_cpu, f_d))
+            rules.append(forced_floor(f_gpu, f_cpu, f_d, bound))
             snrs.append(snr_db(f_cpu, f_gpu))
     launches = gpu.hop_step.launches
     say(f"  {n} streams x {ticks} ticks, the CPU engine given the card's "
@@ -1302,16 +1374,17 @@ def phase_fused_cell(torch, plans):
     return worst
 
 
-def phase_profile(torch):
-    """Phase 9: the profile command in mode fast on the fused cell, in
-    this process; returns the cell's launches (one per hop it ran)."""
+def phase_profile(torch, spec="gruunet2-good"):
+    """Phases 9 and 43: the profile command in mode fast on the fused
+    cell, in this process, on ``spec``; returns the cell's launches (one
+    per hop it ran) and the report."""
     import contextlib
     import io
     from audio_denoising_torch.apps import profile_app
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = profile_app.main(["--model", "gruunet2-good", "--streams",
-                               str(SLOTS), "--mode", "fast", "--fused"])
+        rc = profile_app.main(["--model", spec, "--streams", str(SLOTS),
+                               "--mode", "fast", "--fused"])
     out = buf.getvalue()
     say("  " + out.strip().replace("\n", "\n  "))
     report = json.loads(out)
@@ -1472,18 +1545,33 @@ def voiced_chunks(batch, hops, hop_len, sr, seed):
 
 def plane_errors(got, want):
     """{plane: error} of two states on their present planes: max abs for
-    ring, ola, hx and prev (ABS_PLANES); for the gate's planes the largest
-    |a - b| / (PLANE_ATOL / PLANE_RTOL + |b|), which stays under
-    PLANE_RTOL exactly when |a - b| <= PLANE_ATOL + PLANE_RTOL |b|."""
+    ring, ola, hx and prev (ABS_PLANES); for the gate's planes the
+    largest |a - b| / (PLANE_ATOL / PLANE_RTOL + |b|), which stays under
+    PLANE_RTOL exactly when |a - b| <= PLANE_ATOL + PLANE_RTOL |b|; for
+    the lookahead rings, spectra of the analysis frames, each stream's
+    largest error over its largest bin (an FFT's error scales with the
+    frame, not with the bin), the phases on the complex bins mag
+    e^(i phase) (a phase of pi and of -pi is one bin)."""
+    import torch
     errs = {}
-    for k, a in planes(got).items():
-        b = planes(want)[k].to(a.device)
+    p_got, p_want = planes(got), planes(want)
+    for k, a in p_got.items():
+        b = p_want[k].to(a.device).double()
+        a = a.double()
         if k in ABS_PLANES:
             errs[k] = max_err(a, b)
+        elif k in ("la_mag", "la_phase"):
+            m_a = p_got["la_mag"].double()
+            m_b = p_want["la_mag"].to(a.device).double()
+            if k == "la_phase":
+                a, b = torch.polar(m_a, a), torch.polar(m_b, b)
+            d = (a - b).abs().flatten(1).amax(dim=1)
+            scale = m_b.flatten(1).amax(dim=1).clamp_min(PLANE_ATOL)
+            errs[k] = float((d / scale).max().cpu())
         else:
-            d = (a.double() - b.double()).abs()
-            errs[k] = float((d / (PLANE_ATOL / PLANE_RTOL
-                                  + b.double().abs())).max().cpu())
+            d = (a - b).abs()
+            errs[k] = float((d / (PLANE_ATOL / PLANE_RTOL + b.abs())
+                             ).max().cpu())
     return errs
 
 
@@ -2111,19 +2199,25 @@ def momo_chunks(torch, cfg, hops, seed):
         (hops, SLOTS, cfg.dsp.hop_length))).astype(np.float32)).cuda()
 
 
-def phase_engine_idle(torch, cfg, model, mode, ticks, seed):
+def phase_engine_idle(torch, cfg, model, mode, ticks, seed, cpu_model=None):
     """StreamEngine ``mode`` on the card against the CPU engine, each
     carrying its own state, SLOTS slots for ``ticks`` ticks with skipped
     slots: outputs and every plane (hold_free, in the compute dtype the
     engine serves: cfg.serving.dtype in mode fused, int8 or float32 in
-    mode fast), and on the card the idle slots' planes (hx and prev among
-    them) bit-identical. Returns the kernel's launches in mode fused (None
-    in mode fast: the zoo model and the quantized plan run no hand-written
-    kernel)."""
+    mode fast), and on the card the idle slots' planes (hx, prev and the
+    lookahead rings among them) bit-identical; each engine must serve
+    ``mode`` itself. ``cpu_model``: the CPU engine's model where ``model``
+    is built for the card (a PlanModel). Returns the kernel's launches in
+    mode fused (None in mode fast: the zoo model and the quantized plan
+    run no hand-written kernel; a PlanModel(fused=True) counts its cell's
+    own)."""
     from audio_denoising_torch.runtime.engine import StreamEngine
     gpu = StreamEngine(cfg, model, mode=mode, max_streams=SLOTS)
-    cpu = StreamEngine(cfg, model, mode=mode, max_streams=SLOTS,
-                       device="cpu")
+    cpu = StreamEngine(cfg, model if cpu_model is None else cpu_model,
+                       mode=mode, max_streams=SLOTS, device="cpu")
+    if gpu.mode != mode or cpu.mode != mode:
+        raise AssertionError(f"mode {mode} served as {gpu.mode} on the card, "
+                             f"{cpu.mode} on the CPU")
     sids = [f"s{i}" for i in range(SLOTS)]
     for sid in sids:
         gpu.add_stream(sid)
@@ -2578,9 +2672,10 @@ def phase_offline_cli(torch, tmp, src, card):
 def time_offline(torch, smi):
     """The offline path's timing on the card: ``denoise_array`` on
     OFFLINE_TIMED_S s of 44.1 kHz stereo (gruunet2-good): wall seconds,
-    the real-time factor and the share of the call the card is busy (by
-    torch.profiler); the chain stage by stage; ``offline_denoiser`` on a
-    batch of OFFLINE_BATCH clips of OFFLINE_BATCH_S s."""
+    the real-time factor, and the share of a call the card is busy (by
+    torch.profiler, on the clip's first OFFLINE_PROFILED_S s); the chain
+    stage by stage; ``offline_denoiser`` on a batch of OFFLINE_BATCH clips
+    of OFFLINE_BATCH_S s."""
     from audio_denoising_torch import pipeline
     from audio_denoising_torch.apps import offline
     from audio_denoising_torch.config import recommended_serving
@@ -2600,18 +2695,21 @@ def time_offline(torch, smi):
         walls.append(time.perf_counter() - t0)
     wall = sorted(walls)[len(walls) // 2]
     rows, prof_wall = profiled(torch, lambda: offline.denoise_array(
-        cfg, model, x, OFFLINE_IN_RATE))
+        cfg, model, x[:, :OFFLINE_PROFILED_S * OFFLINE_IN_RATE],
+        OFFLINE_IN_RATE))
     busy = sum(rows.values()) / 1e6
+    span = wall * OFFLINE_PROFILED_S / secs   # the median call's share
     frames = resampled_length(x.shape[-1], OFFLINE_IN_RATE,
                               dsp.sample_rate) // dsp.hop_length + 1
     say(f"  denoise_array, {OFFLINE_SPEC}, {secs} s of 44.1 kHz stereo, "
         f"{frames} frames ({smi}): calls of "
         + ", ".join(f"{w:.3f}" for w in walls)
         + f" s wall, median {wall:.3f} s: real-time factor "
-        f"{wall / secs:.4f} ({secs / wall:.1f}x real time); the card "
-        f"busy {busy:.3f} s by torch.profiler, {busy / wall:.1%} of the "
-        f"median call ({prof_wall:.3f} s under the profiler), "
-        f"{len(rows)} kernels; top:")
+        f"{wall / secs:.4f} ({secs / wall:.1f}x real time); on its first "
+        f"{OFFLINE_PROFILED_S} s the card busy {busy:.3f} s by "
+        f"torch.profiler, {busy / span:.1%} of the median call's "
+        f"{span:.3f} s for that span ({prof_wall:.3f} s under the "
+        f"profiler), {len(rows)} kernels; top:")
     print_breakdown(dict(sorted(rows.items(), key=lambda kv: -kv[1])[:6]),
                     "call")
 
@@ -3506,16 +3604,13 @@ def phase_downgrades(torch, dari_cfg, dari, good_cfg, good, flag_cfg, flag,
     limit = shared_memory_limit("cuda")
     eng, said = downgraded(lambda: StreamEngine(
         cfg, flag, mode="fused", max_streams=SLOTS))
-    check_downgrade("gated int8 flagship", eng, said, "fast",
-                    "'fused' downgraded to 'fast'")
-    pm = PlanModel(flag, quantized=True)
-    e3 = drive_against(torch, eng, make_fast_step(cfg, pm, "cuda"),
-                       fast_init_state(cfg, pm, SLOTS, "cuda"), 2, 423,
-                       eng.hop)
+    if eng.mode != "fused" or said or need > limit:
+        raise AssertionError(f"gated int8 flagship: {need} B against "
+                             f"{limit} B, mode {eng.mode}, warnings {said}")
     say(f"  gated int8 {FLAGSHIP} in mode fused: {need} B of shared memory "
-        f"a block over the card's {limit} B: mode {eng.mode}, warned; vs "
-        f"the fast step on the quantized plan {e3:.3e}")
-    if max(e1, e2, e3) > REPLAY_ATOL:
+        f"a block within the card's {limit} B: mode {eng.mode}, no "
+        f"downgrade (phase 44 holds it)")
+    if max(e1, e2) > REPLAY_ATOL:
         raise AssertionError("a downgraded engine disagrees with the step "
                              "of the mode it serves")
 
@@ -3576,6 +3671,333 @@ def phase_smem_mirror(torch, cases, limit):
         f"plain mirrors' on each; over the card's {limit} B: "
         + "; ".join(over))
     return checked
+
+
+# -- lookahead, the gated int8 flagship, the bf16 GL mode (phases 43-45) -----
+
+def phase_lookahead(torch, smi):
+    """Phase 43: the bounded-lookahead checkpoint OFFLINE_LA_CHECKPOINT in
+    mode fast (its delay rings): StreamEngine at SLOTS slots for LA_TICKS
+    ticks with skipped slots on the zoo model, then on
+    ``PlanModel(fused=True)`` (the fused cell's kernel), each against the
+    same run on the CPU with idle slots bit-identical; ``profile`` on it;
+    ``engine --mode fused`` in a subprocess (phase_lookahead_daemon); the
+    hop time. Returns the fused cell's launches on those paths."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.runtime.plan import PlanModel
+    spec = os.path.join(REPO, "runs", OFFLINE_LA_CHECKPOINT)
+    cfg, model = load_pretrained(spec)
+    say(f"  {OFFLINE_LA_CHECKPOINT}: {cfg.model.lookahead_frames} frames "
+        f"of lookahead, n_fft {cfg.dsp.n_fft}, hop {cfg.dsp.hop_length}, "
+        f"{cfg.dsp.n_mels} mels, hidden {cfg.model.hidden_sizes}")
+    phase_engine_idle(torch, cfg, model, "fast", LA_TICKS, 430)
+    pm = PlanModel(model, fused=True)
+    pm.fused_cell.launches = 0
+    phase_engine_idle(torch, cfg, pm, "fast", LA_TICKS, 431,
+                      cpu_model=PlanModel(model, fused=True, device="cpu"))
+    launches = pm.fused_cell.launches
+    say(f"  PlanModel(fused=True): {launches} fused-cell launches")
+    if launches != LA_TICKS:
+        raise AssertionError(f"expected {LA_TICKS} fused-cell launches, saw "
+                             f"{launches}")
+    profiled_launches, _ = phase_profile(torch, spec)
+    phase_lookahead_daemon(torch, spec)
+    say(f"  the lookahead hop ({smi}):")
+    time_fast_step(torch, cfg, model, f"{OFFLINE_LA_CHECKPOINT} zoo model")
+    time_fast_step(torch, cfg, pm,
+                   f"{OFFLINE_LA_CHECKPOINT} PlanModel(fused=True)")
+    return launches + profiled_launches
+
+
+def phase_lookahead_daemon(torch, spec):
+    """``python -m audio_denoising_torch engine --mode fused`` on the
+    lookahead checkpoint in a subprocess on the card: it warns that mode
+    fused is downgraded to fast and says it serves mode fast; a few
+    clients' replies against the same daemon's engine built on the CPU
+    (the daemon's own profile: the tuned gate) replaying each stream."""
+    import re
+    import signal
+    from audio_denoising_torch.apps.engine_serve import EngineDaemon
+    clients, streams, n_chunks = 2, 4, 12
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audio_denoising_torch", "engine", "--model",
+         spec, "--mode", "fused", "--max-streams", str(SLOTS), "--host",
+         "127.0.0.1", "--port", "0"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        banner = proc.stdout.readline()
+        found = re.search(r"listening on \('([\d.]+)', (\d+)\) \(mode (\w+)",
+                          banner)
+        if not found:
+            raise AssertionError(f"the daemon did not start: {banner!r}")
+        address = (found.group(1), int(found.group(2)))
+        served = found.group(3)
+        cpu = EngineDaemon(spec, max_streams=clients * streams,
+                           mode="fused", device="cpu")
+        data = daemon_data(cpu.cfg, clients, streams, n_chunks, 432)
+        results, errors = {}, []
+        threads = [threading.Thread(target=_client, args=(
+            address, c, data[c], results, errors), daemon=True)
+            for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(REPLY_DEADLINE_S * (n_chunks + 4))
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError("; ".join(errors) or "a client hung")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            _, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+    got = np.concatenate([results[c] for c in range(clients)])
+    eng = cpu.engine
+    sids = [f"s{i}" for i in range(clients * streams)]
+    for sid in sids:
+        eng.add_stream(sid)
+    seqs = data.reshape(clients * streams, n_chunks, -1)
+    want = np.zeros_like(got)
+    for k in range(n_chunks):
+        out = eng.process({sid: seqs[i, k] for i, sid in enumerate(sids)})
+        for i, sid in enumerate(sids):
+            want[i, k] = out[sid]
+    e = float(np.abs(got - want).max())
+    warned = "'fused' downgraded to 'fast'" in err
+    say(f"  engine --mode fused in a subprocess: serves mode {served}, "
+        f"warned {warned}; {clients} clients x {streams} streams x "
+        f"{n_chunks} chunks against the CPU replay (gate "
+        f"{cpu.cfg.serving.snr_gate_db} dB, "
+        f"{cpu.cfg.serving.snr_gate_estimator}): out {e:.3e} (bound "
+        f"{OUT_ATOL:g})")
+    if served != "fast" or not warned or cpu.engine.mode != "fast":
+        raise AssertionError("the lookahead daemon did not downgrade mode "
+                             "fused to fast")
+    if e > OUT_ATOL or not np.all(np.isfinite(got)):
+        raise AssertionError("the lookahead daemon's replies disagree with "
+                             "the CPU")
+
+
+def phase_int8_flagship(torch, flag_cfg, flag, flag_plan, smi):
+    """Phase 44: the gated W8A8 fused hop on the quality flagship (the
+    tuned gate, 'both'), whose floor planes stay in global memory: its
+    shared memory per block against the library's and the card's; the
+    single hop against its plain version at SLOTS streams on voiced input
+    (phase_kernel_vs_plain: FORCED_DB, FREE_DB, the control must fail
+    both, the gate must blend); the K-hop kernel at K = 50 (check_multi),
+    its control (the plain fp32 K-hop against the plain int8 one) failing
+    FREE_DB; StreamEngine mode fused at int8 serving it at SLOTS slots
+    against the CPU (phase_engine_idle); the times beside rows 1i and 2i.
+    Returns (single-hop launches, K-hop launches, largest output error
+    from the plain state, worst forced hop dB, K-hop (launches, error,
+    worst stream dB), timings)."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, fused_hop_smem_bytes, make_fused_hop)
+    cfg = tuned_gate(flag_cfg)
+    label = f"{FLAGSHIP}, tuned gate (both)"
+    hop = make_fused_hop(cfg, flag_plan, "cuda", compute_dtype=torch.int8)
+    multi = make_fused_hop(cfg, flag_plan, "cuda", hops_per_call=K_HOPS,
+                           compute_dtype=torch.int8)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = [int(h._lib.adt_fused_hop_smem_bytes(ctypes.byref(h._base_args)))
+           for h in (hop, multi)]
+    say(f"  {label}, int8: shared memory per block {lib[0]} B (one hop), "
+        f"{lib[1]} B (K={K_HOPS}) from the library; "
+        f"fused_hop_smem_bytes "
+        f"{fused_hop_smem_bytes(cfg, flag_plan, torch.int8)}"
+        f" B; the card allows {limit} B; ungated "
+        f"{fused_hop_smem_bytes(flag_cfg, flag_plan, torch.int8)} B, fp32 "
+        f"gated {fused_hop_smem_bytes(cfg, flag_plan)} B")
+    if max(lib) > limit or lib[0] != hop.smem_bytes:
+        raise AssertionError("the gated int8 flagship does not fit a block")
+    e, db = phase_kernel_vs_plain(torch, hop, cfg, flag_plan, (SLOTS,),
+                                  label, voiced_input=True)
+    chunks = torch.from_numpy(voiced_chunks(
+        SLOTS, K_HOPS, cfg.dsp.hop_length, cfg.dsp.sample_rate, 44)).cuda()
+    k_run = check_multi(torch, cfg, flag_plan, label, chunks, "int8")
+    s0 = fused_hop_init_state(cfg, flag_plan, SLOTS, "cuda")
+    fp32 = make_fused_hop(cfg, flag_plan, "cuda", hops_per_call=K_HOPS)
+    runs = []
+    for h in (multi, fp32):
+        s, o1 = h.plain(s0, chunks)
+        _, o2 = h.plain(s, chunks)
+        runs.append(torch.cat([o1, o2]))
+    c_ok, c_text = free_verdict(stream_dbs(runs[0], runs[1]), cfg, "int8")
+    say(f"  K-hop control, the plain fp32 K-hop against the plain int8 "
+        f"one over 2 calls: {c_text}")
+    if c_ok:
+        raise AssertionError("FREE_DB would pass fp32 in the int8 K-hop "
+                             "kernel's place")
+    say(f"  StreamEngine mode fused at int8, {label}, {SLOTS} slots:")
+    engine_launches = phase_engine_idle(
+        torch, with_dtype(cfg, "int8"), flag, "fused", FLAG_TICKS, 440)
+    say(f"  the gated int8 flagship ({smi}):")
+    s_t, c_t = hop_inputs(
+        torch, hop, lambda b: fused_hop_init_state(cfg, flag_plan, b,
+                                                   "cuda"), SLOTS)
+    s_t = s_t._replace(**{k: v.abs() for k, v in planes(s_t).items()
+                          if k.startswith(("nf_", "em_"))})
+    t_hop = timed(torch, lambda: hop(s_t, c_t),
+                  lambda: hop.reference(s_t, c_t), hop_work(hop, SLOTS),
+                  SLOTS, 5, plain_launches=5)
+    t_multi = timed(torch, lambda: multi(s0, chunks),
+                    lambda: multi.plain(s0, chunks), hop_work(multi, SLOTS),
+                    SLOTS, 3, plain_launches=1, hops=K_HOPS)
+    return engine_launches, k_run[0], e, db, k_run, (t_hop, t_multi)
+
+
+def check_webrtc_bf16(torch, cfg, plan, batch, hops):
+    """The bf16 GL mode's kernel held by the warm-GL rule at the served
+    geometry: along the plain bf16 version's trajectory on the card, at
+    every hop the kernel, the plain version, the control (the port's fp32
+    kernel in the bf16 kernel's place) and two float64 witnesses, of the
+    bf16 mode and of fp32, start from its state and take the same chunk.
+    On hops 2 on, per stream, the SNR of the frame each adds to its OLA
+    buffer: against the plain version (median over streams at
+    BF16_GL_DB[n_iter]), and against the bf16 witness less against the
+    fp32 witness (median over streams at BF16_NEARER_DB: nearer the mode
+    it runs); the control must miss both at every hop; the kernel against
+    the bf16 witness by forced_floor; each stream's spectral convergence
+    against the plain version's, beside the control's (printed); at every
+    hop hx within HX_ATOL and unit phases. Returns the readings:
+    {statistic: (kernel's worst hop, control's best hop)} and the largest
+    ola error against the plain version."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    hop = make_webrtc_hop(cfg, plan, "cuda", compute_dtype=torch.bfloat16)
+    control = make_webrtc_hop(cfg, plan, "cuda")
+    w16 = float64_plain(torch, cfg, plan, compute_dtype=torch.bfloat16)
+    w32 = float64_plain(torch, cfg, plan)
+    limit = BF16_GL_DB[hop.n_iter]
+    s = webrtc_hop_init_state(cfg, plan, batch, "cuda")
+    stats = {k: ([], []) for k in ("plain", "nearer", "sc")}
+    rules, worst_hx, worst_ola = [], 0.0, 0.0
+    for t, c in enumerate(webrtc_chunks(torch, batch, hops, batch + 45,
+                                        hop.hop)):
+        s_k, _ = hop(s, c.cuda())
+        s_p, _ = hop.reference(s, c.cuda())
+        s_c, _ = control(s, c.cuda())
+        s64 = to(s, "cpu", torch.float64)
+        s_16, _ = w16.reference(s64, c.double())
+        s_32, _ = w32.reference(s64, c.double())
+        torch.cuda.synchronize()
+        worst_hx = max(worst_hx, max_err(s_k.hx, s_p.hx))
+        worst_ola = max(worst_ola, max_err(s_k.ola, s_p.ola))
+        if not phases_ok(torch, s_k) or not bool(torch.isfinite(
+                s_k.ola).all()):
+            raise AssertionError(f"bf16 webrtc kernel: non-unit phases or a "
+                                 f"non-finite frame at hop {t}")
+        fk, fp, fc, f16, f32 = (added_frame(s, x, hop.hop)
+                                for x in (s_k, s_p, s_c, s_16, s_32))
+        if t < 2:          # a stream's first window is half silence
+            s = s_p
+            continue
+        _, peak, _, lin = w16.targets(s64, c.double())
+        sc_p = spectral_convergence(torch, w16, fp, peak, lin)
+        for i, f in enumerate((fk, fc)):
+            stats["plain"][i].append(float(np.median(stream_snrs(fp, f))))
+            stats["nearer"][i].append(float(np.median(
+                stream_snrs(f16, f) - stream_snrs(f32, f))))
+            stats["sc"][i].append(float(np.abs(spectral_convergence(
+                torch, w16, f, peak, lin) - sc_p).max()))
+        rules.append(forced_floor(fk, fp, f16, limit))
+        s = s_p
+    readings = {k: (min(v[0]) if k != "sc" else max(v[0]),
+                    max(v[1]) if k != "sc" else min(v[1]))
+                for k, v in stats.items()}
+    worst = min(rules, key=lambda r: r[0] - r[2])
+    say(f"  bf16 GL-{hop.n_iter} B={batch:3d}, {fft_label(hop)}, each hop "
+        f"from the plain bf16 version's state, hops 2-{hops - 1}, median "
+        f"over streams per hop, kernel | control (the fp32 kernel):")
+    for k, unit in (("plain", "dB"), ("nearer", "dB"), ("sc", "")):
+        say(f"    {k:6s} " + ", ".join(f"{v:.3g}" for v in stats[k][0])
+            + " | " + ", ".join(f"{v:.3g}" for v in stats[k][1])
+            + f" {unit}")
+    say(f"    limits: plain {limit:g} dB, nearer {BF16_NEARER_DB:g} dB; "
+        f"kernel/f64 witness closest hop {worst[0]:.1f} (plain/f64 "
+        f"{worst[1]:.1f}, floor {worst[2]:.1f}) dB; hx {worst_hx:.3e} "
+        f"(bound {HX_ATOL:g}); ola {worst_ola:.3e}; phases unit")
+    if worst_hx > HX_ATOL or any(k < f for k, _, f in rules):
+        raise AssertionError(f"the bf16 webrtc kernel disagrees with its "
+                             f"plain version (GL-{hop.n_iter}, B={batch})")
+    check_gl_bf16(hop.n_iter, readings)
+    return readings, worst_ola
+
+
+def check_gl_bf16(n_iter, readings):
+    """Raises unless the kernel's worst hop meets BF16_GL_DB[n_iter] and
+    BF16_NEARER_DB and the control's best hop misses both."""
+    (k_plain, c_plain), (k_near, c_near) = (readings["plain"],
+                                            readings["nearer"])
+    if k_plain < BF16_GL_DB[n_iter] or k_near < BF16_NEARER_DB:
+        raise AssertionError(f"the bf16 webrtc kernel (GL-{n_iter}) misses "
+                             f"its limits: {readings}")
+    if c_plain >= BF16_GL_DB[n_iter] or c_near >= BF16_NEARER_DB:
+        raise AssertionError(f"the bf16 limits (GL-{n_iter}) would pass the "
+                             f"fp32 kernel in the bf16 kernel's place: "
+                             f"{readings}")
+
+
+def phase_webrtc_bf16(torch, dari_cfg, dari, dari_plan, smi):
+    """Phase 45: the WebRTC hop's bf16 GL mode on gruunet2-dari_tult at
+    SLOTS streams: the single hop at GL-32 and at GL-8 by the warm-GL
+    rule (check_webrtc_bf16); the K-hop kernel at K = 25, GL-8: two calls
+    carrying the state, each one launch, against 50 single bf16 hops from
+    the same state (0 on every output and plane); StreamEngine
+    fused-webrtc at serving.dtype bfloat16 (phase_engine_webrtc, the
+    witness in the bf16 mode); the times beside rows 4 and 5. Returns
+    (single-hop launches, K-hop launches, worst ola error, timings,
+    readings)."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    readings = {}
+    for n_iter in (dari_cfg.dsp.griffin_lim_iters, WEBRTC_GL[0]):
+        readings[n_iter] = check_webrtc_bf16(
+            torch, warm_cfg(dari_cfg, n_iter), dari_plan, SLOTS, WEBRTC_HOPS)
+    cfg8 = warm_cfg(dari_cfg, WEBRTC_GL[0])
+    multi = make_webrtc_hop(cfg8, dari_plan, "cuda",
+                            compute_dtype=torch.bfloat16,
+                            hops_per_call=WEBRTC_K)
+    single = make_webrtc_hop(cfg8, dari_plan, "cuda",
+                             compute_dtype=torch.bfloat16)
+    s0 = webrtc_hop_init_state(cfg8, dari_plan, SLOTS, "cuda")
+    chunks = torch.stack(webrtc_chunks(torch, SLOTS, 2 * WEBRTC_K, 451,
+                                       multi.hop)).cuda()
+    multi.launches = 0
+    s_m, o_m = multi(s0, chunks[:WEBRTC_K])
+    s_m, o_m2 = multi(s_m, chunks[WEBRTC_K:])
+    torch.cuda.synchronize()
+    k_launches = multi.launches
+    s_s, o_s = run_hops(single, s0, chunks)
+    exact = {k: max_err(planes(s_m)[k], v) for k, v in planes(s_s).items()}
+    exact["out"] = max_err(torch.cat([o_m, o_m2]), torch.stack(o_s))
+    say(f"  bf16 K-hop, GL-{WEBRTC_GL[0]}, K={WEBRTC_K}, B={SLOTS}: 2 calls "
+        f"against {2 * WEBRTC_K} single hops from one state: {fmt(exact)} "
+        f"(0 expected); {k_launches} launches for 2 calls")
+    if max(exact.values()) > KHOP_EXACT or k_launches != 2:
+        raise AssertionError("the bf16 K-hop webrtc kernel differs from "
+                             "single hops")
+    say(f"  StreamEngine mode fused-webrtc at bfloat16, {SLOTS} slots, the "
+        f"CPU engine given the card's state each tick:")
+    cfg16 = with_dtype(dari_cfg, "bfloat16")
+    e_launches = phase_engine_webrtc(
+        torch, cfg16, dari, BF16_GL_DB[dari_cfg.dsp.griffin_lim_iters])
+    say(f"  the bf16 GL mode ({smi}):")
+    hop = make_webrtc_hop(dari_cfg, dari_plan, "cuda",
+                          compute_dtype=torch.bfloat16)
+    w_state, w_chunk = hop_inputs(
+        torch, hop, lambda b: webrtc_hop_init_state(dari_cfg, dari_plan, b,
+                                                    "cuda"), SLOTS)
+    t_hop = timed(torch, lambda: hop(w_state, w_chunk),
+                  lambda: hop.reference(w_state, w_chunk),
+                  webrtc_hop_work(hop, SLOTS), SLOTS, 50)
+    t_multi = timed(torch, lambda: multi(s0, chunks[:WEBRTC_K]),
+                    lambda: multi.plain(s0, chunks[:WEBRTC_K]),
+                    webrtc_hop_work(multi, SLOTS), SLOTS, 5,
+                    plain_launches=1, hops=WEBRTC_K)
+    worst_ola = max(ola for _, ola in readings.values())
+    return e_launches, k_launches, worst_ola, (t_hop, t_multi), readings
 
 
 def main() -> int:
@@ -3853,6 +4275,19 @@ def main() -> int:
         for c, m in small],
         torch.cuda.get_device_properties(0).shared_memory_per_block_optin)
 
+    say(f"phase 43: the lookahead checkpoint {OFFLINE_LA_CHECKPOINT} in mode "
+        f"fast (its delay rings), {SLOTS} slots, card vs CPU; profile; "
+        f"engine --mode fused downgraded to fast")
+    la_launches = phase_lookahead(torch, smi)
+    say(f"phase 44: the gated W8A8 fused hop on {FLAGSHIP} (its floor "
+        f"planes in global memory) vs its plain version on the card")
+    (fi_launches, fim_launches, fi_err, fi_db, fi_multi,
+     fi_t) = phase_int8_flagship(torch, flag_cfg, flag, flag_plan, smi)
+    say(f"phase 45: the WebRTC hop's bf16 Griffin-Lim mode "
+        f"(gruunet2-dari_tult, warm) vs its plain version on the card")
+    (wb_launches, wbm_launches, wb_err, wb_t,
+     wb_read) = phase_webrtc_bf16(torch, dari_cfg, dari, dari_plan, smi)
+
     def variant(label, checked, timing=None, n=None):
         v = {"name": label, "checked": checked}
         if timing is not None:
@@ -3888,13 +4323,33 @@ def main() -> int:
             out.append(v)
         return out
 
+    def gl_bf16(n_iter, n, timing, checked):
+        stats, ola = wb_read[n_iter]
+        v = variant(f"bf16 GL, gruunet2-dari_tult, GL-{n_iter}", checked,
+                    timing, n)
+        v.update(max_abs_err=ola, worst_db=stats["plain"][0],
+                 control_db=stats["plain"][1], limit_db=BF16_GL_DB[n_iter],
+                 nearer_db=stats["nearer"][0],
+                 control_nearer_db=stats["nearer"][1],
+                 limit_nearer_db=BF16_NEARER_DB)
+        return v
+
+    flag_i8 = f"int8, {FLAGSHIP}, tuned gate (both)"
+    v_fi = variant(flag_i8, "phase 44: 256 streams, voiced, the control "
+                   "failing", fi_t[0], fi_launches)
+    v_fi.update(max_abs_err=fi_err, worst_db=fi_db,
+                limit_db=FORCED_DB["int8"])
+    v_fim = variant(flag_i8, "phase 44: K = 50, fp32 and int16 IO, the "
+                    "control failing", fi_t[1], fim_launches)
+    v_fim.update(max_abs_err=fi_multi[1], worst_db=fi_multi[2],
+                 limit_db=FREE_DB[(FLAGSHIP, "int8")][1])
     rows = []
     for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by), \
             variants in (
             ("fused_hop", "fused_hop", "fused_hop.py:242",
              launches + me_launches + sum(re_launches.values())
-             + ws_launches,
-             max(err, g_err, mh_err, flag_err,
+             + ws_launches + fi_launches,
+             max(err, g_err, mh_err, flag_err, fi_err,
                  *(e for _, e in r_err.values())), fused,
              [variant("mel, gruunet2-stream16k and two runs/ widths",
                       "phases 2, 4, 5, 13, 15, 16"),
@@ -3909,11 +4364,12 @@ def main() -> int:
               variant(f"float32, {FLAGSHIP}", "phase 35, 256 streams",
                       r_t[(FLAGSHIP, "float32", "hop")])]
              + reduced("bfloat16", "hop", re_launches["bfloat16"])
-             + reduced("int8", "hop", re_launches["int8"])),
+             + reduced("int8", "hop", re_launches["int8"]) + [v_fi]),
             ("fused_hop_multi", "fused_hop", "fused_hop.py:384",
-             m_launches + mm_launches + sum(n for n, _, _ in
-                                            r_multi.values()),
-             max(m_err, mm_err, *(e for _, e, _ in r_multi.values())), multi,
+             m_launches + mm_launches + fim_launches
+             + sum(n for n, _, _ in r_multi.values()),
+             max(m_err, mm_err, fi_multi[1],
+                 *(e for _, e, _ in r_multi.values())), multi,
              [variant("mel, gruunet2-stream16k, ungated and gated, fp32 and "
                       "int16 IO", "phase 14"),
               variant(f"raw + delta, {MOMO_SPEC}, fp32 and int16 IO",
@@ -3921,25 +4377,40 @@ def main() -> int:
               variant(f"float32, {FLAGSHIP}", "timed beside phase 36",
                       r_t[(FLAGSHIP, "float32", "K-hop")])]
              + reduced("bfloat16", "K-hop", None)
-             + reduced("int8", "K-hop", None)),
+             + reduced("int8", "K-hop", None) + [v_fim]),
             ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331",
-             w_launches + wws_launches, w_err, webrtc,
+             w_launches + wws_launches + wb_launches, max(w_err, wb_err),
+             webrtc,
              [variant("mel, gruunet2-dari_tult, warm GL", "phases 3, 6, 7; "
                       "not on a MOMO path (JAX refuses delta and raw)"),
               variant("WebSocket daemon, gruunet2-dari_tult, warm GL",
                       f"phase 40: {WS_CLIENTS} clients, replies vs the "
                       f"kernel replayed per stream; reply p50 "
                       f"{wws_lat[0]:.3f} ms, p99 {wws_lat[1]:.3f} ms",
-                      n=wws_launches)]),
+                      n=wws_launches),
+              gl_bf16(dari_cfg.dsp.griffin_lim_iters, wb_launches, wb_t[0],
+                      "phase 45: each hop from the plain state, 256 "
+                      "streams, the control failing; the engine at "
+                      "bfloat16"),
+              gl_bf16(WEBRTC_GL[0], None, None, "phase 45: each hop from "
+                      "the plain state, 256 streams, the control failing")]),
             ("webrtc_hop_multi", "webrtc_hop", "webrtc_hop.py:344",
-             wm_launches, wm_err, w_multi[WEBRTC_GL[0]],
+             wm_launches + wbm_launches, wm_err, w_multi[WEBRTC_GL[0]],
              [variant("mel, gruunet2-dari_tult, GL-8 and GL-32",
-                      "phases 19-22; not on a MOMO path")]),
+                      "phases 19-22; not on a MOMO path"),
+              variant(f"bf16 GL, gruunet2-dari_tult, GL-{WEBRTC_GL[0]}, "
+                      f"K={WEBRTC_K}", f"phase 45: 2 calls against "
+                      f"{2 * WEBRTC_K} single bf16 hops (0)", wb_t[1],
+                      wbm_launches)]),
             ("fused_cell", "fused_cell", "gruunet_cell.py:58",
-             c_launches + mc_launches, max(c_err, mc_err), fused_cell,
+             c_launches + mc_launches + la_launches, max(c_err, mc_err),
+             fused_cell,
              [variant("gruunet2-good and two runs/ widths", "phases 8-10"),
               variant(f"delta, {MOMO_SPEC}; MOMO2", "phase 27",
-                      momo_t["cell"], mc_launches)])):
+                      momo_t["cell"], mc_launches),
+              variant(f"lookahead, {OFFLINE_LA_CHECKPOINT}, mode fast",
+                      "phase 43: the engine against the CPU, profile",
+                      n=la_launches)])):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"audio_denoising_torch/csrc/{source}.cu",
@@ -3947,6 +4418,7 @@ def main() -> int:
             "launches": n, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "variants": variants})
+    say("done")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -177,17 +177,42 @@ def test_engine_refuses_unported_modes():
 
 
 def test_daemon_refuses_a_profile_it_cannot_serve():
-    """A bounded-lookahead checkpoint in mode fused: the JAX engine
-    downgrades it to mode fast, whose delay rings the port has not ported
-    (ROADMAP A10), so the port refuses it, naming A10, rather than serve
-    it without its delay. (A gated fused-webrtc, which this test refused
-    until the port served JAX's downgrades, is now served in mode webrtc:
-    tests/test_torch_serve.py.)"""
-    with pytest.raises(NotImplementedError, match="A10"):
-        EngineDaemon(os.path.join(REPO, "runs",
-                                  "gruunet2mel128w64-mrstft-la4-50k.npz"),
-                     max_streams=2, address=("127.0.0.1", 0), mode="fused",
-                     device="cpu")
+    """A bounded-lookahead checkpoint in mode fused, which this test
+    refused (naming ROADMAP A10) until the fast step's delay rings were
+    ported: the daemon now serves it as the JAX engine does, downgraded
+    to mode fast with a warning, and a stream's replies equal the fast
+    step run alone on the daemon's profile. (A gated fused-webrtc is
+    served in mode webrtc: tests/test_torch_serve.py.)"""
+    with pytest.warns(UserWarning, match="downgraded to 'fast'"):
+        daemon = EngineDaemon(os.path.join(
+            REPO, "runs", "gruunet2mel128w64-mrstft-la4-50k.npz"),
+            max_streams=2, address=("127.0.0.1", 0), mode="fused",
+            device="cpu")
+    assert daemon.engine.mode == "fast"
+    hop = daemon.cfg.dsp.hop_length
+    data = (0.05 * np.random.default_rng(9).standard_normal(
+        (3, hop))).astype(np.float32)
+    got = []
+    server = threading.Thread(target=daemon.serve_forever, daemon=True)
+    server.start()
+    try:
+        assert daemon.listening.wait(RECV_TIMEOUT_S)
+        with Client(daemon.address) as conn:
+            conn.send(("open", "s"))
+            assert _recv(conn)[0] == "ok"
+            for chunk in data:
+                conn.send(("chunk", "s", chunk))
+                op, sid, out = _recv(conn)
+                assert op == "out" and sid == "s"
+                got.append(out)
+    finally:
+        daemon.stop()
+        server.join(RECV_TIMEOUT_S)
+    step = make_fast_step(daemon.cfg, daemon.model, "cpu")
+    state = fast_init_state(daemon.cfg, daemon.model, 1)
+    for chunk, out in zip(data, got):
+        state, want = step(state, torch.from_numpy(chunk[None]))
+        np.testing.assert_allclose(out, want[0].numpy(), atol=1e-6)
 
 
 UNIT_GAIN = os.path.join(REPO, "runs", "gruunet2s16kw40-mrstft-idp-50k.npz")

@@ -2,8 +2,8 @@
 CPU: ``make_fast_step`` hop by hop (the zoo model, PlanModel with the
 fused cell's plain version, a small random model), ``make_server_step``
 against its golden and JAX, StreamEngine and EngineDaemon in mode
-'fast', the refusals of what the fast step does not port yet, and the
-``profile`` command."""
+'fast', what the fast step refuses (and the lookahead it now serves),
+and the ``profile`` command."""
 
 import dataclasses
 import json
@@ -412,24 +412,39 @@ def test_engine_fast_gated_matches_jax_with_masked_commit(good16k):
         _assert_planes_close(eng.state, jeng.state)
 
 
-# -- what the fast step does not port yet, and what it refuses ---------------
+# -- what the fast step refuses, and the lookahead it once refused -----------
 
 def _unported(cfg, what):
-    """``cfg`` changed to what the fast step refuses, with the exception
-    and message it raises: lookahead is not ported yet; a raw-domain
-    config whose n_mels is not n_stft has no feature width."""
+    """``cfg`` changed to a case the fast step once refused or refuses,
+    with the exception and message it raises (None where it now serves
+    it): a lookahead checkpoint is served by the delay rings; a
+    raw-domain config whose n_mels is not n_stft has no feature width."""
     if what == "lookahead":
         return dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, lookahead_frames=4)), NotImplementedError, \
-            "ROADMAP A10"
+            cfg.model, lookahead_frames=4)), None, None
     return dataclasses.replace(cfg, dsp=dataclasses.replace(
         cfg.dsp, domain="raw")), ValueError, "n_mels must equal n_stft"
 
 
 @pytest.mark.parametrize("what", ["lookahead", "raw"])
 def test_fast_refuses_what_is_not_ported(good, what):
+    """The raw case still raises at every entry point; lookahead (ROADMAP
+    A10, refused until the delay rings were ported) is served: the step,
+    its state and the engine carry (B, 4, F) rings, and a hop runs
+    (tests/test_torch_lookahead.py holds it against JAX)."""
     _, (cfg, model) = good
     cfg, err, item = _unported(cfg, what)
+    if err is None:
+        step = make_fast_step(cfg, model, "cpu")
+        state = fast_init_state(cfg, model, 2)
+        eng = StreamEngine(cfg, model, mode="fast", max_streams=2,
+                           device="cpu")
+        state, out = step(state, torch.full((2, cfg.dsp.hop_length), 0.1))
+        assert state.la_mag.shape == eng.state.la_phase.shape == \
+            (2, 4, cfg.dsp.n_stft)
+        assert out.shape == (2, cfg.dsp.hop_length)
+        assert torch.isfinite(out).all()
+        return
     with pytest.raises(err, match=item):
         make_fast_step(cfg, model, "cpu")
     with pytest.raises(err, match=item):

@@ -3,7 +3,8 @@ with the plain version at the JAX tests' small geometry (n_fft 64, 16
 mels, hidden (5, 5), random weights from a seed): the float64 witness,
 the frame a hop adds to its OLA buffer, the spectral convergence that
 Griffin-Lim lowers, and the waveform rule for a hop taken from a shared
-state."""
+state; and the rules it holds the fast step's lookahead rings and the
+bf16 Griffin-Lim mode to."""
 
 import importlib.util
 import os
@@ -274,6 +275,46 @@ def test_plane_errors_hold_the_gate_planes_relative(smoke):
     assert errs["nf_floor"] > smoke.PLANE_RTOL
     with pytest.raises(AssertionError, match="nf_floor"):
         smoke.check_state(errs, "bad")
+
+
+def test_plane_errors_hold_the_lookahead_rings_by_the_frames_scale(smoke):
+    """The lookahead rings are analysis spectra: a bin's error counts
+    against its stream's largest bin, and a phase of pi against one of
+    -pi is the same bin; an error of 1e-3 of the largest bin fails."""
+    from audio_denoising_torch.runtime.engine import FastState
+    z = torch.zeros(2, 4)
+    mag = torch.tensor([[[50.0, 1e-6, 2.0], [3.0, 0.5, 1e-3]]] * 2)
+    phase = torch.tensor([[[0.1, 3.0, np.pi], [-1.0, 2.0, 0.0]]] * 2)
+    want = FastState(ring=z, ola=z, hx=z, la_mag=mag, la_phase=phase)
+    near = mag.clone()
+    near[:, 0, 1] += 1e-5              # far from the tiny bin, not the frame
+    flipped = phase.clone()
+    flipped[:, 0, 2] = -np.pi
+    errs = smoke.plane_errors(want._replace(la_mag=near, la_phase=flipped),
+                              want)
+    assert errs["la_mag"] < 1e-6 and errs["la_phase"] < 1e-6
+    smoke.check_state(errs, "ok")
+    far = mag.clone()
+    far[:, 1, 0] += 1e-3 * 50.0
+    errs = smoke.plane_errors(want._replace(la_mag=far), want)
+    with pytest.raises(AssertionError, match="la_mag"):
+        smoke.check_state(errs, "bad")
+
+
+def test_the_bf16_gl_limits_need_the_control_to_fail(smoke):
+    """check_gl_bf16 passes a kernel above both limits with the control
+    below them, and raises where the kernel misses one or where a limit
+    would pass the control."""
+    lim = smoke.BF16_GL_DB[32]
+    ok = {"plain": (lim + 1, lim - 1), "nearer": (1.0, -70.0),
+          "sc": (0.1, 0.1)}
+    smoke.check_gl_bf16(32, ok)
+    for bad in ({**ok, "plain": (lim - 0.1, lim - 1)},
+                {**ok, "nearer": (-0.1, -70.0)},
+                {**ok, "plain": (lim + 1, lim + 0.1)},
+                {**ok, "nearer": (1.0, 0.5)}):
+        with pytest.raises(AssertionError):
+            smoke.check_gl_bf16(32, bad)
 
 
 @pytest.mark.parametrize("K", [1, 2, 3])

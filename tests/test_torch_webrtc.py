@@ -483,13 +483,16 @@ def test_hop_wrapper_rejects_bad_inputs(case):
         hop(state, chunk)
 
 
+# the bf16 case keeps its id from before the bf16 GL mode was ported
 @pytest.mark.parametrize("case,err", [
     ("cold", ValueError), ("hop", ValueError), ("raw", ValueError),
-    ("delta", ValueError), ("bf16", NotImplementedError),
+    ("delta", ValueError),
+    pytest.param("bf16", None, id="bf16-NotImplementedError"),
     ("multi", ValueError)])
 def test_hop_refuses_what_it_cannot_serve(case, err):
-    """What the JAX kernel refuses, with ValueError; what the port has not
-    ported yet (the bf16 GL mode), with NotImplementedError. K hops per
+    """What the JAX kernel refuses, with ValueError. The bf16 GL mode,
+    refused with NotImplementedError until it was ported, builds and runs
+    a hop (held against JAX's bf16 kernel in test_bf16_gl_*). K hops per
     call are served (test_multi_hop_*); a call of no hops is refused."""
     _, (cfg, _, plan) = _small()
     kw = {}
@@ -506,8 +509,17 @@ def test_hop_refuses_what_it_cannot_serve(case, err):
         kw["compute_dtype"] = torch.bfloat16
     else:
         kw["hops_per_call"] = 0
+    cfg = dataclasses.replace(cfg, dsp=dsp)
+    if err is None:
+        hop = make_webrtc_hop(cfg, plan, "cpu", **kw)
+        assert hop.gl_bf16 and hop.compute_dtype == torch.bfloat16
+        state, out = hop(webrtc_hop_init_state(cfg, plan, 2),
+                         torch.full((2, cfg.dsp.hop_length), 0.1))
+        assert out.shape == (2, cfg.dsp.hop_length)
+        assert bool(torch.isfinite(state.ola).all())
+        return
     with pytest.raises(err):
-        make_webrtc_hop(dataclasses.replace(cfg, dsp=dsp), plan, "cpu", **kw)
+        make_webrtc_hop(cfg, plan, "cpu", **kw)
 
 
 def test_hop_needs_a_card_unless_cpu_is_asked(monkeypatch):
@@ -752,14 +764,16 @@ def test_add_stream_resets_the_warm_seed(rng):
                  id="lookahead-webrtc-ValueError"),
     pytest.param("cold", "fused-webrtc", ValueError, None,
                  id="cold-fused-webrtc-ValueError"),
-    pytest.param("bf16", "fused-webrtc", NotImplementedError, None,
+    pytest.param("bf16", "fused-webrtc", None, "fused-webrtc",
                  id="bf16-fused-webrtc-NotImplementedError")])
 def test_engine_raises_where_jax_downgrades(case, mode, err, served):
     """Where the JAX engine downgrades (engine.py:278-308), the port now
     warns and serves the same mode: a gated fused-webrtc in mode webrtc,
     whose step carries the gate; int8 in mode fast on the quantized plan.
-    Where neither serves the config, or the port's kernel refuses it (the
-    bf16 GL mode, B5), it raises and never serves another mode."""
+    bf16 is served in mode fused-webrtc itself (the GL loop in bf16), as
+    JAX serves it; until that mode was ported the port raised there.
+    Where neither serves the config, it raises and never serves another
+    mode."""
     _, (cfg, model, _) = _small()
     srv, dsp, mc = cfg.serving, cfg.dsp, cfg.model
     if case == "gate":
@@ -788,6 +802,8 @@ def test_engine_raises_where_jax_downgrades(case, mode, err, served):
         assert any(f"{mode!r} downgraded to {served!r}" in m for m in said)
     if case == "gate":
         assert engine.state.em_out is not None
+    if case == "bf16":
+        assert engine.hop_step.gl_bf16
 
 
 def test_webrtc_engines_need_a_card_unless_cpu_is_asked(monkeypatch):
