@@ -14,8 +14,10 @@ names follow the JAX package so each counterpart is easy to find:
                             WAV, the codec libraries, the cache, stream
                             helpers, the WebSocket frame codec).
 - ``pipeline``            — the offline full-clip denoise and the
-                            streaming steps, op by op.
-- ``models``              — GRUUNet2 as an ``nn.Module``.
+                            streaming steps, op by op (the segment
+                            family's window chain among them).
+- ``models``              — GRUUNet2, the MOMO family, the 2-D U-Nets,
+                            the GRU and TRUNet as ``nn.Module``s.
 - ``runtime``             — the matrixized cell plan, ``StreamEngine``,
                             batching tick and serving metrics.
 - ``apps.offline``        — offline file denoising (CLI ``denoise``).

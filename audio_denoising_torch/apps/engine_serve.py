@@ -5,8 +5,12 @@ N concurrent client streams multiplex onto one fixed-slot StreamEngine;
 every tick advances all streams that sent a chunk in one engine step
 (runtime/tick.BatchingTick): the op-by-op phase-reuse hop in mode
 ``fast``, one launch of the fused-hop kernel in mode ``fused``, of the
-WebRTC-hop kernels in mode ``fused-webrtc``, or the op-by-op Griffin-Lim
-hop in mode ``webrtc``. As in the JAX package, a bare daemon serves
+WebRTC-hop kernels in mode ``fused-webrtc``, the op-by-op Griffin-Lim
+hop in mode ``webrtc``, or the cadence-locked segment step of the
+U-Nets and TRUNet in mode ``unet`` (one round per wall tick; the model
+runs every ``unet_seg_hops`` ticks, at the measured-best geometry
+unless a ``--unet-*`` flag or ``--no-snr-gate`` is given). As in the
+JAX package, a bare daemon serves
 ``gruunet2-good`` in mode ``fast``, and in modes ``fast`` and ``fused`` a
 unit-gain causal checkpoint gets the tuned SNR gate unless the caller
 sets one (``--snr-gate``) or turns it off (``--no-snr-gate``); mode
@@ -39,7 +43,9 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from audio_denoising_torch.config import recommended_serving, with_snr_gate
+from audio_denoising_torch.config import (
+    recommended_serving, recommended_streaming_geometry, with_snr_gate,
+    with_unet_geometry)
 from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.runtime.engine import MODES, StreamEngine
 from audio_denoising_torch.runtime.metrics import ServingMetrics
@@ -55,7 +61,10 @@ class EngineDaemon:
     profile (the tuned gate on unit-gain causal checkpoints) unless
     ``auto_gate`` is False. ``dtype`` ("float32", "bfloat16" or "int8";
     None keeps the checkpoint's own) replaces ``serving.dtype`` after the
-    gate profile, as in the JAX daemon (engine_serve.py:73-76)."""
+    gate profile, as in the JAX daemon (engine_serve.py:73-76). The
+    ``unet_*`` arguments set mode ``unet``'s geometry
+    (``with_unet_geometry``); with none of them and ``auto_gate``, mode
+    ``unet`` serves ``recommended_streaming_geometry``."""
 
     def __init__(self, spec: str = "gruunet2-good",
                  max_streams: int = 256,
@@ -66,8 +75,14 @@ class EngineDaemon:
                  snr_gate_db: Optional[float] = None,
                  snr_gate_width_db: Optional[float] = None,
                  snr_gate_estimator: Optional[str] = None,
-                 auto_gate: bool = True, dtype: Optional[str] = None):
+                 auto_gate: bool = True, dtype: Optional[str] = None,
+                 unet_seg_hops: Optional[int] = None,
+                 unet_ctx: Optional[int] = None,
+                 unet_xfade: Optional[int] = None,
+                 unet_ctx_left: Optional[int] = None):
         self.cfg, self.model = load_pretrained(spec)
+        self.cfg = with_unet_geometry(self.cfg, unet_seg_hops, unet_ctx,
+                                      unet_xfade, unet_ctx_left)
         if snr_gate_db is not None:
             self.cfg = with_snr_gate(self.cfg, snr_gate_db,
                                      snr_gate_width_db, snr_gate_estimator)
@@ -75,6 +90,11 @@ class EngineDaemon:
             # the measured-best profile of the phase-reuse hops, as the
             # JAX daemon serves it; mode webrtc is gated only on request
             self.cfg = recommended_serving(self.cfg)
+        if auto_gate and mode == "unet" and all(v is None for v in (
+                unet_seg_hops, unet_ctx, unet_xfade, unet_ctx_left)):
+            # no geometry flag: the measured-best window; any flag, or
+            # --no-snr-gate (the raw profile), opts out
+            self.cfg = recommended_streaming_geometry(self.cfg)
         if dtype is not None:
             self.cfg = dataclasses.replace(
                 self.cfg,
@@ -233,7 +253,9 @@ def parser() -> argparse.ArgumentParser:
                    "tuned gate in modes fast and fused "
                    "(config.recommended_serving)")
     p.add_argument("--no-snr-gate", action="store_true",
-                   help="serve the raw profile: no recommended gate")
+                   help="serve the raw profile: no recommended gate on "
+                   "causal checkpoints, no recommended geometry in mode "
+                   "unet")
     p.add_argument("--snr-gate-width", type=float, default=None,
                    help="the gate's transition width in dB (tuned default "
                    "6)")
@@ -248,7 +270,23 @@ def parser() -> argparse.ArgumentParser:
                    "matrices, fp32 sums) or int8 (W8A8 plan, bf16 DSP); "
                    "mode fast serves the quantized plan at int8 and "
                    "float32 otherwise")
+    add_unet_flags(p)
     return p
+
+
+def add_unet_flags(p: argparse.ArgumentParser) -> None:
+    """Mode unet's geometry flags, shared with the WebSocket daemon."""
+    p.add_argument("--unet-seg-hops", type=int, default=None,
+                   help="mode unet: segment length in hops (latency = "
+                   "seg_hops * hop + ctx samples)")
+    p.add_argument("--unet-ctx", type=int, default=None,
+                   help="mode unet: future window context in samples")
+    p.add_argument("--unet-xfade", type=int, default=None,
+                   help="mode unet: segment-join crossfade in samples "
+                   "(adds no latency)")
+    p.add_argument("--unet-ctx-left", type=int, default=None,
+                   help="mode unet: past window context in samples (adds "
+                   "no latency)")
 
 
 def daemon_from_args(args: argparse.Namespace) -> EngineDaemon:
@@ -258,7 +296,10 @@ def daemon_from_args(args: argparse.Namespace) -> EngineDaemon:
                         device=args.device, snr_gate_db=args.snr_gate,
                         snr_gate_width_db=args.snr_gate_width,
                         snr_gate_estimator=args.snr_gate_estimator,
-                        auto_gate=not args.no_snr_gate, dtype=args.dtype)
+                        auto_gate=not args.no_snr_gate, dtype=args.dtype,
+                        unet_seg_hops=args.unet_seg_hops,
+                        unet_ctx=args.unet_ctx, unet_xfade=args.unet_xfade,
+                        unet_ctx_left=args.unet_ctx_left)
 
 
 def main(argv=None) -> int:

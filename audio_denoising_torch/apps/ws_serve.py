@@ -25,8 +25,9 @@ kernels in mode ``fused-webrtc``. The JAX daemon's defaults hold:
 ``gruunet2-good`` in mode ``fast`` with 256 streams on port 8765, the
 tuned SNR gate in modes ``fast`` and ``fused`` unless ``--snr-gate`` or
 ``--no-snr-gate`` is given, and ``--dtype`` applied after the gate
-profile. Engine mode ``unet`` and the ``--unet-*`` geometry are not
-ported yet (ROADMAP A8).
+profile. Mode ``unet`` serves the U-Nets and TRUNet cadence-locked, at
+the measured-best geometry unless a ``--unet-*`` flag or
+``--no-snr-gate`` is given.
 """
 
 import argparse
@@ -42,7 +43,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from audio_denoising_torch.config import recommended_serving, with_snr_gate
+from audio_denoising_torch.apps.engine_serve import add_unet_flags
+from audio_denoising_torch.config import (
+    recommended_serving, recommended_streaming_geometry, with_snr_gate,
+    with_unet_geometry)
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.io import websocket as ws
@@ -51,8 +55,6 @@ from audio_denoising_torch.runtime.engine import MODES, StreamEngine
 from audio_denoising_torch.runtime.metrics import ServingMetrics
 from audio_denoising_torch.runtime.tick import BatchingTick
 
-UNET_REFUSAL = ("engine mode 'unet' and the --unet-* geometry (the U-Net "
-                "segment family) are not ported yet (ROADMAP A8)")
 POLL_S = 0.25      # how often blocked loops look at the stop flag
 REPLY_QUEUE = 64   # replies a connection holds before the oldest is dropped
 _STATIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -99,11 +101,15 @@ class WSDaemon:
                  snr_gate_width_db: Optional[float] = None,
                  snr_gate_estimator: Optional[str] = None,
                  dtype: Optional[str] = None, auto_gate: bool = True,
-                 device: Optional[Union[str, torch.device]] = None):
-        if mode == "unet":
-            raise NotImplementedError(UNET_REFUSAL)
+                 device: Optional[Union[str, torch.device]] = None,
+                 unet_seg_hops: Optional[int] = None,
+                 unet_ctx: Optional[int] = None,
+                 unet_xfade: Optional[int] = None,
+                 unet_ctx_left: Optional[int] = None):
         self.spec = spec
         self.cfg, self.model = load_pretrained(spec)
+        self.cfg = with_unet_geometry(self.cfg, unet_seg_hops, unet_ctx,
+                                      unet_xfade, unet_ctx_left)
         if snr_gate_db is not None:
             self.cfg = with_snr_gate(self.cfg, snr_gate_db,
                                      snr_gate_width_db, snr_gate_estimator)
@@ -111,6 +117,11 @@ class WSDaemon:
             # the measured-best profile of the phase-reuse hops, as the
             # JAX daemon serves it; the webrtc modes are gated on request
             self.cfg = recommended_serving(self.cfg)
+        if auto_gate and mode == "unet" and all(v is None for v in (
+                unet_seg_hops, unet_ctx, unet_xfade, unet_ctx_left)):
+            # no geometry flag: the measured-best window, as the engine
+            # daemon serves it
+            self.cfg = recommended_streaming_geometry(self.cfg)
         if dtype is not None:
             self.cfg = dataclasses.replace(
                 self.cfg,
@@ -282,8 +293,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8765,
                    help="0 binds a free port")
     p.add_argument("--max-streams", type=int, default=256)
-    p.add_argument("--mode", choices=list(MODES) + ["unet"], default="fast",
-                   help="'unet' is not ported yet (ROADMAP A8)")
+    p.add_argument("--mode", choices=list(MODES), default="fast")
     p.add_argument("--tick-ms", type=float, default=1.0)
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="rounds kept in flight before delivery blocks")
@@ -295,7 +305,9 @@ def parser() -> argparse.ArgumentParser:
                    "checkpoints serve the tuned gate in modes fast and "
                    "fused (config.recommended_serving)")
     p.add_argument("--no-snr-gate", action="store_true",
-                   help="serve the raw profile: no recommended gate")
+                   help="serve the raw profile: no recommended gate on "
+                   "causal checkpoints, no recommended geometry in mode "
+                   "unet")
     p.add_argument("--snr-gate-width", type=float, default=None,
                    help="the gate's transition width in dB (tuned default "
                    "6)")
@@ -308,20 +320,13 @@ def parser() -> argparse.ArgumentParser:
                    "own), applied after the gate profile: mode fused runs "
                    "the fused hop in it, mode fast serves the quantized "
                    "plan at int8; the webrtc modes serve int8 in mode fast")
-    for flag in ("--unet-seg-hops", "--unet-ctx", "--unet-xfade",
-                 "--unet-ctx-left"):
-        p.add_argument(flag, type=int, default=None,
-                       help="mode unet's geometry: not ported yet (A8)")
+    add_unet_flags(p)
     return p
 
 
 def main(argv=None) -> int:
     p = parser()
     args = p.parse_args(argv)
-    if args.mode == "unet" or any(v is not None for v in (
-            args.unet_seg_hops, args.unet_ctx, args.unet_xfade,
-            args.unet_ctx_left)):
-        p.error(UNET_REFUSAL)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -332,7 +337,9 @@ def main(argv=None) -> int:
                       snr_gate_width_db=args.snr_gate_width,
                       snr_gate_estimator=args.snr_gate_estimator,
                       dtype=args.dtype, auto_gate=not args.no_snr_gate,
-                      device=device)
+                      device=device, unet_seg_hops=args.unet_seg_hops,
+                      unet_ctx=args.unet_ctx, unet_xfade=args.unet_xfade,
+                      unet_ctx_left=args.unet_ctx_left)
     try:
         daemon.serve_forever()
     except KeyboardInterrupt:

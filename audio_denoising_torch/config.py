@@ -479,3 +479,72 @@ PRESETS: Dict[str, Config] = {
         serving=ServingConfig(chunk_samples=21),
     ),
 }
+
+
+def with_unet_geometry(cfg: Config,
+                       seg_hops: Optional[int] = None,
+                       ctx: Optional[int] = None,
+                       xfade: Optional[int] = None,
+                       ctx_left: Optional[int] = None) -> Config:
+    """``cfg`` with the segment family's streaming geometry overridden
+    (one helper, so the engine daemon, the WebSocket daemon and
+    ``denoise --streamed`` agree). Each argument is in its ServingConfig
+    field's units (``seg_hops`` in hops, the rest in samples at the
+    model's rate); None keeps the checkpoint's value. The algorithmic
+    latency is ``seg_hops * hop + ctx`` samples: ``xfade`` (the crossfade
+    at a segment join) and ``ctx_left`` (past context) add none."""
+    over = {}
+    if seg_hops is not None:
+        over["unet_seg_hops"] = seg_hops
+    if ctx is not None:
+        over["unet_ctx_samples"] = ctx
+    if xfade is not None:
+        over["unet_xfade_samples"] = xfade
+    if ctx_left is not None:
+        over["unet_ctx_left_samples"] = ctx_left
+    if not over:
+        return cfg
+    return dataclasses.replace(
+        cfg, serving=dataclasses.replace(cfg.serving, **over))
+
+
+# The stateless segment family the streamed-geometry frontier was measured
+# on (TRUNetDenoiser also streams through mode 'unet', but its 16 kHz
+# window was not swept: it keeps the class defaults).
+SEGMENT_ARCHS = frozenset({"UNet2d", "UNet2d3", "UNet2d4", "UNet2d4Wide"})
+
+# The measured-best bounded-latency window of the JAX package's frontier
+# (its docs/BENCHMARKS.md), at the 48 kHz / hop-384 basis seg_hops 8, ctx
+# 960, ctx_left 44544, xfade 384: 84 ms of algorithmic latency. Kept in
+# seconds, so the rule scales to any DSP basis: a ~64 ms segment, 20 ms
+# of future context, an 8 ms crossfade, and past context that makes the
+# whole window ~1 s (what the 2-s-crop training recipe saw).
+_STREAM_SEG_S = 3072 / 48000
+_STREAM_CTX_S = 960 / 48000
+_STREAM_XFADE_S = 384 / 48000
+_STREAM_WINDOW_S = 48576 / 48000
+
+
+def recommended_streaming_geometry(cfg: Config) -> Config:
+    """The measured-best bounded-latency window for ``SEGMENT_ARCHS``,
+    applied only where every geometry field still holds its class default
+    (an explicit override wins). The daemons in mode ``unet`` and
+    ``denoise --streamed`` serve it when no geometry flag is given."""
+    srv = cfg.serving
+    d = ServingConfig()
+    if (cfg.model.arch not in SEGMENT_ARCHS
+            or srv.unet_seg_hops != d.unet_seg_hops
+            or srv.unet_ctx_samples != d.unet_ctx_samples
+            or srv.unet_xfade_samples != d.unet_xfade_samples
+            or srv.unet_ctx_left_samples != d.unet_ctx_left_samples):
+        return cfg
+    sr, hop = cfg.dsp.sample_rate, cfg.dsp.hop_length
+    seg_hops = max(1, round(_STREAM_SEG_S * sr / hop))
+    seg = seg_hops * hop
+    ctx = int(round(_STREAM_CTX_S * sr))
+    xfade = min(int(round(_STREAM_XFADE_S * sr)), ctx, seg)
+    ctx_left = max(0, int(round(_STREAM_WINDOW_S * sr)) - seg - ctx)
+    ctx_left = (ctx_left // hop) * hop     # whole hops (44544 = 116 x 384)
+    return dataclasses.replace(cfg, serving=dataclasses.replace(
+        srv, unet_seg_hops=seg_hops, unet_ctx_samples=ctx,
+        unet_xfade_samples=xfade, unet_ctx_left_samples=ctx_left))

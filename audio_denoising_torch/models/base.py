@@ -9,14 +9,18 @@ from torch import nn
 
 
 def gaussian_smearing(num_bins: int, num_gaussians: int = 6,
-                      start: float = 0.0, stop: float = 1.0) -> np.ndarray:
+                      start: float = 0.0, stop: float = 1.0,
+                      sqrt_positions: bool = False) -> np.ndarray:
     """RBF embedding of the normalized bin index, (num_gaussians, num_bins)
     float32. The reference recomputes it every frame at every level
     (gruunet2.py:139-143); it depends only on the shape, so it is a
-    constant here."""
+    constant here. ``sqrt_positions`` is the 2-D U-Nets' variant over
+    ``linspace(0, 1, bins).sqrt()`` (unet4.py:158)."""
     offset = np.linspace(start, stop, num_gaussians)
     coeff = -0.5 / float(offset[1] - offset[0]) ** 2
     pos = np.linspace(0.0, 1.0, num_bins)
+    if sqrt_positions:
+        pos = np.sqrt(pos)
     dist = pos[:, None] - offset[None, :]
     return np.exp(coeff * dist * dist).T.astype(np.float32)
 
@@ -42,7 +46,8 @@ def load_reference_params(module: nn.Module,
     computes and not loaded; every other key must match exactly."""
     params = dict(params)
     want = np.linspace(0.0, 1.0, num_gaussians)
-    for k in [k for k in params if k.endswith(".gs.offset")]:
+    for k in [k for k in params
+              if k == "gs.offset" or k.endswith(".gs.offset")]:
         got = np.asarray(params.pop(k), dtype=np.float64)
         if got.shape != want.shape or not np.allclose(got, want, atol=1e-6):
             raise ValueError(f"{k} holds offsets {got}, expected {want}")

@@ -1,7 +1,10 @@
 """The offline full-clip denoise and the op-by-op streaming steps (JAX
 counterpart pipeline.py: ``_transforms`` :37, ``_to_features`` :51,
 ``_to_linear`` :57, ``_apply_snr_gate`` :66, ``offline_denoise`` :115,
-``jit_offline_denoiser`` :454; the webrtc part, ``WebRTCState`` :464,
+``jit_offline_denoiser`` :454; the segment family's
+``offline_denoise_stateless`` :163, ``UNetStreamState`` :200,
+``unet_stream_init_state`` :245, ``make_unet_stream_step`` :269 and
+``offline_denoise_streamed`` :412; the webrtc part, ``WebRTCState`` :464,
 ``webrtc_init_state`` :490, ``make_webrtc_step`` :520; and
 ``make_server_step`` :653).
 
@@ -13,6 +16,14 @@ bounded-lookahead checkpoint gets ``la`` hops of silence to flush its
 tail and its output re-aligned. ``offline_denoiser`` binds it to a
 device. It runs no hand-written kernel, as the JAX graph reaches no
 Pallas kernel.
+
+``offline_denoise_stateless``: a stateless segment model (the 2-D
+U-Nets, TRUNetDenoiser) over a whole (freq, time) log-magnitude image,
+padded to a frame count the model takes, with noisy-phase resynthesis.
+``make_unet_stream_step``: engine mode ``unet``'s cadence-locked step,
+which runs that graph once a cycle over each slot's sample window;
+``offline_denoise_streamed`` runs a clip through it. None of them runs a
+hand-written kernel: JAX's segment path reaches no Pallas kernel.
 
 ``make_webrtc_step``: one hop of the reference's app2.py recv loop
 (app2.py:174-233), op by op: ring buffer, per-window peak normalization,
@@ -37,6 +48,7 @@ a ``runtime.plan.PlanModel`` built for that device.
 """
 
 import copy
+import dataclasses
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -48,10 +60,11 @@ from audio_denoising_torch.ops import (
     griffin_lim, hann_window, inverse_mel_matrix, inverse_mel_scale,
     istft, mel_filterbank, mel_scale, num_frames, stft)
 from audio_denoising_torch.ops.noisefloor import (
-    FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB, floor_rise_per_frame,
-    gate_alpha, gate_state, make_gate_estimator, noise_floor_scan,
-    removed_powers, removed_snr_scan, smooth_beta_per_frame,
-    snr_db_from_floor, total_beta_per_frame)
+    FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB, FloorState, RemovedState,
+    floor_rise_per_frame, gate_alpha, gate_planes, gate_state,
+    make_gate_estimator, noise_floor_scan, removed_powers, removed_snr_db,
+    removed_snr_scan, removed_step, smooth_beta_per_frame, snr_db_from_floor,
+    total_beta_per_frame)
 
 
 def serving_model(model, device: torch.device):
@@ -214,6 +227,232 @@ def offline_denoiser(cfg: Config, model,
             audio, dtype=torch.float32, device=device))
 
     return fn
+
+
+def offline_denoise_stateless(cfg: Config, model,
+                              audio: torch.Tensor) -> torch.Tensor:
+    """Offline denoise through a stateless segment model, a 2-D U-Net or
+    TRUNetDenoiser (JAX pipeline.py:163-197): STFT, log1p magnitude, the
+    model's residual over the whole (freq, time) image, subtract, ReLU,
+    expm1, the optional SNR gate over the clip, noisy-phase iSTFT. The
+    U-Nets take only some frame counts (fixed output paddings,
+    unet4.py:211-230), so the spectrogram pads to
+    ``model.compatible_frames`` and the output crops back. ``audio`` (B,
+    L) or (L,), on the device and in the dtype of ``model``."""
+    dsp = cfg.dsp
+    squeeze = audio.dim() == 1
+    if squeeze:
+        audio = audio[None]
+    length = audio.shape[-1]
+    win = hann_window(dsp.win).to(audio.device, audio.dtype)
+    spec = stft(audio, dsp.n_fft, dsp.hop_length, dsp.win, window=win)
+    mag = spec.abs()
+    logmag = torch.log1p(mag)                               # (B, F, T)
+    t = logmag.shape[-1]
+    x = torch.nn.functional.pad(logmag, (0, model.compatible_frames(t) - t))
+    with torch.no_grad(), fp32_convs():
+        resid = model.apply(x)[..., :dsp.n_stft, :t]
+    lin = torch.expm1(torch.clamp(logmag - resid, min=0.0))
+    lin = _apply_snr_gate(cfg, mag, lin)
+    out = istft(torch.polar(lin, torch.angle(spec)), dsp.n_fft,
+                dsp.hop_length, dsp.win, window=win, length=length)
+    return out[0] if squeeze else out
+
+
+class UNetStreamState(NamedTuple):
+    """A slot's state in cadence-locked segment streaming (JAX
+    pipeline.py:200-226)."""
+    ring: torch.Tensor   # (B, ctx_left + seg + ctx) input sample history
+    out: torch.Tensor    # (B, seg) the segment being drained
+    # the previous window's estimate of the next segment's first xf
+    # samples (in its denoised right context), blended at the join; None
+    # without a crossfade
+    tail: Optional[torch.Tensor] = None        # (B, xf)
+    # the SNR gate's planes, carried across windows (a window is too short
+    # for the estimators to settle): 'floor' the nf_* planes, 'removed'
+    # the em_* EMAs, 'both' all five; present only with a gate
+    nf_smooth: Optional[torch.Tensor] = None   # (B, F)
+    nf_floor: Optional[torch.Tensor] = None    # (B, F)
+    nf_total: Optional[torch.Tensor] = None    # (B,)
+    em_out: Optional[torch.Tensor] = None      # (B,)
+    em_rem: Optional[torch.Tensor] = None      # (B,)
+
+
+def _unet_stream_geometry(cfg: Config) -> Tuple[int, int, int, int, int]:
+    """(hop, seg_hops, seg, ctx_right, ctx_left). The latency is ``seg +
+    ctx_right``; ctx_left is past samples, which only grow a window's
+    compute (``serving.unet_ctx_left_samples``, None for symmetric)."""
+    hop = cfg.dsp.hop_length
+    seg_hops = cfg.serving.unet_seg_hops
+    ctx = cfg.serving.unet_ctx_samples
+    ctx_l = cfg.serving.unet_ctx_left_samples
+    return (hop, seg_hops, seg_hops * hop, ctx,
+            ctx if ctx_l is None else ctx_l)
+
+
+def _unet_xfade(cfg: Config) -> int:
+    xf = cfg.serving.unet_xfade_samples
+    if xf:
+        _h, _p, seg, ctx, _cl = _unet_stream_geometry(cfg)
+        if xf > min(seg, ctx):
+            raise ValueError(
+                f"unet_xfade_samples={xf} exceeds min(seg={seg}, "
+                f"ctx={ctx}) — the crossfade tail must lie inside the "
+                f"previous window's denoised right context")
+    return xf
+
+
+def unet_stream_init_state(cfg: Config, model, batch: int,
+                           device: Union[str, torch.device] = "cpu"
+                           ) -> UNetStreamState:
+    _h, _p, seg, ctx, ctx_l = _unet_stream_geometry(cfg)
+    xf = _unet_xfade(cfg)
+    return UNetStreamState(
+        ring=torch.zeros((batch, ctx_l + seg + ctx), device=device),
+        out=torch.zeros((batch, seg), device=device),
+        tail=torch.zeros((batch, xf), device=device) if xf else None,
+        **gate_state(cfg.serving, batch, cfg.dsp.n_stft, device))
+
+
+def _unet_window_denoiser(cfg: Config, model, device: torch.device):
+    """``denoise(ring, state) -> (segment, planes)``: one window through
+    ``offline_denoise_stateless`` (ungated), its middle segment with the
+    crossfade at the join, then the SNR gate with its estimators carried
+    across windows; ``planes`` holds the state fields it updated."""
+    _hop, _p, seg, ctx, ctx_l = _unet_stream_geometry(cfg)
+    srv, dsp = cfg.serving, cfg.dsp
+    removed, floor = gate_planes(srv)
+    inner = dataclasses.replace(cfg, serving=dataclasses.replace(
+        srv, snr_gate_db=None))
+    xf = _unet_xfade(cfg)
+    if xf:
+        # the new window's weight rises 0 -> 1 over the join; the previous
+        # window's estimate (its own side's context) has the complement
+        ramp = (torch.arange(1, xf + 1, dtype=torch.float32, device=device)
+                / (xf + 1))
+    if removed:
+        # one EMA update per emitted segment: its retention takes the
+        # segment as the hop
+        beta_seg = total_beta_per_frame(seg, dsp.sample_rate,
+                                        srv.snr_gate_tau_s)
+    if floor:
+        win = hann_window(dsp.win).to(device)
+        rise = floor_rise_per_frame(dsp.hop_length, dsp.sample_rate)
+        beta = smooth_beta_per_frame(dsp.hop_length, dsp.sample_rate)
+        beta_t = total_beta_per_frame(dsp.hop_length, dsp.sample_rate,
+                                      srv.snr_gate_tau_s)
+        both = srv.snr_gate_estimator == "both"
+        f_gate = FLOOR_VETO_GATE_DB if both else srv.snr_gate_db
+        f_width = FLOOR_VETO_WIDTH_DB if both else srv.snr_gate_width_db
+
+    def denoise(ring: torch.Tensor, state: UNetStreamState):
+        den = offline_denoise_stateless(inner, model, ring)
+        mid = den[:, ctx_l:ctx_l + seg]
+        planes = {}
+        if xf:
+            mid = torch.cat([ramp * mid[:, :xf] + (1.0 - ramp) * state.tail,
+                             mid[:, xf:]], dim=1)
+            # the next segment's first xf samples, as this window sees them
+            planes["tail"] = den[:, ctx_l + seg:ctx_l + seg + xf]
+        if not (removed or floor):
+            return mid, planes
+        # the estimators read the emitted span only: contiguous and
+        # disjoint across cycles, each sample seen once
+        mid_in = ring[:, ctx_l:ctx_l + seg]
+        alpha = None
+        if removed:
+            # time-domain segment powers (by Parseval the bin means the
+            # spectral paths use, less the per-bin clip)
+            p_in = (mid_in * mid_in).mean(dim=1)
+            p_out = (mid * mid).mean(dim=1)
+            rs = removed_step(RemovedState(state.em_out, state.em_rem),
+                              p_out, torch.clamp(p_in - p_out, min=0.0),
+                              beta_seg)
+            alpha = gate_alpha(removed_snr_db(rs), srv.snr_gate_db,
+                               srv.snr_gate_width_db)
+            planes.update(em_out=rs.out, em_rem=rs.rem)
+        if floor:
+            power = stft(mid_in, dsp.n_fft, dsp.hop_length, dsp.win,
+                         window=win).abs() ** 2
+            _f, _t, last = noise_floor_scan(
+                power, rise, beta, beta_t, init=FloorState(
+                    state.nf_smooth, state.nf_floor, state.nf_total))
+            alpha_f = gate_alpha(
+                snr_db_from_floor(last.total, last.floor.mean(dim=-1)),
+                f_gate, f_width)
+            alpha = alpha_f if alpha is None else torch.maximum(alpha,
+                                                                alpha_f)
+            planes.update(nf_smooth=last.smooth, nf_floor=last.floor,
+                          nf_total=last.total)
+        alpha = alpha[:, None]
+        return alpha * mid + (1.0 - alpha) * mid_in, planes
+
+    return denoise
+
+
+def _unet_step(cfg: Config, model, device: torch.device):
+    hop, seg_hops, _s, _c, _cl = _unet_stream_geometry(cfg)
+    denoise = _unet_window_denoiser(cfg, model, device)
+
+    def step(state: UNetStreamState, chunk: torch.Tensor, phase: int
+             ) -> Tuple[UNetStreamState, torch.Tensor]:
+        ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
+        # emit from the previous cycle's segment before (maybe) refilling
+        out = state.out[:, phase * hop:(phase + 1) * hop].clone()
+        if phase != seg_hops - 1:
+            return state._replace(ring=ring), out
+        with torch.no_grad():
+            seg, planes = denoise(ring, state)
+        return state._replace(ring=ring, out=seg, **planes), out
+
+    return step
+
+
+def make_unet_stream_step(cfg: Config, model,
+                          device: Optional[Union[str, torch.device]] = None):
+    """Build ``step(state, chunk (B, hop), phase) -> (state', out (B,
+    hop))`` on ``device`` (the card unless ``"cpu"``) for a stateless
+    segment model (JAX pipeline.py:269-409; engine mode ``unet``).
+
+    Cadence-locked block processing, the JAX package's own semantics (the
+    reference only runs these models offline, unet4.py:147-194): every
+    tick shifts one hop into a ``[ctx_left | seg | ctx]`` sample ring and
+    emits one hop of the segment being drained; on the tick that closes a
+    cycle (``phase == seg_hops - 1``) the offline graph runs once over
+    the ring and its middle ``seg`` samples, crossfaded at the join and
+    gated, become the next cycle's segment. The emitted stream is the
+    input delayed by ``seg + ctx`` samples. ``phase`` is a host int: the
+    boundary is a Python branch, read nowhere from the device, so the
+    other ticks cost only the ring shift."""
+    device = resolve_device(device)
+    return _unet_step(cfg, serving_model(model, device), device)
+
+
+def offline_denoise_streamed(cfg: Config, model,
+                             audio: torch.Tensor) -> torch.Tensor:
+    """Denoise a clip exactly as engine mode ``unet`` serves it (JAX
+    pipeline.py:412-451): the cadence-locked window chain of
+    ``make_unet_stream_step`` hop by hop, with the ``seg + ctx`` delay
+    removed so the output aligns with the input sample for sample. The
+    model sees the future context a live stream would, where
+    ``offline_denoise_stateless`` hands it the whole clip. ``audio`` (B,
+    L) or (L,), on the device of ``model``."""
+    squeeze = audio.dim() == 1
+    if squeeze:
+        audio = audio[None]
+    hop, seg_hops, seg, ctx, _cl = _unet_stream_geometry(cfg)
+    b, length = audio.shape
+    delay = seg + ctx
+    n_ticks = -(-(length + delay) // hop)          # whole hops
+    x = torch.nn.functional.pad(audio, (0, n_ticks * hop - length))
+    step = _unet_step(cfg, model, audio.device)
+    state = unet_stream_init_state(cfg, model, b, audio.device)
+    outs = []
+    for t in range(n_ticks):
+        state, out = step(state, x[:, t * hop:(t + 1) * hop], t % seg_hops)
+        outs.append(out)
+    y = torch.cat(outs, dim=1)[:, delay:delay + length]
+    return y[0] if squeeze else y
 
 
 class WebRTCState(NamedTuple):

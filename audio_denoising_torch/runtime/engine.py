@@ -13,20 +13,29 @@ Modes of the port:
                      (pipeline.make_webrtc_step), cold or warm GL, with
                      the SNR gate where the config sets one;
 - ``fused-webrtc`` — the same hop with warm-start GL in the hand-written
-                     kernels of ops/kernels/webrtc_hop.py.
+                     kernels of ops/kernels/webrtc_hop.py;
+- ``unet``         — cadence-locked segment streaming for the stateless
+                     U-Nets and TRUNetDenoiser
+                     (pipeline.make_unet_stream_step): every tick shifts
+                     a hop into each slot's window and drains its
+                     segment, and every ``unet_seg_hops``-th tick runs
+                     the model over every window at once. No hand-written
+                     kernel: JAX's segment path reaches no Pallas kernel.
 
-Every tick advances all slots and commits state only for the slots that
-received a chunk. Per-stream state lives at a slot index of batched
-device tensors; slots are admitted and evicted by index, and inactive
-slots compute on zeros. Where a mode cannot serve a config, the engine
-warns and serves another, as the JAX engine does (``_downgrade``,
+Every tick advances all slots and, but in mode ``unet``, commits state
+only for the slots that received a chunk. Per-stream state lives at a
+slot index of batched device tensors; slots are admitted and evicted by
+index, and inactive slots compute on zeros. Where a mode cannot serve a
+config, the engine warns and serves another, as the JAX engine does (``_downgrade``,
 ``_fit``; ``engine.mode`` names the mode served): a bounded-lookahead
 checkpoint is served in mode ``fast`` (its delay rings; ``fused`` is
 downgraded to it, the webrtc modes refuse it), and the gated int8
 flagship stays in ``fused``. Modes ``fast`` and ``fused`` serve the
 GRUUNet and MOMO families (MOMO v1 in mode ``fast`` only, as it has no
 plan); the webrtc modes GRUUNet2, ``fused-webrtc`` in fp32 or with its
-Griffin-Lim loop in bf16 (``serving.dtype="bfloat16"``).
+Griffin-Lim loop in bf16 (``serving.dtype="bfloat16"``); mode ``unet``
+the segment family, in fp32 (as in JAX, bfloat16 is ignored there and
+int8 is downgraded to mode ``fast``).
 """
 
 import warnings
@@ -48,7 +57,8 @@ from audio_denoising_torch.ops.noisefloor import (
     gate_state, make_gate_estimator)
 from audio_denoising_torch.ops.windows import wola_envelope
 from audio_denoising_torch.pipeline import (
-    fp32_convs, make_webrtc_step, serving_model, webrtc_init_state)
+    fp32_convs, make_unet_stream_step, make_webrtc_step, serving_model,
+    unet_stream_init_state, webrtc_init_state)
 from audio_denoising_torch.runtime.plan import PlanModel, build_cell_plan
 
 
@@ -212,7 +222,7 @@ def make_fast_step(cfg: Config, model,
     return step
 
 
-MODES = ("fast", "fused", "webrtc", "fused-webrtc")
+MODES = ("fast", "fused", "webrtc", "fused-webrtc", "unet")
 
 
 def _quantized_model(model, device):
@@ -259,7 +269,9 @@ def _downgrade(cfg: Config, mode: str) -> str:
     the op-by-op step has the delay rings) and refused by the webrtc
     modes; a gated ``fused-webrtc`` is served by ``webrtc`` (the kernel
     has no gate; the op-by-op step carries it); int8 outside
-    ``fast``/``fused`` by ``fast`` (on the quantized plan)."""
+    ``fast``/``fused`` by ``fast`` (on the quantized plan; in mode
+    ``unet`` too, where no model of the segment family has a plan, so
+    the engine then refuses it, as JAX's fails in its plan)."""
     if cfg.model.lookahead_frames and mode != "fast":
         if mode != "fused":
             raise ValueError(
@@ -319,18 +331,34 @@ class StreamEngine:
     In mode ``fast`` ``model`` may be a zoo model or a PlanModel; the other
     modes take a zoo model: GRUUNet2, MOMO2 or MOMO3 in mode ``fused``
     (``build_cell_plan`` compiles either family), GRUUNet2 in the webrtc
-    modes. ``serving.dtype`` picks the compute: mode ``fused`` runs the
-    fused hop in it (float32, bfloat16 or int8); mode ``fast`` serves the
-    quantized plan at int8 and float32 otherwise, as JAX's fast step
-    ignores bfloat16."""
+    modes, a model with ``compatible_frames`` (the U-Nets,
+    TRUNetDenoiser) in mode ``unet``. ``serving.dtype`` picks the
+    compute: mode ``fused`` runs the fused hop in it (float32, bfloat16
+    or int8); mode ``fast`` serves the quantized plan at int8 and float32
+    otherwise, as JAX's fast step ignores bfloat16.
+
+    Mode ``unet`` is cadence-locked (JAX engine.py:417-440): segment
+    boundaries belong to the engine's tick, not to a stream, so every
+    slot advances every tick, with no mask; an active stream that misses
+    a tick gets zeros spliced into its segment. The cycle's phase is a
+    host int, advanced only after a step succeeded, and carried by
+    ``snapshot``/``restore``."""
 
     def __init__(self, cfg: Config, model, mode: str = "fused",
                  max_streams: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None):
         if mode not in MODES:
-            raise ValueError(f"engine mode {mode!r} is not ported yet; the "
-                             f"port has {MODES}")
+            raise ValueError(f"unknown engine mode {mode!r}; the port has "
+                             f"{MODES}")
         mode = _downgrade(cfg, mode)
+        if mode != "unet" and hasattr(model, "compatible_frames"):
+            # JAX fails deeper here (an AttributeError in the step or the
+            # plan); int8 in mode unet lands here through _downgrade
+            raise ValueError(
+                f"engine mode {mode!r} streams the recurrent families; "
+                f"{type(model).__name__} is a stateless segment model, "
+                f"served in mode 'unet' at float32 (serving dtype "
+                f"{cfg.serving.dtype!r})")
         plan = None
         if mode in ("fused", "fused-webrtc"):
             plan = build_cell_plan(model)
@@ -352,6 +380,16 @@ class StreamEngine:
             self.hop_step = make_webrtc_step(cfg, model, device)
             self.device = resolve_device(device)
             init = lambda b: webrtc_init_state(cfg, model, b, self.device)
+        elif mode == "unet":
+            if not hasattr(model, "compatible_frames"):
+                raise ValueError(
+                    f"mode='unet' needs a stateless U-Net (model "
+                    f"{type(model).__name__} has no compatible_frames); "
+                    f"recurrent models stream via 'fast'/'webrtc'/'fused'")
+            self.hop_step = make_unet_stream_step(cfg, model, device)
+            self.device = resolve_device(device)
+            init = lambda b: unet_stream_init_state(cfg, model, b,
+                                                    self.device)
         else:
             make, init_state = (
                 (make_fused_hop, fused_hop_init_state) if mode == "fused"
@@ -363,6 +401,10 @@ class StreamEngine:
             init = lambda b: init_state(cfg, self.plan, b, self.device)
         self.state = init(self.n)
         self._zero_one = init(1)      # what add_stream resets a slot to
+        self._cadence_locked = mode == "unet"
+        self._seg_hops = cfg.serving.unet_seg_hops if self._cadence_locked \
+            else 1
+        self._phase = 0
         self.slots: Dict[str, int] = {}
         self._free = list(range(self.n - 1, -1, -1))
 
@@ -394,8 +436,13 @@ class StreamEngine:
         ``lookahead_frames * hop`` on a bounded-lookahead checkpoint (the
         delay rings hold k frames before reconstruction); in the webrtc
         modes the segment leaves before the newest frame enters the OLA
-        buffer (app2.py:226-231), the same window tail."""
+        buffer (app2.py:226-231), the same window tail; in mode ``unet``
+        ``seg + ctx``: a segment leaves only once its right context has
+        arrived."""
         dsp = self.cfg.dsp
+        if self._cadence_locked:
+            srv = self.cfg.serving
+            return srv.unet_seg_hops * dsp.hop_length + srv.unet_ctx_samples
         base = dsp.n_fft - dsp.hop_length
         if self.mode in ("fast", "fused"):
             base += self.cfg.model.lookahead_frames * dsp.hop_length
@@ -413,7 +460,14 @@ class StreamEngine:
         # commit cannot help: the poisoned tick is a real chunk)
         batch = torch.where(torch.isfinite(batch), batch,
                             torch.zeros_like(batch))
+        if self._cadence_locked:
+            return self.hop_step(self.state, batch, self._phase)
         return self.hop_step(self.state, batch)
+
+    def _advance_phase(self) -> None:
+        """Advance the segment cycle's phase; called only after a step
+        succeeded, so a step that raises leaves phase and ring in step."""
+        self._phase = (self._phase + 1) % self._seg_hops
 
     def _gather(self, chunks: Dict[str, np.ndarray]):
         batch = np.zeros((self.n, self.hop), np.float32)
@@ -431,11 +485,17 @@ class StreamEngine:
         """Advance every slot with a chunk this tick and return
         ``(out (N, hop) on the device, slot_map)`` without waiting for the
         device. Only those slots commit their new state: a stream's
-        recurrence must not advance on the zero inputs of ticks it missed."""
+        recurrence must not advance on the zero inputs of ticks it missed.
+        In mode ``unet`` every slot advances and commits (zeros where no
+        chunk came)."""
         batch, mask, slot_map = self._gather(chunks)
         batch = torch.from_numpy(batch).to(self.device)
-        keep = torch.from_numpy(mask).to(self.device)[:, None]
         new, out = self._step(batch)
+        if self._cadence_locked:
+            self.state = new
+            self._advance_phase()
+            return out, slot_map
+        keep = torch.from_numpy(mask).to(self.device)[:, None]
         self.state = self.state._replace(**{
             k: torch.where(keep.reshape((-1,) + (1,) * (v.dim() - 1)),
                            getattr(new, k), v)
@@ -452,6 +512,8 @@ class StreamEngine:
         """Raw fixed-shape path: (N, hop) in -> (N, hop) out, every slot
         advances."""
         self.state, out = self._step(batch.to(self.device))
+        if self._cadence_locked:
+            self._advance_phase()
         return out
 
     # -- failure recovery: snapshot/restore of stream state ------------------
@@ -463,6 +525,7 @@ class StreamEngine:
             "slots": dict(self.slots),
             "free": list(self._free),
             "mode": self.mode,
+            "phase": self._phase,
         }
 
     def restore(self, snap: Dict) -> None:
@@ -485,3 +548,4 @@ class StreamEngine:
         self.state = state
         self.slots = dict(snap["slots"])
         self._free = list(snap["free"])
+        self._phase = int(snap.get("phase", 0)) % self._seg_hops

@@ -4,7 +4,14 @@ One queue of (stream_id, chunk, sink) requests; each tick gathers a window
 of requests, groups them into rounds of one chunk per stream, and advances
 every round's streams in a single engine launch. A round's output is
 copied to the host asynchronously and delivered on a later tick, so host
-batching overlaps the device's work.
+batching overlaps the device's work; rounds are launched, and delivered,
+in the order they were formed.
+
+A cadence-locked engine (mode ``unet``) advances every slot on each of
+its ticks, so running a window's duplicate-sid rounds back to back would
+splice zero hops into the streams whose chunks wait one round later: it
+runs one round per wall tick and carries the rest into the next tick's
+batch (JAX runtime/tick.py:86-184).
 
 The engine call is guarded: one malformed chunk must fail only its own
 requests (sinks get the exception via err_sink), never the tick thread —
@@ -102,14 +109,23 @@ class BatchingTick:
     # -- the tick -------------------------------------------------------------
     def _loop(self) -> None:
         hop = self.engine.hop
+        cadence = getattr(self.engine, "_cadence_locked", False)
+        carry = []
         while not self._stop.is_set():
             try:
+                # with a carried round pending, wait only about one tick
+                # for fresh arrivals: blocking longer would throttle
+                # clients that send one chunk per reply
                 first = self.requests.get(
-                    timeout=0.02 if self._inflight else 0.1)
+                    timeout=self.tick_s if carry
+                    else (0.02 if self._inflight else 0.1))
             except queue.Empty:
-                self._drain()      # idle: flush outstanding device results
-                continue
-            pending = [first]
+                if not carry:
+                    self._drain()  # idle: flush outstanding device results
+                    continue
+                first = None
+            pending = carry + ([first] if first is not None else [])
+            carry = []
             deadline = time.perf_counter() + self.tick_s
             while time.perf_counter() < deadline:
                 try:
@@ -155,7 +171,10 @@ class BatchingTick:
                         for sid in batch:
                             if errs[sid]:
                                 errs[sid](f"engine error: {e!r}")
+                if cadence and rest:
+                    carry = rest           # the next wall tick's round
+                    break
                 pending = rest
-            if self.requests.empty():
+            if not carry and self.requests.empty():
                 self._flush_ready()
         self._drain()

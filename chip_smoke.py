@@ -262,11 +262,48 @@ raises on failure (so the script exits non-zero and prints no result):
     the spectral convergence printed beside the control's (no limit
     separates them); the K-hop kernel at K = 25, GL-8: two calls against
     50 single bf16 hops (0); ``StreamEngine`` mode ``fused-webrtc`` at
-    serving.dtype bfloat16 as phase 6 holds fp32; the times.
+    serving.dtype bfloat16 as phase 6 holds fp32; the times;
+46. the stateless segment family's window: ``offline_denoise_stateless``
+    on one window of the recommended streaming geometry (48,576 samples,
+    127 frames padded to 155) at 256 streams on the card, for UNet2d4
+    (runs/unet4crop2s-mrstft-30k.npz) and UNet2d4Wide
+    (runs/unet4wide-crop2s-mrstft-30k.npz): 4 of the streams against the
+    CPU, the residual within SEG_RESID_ATOL and the waveform within
+    SEG_OUT_ATOL; the control, the same window with TF32 allowed in the
+    convolutions and matmuls, must miss both; the window's time and peak
+    memory;
+47. ``StreamEngine`` mode ``unet`` on unet4crop2s at 256 slots over 3
+    cycles (24 ticks) at the recommended geometry (seg 8 hops, ctx 960,
+    ctx_left 44544, xfade 384), with the tuned gate ('both') and ungated,
+    streams missing ticks (zeros spliced in, cadence-locked): 4 streams
+    spread over the noise levels against the CPU engine, a snapshot at
+    phase 4 restored and the rest run again (equal), the ungated run's
+    TF32 control missing SEG_OUT_ATOL; CUDA events on the boundary tick
+    and a plain tick, their mean per hop against the 8 ms budget, the
+    card's busy share on the boundary tick and the peak memory; the same
+    timing for UNet2d4Wide;
+48. the same for TRUNetDenoiser (runs/trunet-realnoise.npz, 16 kHz, its
+    class-default geometry: seg 16 hops, ctx 960) over 2 cycles, ungated,
+    against the 16 ms budget (a boundary runs 6,144 frames through its
+    GRUs);
+49. ``EngineDaemon`` and ``WSDaemon`` in mode ``unet`` on unet4crop2s with
+    no geometry flag (the recommended 84 ms point), 256 slots, 4 clients
+    streaming at the audio's pace; each daemon's rounds are logged and
+    replayed on a CPU engine, and every reply is held against its
+    stream's replay (the tick's carry and pipelining must keep the
+    rounds' order); the reply latency per hop (p50, p99) beside the 84 ms
+    of algorithmic latency; then ``denoise --streamed`` on 2 s at 48 kHz
+    on the card against the CPU within OFFLINE_ATOL.
 
 Phases 30-34 drive the offline path, which launches none of the
 hand-written kernels: the JAX offline graph reaches no Pallas kernel
-(``offline_denoise`` runs ``model.apply``, JAX pipeline.py:140).
+(``offline_denoise`` runs ``model.apply``, JAX pipeline.py:140). Phases
+46-49 drive the stateless segment family (the U-Nets and TRUNet, mode
+``unet``, ``denoise --streamed``), which launches none either: JAX's
+segment path is ``lax.conv_general_dilated``, ``lax.scan`` GRUs and
+elementwise ops (JAX ops/convs.py:85-125, models/unet2d.py,
+models/trunet.py), reaching no Pallas kernel; the port runs PyTorch's
+convolutions (fp32, under ``pipeline.fp32_convs``) and matmuls.
 
 Phases 4 to 7, 9 to 12, 15 to 17, 27 to 29, 37 to 40, the engines and
 the profile of phase 43, the engines of phases 44 and 45, the first
@@ -279,7 +316,8 @@ kernels, the K-hop call one). Mode ``fast`` with the zoo model (phases
 the quantized plan (phases 37, 38, 42), mode ``webrtc`` (phases 23, 24,
 42) and the socket daemon's server step (phase 41) run no hand-written
 kernel, as the JAX package's modes ``fast`` and
-``webrtc`` and its ``serve`` run no Pallas kernel.
+``webrtc`` and its ``serve`` run no Pallas kernel; nor does mode ``unet``
+(phases 47-49), as JAX's mode ``unet`` runs none.
 Griffin-Lim with carried phases is chaotic where a frame's rebuilt
 spectrum nears zero: fp32 round-off there flips a phase, and the carried
 phases spread it, so two correct fp32 versions that each carry their own
@@ -2445,23 +2483,24 @@ def time_reduced(torch, specs, good, smi):
 # -- the offline path -----------------------------------------------------------
 
 @contextlib.contextmanager
-def normalized_outputs():
+def normalized_outputs(name="offline_denoise"):
     """Collect, in call order, the peak-normalized output (on the CPU) of
-    every ``offline_denoise`` that ``apps.offline``'s chain runs, so two
-    runs of an entry point are compared before de-normalization."""
+    every ``name`` (``offline_denoise``, or the segment family's
+    ``offline_denoise_streamed``) that ``apps.offline``'s chain runs, so
+    two runs of an entry point are compared before de-normalization."""
     from audio_denoising_torch.apps import offline
-    real, seen = offline.offline_denoise, []
+    real, seen = getattr(offline, name), []
 
     def spy(cfg, model, audio, *args, **kw):
         y = real(cfg, model, audio, *args, **kw)
         seen.append(y.detach().cpu())
         return y
 
-    offline.offline_denoise = spy
+    setattr(offline, name, spy)
     try:
         yield seen
     finally:
-        offline.offline_denoise = real
+        setattr(offline, name, real)
 
 
 @contextlib.contextmanager
@@ -4000,6 +4039,481 @@ def phase_webrtc_bf16(torch, dari_cfg, dari, dari_plan, smi):
     return e_launches, k_launches, worst_ola, (t_hop, t_multi), readings
 
 
+# -- phases 46-49: the stateless segment family -----------------------------
+
+SEG_UNET = "unet4crop2s-mrstft-30k.npz"         # UNet2d4, the crop-2 s run
+SEG_WIDE = "unet4wide-crop2s-mrstft-30k.npz"    # UNet2d4Wide
+SEG_TRUNET = "trunet-realnoise.npz"             # TRUNetDenoiser, 16 kHz
+SEG_CHECK = 4        # streams of 256 replayed on the CPU (windows are
+                     # independent, so a subset holds the batch)
+SEG_UNET_CYCLES = 3  # engine cycles (8 hops each at the recommended point)
+SEG_TRUNET_CYCLES = 2    # 16 hops each at TRUNet's class defaults
+SEG_TIMED_CYCLES = 2     # cycles timed after one warm cycle
+# The segment path on the card against the CPU, max abs error. cuDNN and
+# the CPU sum each conv in their own order, so fp32 differs by round-off;
+# the TF32 control (the same window or run with TF32 allowed in the convs
+# and matmuls) must miss each limit. Each sits near the geometric middle
+# of the fp32 runs' worst reading and the controls' best, on an NVIDIA
+# H100 80GB HBM3 at 700 W with this script's inputs: the waveform of the
+# window (phase 46) 4.8e-7 and 1.6e-4, of the engines (47-48) 1.4e-6 and
+# 3.0e-4 (UNet2d4), 1.0e-5 and 2.9e-3 (TRUNet, the largest fp32
+# reading); the residual 1.4e-5 and 2.4e-3.
+SEG_OUT_ATOL = 4e-5      # waveforms
+SEG_RESID_ATOL = 2e-4    # a window's residual log-magnitude (up to ~10)
+SEG_CLIENTS = 4          # daemon clients at the audio's pace, one stream
+SEG_CLIENT_HOPS = 33     # hops each client streams (4 cycles and one)
+SEG_OFFLINE_S = 2        # the clip of denoise --streamed
+
+
+@contextlib.contextmanager
+def tf32_allowed(torch):
+    """The control of phases 46-48: the segment path with TF32 allowed in
+    its convolutions (pipeline.fp32_convs, which the path scopes them
+    with) and matmuls (the GRU's)."""
+    from audio_denoising_torch import pipeline
+    real, mm = pipeline.fp32_convs, torch.backends.cuda.matmul.allow_tf32
+    pipeline.fp32_convs = lambda: torch.backends.cudnn.flags(
+        enabled=True, benchmark=False, deterministic=False, allow_tf32=True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        pipeline.fp32_convs = real
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def segment_cfg(torch, name, gated=False):
+    """(cfg, zoo model on the CPU) of a runs/ checkpoint at the geometry
+    the daemons serve it (recommended_streaming_geometry: the U-Nets'
+    84 ms point, TRUNet's class defaults), optionally with the tuned gate
+    ('both', 1 dB, width 6)."""
+    from audio_denoising_torch.config import recommended_streaming_geometry
+    from audio_denoising_torch.hub import load_pretrained
+    cfg, model = load_pretrained(os.path.join(REPO, "runs", name))
+    cfg = recommended_streaming_geometry(cfg)
+    if gated:
+        cfg = with_gate(cfg, "both", 1.0, 6.0)
+    return cfg, model
+
+
+def segment_image(torch, cfg, model, audio):
+    """The padded log1p magnitude offline_denoise_stateless hands the
+    model, for ``audio`` (B, L) on its device."""
+    from audio_denoising_torch.ops import hann_window, stft
+    dsp = cfg.dsp
+    win = hann_window(dsp.win).to(audio.device)
+    logmag = torch.log1p(stft(audio, dsp.n_fft, dsp.hop_length, dsp.win,
+                              window=win).abs())
+    t = logmag.shape[-1]
+    return torch.nn.functional.pad(logmag, (0, model.compatible_frames(t)
+                                            - t))
+
+
+def phase_segment_window(torch, smi):
+    """Phase 46: offline_denoise_stateless on one window of the
+    recommended geometry (48,576 samples, 127 frames padded to 155) at
+    SLOTS streams on the card, for UNet2d4 and UNet2d4Wide: SEG_CHECK
+    streams against the CPU (residual and waveform), the TF32 control
+    missing the limits the fp32 run meets, the window's time and peak
+    memory. Returns {name: (ms, peak GB)}."""
+    from audio_denoising_torch.pipeline import (
+        fp32_convs, offline_denoise_stateless, serving_model)
+    out = {}
+    for name in (SEG_UNET, SEG_WIDE):
+        cfg, model = segment_cfg(torch, name)
+        srv = cfg.serving
+        n = (srv.unet_ctx_left_samples + srv.unet_seg_hops
+             * cfg.dsp.hop_length + srv.unet_ctx_samples)
+        audio = noisy_voice(n, cfg.dsp.sample_rate, 46, channels=SLOTS)
+        card = serving_model(model, torch.device("cuda"))
+        x = torch.from_numpy(audio).cuda()
+        img = segment_image(torch, cfg, card, x[:SEG_CHECK])
+        with torch.no_grad():
+            with fp32_convs():
+                res = card.apply(img).cpu()
+            res_plain = model.apply(img.cpu())
+            y = offline_denoise_stateless(cfg, card, x)
+            plain = offline_denoise_stateless(cfg, model,
+                                              x[:SEG_CHECK].cpu())
+            with tf32_allowed(torch):
+                with torch.backends.cudnn.flags(allow_tf32=True):
+                    res_tf32 = card.apply(img).cpu()
+                y_tf32 = offline_denoise_stateless(cfg, card, x)
+        errs = (max_err(res, res_plain),
+                max_err(y[:SEG_CHECK].cpu(), plain))
+        ctrl = (max_err(res_tf32, res_plain),
+                max_err(y_tf32[:SEG_CHECK].cpu(), plain))
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_launches(torch, lambda: offline_denoise_stateless(
+            cfg, card, x), 5)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = bool(torch.isfinite(y).all())
+        say(f"  {card.arch}, {name}: {SLOTS} windows of {n} samples "
+            f"({img.shape[-1]} frames padded); {SEG_CHECK} streams vs the "
+            f"CPU: residual {errs[0]:.3e} (bound {SEG_RESID_ATOL:g}), "
+            f"waveform {errs[1]:.3e} (bound {SEG_OUT_ATOL:g}); TF32 control "
+            f"{ctrl[0]:.3e}, {ctrl[1]:.3e}; the window at {SLOTS} streams "
+            f"{ms:.2f} ms, peak memory {peak:.2f} GB ({smi})")
+        if not finite or y.shape != x.shape or errs[0] > SEG_RESID_ATOL \
+                or errs[1] > SEG_OUT_ATOL:
+            raise AssertionError(f"{name}: the window on the card disagrees "
+                                 f"with the CPU")
+        if ctrl[0] <= SEG_RESID_ATOL or ctrl[1] <= SEG_OUT_ATOL:
+            raise AssertionError(f"{name}: the TF32 control meets a limit: "
+                                 f"the limits separate nothing")
+        out[name] = (ms, peak)
+    return out
+
+
+def segment_ticks(cfg, ticks, seed):
+    """Per tick {stream: chunk} for SLOTS streams of the vowel at spread
+    noise levels; stream i misses the ticks where (7 i + t) % 5 == 0 (the
+    cadence-locked engine gives it zeros there)."""
+    hop = cfg.dsp.hop_length
+    v = voiced_chunks(SLOTS, ticks, hop, cfg.dsp.sample_rate, seed)
+    return [{f"s{i}": v[t, i] for i in range(SLOTS) if (7 * i + t) % 5}
+            for t in range(ticks)]
+
+
+def checked_sids():
+    """The SEG_CHECK streams replayed on the CPU, spread over the noise
+    levels of segment_ticks."""
+    return [f"s{i}" for i in np.linspace(0, SLOTS - 1, SEG_CHECK).astype(int)]
+
+
+def run_segment_engine(eng, schedule, sids):
+    """(ticks, len(sids), hop) outputs of ``eng`` over ``schedule`` (zeros
+    where a stream missed a tick)."""
+    out = np.zeros((len(schedule), len(sids), eng.hop), np.float32)
+    for t, chunks in enumerate(schedule):
+        got = eng.process({s: c for s, c in chunks.items()
+                           if s in eng.slots})
+        for i, sid in enumerate(sids):
+            if sid in got:
+                out[t, i] = got[sid]
+    return out
+
+
+def time_segment_engine(torch, eng, seg_hops, budget, smi):
+    """CUDA events around each tick of ``eng`` (process_batch, SLOTS
+    random chunks on the card) over SEG_TIMED_CYCLES cycles after a warm
+    one: the boundary tick, the plain ticks, the mean per hop against the
+    hop's real-time budget; the card's busy share on a boundary tick
+    (torch.profiler's kernel time over the tick's wall time) and the peak
+    memory across it. -> (boundary ms, plain ms, mean ms, busy, peak GB)."""
+    batch = torch.from_numpy((0.1 * np.random.default_rng(47).standard_normal(
+        (SLOTS, eng.hop))).astype(np.float32)).cuda()
+    while eng._phase:
+        eng.process_batch(batch)
+    for _ in range(seg_hops):
+        eng.process_batch(batch)
+    torch.cuda.synchronize()
+    times = {}
+    for _ in range(SEG_TIMED_CYCLES):
+        for phase in range(seg_hops):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            eng.process_batch(batch)
+            b.record()
+            b.synchronize()
+            times.setdefault(phase, []).append(a.elapsed_time(b))
+    boundary = float(np.median(times[seg_hops - 1]))
+    plain = float(np.median([t for p in range(seg_hops - 1)
+                             for t in times[p]]))
+    mean = float(np.mean([np.mean(times[p]) for p in range(seg_hops)]))
+    for _ in range(seg_hops - 1):
+        eng.process_batch(batch)
+    torch.cuda.reset_peak_memory_stats()
+    rows, wall = profiled(torch, lambda: eng.process_batch(batch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy = sum(rows.values()) / 1e6 / wall
+    say(f"  timing at {SLOTS} streams ({smi}): boundary tick {boundary:.3f} "
+        f"ms, plain tick {plain:.3f} ms, mean per hop {mean:.3f} ms against "
+        f"the {budget:g} ms budget ({mean / budget:.1%}); the card "
+        f"busy {busy:.1%} of the boundary tick ({wall * 1e3:.3f} ms under "
+        f"the profiler); peak memory {peak:.2f} GB")
+    print_breakdown(rows, "boundary tick")
+    return boundary, plain, mean, busy, peak
+
+
+def budget_ms(cfg) -> float:
+    """A hop's real-time budget."""
+    return cfg.dsp.hop_length / cfg.dsp.sample_rate * 1e3
+
+
+def time_segment_only(torch, name, smi):
+    """Phase 47's timing of another checkpoint's engine (no CPU replay:
+    phase 46 holds its window)."""
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    cfg, model = segment_cfg(torch, name)
+    eng = StreamEngine(cfg, model, mode="unet", max_streams=SLOTS,
+                       device="cuda")
+    for i in range(SLOTS):
+        eng.add_stream(f"s{i}")
+    say(f"  {name}:")
+    return time_segment_engine(torch, eng, cfg.serving.unet_seg_hops,
+                               budget_ms(cfg), smi)
+
+
+def phase_segment_engine(torch, name, cycles, smi, gates=(True, False)):
+    """Phases 47-48: StreamEngine mode unet at SLOTS slots on the card for
+    ``cycles`` cycles with skipped ticks (zeros spliced in), with the
+    tuned gate and ungated, against the CPU engine on SEG_CHECK streams; a
+    snapshot mid-cycle restored and the rest run again (equal outputs);
+    the ungated run again with TF32 allowed, the control, missing
+    SEG_OUT_ATOL; then the ungated engine's ticks timed against the hop's
+    budget. -> the timing tuple."""
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    for gated in gates:
+        cfg, model = segment_cfg(torch, name, gated)
+        seg_hops = cfg.serving.unet_seg_hops
+        ticks = cycles * seg_hops
+        gpu = StreamEngine(cfg, model, mode="unet", max_streams=SLOTS,
+                           device="cuda")
+        cpu = StreamEngine(cfg, model, mode="unet", max_streams=SEG_CHECK,
+                           device="cpu")
+        sids, check = [f"s{i}" for i in range(SLOTS)], checked_sids()
+        for sid in sids:
+            gpu.add_stream(sid)
+        for sid in check:
+            cpu.add_stream(sid)
+        schedule = segment_ticks(cfg, ticks, 47 + gated)
+        mid = seg_hops + seg_hops // 2
+        got = run_segment_engine(gpu, schedule[:mid], sids)
+        snap = gpu.snapshot()
+        got = np.concatenate([got, run_segment_engine(gpu, schedule[mid:],
+                                                      sids)])
+        gpu.restore(snap)
+        again = run_segment_engine(gpu, schedule[mid:], sids)
+        want = run_segment_engine(cpu, schedule, check)
+        cols = [sids.index(s) for s in check]
+        err = float(np.abs(got[:, cols] - want).max())
+        rerun = float(np.abs(again - got[mid:]).max())
+        finite = bool(np.isfinite(got).all())
+        text = (f"  {name}, {'tuned gate (both)' if gated else 'ungated'}: "
+                f"{SLOTS} streams x {ticks} ticks (seg {seg_hops} hops, "
+                f"ctx {cfg.serving.unet_ctx_samples}, ctx_left "
+                f"{cfg.serving.unet_ctx_left_samples}, xfade "
+                f"{cfg.serving.unet_xfade_samples}); {SEG_CHECK} streams vs "
+                f"the CPU engine {err:.3e} (bound {SEG_OUT_ATOL:g}); restored "
+                f"at phase {snap['phase']}, the rest again {rerun:.3e}")
+        if not gated:
+            ctrl_eng = StreamEngine(cfg, model, mode="unet",
+                                    max_streams=SLOTS, device="cuda")
+            for sid in sids:
+                ctrl_eng.add_stream(sid)
+            with tf32_allowed(torch):
+                ctrl = run_segment_engine(ctrl_eng, schedule, check)
+            ctrl_err = float(np.abs(ctrl - want).max())
+            text += f"; TF32 control {ctrl_err:.3e}"
+            del ctrl_eng
+        say(text + "; no hand-written kernel on this path")
+        if gpu.mode != "unet" or not finite or err > SEG_OUT_ATOL \
+                or rerun > REPLAY_ATOL:
+            raise AssertionError(f"{name}: mode unet on the card disagrees "
+                                 f"with the CPU or with its own restore")
+        if not gated and ctrl_err <= SEG_OUT_ATOL:
+            raise AssertionError(f"{name}: the TF32 control meets "
+                                 f"SEG_OUT_ATOL")
+        if gated and (gpu.state.em_out is None or gpu.state.nf_floor is
+                      None):
+            raise AssertionError("the gated engine carries no gate planes")
+    return time_segment_engine(torch, gpu, seg_hops, budget_ms(cfg), smi)
+
+
+def recorded_rounds(engine):
+    """Log ``engine``'s slot changes and rounds in order (from the tick
+    thread and the connections' threads), to replay a daemon's run."""
+    log, lock = [], threading.Lock()
+    add, remove, run = (engine.add_stream, engine.remove_stream,
+                        engine.process_async)
+
+    def logged(op, fn):
+        def call(arg):
+            with lock:
+                log.append((op, {s: np.array(c) for s, c in arg.items()}
+                            if op == "tick" else arg))
+                return fn(arg)
+        return call
+
+    engine.add_stream = logged("add", add)
+    engine.remove_stream = logged("remove", remove)
+    engine.process_async = logged("tick", run)
+    return log
+
+
+def replay_rounds(log, engine):
+    """{sid: (rounds, hop) outputs} of ``log`` replayed on ``engine``."""
+    outs = {}
+    for op, arg in log:
+        if op == "add":
+            engine.add_stream(arg)
+        elif op == "remove":
+            engine.remove_stream(arg)
+        else:
+            for s, o in engine.process(arg).items():
+                outs.setdefault(s, []).append(np.asarray(o))
+    return {s: np.stack(o) for s, o in outs.items()}
+
+
+def _paced_client(address, cid, chunks, sr, results, errors):
+    """One stream streamed at the audio's pace over the engine daemon's
+    wire protocol, a reader thread taking the replies: (replies, per-hop
+    latency from sending a chunk to its reply)."""
+    from multiprocessing.connection import Client
+    try:
+        with Client(address) as conn:
+            sid = f"c{cid}"
+            conn.send(("open", sid))
+            if not conn.poll(REPLY_DEADLINE_S) or conn.recv()[0] != "ok":
+                raise RuntimeError(f"open {sid} failed")
+            sent, arrived, outs = [], [], []
+
+            def receive():
+                while len(outs) < len(chunks):
+                    if not conn.poll(REPLY_DEADLINE_S):
+                        raise TimeoutError(f"{sid}: no reply")
+                    msg = conn.recv()
+                    if msg[0] != "out":
+                        raise RuntimeError(f"{sid}: {msg}")
+                    arrived.append(time.perf_counter())
+                    outs.append(msg[2])
+
+            reader = threading.Thread(target=receive, daemon=True)
+            reader.start()
+            t0 = time.perf_counter()
+            for k, chunk in enumerate(chunks):
+                wait = t0 + k * chunk.size / sr - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                sent.append(time.perf_counter())
+                conn.send(("chunk", sid, chunk))
+            reader.join(REPLY_DEADLINE_S * 2)
+            if len(outs) != len(chunks):
+                raise RuntimeError(f"{sid}: {len(outs)} of {len(chunks)} "
+                                   f"replies")
+            if cid == 0:
+                conn.send(("stats",))
+                results["stats"] = conn.recv()[1]
+            results[cid] = (np.stack(outs),
+                            np.asarray(arrived) - np.asarray(sent))
+            conn.send(("close", sid))
+            conn.recv()
+    except Exception as e:
+        errors.append(f"client {cid}: {e!r}")
+
+
+def seg_latency_line(lat, latency_ms, smi):
+    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+    return (f"reply latency per hop (from sending a chunk to its reply, "
+            f"{lat.size} hops at the audio's pace) p50 {p50:.3f} ms, p99 "
+            f"{p99:.3f} ms, beside {latency_ms:g} ms of algorithmic latency "
+            f"({smi})")
+
+
+def phase_segment_daemons(torch, smi):
+    """Phase 49: EngineDaemon and WSDaemon in mode unet on unet4crop2s
+    with no geometry flag (the recommended 84 ms point), SLOTS slots,
+    SEG_CLIENTS clients streaming at the audio's pace; each daemon's
+    rounds are logged and replayed on a CPU engine, and every reply held
+    against its stream's replay (the engine daemon within SEG_OUT_ATOL,
+    the WebSocket one within WS_LSB after int16); then ``denoise
+    --streamed`` on SEG_OFFLINE_S s of 48 kHz on the card against the CPU
+    (the chain's peak-normalized outputs within OFFLINE_ATOL). Returns
+    (engine p50, p99, ws p50, p99) in ms."""
+    from audio_denoising_torch.apps import offline
+    from audio_denoising_torch.apps.engine_serve import EngineDaemon
+    from audio_denoising_torch.apps.ws_serve import WSDaemon
+    from audio_denoising_torch.io import write_wav
+    from audio_denoising_torch.io.wavio import (
+        float32_to_pcm16, pcm_to_float32)
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    path = os.path.join(REPO, "runs", SEG_UNET)
+    lat_out = []
+    daemon = EngineDaemon(path, max_streams=SLOTS, address=("127.0.0.1", 0),
+                          mode="unet", device="cuda")
+    cfg, hop, sr = daemon.cfg, daemon.engine.hop, daemon.cfg.dsp.sample_rate
+    latency_ms = daemon.engine.algorithmic_latency_ms
+    log = recorded_rounds(daemon.engine)
+    data = voiced_chunks(SEG_CLIENTS, SEG_CLIENT_HOPS, hop, sr, 49)
+    server = threading.Thread(target=daemon.serve_forever, daemon=True)
+    results, errors = {}, []
+    server.start()
+    try:
+        if not daemon.listening.wait(60):
+            raise TimeoutError("daemon did not start listening")
+        threads = [threading.Thread(target=_paced_client, args=(
+            daemon.address, c, data[:, c], sr, results, errors), daemon=True)
+            for c in range(SEG_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(REPLY_DEADLINE_S * 4)
+    finally:
+        daemon.stop()
+        server.join(10)
+    if errors or server.is_alive():
+        raise RuntimeError("; ".join(errors) or "the daemon did not stop")
+    want = replay_rounds(log, StreamEngine(cfg, daemon.model, mode="unet",
+                                           max_streams=SEG_CLIENTS,
+                                           device="cpu"))
+    err = max(float(np.abs(results[c][0] - want[f"c{c}"]).max())
+              for c in range(SEG_CLIENTS))
+    lat = np.concatenate([results[c][1] for c in range(SEG_CLIENTS)])
+    rounds = sum(op == "tick" for op, _ in log)
+    say(f"  engine daemon: {SEG_CLIENTS} clients x {SEG_CLIENT_HOPS} hops in "
+        f"{rounds} rounds; replies vs the rounds replayed on the CPU "
+        f"{err:.3e} (bound {SEG_OUT_ATOL:g}); stats latency "
+        f"{results['stats']['algorithmic_latency_ms']} ms; "
+        + seg_latency_line(lat, latency_ms, smi))
+    if err > SEG_OUT_ATOL or daemon.engine.mode != "unet":
+        raise AssertionError("the engine daemon's replies disagree with "
+                             "its rounds replayed")
+    lat_out += list(np.percentile(lat, [50, 99]) * 1e3)
+
+    ws = WSDaemon(path, "127.0.0.1", 0, max_streams=SLOTS, mode="unet",
+                  device="cuda")
+    log = recorded_rounds(ws.engine)
+    pcm = ws_pcm(SEG_CLIENTS, SEG_CLIENT_HOPS * hop, 49)
+    got, lat, _, stats, _ = serve_ws(ws, pcm)
+    want = replay_rounds(log, StreamEngine(ws.cfg, ws.model, mode="unet",
+                                           max_streams=SEG_CLIENTS,
+                                           device="cpu"))
+    lsb = 0
+    for c in range(SEG_CLIENTS):
+        first = pcm_to_float32(pcm[c, :hop])
+        sid, = {s for op, arg in log if op == "tick"
+                for s, chunk in arg.items() if np.array_equal(chunk, first)}
+        w = float32_to_pcm16(want[sid].reshape(-1))
+        lsb = max(lsb, int(np.abs(got[c].astype(np.int32)
+                                  - w.astype(np.int32)).max()))
+    say(f"  WebSocket daemon: GET / 200; {SEG_CLIENTS} clients x "
+        f"{SEG_CLIENT_HOPS} hops in {sum(op == 'tick' for op, _ in log)} "
+        f"rounds; int16 replies vs the rounds replayed on the CPU {lsb} LSB "
+        f"(bound {WS_LSB}); " + seg_latency_line(lat, latency_ms, smi))
+    check_ws_stats(stats, SEG_CLIENTS)
+    if lsb > WS_LSB:
+        raise AssertionError("the WebSocket daemon's replies disagree with "
+                             "its rounds replayed")
+    lat_out += list(np.percentile(lat, [50, 99]) * 1e3)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.wav")
+        n = SEG_OFFLINE_S * 48000
+        write_wav(src, noisy_voice(n, 48000, 49), 48000)
+        t0 = time.perf_counter()
+        with normalized_outputs("offline_denoise_streamed") as outs:
+            offline.main([src, os.path.join(tmp, "card.wav"), "--model",
+                          path, "--streamed"])
+            card_s = time.perf_counter() - t0
+            offline.main([src, os.path.join(tmp, "cpu.wav"), "--model",
+                          path, "--streamed", "--device", "cpu"])
+    check_offline(f"denoise --streamed, {SEG_UNET}, {SEG_OFFLINE_S} s at 48 "
+                  f"kHz (the card {card_s:.2f} s)", outs[0], outs[1], n)
+    return lat_out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4287,6 +4801,24 @@ def main() -> int:
         f"(gruunet2-dari_tult, warm) vs its plain version on the card")
     (wb_launches, wbm_launches, wb_err, wb_t,
      wb_read) = phase_webrtc_bf16(torch, dari_cfg, dari, dari_plan, smi)
+
+    say(f"phase 46: offline_denoise_stateless, one window of the "
+        f"recommended geometry at {SLOTS} streams ({SEG_UNET}, {SEG_WIDE}), "
+        f"card vs CPU, the TF32 control")
+    phase_segment_window(torch, smi)
+    say(f"phase 47: StreamEngine mode unet ({SEG_UNET}, the recommended "
+        f"geometry), {SLOTS} slots, card vs CPU, gated and ungated; the "
+        f"ticks timed, and {SEG_WIDE}'s")
+    phase_segment_engine(torch, SEG_UNET, SEG_UNET_CYCLES, smi)
+    time_segment_only(torch, SEG_WIDE, smi)
+    say(f"phase 48: StreamEngine mode unet ({SEG_TRUNET}, TRUNetDenoiser at "
+        f"its class-default geometry), {SLOTS} slots, card vs CPU")
+    phase_segment_engine(torch, SEG_TRUNET, SEG_TRUNET_CYCLES, smi,
+                         gates=(False,))
+    say(f"phase 49: EngineDaemon and WSDaemon mode unet ({SEG_UNET}, "
+        f"{SEG_CLIENTS} clients at the audio's pace) against their rounds "
+        f"replayed on the CPU; denoise --streamed, card vs CPU")
+    phase_segment_daemons(torch, smi)
 
     def variant(label, checked, timing=None, n=None):
         v = {"name": label, "checked": checked}

@@ -171,9 +171,22 @@ def test_engine_needs_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_engine_refuses_unported_modes():
+    """Mode 'unet', which this test refused (naming ROADMAP A8) until the
+    segment family was ported, is served on a U-Net; on a recurrent model
+    it raises ValueError as JAX's engine does, and an unknown mode is
+    still refused."""
     cfg, model = load_pretrained(SPEC)
-    with pytest.raises(ValueError, match="not ported"):
-        StreamEngine(cfg, model, mode="unet", device="cpu")
+    jcfg, jmodel, jparams = jax_load_pretrained(SPEC)
+    for make in (lambda: StreamEngine(cfg, model, mode="unet", device="cpu"),
+                 lambda: JaxEngine(jcfg, jmodel, jparams, mode="unet")):
+        with pytest.raises(ValueError, match="compatible_frames"):
+            make()
+    with pytest.raises(ValueError, match="unknown engine mode"):
+        StreamEngine(cfg, model, mode="bogus", device="cpu")
+    ucfg, unet = load_pretrained(os.path.join(
+        REPO, "runs", "unet4crop2s-mrstft-30k.npz"))
+    eng = StreamEngine(ucfg, unet, mode="unet", max_streams=2, device="cpu")
+    assert eng.mode == "unet" and eng.state.ring.shape[0] == 2
 
 
 def test_daemon_refuses_a_profile_it_cannot_serve():

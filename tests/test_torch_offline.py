@@ -23,7 +23,9 @@ import jax
 import jax.numpy as jnp
 
 from audio_denoising_tpu.apps import offline as jax_offline
-from audio_denoising_tpu.config import with_snr_gate as jax_with_snr_gate
+from audio_denoising_tpu.config import (
+    with_snr_gate as jax_with_snr_gate,
+    with_unet_geometry as jax_with_unet_geometry)
 from audio_denoising_tpu.hub import load_pretrained as jax_load_pretrained
 from audio_denoising_tpu.io.wavio import read_wav as jax_read_wav
 from audio_denoising_tpu.ops.resample import resample as jax_resample
@@ -33,7 +35,8 @@ from audio_denoising_tpu.pipeline import (
 from audio_denoising_torch.apps import offline
 from audio_denoising_torch.compat import load_params_npz, save_params_npz
 from audio_denoising_torch.config import (
-    Config, DSPConfig, ModelConfig, ServingConfig, with_snr_gate)
+    Config, DSPConfig, ModelConfig, ServingConfig, with_snr_gate,
+    with_unet_geometry)
 from audio_denoising_torch.hub import load_pretrained
 from audio_denoising_torch.io.wavio import read_wav, write_wav
 from audio_denoising_torch.models import build_model
@@ -51,6 +54,7 @@ PASS_ATOL = 2e-4       # tests/test_lookahead.py's zero-model bound
 GL_SNR_DB = 30.0
 GATED = os.path.join(REPO, "runs", "gruunet2-mrstft-50k.npz")
 LA4 = os.path.join(REPO, "runs", "gruunet2mel128w64-mrstft-la4-50k.npz")
+UNET4 = os.path.join(REPO, "runs", "unet4crop2s-mrstft-30k.npz")
 
 
 def _snr(ref, got):
@@ -366,13 +370,34 @@ def test_denoise_file_gated_matches_jax(tmp_path):
     assert np.abs(got - want).max() <= 1 / 32768 + 1e-9
 
 
+# the U-Net keywords this file refused (naming ROADMAP A8) until the
+# segment family was ported: each is served now, the geometry ones on the
+# streamed chain, where they act, against JAX's denoise_file
+@pytest.mark.parametrize("kw", [
+    {"streamed": True}, {"streamed": True, "unet_seg_hops": 4},
+    {"streamed": True, "unet_ctx": 256},
+    {"streamed": True, "unet_xfade": 64},
+    {"streamed": True, "unet_ctx_left": 128}])
+def test_denoise_file_serves_the_unet_keywords(tmp_path, kw):
+    """runs/unet4crop2s-mrstft-30k.npz on 0.25 s of 44.1 kHz mono (the
+    streamed chain with no geometry keyword at the recommended window),
+    through both packages' denoise_file: within one LSB."""
+    src = str(tmp_path / "in.wav")
+    rng = np.random.default_rng(2)
+    write_wav(src, (0.1 * rng.standard_normal(11025)).astype(np.float32),
+              44100)
+    a, b = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
+    offline.denoise_file(UNET4, src, a, device="cpu", **kw)
+    jax_offline.denoise_file(UNET4, src, b, **kw)
+    got, want = read_wav(a)[0], jax_read_wav(b)[0]
+    assert got.shape == want.shape == (1, 12000)
+    assert np.abs(got - want).max() <= 1 / 32768 + 1e-9
+
+
 # kw5 keeps its name from when a .pth spec was refused (A7): the port
 # serves .pth checkpoints now (test_denoise_file_serves_a_reference_pth),
 # and the case checks what the hub still refuses
 @pytest.mark.parametrize("kw,item", [
-    ({"streamed": True}, "A8"), ({"unet_seg_hops": 4}, "A8"),
-    ({"unet_ctx": 256}, "A8"), ({"unet_xfade": 64}, "A8"),
-    ({"unet_ctx_left": 128}, "A8"),
     pytest.param({"spec": "model.onnx"}, "A14", id="kw5-A7")])
 def test_denoise_file_refuses_what_is_not_ported(tmp_path, kw, item):
     out = tmp_path / "out.wav"
@@ -384,9 +409,28 @@ def test_denoise_file_refuses_what_is_not_ported(tmp_path, kw, item):
     assert not out.exists()
 
 
-def test_denoise_chain_refuses_a_stateless_model():
-    with pytest.raises(NotImplementedError, match="A8"):
-        offline.denoise_chain(_tiny_cfg(), object(), torch.zeros(100), 16000)
+def test_denoise_chain_serves_a_stateless_model():
+    """The chain on a U-Net, which it refused (naming A8) until the
+    segment family was ported: stereo at 44.1 kHz through mono,
+    resampling, peak normalization and the whole-clip window (and the
+    streamed chain at a small geometry), against JAX's denoise_array
+    within OUT_ATOL."""
+    jcfg, jmodel, jparams = jax_load_pretrained(UNET4)
+    cfg, model = load_pretrained(UNET4)
+    rng = np.random.default_rng(3)
+    x = (0.1 * rng.standard_normal((2, 8820))).astype(np.float32)
+    got = offline.denoise_chain(cfg, model, torch.from_numpy(x), 44100)
+    want = jax_offline.denoise_array(jcfg, jmodel, jparams, x, 44100)
+    assert got.shape == (9600,)
+    np.testing.assert_allclose(got.numpy(), want, atol=OUT_ATOL, rtol=0)
+    cfg, jcfg = (g(c, seg_hops=2, ctx=384, xfade=192, ctx_left=768)
+                 for g, c in ((with_unet_geometry, cfg),
+                              (jax_with_unet_geometry, jcfg)))
+    got = offline.denoise_chain(cfg, model, torch.from_numpy(x), 44100,
+                                streamed=True)
+    want = jax_offline.denoise_array(jcfg, jmodel, jparams, x, 44100,
+                                     streamed=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=OUT_ATOL, rtol=0)
 
 
 def test_chain_refuses_tf32_matmuls(monkeypatch):
@@ -429,10 +473,32 @@ def test_cli_device_cpu_matches_denoise_file(tmp_path, rng):
     np.testing.assert_array_equal(got, read_wav(ref)[0])
 
 
+# the flags this command refused (naming A8) until the segment family was
+# ported, served in a subprocess against JAX's denoise_file
+@pytest.mark.parametrize("flags", [["--streamed"],
+                                   ["--streamed", "--unet-ctx", "64"]])
+def test_cli_serves_the_streamed_flags(tmp_path, flags):
+    """``denoise in.wav out.wav --model <unet4crop2s> --device cpu`` with
+    ``--streamed`` (the recommended window) and with ``--unet-ctx 64``
+    (the class defaults but the context): the 48 kHz WAV within one LSB
+    of JAX's."""
+    src = str(tmp_path / "in.wav")
+    rng = np.random.default_rng(4)
+    write_wav(src, (0.1 * rng.standard_normal(12000)).astype(np.float32),
+              48000)
+    out, ref = str(tmp_path / "cli.wav"), str(tmp_path / "jax.wav")
+    proc = _cli(src, out, "--device", "cpu", "--model", UNET4, *flags)
+    assert proc.returncode == 0, proc.stderr
+    kw = {"unet_ctx": 64} if "--unet-ctx" in flags else {}
+    jax_offline.denoise_file(UNET4, src, ref, streamed=True, **kw)
+    got, want = read_wav(out)[0], jax_read_wav(ref)[0]
+    assert got.shape == want.shape == (1, 12000)
+    assert np.abs(got - want).max() <= 1 / 32768 + 1e-9
+
+
 # flags2 keeps its name from when a .pth model was refused (A7); the
 # case now checks the .onnx model the port still refuses
 @pytest.mark.parametrize("flags,item", [
-    (["--streamed"], "A8"), (["--unet-ctx", "64"], "A8"),
     pytest.param(["--model", "x.onnx"], "A14", id="flags2-A7")])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     out = tmp_path / "out.wav"

@@ -12,6 +12,7 @@ import ctypes
 import dataclasses
 import filecmp
 import hashlib
+import importlib.util
 import inspect
 import json
 import os
@@ -62,6 +63,9 @@ HX_ATOL = 1e-5       # the webrtc step's state (tests/test_torch_webrtc.py)
 SNR_DB = 40.0        # Griffin-Lim waveforms of two fp32 versions
 SMEM_LIMIT = 232448  # an H100 block's opt-in shared memory, bytes
 FLAGSHIP = os.path.join(REPO, "runs", "gruunet2mel128w64-mrstft-50k.npz")
+UNET4 = os.path.join(REPO, "runs", "unet4crop2s-mrstft-30k.npz")
+UNET4_WIDE = os.path.join(REPO, "runs", "unet4wide-crop2s-mrstft-30k.npz")
+TRUNET = os.path.join(REPO, "runs", "trunet-realnoise.npz")
 RECV_TIMEOUT_S = 60.0
 
 
@@ -154,6 +158,15 @@ def _stop(daemon, thread):
     daemon.stop()
     thread.join(RECV_TIMEOUT_S)
     assert not thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture(scope="module")
@@ -376,16 +389,62 @@ def test_ws_serves_fused_webrtc_at_bfloat16(tmp_path):
     assert daemon.engine.hop_step.gl_bf16
 
 
-@pytest.mark.parametrize("argv", [["--mode", "unet"],
-                                  ["--unet-seg-hops", "4"],
-                                  ["--unet-ctx-left", "128"]])
-def test_ws_refuses_the_unet_family(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        ws_serve.main([*argv, "--device", "cpu", "--port", "0"])
-    assert e.value.code == 2
-    assert "A8" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="A8"):
-        WSDaemon(mode="unet", device="cpu")
+# the three cases this test refused (naming ROADMAP A8) until the segment
+# family was ported, each served now on one of its checkpoints
+@pytest.mark.parametrize("argv", [
+    ["--mode", "unet", "--model", UNET4],
+    ["--mode", "unet", "--model", UNET4_WIDE, "--unet-seg-hops", "2",
+     "--unet-ctx", "384", "--unet-xfade", "192", "--unet-ctx-left", "768"],
+    ["--mode", "unet", "--model", TRUNET, "--unet-seg-hops", "2",
+     "--unet-ctx", "384", "--unet-xfade", "128", "--unet-ctx-left",
+     "128"]])
+def test_ws_serves_the_unet_family(argv, smoke):
+    """``ws --mode unet`` (the recommended window on unet4crop2s; every
+    geometry flag on the wide U-Net and on TRUNet) parses and serves:
+    two clients stream int16 frames of odd sizes, each one's replies in
+    order against JAX's engine replaying the daemon's rounds (cadence
+    locked: a client that misses a round gets zeros there, in both),
+    within PCM_LSB."""
+    args = ws_serve.parser().parse_args(
+        [*argv, "--device", "cpu", "--port", "0", "--max-streams", "2",
+         "--host", "127.0.0.1"])
+    daemon = WSDaemon(args.model, args.host, args.port, args.max_streams,
+                      args.mode, device="cpu",
+                      unet_seg_hops=args.unet_seg_hops,
+                      unet_ctx=args.unet_ctx, unet_xfade=args.unet_xfade,
+                      unet_ctx_left=args.unet_ctx_left)
+    assert daemon.engine.mode == "unet"
+    log = smoke.recorded_rounds(daemon.engine)
+    thread = _serving(daemon)
+    hop = daemon.hop
+    n_hops = 2 * daemon.cfg.serving.unet_seg_hops + 1
+    rng = np.random.default_rng(22)
+    pcm = {c: _pcm(rng, hop * n_hops) for c in "ab"}
+    cut = hop * n_hops // 3
+    try:
+        conns = {c: _connect(daemon.address) for c in "ab"}
+        for c in "ab":
+            for frame in _frames(pcm[c], (cut - 1, cut + 1,
+                                          hop * n_hops - 2 * cut)):
+                _client_send(conns[c], frame.tobytes())
+        got = {c: _recv_pcm(conns[c], hop * n_hops) for c in "ab"}
+        for conn in conns.values():
+            conn.close()
+    finally:
+        _stop(daemon, thread)
+    jcfg, jmodel, jparams = jax_load_pretrained(args.model)
+    want = smoke.replay_rounds(log, JaxEngine(
+        dataclasses.replace(jcfg, serving=daemon.cfg.serving), jmodel,
+        jparams, mode="unet", max_streams=2))
+    # the daemon names its streams: a client's is the one its first hop
+    # went to
+    for c in "ab":
+        first = jax_to_float32(pcm[c][:hop])
+        sid, = {s for op, arg in log if op == "tick"
+                for s, chunk in arg.items() if np.array_equal(chunk, first)}
+        w = jax_to_pcm16(want[sid].reshape(-1)).astype(np.int32)
+        assert w.size == hop * n_hops
+        assert np.abs(got[c].astype(np.int32) - w).max() <= PCM_LSB
 
 
 @pytest.mark.parametrize("app", [ws_serve, serve])

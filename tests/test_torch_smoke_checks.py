@@ -3,8 +3,9 @@ with the plain version at the JAX tests' small geometry (n_fft 64, 16
 mels, hidden (5, 5), random weights from a seed): the float64 witness,
 the frame a hop adds to its OLA buffer, the spectral convergence that
 Griffin-Lim lowers, and the waveform rule for a hop taken from a shared
-state; and the rules it holds the fast step's lookahead rings and the
-bf16 Griffin-Lim mode to."""
+state; and the rules it holds the fast step's lookahead rings, the
+bf16 Griffin-Lim mode and the mode-unet daemons (their rounds replayed)
+to."""
 
 import importlib.util
 import os
@@ -401,3 +402,58 @@ def test_server_replies_repeat_the_first_channel(smoke):
         assert o.shape == m.shape
         np.testing.assert_array_equal(o[:, 0], o[:, 1])
     assert tuple(hx.shape) == tuple(model.init_state(1).shape)
+
+
+def test_segment_rounds_replay_exactly(smoke):
+    """What phase 49 holds the mode-unet daemons to: the rounds an engine
+    ran (streams added and removed between them, one missing a round,
+    which the cadence lock fills with zeros), logged by
+    ``recorded_rounds`` and replayed on a fresh engine by
+    ``replay_rounds``, give every stream the outputs it got (0)."""
+    from audio_denoising_torch.config import with_unet_geometry
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    cfg, model = load_pretrained(os.path.join(
+        REPO, "runs", "unet4crop2s-mrstft-30k.npz"))
+    cfg = with_unet_geometry(cfg, seg_hops=2, ctx=384, ctx_left=384)
+
+    def engine():
+        return StreamEngine(cfg, model, mode="unet", max_streams=3,
+                            device="cpu")
+
+    live = engine()
+    log = smoke.recorded_rounds(live)
+    rng = np.random.default_rng(49)
+    got = {}
+    live.add_stream("a")
+    for t in range(9):
+        if t == 2:
+            live.add_stream("b")
+        if t == 6:
+            live.remove_stream("a")
+        chunks = {s: (0.1 * rng.standard_normal(live.hop)).astype(
+            np.float32) for s in live.slots if not (s == "b" and t == 4)}
+        out, slots = live.process_async(chunks)
+        for s, slot in slots.items():
+            got.setdefault(s, []).append(out[slot].numpy())
+    want = smoke.replay_rounds(log, engine())
+    assert set(want) == {"a", "b"}
+    for s in want:
+        np.testing.assert_array_equal(np.stack(got[s]), want[s])
+
+
+def test_tf32_control_restores_the_fp32_scope(smoke):
+    """Phases 46-48's control turns TF32 on for the segment path's convs
+    and matmuls, and back off afterwards."""
+    from audio_denoising_torch import pipeline
+    fp32 = pipeline.fp32_convs
+    mm = torch.backends.cuda.matmul.allow_tf32
+    with smoke.tf32_allowed(torch):
+        assert pipeline.fp32_convs is not fp32
+        assert torch.backends.cuda.matmul.allow_tf32
+        with pipeline.fp32_convs():
+            assert torch.backends.cudnn.allow_tf32
+    assert pipeline.fp32_convs is fp32
+    assert torch.backends.cuda.matmul.allow_tf32 == mm
+    with pipeline.fp32_convs():
+        assert not torch.backends.cudnn.allow_tf32
