@@ -22,6 +22,11 @@ names follow the JAX package so each counterpart is easy to find:
                             batching tick and serving metrics.
 - ``apps.offline``        — offline file denoising (CLI ``denoise``).
 - ``apps.engine_serve``   — the batched multi-stream engine daemon.
+- ``train``               — training: ``TrainingContext``, the host and
+                            device samplers, the losses and metrics,
+                            distillation.
+- ``apps.trainer``, ``apps.evaluate``, ``apps.compare`` — the CLI
+                            commands ``train``, ``eval`` and ``compare``.
 
 The port imports ``torch`` and numpy, never ``jax`` and nothing of
 ``audio_denoising_tpu``. Entry points run on ``cuda`` unless the caller

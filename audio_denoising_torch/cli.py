@@ -4,7 +4,10 @@
 The port's commands: ``denoise`` (an audio file to a denoised WAV),
 ``serve`` (the reference's socket protocol), ``engine`` (the batched
 multi-stream daemon), ``ws`` (the WebSocket browser-mic daemon),
-``profile`` (per-hop latency of a serving step), and the checkpoint
+``profile`` (per-hop latency of a serving step), ``train`` (training on
+mixture-synthesized data), ``eval`` (quality on synthesized mixtures or
+a frozen manifest), ``compare`` (a paired two-model comparison on a
+manifest), and the checkpoint
 tools ``convert`` (.pth or preset/.npz to .npz), ``info`` (a
 checkpoint's meta) and ``models`` (the presets), which touch no device.
 """
@@ -103,6 +106,9 @@ COMMANDS = {
     "engine": "audio_denoising_torch.apps.engine_serve",
     "profile": "audio_denoising_torch.apps.profile_app",
     "ws": "audio_denoising_torch.apps.ws_serve",
+    "train": "audio_denoising_torch.apps.trainer",
+    "eval": "audio_denoising_torch.apps.evaluate",
+    "compare": "audio_denoising_torch.apps.compare",
 }
 TOOLS = {"convert": _convert, "info": _info, "models": _models}
 

@@ -12,9 +12,11 @@ wide UNet2d4 (unet2.py:116), sharing one block grammar:
 
 Parameter names are the reference's state-dict keys (``dcl_*.layers.*``,
 ``ucl_*.layers.*``, ``ucl_0.*``), so the ``.npz`` checkpoints load with
-``load_state_dict``. Inference only: the reference's training dropout
-(unet4.py:118) comes with training. The models are stateless: every
-window is independent, batch and time run in parallel.
+``load_state_dict``. Training adds elementwise dropout after each block's
+PReLU (the reference's nn.Dropout, unet4.py:118), drawn from a generator
+the trainer passes; without one the layer is the identity, so serving is
+unchanged. The models are stateless: every window is independent, batch
+and time run in parallel.
 """
 
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -161,7 +163,23 @@ class UNet2d(nn.Module):
             self, {k: v for k, v in params.items()
                    if not k.startswith("mlp.")}, self.chnls_gs)
 
-    def apply(self, logmag: torch.Tensor) -> torch.Tensor:
+    def apply(self, logmag: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              dropout: float = 0.0) -> torch.Tensor:
+        """logmag (C, bins, T) -> residual (C, bins', T'). With a
+        ``generator`` and ``dropout`` > 0, each block's output after its
+        PReLU keeps each element with probability 1 - dropout, scaled by
+        1 / (1 - dropout), the mask drawn from ``generator`` (on the
+        input's device) block by block in order; otherwise the identity
+        (JAX models/unet2d.py:163-180)."""
+        def drop(h):
+            if generator is None or dropout <= 0.0:
+                return h
+            keep = 1.0 - dropout
+            mask = torch.rand(h.shape, generator=generator,
+                              device=h.device, dtype=h.dtype) < keep
+            return torch.where(mask, h / keep, torch.zeros_like(h))
+
         n, _, t = logmag.shape
         smear = self.smear.to(logmag.dtype)[None, :, :, None]
         x = torch.cat([logmag[:, None],
@@ -173,14 +191,14 @@ class UNet2d(nn.Module):
                        padding=1)
             if norm:
                 x = instance_norm_2d(x)
-            x = prelu(x, layers[-1].weight)
+            x = drop(prelu(x, layers[-1].weight))
             encs.append(x)
         h = encs[-1]
         for i, (name, _cin, _cout, _k, s, op) in enumerate(self.spec["ups"]):
             layers = getattr(self, name).layers
             h = conv_transpose2d(h, layers[0].weight, layers[0].bias,
                                  stride=s, padding=1, output_padding=op)
-            h = prelu(instance_norm_2d(h), layers[2].weight)
+            h = drop(prelu(instance_norm_2d(h), layers[2].weight))
             h = torch.cat([h, encs[len(encs) - 2 - i]], dim=1)
         name, _cin, _k, s, op = self.spec["final"]
         final = getattr(self, name)
@@ -188,8 +206,10 @@ class UNet2d(nn.Module):
                              padding=1, output_padding=op)
         return h[:, 0]
 
-    def forward(self, logmag: torch.Tensor) -> torch.Tensor:
-        return self.apply(logmag)
+    def forward(self, logmag: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                dropout: float = 0.0) -> torch.Tensor:
+        return self.apply(logmag, generator, dropout)
 
     # -- shape compatibility ---------------------------------------------
     def _round_trip(self, bins: int, t: int) -> Optional[Tuple[int, int]]:

@@ -16,7 +16,11 @@ checkpoint into an affine plan:
 
 Probing runs on the CPU in float64 and the plan is cast to float32
 afterwards, so no TF32 convolution (cuDNN's default on the card) can leak
-into the plan matrices.
+into the plan matrices. Training builds the plan inside each step instead
+(``trainable=True``, JAX train/context.py:101-116): the same probes on
+the model's own parameters, in their dtype and on their device, with
+autograd on, so the gradient flows through the dense plan back to the
+conv weights.
 
 ``PlanModel`` (JAX counterpart plan.py:341-455) serves the plan through
 the zoo models' interface, one frame at a time through the cell (the
@@ -59,29 +63,44 @@ class CellPlan(NamedTuple):
             self.delta)
 
 
-def _probe_affine(fn: Callable[[torch.Tensor], torch.Tensor], n_in: int
+def _probe_affine(fn: Callable[[torch.Tensor], torch.Tensor], n_in: int,
+                  like: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fn maps (B, n_in) -> (B, n_out) affinely; recover (matrix, bias)
-    from a zero row and the identity, in float64."""
-    eye = torch.cat([torch.zeros(1, n_in, dtype=torch.float64),
-                     torch.eye(n_in, dtype=torch.float64)], dim=0)
-    with torch.no_grad():
+    from a zero row and the identity: in float64 under no_grad, or, given
+    a parameter ``like``, in its dtype and on its device with autograd
+    on."""
+    dtype = torch.float64 if like is None else like.dtype
+    device = None if like is None else like.device
+    eye = torch.cat([torch.zeros(1, n_in, dtype=dtype, device=device),
+                     torch.eye(n_in, dtype=dtype, device=device)], dim=0)
+    with torch.set_grad_enabled(like is not None):
         out = fn(eye)
     bias = out[0]
     return out[1:] - bias[None, :], bias
 
 
-def build_cell_plan(model) -> CellPlan:
+def _probe_cell(model, trainable: bool):
+    """(the cell the probes read, the probes' ``like``): a float64 copy
+    on the CPU for serving, the model's own cell for training."""
+    if trainable:
+        return model.cell, next(model.cell.parameters())
+    return copy.deepcopy(model.cell).to("cpu", torch.float64), None
+
+
+def build_cell_plan(model, trainable: bool = False) -> CellPlan:
     """Compile a GRUUNet2, MOMO2 or MOMO3 model into a float32 CellPlan on
-    the CPU (``build_cell_plan_momo`` for the MOMO family)."""
+    the CPU (``build_cell_plan_momo`` for the MOMO family); with
+    ``trainable``, a plan in the parameters' dtype and on their device
+    that carries the autograd graph back to them."""
     from audio_denoising_torch.models.momo import MOMO, MOMO3
     if isinstance(model, MOMO3):
-        return build_cell_plan_momo(model)
+        return build_cell_plan_momo(model, trainable)
     if isinstance(model, MOMO):
         raise ValueError(
             "MOMO v1 keeps a full-resolution state and has no plan; serve "
             "its zoo model in mode 'fast'")
-    cell = copy.deepcopy(model.cell).to("cpu", torch.float64)
+    cell, like = _probe_cell(model, trainable)
     c = model.config
     L = cell.levels
     sizes = cell.bin_sizes
@@ -103,7 +122,7 @@ def build_cell_plan(model) -> CellPlan:
                          stride=c.strides[i], padding=c.paddings[i])
             return out.reshape(v.shape[0], -1)
 
-        m, b = _probe_affine(g, chans[i] * sizes[i])
+        m, b = _probe_affine(g, chans[i] * sizes[i], like)
         down_mats.append(m)
         down_biases.append(b)
 
@@ -116,7 +135,7 @@ def build_cell_plan(model) -> CellPlan:
                      rconv.weight, rconv.bias, stride=1, padding=1)
         return out.reshape(v.shape[0], -1)
 
-    reset_mat, reset_bias = _probe_affine(g_reset, hidden * comp)
+    reset_mat, reset_bias = _probe_affine(g_reset, hidden * comp, like)
 
     up_h_mats, up_s_mats, up_biases = [], [], []
     rev = ([1] + list(c.hidden_sizes))[::-1]
@@ -136,7 +155,7 @@ def build_cell_plan(model) -> CellPlan:
                 output_padding=cell.up_output_paddings[i])
             return out.reshape(v.shape[0], -1)
 
-        m, b = _probe_affine(g, n_h + n_s)
+        m, b = _probe_affine(g, n_h + n_s, like)
         up_h_mats.append(m[:n_h])
         up_s_mats.append(m[n_h:] if n_s else None)
         up_biases.append(b)
@@ -146,15 +165,15 @@ def build_cell_plan(model) -> CellPlan:
         reset_mat=reset_mat, reset_bias=reset_bias,
         up_h_mats=tuple(up_h_mats), up_s_mats=tuple(up_s_mats),
         up_biases=tuple(up_biases), hidden=hidden, compressed=comp)
-    return plan.to(dtype=torch.float32)
+    return plan if trainable else plan.to(dtype=torch.float32)
 
 
-def build_cell_plan_momo(model) -> CellPlan:
+def build_cell_plan_momo(model, trainable: bool = False) -> CellPlan:
     """Compile a MOMO2/MOMO3 model into a float32 CellPlan on the CPU (JAX
     counterpart plan.py:141-234): GRUUNet2's topology, smeared once at the
     input and with no smear on the decoder; MOMO3's level 0 takes the 2F
-    vector cat(x_t, prev)."""
-    cell = copy.deepcopy(model.cell).to("cpu", torch.float64)
+    vector cat(x_t, prev). ``trainable`` as in ``build_cell_plan``."""
+    cell, like = _probe_cell(model, trainable)
     c = model.config
     L = cell.levels
     sizes = cell.bin_sizes
@@ -176,7 +195,7 @@ def build_cell_plan_momo(model) -> CellPlan:
                      padding=c.paddings[0])
         return out.reshape(v.shape[0], -1)
 
-    m, b = _probe_affine(g0, 2 * F if cell.delta else F)
+    m, b = _probe_affine(g0, 2 * F if cell.delta else F, like)
     down_mats, down_biases = [m], [b]
     chans = list(c.hidden_sizes[:-1]) + [3 * cell.hidden]
     for i in range(1, L):
@@ -188,7 +207,7 @@ def build_cell_plan_momo(model) -> CellPlan:
                          padding=c.paddings[i])
             return out.reshape(v.shape[0], -1)
 
-        m, b = _probe_affine(g, chans[i - 1] * sizes[i])
+        m, b = _probe_affine(g, chans[i - 1] * sizes[i], like)
         down_mats.append(m)
         down_biases.append(b)
 
@@ -202,7 +221,7 @@ def build_cell_plan_momo(model) -> CellPlan:
                      rconv.weight, rconv.bias, stride=1, padding=1)
         return out.reshape(v.shape[0], -1)
 
-    reset_mat, reset_bias = _probe_affine(g_reset, hidden * comp)
+    reset_mat, reset_bias = _probe_affine(g_reset, hidden * comp, like)
 
     up_h_mats, up_s_mats, up_biases = [], [], []
     rev = ([1] + list(c.hidden_sizes))[::-1]
@@ -218,7 +237,7 @@ def build_cell_plan_momo(model) -> CellPlan:
                 output_padding=cell.up_output_paddings[i])
             return out.reshape(v.shape[0], -1)
 
-        m, b = _probe_affine(g, n_h + n_s)
+        m, b = _probe_affine(g, n_h + n_s, like)
         up_h_mats.append(m[:n_h])
         up_s_mats.append(m[n_h:] if n_s else None)
         up_biases.append(b)
@@ -229,7 +248,7 @@ def build_cell_plan_momo(model) -> CellPlan:
         up_h_mats=tuple(up_h_mats), up_s_mats=tuple(up_s_mats),
         up_biases=tuple(up_biases), hidden=hidden, compressed=comp,
         delta=cell.delta)
-    return plan.to(dtype=torch.float32)
+    return plan if trainable else plan.to(dtype=torch.float32)
 
 
 def plan_from_numpy(plan) -> CellPlan:

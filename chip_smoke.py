@@ -293,7 +293,30 @@ raises on failure (so the script exits non-zero and prints no result):
     stream's replay (the tick's carry and pipelining must keep the
     rounds' order); the reply latency per hop (p50, p99) beside the 84 ms
     of algorithmic latency; then ``denoise --streamed`` on 2 s at 48 kHz
-    on the card against the CPU within OFFLINE_ATOL.
+    on the card against the CPU within OFFLINE_ATOL;
+50. one training step (``TrainingContext``: the loss and its gradients,
+    the model's output, the AdamW update) on the card against the same
+    step on the CPU from the same state and batch, at full width, on
+    the flagship recipe (runs/gruunet2mel128w64-mrstft-50k.npz: 128
+    mels, hidden 64, recon_mrstft, the SNR curriculum, batch 64 x 48000),
+    gruunet2-dari_tult (residual_mse), MOMO3 (9,600-sample crops),
+    UNet2d4 (runs/unet4crop2s-mrstft-30k.npz, dropout 0) and TRUNet
+    (runs/trunet-realnoise.npz), each batch from the device sampler on a
+    corpus this phase writes (the vowel at several pitches, white and
+    brown noise, 48 kHz WAVs); the TF32 control (cuDNN and matmul TF32
+    on) must miss the limits (``TRAIN_LIMITS``, ``TRAIN_CONTROL_FAILS``);
+51. ``python -m audio_denoising_torch train`` with the flagship recipe
+    from scratch: 60 steps on ``--device-data`` (finite, the last 10
+    losses below the first 10), ``--resume`` for 10 more (the checkpoint
+    counts 70 iterations and optimizer steps, its moments nonzero), 10
+    on the host sampler; then the step timed in process on both samplers
+    (ms at the median, the card's busy share by torch.profiler, peak
+    memory);
+52. the trained checkpoint through ``hub.load_pretrained``, ``denoise``
+    on the card, ``eval --manifest`` on a manifest over that corpus on
+    the card and with ``--device cpu`` (the outputs within OFFLINE_ATOL,
+    the per-example metrics within EVAL_DB, no significant paired
+    difference) and the ``compare`` command.
 
 Phases 30-34 drive the offline path, which launches none of the
 hand-written kernels: the JAX offline graph reaches no Pallas kernel
@@ -317,7 +340,9 @@ the quantized plan (phases 37, 38, 42), mode ``webrtc`` (phases 23, 24,
 42) and the socket daemon's server step (phase 41) run no hand-written
 kernel, as the JAX package's modes ``fast`` and
 ``webrtc`` and its ``serve`` run no Pallas kernel; nor does mode ``unet``
-(phases 47-49), as JAX's mode ``unet`` runs none.
+(phases 47-49), as JAX's mode ``unet`` runs none, nor training and
+evaluation (phases 50-52), as JAX's training reaches no Pallas kernel
+(``TrainingContext`` runs the probed plan or ``model.apply``).
 Griffin-Lim with carried phases is chaotic where a frame's rebuilt
 spectrum nears zero: fp32 round-off there flips a phase, and the carried
 phases spread it, so two correct fp32 versions that each carry their own
@@ -3735,7 +3760,11 @@ def phase_lookahead(torch, smi):
     phase_engine_idle(torch, cfg, pm, "fast", LA_TICKS, 431,
                       cpu_model=PlanModel(model, fused=True, device="cpu"))
     launches = pm.fused_cell.launches
-    say(f"  PlanModel(fused=True): {launches} fused-cell launches")
+    flops, nbytes = cell_work(pm.fused_cell, SLOTS)
+    say(f"  PlanModel(fused=True): {launches} fused-cell launches; the "
+        f"fused cell's bound at B={SLOTS} on this plan "
+        f"{max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S) * 1e6:.2f} us "
+        f"({flops / 1e6:.1f} MFLOP at fp32, {nbytes / 1e6:.2f} MB)")
     if launches != LA_TICKS:
         raise AssertionError(f"expected {LA_TICKS} fused-cell launches, saw "
                              f"{launches}")
@@ -4514,6 +4543,490 @@ def phase_segment_daemons(torch, smi):
     return lat_out
 
 
+
+# -- phases 50-52: training and evaluation ------------------------------------
+
+TRAIN_CORPUS_FILES = 4     # clean WAVs of the synthesized corpus
+TRAIN_CORPUS_S = 3         # seconds each, 48 kHz
+TRAIN_NOISE_S = 4          # seconds of each of the two noise WAVs
+TRAIN_FLAGSHIP = "gruunet2mel128w64-mrstft-50k.npz"
+# phase 50's cases: (label, checkpoint under the repo, the preset whose
+# config a config-less checkpoint trains under or None for its own, the
+# crop in samples where it is cut: MOMO3's 21-sample hop makes 48,000
+# samples 2,286 steps of recurrence, two minutes a step on the CPU)
+TRAIN_CASES = (
+    ("flagship", os.path.join("runs", TRAIN_FLAGSHIP), None, None),
+    ("dari_tult", os.path.join("checkpoints", "gruunet2-dari_tult.npz"),
+     "gruunet2-dari_tult", None),
+    ("momo3", os.path.join("checkpoints", "momo3-4d4ea0.npz"),
+     "momo3-4d4ea0", 9600),
+    ("unet2d4", os.path.join("runs", SEG_UNET), None, None),
+    ("trunet", os.path.join("runs", SEG_TRUNET), None, None))
+# One training step on the card against the CPU, from the same state and
+# batch: the loss relative to the CPU's; the model's output (its residual
+# prediction on the batch's features) relative to its largest magnitude;
+# each gradient relative to its largest magnitude, floored at
+# TRAIN_GRAD_FLOOR of the median over the model's tensors of their
+# largest gradient (a conv bias in front of an InstanceNorm has a zero
+# gradient in exact arithmetic: on UNet2d4 those read 1e-8 against a
+# median of 0.1); each parameter after the step relative to its largest
+# magnitude, for the tensors whose gradient clears the floor. The step
+# starts from the checkpoint's AdamW moments (runs/ carry them) or, for a
+# checkpoint without, from the state after one step on the card, so
+# Adam's first step (lr * g / |g| whatever g's size) does not turn
+# round-off into a full step. The TF32 control (cuDNN and matmul TF32 on
+# for the card's step) must miss each limit of the residual objective.
+# The reconstruction objective's log(|E| + 1e-5) terms turn float32
+# round-off in a near-zero estimate bin into percent of a gradient, so
+# fp32 alone sits as far from exact as TF32 on its loss and gradients
+# (the flagship at batch 8 on the CPU: fp32 against float64 4.8e-5 on the
+# loss, 2.3e-2 on the gradients): there the control must miss the output
+# and parameter limits. Limits: {objective: (loss, output, gradients,
+# parameters)}; the readings the control must fail, by index. Each such
+# limit sits near the geometric middle of the fp32 runs' largest reading
+# and the controls' smallest (this phase with the limits unset, NVIDIA
+# H100 80GB HBM3, 700.00 W): the loss 8.1e-7 and 1.9e-4 (residual), the
+# output 5.6e-6 and 7.2e-4 (every case), the gradients 4.2e-4 and
+# 1.15e-3 (residual), the parameters 7.6e-7 and 9.9e-5 (residual),
+# 2.2e-5 and 3.8e-4 (reconstruction). The reconstruction objective's
+# loss and gradients are held at about 3x its largest fp32 reading
+# (6.0e-5, the flagship; 7.2e-2, UNet2d4); fp32 itself reads 3.4e-4 and
+# 7.5e-2 against float64 there (UNet2d4 at batch 2 on the CPU).
+TRAIN_GRAD_FLOOR = 1e-4
+TRAIN_LIMITS = {"residual_mse": (1e-5, 6e-5, 7e-4, 9e-6),
+                "recon_mrstft": (2e-4, 6e-5, 0.2, 9e-5)}
+TRAIN_CONTROL_FAILS = {"residual_mse": (0, 1, 2, 3),
+                       "recon_mrstft": (1, 3)}
+TRAIN_READINGS = ("loss", "output", "gradients", "parameters")
+TRAIN_CLI_STEPS = 60       # phase 51's first run, --device-data
+TRAIN_RESUME_STEPS = 10    # then --resume, and 10 on the host sampler
+TRAIN_TREND = 10           # losses averaged at each end of the run
+TRAIN_TIMED_DISPATCHES = 5  # of 10 steps each, after a warm dispatch
+TRAIN_TIMED_HOST = 10      # host-sampler steps timed one by one
+EVAL_BLOCK_N = 8           # examples per block of phase 52's manifest
+EVAL_DB = 1e-2             # a per-example metric, card vs CPU (dB; LSD)
+# the flagship recipe (runs/gruunet2mel128w64-mrstft-50k.npz's
+# full_config.train) as train flags, from scratch
+FLAGSHIP_RECIPE = ("--preset", "gruunet2-mel128", "--hidden", "64",
+                   "--objective", "recon_mrstft", "--snr-range", "-10", "15",
+                   "--lr-gamma", "0.97", "--batch-size", "64",
+                   "--crop-samples", "48000", "--log-every", "10")
+
+
+def write_train_corpus(root):
+    """The synthesized corpus of phases 50-52 under ``root``: clean WAVs
+    of the vowel (``voiced``) at several pitches and syllable rates, a
+    -60 dB floor under each, and ``noise/`` with white and brown noise,
+    all 48 kHz, from fixed seeds. -> (clean paths, noise paths)."""
+    from audio_denoising_torch.io.wavio import write_wav
+    sr = 48000
+    os.makedirs(os.path.join(root, "noise"), exist_ok=True)
+    rng = np.random.default_rng(50)
+    clean = []
+    base = voiced(TRAIN_CORPUS_S * sr, sr)
+    for i in range(TRAIN_CORPUS_FILES):
+        # a pitch and tempo per file: resample the vowel's time axis
+        t = np.arange(TRAIN_CORPUS_S * sr) * (0.8 + 0.15 * i)
+        x = np.interp(t % len(base), np.arange(len(base)), base)
+        x = x * (0.6 + 0.4 * np.sin(2 * np.pi * (0.5 + 0.3 * i)
+                                    * np.arange(len(x)) / sr)) ** 2
+        x = x + 1e-3 * rng.standard_normal(len(x))
+        path = os.path.join(root, f"voice{i}.wav")
+        write_wav(path, x.astype(np.float32), sr)
+        clean.append(path)
+    white = rng.standard_normal(TRAIN_NOISE_S * sr)
+    brown = np.cumsum(rng.standard_normal(TRAIN_NOISE_S * sr))
+    noise = []
+    for name, x in (("white", white), ("brown", brown - brown.mean())):
+        path = os.path.join(root, "noise", f"{name}.wav")
+        write_wav(path, (0.5 * x / np.abs(x).max()).astype(np.float32), sr)
+        noise.append(path)
+    return clean, noise
+
+
+def train_case(name, path, preset, crop=None):
+    """(cfg, model, the checkpoint path) of a phase-50 case at its full
+    width and training config (its crop cut to ``crop``), dropout 0 (the
+    mask has its own test)."""
+    from audio_denoising_torch.compat import load_params_npz
+    from audio_denoising_torch.config import Config, PRESETS
+    from audio_denoising_torch.models import build_model
+    if preset is None:
+        meta = load_params_npz(os.path.join(REPO, path))[1]
+        cfg = Config.from_json(json.dumps(meta["full_config"]))
+    else:
+        cfg = PRESETS[preset]
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=0.0),
+        train=dataclasses.replace(
+            cfg.train, crop_samples=crop or cfg.train.crop_samples))
+    return cfg, build_model(cfg.model, num_bins=cfg.dsp.n_mels), \
+        os.path.join(REPO, path)
+
+
+def train_batch(torch, cfg, corpus, seed):
+    """One batch of the case's recipe from the device sampler on the CPU
+    (the corpus at the case's rate, the SNR curriculum where its config
+    has one), the same tensors for both sides."""
+    from audio_denoising_torch.train.device_data import (
+        DeviceCorpus, make_device_sampler)
+    clean, noise = corpus
+    sr = cfg.dsp.sample_rate
+    sample = make_device_sampler(
+        DeviceCorpus.from_paths(clean, sr, device="cpu"),
+        cfg.train.crop_samples, cfg.train.batch_size,
+        noise_corpus=DeviceCorpus.from_paths(noise, sr, device="cpu"),
+        snr_range_db=cfg.train.snr_range_db,
+        identity_prob=cfg.train.identity_prob)
+    return sample(torch.Generator().manual_seed(seed))
+
+
+def train_readings(cpu, card):
+    """(loss, output, gradients, parameters errors), [round-off
+    tensors]) of the card's step against the CPU's by phase 50's rule;
+    each side is (loss, output, {key: gradient}, {key: param after})."""
+    (l_cpu, y_cpu, g_cpu, p_cpu), (l_card, y_card, g_card, p_card) = \
+        cpu, card
+    floor = TRAIN_GRAD_FLOOR * float(np.median(
+        [float(g.abs().max()) for g in g_cpu.values()]))
+    loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    out_err = max_err(y_card, y_cpu) / float(y_cpu.abs().max())
+    grad_err, param_err, roundoff = 0.0, 0.0, []
+    for k, g in g_cpu.items():
+        grad_err = max(grad_err, max_err(g_card[k], g)
+                       / max(float(g.abs().max()), floor))
+        if float(g.abs().max()) < floor:
+            roundoff.append(k)
+            continue
+        param_err = max(param_err, max_err(p_card[k], p_cpu[k])
+                        / float(p_cpu[k].abs().max()))
+    return (loss_err, out_err, grad_err, param_err), roundoff
+
+
+@contextlib.contextmanager
+def train_tf32(torch):
+    """Phase 50's control: the training step's fp32 scope replaced by
+    one with TF32 on in cuDNN's convolutions and in matmuls."""
+    from audio_denoising_torch.train import context
+
+    @contextlib.contextmanager
+    def tf32():
+        mm = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.backends.cudnn.flags(
+                    enabled=True, benchmark=False, deterministic=False,
+                    allow_tf32=True):
+                yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = mm
+
+    real = context.fp32_scope
+    context.fp32_scope = tf32
+    try:
+        yield
+    finally:
+        context.fp32_scope = real
+
+
+def train_step_on(torch, state, cfg, model, dev, batch):
+    """(loss, the model's output, {key: gradient}, {key: param after the
+    step}), all on the CPU, of one step of a context loaded from
+    ``state`` on ``dev``, and the step's seconds."""
+    from audio_denoising_torch.train import context
+    ctx = context.TrainingContext.load(state, cfg, model, device=dev)
+    mix, clean = (t.to(dev) for t in batch)
+    t0 = time.perf_counter()
+    loss, grads = ctx.loss_and_grads(mix, clean)
+    with torch.no_grad(), context.fp32_scope():
+        out, _ = ctx._forward(ctx.state.params, ctx.features(mix))
+    ctx._step(mix, clean)
+    params = {k: v.detach().cpu() for k, v in ctx.state.params.items()}
+    seconds = time.perf_counter() - t0
+    return (loss.cpu(), out.cpu(), {k: g.cpu() for k, g in grads.items()},
+            params), seconds
+
+
+def check_train_limits(readings, controls, objectives):
+    """Phase 50's verdict: every case's readings within its objective's
+    limits; every case's TF32 control beyond the limits
+    TRAIN_CONTROL_FAILS names. ``readings``/``controls``: {case: (loss,
+    output, gradients, parameters)}; ``objectives``: {case: objective}."""
+    for name, got in readings.items():
+        limits = TRAIN_LIMITS[objectives[name]]
+        if any(r > lim for r, lim in zip(got, limits)):
+            raise AssertionError(f"{name}: the card's training step "
+                                 f"disagrees with the CPU's: {got}")
+        for i in TRAIN_CONTROL_FAILS[objectives[name]]:
+            if controls[name][i] <= limits[i]:
+                raise AssertionError(
+                    f"{name}: the TF32 control meets the "
+                    f"{TRAIN_READINGS[i]} limit ({controls[name][i]:.3e} <= "
+                    f"{limits[i]:g}): the limit separates nothing")
+
+
+def phase_train_step(torch, tmp, corpus, dev="cuda"):
+    """Phase 50: one training step of each case on the card and on the
+    CPU from the same state and batch: the loss, the model's output,
+    every gradient and every parameter after the step, then the TF32
+    control on the card."""
+    from audio_denoising_torch.train.context import TrainingContext
+    readings, controls, objectives = {}, {}, {}
+    for i, (name, path, preset, crop) in enumerate(TRAIN_CASES):
+        cfg, model, path = train_case(name, path, preset, crop)
+        batch = train_batch(torch, cfg, corpus, 500 + i)
+        ctx = TrainingContext.load(path, cfg, model, device=dev)
+        warm = ctx.state.step == 0
+        if warm:                     # no stored moments: one step first
+            ctx.train_step(*train_batch(torch, cfg, corpus, 550 + i))
+        state = os.path.join(tmp, f"state-{name}.npz")
+        ctx.save(state)
+        cpu, cpu_s = train_step_on(torch, state, cfg, model, "cpu", batch)
+        card, card_s = train_step_on(torch, state, cfg, model, dev, batch)
+        got, roundoff = train_readings(cpu, card)
+        with train_tf32(torch):
+            tf32, _ = train_step_on(torch, state, cfg, model, dev, batch)
+        ctrl, _ = train_readings(cpu, tf32)
+        if not math.isfinite(float(card[0])) or not all(
+                bool(torch.isfinite(g).all()) for g in card[2].values()):
+            raise AssertionError(f"{name}: a non-finite loss or gradient")
+        readings[name], controls[name] = got, ctrl
+        objectives[name] = cfg.train.objective
+        start = ("after one step on the card" if warm else
+                 f"the checkpoint's moments at step {ctx.state.step}")
+        say(f"  {name} ({cfg.model.arch}, {cfg.train.objective}, batch "
+            f"{cfg.train.batch_size} x {cfg.train.crop_samples}, "
+            f"{len(cpu[2])} tensors, from {start}): loss "
+            f"{float(cpu[0]):.6f}; card vs CPU "
+            + ", ".join(f"{n} {v:.3e}" for n, v in zip(TRAIN_READINGS, got))
+            + "; TF32 control " + ", ".join(f"{v:.3e}" for v in ctrl)
+            + f"; round-off gradients in {len(roundoff)} tensors; the step "
+            f"(loss and gradients, output, update) {cpu_s:.2f} s on the "
+            f"CPU, {card_s:.3f} s on the card")
+    for obj, lim in TRAIN_LIMITS.items():
+        say(f"  limits, {obj}: " + ", ".join(
+            f"{n} {v:g}" for n, v in zip(TRAIN_READINGS, lim)))
+    check_train_limits(readings, controls, objectives)
+
+
+def run_cli(argv, dev, what):
+    """``python -m audio_denoising_torch`` with ``argv`` in a subprocess
+    (``--device cpu`` added off the card); raises unless it exits 0.
+    -> its stdout."""
+    extra = [] if dev == "cuda" else ["--device", "cpu"]
+    proc = subprocess.run([sys.executable, "-m", "audio_denoising_torch",
+                           *argv, *extra], cwd=REPO, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def check_loss_trend(losses, n=TRAIN_TREND):
+    """Phase 51's trend: every loss finite and the mean of the last n
+    below the mean of the first n, over at least 2 n steps. -> (the two
+    means)."""
+    losses = [float(v) for v in losses]
+    first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+    finite = all(math.isfinite(v) for v in losses)
+    if not finite or not last < first or len(losses) < 2 * n:
+        raise AssertionError(f"the losses do not fall: first {n} "
+                             f"{first:.5f}, last {n} {last:.5f}, finite "
+                             f"{finite}, {len(losses)} steps")
+    return first, last
+
+
+def train_record(path):
+    """(meta, the train losses in iteration order, the __opt__ leaves)
+    of a checkpoint."""
+    from audio_denoising_torch.compat import load_params_npz
+    params, meta = load_params_npz(path)
+    rec = meta["loss_record"]["train"]
+    leaves = [params[f"__opt__{i}"] for i in range(meta["opt_n_leaves"])]
+    return meta, [rec[k] for k in sorted(rec, key=int)], leaves
+
+
+def time_training(torch, ckpt, corpus, smi, dev="cuda"):
+    """The flagship recipe's step on the card, in process from phase 51's
+    checkpoint: ms per step at the median on the device sampler (per
+    dispatch of 10 steps, which ends in the losses' copy to the host)
+    and on the host sampler (per step, which ends in the loss's), the
+    card's busy share under torch.profiler for each, peak memory."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.train import MixtureSampler
+    from audio_denoising_torch.train.context import TrainingContext
+    from audio_denoising_torch.train.device_data import DeviceCorpus
+    cfg, model = load_pretrained(ckpt)
+    ctx = TrainingContext.load(ckpt, cfg, model, device=dev)
+    clean, noise = corpus
+    buf = DeviceCorpus.from_paths(clean, cfg.dsp.sample_rate, device=dev)
+    nbuf = DeviceCorpus.from_paths(noise, cfg.dsp.sample_rate, device=dev)
+
+    def dispatch():
+        ctx.fit_on_device(buf, iters=10, steps_per_dispatch=10,
+                          noise_corpus=nbuf)
+
+    dispatch()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(TRAIN_TIMED_DISPATCHES):
+        t0 = time.perf_counter()
+        dispatch()
+        walls.append((time.perf_counter() - t0) / 10)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows, wall = profiled(torch, dispatch)
+    device = (1e3 * float(np.median(walls)), sum(rows.values()) / 1e6 / wall)
+
+    sampler = MixtureSampler(clean, noise, crop_samples=cfg.train
+                             .crop_samples, batch_size=cfg.train.batch_size,
+                             seed=cfg.train.seed, sample_rate=48000)
+
+    def host_step():                 # the sampler's draw, then the step
+        ctx.train_step(*sampler.sample())
+
+    host_step()
+    host_step()
+    walls = []
+    for _ in range(TRAIN_TIMED_HOST):
+        t0 = time.perf_counter()
+        host_step()
+        walls.append(time.perf_counter() - t0)
+    rows, wall = profiled(torch, host_step)
+    host = (1e3 * float(np.median(walls)), sum(rows.values()) / 1e6 / wall)
+    say(f"  flagship recipe ({cfg.model.arch}, hidden "
+        f"{cfg.model.hidden_sizes}, batch {cfg.train.batch_size} x "
+        f"{cfg.train.crop_samples}, {cfg.train.objective}), {smi}: device "
+        f"sampler {device[0]:.2f} ms/step at the median of "
+        f"{TRAIN_TIMED_DISPATCHES} dispatches of 10, card busy "
+        f"{device[1]:.1%} of a dispatch; host sampler {host[0]:.2f} "
+        f"ms/step at the median of {TRAIN_TIMED_HOST} steps (sampling "
+        f"included), card busy {host[1]:.1%} of a step; peak memory "
+        f"{peak:.2f} GB")
+
+
+def phase_train_cli(torch, tmp, corpus_dir, corpus, smi, dev="cuda"):
+    """Phase 51: ``python -m audio_denoising_torch train`` with the
+    flagship recipe from scratch: TRAIN_CLI_STEPS steps on the device
+    sampler (every loss finite, the last TRAIN_TREND below the first),
+    then ``--resume`` for TRAIN_RESUME_STEPS more (the checkpoint counts
+    70 iterations and 70 optimizer steps, its moments nonzero), then
+    TRAIN_RESUME_STEPS on the host sampler; then the step timed in
+    process. -> the last checkpoint."""
+    first = os.path.join(tmp, "flagship-60.npz")
+    base = ["train", *FLAGSHIP_RECIPE, "--data", corpus_dir]
+    t0 = time.perf_counter()
+    run_cli(base + ["--device-data", "--iters", str(TRAIN_CLI_STEPS),
+                    "--save", first], dev, "train --device-data")
+    wall = time.perf_counter() - t0
+    meta, losses, _ = train_record(first)
+    lo, hi = check_loss_trend(losses)
+    say(f"  train --device-data, {TRAIN_CLI_STEPS} steps from scratch: "
+        f"{wall:.1f} s of command; mean loss of the first {TRAIN_TREND} "
+        f"{lo:.4f}, of the last {hi:.4f}; {len(losses)} losses finite")
+    second = os.path.join(tmp, "flagship-70.npz")
+    out = run_cli(base + ["--device-data", "--iters",
+                          str(TRAIN_RESUME_STEPS), "--resume", first,
+                          "--save", second], dev, "train --resume")
+    meta, losses, leaves = train_record(second)
+    want = TRAIN_CLI_STEPS + TRAIN_RESUME_STEPS
+    moments = max(float(np.abs(v).max()) for v in leaves[1:-1])
+    counts = (int(leaves[0]), int(leaves[-1]))
+    say(f"  --resume, {TRAIN_RESUME_STEPS} more: "
+        f"{out.strip().splitlines()[0]}; total_training_iters "
+        f"{meta['total_training_iters']}, opt_step {meta['opt_step']}, "
+        f"AdamW and schedule counts {counts}, largest moment {moments:.3e}")
+    if (meta["total_training_iters"], meta["opt_step"]) != (want, want) \
+            or counts != (want, want) or not moments > 0 \
+            or len(losses) != want:
+        raise AssertionError("the resumed run does not continue the count")
+    third = os.path.join(tmp, "flagship-80.npz")
+    run_cli(base + ["--iters", str(TRAIN_RESUME_STEPS), "--eval-every",
+                    "5", "--resume", second, "--save", third], dev,
+            "train on the host sampler")
+    meta, losses, _ = train_record(third)
+    tail = losses[want:]
+    say(f"  host sampler, {TRAIN_RESUME_STEPS} more: "
+        f"total_training_iters {meta['total_training_iters']}, losses "
+        f"{min(tail):.4f} to {max(tail):.4f}, eval records "
+        f"{sorted(int(k) for k in meta['loss_record']['test'])}")
+    if meta["total_training_iters"] != want + TRAIN_RESUME_STEPS or not all(
+            math.isfinite(v) for v in tail) or len(tail) != \
+            TRAIN_RESUME_STEPS:
+        raise AssertionError("the host-sampler run went wrong")
+    time_training(torch, third, corpus, smi, dev)
+    return third
+
+
+def phase_train_eval(torch, tmp, corpus_dir, ckpt, dev="cuda"):
+    """Phase 52: the trained checkpoint through the hub, ``denoise`` on
+    the card, ``eval --manifest`` on the card and with ``--device cpu``
+    (per-example metrics within EVAL_DB; the chain's outputs within
+    OFFLINE_ATOL in process), ``compare`` of the two per-example files
+    (no significant difference) and the ``compare`` command."""
+    from audio_denoising_torch.apps.compare import METRICS, paired_report
+    from audio_denoising_torch.apps.evaluate import (
+        _denoiser, build_manifest_set)
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.io import read_wav
+    cfg, model = load_pretrained(ckpt)
+    src = os.path.join(tmp, "eval-in.wav")
+    from audio_denoising_torch.io.wavio import write_wav
+    write_wav(src, noisy_voice(2 * 48000, 48000, 52)[0], 48000)
+    out = os.path.join(tmp, "eval-out.wav")
+    run_cli(["denoise", src, out, "--model", ckpt], dev, "denoise")
+    den, sr = read_wav(out)
+    say(f"  hub: {cfg.model.arch} hidden {cfg.model.hidden_sizes}, "
+        f"{cfg.dsp.n_mels} mels; denoise: {den.shape} at {sr} Hz, peak "
+        f"{float(np.abs(den).max()):.3f}")
+    if den.shape != (1, 2 * 48000) or not np.isfinite(den).all():
+        raise AssertionError("denoise of the trained checkpoint failed")
+    manifest = {"version": 0, "data_dir": corpus_dir,
+                "noise_dir": os.path.join(corpus_dir, "noise"),
+                "crop_seconds": 1.0,
+                "blocks": [{"seed": 1, "noise_gain": 0.5, "n": EVAL_BLOCK_N},
+                           {"seed": 2, "target_snr_db": 5.0,
+                            "n": EVAL_BLOCK_N}]}
+    man = os.path.join(tmp, "manifest.json")
+    with open(man, "w") as f:
+        json.dump(manifest, f)
+    mixture, *_ = build_manifest_set(manifest)
+    card_fn, cpu_fn = _denoiser(cfg, model, torch.device(dev)), \
+        _denoiser(cfg, model, torch.device("cpu"))
+    out_err = max(float(np.abs(card_fn(m, 48000) - cpu_fn(m, 48000)).max())
+                  for m in mixture)
+    reports, files = {}, {}
+    for side, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        files[side] = os.path.join(tmp, f"per-{side}.npz")
+        argv = ["eval", "--model", ckpt, "--manifest", man, "--bootstrap",
+                "500", "--save-per-example", files[side], *extra]
+        text = run_cli(argv, dev if side == "card" else "cuda", "eval")
+        reports[side] = json.loads(text[text.index("{"):])
+    a, b = np.load(files["card"]), np.load(files["cpu"])
+    metric_err = max(float(np.abs(a[k] - b[k]).max()) for k in METRICS)
+    paired = paired_report(files["card"], files["cpu"], n_boot=2000)
+    signif = [m for m, r in paired.items() if r["significant"]]
+    text = run_cli(["compare", ckpt, ckpt, "--manifest", man, "--bootstrap",
+                    "200"], dev, "compare")
+    cmp_rep = json.loads(text[text.index("{"):])
+    zero = all(v["mean_delta"] == 0.0
+               for v in cmp_rep["delta_a_minus_b"].values())
+    m = reports["card"]["metrics"]
+    say(f"  eval --manifest ({2 * EVAL_BLOCK_N} mixtures of 1 s): "
+        f"SI-SDR in {m['si_sdr_in']['mean']:.3f} dB, out "
+        f"{m['si_sdr_out']['mean']:.3f} dB, improvement "
+        f"{m['si_sdr_improvement']['mean']:.3f} dB "
+        f"{m['si_sdr_improvement']['ci95']}; card vs CPU: outputs "
+        f"{out_err:.3e} (bound {OFFLINE_ATOL:g}), per-example metrics "
+        f"{metric_err:.3e} (bound {EVAL_DB:g}), paired differences "
+        f"significant in {signif or 'none'}; compare A A on the card: "
+        f"deltas {'all 0' if zero else 'nonzero'}")
+    if out_err > OFFLINE_ATOL or metric_err > EVAL_DB or signif or not zero \
+            or reports["card"]["manifest_hash"] != \
+            reports["cpu"]["manifest_hash"]:
+        raise AssertionError("eval on the card disagrees with the CPU")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4819,6 +5332,21 @@ def main() -> int:
         f"{SEG_CLIENTS} clients at the audio's pace) against their rounds "
         f"replayed on the CPU; denoise --streamed, card vs CPU")
     phase_segment_daemons(torch, smi)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus_dir = os.path.join(tmp, "corpus")
+        corpus = write_train_corpus(corpus_dir)
+        say(f"phase 50: one training step on the card against the CPU at "
+            f"full width ({', '.join(c[0] for c in TRAIN_CASES)}), the "
+            f"TF32 control")
+        phase_train_step(torch, tmp, corpus)
+        say(f"phase 51: train with the flagship recipe, --device-data "
+            f"{TRAIN_CLI_STEPS} steps, --resume {TRAIN_RESUME_STEPS}, the "
+            f"host sampler {TRAIN_RESUME_STEPS}; the step timed")
+        trained = phase_train_cli(torch, tmp, corpus_dir, corpus, smi)
+        say("phase 52: the trained checkpoint: hub, denoise, eval --manifest "
+            "on the card and the CPU, compare")
+        phase_train_eval(torch, tmp, corpus_dir, trained)
 
     def variant(label, checked, timing=None, n=None):
         v = {"name": label, "checked": checked}

@@ -102,6 +102,21 @@ def test_serving_slice_modules_are_found(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "audio_denoising_torch.train", "audio_denoising_torch.train.context",
+    "audio_denoising_torch.train.data",
+    "audio_denoising_torch.train.device_data",
+    "audio_denoising_torch.train.distill",
+    "audio_denoising_torch.train.losses",
+    "audio_denoising_torch.train.eval_metrics",
+    "audio_denoising_torch.apps.trainer", "audio_denoising_torch.apps.evaluate",
+    "audio_denoising_torch.apps.compare"])
+def test_training_slice_modules_are_found(module):
+    """The fifteenth slice's modules (training, evaluation and their
+    commands) fall under the import check below."""
+    assert module in _port_modules()
+
+
 def _c_fields(source, struct):
     with open(os.path.join(PKG, "csrc", source)) as f:
         text = f.read()
@@ -220,8 +235,9 @@ def test_cli_lists_only_ported_commands():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0
     listed = proc.stdout.split("commands: ", 1)[1].strip().split(", ")
-    assert sorted(listed) == ["convert", "denoise", "engine", "info",
-                              "models", "profile", "serve", "ws"]
+    assert sorted(listed) == ["compare", "convert", "denoise", "engine",
+                              "eval", "info", "models", "profile", "serve",
+                              "train", "ws"]
 
 
 @pytest.mark.parametrize("command", ["ws", "serve"])

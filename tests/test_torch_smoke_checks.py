@@ -457,3 +457,100 @@ def test_tf32_control_restores_the_fp32_scope(smoke):
     assert torch.backends.cuda.matmul.allow_tf32 == mm
     with pipeline.fp32_convs():
         assert not torch.backends.cudnn.allow_tf32
+
+
+def _fabricated_step(scale_err, roundoff=1e-9):
+    """Phase 50's two sides, fabricated: (loss, output, gradients,
+    parameters after the step), the card's off by ``scale_err`` of each
+    tensor's largest magnitude, one tensor's gradient round-off (its sign
+    flipped on the card, its parameters moved by Adam's noise)."""
+    g = {"a": torch.tensor([1.0, -0.5]), "b": torch.tensor([0.2, 0.1]),
+         "c": torch.tensor([roundoff, -roundoff])}
+    p = {"a": torch.tensor([2.0, 1.0]), "b": torch.tensor([0.5, 0.0]),
+         "c": torch.tensor([0.1, 0.1])}
+    y = torch.tensor([[0.5, -2.0], [1.0, 0.0]])
+
+    def off(d):
+        return {k: v + scale_err * v.abs().max() for k, v in d.items()}
+    g_card, p_card = off(g), off(p)
+    g_card["c"] = -g["c"]
+    p_card["c"] = torch.tensor([0.3, -0.1])
+    return ((torch.tensor(4.0), y, g, p),
+            (torch.tensor(4.0 * (1 + scale_err)), y + 2.0 * scale_err,
+             g_card, p_card))
+
+
+def test_train_readings_rule(smoke):
+    """Phase 50's comparison: the loss relative to the CPU's, the output
+    and each gradient relative to its largest magnitude (a gradient
+    floored at TRAIN_GRAD_FLOOR of the tensors' median, so a round-off
+    one is read against the floor), each parameter relative to its
+    largest magnitude for the tensors whose gradient clears the floor."""
+    cpu, card = _fabricated_step(1e-4)
+    (loss, out, grad, param), roundoff = smoke.train_readings(cpu, card)
+    assert loss == pytest.approx(1e-4, rel=1e-3)
+    assert out == pytest.approx(1e-4, rel=1e-3)
+    floor = smoke.TRAIN_GRAD_FLOOR * 0.2           # the median tensor: b
+    assert grad == pytest.approx(max(1e-4, 2e-9 / floor), rel=1e-3)
+    assert param == pytest.approx(1e-4, rel=1e-3)  # "c" is not held
+    assert roundoff == ["c"]
+
+
+def test_train_limits_need_the_control_to_fail(smoke, monkeypatch):
+    """Every case within its objective's limits and every control beyond
+    the limits TRAIN_CONTROL_FAILS names passes; a case beyond a limit,
+    or a control within a named one, raises; the reconstruction
+    objective's control may meet its loss and gradient limits."""
+    monkeypatch.setattr(smoke, "TRAIN_LIMITS", {
+        "residual_mse": (1e-5, 1e-5, 1e-3, 1e-5),
+        "recon_mrstft": (2e-4, 1e-5, 1e-1, 1e-4)})
+    objectives = {"dari": "residual_mse", "flag": "recon_mrstft"}
+    sound = {"dari": (1e-7, 1e-7, 1e-5, 1e-7),
+             "flag": (6e-5, 1e-7, 3e-2, 2e-5)}
+    control = {"dari": (1e-4, 1e-3, 1e-2, 1e-4),
+               "flag": (4e-5, 1e-3, 4e-2, 4e-4)}
+    smoke.check_train_limits(sound, control, objectives)
+    with pytest.raises(AssertionError, match="disagrees"):
+        smoke.check_train_limits(dict(sound, dari=(1e-7, 1e-7, 2e-3, 1e-7)),
+                                 control, objectives)
+    with pytest.raises(AssertionError, match="parameters limit"):
+        smoke.check_train_limits(sound, dict(
+            control, flag=(4e-5, 1e-3, 4e-2, 5e-5)), objectives)
+    with pytest.raises(AssertionError, match="loss limit"):
+        smoke.check_train_limits(sound, dict(
+            control, dari=(1e-6, 1e-3, 1e-2, 1e-4)), objectives)
+
+
+@pytest.mark.parametrize("losses,falls", [
+    ([10.0 - 0.1 * i for i in range(60)], True),
+    ([5.0 + (-1) ** i for i in range(60)], False),          # flat
+    ([1.0 + 0.01 * i for i in range(60)], False),           # rising
+    ([10.0 - 0.1 * i for i in range(59)] + [float("nan")], False),
+    ([10.0 - i for i in range(15)], False)])                 # too short
+def test_loss_trend_check(smoke, losses, falls):
+    """Phase 51's trend: every loss finite and the mean of the last
+    TRAIN_TREND below the mean of the first, over at least twice that."""
+    if falls:
+        first, last = smoke.check_loss_trend(losses)
+        assert last < first
+    else:
+        with pytest.raises(AssertionError, match="do not fall"):
+            smoke.check_loss_trend(losses)
+
+
+def test_train_tf32_control_restores_the_fp32_scope(smoke):
+    """Phase 50's control swaps the training step's fp32 scope for one
+    with TF32 on, and restores it."""
+    from audio_denoising_torch.train import context
+    real = context.fp32_scope
+    mm = torch.backends.cuda.matmul.allow_tf32
+    with smoke.train_tf32(torch):
+        assert context.fp32_scope is not real
+        with context.fp32_scope():
+            assert torch.backends.cuda.matmul.allow_tf32
+            assert torch.backends.cudnn.allow_tf32
+    assert context.fp32_scope is real
+    with context.fp32_scope():
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32 == mm
