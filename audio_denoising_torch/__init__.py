@@ -27,6 +27,10 @@ names follow the JAX package so each counterpart is easy to find:
                             distillation.
 - ``apps.trainer``, ``apps.evaluate``, ``apps.compare`` — the CLI
                             commands ``train``, ``eval`` and ``compare``.
+- ``parallel``            — several devices: the in-process mesh the
+                            sharded engine and fused hop run over, the
+                            tensor-parallel plan cell, and the process
+                            group of the data-parallel train step.
 
 The port imports ``torch`` and numpy, never ``jax`` and nothing of
 ``audio_denoising_tpu``. Entry points run on ``cuda`` unless the caller

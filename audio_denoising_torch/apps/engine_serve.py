@@ -16,7 +16,11 @@ unit-gain causal checkpoint gets the tuned SNR gate unless the caller
 sets one (``--snr-gate``) or turns it off (``--no-snr-gate``); mode
 ``webrtc`` serves the gate that ``--snr-gate`` sets. ``--dtype`` sets the
 serving compute: the fused hop in bfloat16 or int8 (W8A8) in mode
-``fused``, the quantized plan at int8 in mode ``fast``.
+``fused``, the quantized plan at int8 in mode ``fast``. ``--multichip``
+shards the slots over every local card when there are several (JAX
+engine_serve.py:77-85): each card holds its contiguous block of slots and
+runs the mode's hop on it (``StreamEngine(mesh=...)``); with one card the
+daemon serves unsharded and its startup line says so.
 
 Protocol (multiprocessing.connection, length-prefixed pickle):
 
@@ -46,7 +50,9 @@ import torch
 from audio_denoising_torch.config import (
     recommended_serving, recommended_streaming_geometry, with_snr_gate,
     with_unet_geometry)
+from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.hub import load_pretrained
+from audio_denoising_torch.parallel.mesh import make_mesh
 from audio_denoising_torch.runtime.engine import MODES, StreamEngine
 from audio_denoising_torch.runtime.metrics import ServingMetrics
 from audio_denoising_torch.runtime.tick import BatchingTick
@@ -64,7 +70,11 @@ class EngineDaemon:
     gate profile, as in the JAX daemon (engine_serve.py:73-76). The
     ``unet_*`` arguments set mode ``unet``'s geometry
     (``with_unet_geometry``); with none of them and ``auto_gate``, mode
-    ``unet`` serves ``recommended_streaming_geometry``."""
+    ``unet`` serves ``recommended_streaming_geometry``. ``multichip``
+    shards the slots over every local card when there are several.
+    ``mesh`` (``parallel.make_mesh``) shards them over its entries
+    instead; it is for verification on one card (a card listed twice
+    runs the sharded path there), users shard with ``multichip``."""
 
     def __init__(self, spec: str = "gruunet2-good",
                  max_streams: int = 256,
@@ -79,7 +89,8 @@ class EngineDaemon:
                  unet_seg_hops: Optional[int] = None,
                  unet_ctx: Optional[int] = None,
                  unet_xfade: Optional[int] = None,
-                 unet_ctx_left: Optional[int] = None):
+                 unet_ctx_left: Optional[int] = None,
+                 multichip: bool = False, mesh=None):
         self.cfg, self.model = load_pretrained(spec)
         self.cfg = with_unet_geometry(self.cfg, unet_seg_hops, unet_ctx,
                                       unet_xfade, unet_ctx_left)
@@ -99,8 +110,23 @@ class EngineDaemon:
             self.cfg = dataclasses.replace(
                 self.cfg,
                 serving=dataclasses.replace(self.cfg.serving, dtype=dtype))
+        self.placement = None
+        if multichip and mesh is None:
+            cards = (torch.cuda.device_count()
+                     if resolve_device(device).type == "cuda" else 1)
+            if cards > 1:
+                mesh = make_mesh()
+            else:
+                self.placement = "--multichip on one device: unsharded"
+        if mesh is not None:
+            device = None
+            self.placement = (f"sharded over {mesh.size} entries "
+                              f"({', '.join(map(str, mesh.devices))}), "
+                              f"{max_streams // mesh.size} slots each")
         self.engine = StreamEngine(self.cfg, self.model, mode=mode,
-                                   max_streams=max_streams, device=device)
+                                   max_streams=max_streams, device=device,
+                                   mesh=mesh)
+        self.placement = self.placement or str(self.engine.device)
         self.address = address
         self.metrics = ServingMetrics()
         self._lock = threading.Lock()   # engine lifecycle ops
@@ -211,7 +237,7 @@ class EngineDaemon:
                 self.listening.set()
                 print(f"engine listening on {self.address} (mode "
                       f"{self.engine.mode}, max {self.engine.n} streams, "
-                      f"hop {self.engine.hop}, {self.engine.device})",
+                      f"hop {self.engine.hop}, {self.placement})",
                       flush=True)
                 while not self._stop.is_set():
                     try:
@@ -271,6 +297,9 @@ def parser() -> argparse.ArgumentParser:
                    "mode fast serves the quantized plan at int8 and "
                    "float32 otherwise")
     add_unet_flags(p)
+    p.add_argument("--multichip", action="store_true",
+                   help="shard the stream slots over every local card "
+                   "(a 1-D mesh); one card serves unsharded")
     return p
 
 
@@ -299,7 +328,8 @@ def daemon_from_args(args: argparse.Namespace) -> EngineDaemon:
                         auto_gate=not args.no_snr_gate, dtype=args.dtype,
                         unet_seg_hops=args.unet_seg_hops,
                         unet_ctx=args.unet_ctx, unet_xfade=args.unet_xfade,
-                        unet_ctx_left=args.unet_ctx_left)
+                        unet_ctx_left=args.unet_ctx_left,
+                        multichip=args.multichip)
 
 
 def main(argv=None) -> int:

@@ -6,29 +6,38 @@ a checkpoint at the end).
 
     python -m audio_denoising_torch train --data DIR [--device-data]
 
-runs on the card unless ``--device cpu``. ``--data-parallel`` over
-several cards is not ported (ROADMAP A12); on one device the flag takes
-the single-device path, as JAX does on one device.
+runs on the card unless ``--device cpu``. ``--data-parallel`` trains
+one replica per card on its rows of every batch
+(``train.context.make_sharded_train_step``; JAX trainer.py:242-256),
+on the host sampler with no eval and no teacher, as JAX does. Under
+torchrun, or with ``ADT_COORDINATOR`` (and ``RANK``/``WORLD_SIZE``) set,
+each process joins that group; with several cards and no such
+environment the command starts one worker per card itself
+(``torch.multiprocessing.spawn``, NCCL). Every rank draws the same
+seeded batch and keeps its rows, so no batch crosses between ranks;
+rank 0 alone prints and saves. With one device, or with
+``--device-data`` (checked first, as in JAX), the flag takes the
+single-device path.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import json
 import os
+import sys
 
 import torch
+import torch.distributed as dist
 
 from audio_denoising_torch.config import Config, PRESETS
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.models import build_model
-from audio_denoising_torch.train.context import TrainingContext
+from audio_denoising_torch.parallel import distributed
+from audio_denoising_torch.train.context import (
+    TrainingContext, make_sharded_train_step)
 from audio_denoising_torch.train.data import MixtureSampler
-
-DATA_PARALLEL_REFUSAL = (
-    "--data-parallel over several cards is not ported yet (ROADMAP A12); "
-    "run on one card, or pin one with CUDA_VISIBLE_DEVICES")
-
 
 def find_corpus(data_dir: str):
     """(clean WAVs under ``data_dir`` outside ``noise/``, decodable noise
@@ -50,6 +59,27 @@ def device_count(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
+def _worker(rank: int, world: int, address: str, argv) -> None:
+    """One rank of a data-parallel run the command started itself."""
+    os.environ.update(ADT_COORDINATOR=address, RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    main(argv)
+
+
+def spawn_workers(argv, world: int) -> int:
+    """Run this command once per card, as ranks 0 .. world-1 of one
+    NCCL group on a free localhost port; returns when all have ended
+    (``torch.multiprocessing.spawn`` raises if one fails)."""
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(_worker, args=(world, f"tcp://127.0.0.1:{port}", list(argv)),
+             nprocs=world, join=True)
+    return 0
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="audio_denoising_torch train",
@@ -66,8 +96,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--save", default="run.npz", help="checkpoint output path")
     p.add_argument("--resume", default=None, help="checkpoint to resume from")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the batch over all devices (not ported: "
-                        "refused with several cards, ROADMAP A12)")
+                   help="shard every batch over all cards, one process "
+                        "each (under torchrun or ADT_COORDINATOR, the "
+                        "group's ranks)")
     p.add_argument("--device-data", action="store_true",
                    help="device-resident pipeline: the corpus (and noise "
                         "corpus) go to the device once and every batch is "
@@ -188,14 +219,31 @@ def resolve_config(args, p) -> Config:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     p = parser()
     args = p.parse_args(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         p.exit(1, f"{p.prog}: {e}\n")
-    if args.data_parallel and device_count(device) > 1:
-        raise ValueError(DATA_PARALLEL_REFUSAL)
+    rank, world = 0, 1
+    if args.data_parallel and not args.device_data:
+        if distributed.initialize(device="cpu" if device.type == "cpu"
+                                  else None):
+            device = distributed.local_device()
+            rank, world = dist.get_rank(), dist.get_world_size()
+            if world == 1:
+                distributed.shutdown()
+        elif device_count(device) > 1:
+            return spawn_workers(argv, device_count(device))
+    if rank:                # rank 0 alone prints
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            return _train(args, p, device, rank, world)
+    return _train(args, p, device, rank, world)
+
+
+def _train(args, p, device: torch.device, rank: int, world: int) -> int:
     cfg = resolve_config(args, p)
     model = build_model(cfg.model, num_bins=cfg.dsp.n_mels)
     if args.resume:
@@ -246,9 +294,36 @@ def main(argv=None) -> int:
                              batch_size=cfg.train.batch_size,
                              noise_gain=tuple(args.noise_gain),
                              seed=cfg.train.seed, sample_rate=src_sr)
-    ctx.fit(sampler, iters=args.iters, eval_every=args.eval_every,
-            log_every=args.log_every)
+    if world > 1:
+        fit_data_parallel(ctx, sampler, args, rank, world)
+        if rank:
+            return 0
+    else:
+        ctx.fit(sampler, iters=args.iters, eval_every=args.eval_every,
+                log_every=args.log_every)
     ctx.save(args.save)
     print(f"saved {args.save} at iter {ctx.total_iters} "
           f"(best eval: {ctx.best_eval_loss})")
     return 0
+
+
+def fit_data_parallel(ctx: TrainingContext, sampler, args, rank: int,
+                      world: int) -> None:
+    """``args.iters`` data-parallel steps on the sampler's global batches
+    (the same on every rank), then the group is left; rank 0 logs."""
+    step = make_sharded_train_step(ctx, distributed.global_mesh())
+    if rank == 0:
+        print(f"data-parallel over {world} ranks", flush=True)
+    try:
+        for i, (mixture, clean) in enumerate(sampler):
+            if i >= args.iters:
+                break
+            loss = float(step(mixture, clean))
+            ctx.total_iters += 1
+            ctx.train_loss_record[ctx.total_iters] = loss
+            if rank == 0 and args.log_every and (i + 1) % args.log_every == 0:
+                print(f"iter {ctx.total_iters}: train "
+                      f"{ctx.cfg.train.loss_metric_train}={loss:.5f}",
+                      flush=True)
+    finally:
+        distributed.shutdown()

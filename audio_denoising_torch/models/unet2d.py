@@ -165,19 +165,26 @@ class UNet2d(nn.Module):
 
     def apply(self, logmag: torch.Tensor,
               generator: Optional[torch.Generator] = None,
-              dropout: float = 0.0) -> torch.Tensor:
+              dropout: float = 0.0,
+              rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """logmag (C, bins, T) -> residual (C, bins', T'). With a
         ``generator`` and ``dropout`` > 0, each block's output after its
         PReLU keeps each element with probability 1 - dropout, scaled by
         1 / (1 - dropout), the mask drawn from ``generator`` (on the
         input's device) block by block in order; otherwise the identity
-        (JAX models/unet2d.py:163-180)."""
+        (JAX models/unet2d.py:163-180). ``rows`` = (start, global batch)
+        says that ``logmag`` holds rows start.. of a larger batch: each
+        mask is drawn at the global batch's shape and these rows kept, so
+        a data-parallel shard drops what the whole batch would."""
         def drop(h):
             if generator is None or dropout <= 0.0:
                 return h
             keep = 1.0 - dropout
-            mask = torch.rand(h.shape, generator=generator,
-                              device=h.device, dtype=h.dtype) < keep
+            shape, start = h.shape, 0
+            if rows is not None:
+                start, shape = rows[0], (rows[1],) + tuple(h.shape[1:])
+            mask = torch.rand(shape, generator=generator, device=h.device,
+                              dtype=h.dtype)[start:start + h.shape[0]] < keep
             return torch.where(mask, h / keep, torch.zeros_like(h))
 
         n, _, t = logmag.shape

@@ -24,7 +24,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 
-from audio_denoising_torch.device import resolve_device
+from audio_denoising_torch.device import indexed, resolve_device
 from audio_denoising_torch.ops.kernels.common import (
     PlanArgs, check_plan, pack_plan_weights, plan_args, plan_cell_math)
 from audio_denoising_torch.ops.kernels.weight_ring import (
@@ -44,7 +44,7 @@ class FusedCell:
     module docstring."""
 
     def __init__(self, plan, device: torch.device):
-        self.device = device
+        self.device = device = indexed(device)
         self.n = plan.hidden * plan.compressed
         self.n_feat = plan.up_h_mats[-1].shape[1]
         self.delta = plan.delta
@@ -58,7 +58,8 @@ class FusedCell:
         if device.type == "cuda":
             from audio_denoising_torch.ops.kernels.build import (
                 load_kernel_library)
-            self._bind(load_kernel_library("fused_cell").lib)
+            with torch.cuda.device(device):   # the card's queries
+                self._bind(load_kernel_library("fused_cell").lib)
 
     def _bind(self, lib) -> None:
         """Binds the built library's C functions and fills the launch
@@ -121,7 +122,8 @@ class FusedCell:
                 raise TypeError(f"{name} must be float32, got {t.dtype}")
             if t.device != x.device:
                 raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if x.device.type != self.device.type:
+        if x.device.type != self.device.type or (
+                x.is_cuda and x.device != self.device):
             raise ValueError(f"this cell was built for {self.device}; got "
                              f"tensors on {x.device}")
 
@@ -150,8 +152,9 @@ class FusedCell:
     def max_active_clusters(self, blocks: int) -> int:
         """cudaOccupancyMaxActiveClusters of a launch of ``blocks``
         blocks."""
-        return int(self._lib.adt_fused_cell_max_clusters(
-            ctypes.byref(self._base_args), blocks))
+        with torch.cuda.device(self.device):
+            return int(self._lib.adt_fused_cell_max_clusters(
+                ctypes.byref(self._base_args), blocks))
 
     def _launch(self, x: torch.Tensor, hx: torch.Tensor,
                 prev: Optional[torch.Tensor]
@@ -165,8 +168,10 @@ class FusedCell:
         if self.delta:
             prev = prev.contiguous()
             a.prev = prev.data_ptr()
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = self._lib.adt_fused_cell(ctypes.byref(a), stream)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        # the library sets its attributes and launches on the current card
+        with torch.cuda.device(self.device):
+            err = self._lib.adt_fused_cell(ctypes.byref(a), stream)
         if err != 0:
             raise RuntimeError(f"fused cell launch failed: cudaError {err}")
         self.launches += 1

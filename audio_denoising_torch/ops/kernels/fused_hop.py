@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from audio_denoising_torch.config import Config
-from audio_denoising_torch.device import resolve_device
+from audio_denoising_torch.device import indexed, resolve_device
 from audio_denoising_torch.ops.kernels.common import (
     KTILE, PlanArgs, PlanScaleArgs, cell_layout_floats, check_plan,
     kernel_operand, pack_plan_weights, plan_args, plan_args_q,
@@ -62,6 +62,8 @@ from audio_denoising_torch.ops.noisefloor import (
     floor_rise_per_frame, gate_planes, smooth_beta_per_frame,
     total_beta_per_frame)
 from audio_denoising_torch.ops.windows import hann_window, wola_envelope
+from audio_denoising_torch.parallel.mesh import (
+    Sharding, ShardedStep, gather, shard_pytree_batch)
 
 DB_PER_NEPER = 10.0 / np.log(10.0)
 # compute_dtype -> the kernel's AdtFusedHopArgs.compute
@@ -209,7 +211,7 @@ class FusedHop:
                  hops_per_call: int = 1, io_dtype=torch.float32,
                  compute_dtype=torch.float32):
         dsp, srv = cfg.dsp, cfg.serving
-        self.device = device
+        self.device = device = indexed(device)
         self.hops_per_call = hops_per_call
         self.io_dtype = io_dtype
         self.compute_dtype = compute_dtype
@@ -256,7 +258,8 @@ class FusedHop:
         if device.type == "cuda":
             from audio_denoising_torch.ops.kernels.build import (
                 load_kernel_library)
-            self._bind(load_kernel_library("fused_hop").lib)
+            with torch.cuda.device(device):   # the card's queries
+                self._bind(load_kernel_library("fused_hop").lib)
 
     def _gate_constants(self, cfg: Config) -> None:
         """The gate's constants, as fused_hop.py:169-193 derives them."""
@@ -423,7 +426,8 @@ class FusedHop:
             raise TypeError(f"chunks must be {self.io_dtype}, got "
                             f"{chunks.dtype}")
         b = chunks.shape[-2]
-        if chunks.device.type != self.device.type:
+        if chunks.device.type != self.device.type or (
+                chunks.is_cuda and chunks.device != self.device):
             raise ValueError(f"this hop was built for {self.device}; got "
                              f"tensors on {chunks.device}")
         for name in FusedHopState._fields:
@@ -519,7 +523,9 @@ class FusedHop:
             setattr(a.state_out, name, new[name].data_ptr())
         a.chunk, a.out = chunks.data_ptr(), out.data_ptr()
         fn = self._lib.adt_fused_hop_multi if multi else self._lib.adt_fused_hop
-        err = fn(ctypes.byref(a), self._stream())
+        # the library sets its attributes and launches on the current card
+        with torch.cuda.device(self.device):
+            err = fn(ctypes.byref(a), self._stream())
         if err != 0:
             raise RuntimeError(f"fused hop launch failed: cudaError {err}")
         self.launches += 1
@@ -552,3 +558,47 @@ def make_fused_hop(cfg: Config, plan,
     _check_supported(cfg, plan, hops_per_call, io_dtype, compute_dtype)
     return FusedHop(cfg, plan, resolve_device(device), hops_per_call,
                     io_dtype, compute_dtype)
+
+
+class FusedHopSharded(ShardedStep):
+    """The fused hop over a mesh's entries (JAX counterpart
+    fused_hop.py:525-569, ``make_fused_hop_sharded``): a ``ShardedStep``
+    whose entries are ``FusedHop``s (``steps``), each on its entry's
+    device running the kernel on its own contiguous shard of stream
+    slots. The hop needs no traffic between entries. A call takes and
+    gives per-entry lists, ``step(states, chunks) -> (states', outs)``;
+    ``split_state``, ``split_chunks`` and ``gather`` convert from and to
+    whole batches. Shards on distinct cards launch back to back, each on
+    its card's current stream, with no synchronisation between them; a
+    launch that fails raises, and no shard falls back to another
+    device."""
+
+    def __init__(self, cfg: Config, plan, mesh, hops_per_call: int = 1,
+                 io_dtype=torch.float32, compute_dtype=torch.float32):
+        super().__init__(lambda d: FusedHop(cfg, plan, d, hops_per_call,
+                                            io_dtype, compute_dtype), mesh)
+        # the chunks' slot axis: (B, hop), or (K, B, hop) (JAX chunk_spec)
+        self.chunk_axis = 1 if hops_per_call > 1 else 0
+
+    def split_state(self, state: FusedHopState) -> List[FusedHopState]:
+        return shard_pytree_batch(self.mesh, state, self.mesh.axis_name)
+
+    def split_chunks(self, chunks: torch.Tensor) -> List[torch.Tensor]:
+        return Sharding(self.mesh, self.chunk_axis).put(chunks)
+
+    def gather(self, outs: List[torch.Tensor], device=None) -> torch.Tensor:
+        """The entries' outputs in slot order on ``device`` (the first
+        entry's by default); a copy from another card is ordered after
+        its kernel on that card's stream."""
+        return gather(outs, device or self.mesh.devices[0], self.chunk_axis)
+
+
+def make_fused_hop_sharded(cfg: Config, plan, mesh, hops_per_call: int = 1,
+                           io_dtype=torch.float32,
+                           compute_dtype=torch.float32) -> FusedHopSharded:
+    """The fused hop sharded over ``mesh``'s entries
+    (``parallel.make_mesh``), in any compute mode, gate and domain of
+    ``make_fused_hop``; see ``FusedHopSharded``."""
+    _check_supported(cfg, plan, hops_per_call, io_dtype, compute_dtype)
+    return FusedHopSharded(cfg, plan, mesh, hops_per_call, io_dtype,
+                           compute_dtype)

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from audio_denoising_torch.config import Config
-from audio_denoising_torch.device import resolve_device
+from audio_denoising_torch.device import indexed, resolve_device
 from audio_denoising_torch.ops.griffinlim import griffin_lim
 from audio_denoising_torch.ops.kernels.common import (
     KTILE, MAX_LEVELS, PlanArgs, cell_layout_floats, kernel_operand,
@@ -306,7 +306,7 @@ class WebRTCHop:
     def __init__(self, cfg: Config, plan, device: torch.device,
                  hops_per_call: int = 1, compute_dtype=torch.float32):
         dsp, srv = cfg.dsp, cfg.serving
-        self.device = device
+        self.device = device = indexed(device)
         self.hops_per_call = hops_per_call
         self.compute_dtype = compute_dtype
         self.gl_bf16 = compute_dtype == torch.bfloat16
@@ -346,7 +346,8 @@ class WebRTCHop:
         if device.type == "cuda":
             from audio_denoising_torch.ops.kernels.build import (
                 load_kernel_library)
-            self._bind(load_kernel_library("webrtc_hop").lib)
+            with torch.cuda.device(device):   # the card's queries
+                self._bind(load_kernel_library("webrtc_hop").lib)
 
     def _bind(self, lib) -> None:
         """Binds the built library's C functions and fills the launch
@@ -499,7 +500,8 @@ class WebRTCHop:
             if t.device != chunks.device:
                 raise ValueError(f"{name} is on {t.device}, chunks on "
                                  f"{chunks.device}")
-        if chunks.device.type != self.device.type:
+        if chunks.device.type != self.device.type or (
+                chunks.is_cuda and chunks.device != self.device):
             raise ValueError(f"this hop was built for {self.device}; got "
                              f"tensors on {chunks.device}")
 
@@ -580,7 +582,9 @@ class WebRTCHop:
         stream = torch.cuda.current_stream(self.device).cuda_stream
         fn = self._lib.adt_webrtc_hop_multi if multi else \
             self._lib.adt_webrtc_hop
-        err = fn(ctypes.byref(a), stream)
+        # the library sets its attributes and launches on the current card
+        with torch.cuda.device(self.device):
+            err = fn(ctypes.byref(a), stream)
         if err != 0:
             raise RuntimeError(f"webrtc hop launch failed: cudaError {err}")
         self.launches += 1 if multi else KERNELS_PER_HOP

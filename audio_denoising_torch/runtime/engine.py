@@ -39,7 +39,8 @@ int8 is downgraded to mode ``fast``).
 """
 
 import warnings
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from functools import partial
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +57,7 @@ from audio_denoising_torch.ops.kernels.webrtc_hop import (
 from audio_denoising_torch.ops.noisefloor import (
     gate_state, make_gate_estimator)
 from audio_denoising_torch.ops.windows import wola_envelope
+from audio_denoising_torch.parallel.mesh import gather, shard_engine_step
 from audio_denoising_torch.pipeline import (
     fp32_convs, make_unet_stream_step, make_webrtc_step, serving_model,
     unet_stream_init_state, webrtc_init_state)
@@ -342,14 +344,37 @@ class StreamEngine:
     slot advances every tick, with no mask; an active stream that misses
     a tick gets zeros spliced into its segment. The cycle's phase is a
     host int, advanced only after a step succeeded, and carried by
-    ``snapshot``/``restore``."""
+    ``snapshot``/``restore``.
+
+    ``mesh`` (``parallel.make_mesh``; JAX engine.py:240-256) shards the
+    slots over the mesh's entries in contiguous blocks, which
+    ``max_streams`` must divide: each entry holds its block's state
+    (``shards``) on its device, and each tick runs every entry's hop on
+    its block through a step of its own (``shard_engine_step``; in mode
+    ``fused`` one ``FusedHop`` per entry, as ``make_fused_hop_sharded``
+    builds them; the phase of mode ``unet`` is shared). The outputs meet on the first entry's device,
+    ``device``. With a mesh, ``device`` must be None; ``state`` reads
+    the whole batch gathered there (a copy) and writing it splits a
+    whole batch over the shards. A PlanModel, built for one device, is
+    served on a mesh of that device only."""
 
     def __init__(self, cfg: Config, model, mode: str = "fused",
                  max_streams: Optional[int] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r}; the port has "
                              f"{MODES}")
+        self.n = max_streams or cfg.serving.max_streams
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("a mesh names its devices; pass device="
+                                 "None with mesh")
+            if self.n % mesh.size:
+                raise ValueError(f"max_streams ({self.n}) must divide "
+                                 f"evenly over the mesh's {mesh.size} "
+                                 f"entries")
+        entries = mesh.devices if mesh is not None else (device,)
         mode = _downgrade(cfg, mode)
         if mode != "unet" and hasattr(model, "compatible_frames"):
             # JAX fails deeper here (an AttributeError in the step or the
@@ -362,51 +387,87 @@ class StreamEngine:
         plan = None
         if mode in ("fused", "fused-webrtc"):
             plan = build_cell_plan(model)
-            mode = _fit(cfg, plan, mode, device)
+            # the card with the least shared memory per block decides
+            mode = _fit(cfg, plan, mode, min(
+                entries, key=lambda d: shared_memory_limit(d) or 0))
+        if mode == "unet" and not hasattr(model, "compatible_frames"):
+            raise ValueError(
+                f"mode='unet' needs a stateless U-Net (model "
+                f"{type(model).__name__} has no compatible_frames); "
+                f"recurrent models stream via 'fast'/'webrtc'/'fused'")
         self.plan = plan if mode in ("fused", "fused-webrtc") else None
         self.cfg = cfg
         self.mode = mode
-        self.n = max_streams or cfg.serving.max_streams
+        self.mesh = mesh
         self.hop = cfg.dsp.hop_length
-        # each maker raises for what its hop lacks; on the card the kernel
-        # hops check again what _fit checked (a block's shared memory)
-        if mode == "fast":
-            if cfg.serving.dtype == "int8":
-                model = _quantized_model(model, device)
-            self.hop_step = make_fast_step(cfg, model, device)
-            self.device = resolve_device(device)
-            init = lambda b: fast_init_state(cfg, model, b, self.device)
-        elif mode == "webrtc":
-            self.hop_step = make_webrtc_step(cfg, model, device)
-            self.device = resolve_device(device)
-            init = lambda b: webrtc_init_state(cfg, model, b, self.device)
-        elif mode == "unet":
-            if not hasattr(model, "compatible_frames"):
-                raise ValueError(
-                    f"mode='unet' needs a stateless U-Net (model "
-                    f"{type(model).__name__} has no compatible_frames); "
-                    f"recurrent models stream via 'fast'/'webrtc'/'fused'")
-            self.hop_step = make_unet_stream_step(cfg, model, device)
-            self.device = resolve_device(device)
-            init = lambda b: unet_stream_init_state(cfg, model, b,
-                                                    self.device)
+        compute = getattr(torch, cfg.serving.dtype)
+
+        def build(d):
+            """(this mode's step on device ``d``, its initial state of a
+            batch) -- each maker raises for what its hop lacks, before it
+            looks for the device; on the card the kernel hops check again
+            what _fit checked (a block's shared memory)."""
+            if mode == "fast":
+                m = (_quantized_model(model, d)
+                     if cfg.serving.dtype == "int8" else model)
+                step, init = make_fast_step(cfg, m, d), partial(
+                    fast_init_state, cfg, m)
+            elif mode == "webrtc":
+                step, init = make_webrtc_step(cfg, model, d), partial(
+                    webrtc_init_state, cfg, model)
+            elif mode == "unet":
+                step, init = make_unet_stream_step(cfg, model, d), partial(
+                    unet_stream_init_state, cfg, model)
+            else:
+                make, init_state = ((make_fused_hop, fused_hop_init_state)
+                                    if mode == "fused" else
+                                    (make_webrtc_hop, webrtc_hop_init_state))
+                step = make(cfg, self.plan, d, compute_dtype=compute)
+                init = partial(init_state, cfg, self.plan)
+            d = resolve_device(d)
+            return step, lambda b: init(b, d)
+
+        inits = []
+
+        def make_step(d):
+            step, init = build(d)
+            inits.append(init)
+            return step
+
+        if mesh is None:
+            self.hop_step = make_step(device)
+            self.devices = (resolve_device(device),)
         else:
-            make, init_state = (
-                (make_fused_hop, fused_hop_init_state) if mode == "fused"
-                else (make_webrtc_hop, webrtc_hop_init_state))
-            self.hop_step = make(cfg, self.plan, device,
-                                 compute_dtype=getattr(torch,
-                                                       cfg.serving.dtype))
-            self.device = self.hop_step.device
-            init = lambda b: init_state(cfg, self.plan, b, self.device)
-        self.state = init(self.n)
-        self._zero_one = init(1)      # what add_stream resets a slot to
+            # one step per entry, also where the mesh repeats a device
+            self.hop_step = shard_engine_step(make_step, mesh)
+            self.devices = mesh.devices
+        self.device = self.devices[0]
+        self._per = self.n // len(self.devices)   # slots per shard
+        self.shards = [init(self._per) for init in inits]
+        self._zero_ones = [init(1) for init in inits]   # add_stream's reset
         self._cadence_locked = mode == "unet"
         self._seg_hops = cfg.serving.unet_seg_hops if self._cadence_locked \
             else 1
         self._phase = 0
         self.slots: Dict[str, int] = {}
         self._free = list(range(self.n - 1, -1, -1))
+
+    @property
+    def state(self) -> NamedTuple:
+        """Every slot's state: the one shard's, or with a mesh the shards
+        gathered on ``device`` (a copy)."""
+        if len(self.shards) == 1:
+            return self.shards[0]
+        return gather(self.shards, self.device)
+
+    @state.setter
+    def state(self, state: NamedTuple) -> None:
+        """A whole batch's state, split over the shards' devices."""
+        self.shards = [
+            type(state)(*(None if t is None else
+                          t[i * self._per:(i + 1) * self._per].to(d)
+                          for t in state))
+            for i, d in enumerate(self.devices)]
 
     # -- lifecycle ---------------------------------------------------------
     def add_stream(self, stream_id: str) -> int:
@@ -415,8 +476,10 @@ class StreamEngine:
         if not self._free:
             raise RuntimeError("engine full: no free stream slots")
         slot = self._free.pop()
-        for name, t in _fields(self.state).items():
-            t[slot] = getattr(self._zero_one, name)[0]
+        shard, row = divmod(slot, self._per)
+        zero = self._zero_ones[shard]
+        for name, t in _fields(self.shards[shard]).items():
+            t[row] = getattr(zero, name)[0]
         self.slots[stream_id] = slot
         return slot
 
@@ -454,15 +517,35 @@ class StreamEngine:
                 / self.cfg.dsp.sample_rate * 1e3)
 
     # -- data path -----------------------------------------------------------
-    def _step(self, batch: torch.Tensor) -> Tuple[NamedTuple, torch.Tensor]:
+    def _step(self, batches: List[torch.Tensor]
+              ) -> Tuple[List[NamedTuple], List[torch.Tensor]]:
+        """Every shard's hop on its block of the batch -> (the shards' new
+        states, their outputs)."""
         # ingress sanitization: a NaN/Inf sample would poison the slot's
         # recurrent state for good (the carry never forgets it, and masked
         # commit cannot help: the poisoned tick is a real chunk)
-        batch = torch.where(torch.isfinite(batch), batch,
-                            torch.zeros_like(batch))
-        if self._cadence_locked:
-            return self.hop_step(self.state, batch, self._phase)
-        return self.hop_step(self.state, batch)
+        batches = [torch.where(torch.isfinite(b), b, torch.zeros_like(b))
+                   for b in batches]
+        phase = (self._phase,) if self._cadence_locked else ()
+        if self.mesh is None:
+            new, out = self.hop_step(self.shards[0], batches[0], *phase)
+            return [new], [out]
+        return self.hop_step(self.shards, batches, *phase)
+
+    def _split(self, batch) -> List[torch.Tensor]:
+        """A whole (N, ...) batch (numpy or a tensor) as each shard's block
+        on its device."""
+        if isinstance(batch, np.ndarray):
+            batch = torch.from_numpy(batch)
+        p = self._per
+        return [batch[i * p:(i + 1) * p].to(d)
+                for i, d in enumerate(self.devices)]
+
+    def _join(self, outs: List[torch.Tensor]) -> torch.Tensor:
+        """The shards' outputs in slot order on ``device``: a copy from
+        another card is ordered after that card's hop, so work recorded
+        on ``device``'s stream afterwards follows every shard's."""
+        return outs[0] if len(outs) == 1 else gather(outs, self.device)
 
     def _advance_phase(self) -> None:
         """Advance the segment cycle's phase; called only after a step
@@ -489,18 +572,18 @@ class StreamEngine:
         In mode ``unet`` every slot advances and commits (zeros where no
         chunk came)."""
         batch, mask, slot_map = self._gather(chunks)
-        batch = torch.from_numpy(batch).to(self.device)
-        new, out = self._step(batch)
+        news, outs = self._step(self._split(batch))
         if self._cadence_locked:
-            self.state = new
+            self.shards = news
             self._advance_phase()
-            return out, slot_map
-        keep = torch.from_numpy(mask).to(self.device)[:, None]
-        self.state = self.state._replace(**{
-            k: torch.where(keep.reshape((-1,) + (1,) * (v.dim() - 1)),
-                           getattr(new, k), v)
-            for k, v in _fields(self.state).items()})
-        return out, slot_map
+            return self._join(outs), slot_map
+        self.shards = [
+            old._replace(**{
+                k: torch.where(keep.reshape((-1,) + (1,) * (v.dim() - 1)),
+                               getattr(new, k), v)
+                for k, v in _fields(old).items()})
+            for old, new, keep in zip(self.shards, news, self._split(mask))]
+        return self._join(outs), slot_map
 
     def process(self, chunks: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """chunks: {stream_id: (hop,) float32} -> same keyed outputs."""
@@ -511,17 +594,19 @@ class StreamEngine:
     def process_batch(self, batch: torch.Tensor) -> torch.Tensor:
         """Raw fixed-shape path: (N, hop) in -> (N, hop) out, every slot
         advances."""
-        self.state, out = self._step(batch.to(self.device))
+        self.shards, outs = self._step(self._split(batch))
         if self._cadence_locked:
             self._advance_phase()
-        return out
+        return self._join(outs)
 
     # -- failure recovery: snapshot/restore of stream state ------------------
     def snapshot(self) -> Dict:
-        """Host-side copy of all per-stream state and the slot table."""
+        """Host-side copy of all per-stream state and the slot table (the
+        whole batch, with or without a mesh)."""
         return {
-            "state": {k: v.cpu().numpy()
-                      for k, v in _fields(self.state).items()},
+            "state": {k: np.concatenate([getattr(sh, k).cpu().numpy()
+                                         for sh in self.shards])
+                      for k in _fields(self.shards[0])},
             "slots": dict(self.slots),
             "free": list(self._free),
             "mode": self.mode,
@@ -536,7 +621,7 @@ class StreamEngine:
         if set(snap["state"]) != set(current):
             raise ValueError("snapshot state layout mismatch")
         state = self.state._replace(**{
-            k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
+            k: torch.as_tensor(np.asarray(v, np.float32))
             for k, v in snap["state"].items()})
         mismatched = [(tuple(v.shape), tuple(current[k].shape))
                       for k, v in _fields(state).items()

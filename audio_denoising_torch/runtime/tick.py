@@ -97,13 +97,18 @@ class BatchingTick:
 
     def _dispatch(self, live: Dict[str, np.ndarray]):
         """Launch one round; start its device-to-host copy and mark its
-        completion with an event on the launching stream."""
+        completion with an event on the stream of the card that holds the
+        round's output. An engine sharded over several cards gathers the
+        output on its first card, each shard's copy ordered after that
+        shard's hop, so one event there marks every shard's end."""
         out, slot_map = self.engine.process_async(live)
         ready = None
         if out.is_cuda:
-            out = out.to("cpu", non_blocking=True)
+            stream = torch.cuda.current_stream(out.device)
+            with torch.cuda.device(out.device):
+                out = out.to("cpu", non_blocking=True)
             ready = torch.cuda.Event()
-            ready.record()
+            ready.record(stream)
         return out, ready, slot_map
 
     # -- the tick -------------------------------------------------------------

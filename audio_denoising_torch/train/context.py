@@ -25,7 +25,7 @@ import copy
 import dataclasses
 import json
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,7 +108,8 @@ class _Forward(nn.Module):
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None):
         from audio_denoising_torch.models import GRUUNet2, MOMO3, UNet2d
         from audio_denoising_torch.runtime.plan import (
             build_cell_plan, plan_apply_parallel)
@@ -124,7 +125,7 @@ class _Forward(nn.Module):
             t = img.shape[-1]
             img = F.pad(img, (0, m.compatible_frames(t) - t))
             if isinstance(m, UNet2d):
-                resid = m.apply(img, generator, self.dropout)
+                resid = m.apply(img, generator, self.dropout, rows)
             else:
                 resid = m.apply(img)              # TRUNet has no dropout
             resid = resid[..., :x.shape[-1], :t]
@@ -202,14 +203,17 @@ class TrainingContext:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     # -- the objective ----------------------------------------------------------
-    def _forward(self, params, x, generator=None):
+    def _forward(self, params, x, generator=None, rows=None):
+        """``rows`` = (start, global batch): ``x`` is a shard of a larger
+        batch, whose dropout masks it takes (``UNet2d.apply``)."""
         return torch.func.functional_call(
             self._fwd, {"model." + k: v for k, v in params.items()},
-            (x, generator))
+            (x, generator, rows))
 
-    def _loss(self, params, mixture, clean, loss_fn, generator=None):
+    def _loss(self, params, mixture, clean, loss_fn, generator=None,
+              rows=None):
         if self.cfg.train.objective == "recon_mrstft":
-            return self._loss_recon(params, mixture, clean, generator)
+            return self._loss_recon(params, mixture, clean, generator, rows)
         la = getattr(self.cfg.model, "lookahead_frames", 0)
         if la:
             # bounded lookahead: la hops of silence past the crop, then
@@ -217,16 +221,17 @@ class TrainingContext:
             # the serving paths perform
             padded = F.pad(mixture, (0, la * self.cfg.dsp.hop_length))
             x_all = self.features(padded)             # (B, T + la, M)
-            pred, _ = self._forward(params, x_all, generator)
+            pred, _ = self._forward(params, x_all, generator, rows)
             x = x_all[:, :x_all.shape[1] - la]
             pred = pred[:, la:]
         else:
             x = self.features(mixture)                # (B, T, M)
-            pred, _ = self._forward(params, x, generator)
+            pred, _ = self._forward(params, x, generator, rows)
         target = x - self.features(clean)     # residual target (noisy - clean)
         return loss_fn(pred, target)
 
-    def _loss_recon(self, params, mixture, clean, generator=None):
+    def _loss_recon(self, params, mixture, clean, generator=None,
+                    rows=None):
         """The reconstruction objective ('recon_mrstft'): the offline
         phase-reuse chain (STFT, features, the model's residual,
         leaky_relu(0.2) subtract, expm1, inverse mel, noisy-phase iSTFT)
@@ -242,7 +247,7 @@ class TrainingContext:
         wave_in = F.pad(mixture, (0, la * dsp.hop_length)) if la else mixture
         spec = stft(wave_in, dsp.n_fft, dsp.hop_length, dsp.win, window=win)
         x = pipeline._to_features(self.cfg, spec.abs(), fb).transpose(-1, -2)
-        pred, _ = self._forward(params, x, generator)
+        pred, _ = self._forward(params, x, generator, rows)
         if la:
             # pred[t + la] targets frame t; the la flush frames go, so the
             # reconstruction aligns sample for sample with the mixture
@@ -276,22 +281,37 @@ class TrainingContext:
         grads = torch.autograd.grad(loss, [p[k] for k in self.keys])
         return loss.detach(), dict(zip(self.keys, grads))
 
-    def _step(self, mixture: torch.Tensor, clean: torch.Tensor
+    def _step(self, mixture: torch.Tensor, clean: torch.Tensor,
+              rows: Optional[Tuple[int, int]] = None,
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
               ) -> torch.Tensor:
         """One AdamW step on device tensors -> the loss (a device
-        scalar, not synchronized)."""
+        scalar, not synchronized). ``rows`` = (start, global batch): the
+        batch is a shard of a larger one, whose dropout masks it takes.
+        ``reduce`` maps the flattened gradients with the loss appended
+        (one vector) to the ones the update uses: the data-parallel
+        step's all_reduce (``make_sharded_train_step``)."""
         st = self.state
         with fp32_scope():
             loss = self._loss(st.params, mixture, clean, self.train_loss,
-                              self.dropout_generator(st.step))
+                              self.dropout_generator(st.step), rows)
             st.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            loss = loss.detach()
+            if reduce is not None:
+                params = [st.params[k] for k in self.keys]
+                flat = reduce(torch.cat([p.grad.reshape(-1) for p in params]
+                                        + [loss.reshape(1)]))
+                for p, g in zip(params, torch.split(
+                        flat[:-1], [p.numel() for p in params])):
+                    p.grad = g.view_as(p)
+                loss = flat[-1]
             for group in st.optimizer.param_groups:
                 group["lr"] = self.learning_rate(st.lr_step)
             st.optimizer.step()
         st.step += 1
         st.lr_step += 1
-        return loss.detach()
+        return loss
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
@@ -467,3 +487,44 @@ class TrainingContext:
         if self.test_loss_record:
             self.best_eval_loss = min(self.test_loss_record.values())
         return self
+
+
+def make_sharded_train_step(ctx: TrainingContext, mesh=None):
+    """A data-parallel step over the process group that
+    ``parallel.distributed.initialize`` joined (JAX counterpart
+    context.py:393-408): ``step(mixture (B, L), clean (B, L)) -> loss``
+    (a device scalar), updating ``ctx.state`` through
+    ``TrainingContext._step`` on the rank's rows; ``mesh`` is ``parallel.distributed.global_mesh()``, or None for
+    the whole group.
+
+    Every rank passes the same global batch and holds the same
+    parameters. Rank r of W takes the batch's contiguous rows r B/W ..
+    (r+1) B/W and computes its loss and gradients in ``fp32_scope``; one
+    ``all_reduce`` sums the flattened gradients and the loss over the
+    ranks, divided by W; every rank then takes the same AdamW step at the
+    LR staircase's rate. Every loss is a mean over examples of equal
+    size, so the mean of the ranks' losses is the loss of the whole batch
+    and the step is the single-device step on it, up to the order of the
+    sums. Dropout masks are drawn at the whole batch's shape and each
+    rank keeps its rows. As in JAX, the step takes the batch's clean
+    targets (no teacher). The all_reduce is the step's only collective:
+    gloo reduces CUDA tensors too, so two ranks may share a card, which
+    NCCL refuses."""
+    import torch.distributed as dist
+    group = None if mesh is None else mesh.get_group()
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def reduce(flat: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(flat, group=group)
+        return flat / world
+
+    def step(mixture, clean) -> torch.Tensor:
+        mixture, clean = ctx._tensor(mixture), ctx._tensor(clean)
+        b = mixture.shape[0]
+        if b % world:
+            raise ValueError(f"a batch of {b} does not split over {world} "
+                             f"ranks")
+        lo, hi = rank * b // world, (rank + 1) * b // world
+        return ctx._step(mixture[lo:hi], clean[lo:hi], (lo, b), reduce)
+
+    return step

@@ -316,7 +316,35 @@ raises on failure (so the script exits non-zero and prints no result):
     on the card, ``eval --manifest`` on a manifest over that corpus on
     the card and with ``--device cpu`` (the outputs within OFFLINE_ATOL,
     the per-example metrics within EVAL_DB, no significant paired
-    difference) and the ``compare`` command.
+    difference) and the ``compare`` command;
+53. the kernel wrappers' device: the fused hop, the WebRTC hop (no GL
+    round) and the fused cell, each built for ``cuda:0``, for a bare
+    ``cuda`` and for each other card, against its plain version on that
+    card;
+54. ``make_fused_hop_sharded`` at 256 slots over ``[cuda:0, cuda:0]``
+    (and over every card where there are several) against
+    ``make_fused_hop`` at 256 slots, every output and plane (0 expected:
+    the kernel's tile is 2 streams), and one call from the plain
+    version's state against the plain version: stream16k single hop and
+    K = 50, bf16 and int8, the gated int8 flagship, MOMO3 (raw, delta);
+    both calls timed;
+55. ``StreamEngine(mesh=...)`` in modes ``fused``, ``fused-webrtc``,
+    ``fast`` and ``unet`` at 256 slots over the same meshes against the
+    unsharded engine on the card, tick by tick, streams leaving and
+    joining, a NaN chunk (modes ``fused`` and ``fast`` also against the
+    CPU engine); ``engine --multichip`` (one card: served unsharded, as
+    its startup line says); ``EngineDaemon`` on a mesh answering 4
+    clients, each reply against its stream through the plain version;
+56. the tensor-parallel plan cell (``make_tp_plan_cell``) at D = 2 over
+    ``[cuda:0, cuda:0]`` (and over every card) on the flagship's plan and
+    gruunet2-good's against ``plan_cell`` over 8 frames, its schedule
+    printed;
+57. ``make_sharded_train_step`` against the single-card step by phase
+    50's readings and limits: NCCL at world 1 through ``initialize()``
+    (the flagship recipe), two gloo ranks sharing ``cuda:0`` (the
+    flagship recipe and UNet2d4; NCCL refuses two ranks on one card),
+    each rank this script run with ``--dp-worker``; where there are
+    several cards, NCCL over all of them and ``train --data-parallel``.
 
 Phases 30-34 drive the offline path, which launches none of the
 hand-written kernels: the JAX offline graph reaches no Pallas kernel
@@ -331,7 +359,8 @@ convolutions (fp32, under ``pipeline.fp32_convs``) and matmuls.
 Phases 4 to 7, 9 to 12, 15 to 17, 27 to 29, 37 to 40, the engines and
 the profile of phase 43, the engines of phases 44 and 45, the first
 three calls of phases 14, 26, 44 and of each case of 36, and the calls
-of phase 19 and of phase 45's K-hop kernel are the main paths: each
+of phase 19 and of phase 45's K-hop kernel, and the sharded engines and
+daemon of phase 55 are the main paths: each
 kernel's launch counter is set to 0 just before each (a new wrapper
 starts at 0) and read just after (the single WebRTC hop counts its three
 kernels, the K-hop call one). Mode ``fast`` with the zoo model (phases
@@ -5005,7 +5034,13 @@ def phase_train_eval(torch, tmp, corpus_dir, ckpt, dev="cuda"):
     a, b = np.load(files["card"]), np.load(files["cpu"])
     metric_err = max(float(np.abs(a[k] - b[k]).max()) for k in METRICS)
     paired = paired_report(files["card"], files["cpu"], n_boot=2000)
-    signif = [m for m, r in paired.items() if r["significant"]]
+    # significant at the report's resolution (ci95 in 0.001 dB): the
+    # card and the CPU differ by round-off (1e-5 dB), which can share one
+    # sign over every example and so lie wholly on one side of 0
+    signif = [m for m, r in paired.items()
+              if r["ci95"][0] > 0 or r["ci95"][1] < 0]
+    deltas = {m: (float(np.mean(a[m] - b[m])), r["significant"])
+              for m, r in paired.items()}
     text = run_cli(["compare", ckpt, ckpt, "--manifest", man, "--bootstrap",
                     "200"], dev, "compare")
     cmp_rep = json.loads(text[text.index("{"):])
@@ -5019,12 +5054,514 @@ def phase_train_eval(torch, tmp, corpus_dir, ckpt, dev="cuda"):
         f"{m['si_sdr_improvement']['ci95']}; card vs CPU: outputs "
         f"{out_err:.3e} (bound {OFFLINE_ATOL:g}), per-example metrics "
         f"{metric_err:.3e} (bound {EVAL_DB:g}), paired differences "
-        f"significant in {signif or 'none'}; compare A A on the card: "
+        f"significant at 0.001 dB in {signif or 'none'} (mean delta and "
+        f"the unrounded interval's verdict: "
+        + ", ".join(f"{k} {d:.3e} {v}" for k, (d, v) in deltas.items())
+        + "); compare A A on the card: "
         f"deltas {'all 0' if zero else 'nonzero'}")
     if out_err > OFFLINE_ATOL or metric_err > EVAL_DB or signif or not zero \
             or reports["card"]["manifest_hash"] != \
             reports["cpu"]["manifest_hash"]:
         raise AssertionError("eval on the card disagrees with the CPU")
+
+
+# -- phases 53-57: the multi-device paths (ROADMAP A12, B7) ------------------
+
+MESH_SLOTS = SLOTS   # slots of phases 54-55, split over the mesh's entries
+MESH_HOPS = 8        # single hops of each phase-54 case
+MESH_TICKS = {"fused": 30, "fast": 20, "fused-webrtc": 10, "unet": 17}
+TP_FRAMES = 8        # the TP cell's rollout (phase 56)
+TP_BATCH = 64
+TP_RTOL = 2e-5       # y and hx', relative to the largest |y| (test_tp.py's
+                     # 2e-5 on outputs of order 1)
+DP_TIMEOUT_S = 600   # a data-parallel worker's whole run (phase 57)
+DP_CASES = ("flagship", "unet2d4")
+
+
+def mesh_sets(torch):
+    """Phases 53-57's device sets: cuda:0 listed twice (the split, the
+    per-shard launches and the combine on one card) and, where the
+    machine has several cards, every card once."""
+    from audio_denoising_torch.parallel import make_mesh
+    meshes = [make_mesh(devices=["cuda:0", "cuda:0"])]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    return meshes
+
+
+def mesh_label(mesh):
+    return "[" + ", ".join(map(str, mesh.devices)) + "]"
+
+
+def phase_device_guard(torch, cfg, plan, dari_cfg, dari_plan, good_plan):
+    """Phase 53: each kernel wrapper built with an explicit cuda:0, a bare
+    cuda (the current card) and, with several cards, each other card;
+    each launches on its tensors' card and is held against its plain
+    version there: the fused hop one hop at SLOTS streams, the WebRTC hop
+    with no GL round (exact surfaces), the fused cell one step."""
+    from audio_denoising_torch.ops.kernels.fused_cell import make_fused_cell
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        make_webrtc_hop, webrtc_hop_init_state)
+    names = ["cuda:0", "cuda"] + [f"cuda:{i}" for i in
+                                  range(1, torch.cuda.device_count())]
+    w_cfg = warm_cfg(dari_cfg, 0)
+    rng = np.random.default_rng(53)
+    for name in names:
+        hop = make_fused_hop(cfg, plan, name)
+        dev = hop.device
+        if dev.index is None:
+            raise AssertionError(f"{name}: the hop kept an unindexed device")
+        s = fused_hop_init_state(cfg, plan, SLOTS, dev)
+        c = torch.from_numpy((0.1 * rng.standard_normal(
+            (SLOTS, hop.hop))).astype(np.float32)).to(dev)
+        (s_k, o_k), (s_p, o_p) = hop(s, c), hop.reference(s, c)
+        e_hop = max_err(o_k, o_p)
+        st = max(plane_errors(s_k, s_p).values())
+        w_hop = make_webrtc_hop(w_cfg, dari_plan, name)
+        ws = webrtc_hop_init_state(w_cfg, dari_plan, SLOTS, w_hop.device)
+        wc = webrtc_chunks(torch, SLOTS, 1, 53, w_hop.hop)[0].to(dev)
+        (ws_k, wo_k), (ws_p, wo_p) = w_hop(ws, wc), w_hop.reference(ws, wc)
+        e_w = max(max_err(wo_k, wo_p), max_err(ws_k.ola, ws_p.ola))
+        cell = make_fused_cell(good_plan, name)
+        x, hx, _ = cell_inputs(torch, SLOTS, cell.n_feat, cell.n, 53)
+        x, hx = x.to(dev), hx.to(dev)
+        e_c = max(max_err(a, b) for a, b in zip(cell(x, hx),
+                                                cell.reference(x, hx)))
+        torch.cuda.synchronize(dev)
+        say(f"  {name} -> {dev} (current card {torch.cuda.current_device()}"
+            f"): fused hop out {e_hop:.3e}, planes {st:.3e}; WebRTC hop "
+            f"GL-0 out/ola {e_w:.3e}; fused cell {e_c:.3e} (bounds "
+            f"{OUT_ATOL:g}, {STATE_ATOL:g}, {CELL_ATOL:g})")
+        if e_hop > OUT_ATOL or st > STATE_ATOL or e_w > OUT_ATOL \
+                or e_c > CELL_ATOL:
+            raise AssertionError(f"a kernel built for {name} disagrees with "
+                                 f"its plain version")
+
+
+def sharded_cases(cfg, plan, flag_cfg, flag_plan, momo_cfg, momo_plan):
+    """Phase 54's cases: (label, cfg, plan, hops per call, compute)."""
+    import torch
+    return [(S16K, cfg, plan, 1, torch.float32),
+            (f"{S16K}, K={K_HOPS}", cfg, plan, K_HOPS, torch.float32),
+            (f"{S16K}, bf16", cfg, plan, 1, torch.bfloat16),
+            (f"{S16K}, int8", cfg, plan, 1, torch.int8),
+            (f"{FLAGSHIP}, int8, tuned gate", tuned_gate(flag_cfg),
+             flag_plan, 1, torch.int8),
+            (f"{MOMO_SPEC} (raw, delta)", momo_cfg, momo_plan, 1,
+             torch.float32)]
+
+
+def phase_sharded_hop(torch, cases, smi):
+    """Phase 54: make_fused_hop_sharded at MESH_SLOTS slots over each mesh
+    against make_fused_hop at MESH_SLOTS on cuda:0 from the same inputs,
+    each carrying its own state: every output and plane bit-equal
+    expected (the kernel's tile is 2 streams, so a stream's arithmetic
+    does not depend on the batch); then the sharded hop one call from
+    the plain version's state against the plain version (fp32 within
+    OUT_ATOL, bf16 and int8 by SNR at FORCED_DB); the calls timed.
+    Returns {label: (largest sharded-unsharded difference, sharded ms,
+    unsharded ms)}."""
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop, make_fused_hop_sharded)
+    from audio_denoising_torch.parallel.mesh import gather
+    out = {}
+    for mesh in mesh_sets(torch):
+        for label, cfg, plan, K, dt in cases:
+            single = make_fused_hop(cfg, plan, "cuda:0", hops_per_call=K,
+                                    compute_dtype=dt)
+            sharded = make_fused_hop_sharded(cfg, plan, mesh,
+                                             hops_per_call=K,
+                                             compute_dtype=dt)
+            hop_len = cfg.dsp.hop_length
+            calls = 2 if K > 1 else MESH_HOPS
+            rng = np.random.default_rng(54)
+            shape = (calls, K, MESH_SLOTS, hop_len) if K > 1 else \
+                (calls, MESH_SLOTS, hop_len)
+            chunks = torch.from_numpy((0.1 * rng.standard_normal(shape))
+                                      .astype(np.float32)).to("cuda:0")
+            s1 = fused_hop_init_state(cfg, plan, MESH_SLOTS, "cuda:0")
+            states = sharded.split_state(s1)
+            diff = 0.0
+            for c in chunks:
+                s1, o1 = single(s1, c)
+                states, outs = sharded(states, sharded.split_chunks(c))
+                diff = max(diff, max_err(sharded.gather(outs), o1))
+            whole = gather(states, torch.device("cuda:0"))
+            diff = max([diff] + [max_err(a, planes(s1)[k])
+                                 for k, a in planes(whole).items()])
+            # one call from the plain version's state
+            c = chunks[0]
+            s_p, want = single.plain(s1, c)
+            _, got = sharded(sharded.split_state(s1),
+                             sharded.split_chunks(c))
+            got = sharded.gather(got)
+            dtype = dtype_name(dt)
+            if dtype == "float32":
+                plain = f"out {max_err(got, want):.3e} (bound {OUT_ATOL:g})"
+                ok = max_err(got, want) <= OUT_ATOL
+            else:
+                db = tensor_db(want, got)
+                plain = f"{db:.1f} dB (limit {FORCED_DB[dtype]:g})"
+                ok = db >= FORCED_DB[dtype]
+            split = sharded.split_state(s1)
+            chunk_shards = sharded.split_chunks(c)
+            ms_sh = time_launches(torch, lambda: sharded(split, chunk_shards),
+                                  20)
+            ms_1 = time_launches(torch, lambda: single(s1, c), 20)
+            say(f"  {mesh_label(mesh)}, {label}: sharded against unsharded "
+                f"{diff:.3e} over {calls} calls (0 expected); against the "
+                f"plain version from one state {plain}; a call "
+                f"{ms_sh * 1e3:.1f} us sharded, {ms_1 * 1e3:.1f} us "
+                f"unsharded ({smi})")
+            if not ok:
+                raise AssertionError(f"sharded hop ({label}) disagrees with "
+                                     f"the plain version")
+            out[(mesh_label(mesh), label)] = (diff, ms_sh, ms_1)
+    return out
+
+
+def mesh_schedule(sids, hop, ticks, seed):
+    """Ticks of {sid: chunk}: every slot live but some skip (7 i + t) % 5
+    == 0; a third of the streams leave at tick 3 and come back as new
+    streams at tick 5; a NaN in one chunk at tick 2."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(ticks):
+        chunks = {s: (0.1 * rng.standard_normal(hop)).astype(np.float32)
+                  for i, s in enumerate(sids) if (7 * i + t) % 5}
+        if t == 2 and sids[1] in chunks:
+            chunks[sids[1]][5] = np.nan
+        out.append(chunks)
+    return out
+
+
+def run_mesh_engines(engines, sids, ticks, hop, seed):
+    """Both engines through mesh_schedule; every third stream leaves at
+    tick 3 and a new stream takes its slot at tick 5 (renamed in later
+    ticks). -> per engine, a list of {sid: out} per tick."""
+    for e in engines:
+        for s in sids:
+            e.add_stream(s)
+    leaving = sids[::3]
+    outs = [[] for _ in engines]
+    live = list(sids)
+    for t, chunks in enumerate(mesh_schedule(sids, hop, ticks, seed)):
+        if t == 3:
+            for e in engines:
+                for s in leaving:
+                    e.remove_stream(s)
+            live = [s for s in live if s not in leaving]
+        if t == 5:
+            for e in engines:
+                for s in leaving:
+                    e.add_stream(s + "'")
+            live += [s + "'" for s in leaving]
+        chunks = {(s + "'" if s in leaving and t >= 5 else s): c
+                  for s, c in chunks.items()
+                  if s not in leaving or t < 3 or t >= 5}
+        for o, e in zip(outs, engines):
+            o.append(e.process(chunks))
+    return outs
+
+
+def phase_mesh_engines(torch, specs):
+    """Phase 55: StreamEngine(mesh) in modes fused, fused-webrtc, fast and
+    unet at MESH_SLOTS slots over [cuda:0, cuda:0] (and every card where
+    there are several) against the unsharded engine on the card, hop by
+    hop, with streams leaving and joining, a NaN chunk and skipped ticks;
+    in modes fused and fast also against the CPU engine. The kernel modes
+    expect bit equality with the unsharded engine; modes fast and unet
+    (cuBLAS and cuDNN, whose algorithms may change with the batch) are
+    held within OUT_ATOL and SEG_OUT_ATOL. Returns {mode: the mesh
+    engines' kernel launches}."""
+    from audio_denoising_torch.runtime.engine import StreamEngine
+    launches = {}
+    for mode, (cfg, model) in specs.items():
+        for mesh in mesh_sets(torch):
+            ticks = MESH_TICKS[mode]
+            eng = StreamEngine(cfg, model, mode=mode, max_streams=MESH_SLOTS,
+                               mesh=mesh)
+            ref = StreamEngine(cfg, model, mode=mode, max_streams=MESH_SLOTS,
+                               device="cuda:0")
+            engines = [eng, ref]
+            if mode in ("fused", "fast"):
+                engines.append(StreamEngine(cfg, model, mode=mode,
+                                            max_streams=MESH_SLOTS,
+                                            device="cpu"))
+            if any(e.mode != mode for e in engines):
+                raise AssertionError(f"mode {mode} not served as itself")
+            # one kernel wrapper per mesh entry (a card listed twice gets
+            # two), each counted once; the unsharded engine's count is
+            # what every entry must show: one step per tick on each
+            kernels = mode in ("fused", "fused-webrtc")
+            if kernels:
+                eng.hop_step.launches = 0
+                ref.hop_step.launches = 0
+            sids = [f"s{i}" for i in range(MESH_SLOTS)]
+            runs = run_mesh_engines(engines, sids, ticks, cfg.dsp.hop_length,
+                                    55)
+            n = per_entry = None
+            if kernels:
+                per_entry = [k.launches for k in eng.hop_step.steps]
+                n = sum(per_entry)
+                launches[mode] = launches.get(mode, 0) + n
+            diff = max(float(np.abs(ta[s] - tb[s]).max())
+                       for ta, tb in zip(runs[0], runs[1]) for s in ta)
+            cpu = None
+            if len(runs) == 3:
+                cpu = max(float(np.abs(ta[s] - tc[s]).max())
+                          for ta, tc in zip(runs[0], runs[2]) for s in ta)
+            snap_m, snap_r = eng.snapshot(), ref.snapshot()
+            sdiff = max(float(np.abs(v - snap_r["state"][k]).max())
+                        for k, v in snap_m["state"].items())
+            bound = {"fast": OUT_ATOL, "unet": SEG_OUT_ATOL}.get(mode, 0.0)
+            s_bound = {"fast": STATE_ATOL, "unet": SEG_OUT_ATOL}.get(mode,
+                                                                    0.0)
+            say(f"  mode {mode}, {mesh_label(mesh)}, {MESH_SLOTS} slots x "
+                f"{ticks} ticks: against the unsharded engine out {diff:.3e}"
+                f" (bound {bound:g}), snapshot {sdiff:.3e} (bound "
+                f"{s_bound:g})"
+                + ("" if cpu is None else
+                   f"; against the CPU out {cpu:.3e} (bound {OUT_ATOL:g})")
+                + ("; no hand-written kernel on this path" if n is None
+                   else f"; {n} launches, per entry {per_entry} (the "
+                   f"unsharded engine {ref.hop_step.launches})"))
+            if diff > bound or sdiff > s_bound or (cpu or 0.0) > OUT_ATOL:
+                raise AssertionError(f"mode {mode} on {mesh_label(mesh)} "
+                                     f"disagrees")
+            if kernels and (ref.hop_step.launches < ticks or any(
+                    k != ref.hop_step.launches for k in per_entry)):
+                raise AssertionError(
+                    f"mode {mode}: launches per entry {per_entry} for "
+                    f"{ticks} ticks, the unsharded engine "
+                    f"{ref.hop_step.launches}")
+            if snap_m["slots"] != snap_r["slots"]:
+                raise AssertionError("the mesh engine's slot table differs")
+    return launches
+
+
+def phase_mesh_daemon(torch):
+    """Phase 55's daemons: ``engine --multichip`` (with one card it serves
+    unsharded and says so), then EngineDaemon mode fused over [cuda:0,
+    cuda:0] (every card where there are several) answering 4 clients x
+    SLOTS / 16 streams in as many slots, every reply against its stream
+    through the plain version on the CPU. Returns the kernel's
+    launches."""
+    from audio_denoising_torch.apps.engine_serve import (
+        EngineDaemon, daemon_from_args, parser)
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        fused_hop_init_state, make_fused_hop)
+    args = parser().parse_args(["--model", S16K, "--mode", "fused",
+                                "--host", "127.0.0.1", "--port", "0",
+                                "--multichip"])
+    d = daemon_from_args(args)
+    say(f"  engine --multichip: {d.placement}")
+    if (d.engine.mesh is None) != (torch.cuda.device_count() == 1):
+        raise AssertionError("--multichip did not shard over the cards")
+    total, clients, streams = 0, 4, SLOTS // 16
+    for mesh in mesh_sets(torch):
+        # as many slots as streams, so that every shard serves some
+        daemon = EngineDaemon(S16K, max_streams=clients * streams,
+                              address=("127.0.0.1", 0), mode="fused",
+                              mesh=mesh)
+        data = daemon_data(daemon.cfg, clients, streams, 20, 55)
+        got, slots, rounds, n, wall = serve_clients(daemon, data,
+                                                    daemon.engine.hop_step)
+        ref = make_fused_hop(daemon.cfg, daemon.engine.plan, "cpu")
+        want = replay(ref, fused_hop_init_state(
+            daemon.cfg, daemon.engine.plan, data.shape[0] * data.shape[1]),
+            data)
+        err = float(np.abs(got - want).max())
+        say(f"  {daemon.placement}: out {err:.3e} (bound {OUT_ATOL:g}); "
+            + latency_line(data, rounds, n, wall))
+        shards = {slot // daemon.engine._per for slot in slots}
+        per_entry = [k.launches for k in daemon.engine.hop_step.steps]
+        if err > OUT_ATOL or min(per_entry) <= 0 or \
+                len(shards) != mesh.size:
+            raise AssertionError(f"the sharded daemon disagrees ({err:.3e}),"
+                                 f" launched {per_entry} times per entry, "
+                                 f"or served shards {sorted(shards)} of "
+                                 f"{mesh.size}")
+        total += n
+    return total
+
+
+def phase_tp(torch, plans, smi):
+    """Phase 56: make_tp_plan_cell over [cuda:0, cuda:0] (D = 2) and over
+    every card where there are several, against plan_cell on cuda:0 over a
+    TP_FRAMES-frame rollout at TP_BATCH streams, each carrying its own
+    hx; its schedule printed."""
+    from audio_denoising_torch.parallel import make_tp_plan_cell
+    from audio_denoising_torch.runtime.plan import plan_cell
+    for name, plan in plans:
+        p0 = plan.to(device="cuda:0")
+        F = plan.up_h_mats[-1].shape[1]
+        n = plan.hidden * plan.compressed
+        for mesh in mesh_sets(torch):
+            step = make_tp_plan_cell(plan, mesh)
+            g = torch.Generator(device="cuda:0").manual_seed(56)
+            hx_r = hx_t = 0.1 * torch.randn((TP_BATCH, n), generator=g,
+                                            device="cuda:0")
+            err = 0.0
+            t0 = time.perf_counter()
+            for _ in range(TP_FRAMES):
+                x = torch.log1p(4 * torch.rand((TP_BATCH, F), generator=g,
+                                               device="cuda:0"))
+                y_r, hx_r = plan_cell(p0, x, hx_r)
+                y_t, hx_t = step(x, hx_t)
+                scale = max(1.0, float(y_r.abs().max()))
+                err = max(err, max_err(y_t, y_r) / scale,
+                          max_err(hx_t, hx_r) / scale)
+            torch.cuda.synchronize()
+            say(f"  {name}, D={mesh.size} {mesh_label(mesh)}: modes "
+                f"{json.dumps(step.modes)}; y and hx' against plan_cell "
+                f"{err:.3e} of the largest |y| (bound {TP_RTOL:g}) over "
+                f"{TP_FRAMES} frames at B={TP_BATCH}, "
+                f"{(time.perf_counter() - t0) * 1e3 / TP_FRAMES:.1f} ms a "
+                f"frame ({smi})")
+            if err > TP_RTOL:
+                raise AssertionError(f"TP cell ({name}) disagrees")
+
+
+def dp_worker(argv):
+    """One rank of phase 57 (``chip_smoke.py --dp-worker BACKEND DIR
+    CASES``, the rendezvous in the environment): each case's state and
+    batch from DIR, one make_sharded_train_step step; rank 0 writes the
+    loss, the model's output before the step, the averaged gradients and
+    the parameters after it."""
+    import torch
+    import torch.distributed as dist
+    from audio_denoising_torch.parallel import distributed
+    from audio_denoising_torch.train import context
+    backend, tmp, cases = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(device="cuda:0" if backend == "gloo" else None,
+                           backend=backend)
+    rank, dev = dist.get_rank(), distributed.local_device()
+    try:
+        for name in cases.split(","):
+            case = next(c for c in TRAIN_CASES if c[0] == name)
+            cfg, model, _ = train_case(*case)
+            ctx = context.TrainingContext.load(
+                os.path.join(tmp, f"state-{name}.npz"), cfg, model,
+                device=dev)
+            batch = np.load(os.path.join(tmp, f"batch-{name}.npz"))
+            mix, clean = (torch.from_numpy(batch[k]).to(dev)
+                          for k in ("mix", "clean"))
+            with torch.no_grad(), context.fp32_scope():
+                out, _ = ctx._forward(ctx.state.params, ctx.features(mix))
+            step = context.make_sharded_train_step(ctx,
+                                                   distributed.global_mesh())
+            loss = step(mix, clean)
+            if rank == 0:
+                p = ctx.state.params
+                np.savez(os.path.join(tmp, f"dp-{backend}-{name}.npz"),
+                         loss=float(loss), out=out.cpu().numpy(),
+                         **{f"g:{k}": v.grad.cpu().numpy()
+                            for k, v in p.items()},
+                         **{f"p:{k}": v.detach().cpu().numpy()
+                            for k, v in p.items()})
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def run_dp_workers(backend, world, tmp, cases, local_ranks):
+    """Start ``world`` phase-57 workers (this script with --dp-worker),
+    wait for them (DP_TIMEOUT_S), kill any left; raises if one fails."""
+    store = "file://" + os.path.join(tmp, f"store-{backend}-{world}")
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, ADT_COORDINATOR=store, RANK=str(rank),
+                   WORLD_SIZE=str(world), LOCAL_RANK=str(local_ranks[rank]))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker",
+             backend, tmp, ",".join(cases)], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{backend} rank {rank} of {world} exited "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+
+
+def dp_readings(torch, tmp, backend, name, single):
+    """phase 50's four readings of the data-parallel step (``backend``)
+    against the single-card step ``single``."""
+    got = np.load(os.path.join(tmp, f"dp-{backend}-{name}.npz"))
+    t = lambda a: torch.from_numpy(np.asarray(a))
+    dp = (t(got["loss"]), t(got["out"]),
+          {k[2:]: t(got[k]) for k in got.files if k.startswith("g:")},
+          {k[2:]: t(got[k]) for k in got.files if k.startswith("p:")})
+    return train_readings(single, dp)[0]
+
+
+def phase_data_parallel(torch, tmp, corpus, corpus_dir):
+    """Phase 57: make_sharded_train_step against the single-card step
+    (phase 50's readings under TRAIN_LIMITS): NCCL at world 1 through
+    initialize() on the flagship recipe; two gloo ranks sharing cuda:0
+    on the flagship recipe and UNet2d4 (NCCL refuses two ranks on one
+    card); with several cards, NCCL over all of them and then ``train
+    --data-parallel`` for a few steps."""
+    from audio_denoising_torch.train.context import TrainingContext
+    singles, objectives = {}, {}
+    for i, name in enumerate(DP_CASES):
+        case = next(c for c in TRAIN_CASES if c[0] == name)
+        cfg, model, path = train_case(*case)
+        mix, clean = train_batch(torch, cfg, corpus, 570 + i)
+        np.savez(os.path.join(tmp, f"batch-{name}.npz"), mix=mix.numpy(),
+                 clean=clean.numpy())
+        ctx = TrainingContext.load(path, cfg, model, device="cuda")
+        if ctx.state.step == 0:
+            ctx.train_step(*train_batch(torch, cfg, corpus, 580 + i))
+        state = os.path.join(tmp, f"state-{name}.npz")
+        ctx.save(state)
+        singles[name], _ = train_step_on(torch, state, cfg, model, "cuda",
+                                         (mix, clean))
+        objectives[name] = cfg.train.objective
+    runs = [("nccl", 1, DP_CASES[:1], [0]),
+            ("gloo", 2, DP_CASES, [0, 0])]
+    count = torch.cuda.device_count()
+    if count > 1:
+        runs.append(("nccl", count, DP_CASES, list(range(count))))
+    for backend, world, cases, local in runs:
+        t0 = time.perf_counter()
+        run_dp_workers(backend, world, tmp, cases, local)
+        for name in cases:
+            got = dp_readings(torch, tmp, backend, name, singles[name])
+            limits = TRAIN_LIMITS[objectives[name]]
+            say(f"  {backend}, world {world} (cards {sorted(set(local))}), "
+                f"{name}: against the single-card step "
+                + ", ".join(f"{n} {v:.3e}" for n, v in
+                            zip(TRAIN_READINGS, got))
+                + " (limits " + ", ".join(f"{v:g}" for v in limits)
+                + f"); the workers {time.perf_counter() - t0:.1f} s")
+            if any(r > lim for r, lim in zip(got, limits)):
+                raise AssertionError(f"{backend} data-parallel step ({name}) "
+                                     f"disagrees with the single-card step")
+    if count > 1:
+        out = run_cli(["train", "--data", corpus_dir, "--data-parallel",
+                       "--iters", "3", "--eval-every", "0", "--log-every",
+                       "1", "--batch-size", str(2 * count),
+                       "--crop-samples", "48000", "--save",
+                       os.path.join(tmp, "dp.npz")], "cuda",
+                      "train --data-parallel")
+        say(f"  train --data-parallel over {count} cards: "
+            + " | ".join(out.strip().splitlines()[-4:]))
+    else:
+        say("  one card: NCCL over several cards and train --data-parallel "
+            "across cards not run")
 
 
 def main() -> int:
@@ -5348,6 +5885,31 @@ def main() -> int:
             "on the card and the CPU, compare")
         phase_train_eval(torch, tmp, corpus_dir, trained)
 
+        say(f"phase 53: the kernel wrappers' device: each built for cuda:0, "
+            f"for a bare cuda and for each other card, against its plain "
+            f"version there ({torch.cuda.device_count()} card(s))")
+        phase_device_guard(torch, cfg, plan, dari_cfg, dari_plan,
+                           build_cell_plan(good))
+        say(f"phase 54: make_fused_hop_sharded at {MESH_SLOTS} slots against "
+            f"make_fused_hop, bit for bit, and against the plain version")
+        sharded = phase_sharded_hop(torch, sharded_cases(
+            cfg, plan, flag_cfg, flag_plan, momo_cfg, momo_plan), smi)
+        say(f"phase 55: StreamEngine(mesh) modes fused, fused-webrtc, fast "
+            f"and unet at {MESH_SLOTS} slots against the unsharded engine "
+            f"(and the CPU); engine --multichip; the daemon on a mesh")
+        seg_cfg, seg_model = segment_cfg(torch, SEG_UNET)
+        mesh_l = phase_mesh_engines(torch, {
+            "fused": (cfg, model), "fused-webrtc": (dari_cfg, dari),
+            "fast": (good_cfg, good), "unet": (seg_cfg, seg_model)})
+        mesh_l["daemon"] = phase_mesh_daemon(torch)
+        say(f"phase 56: the tensor-parallel plan cell against plan_cell "
+            f"({FLAGSHIP}, gruunet2-good)")
+        phase_tp(torch, [(FLAGSHIP, flag_plan),
+                         ("gruunet2-good", build_cell_plan(good))], smi)
+        say("phase 57: make_sharded_train_step against the single-card "
+            "step: NCCL at world 1, two gloo ranks on cuda:0")
+        phase_data_parallel(torch, tmp, corpus, corpus_dir)
+
     def variant(label, checked, timing=None, n=None):
         v = {"name": label, "checked": checked}
         if timing is not None:
@@ -5394,6 +5956,20 @@ def main() -> int:
                  limit_nearer_db=BF16_NEARER_DB)
         return v
 
+    def sharded_variants(multi):
+        """Phase 54's cases of one row: each mesh's largest difference
+        from the unsharded kernel and both call times."""
+        out = []
+        for (mesh, label), (diff, ms_sh, ms_1) in sharded.items():
+            if (f"K={K_HOPS}" in label) != multi:
+                continue
+            out.append({"name": f"sharded over {mesh}, {label}",
+                        "checked": "phase 54: against the unsharded kernel "
+                        "and the plain version", "sharded_vs_unsharded":
+                        diff, "ms": ms_sh, "unsharded_ms": ms_1})
+        return out
+
+    mesh_runs = "phase 55: StreamEngine(mesh) against the unsharded engine"
     flag_i8 = f"int8, {FLAGSHIP}, tuned gate (both)"
     v_fi = variant(flag_i8, "phase 44: 256 streams, voiced, the control "
                    "failing", fi_t[0], fi_launches)
@@ -5408,7 +5984,8 @@ def main() -> int:
             variants in (
             ("fused_hop", "fused_hop", "fused_hop.py:242",
              launches + me_launches + sum(re_launches.values())
-             + ws_launches + fi_launches,
+             + ws_launches + fi_launches + mesh_l["fused"]
+             + mesh_l["daemon"],
              max(err, g_err, mh_err, flag_err, fi_err,
                  *(e for _, e in r_err.values())), fused,
              [variant("mel, gruunet2-stream16k and two runs/ widths",
@@ -5424,7 +6001,11 @@ def main() -> int:
               variant(f"float32, {FLAGSHIP}", "phase 35, 256 streams",
                       r_t[(FLAGSHIP, "float32", "hop")])]
              + reduced("bfloat16", "hop", re_launches["bfloat16"])
-             + reduced("int8", "hop", re_launches["int8"]) + [v_fi]),
+             + reduced("int8", "hop", re_launches["int8"]) + [v_fi]
+             + sharded_variants(False)
+             + [variant(f"sharded, {S16K}", mesh_runs + " and the CPU; "
+                        "the daemon on a mesh", n=mesh_l["fused"]
+                        + mesh_l["daemon"])]),
             ("fused_hop_multi", "fused_hop", "fused_hop.py:384",
              m_launches + mm_launches + fim_launches
              + sum(n for n, _, _ in r_multi.values()),
@@ -5437,9 +6018,11 @@ def main() -> int:
               variant(f"float32, {FLAGSHIP}", "timed beside phase 36",
                       r_t[(FLAGSHIP, "float32", "K-hop")])]
              + reduced("bfloat16", "K-hop", None)
-             + reduced("int8", "K-hop", None) + [v_fim]),
+             + reduced("int8", "K-hop", None) + [v_fim]
+             + sharded_variants(True)),
             ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331",
-             w_launches + wws_launches + wb_launches, max(w_err, wb_err),
+             w_launches + wws_launches + wb_launches
+             + mesh_l["fused-webrtc"], max(w_err, wb_err),
              webrtc,
              [variant("mel, gruunet2-dari_tult, warm GL", "phases 3, 6, 7; "
                       "not on a MOMO path (JAX refuses delta and raw)"),
@@ -5453,7 +6036,9 @@ def main() -> int:
                       "streams, the control failing; the engine at "
                       "bfloat16"),
               gl_bf16(WEBRTC_GL[0], None, None, "phase 45: each hop from "
-                      "the plain state, 256 streams, the control failing")]),
+                      "the plain state, 256 streams, the control failing"),
+              variant("sharded, gruunet2-dari_tult, warm GL", mesh_runs,
+                      n=mesh_l["fused-webrtc"])]),
             ("webrtc_hop_multi", "webrtc_hop", "webrtc_hop.py:344",
              wm_launches + wbm_launches, wm_err, w_multi[WEBRTC_GL[0]],
              [variant("mel, gruunet2-dari_tult, GL-8 and GL-32",
@@ -5487,4 +6072,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

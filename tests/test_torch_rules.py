@@ -117,6 +117,16 @@ def test_training_slice_modules_are_found(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "audio_denoising_torch.parallel", "audio_denoising_torch.parallel.mesh",
+    "audio_denoising_torch.parallel.distributed",
+    "audio_denoising_torch.parallel.tp"])
+def test_parallel_slice_modules_are_found(module):
+    """The sixteenth slice's modules (the in-process mesh, the process
+    group, the tensor-parallel cell) fall under the import check below."""
+    assert module in _port_modules()
+
+
 def _c_fields(source, struct):
     with open(os.path.join(PKG, "csrc", source)) as f:
         text = f.read()

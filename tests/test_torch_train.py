@@ -420,13 +420,25 @@ class TestTraining:
 
     def test_data_parallel_refuses_several_cards(self, tmp_path,
                                                  monkeypatch):
-        """One device takes the single-device path; several raise (the
-        data-parallel step is ROADMAP A12)."""
+        """Several cards no longer refuse --data-parallel: with no group
+        to join, the command starts one worker per card (stubbed here)
+        with its own arguments, and trains nothing itself; --device-data
+        is checked first and trains on one device, as in JAX."""
         from audio_denoising_torch.apps import trainer
+        for k in ("ADT_COORDINATOR", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(k, raising=False)
         monkeypatch.setattr(trainer, "device_count", lambda device: 2)
-        with pytest.raises(ValueError, match="A12"):
-            trainer.main(["--data", str(tmp_path), "--device", "cpu",
-                          "--data-parallel"])
+        started = []
+        monkeypatch.setattr(trainer, "spawn_workers",
+                            lambda argv, world: started.append(
+                                (argv, world)) or 0)
+        argv = ["--data", str(tmp_path), "--device", "cpu",
+                "--data-parallel"]
+        assert trainer.main(argv) == 0
+        assert started == [(argv, 2)]
+        with pytest.raises(SystemExit):   # trains here: no WAVs under data
+            trainer.main(argv + ["--device-data"])
+        assert len(started) == 1
 
     def test_same_seed_same_initialization(self):
         _jc, pc = _cfgs()
