@@ -16,9 +16,8 @@ cadence-locked window chain engine mode ``unet`` serves, at the
 recommended geometry unless a ``--unet-*`` flag or ``--no-snr-gate`` is
 given. ``denoise_file`` reads any decodable container (WAV natively,
 the rest through ``io.AudioCache``) and writes a 16-bit WAV at the
-model's rate.
-
-Not ported yet: ``.onnx`` models (A14).
+model's rate. A MOMO cell's ``.onnx`` graph is served through the hub,
+with its assumed raw front-end.
 """
 
 import argparse

@@ -7,9 +7,10 @@ multi-stream daemon), ``ws`` (the WebSocket browser-mic daemon),
 ``profile`` (per-hop latency of a serving step), ``train`` (training on
 mixture-synthesized data), ``eval`` (quality on synthesized mixtures or
 a frozen manifest), ``compare`` (a paired two-model comparison on a
-manifest), and the checkpoint
-tools ``convert`` (.pth or preset/.npz to .npz), ``info`` (a
-checkpoint's meta) and ``models`` (the presets), which touch no device.
+manifest), ``loopback`` (a live mic to speaker diagnostic through the
+fast step), and the checkpoint tools ``convert`` (.pth or preset/.npz to
+.npz, or a model's cell to .onnx), ``info`` (a checkpoint's meta) and
+``models`` (the presets), which touch no device.
 """
 
 import sys
@@ -71,12 +72,17 @@ def _convert(argv) -> int:
     p = argparse.ArgumentParser(prog="audio_denoising_torch convert")
     p.add_argument("src", help="checkpoint (preset name, .npz or "
                    "reference .pth)")
-    p.add_argument("out", help="output .npz (the .onnx cell export is "
-                   "not ported yet, ROADMAP A14)")
+    p.add_argument("out", help="output path: .npz (weights) or .onnx "
+                   "(single recurrent-cell export for the MOMO and "
+                   "GRUUNet families, the momo2_02.onnx-style artifact)")
     args = p.parse_args(argv)
     if args.out.lower().endswith(".onnx"):
-        from audio_denoising_torch.hub import ONNX_REFUSAL
-        p.error(ONNX_REFUSAL)
+        from audio_denoising_torch.compat import export_cell
+        from audio_denoising_torch.hub import load_pretrained
+        _cfg, model = load_pretrained(args.src)
+        export_cell(model, args.out)
+        print(f"wrote {args.out}")
+        return 0
     if args.src.lower().endswith(".pth"):
         from audio_denoising_torch.compat import (
             load_torch_checkpoint, state_dict_to_params)
@@ -109,6 +115,7 @@ COMMANDS = {
     "train": "audio_denoising_torch.apps.trainer",
     "eval": "audio_denoising_torch.apps.evaluate",
     "compare": "audio_denoising_torch.apps.compare",
+    "loopback": "audio_denoising_torch.apps.loopback",
 }
 TOOLS = {"convert": _convert, "info": _info, "models": _models}
 

@@ -82,7 +82,8 @@
 // R-point DFT in registers (8 and 12 as four-point DFTs and a second
 // level) and stores them; ping-pong buffers in shared memory, one barrier
 // per pass. At m = 768 the passes are 8 x 8 x 12 (a radix-8 pass is one
-// item per lane), at m = 512 8 x 8 x 8. The first pass reads its points
+// item per lane), at m = 512 8 x 8 x 8, at m = 320 (n_fft 640) 8 x 8 x 5
+// (5 runs in registers too). The first pass reads its points
 // through the transform's input: the forward's reflect-indexed, windowed
 // frames packed two samples a point, the inverse's real-input pre-twiddle
 // of mag * (are + i aim); so a Griffin-Lim round waits at 8 barriers (3
@@ -98,7 +99,13 @@
 // instantiations for 768, 512 and 32 whose radices, strides and counts
 // are constants (no division at run time), and M = 0, the same code with
 // the geometry read from FftPlan at run time, for any other m that
-// factors into 2 and 3.
+// factors into 2, 3 and 5.
+//
+// Any mel count: the analysis's mel outputs (kFrames * n_mels of them) are
+// split over the lanes as partial sums where they are fewer than the lanes,
+// else each lane loops over outputs and writes them whole; the Griffin-Lim
+// stage's inverse mel reads the cell's mel magnitudes where they lie (the
+// single hop's scratch, the K-hop kernel's shared memory).
 
 #include <cuda_runtime.h>
 
@@ -149,9 +156,9 @@ constexpr int kFrames = 3;
 // Lanes per stream of the FFT stages: 9 warps, so a radix-8 pass over the
 // three frames at M = 768 (3 x 96 items) is one item per lane.
 constexpr int kFftThreads = 288;
-constexpr int kMaxMelOuts = 384;  // kFrames * n_mels at most (128 mels)
-// the analysis's partial results: the peak tree's lanes, the mel outputs
-constexpr int kRed = kMaxMelOuts > kFftThreads ? kMaxMelOuts : kFftThreads;
+// the analysis's partial results: the peak tree's lanes, the mel outputs'
+// partial sums where they are split (never more than the lanes)
+constexpr int kRed = kFftThreads;
 constexpr int kMultiThreads = kTile * kFftThreads;
 constexpr int kCellBarrier = 1 + kTile;  // named barriers 1..kTile: streams
 constexpr int kMaxPasses = 16;
@@ -159,16 +166,19 @@ static_assert(kThreads <= kMultiThreads, "the cell's lanes fit the block");
 static_assert(kFftThreads % 32 == 0, "a named barrier counts whole warps");
 
 // The radix of the next pass when `rest` points are left to combine: rest
-// itself where the passes take it as one radix (12, 8, 4, 3, 2), else the
-// first of 8, 4, 2 and 3 that divides it; 0 if rest has another prime
-// factor. M = 768 runs 8 x 8 x 12, M = 512 8 x 8 x 8, M = 32 8 x 4.
+// itself where the passes take it as one radix (12, 8, 5, 4, 3, 2), else
+// the first of 8, 4, 2, 3 and 5 that divides it; 0 if rest has another
+// prime factor. M = 768 runs 8 x 8 x 12, M = 512 8 x 8 x 8, M = 320
+// 8 x 8 x 5, M = 32 8 x 4.
 __host__ __device__ constexpr int next_radix(int rest) {
-  return rest == 12 || rest == 8 || rest == 4 || rest == 3 || rest == 2
+  return rest == 12 || rest == 8 || rest == 5 || rest == 4 || rest == 3 ||
+                 rest == 2
              ? rest
          : rest % 8 == 0 ? 8
          : rest % 4 == 0 ? 4
          : rest % 2 == 0 ? 2
          : rest % 3 == 0 ? 3
+         : rest % 5 == 0 ? 5
                          : 0;
 }
 
@@ -275,7 +285,9 @@ __device__ __forceinline__ float2 rotate(float2 v) {
 }
 
 // The DFT of R points in registers, in place and in natural order:
-// v[s] <- sum_r v[r] e^{-+2 pi i r s / R}, R = 1, 2, 3, 4, 8 or 12. 8 and
+// v[s] <- sum_r v[r] e^{-+2 pi i r s / R}, R = 1, 2, 3, 4, 5, 8 or 12. 5
+// pairs the points r and 5 - r (sums and differences) and weights them by
+// the cosines and sines of 2 pi / 5 and 4 pi / 5. 8 and
 // 12 run four-point DFTs over the R / 4 subsequences v[n2 + (R / 4) n1],
 // twiddle them by e^{-+2 pi i n2 k1 / R}, and finish with R / 4-point DFTs
 // across the subsequences.
@@ -301,6 +313,27 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
     v[1] = cadd(t1, t3);
     v[2] = csub(t0, t2);
     v[3] = csub(t1, t3);
+  } else if constexpr (R == 5) {
+    const float c1 = 0.30901699437494742410f;   // cos(2 pi / 5)
+    const float c2 = -0.80901699437494742410f;  // cos(4 pi / 5)
+    const float s1 = 0.95105651629515357212f;   // sin(2 pi / 5)
+    const float s2 = 0.58778525229247312917f;   // sin(4 pi / 5)
+    const float2 a1 = cadd(v[1], v[4]), b1 = csub(v[1], v[4]);
+    const float2 a2 = cadd(v[2], v[3]), b2 = csub(v[2], v[3]);
+    const float2 t1 = make_float2(v[0].x + c1 * a1.x + c2 * a2.x,
+                                  v[0].y + c1 * a1.y + c2 * a2.y);
+    const float2 t2 = make_float2(v[0].x + c2 * a1.x + c1 * a2.x,
+                                  v[0].y + c2 * a1.y + c1 * a2.y);
+    // -+i times these: the odd parts of outputs 1 and 2
+    const float2 u1 = rot90<kInverse>(make_float2(s1 * b1.x + s2 * b2.x,
+                                                  s1 * b1.y + s2 * b2.y));
+    const float2 u2 = rot90<kInverse>(make_float2(s2 * b1.x - s1 * b2.x,
+                                                  s2 * b1.y - s1 * b2.y));
+    v[0] = cadd(v[0], cadd(a1, a2));
+    v[1] = cadd(t1, u1);
+    v[2] = cadd(t2, u2);
+    v[3] = csub(t2, u2);
+    v[4] = csub(t1, u1);
   } else if constexpr (R == 8 || R == 12) {
     constexpr int Q = R / 4;
     float2 y[Q][4];
@@ -329,7 +362,7 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
       for (int k2 = 0; k2 < Q; ++k2) v[k1 + 4 * k2] = z[k2];
     }
   } else {
-    static_assert(R == 1, "radices 1, 2, 3, 4, 8 and 12");
+    static_assert(R == 1, "radices 1, 2, 3, 4, 5, 8 and 12");
   }
 }
 
@@ -383,7 +416,7 @@ __device__ __forceinline__ float2* fft_fixed(float2* in, float2* out,
     return in;
   } else {
     constexpr int R = next_radix(kM / kNs);
-    static_assert(R != 0, "M factors into 2 and 3");
+    static_assert(R != 0, "M factors into 2, 3 and 5");
     fft_pass<kInverse, R>(BufLoad{in, kM}, out, kM, kNs, ptw, g);
     return fft_fixed<kInverse, kM, kNs * R>(out, in, ptw, g);
   }
@@ -400,6 +433,8 @@ __device__ __forceinline__ void runtime_pass(int radix, const Load& load,
       return fft_pass<kInverse, 12>(load, out, m, ns, ptw, g);
     case 8:
       return fft_pass<kInverse, 8>(load, out, m, ns, ptw, g);
+    case 5:
+      return fft_pass<kInverse, 5>(load, out, m, ns, ptw, g);
     case 4:
       return fft_pass<kInverse, 4>(load, out, m, ns, ptw, g);
     case 3:
@@ -662,9 +697,11 @@ __device__ __noinline__ void analysis_stage(
   }
   group_sync(g);
 
-  // feat = log(1 + mag @ mel), k split over `split` partial sums
+  // feat = log(1 + mag @ mel), k split over `split` partial sums where
+  // the outputs are fewer than the lanes; else each lane loops over whole
+  // outputs
   const int outs = kFrames * M;
-  const int split = max(1, min(g.n / outs, kFftThreads / outs));
+  const int split = max(1, g.n / outs);
   const int span = (F + split - 1) / split;
   const float* mel = a.mel;
   for (int e = g.id; e < outs * split; e += g.n) {
@@ -676,15 +713,20 @@ __device__ __noinline__ void analysis_stage(
 #pragma unroll 16
     for (int k = lo; k < hi; ++k)
       acc = fmaf(mag[t * F + k], __ldg(mel + (size_t)k * M + mm), acc);
-    red[e] = acc;
+    if (split == 1)
+      feat[o] = logf(1.f + acc);
+    else
+      red[e] = acc;
   }
   group_sync(g);
-  for (int o = g.id; o < outs; o += g.n) {
-    float v = 0.f;
-    for (int s = 0; s < split; ++s) v += red[s * outs + o];
-    feat[o] = logf(1.f + v);
+  if (split > 1) {
+    for (int o = g.id; o < outs; o += g.n) {
+      float v = 0.f;
+      for (int s = 0; s < split; ++s) v += red[s * outs + o];
+      feat[o] = logf(1.f + v);
+    }
+    group_sync(g);
   }
-  group_sync(g);
 }
 
 // Stage 2 for a tile of kTile streams (`rows` of them real), the cell's
@@ -796,16 +838,14 @@ __device__ __noinline__ void gl_stage(
   float* tre = smem + l.tre;
   float* tim = smem + l.tim;
 
-  // the mel magnitudes staged in the time buffer; the carried phases in
-  // the previous-spectrum buffers
-  float* mm = smem + l.time;
-  for (int e = g.id; e < kFrames * M; e += g.n) mm[e] = mel_mag[e];
+  // the carried phases in the previous-spectrum buffers
   for (int e = g.id; e < nb; e += g.n) {
     tre[e] = ang_re[e];
     tim[e] = ang_im[e];
   }
   group_sync(g);
-  // inverse mel: the target magnitudes
+  // inverse mel: the target magnitudes, from the mel magnitudes where
+  // they lie (any count of them)
   const float* imel = a.imel;
   const float gain = a.output_gain;
   for (int e = g.id; e < nb; e += g.n) {
@@ -813,7 +853,7 @@ __device__ __noinline__ void gl_stage(
     float acc = 0.f;
 #pragma unroll 16
     for (int j = 0; j < M; ++j)
-      acc = fmaf(mm[t * M + j], __ldg(imel + (size_t)j * F + k), acc);
+      acc = fmaf(mel_mag[t * M + j], __ldg(imel + (size_t)j * F + k), acc);
     mag[e] = fmaxf(acc, 0.f) * gain;
   }
   // warm seed: shift one frame; the newest is the last advanced one hop
@@ -1013,8 +1053,7 @@ size_t multi_bytes(const AdtWebRTCHopArgs& a) {
 bool args_ok(const AdtWebRTCHopArgs& a, FftPlan* p) {
   return plan_ok(a.plan, a.n_mels) && a.n_fft == 2 * a.hop &&
          a.n_bins == a.hop + 1 && a.n_iter >= 0 && a.hops >= 1 &&
-         kFrames * a.n_mels <= a.n_fft &&
-         kFrames * a.n_mels <= kMaxMelOuts && make_fft_plan(a.hop, p);
+         a.n_mels >= 1 && make_fft_plan(a.hop, p);
 }
 
 cudaError_t set_smem(const void* kernel, size_t bytes) {
@@ -1095,7 +1134,7 @@ int adt_webrtc_hop_fft_instance(const AdtWebRTCHopArgs* a) {
 
 // The radices of the passes the kernels run for a complex FFT of m
 // points, into radix[0..kMaxPasses); returns their count, -1 if m does not
-// factor into 2 and 3.
+// factor into 2, 3 and 5.
 int adt_webrtc_hop_fft_radices(int m, int* radix) {
   FftPlan p;
   if (m < 1 || !make_fft_plan(m, &p)) return -1;

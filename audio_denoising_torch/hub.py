@@ -9,13 +9,17 @@ Resolves, in order:
 - a path to a native ``.npz`` checkpoint (params and JSON meta);
 - a path to a reference torch ``.pth`` checkpoint (the dict format of the
   reference's save_model, app.py:43-91), read by the restricted reader of
-  ``compat.torch_loader``.
+  ``compat.torch_loader``;
+- a path to a MOMO cell's ``.onnx`` graph (the reference's momo2_*.onnx
+  exports, or ``convert`` of a MOMO checkpoint), read by ``compat.onnx``.
 
 The checkpoint's embedded full config is the source of truth when
 present; a checkpoint that carries only the model's hyperparameters
 (``arch``/``config``: the four shipped ``checkpoints/*.npz`` and every
 reference ``.pth``) is served with an assumed DSP, said on stderr, as the
-JAX hub does. The model is a float32 ``nn.Module`` on the CPU with the
+JAX hub does. An ``.onnx`` graph carries no DSP config either: it is
+served with the MOMO family's raw front-end at the graph's bin count, said
+on stderr. The model is a float32 ``nn.Module`` on the CPU with the
 checkpoint's weights.
 """
 
@@ -29,8 +33,8 @@ import numpy as np
 from torch import nn
 
 from audio_denoising_torch.compat import (
-    load_params_npz, load_torch_checkpoint, params_from_jax,
-    state_dict_to_params)
+    load_params_npz, load_torch_checkpoint, momo_config_from_onnx,
+    onnx_params, params_from_jax, parse_onnx, state_dict_to_params)
 from audio_denoising_torch.config import (
     Config, DSPConfig, ModelConfig, PRESETS, ServingConfig)
 from audio_denoising_torch.models import build_model
@@ -42,14 +46,10 @@ CHECKPOINT_DIR = os.path.join(_REPO_ROOT, "checkpoints")
 # bins, different DSP/serving config).
 _CKPT_ALIASES = {"gruunet2-stream16k": "gruunet2-good"}
 
-ONNX_REFUSAL = ("ONNX models (.onnx) are not ported yet (ROADMAP A14): "
-                "pass a preset name, an .npz or a .pth checkpoint")
-
-
 def load_pretrained(spec: str, cfg: Optional[Config] = None
                     ) -> Tuple[Config, nn.Module]:
-    """-> (cfg, model). ``spec`` is a preset name, an .npz path or a
-    reference .pth path."""
+    """-> (cfg, model). ``spec`` is a preset name, an .npz path, a
+    reference .pth path or a MOMO cell's .onnx path."""
     if spec in PRESETS:
         return _load_npz(checkpoint_path(spec), cfg or PRESETS[spec])
     if spec.endswith(".npz"):
@@ -57,10 +57,10 @@ def load_pretrained(spec: str, cfg: Optional[Config] = None
     if spec.endswith(".pth"):
         return _load_pth(spec, cfg)
     if spec.endswith(".onnx"):
-        raise NotImplementedError(ONNX_REFUSAL)
+        return _load_onnx(spec, cfg)
     raise ValueError(
         f"unknown model spec {spec!r}: expected a preset name "
-        f"({', '.join(sorted(PRESETS))}), a .npz or .pth path")
+        f"({', '.join(sorted(PRESETS))}), a .npz, .pth or .onnx path")
 
 
 def checkpoint_path(spec: str) -> str:
@@ -142,3 +142,31 @@ def _load_pth(path: str, cfg: Optional[Config]):
         cfg = _assumed_cfg(ModelConfig.from_reference_dict(
             arch, ckpt.get("config", {})), path)
     return cfg, _model(cfg, state_dict_to_params(ckpt["model_state_dict"]))
+
+
+def _load_onnx(path: str, cfg: Optional[Config]):
+    """A MOMO cell graph becomes a servable model (JAX hub.py:132-164):
+    its initializers are the torch state-dict keys, so the weights load as
+    they are. ONNX carries no DSP config: the MOMO family's raw
+    spectrogram front-end at the graph's bin count is assumed (n_fft =
+    2 (bins - 1), hop n_fft / 2, the momo3-4d4ea0 preset's reasoning) and
+    said on stderr; ``cfg`` overrides it, its model config replaced by
+    the graph's. A graph with a ``prev`` input is served as MOMO3's delta
+    cell, where the JAX hub reads every graph as MOMO2."""
+    g = parse_onnx(path)
+    mc, num_bins = momo_config_from_onnx(g)
+    if cfg is None:
+        n_fft = 2 * (num_bins - 1)
+        dsp = dataclass_replace_dsp(n_fft=n_fft, hop_length=n_fft // 2,
+                                    n_mels=num_bins, domain="raw",
+                                    reconstruction="phase")
+        cfg = Config(dsp=dsp, model=mc,
+                     serving=ServingConfig(chunk_samples=n_fft // 2))
+        print(f"[hub] {path}: ONNX carries no DSP config; assuming the "
+              f"MOMO raw front-end (n_fft={n_fft}, hop={n_fft // 2}, "
+              f"{num_bins} bins) — pass cfg= to override", file=sys.stderr)
+    else:
+        cfg = dataclasses.replace(cfg, model=mc)
+    model = build_model(mc, num_bins=num_bins)
+    model.load_params(onnx_params(g))
+    return cfg, model.eval()

@@ -61,10 +61,9 @@ from audio_denoising_torch.ops.windows import hann_window
 
 FRAMES = 3   # centered STFT frames of one window at hop = n_fft / 2
 KERNELS_PER_HOP = 3   # csrc/webrtc_hop.cu: analysis, cell, gl
-MAX_MEL_OUTS = 384    # kMaxMelOuts: FRAMES * n_mels at most
-# kRed: the analysis's partial results, the larger of the mel outputs and
-# the FFT stages' 288 lanes per stream
-RED = max(MAX_MEL_OUTS, 288)
+# kRed: the analysis's partial results, one per lane of the FFT stages'
+# 288 lanes per stream
+RED = 288
 
 
 class WebRTCHopState(NamedTuple):
@@ -102,23 +101,25 @@ def _istft_envelope(win: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
 # -- the kernels' transform schedule: its tables, and a plain PyTorch
 # -- mirror of its passes for the tests ---------------------------------------
 
-PASS_RADICES = (12, 8, 4, 3, 2)   # a rest the kernels take as one pass
+PASS_RADICES = (12, 8, 5, 4, 3, 2)   # a rest the kernels take as one pass
 MAX_PASSES = 16                   # kMaxPasses in csrc/webrtc_hop.cu
 
 
 def fft_radices(m: int) -> List[int]:
     """The radices of the passes ``csrc/webrtc_hop.cu`` runs for a complex
     FFT of ``m = n_fft / 2`` points (its ``next_radix``): the rest itself
-    where it is one of PASS_RADICES, else the first of 8, 4, 2 and 3 that
-    divides it; ``m = 1`` is one pass of radix 1. 768 gives 8 x 8 x 12."""
+    where it is one of PASS_RADICES, else the first of 8, 4, 2, 3 and 5
+    that divides it; ``m = 1`` is one pass of radix 1. 768 gives 8 x 8 x
+    12, 320 8 x 8 x 5."""
     if m == 1:
         return [1]
     radices, rest = [], m
     while rest > 1:
         r = rest if rest in PASS_RADICES else next(
-            (r for r in (8, 4, 2, 3) if rest % r == 0), 0)
+            (r for r in (8, 4, 2, 3, 5) if rest % r == 0), 0)
         if r == 0:
-            raise ValueError(f"{m} has a prime factor other than 2 and 3")
+            raise ValueError(f"{m} has a prime factor other than 2, 3 "
+                             f"and 5")
         radices.append(r)
         rest //= r
     return radices
@@ -239,18 +240,12 @@ def _spec_floats(n_fft: int, F: int, gl: bool) -> Tuple[int, int]:
     return are + (4 * round4(FRAMES * F) if gl else 0), are
 
 
-def geometry_refusal(n_fft: int, n_mels: int) -> str:
-    return (f"the webrtc hop kernels do not take n_fft {n_fft} with "
-            f"{n_mels} mels (n_fft / 2 must factor into 2 and 3, and 3 * "
-            f"n_mels be at most n_fft and 384; ROADMAP B5)")
-
-
 def webrtc_hop_smem_bytes(cfg: Config, plan, hops_per_call: int = 1) -> int:
     """The most dynamic shared memory one block of the WebRTC hop's
     kernels takes for ``cfg`` and ``plan`` (the three single-hop kernels,
-    or the K-hop kernel where ``hops_per_call > 1``), or -1 where the
-    kernels do not take the geometry (n_fft / 2 factoring into 2 and 3,
-    3 * n_mels at most n_fft and 384): a plain mirror of
+    or the K-hop kernel where ``hops_per_call > 1``), or -1 where their
+    FFT does not take the geometry (n_fft / 2 with a prime factor other
+    than 2, 3 and 5): a plain mirror of
     ``adt_webrtc_hop_smem_bytes`` in csrc/webrtc_hop.cu, which the
     wrapper holds it equal to on the card."""
     dsp = cfg.dsp
@@ -259,7 +254,7 @@ def webrtc_hop_smem_bytes(cfg: Config, plan, hops_per_call: int = 1) -> int:
         fft_radices(n_fft // 2)
     except ValueError:
         return -1
-    if n_fft != 2 * dsp.hop_length or FRAMES * M > min(n_fft, MAX_MEL_OUTS):
+    if n_fft != 2 * dsp.hop_length:
         return -1
     spec, are = _spec_floats(n_fft, F, True)
     shape = plan_shape(plan, M)
@@ -368,7 +363,9 @@ class WebRTCHop:
             raise RuntimeError("csrc/webrtc_hop.cu and _Args disagree on "
                                "the argument layout")
         if self.smem_bytes < 0:
-            raise ValueError(geometry_refusal(self.n_fft, self.M))
+            raise ValueError(
+                f"the webrtc hop kernels' FFT takes n_fft / 2 factoring "
+                f"into 2, 3 and 5, not n_fft {self.n_fft}")
         self._base_args = self._args()
         self._check_shared_memory()
         # the M = n_fft / 2 of the kernels' FFT instantiation, 0 for the

@@ -70,6 +70,14 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
     return spec.transpose(-1, -2)
 
 
+def spec_phase(spec: torch.Tensor) -> torch.Tensor:
+    """The phase of a spectrum as JAX reads it. pocketfft and MKL can give
+    an all-zero frame -0.0 real parts where XLA's FFT gives +0.0, and
+    torch.angle reads (-0.0 + 0j) as pi, which would flip the sign a
+    silent bin is synthesized with; + 0.0 makes every zero +0.0."""
+    return torch.angle(spec + 0.0)
+
+
 def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
           win_length: Optional[int] = None,
           window: Optional[torch.Tensor] = None, center: bool = True,

@@ -58,7 +58,7 @@ from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops import (
     griffin_lim, hann_window, inverse_mel_matrix, inverse_mel_scale,
-    istft, mel_filterbank, mel_scale, num_frames, stft)
+    istft, mel_filterbank, mel_scale, num_frames, spec_phase, stft)
 from audio_denoising_torch.ops.noisefloor import (
     FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB, FloorState, RemovedState,
     floor_rise_per_frame, gate_alpha, gate_planes, gate_state,
@@ -205,7 +205,7 @@ def offline_denoise(cfg: Config, model, audio: torch.Tensor,
     lin_mag = _apply_snr_gate(cfg, mag, lin_mag)
 
     if dsp.reconstruction == "phase":
-        out = istft(torch.polar(lin_mag, torch.angle(spec)), dsp.n_fft,
+        out = istft(torch.polar(lin_mag, spec_phase(spec)), dsp.n_fft,
                     dsp.hop_length, dsp.win, window=win, length=length)
     else:
         out = griffin_lim(lin_mag, dsp.n_fft, dsp.hop_length, dsp.win,
@@ -254,7 +254,7 @@ def offline_denoise_stateless(cfg: Config, model,
         resid = model.apply(x)[..., :dsp.n_stft, :t]
     lin = torch.expm1(torch.clamp(logmag - resid, min=0.0))
     lin = _apply_snr_gate(cfg, mag, lin)
-    out = istft(torch.polar(lin, torch.angle(spec)), dsp.n_fft,
+    out = istft(torch.polar(lin, spec_phase(spec)), dsp.n_fft,
                 dsp.hop_length, dsp.win, window=win, length=length)
     return out[0] if squeeze else out
 
@@ -604,7 +604,7 @@ def make_server_step(cfg: Config, model,
         hx = hx * srv.state_decay
         lin = inverse_mel_scale(torch.exp(logmel - out) - 1.0, inv)
         # angle(0) is 0, so a silent bin is rebuilt as lin + 0j
-        rec = torch.polar(lin, torch.angle(spec))
+        rec = torch.polar(lin, spec_phase(spec))
         y = istft(rec, dsp.n_fft, dsp.hop_length, dsp.win, window=win,
                   length=length)
         return hx, y

@@ -49,7 +49,7 @@ from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
 from audio_denoising_torch.ops import (
     hann_window, inverse_mel_matrix, inverse_mel_scale, mel_filterbank,
-    mel_scale)
+    mel_scale, spec_phase)
 from audio_denoising_torch.ops.kernels.fused_hop import (
     fused_hop_init_state, fused_hop_smem_bytes, make_fused_hop)
 from audio_denoising_torch.ops.kernels.webrtc_hop import (
@@ -186,7 +186,7 @@ def make_fast_step(cfg: Config, model,
              ) -> Tuple[FastState, torch.Tensor]:
         ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
         spec = torch.fft.rfft(ring * win, n=n_fft, dim=-1)    # (B, F)
-        mag, phase = spec.abs(), torch.angle(spec)
+        mag, phase = spec.abs(), spec_phase(spec)
         x_t = features(mag)
         carry = state.hx if state.prev is None else (state.hx, state.prev)
         with torch.no_grad(), fp32_convs():
@@ -303,8 +303,9 @@ def _fit(cfg: Config, plan, mode: str, device) -> str:
     with a warning where its kernel needs more shared memory per block
     than the card has (``hop_smem_bytes`` against
     ``shared_memory_limit``; the JAX engine counts VMEM, engine.py:310-
-    342). A geometry the WebRTC kernels do not take (-1) is not a
-    capacity case: the kernel's wrapper raises, naming B5."""
+    342). A geometry the WebRTC kernels do not take (-1: n_fft / 2 with
+    a prime factor above 5) is not a capacity case: the kernel's wrapper
+    raises."""
     limit = shared_memory_limit(device)
     if limit is None:
         return mode

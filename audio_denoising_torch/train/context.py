@@ -37,7 +37,7 @@ from audio_denoising_torch.compat.npz_store import (
     load_params_npz, save_params_npz)
 from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import resolve_device
-from audio_denoising_torch.ops import istft, stft
+from audio_denoising_torch.ops import istft, spec_phase, stft
 from audio_denoising_torch.train.losses import LOSSES
 
 ORBAX_REFUSAL = ("orbax checkpoints (directories, compat/orbax_store.py) "
@@ -257,7 +257,7 @@ class TrainingContext:
             spec = spec[..., :t_use]
         recon = F.leaky_relu(x - pred, 0.2)
         lin = pipeline._to_linear(self.cfg, recon.transpose(-1, -2), inv)
-        est = istft(torch.polar(lin, torch.angle(spec)), dsp.n_fft,
+        est = istft(torch.polar(lin, spec_phase(spec)), dsp.n_fft,
                     dsp.hop_length, dsp.win, window=win, length=length)
 
         target = x - self.features(clean)

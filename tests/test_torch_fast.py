@@ -48,6 +48,9 @@ GOLD = os.path.join(REPO, "tests", "goldens")
 SPEC = "gruunet2-good"
 OUT_ATOL = 2e-4      # tests/test_fused_hop.py's bound on a hop's output
 HX_ATOL = 1e-5       # the plan cell's bound (tests/test_torch_model_plan.py)
+# a silent first frame: measured <= 4e-10; torch.angle's pi on the CPU
+# FFT's -0.0 bins gives 1.7e-5 to 2.1e-5 of an output of 4.9e-4
+SILENT_ATOL = 1e-7
 HOPS = 20
 RECV_TIMEOUT_S = 30.0
 SMALL_DSP = dict(sample_rate=16000, n_fft=256, hop_length=128, n_mels=32,
@@ -128,6 +131,25 @@ def test_fast_step_matches_jax_fused_plan_model(good):
 def test_fast_step_matches_jax_small_width():
     s = _run_against_jax(*_small(), 3, 3)
     assert s.hx.shape == (3, 6, 4)
+
+
+def test_fast_step_matches_jax_from_a_silent_first_frame(good):
+    """A new stream's first hops see only the zero-initialised ring. The
+    CPU's FFT gives that frame -0.0 real parts where XLA's gives +0.0;
+    the phase is read as JAX reads it (``spec_phase``), so the network's
+    output on silence is synthesized with JAX's sign."""
+    (jcfg, jmodel, params), (cfg, model) = good
+    jstep = jax.jit(jax_make_fast_step(jcfg, jmodel))
+    js = jax_fast_init_state(jcfg, jmodel, 2)
+    step = make_fast_step(cfg, model, "cpu")
+    s = fast_init_state(cfg, model, 2)
+    chunk = np.zeros((2, cfg.dsp.hop_length), np.float32)
+    for t in range(3):
+        js, jout = jstep(params, js, jnp.asarray(chunk))
+        s, out = step(s, torch.from_numpy(chunk))
+        assert np.abs(np.asarray(jout)).max() > 1e-4, t
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   atol=SILENT_ATOL)
 
 
 def test_fast_step_zoo_and_plan_model_agree(good):

@@ -394,15 +394,26 @@ def test_denoise_file_serves_the_unet_keywords(tmp_path, kw):
     assert np.abs(got - want).max() <= 1 / 32768 + 1e-9
 
 
-# kw5 keeps its name from when a .pth spec was refused (A7): the port
-# serves .pth checkpoints now (test_denoise_file_serves_a_reference_pth),
-# and the case checks what the hub still refuses
+def _gruunet_cell_onnx(tmp_path):
+    """gruunet2-good's cell as an .onnx graph, which the hub refuses (it
+    serves MOMO cell graphs)."""
+    from audio_denoising_torch.compat import export_cell
+    return export_cell(load_pretrained(SPEC)[1], str(tmp_path / "x.onnx"))
+
+
+# kw5 keeps its name from when a .pth spec was refused (A7), and then
+# every .onnx (A14): the port serves both now (tests/test_torch_onnx.py
+# holds a MOMO graph against JAX), and the case checks what the hub still
+# refuses, a graph of another family
 @pytest.mark.parametrize("kw,item", [
-    pytest.param({"spec": "model.onnx"}, "A14", id="kw5-A7")])
+    pytest.param({"spec": "model.onnx"}, "not a MOMO cell graph",
+                 id="kw5-A7")])
 def test_denoise_file_refuses_what_is_not_ported(tmp_path, kw, item):
     out = tmp_path / "out.wav"
     kw = dict(kw)
     spec = kw.pop("spec", SPEC)
+    if spec.endswith(".onnx"):
+        spec = _gruunet_cell_onnx(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         offline.denoise_file(spec, str(tmp_path / "in.wav"), str(out),
                              device="cpu", **kw)
@@ -497,11 +508,15 @@ def test_cli_serves_the_streamed_flags(tmp_path, flags):
 
 
 # flags2 keeps its name from when a .pth model was refused (A7); the
-# case now checks the .onnx model the port still refuses
+# case checks the .onnx graphs the port still refuses, those of another
+# family than MOMO
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--model", "x.onnx"], "A14", id="flags2-A7")])
+    pytest.param(["--model", "x.onnx"], "not a MOMO cell graph",
+                 id="flags2-A7")])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     out = tmp_path / "out.wav"
+    flags = [_gruunet_cell_onnx(tmp_path) if f == "x.onnx" else f
+             for f in flags]
     proc = _cli(str(tmp_path / "in.wav"), str(out), "--device", "cpu",
                 *flags)
     assert proc.returncode == 2

@@ -8,7 +8,6 @@ Replies are held against JAX's ``StreamEngine`` or ``SocketDaemon.process``
 on the same float inputs."""
 
 import base64
-import ctypes
 import dataclasses
 import filecmp
 import hashlib
@@ -20,7 +19,6 @@ import socket
 import struct
 import threading
 import time
-import types
 import warnings
 from multiprocessing.connection import Client
 
@@ -750,32 +748,3 @@ def test_cpu_engines_take_no_limit():
     so no capacity downgrade."""
     assert engine_mod.shared_memory_limit("cpu") is None
     assert engine_mod.shared_memory_limit(torch.device("cpu")) is None
-
-
-def test_webrtc_geometry_outside_the_kernels_still_raises_naming_b5(
-        monkeypatch):
-    """n_fft 640 (n_fft / 2 = 320 has the factor 5): JAX's kernel serves
-    it; the port's kernels do not take it. That is not a capacity case
-    (-1 is never over a limit, so the engine keeps the mode), and binding
-    the kernels raises naming B5; the plain version on the CPU serves
-    it."""
-    _, (cfg, model) = _small()
-    cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
-        cfg.dsp, n_fft=640, hop_length=320))
-    model = build_model(cfg.model, num_bins=16)
-    plan = build_cell_plan(model)
-    assert webrtc_hop.webrtc_hop_smem_bytes(cfg, plan) == -1
-    _limited(monkeypatch, SMEM_LIMIT)
-    eng = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=1,
-                       device="cpu")
-    assert eng.mode == "fused-webrtc"
-    hop = webrtc_hop.make_webrtc_hop(cfg, plan, "cpu")
-    # a stand-in for the built library: the argument layout agrees, so
-    # binding reaches the geometry check
-    size = ctypes.sizeof(webrtc_hop._Args)
-    lib = types.SimpleNamespace(**{f: (lambda *a: size) for f in (
-        "adt_webrtc_hop_args_size", "adt_webrtc_hop_smem_bytes",
-        "adt_webrtc_hop_fft_instance", "adt_webrtc_hop_fft_radices",
-        "adt_webrtc_hop", "adt_webrtc_hop_multi")})
-    with pytest.raises(ValueError, match="B5"):
-        hop._bind(lib)

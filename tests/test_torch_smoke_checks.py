@@ -318,6 +318,26 @@ def test_the_bf16_gl_limits_need_the_control_to_fail(smoke):
             smoke.check_gl_bf16(32, bad)
 
 
+@pytest.mark.parametrize("geometry", [(640, 64), (1024, 160), (160, 64)])
+def test_the_bf16_geometry_limits_need_the_control_to_fail(smoke,
+                                                           geometry):
+    """Phase 60's bf16 limit at each geometry sits between the kernel's
+    lowest reading and the control's highest (chip_smoke.py's comment
+    beside BF16_GEO_GL32_DB), and check_gl_bf16 holds a reading to it,
+    not to BF16_GL_DB."""
+    kernel, control = {(640, 64): (14.5, 10.1), (1024, 160): (17.7, 13.6),
+                       (160, 64): (127.0, 53.1)}[geometry]
+    lim = smoke.BF16_GEO_GL32_DB[geometry]
+    assert control < lim < kernel
+    ok = {"plain": (kernel, control), "nearer": (0.6, -55.7),
+          "sc": (0.1, 0.1)}
+    smoke.check_gl_bf16(32, ok, lim)
+    for bad in ({**ok, "plain": (lim - 0.1, control)},
+                {**ok, "plain": (kernel, lim + 0.1)}):
+        with pytest.raises(AssertionError):
+            smoke.check_gl_bf16(32, bad, lim)
+
+
 @pytest.mark.parametrize("K", [1, 2, 3])
 def test_call_signal_is_what_a_call_adds(smoke, K):
     """What a call of K hops adds to the output stream is its K frames
@@ -554,3 +574,77 @@ def test_train_tf32_control_restores_the_fp32_scope(smoke):
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
     assert torch.backends.cuda.matmul.allow_tf32 == mm
+
+
+# -- phases 58-60 ------------------------------------------------------------
+
+def test_onnx_cell_is_the_graphs_function(smoke, tmp_path):
+    """Phase 58 holds run_graph on the card against ``onnx_cell``, the
+    model's own cell step on the graph's inputs: on the CPU the two are
+    equal on MOMO3's graph (delta carry) and gruunet2-good's, at a batch
+    of 3 through ``batched_graph``, which tiles only the batch-1
+    initializers a Concat joins."""
+    from audio_denoising_torch.compat import export_cell, parse_onnx, \
+        run_graph
+    from audio_denoising_torch.hub import load_pretrained
+    for spec in smoke.ONNX_SPECS:
+        model = load_pretrained(spec)[1]
+        g1 = parse_onnx(export_cell(model, str(tmp_path / f"{spec}.onnx")))
+        g = smoke.batched_graph(g1, 3)
+        tiled = {k for k, v in g.initializers.items()
+                 if v.shape != g1.initializers[k].shape}
+        assert tiled and all(k.startswith("smear_") for k in tiled)
+        for k in tiled:
+            np.testing.assert_array_equal(g.initializers[k][2],
+                                          g1.initializers[k][0])
+        rng = np.random.default_rng(3)
+        feeds = {n: torch.from_numpy(rng.standard_normal(
+            (3,) + tuple(s[1:])).astype(np.float32)) for n, s in g.inputs}
+        got = run_graph(g, feeds, "cpu")
+        with torch.no_grad():
+            own = smoke.onnx_cell(model, feeds)
+        assert set(own) == set(g.outputs)
+        for k in g.outputs:
+            assert torch.equal(got[k], own[k])
+
+
+def test_stand_in_soundcard_drives_loopback(smoke):
+    """Phase 59's stand-in sound card: ``--no-denoise`` writes exactly
+    twice the mic, clipped, at the reference's clock; the denoising run
+    (on the CPU here) writes one block per callback and says where its
+    fast step runs; the stand-in module is gone afterwards."""
+    import sys
+    raw, said = smoke.run_loopback(["--no-denoise", "--seconds", "0.03"], 5)
+    assert raw.stream_kw == {"samplerate": 48000, "blocksize": 768}
+    assert len(raw.written) == 3
+    for out, mic in zip(raw.written, raw.fed):
+        np.testing.assert_array_equal(out, np.clip(2.0 * mic, -1.0, 1.0))
+    card, said = smoke.run_loopback(["--seconds", "0.02", "--torch-device",
+                                     "cpu"], 5)
+    assert "the fast step on cpu" in said and len(card.written) == 2
+    assert not np.allclose(card.written[-1], card.fed[-1], atol=1e-4)
+    assert "sounddevice" not in sys.modules
+
+
+def test_geometry_models_reach_the_lifted_caps(smoke):
+    """Phase 60's geometries: n_fft 640 with a radix-5 pass on the shipped
+    weights, and random weights whose 3 n_mels exceed 384 and n_fft; each
+    takes the kernels (shared memory counted) and one warm hop of its
+    plain version is finite."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        fft_radices, webrtc_hop_smem_bytes)
+    cases = smoke.geometry_models(torch, 2)
+    n_ffts = [c.dsp.n_fft for _, c, _, _ in cases]
+    assert n_ffts == [640] + [n for n, _ in smoke.GEO_CASES]
+    assert sorted(n // 2 for n in n_ffts) == sorted(smoke.GEO_FFT_SIZES)
+    assert 5 in fft_radices(320) and 5 in fft_radices(80)
+    (_, c1, _, _), (_, c2, _, _) = cases[1:]
+    assert 3 * c1.dsp.n_mels > 384 and 3 * c2.dsp.n_mels > c2.dsp.n_fft
+    for _, cfg, _, plan in cases:
+        assert cfg.dsp.griffin_lim_warm_start
+        assert webrtc_hop_smem_bytes(cfg, plan) > 0
+        hop = make_webrtc_hop(cfg, plan, "cpu")
+        s = webrtc_hop_init_state(cfg, plan, 2)
+        for c in _chunks(2, 2, cfg.dsp.hop_length, 60):
+            s, out = hop(s, c)
+        assert torch.isfinite(out).all() and torch.isfinite(s.ola).all()

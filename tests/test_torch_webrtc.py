@@ -196,19 +196,20 @@ def test_fft_pass_schedule_matches_torch_fft(m, radices):
         assert float(((got - want).abs() / peak).max()) < FFT_REL, inverse
 
 
-@pytest.mark.parametrize("m", [1, 6, 24, 48, 96, 384, 1152])
+@pytest.mark.parametrize("m", [1, 6, 24, 48, 96, 384, 1152, 5, 20, 320,
+                               600])
 def test_fft_radices_factor_every_half_length(m):
-    """Any m of 2s and 3s splits into passes the kernels take, whose
+    """Any m of 2s, 3s and 5s splits into passes the kernels take, whose
     product is m, and their twiddles fill the m - 1 entries of the pass
     table, each once; another prime factor is refused."""
     radices = fft_radices(m)
     assert int(np.prod(radices)) == m
-    assert set(radices) <= {1, 2, 3, 4, 8, 12}
+    assert set(radices) <= {1, 2, 3, 4, 5, 8, 12}
     table = pass_twiddle_table(m)     # unfilled entries would be NaN
     assert len(table) == max(m - 1, 1)
     assert np.allclose(np.hypot(table[:, 0], table[:, 1]), 1.0)
     with pytest.raises(ValueError):
-        fft_radices(5 * m)
+        fft_radices(7 * m)
 
 
 @pytest.mark.parametrize("n_fft", [1536, 1024, 64])
