@@ -83,7 +83,11 @@
 // level) and stores them; ping-pong buffers in shared memory, one barrier
 // per pass. At m = 768 the passes are 8 x 8 x 12 (a radix-8 pass is one
 // item per lane), at m = 512 8 x 8 x 8, at m = 320 (n_fft 640) 8 x 8 x 5
-// (5 runs in registers too). The first pass reads its points
+// (5 runs in registers too). A prime factor p above 5 is a pass of its
+// own (`prime_pass`), whose p-point DFT runs as sums: each lane computes
+// one output of an item from its p points, so the pass spreads m
+// outputs over the lanes; at m = 441 (n_fft 882, WebRTC's 10 ms frame at
+// 44.1 kHz) the passes are 3 x 3 x 7 x 7. The first pass reads its points
 // through the transform's input: the forward's reflect-indexed, windowed
 // frames packed two samples a point, the inverse's real-input pre-twiddle
 // of mag * (are + i aim); so a Griffin-Lim round waits at 8 barriers (3
@@ -93,13 +97,14 @@
 // laid out pass by pass (neighbouring lanes read neighbouring entries),
 // the real-input split's from a table of e^{-2 pi i t / n_fft}, both
 // built in float64 by the wrapper; the in-register DFTs' own twiddles are
-// compile-time constants. The element loops of the transforming stages
+// compile-time constants, the prime passes' roots entries of the n_fft-point
+// table. The element loops of the transforming stages
 // stride by the constant kFftThreads. The geometry is compiled
 // in: the stages that transform are templates on M = n_fft / 2, with
 // instantiations for 768, 512 and 32 whose radices, strides and counts
 // are constants (no division at run time), and M = 0, the same code with
-// the geometry read from FftPlan at run time, for any other m that
-// factors into 2, 3 and 5.
+// the geometry read from FftPlan at run time, for any other m: every even
+// n_fft with hop = n_fft / 2, as JAX's kernel takes.
 //
 // Any mel count: the analysis's mel outputs (kFrames * n_mels of them) are
 // split over the lanes as partial sums where they are fewer than the lanes,
@@ -165,21 +170,29 @@ constexpr int kMaxPasses = 16;
 static_assert(kThreads <= kMultiThreads, "the cell's lanes fit the block");
 static_assert(kFftThreads % 32 == 0, "a named barrier counts whole warps");
 
-// The radix of the next pass when `rest` points are left to combine: rest
-// itself where the passes take it as one radix (12, 8, 5, 4, 3, 2), else
-// the first of 8, 4, 2, 3 and 5 that divides it; 0 if rest has another
-// prime factor. M = 768 runs 8 x 8 x 12, M = 512 8 x 8 x 8, M = 320
-// 8 x 8 x 5, M = 32 8 x 4.
+// The radix of the next pass when `rest` > 1 points are left to combine:
+// rest itself where the passes take it as one radix (12, 8, 5, 4, 3, 2),
+// else the first of 8, 4, 2, 3 and 5 that divides it, else rest's
+// smallest prime factor (a prime pass). M = 768 runs 8 x 8 x 12, M = 512
+// 8 x 8 x 8, M = 320 8 x 8 x 5, M = 32 8 x 4, M = 441 3 x 3 x 7 x 7.
 __host__ __device__ constexpr int next_radix(int rest) {
-  return rest == 12 || rest == 8 || rest == 5 || rest == 4 || rest == 3 ||
-                 rest == 2
-             ? rest
-         : rest % 8 == 0 ? 8
-         : rest % 4 == 0 ? 4
-         : rest % 2 == 0 ? 2
-         : rest % 3 == 0 ? 3
-         : rest % 5 == 0 ? 5
-                         : 0;
+  if (rest == 12 || rest == 8 || rest == 5 || rest == 4 || rest == 3 ||
+      rest == 2)
+    return rest;
+  if (rest % 8 == 0) return 8;
+  if (rest % 4 == 0) return 4;
+  if (rest % 2 == 0) return 2;
+  if (rest % 3 == 0) return 3;
+  if (rest % 5 == 0) return 5;
+  for (int q = 7; q * q <= rest; q += 2)  // 2, 3 and 5 divide it no more
+    if (rest % q == 0) return q;
+  return rest;
+}
+
+// A radix the passes run as an in-register DFT (`dft`); any other is
+// a prime pass.
+__host__ __device__ constexpr bool fixed_radix(int r) {
+  return r == 12 || r == 8 || r <= 5;
 }
 
 // The radices of the complex FFT of m = n_fft / 2 points, read at run time
@@ -193,10 +206,10 @@ struct FftPlan {
 bool make_fft_plan(int m, FftPlan* p) {
   p->m = m;
   p->passes = 0;
+  if (m < 1) return false;
   int rest = m;
   while (rest > 1 && p->passes < kMaxPasses) {
     const int r = next_radix(rest);
-    if (r == 0) return false;
     p->radix[p->passes++] = r;
     rest /= r;
   }
@@ -405,6 +418,48 @@ __device__ __forceinline__ void fft_pass(const Load& load, float2* out,
   group_sync(g);
 }
 
+// One Stockham pass of a prime radix p > 5 read at run time (the M = 0
+// instantiation only), with `fft_pass`'s layout and the p-point DFT as
+// sums: lane e computes output s of item j of frame f, the sum over r of
+// point r (load(f, j + r stride)) times its pass twiddle times w^{r s},
+// w = e^{-+2 pi i / p}: w^t is entry t n_fft / p of the n_fft-point table
+// `tw`, since p divides m. Only the sum and one point are live (the loop
+// over r is left rolled: unrolled, the K-hop kernel's M = 0 instantiation
+// ran 2% slower at n_fft 640, where no prime pass runs), and the pass
+// spreads kFrames m outputs over the lanes; each point is loaded p
+// times. Where it is the first pass (m with no factor 2, 3 or 5: 49, 77,
+// a prime such as 509), every load goes through `first`'s windowing or
+// pre-twiddle: the slow case.
+template <bool kInverse, class Load>
+__device__ __forceinline__ void prime_pass(const Load& load, float2* out,
+                                           int m, int ns, int p,
+                                           const float2* ptw,
+                                           const float2* tw,
+                                           const Lanes& g) {
+  const int stride = m / p;
+  const int L = ns * p;
+  const int items = kFrames * stride;
+  const int step = 2 * m / p;
+  for (int e = g.id; e < items * p; e += g.n) {
+    const int s = e / items, i = e % items;
+    const int f = i / stride, j = i % stride;
+    const int k = j % ns;
+    float2 acc = load(f, j);
+    int t = 0;  // r s mod p
+#pragma unroll 1
+    for (int r = 1; r < p; ++r) {
+      float2 v = load(f, j + r * stride);
+      if (k > 0) v = cmul(v, pass_twiddle<kInverse>(ptw, r, ns, k));
+      t += s;
+      if (t >= p) t -= p;
+      const float2 w = __ldg(tw + t * step);
+      acc = cadd(acc, cmul(v, kInverse ? conjf2(w) : w));
+    }
+    out[f * m + (j / ns) * L + k + s * ns] = acc;
+  }
+  group_sync(g);
+}
+
 // The passes of a compile-time M from the one of width kNs on, in -> out
 // and back: each pass's radix, stride and span are constants, and the
 // recursion unrolls them.
@@ -416,17 +471,19 @@ __device__ __forceinline__ float2* fft_fixed(float2* in, float2* out,
     return in;
   } else {
     constexpr int R = next_radix(kM / kNs);
-    static_assert(R != 0, "M factors into 2, 3 and 5");
+    static_assert(fixed_radix(R), "a compiled-in M factors into 2, 3, 5");
     fft_pass<kInverse, R>(BufLoad{in, kM}, out, kM, kNs, ptw, g);
     return fft_fixed<kInverse, kM, kNs * R>(out, in, ptw, g);
   }
 }
 
-// A pass of the radix read at run time (the M = 0 instantiation).
+// A pass of the radix read at run time (the M = 0 instantiation); ptw
+// and tw as in `fft`.
 template <bool kInverse, class Load>
 __device__ __forceinline__ void runtime_pass(int radix, const Load& load,
                                              float2* out, int m, int ns,
                                              const float2* ptw,
+                                             const float2* tw,
                                              const Lanes& g) {
   switch (radix) {
     case 12:
@@ -441,8 +498,10 @@ __device__ __forceinline__ void runtime_pass(int radix, const Load& load,
       return fft_pass<kInverse, 3>(load, out, m, ns, ptw, g);
     case 2:
       return fft_pass<kInverse, 2>(load, out, m, ns, ptw, g);
-    default:
+    case 1:
       return fft_pass<kInverse, 1>(load, out, m, ns, ptw, g);
+    default:
+      return prime_pass<kInverse>(load, out, m, ns, radix, ptw, tw, g);
   }
 }
 
@@ -451,23 +510,26 @@ __device__ __forceinline__ void runtime_pass(int radix, const Load& load,
 // through `first` (the windowing or the real-input pre-twiddle fused into
 // it) and writes buf0, the later passes ping-pong between buf0 and buf1.
 // Returns the buffer that holds the result. kM = m = n_fft / 2, or 0 to
-// read the radices from p.
+// read the radices from p. tw: AdtWebRTCHopArgs::twiddle, the n_fft-point
+// table followed by the passes' (pass_twiddle).
 template <bool kInverse, int kM, class Load>
 __device__ __forceinline__ float2* fft(const Load& first, float2* buf0,
                                        float2* buf1, const FftPlan& p,
-                                       const float2* ptw, const Lanes& g) {
+                                       const float2* tw, const Lanes& g) {
   if constexpr (kM > 0) {
     constexpr int R = next_radix(kM);
+    const float2* ptw = tw + 2 * kM;
     fft_pass<kInverse, R>(first, buf0, kM, 1, ptw, g);
     return fft_fixed<kInverse, kM, R>(buf0, buf1, ptw, g);
   } else {
-    runtime_pass<kInverse>(p.radix[0], first, buf0, p.m, 1, ptw, g);
+    const float2* ptw = tw + 2 * p.m;
+    runtime_pass<kInverse>(p.radix[0], first, buf0, p.m, 1, ptw, tw, g);
     float2* in = buf0;
     float2* out = buf1;
     int ns = p.radix[0];
     for (int i = 1; i < p.passes; ++i) {
       runtime_pass<kInverse>(p.radix[i], BufLoad{in, p.m}, out, p.m, ns, ptw,
-                             g);
+                             tw, g);
       ns *= p.radix[i];
       float2* t = in;
       in = out;
@@ -557,7 +619,7 @@ __device__ __forceinline__ float2* stft3(const AdtWebRTCHopArgs& a,
   };
   return fft<false, kM>(frame, reinterpret_cast<float2*>(smem + l.buf0),
                         reinterpret_cast<float2*>(smem + l.buf1), p,
-                        a.twiddle + n_fft, g);
+                        a.twiddle, g);
 }
 
 // Bin k (0 <= k <= m) of the real FFT from the half-length complex FFT Z
@@ -622,8 +684,8 @@ __device__ __forceinline__ void istft3(const AdtWebRTCHopArgs& a,
   };
   const float* fr = reinterpret_cast<const float*>(
       fft<true, kM>(spectrum, reinterpret_cast<float2*>(smem + l.buf0),
-                    reinterpret_cast<float2*>(smem + l.buf1), p,
-                    a.twiddle + n_fft, g));
+                    reinterpret_cast<float2*>(smem + l.buf1), p, a.twiddle,
+                    g));
   const float scale = 1.f / (float)n_fft;
   float* x = smem + l.time;
 #pragma unroll
@@ -1133,13 +1195,31 @@ int adt_webrtc_hop_fft_instance(const AdtWebRTCHopArgs* a) {
 }
 
 // The radices of the passes the kernels run for a complex FFT of m
-// points, into radix[0..kMaxPasses); returns their count, -1 if m does not
-// factor into 2, 3 and 5.
+// points, into radix[0..kMaxPasses); returns their count, -1 for m < 1.
 int adt_webrtc_hop_fft_radices(int m, int* radix) {
   FftPlan p;
-  if (m < 1 || !make_fft_plan(m, &p)) return -1;
+  if (!make_fft_plan(m, &p)) return -1;
   for (int i = 0; i < p.passes; ++i) radix[i] = p.radix[i];
   return p.passes;
+}
+
+// The registers a thread and the local (stack and spill) bytes of the
+// M = 0 instantiation's kernels, as cudaFuncGetAttributes reads them:
+// which 0 analysis_kernel, 1 cell_kernel, 2 gl_kernel, 3
+// webrtc_hop_multi_kernel. Returns the cudaError_t.
+int adt_webrtc_hop_kernel_attrs(int which, int* regs,
+                                long long* local_bytes) {
+  const void* kernels[] = {(const void*)analysis_kernel<0>,
+                           (const void*)cell_kernel,
+                           (const void*)gl_kernel<0>,
+                           (const void*)webrtc_hop_multi_kernel<0>};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (long long)attr.localSizeBytes;
+  return (int)cudaSuccess;
 }
 
 // Launches one hop (a->hops == 1, three kernels) on `stream` without

@@ -23,12 +23,15 @@ lanes, which the port does not need. The port does not take JAX's
 ``block_b``: the K-hop kernel's tile of 2 streams is fixed and its ragged
 last tile masked, so B is not padded.
 
-The kernels' transforms are FFTs of n_fft / 2 points in a few wide
-passes (``fft_radices``; their twiddles ``twiddle_table`` and
-``pass_twiddle_table``, which the wrapper hands over); ``fft_passes``,
-``real_bins`` and ``inverse_input`` mirror the passes and the real-input
-formulas in plain PyTorch for the tests, and ``fft_instance`` names the
-instantiation a bound hop runs (M = n_fft / 2 compiled in, or 0).
+The kernels take every geometry JAX's kernel takes: any even n_fft with
+hop = n_fft / 2, any mel count. Their transforms are FFTs of n_fft / 2
+points in a few wide passes (``fft_radices``: radices 12, 8, 5, 4, 3 and
+2 in registers, any other prime factor a pass of its own; their twiddles
+``twiddle_table`` and ``pass_twiddle_table``, which the wrapper hands
+over); ``fft_passes``, ``real_bins`` and ``inverse_input`` mirror the
+passes and the real-input formulas in plain PyTorch for the tests, and
+``fft_instance`` names the instantiation a bound hop runs (M = n_fft / 2
+compiled in, or 0).
 
 ``compute_dtype=torch.bfloat16`` is JAX's bf16 Griffin-Lim mode
 (webrtc_hop.py:123-124, :144, :305-318): inside the GL loop only, each
@@ -44,6 +47,7 @@ work on the same FFTs.
 
 import ctypes
 import functools
+import math
 from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -109,17 +113,20 @@ def fft_radices(m: int) -> List[int]:
     """The radices of the passes ``csrc/webrtc_hop.cu`` runs for a complex
     FFT of ``m = n_fft / 2`` points (its ``next_radix``): the rest itself
     where it is one of PASS_RADICES, else the first of 8, 4, 2, 3 and 5
-    that divides it; ``m = 1`` is one pass of radix 1. 768 gives 8 x 8 x
-    12, 320 8 x 8 x 5."""
+    that divides it, else its smallest prime factor (a prime pass);
+    ``m = 1`` is one pass of radix 1. 768 gives 8 x 8 x 12, 320 8 x 8 x
+    5, 441 3 x 3 x 7 x 7, 509 one pass of 509."""
+    if m < 1:
+        raise ValueError(f"an FFT of {m} points")
     if m == 1:
         return [1]
     radices, rest = [], m
     while rest > 1:
         r = rest if rest in PASS_RADICES else next(
-            (r for r in (8, 4, 2, 3, 5) if rest % r == 0), 0)
-        if r == 0:
-            raise ValueError(f"{m} has a prime factor other than 2, 3 "
-                             f"and 5")
+            (r for r in (8, 4, 2, 3, 5) if rest % r == 0), None)
+        if r is None:
+            r = next((q for q in range(7, math.isqrt(rest) + 1, 2)
+                      if rest % q == 0), rest)
         radices.append(r)
         rest //= r
     return radices
@@ -243,18 +250,13 @@ def _spec_floats(n_fft: int, F: int, gl: bool) -> Tuple[int, int]:
 def webrtc_hop_smem_bytes(cfg: Config, plan, hops_per_call: int = 1) -> int:
     """The most dynamic shared memory one block of the WebRTC hop's
     kernels takes for ``cfg`` and ``plan`` (the three single-hop kernels,
-    or the K-hop kernel where ``hops_per_call > 1``), or -1 where their
-    FFT does not take the geometry (n_fft / 2 with a prime factor other
-    than 2, 3 and 5): a plain mirror of
-    ``adt_webrtc_hop_smem_bytes`` in csrc/webrtc_hop.cu, which the
-    wrapper holds it equal to on the card."""
+    or the K-hop kernel where ``hops_per_call > 1``), or -1 where the
+    kernels do not take the arguments (hop other than n_fft / 2): a plain
+    mirror of ``adt_webrtc_hop_smem_bytes`` in csrc/webrtc_hop.cu, which
+    the wrapper holds it equal to on the card."""
     dsp = cfg.dsp
     n_fft, F, M = dsp.n_fft, dsp.n_stft, dsp.n_mels
-    try:
-        fft_radices(n_fft // 2)
-    except ValueError:
-        return -1
-    if n_fft != 2 * dsp.hop_length:
+    if n_fft < 2 or n_fft != 2 * dsp.hop_length:
         return -1
     spec, are = _spec_floats(n_fft, F, True)
     shape = plan_shape(plan, M)
@@ -364,8 +366,8 @@ class WebRTCHop:
                                "the argument layout")
         if self.smem_bytes < 0:
             raise ValueError(
-                f"the webrtc hop kernels' FFT takes n_fft / 2 factoring "
-                f"into 2, 3 and 5, not n_fft {self.n_fft}")
+                f"the webrtc hop kernels take hop = n_fft / 2, not n_fft "
+                f"{self.n_fft} and hop {self.hop}")
         self._base_args = self._args()
         self._check_shared_memory()
         # the M = n_fft / 2 of the kernels' FFT instantiation, 0 for the

@@ -243,8 +243,8 @@ def _quantized_model(model, device):
 def hop_smem_bytes(cfg: Config, plan, mode: str) -> int:
     """The shared memory a block of mode ``mode``'s kernel takes for
     ``cfg`` and ``plan`` (fused_hop_smem_bytes at ``serving.dtype``, or
-    webrtc_hop_smem_bytes: -1 where the WebRTC kernels do not take the
-    geometry)."""
+    webrtc_hop_smem_bytes: -1 where the WebRTC kernels refuse the
+    arguments)."""
     if mode == "fused":
         return fused_hop_smem_bytes(cfg, plan,
                                     getattr(torch, cfg.serving.dtype))
@@ -303,9 +303,9 @@ def _fit(cfg: Config, plan, mode: str, device) -> str:
     with a warning where its kernel needs more shared memory per block
     than the card has (``hop_smem_bytes`` against
     ``shared_memory_limit``; the JAX engine counts VMEM, engine.py:310-
-    342). A geometry the WebRTC kernels do not take (-1: n_fft / 2 with
-    a prime factor above 5) is not a capacity case: the kernel's wrapper
-    raises."""
+    342). -1 means arguments the WebRTC kernels refuse (hop other than
+    n_fft / 2; they take every even n_fft): not a capacity case, the
+    mode is kept and the kernel's wrapper raises."""
     limit = shared_memory_limit(device)
     if limit is None:
         return mode

@@ -13,7 +13,9 @@ same nvcc flags (their ptxas register and spill lines printed) and bound
 to the same wrappers.
 
 ``--kernel webrtc_hop`` (the default), on gruunet2-dari_tult with
-warm-start Griffin-Lim at 256 streams, in fp32:
+warm-start Griffin-Lim at 256 streams, in fp32 (at its n_fft 1536, or at
+``--n-fft N`` with hop N / 2: 640 runs the M = 0 instantiation, passes
+8 x 8 x 5):
 
 1. both run from one random state on the same chunks: the single hop at
    GL-32 over 3 hops, and one K-hop call (K = 25) at GL-8 and at GL-32;
@@ -116,6 +118,9 @@ def main() -> int:
     ap.add_argument("--stage-bytes", type=int, default=None,
                     help="bytes a stage of the fused cell's weight ring "
                          "aims at (weight_ring.STAGE_TARGET)")
+    ap.add_argument("--n-fft", type=int, default=None,
+                    help="the WebRTC hop's n_fft (hop n_fft / 2) in place "
+                         "of gruunet2-dari_tult's")
     ap.add_argument("--other-tile", type=int, default=None,
                     help="streams per block (kTile) of a bare other "
                          "source that changes it")
@@ -130,7 +135,7 @@ def main() -> int:
     cs.say(smi)
     makers = kernel_makers(args.other, args.kernel, args.other_tile)
     if args.kernel == "webrtc_hop":
-        return webrtc_ab(torch, makers, smi)
+        return webrtc_ab(torch, makers, smi, args.n_fft)
     from audio_denoising_torch.ops.kernels import weight_ring
     if args.stage_bytes is not None:
         weight_ring.STAGE_TARGET = args.stage_bytes
@@ -332,14 +337,19 @@ def fused_hop_ab(torch, makers, smi, batches):
     return 0
 
 
-def webrtc_ab(torch, makers, smi):
+def webrtc_ab(torch, makers, smi, n_fft=None):
     """Parts 1-3 for ``webrtc_hop`` (module docstring)."""
+    import dataclasses
+
     from audio_denoising_torch.hub import load_pretrained
     from audio_denoising_torch.ops.kernels.webrtc_hop import (
         webrtc_hop_init_state)
     from audio_denoising_torch.runtime.plan import build_cell_plan
 
     cfg, model = load_pretrained("gruunet2-dari_tult")
+    if n_fft is not None:
+        cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
+            cfg.dsp, n_fft=n_fft, hop_length=n_fft // 2))
     plan = build_cell_plan(model)
     g = torch.Generator(device="cuda").manual_seed(23)
 
@@ -356,7 +366,8 @@ def webrtc_ab(torch, makers, smi):
     chunks = 0.2 * torch.randn((cs.WEBRTC_K, cs.SLOTS, single["this"].hop),
                                generator=g, device="cuda")
     multis = {n: hop_pair(n, cs.WEBRTC_K)[1] for n in cs.WEBRTC_GL}
-    cs.say(f"FFT instantiation: this M={single['this'].fft_instance}")
+    cs.say(f"n_fft {single['this'].n_fft}, FFT instantiation: this "
+           f"M={single['this'].fft_instance}")
 
     cs.say("1. this against other from one state, the same chunks "
            f"(B={cs.SLOTS}):")

@@ -159,7 +159,7 @@ raises on failure (so the script exits non-zero and prints no result):
 34. ``python -m audio_denoising_torch denoise in.wav out.wav`` in a
     subprocess with the default device on phase 30's input: exit 0, a 48
     kHz mono WAV of the resampled length, equal to phase 30's (one LSB);
-    then the offline timing: ``denoise_array`` on 60 s of 44.1 kHz stereo
+    then the offline timing: ``denoise_array`` on 30 s of 44.1 kHz stereo
     (wall seconds, real-time factor, the card's busy share by
     torch.profiler), the chain stage by stage (resample, STFT, the model
     scan, residual and inverse mel, the gate scans on phase 32's
@@ -306,9 +306,9 @@ raises on failure (so the script exits non-zero and prints no result):
     brown noise, 48 kHz WAVs); the TF32 control (cuDNN and matmul TF32
     on) must miss the limits (``TRAIN_LIMITS``, ``TRAIN_CONTROL_FAILS``);
 51. ``python -m audio_denoising_torch train`` with the flagship recipe
-    from scratch: 60 steps on ``--device-data`` (finite, the last 10
+    from scratch: 30 steps on ``--device-data`` (finite, the last 10
     losses below the first 10), ``--resume`` for 10 more (the checkpoint
-    counts 70 iterations and optimizer steps, its moments nonzero), 10
+    counts 40 iterations and optimizer steps, its moments nonzero), 10
     on the host sampler; then the step timed in process on both samplers
     (ms at the median, the card's busy share by torch.profiler, peak
     memory);
@@ -369,7 +369,16 @@ raises on failure (so the script exits non-zero and prints no result):
     the fp32 kernel in its place, misses), the K-hop kernel against
     single hops (0); mode
     ``fused-webrtc`` at n_fft 640 and 256 slots against the CPU engine;
-    rows 4 and 5 timed at n_fft 640.
+    rows 4 and 5 timed at n_fft 640;
+61. the WebRTC hop at n_fft / 2 with a prime factor above 5, the
+    kernels' prime pass: WebRTC's 10 ms frame at 44.1 kHz (hop 441,
+    n_fft 882, M = 441 = 3 x 3 x 7 x 7) on gruunet2-dari_tult's weights
+    at 256 and 3 streams, and on random weights n_fft 44 (M = 22 = 2 x
+    11) and n_fft 1018 (the prime M = 509: one pass, every point windowed
+    509 times) at 64 streams: phase 60's checks and timings, the shared
+    memory against the plain mirror, phase 60's n_fft 640 times beside
+    those before the prime pass, and the M = 0 kernels' registers and
+    local bytes (cudaFuncGetAttributes).
 
 Phases 30-34 drive the offline path, which launches none of the
 hand-written kernels: the JAX offline graph reaches no Pallas kernel
@@ -386,8 +395,8 @@ the profile of phase 43, the engines of phases 44 and 45, the first
 three calls of phases 14, 26, 44 and of each case of 36, and the calls
 of phase 19 and of phase 45's K-hop kernel, the sharded engines and
 daemon of phase 55, the ONNX-loaded engines and the first three K-hop
-calls of phase 58, and phase 60's engine and the calls of its first
-K-hop check are the main paths: each
+calls of phase 58, and the engines and the calls of the first K-hop
+check of phases 60 and 61 are the main paths: each
 kernel's launch counter is set to 0 just before each (a new wrapper
 starts at 0) and read just after (the single WebRTC hop counts its three
 kernels, the K-hop call one). Mode ``fast`` with the zoo model (phases
@@ -502,10 +511,10 @@ OFFLINE_GL_S = 10
 OFFLINE_GATE_S = 10
 OFFLINE_LA_S = 10
 OFFLINE_MOMO_S = 2   # 4,571 frames of MOMO3's 21-sample hop
-OFFLINE_TIMED_S = 60
+OFFLINE_TIMED_S = 30
 OFFLINE_TIMED_CALLS = 3   # the host's clock varies from call to call
-# the clip torch.profiler records the card's busy share on: profiling all
-# of OFFLINE_TIMED_S took about 160 s of an H100 host's time
+# the clip torch.profiler records the card's busy share on: profiling a
+# whole 60 s clip took about 160 s of an H100 host's time
 OFFLINE_PROFILED_S = 15
 OFFLINE_BATCH = 16
 OFFLINE_BATCH_S = 10
@@ -578,7 +587,26 @@ BF16_NEARER_DB = 0.0
 # with 160 mels 17.7 | 13.6 and at n_fft 160 with 64 mels 127 | 53.1 at
 # 64 streams. The nearer readings there: the kernel +0.6 dB or more, the
 # control -55.7 or less, so BF16_NEARER_DB holds as it is.
-BF16_GEO_GL32_DB = {(640, 64): 12.0, (1024, 160): 15.5, (160, 64): 90.0}
+# Phase 61's geometries the same way (the same card): random weights at
+# n_fft 44 with 16 mels 131 | 41.5 and at n_fft 1018 with 64 mels 13.8 |
+# 10.0 at 64 streams, the nearer readings +3.6 dB or more against -56.4
+# or less. At n_fft 882 on gruunet2-dari_tult's weights the bf16 mode
+# moves the frame little at GL-32 (32.6 | 31.8 dB at 256 streams, 28.2 |
+# 28.5 at 3: no limit separates them), so that geometry is held at GL-8
+# (BF16_GEO_GL8_DB: 40.4 | 35.4 at 256 streams, 38.9 | 34.4 at 3; nearer
+# +4.3 dB or more against -66.2 or less).
+BF16_GEO_GL32_DB = {(640, 64): 12.0, (1024, 160): 15.5, (160, 64): 90.0,
+                    (44, 16): 90.0, (1018, 64): 12.0}
+BF16_GEO_GL8_DB = {(882, 64): 37.0}
+
+
+def bf16_geometry_limit(n_fft, n_mels):
+    """(Griffin-Lim rounds, plain limit) the bf16 GL mode is held at on a
+    phase 60 or 61 geometry: GL-8 where BF16_GEO_GL8_DB names it, else
+    GL-32."""
+    if (n_fft, n_mels) in BF16_GEO_GL8_DB:
+        return 8, BF16_GEO_GL8_DB[n_fft, n_mels]
+    return 32, BF16_GEO_GL32_DB[n_fft, n_mels]
 
 
 _T0 = time.perf_counter()
@@ -4685,10 +4713,10 @@ TRAIN_LIMITS = {"residual_mse": (1e-5, 6e-5, 7e-4, 9e-6),
 TRAIN_CONTROL_FAILS = {"residual_mse": (0, 1, 2, 3),
                        "recon_mrstft": (1, 3)}
 TRAIN_READINGS = ("loss", "output", "gradients", "parameters")
-TRAIN_CLI_STEPS = 60       # phase 51's first run, --device-data
+TRAIN_CLI_STEPS = 30       # phase 51's first run, --device-data
 TRAIN_RESUME_STEPS = 10    # then --resume, and 10 on the host sampler
 TRAIN_TREND = 10           # losses averaged at each end of the run
-TRAIN_TIMED_DISPATCHES = 5  # of 10 steps each, after a warm dispatch
+TRAIN_TIMED_DISPATCHES = 3  # of 10 steps each, after a warm dispatch
 TRAIN_TIMED_HOST = 10      # host-sampler steps timed one by one
 EVAL_BLOCK_N = 8           # examples per block of phase 52's manifest
 EVAL_DB = 1e-2             # a per-example metric, card vs CPU (dB; LSD)
@@ -4997,10 +5025,11 @@ def phase_train_cli(torch, tmp, corpus_dir, corpus, smi, dev="cuda"):
     flagship recipe from scratch: TRAIN_CLI_STEPS steps on the device
     sampler (every loss finite, the last TRAIN_TREND below the first),
     then ``--resume`` for TRAIN_RESUME_STEPS more (the checkpoint counts
-    70 iterations and 70 optimizer steps, its moments nonzero), then
+    both steps in its iterations and optimizer steps, its moments
+    nonzero), then
     TRAIN_RESUME_STEPS on the host sampler; then the step timed in
     process. -> the last checkpoint."""
-    first = os.path.join(tmp, "flagship-60.npz")
+    first = os.path.join(tmp, "flagship-first.npz")
     base = ["train", *FLAGSHIP_RECIPE, "--data", corpus_dir]
     t0 = time.perf_counter()
     run_cli(base + ["--device-data", "--iters", str(TRAIN_CLI_STEPS),
@@ -5011,7 +5040,7 @@ def phase_train_cli(torch, tmp, corpus_dir, corpus, smi, dev="cuda"):
     say(f"  train --device-data, {TRAIN_CLI_STEPS} steps from scratch: "
         f"{wall:.1f} s of command; mean loss of the first {TRAIN_TREND} "
         f"{lo:.4f}, of the last {hi:.4f}; {len(losses)} losses finite")
-    second = os.path.join(tmp, "flagship-70.npz")
+    second = os.path.join(tmp, "flagship-resumed.npz")
     out = run_cli(base + ["--device-data", "--iters",
                           str(TRAIN_RESUME_STEPS), "--resume", first,
                           "--save", second], dev, "train --resume")
@@ -5027,7 +5056,7 @@ def phase_train_cli(torch, tmp, corpus_dir, corpus, smi, dev="cuda"):
             or counts != (want, want) or not moments > 0 \
             or len(losses) != want:
         raise AssertionError("the resumed run does not continue the count")
-    third = os.path.join(tmp, "flagship-80.npz")
+    third = os.path.join(tmp, "flagship-host.npz")
     run_cli(base + ["--iters", str(TRAIN_RESUME_STEPS), "--eval-every",
                     "5", "--resume", second, "--save", third], dev,
             "train on the host sampler")
@@ -5891,16 +5920,18 @@ def geometry_models(torch, n_iter):
     return out
 
 
-def phase_webrtc_geometries(torch, smi):
-    """Phase 60: the WebRTC hop at the geometries the kernels took only
-    after radix 5 and the mel caps went. At n_fft 640 (gruunet2-stream16k
-    on gruunet2-good's weights, warm GL-32): the kernels' FFT radices;
+def phase_webrtc_geometries(torch, smi, cases=None, fft_sizes=GEO_FFT_SIZES,
+                            seed=60):
+    """Phase 60 (and 61 on its own ``cases``): the WebRTC hop at the
+    geometries the kernels took only after radix 5 and the mel caps went.
+    On the first case (n_fft 640, gruunet2-stream16k on gruunet2-good's
+    weights, warm GL-32): the kernels' FFT radices for ``fft_sizes``;
     the single hop at SLOTS and 3 streams, each hop from the plain
     version's state against the plain version and a float64 witness
     (check_webrtc_forced); the K-hop kernel K = 25 against single hops
     (0; its calls the main path's launches) and, each call from a shared
     state, against its plain version and the witness; the bf16 GL mode
-    the same ways (the witness rule, and BF16_GEO_GL32_DB, which the
+    the same ways (the witness rule, and bf16_geometry_limit, which the
     control must miss); StreamEngine mode fused-webrtc at SLOTS slots
     against the CPU engine, in fp32 and
     at bfloat16; both entry points timed in both modes. Then the same
@@ -5910,7 +5941,7 @@ def phase_webrtc_geometries(torch, smi):
     timing)}, entry "hop" or "K-hop", dtype "float32" or "bfloat16"."""
     from audio_denoising_torch.ops.kernels.webrtc_hop import (
         make_webrtc_hop, webrtc_hop_init_state)
-    cases = geometry_models(torch, 32)
+    cases = geometry_models(torch, 32) if cases is None else cases
     modes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     launches = {(e, d): 0 for e in ("hop", "K-hop") for d in modes}
     errs = dict.fromkeys(launches, 0.0)
@@ -5923,7 +5954,7 @@ def phase_webrtc_geometries(torch, smi):
             f"shared memory a block")
         batches = (SLOTS, 3) if i == 0 else (GEO_BATCH,)
         if i == 0:
-            check_fft_plans(hop, GEO_FFT_SIZES)
+            check_fft_plans(hop, fft_sizes)
         else:
             check_webrtc_exact(torch, cfg, plan, GEO_BATCH, relative=True)
         for b in batches:
@@ -5935,12 +5966,12 @@ def phase_webrtc_geometries(torch, smi):
                                            check_webrtc_multi_forced(
                                                torch, cfg, plan, b, 4,
                                                SNR_GL32_DB))
+            n16, limit = bf16_geometry_limit(cfg.dsp.n_fft, cfg.dsp.n_mels)
             errs["hop", "bfloat16"] = max(errs["hop", "bfloat16"],
                                           check_webrtc_bf16(
-                                              torch, cfg, plan, b,
-                                              WEBRTC_HOPS, BF16_GEO_GL32_DB[
-                                                  cfg.dsp.n_fft,
-                                                  cfg.dsp.n_mels])[1])
+                                              torch, warm_cfg(cfg, n16),
+                                              plan, b, WEBRTC_HOPS,
+                                              limit)[1])
         for d, dt in modes.items():
             n = check_webrtc_multi_exact(torch, warm_cfg(cfg, WEBRTC_GL[0]),
                                          plan, batches[0], 2,
@@ -5954,7 +5985,7 @@ def phase_webrtc_geometries(torch, smi):
                     SNR_GL32_DB if d == "float32" else BF16_GL_DB[32])
     label, cfg, _, plan = cases[0]
     c8 = warm_cfg(cfg, WEBRTC_GL[0])
-    g = torch.Generator(device="cuda").manual_seed(60)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     chunks = 0.2 * torch.randn((WEBRTC_K, SLOTS, cfg.dsp.hop_length),
                                generator=g, device="cuda")
     out = {}
@@ -5981,6 +6012,98 @@ def phase_webrtc_geometries(torch, smi):
                   webrtc_hop_work(multi, SLOTS), SLOTS, 10,
                   plain_launches=1, hops=WEBRTC_K)
         out["K-hop", d] = (launches["K-hop", d], errs["K-hop", d], t)
+    return out
+
+
+# -- phase 61: the WebRTC hop at an n_fft / 2 with a prime factor above 5 ---
+
+# WebRTC's 10 ms frame at 44.1 kHz: hop 441, n_fft 882 (M = 441 = 3 x 3 x
+# 7 x 7, two passes of radix 7), on gruunet2-dari_tult's weights (64 mels)
+PRIME_RATE, PRIME_N_FFT = 44100, 882
+PRIME_RADICES = [3, 3, 7, 7]
+# random weights at 64 streams: M = 22 = 2 x 11, and the prime M = 509,
+# one prime pass through which every point is windowed 509 times (the
+# slow case)
+PRIME_CASES = ((44, 16), (1018, 64))
+PRIME_FFT_SIZES = (441, 22, 509)   # their n_fft / 2
+# phase 60's n_fft 640 times in two runs before the kernels had a prime
+# pass (NVIDIA H100 80GB HBM3, 700.00 W): the single hop at GL-32 and
+# the K-hop kernel per hop at K = 25, GL-8, fp32, in us
+BEFORE_PRIME_US = {"hop": (504.0, 508.0), "K-hop": (374.84, 374.88)}
+# the kernels adt_webrtc_hop_kernel_attrs reads, in its order
+KERNEL_ATTRS = ("analysis_kernel<0>", "cell_kernel", "gl_kernel<0>",
+                "webrtc_hop_multi_kernel<0>")
+
+
+def prime_models(torch, n_iter):
+    """Phase 61's geometries: gruunet2-dari_tult at 44.1 kHz, n_fft 882,
+    hop 441, warm GL, then PRIME_CASES on random weights: [(label, cfg,
+    model, plan)]."""
+    from audio_denoising_torch.hub import load_pretrained
+    from audio_denoising_torch.runtime.plan import build_cell_plan
+    cfg, model = load_pretrained("gruunet2-dari_tult")
+    cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
+        cfg.dsp, sample_rate=PRIME_RATE, n_fft=PRIME_N_FFT,
+        hop_length=PRIME_N_FFT // 2))
+    out = [("gruunet2-dari_tult's weights at 44.1 kHz", warm_cfg(cfg, n_iter),
+            model, build_cell_plan(model))]
+    for n_fft, n_mels in PRIME_CASES:
+        c, m = small_webrtc_model(torch, n_iter, n_fft, n_mels)
+        out.append((f"random weights, n_fft {n_fft}, {n_mels} mels", c, m,
+                    build_cell_plan(m)))
+    return out
+
+
+def kernel_attrs():
+    """{kernel: (registers a thread, local bytes)} of csrc/webrtc_hop.cu's
+    M = 0 kernels (KERNEL_ATTRS), as cudaFuncGetAttributes reads them."""
+    from audio_denoising_torch.ops.kernels.build import load_kernel_library
+    fn = load_kernel_library("webrtc_hop").lib.adt_webrtc_hop_kernel_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for i, name in enumerate(KERNEL_ATTRS):
+        regs, local = ctypes.c_int(), ctypes.c_longlong()
+        err = fn(i, ctypes.byref(regs), ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes({name}): cudaError "
+                               f"{err}")
+        out[name] = (regs.value, local.value)
+    return out
+
+
+def phase_webrtc_primes(torch, smi, geo):
+    """Phase 61: the WebRTC hop at n_fft / 2 with a prime factor above 5,
+    the kernels' prime pass. The shared memory the library counts
+    against webrtc_hop_smem_bytes on each geometry; the kernels' radices
+    at n_fft 882 (PRIME_RADICES, and fft_radices for PRIME_FFT_SIZES);
+    then phase 60's checks and timings on prime_models (dari_tult at
+    44.1 kHz at SLOTS and 3 streams, the engine, both entry points timed
+    in both GL modes; the random-weight geometries at GEO_BATCH streams).
+    Prints phase 60's n_fft 640 times beside BEFORE_PRIME_US and
+    the M = 0 kernels' registers and local bytes. Returns phase 60's
+    dict for these geometries."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import make_webrtc_hop
+    cases = prime_models(torch, 32)
+    phase_smem_mirror(torch, [("webrtc_hop", label, c, p)
+                              for label, c, _, p in cases],
+                      torch.cuda.get_device_properties(
+                          0).shared_memory_per_block_optin)
+    _, cfg, _, plan = cases[0]
+    got = make_webrtc_hop(cfg, plan, "cuda").kernel_radices(cfg.dsp.hop_length)
+    if got != PRIME_RADICES:
+        raise AssertionError(f"the kernels' passes at n_fft {PRIME_N_FFT} "
+                             f"are {got}, not {PRIME_RADICES}")
+    out = phase_webrtc_geometries(torch, smi, cases, PRIME_FFT_SIZES, 61)
+    for entry, per in (("hop", 1), ("K-hop", WEBRTC_K)):
+        us = geo[entry, "float32"][2][0] * 1e3 / per
+        lo, hi = BEFORE_PRIME_US[entry]
+        say(f"  n_fft 640 (phase 60, this run; M = 0, 8 x 8 x 5), fp32 "
+            f"{entry}{' per hop' if per > 1 else ''}: {us:.2f} us; before "
+            f"the prime pass {lo}-{hi} us ({smi})")
+    for name, (regs, local) in kernel_attrs().items():
+        say(f"  {name}: {regs} registers, {local} B local "
+            f"(cudaFuncGetAttributes)")
     return out
 
 
@@ -6350,6 +6473,13 @@ def main() -> int:
         f"the plain version and a float64 witness; mode fused-webrtc; "
         f"timed")
     geo = phase_webrtc_geometries(torch, smi)
+    wide = ", ".join(f"n_fft {n}, {m} mels" for n, m in PRIME_CASES)
+    say(f"phase 61: the WebRTC hop at n_fft {PRIME_N_FFT} (WebRTC's 10 ms "
+        f"frame at 44.1 kHz, gruunet2-dari_tult) and on random weights "
+        f"({wide}): prime passes, both entry points, fp32 and bf16 GL, vs "
+        f"the plain version and a float64 witness; mode fused-webrtc; "
+        f"timed; the M = 0 kernels' registers")
+    primes = phase_webrtc_primes(torch, smi, geo)
 
     def variant(label, checked, timing=None, n=None):
         v = {"name": label, "checked": checked}
@@ -6412,16 +6542,23 @@ def main() -> int:
 
     mesh_runs = "phase 55: StreamEngine(mesh) against the unsharded engine"
 
-    def geo_variant(entry, dtype, gl):
-        """Phase 60's n_fft 640 run of ``entry`` in ``dtype``."""
-        n, e, timing = geo[entry, dtype]
-        checked = ("phase 60: each hop from the plain state with a float64 "
-                   "witness at 256 and 3 streams, and at 160 mels (n_fft "
-                   "1024) and 64 (n_fft 160); the engine" if entry == "hop"
-                   else "phase 60: against single hops (0); each call from "
-                   "the plain state with a float64 witness (fp32)")
-        v = variant(f"n_fft 640 (radix 5), {GEO_SPEC}, {dtype}, {gl}",
-                    checked, timing, n)
+    def geo_variant(entry, dtype, gl, prime=False):
+        """Phase 60's n_fft 640 run of ``entry`` in ``dtype`` (or phase
+        61's at n_fft 882)."""
+        n, e, timing = (primes if prime else geo)[entry, dtype]
+        others = ", ".join(f"{m} mels (n_fft {n_fft})" for n_fft, m in (
+            PRIME_CASES if prime else GEO_CASES))
+        phase = 61 if prime else 60
+        checked = (f"phase {phase}: each hop from the plain state with a "
+                   f"float64 witness at 256 and 3 streams, and at {others}; "
+                   f"the engine" if entry == "hop"
+                   else f"phase {phase}: against single hops (0); each call "
+                   f"from the plain state with a float64 witness (fp32)")
+        label = (f"n_fft {PRIME_N_FFT} (44.1 kHz, radices "
+                 f"{' x '.join(map(str, PRIME_RADICES))}), "
+                 f"gruunet2-dari_tult" if prime
+                 else f"n_fft 640 (radix 5), {GEO_SPEC}")
+        v = variant(f"{label}, {dtype}, {gl}", checked, timing, n)
         if entry == "hop" or dtype == "float32":   # held against plain
             v["max_abs_err"] = e
         return v
@@ -6484,9 +6621,11 @@ def main() -> int:
             ("webrtc_hop", "webrtc_hop", "webrtc_hop.py:331",
              w_launches + wws_launches + wb_launches
              + mesh_l["fused-webrtc"] + geo["hop", "float32"][0]
-             + geo["hop", "bfloat16"][0],
+             + geo["hop", "bfloat16"][0] + primes["hop", "float32"][0]
+             + primes["hop", "bfloat16"][0],
              max(w_err, wb_err, geo["hop", "float32"][1],
-                 geo["hop", "bfloat16"][1]), webrtc,
+                 geo["hop", "bfloat16"][1], primes["hop", "float32"][1],
+                 primes["hop", "bfloat16"][1]), webrtc,
              [variant("mel, gruunet2-dari_tult, warm GL", "phases 3, 6, 7; "
                       "not on a MOMO path (JAX refuses delta and raw)"),
               variant("WebSocket daemon, gruunet2-dari_tult, warm GL",
@@ -6503,11 +6642,15 @@ def main() -> int:
               variant("sharded, gruunet2-dari_tult, warm GL", mesh_runs,
                       n=mesh_l["fused-webrtc"]),
               geo_variant("hop", "float32", "GL-32"),
-              geo_variant("hop", "bfloat16", "GL-32")]),
+              geo_variant("hop", "bfloat16", "GL-32"),
+              geo_variant("hop", "float32", "GL-32", prime=True),
+              geo_variant("hop", "bfloat16", "GL-32", prime=True)]),
             ("webrtc_hop_multi", "webrtc_hop", "webrtc_hop.py:344",
              wm_launches + wbm_launches + geo["K-hop", "float32"][0]
-             + geo["K-hop", "bfloat16"][0],
-             max(wm_err, geo["K-hop", "float32"][1]),
+             + geo["K-hop", "bfloat16"][0] + primes["K-hop", "float32"][0]
+             + primes["K-hop", "bfloat16"][0],
+             max(wm_err, geo["K-hop", "float32"][1],
+                 primes["K-hop", "float32"][1]),
              w_multi[WEBRTC_GL[0]],
              [variant("mel, gruunet2-dari_tult, GL-8 and GL-32",
                       "phases 19-22; not on a MOMO path"),
@@ -6518,7 +6661,11 @@ def main() -> int:
               geo_variant("K-hop", "float32", f"GL-{WEBRTC_GL[0]}, "
                           f"K={WEBRTC_K}"),
               geo_variant("K-hop", "bfloat16", f"GL-{WEBRTC_GL[0]}, "
-                          f"K={WEBRTC_K}")]),
+                          f"K={WEBRTC_K}"),
+              geo_variant("K-hop", "float32", f"GL-{WEBRTC_GL[0]}, "
+                          f"K={WEBRTC_K}", prime=True),
+              geo_variant("K-hop", "bfloat16", f"GL-{WEBRTC_GL[0]}, "
+                          f"K={WEBRTC_K}", prime=True)]),
             ("fused_cell", "fused_cell", "gruunet_cell.py:58",
              c_launches + mc_launches + la_launches + oxc_launches,
              max(c_err, mc_err), fused_cell,

@@ -318,24 +318,55 @@ def test_the_bf16_gl_limits_need_the_control_to_fail(smoke):
             smoke.check_gl_bf16(32, bad)
 
 
-@pytest.mark.parametrize("geometry", [(640, 64), (1024, 160), (160, 64)])
+@pytest.mark.parametrize("geometry", [(640, 64), (1024, 160), (160, 64),
+                                      (882, 64), (44, 16), (1018, 64)])
 def test_the_bf16_geometry_limits_need_the_control_to_fail(smoke,
                                                            geometry):
-    """Phase 60's bf16 limit at each geometry sits between the kernel's
-    lowest reading and the control's highest (chip_smoke.py's comment
-    beside BF16_GEO_GL32_DB), and check_gl_bf16 holds a reading to it,
-    not to BF16_GL_DB."""
+    """Phases 60 and 61's bf16 limit at each geometry sits between the
+    kernel's lowest reading and the control's highest at its GL rounds
+    (chip_smoke.py's comments beside BF16_GEO_GL32_DB; n_fft 882 at GL-8),
+    and check_gl_bf16 holds a reading to it, not to BF16_GL_DB."""
     kernel, control = {(640, 64): (14.5, 10.1), (1024, 160): (17.7, 13.6),
-                       (160, 64): (127.0, 53.1)}[geometry]
-    lim = smoke.BF16_GEO_GL32_DB[geometry]
+                       (160, 64): (127.0, 53.1), (882, 64): (38.9, 35.4),
+                       (44, 16): (131.0, 41.5),
+                       (1018, 64): (13.8, 10.0)}[geometry]
+    n_iter, lim = smoke.bf16_geometry_limit(*geometry)
+    assert n_iter == (8 if geometry == (882, 64) else 32)
     assert control < lim < kernel
     ok = {"plain": (kernel, control), "nearer": (0.6, -55.7),
           "sc": (0.1, 0.1)}
-    smoke.check_gl_bf16(32, ok, lim)
+    smoke.check_gl_bf16(n_iter, ok, lim)
     for bad in ({**ok, "plain": (lim - 0.1, control)},
                 {**ok, "plain": (kernel, lim + 0.1)}):
         with pytest.raises(AssertionError):
-            smoke.check_gl_bf16(32, bad, lim)
+            smoke.check_gl_bf16(n_iter, bad, lim)
+
+
+def test_prime_models_take_the_kernels(smoke):
+    """Phase 61's geometries: n_fft 882 at 44.1 kHz on gruunet2-dari_tult
+    (64 mels) with two radix-7 passes, n_fft 44 (2 x 11) and the prime
+    M = 509 on random weights; each takes the kernels (shared memory
+    counted) and one warm hop of its plain version is finite; the
+    kernels' attributes are read for four kernels."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        fft_radices, webrtc_hop_smem_bytes)
+    cases = smoke.prime_models(torch, 2)
+    dsp = [c.dsp for _, c, _, _ in cases]
+    assert [(d.n_fft, d.n_mels) for d in dsp] == \
+        [(smoke.PRIME_N_FFT, 64)] + list(smoke.PRIME_CASES)
+    assert dsp[0].sample_rate == 44100 and dsp[0].hop_length == 441
+    assert [d.n_fft // 2 for d in dsp] == list(smoke.PRIME_FFT_SIZES)
+    assert fft_radices(441) == smoke.PRIME_RADICES
+    assert fft_radices(509) == [509] and fft_radices(22) == [2, 11]
+    assert len(smoke.KERNEL_ATTRS) == 4
+    for _, cfg, _, plan in cases:
+        assert cfg.dsp.griffin_lim_warm_start
+        assert webrtc_hop_smem_bytes(cfg, plan) > 0
+        hop = make_webrtc_hop(cfg, plan, "cpu")
+        s = webrtc_hop_init_state(cfg, plan, 2)
+        for c in _chunks(2, 2, cfg.dsp.hop_length, 61):
+            s, out = hop(s, c)
+        assert torch.isfinite(out).all() and torch.isfinite(s.ola).all()
 
 
 @pytest.mark.parametrize("K", [1, 2, 3])

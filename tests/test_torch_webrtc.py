@@ -199,17 +199,18 @@ def test_fft_pass_schedule_matches_torch_fft(m, radices):
 @pytest.mark.parametrize("m", [1, 6, 24, 48, 96, 384, 1152, 5, 20, 320,
                                600])
 def test_fft_radices_factor_every_half_length(m):
-    """Any m of 2s, 3s and 5s splits into passes the kernels take, whose
-    product is m, and their twiddles fill the m - 1 entries of the pass
-    table, each once; another prime factor is refused."""
-    radices = fft_radices(m)
-    assert int(np.prod(radices)) == m
-    assert set(radices) <= {1, 2, 3, 4, 5, 8, 12}
-    table = pass_twiddle_table(m)     # unfilled entries would be NaN
-    assert len(table) == max(m - 1, 1)
-    assert np.allclose(np.hypot(table[:, 0], table[:, 1]), 1.0)
-    with pytest.raises(ValueError):
-        fft_radices(7 * m)
+    """Any m of 2s, 3s and 5s splits into passes of the in-register
+    radices, whose product is m, and their twiddles fill the m - 1
+    entries of the pass table, each once; another prime factor is a pass
+    of its own, after those of 2, 3 and 5, and fills the table too."""
+    for size in (m, 7 * m):
+        radices = fft_radices(size)
+        assert int(np.prod(radices)) == size
+        fixed = [r for r in radices if r in {1, 2, 3, 4, 5, 8, 12}]
+        assert radices == fixed + [7] * (size != m)
+        table = pass_twiddle_table(size)   # unfilled entries would be NaN
+        assert len(table) == max(size - 1, 1)
+        assert np.allclose(np.hypot(table[:, 0], table[:, 1]), 1.0)
 
 
 @pytest.mark.parametrize("n_fft", [1536, 1024, 64])

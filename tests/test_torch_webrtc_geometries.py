@@ -13,6 +13,7 @@ import ctypes
 import dataclasses
 import math
 import types
+import warnings
 
 import numpy as np
 import pytest
@@ -91,31 +92,38 @@ def test_real_split_gives_rfft_and_irfft_with_radix5(n_fft):
     assert np.abs(y.numpy() - ref).max() < 1e-10 * np.abs(ref).max()
 
 
-def test_other_primes_raise_when_the_kernels_bind(monkeypatch):
-    """n_fft / 2 with a prime factor above 5 is the one geometry the
-    kernels' FFT does not take: -1. That is not a capacity case (-1 is
-    never over a limit), so the engine keeps the mode on a card, and
-    binding the kernels raises; the plain version on the CPU serves it."""
-    with pytest.raises(ValueError, match="2, 3 and 5"):
-        fft_radices(7 * 8)
-    _, (cfg, model, plan) = _small(56, 16)
-    assert webrtc_hop_smem_bytes(cfg, plan) == -1
-    assert hop_smem_bytes(cfg, plan, "fused-webrtc") == -1
+@pytest.mark.parametrize("m", [28, 22, 441])
+def test_other_primes_keep_fused_webrtc_and_bind(monkeypatch, m):
+    """n_fft / 2 with a prime factor above 5 (m = 28 = 4 x 7, 22 = 2 x
+    11, 441 = 3 x 3 x 7 x 7) is a geometry the kernels take: its shared
+    memory is counted, the engine keeps mode fused-webrtc on a card (no
+    downgrade warning), and binding a library gets past the geometry:
+    with a stand-in library that agrees on the layout and the count, the
+    hop binds and names the M = 0 instantiation."""
+    _, (cfg, model, plan) = _small(2 * m, 16)
+    need = webrtc_hop_smem_bytes(cfg, plan)
+    assert 0 < need == hop_smem_bytes(cfg, plan, "fused-webrtc")
     monkeypatch.setattr(engine_mod, "shared_memory_limit",
                         lambda device: SMEM_LIMIT)
-    eng = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=1,
-                       device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        eng = StreamEngine(cfg, model, mode="fused-webrtc", max_streams=1,
+                           device="cpu")
     assert eng.mode == "fused-webrtc"
     hop = make_webrtc_hop(cfg, plan, "cpu")
-    # a stand-in for the built library: the argument layout agrees, so
-    # binding reaches the geometry check
-    size = ctypes.sizeof(webrtc_hop_mod._Args)
-    lib = types.SimpleNamespace(**{f: (lambda *a: size) for f in (
-        "adt_webrtc_hop_args_size", "adt_webrtc_hop_smem_bytes",
-        "adt_webrtc_hop_fft_instance", "adt_webrtc_hop_fft_radices",
-        "adt_webrtc_hop", "adt_webrtc_hop_multi")})
-    with pytest.raises(ValueError, match="2, 3 and 5"):
-        hop._bind(lib)
+    answers = {"adt_webrtc_hop_args_size": ctypes.sizeof(
+                   webrtc_hop_mod._Args),
+               "adt_webrtc_hop_smem_bytes": need,
+               "adt_webrtc_hop_fft_instance": 0}
+    lib = types.SimpleNamespace(**{f: (lambda *a, v=v: v) for f, v in (
+        *answers.items(), ("adt_webrtc_hop_fft_radices", -1),
+        ("adt_webrtc_hop", 1), ("adt_webrtc_hop_multi", 1))})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(
+                            shared_memory_per_block_optin=SMEM_LIMIT))
+    hop._bind(lib)
+    assert hop.fft_instance == 0 and hop._base_args.hop == m
+    assert fft_radices(m)[-1] in (7, 11)
 
 
 # -- the plain hop against JAX's kernel at the new geometries ----------------
