@@ -643,6 +643,23 @@ long long adt_fused_hop_smem_bytes(const AdtFusedHopArgs* a) {
   return (long long)l.total * (long long)sizeof(float);
 }
 
+// Registers a thread and local (spill and stack) bytes of the reduced
+// modes' kernel `which` (cudaFuncGetAttributes): 0 and 1 the bf16
+// single-hop and multi-hop kernels, 2 and 3 the int8 ones. Returns the
+// cudaError_t.
+int adt_fused_hop_kernel_attrs(int which, int* regs, long long* local) {
+  void (*kernels[4])(AdtFusedHopArgs) = {
+      fused_hop_kernel<kBf16>, fused_hop_multi_kernel<kBf16>,
+      fused_hop_kernel<kInt8>, fused_hop_multi_kernel<kInt8>};
+  if (which < 0 || which >= 4) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local = (long long)attr.localSizeBytes;
+  return (int)cudaSuccess;
+}
+
 // Launches one hop (float32 IO, a->hops == 1) on `stream` without
 // synchronising; returns the launch's cudaError_t (0 on success).
 int adt_fused_hop(const AdtFusedHopArgs* a, void* stream) {

@@ -165,15 +165,19 @@ raises on failure (so the script exits non-zero and prints no result):
     scan, residual and inverse mel, the gate scans on phase 32's
     checkpoint, the iSTFT), and ``offline_denoiser`` on 16 clips of 10 s;
 35. the fused-hop kernel in its reduced compute modes, bf16 and W8A8
-    int8, against its plain version on the card over 20 hops (every
-    hop's outputs and every plane but the ring by SNR, the ring exact):
+    int8 (each mode's tile of streams a block, cluster size and its two
+    kernels' registers and local bytes from cudaFuncGetAttributes printed
+    and in the kernels line), against its plain version on the card over
+    20 hops (every hop's outputs and every plane but the ring by SNR, the
+    ring exact):
     each hop from the plain version's state at ``FORCED_DB``, and the
     kernel carrying its own state by each stream's SNR over the run, its
     median and its worst at ``FREE_DB`` (the plain version carries its
     own in both); the control, the plain fp32 hop in the kernel's place,
-    must fail both: gruunet2-stream16k at 256 and 3 streams, ungated
-    and with the tuned gate ('both', voiced input, the blending share
-    printed and required above 0); bench.py's quality
+    must fail both: gruunet2-stream16k at 256, 41 (a ragged last tile
+    above one tile) and 3 streams, ungated and with the tuned gate
+    ('both', voiced input, the blending share printed and required above
+    0); bench.py's quality
     flagship runs/gruunet2mel128w64-mrstft-50k.npz (48 kHz, n_fft 1024,
     128 mels, hidden 64) at 256 streams, first in fp32 as phase 2 holds
     it; momo3-4d4ea0 at 256 and 3 (prev included; in int8 level 0
@@ -519,6 +523,10 @@ OFFLINE_PROFILED_S = 15
 OFFLINE_BATCH = 16
 OFFLINE_BATCH_S = 10
 REDUCED = ("bfloat16", "int8")   # the fused hop's reduced compute modes
+RAGGED = 41          # streams whose last tile is ragged above one (phase 35)
+# the reduced modes' kernels adt_fused_hop_kernel_attrs reads, in its order
+REDUCED_KERNELS = (("bfloat16", "hop"), ("bfloat16", "K-hop"),
+                   ("int8", "hop"), ("int8", "K-hop"))
 FLAGSHIP = "gruunet2mel128w64-mrstft-50k.npz"   # bench.py's quality flagship
 S16K = "gruunet2-stream16k"
 # The reduced modes' kernel against its plain version on the card, by SNR
@@ -2483,6 +2491,29 @@ def time_momo(torch, cfg, model, plan, smi):
 
 
 # -- bf16 and int8 compute of the fused hop (phases 35-38) --------------------
+
+def fused_hop_reduced_attrs():
+    """{(dtype, 'hop' or 'K-hop'): {tile, cluster, registers,
+    local_bytes}} of the fused hop's reduced-mode kernels: the streams a
+    block owns (KTILE) with no cluster (1 block), the registers a thread
+    and local bytes (adt_fused_hop_kernel_attrs: cudaFuncGetAttributes)."""
+    from audio_denoising_torch.ops.kernels.build import load_kernel_library
+    from audio_denoising_torch.ops.kernels.common import KTILE
+    fn = load_kernel_library("fused_hop").lib.adt_fused_hop_kernel_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for i, (dtype, entry) in enumerate(REDUCED_KERNELS):
+        regs, local = ctypes.c_int(), ctypes.c_longlong()
+        err = fn(i, ctypes.byref(regs), ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes (fused hop, {dtype} "
+                               f"{entry}): cudaError {err}")
+        out[(dtype, entry)] = {"tile": KTILE, "cluster": 1,
+                               "registers": regs.value,
+                               "local_bytes": local.value}
+    return out
+
 
 def phase_reduced_hop(torch, cases):
     """Phase 35 on each (model, label, cfg, plan, batches, voiced): both
@@ -6319,10 +6350,15 @@ def main() -> int:
     flag_err = phase_kernel_vs_plain(
         torch, make_fused_hop(flag_cfg, flag_plan, "cuda"), flag_cfg,
         flag_plan, (SLOTS,))[0]
+    r_attrs = fused_hop_reduced_attrs()
+    for (dtype, entry), v in r_attrs.items():
+        say(f"  {dtype} {entry} kernel: a tile of {v['tile']} streams on a "
+            f"cluster of {v['cluster']} blocks; {v['registers']} registers, "
+            f"{v['local_bytes']} B local (cudaFuncGetAttributes)")
     r_err = phase_reduced_hop(torch, [
-        (S16K, S16K, cfg, plan, (SLOTS, 3), False),
+        (S16K, S16K, cfg, plan, (SLOTS, RAGGED, 3), False),
         (S16K, f"{S16K}, tuned gate (both)", tuned_gate(cfg), plan,
-         (SLOTS, 3), True),
+         (SLOTS, RAGGED, 3), True),
         (FLAGSHIP, FLAGSHIP, flag_cfg, flag_plan, (SLOTS,), False),
         (MOMO_SPEC, MOMO_SPEC, momo_cfg, momo_plan, (SLOTS, 3), False)])
     say(f"phase 36: the resident K-hop kernel in bf16 and int8 ({SLOTS} "
@@ -6504,7 +6540,8 @@ def main() -> int:
             if kind == "hop":
                 (db, e), limit = r_err[(label, dtype)], FORCED_DB[dtype]
                 checked = ("phases 35, 37, 38; stream16k (ungated, tuned "
-                           "gate), the flagship and MOMO3, 256 and 3")
+                           "gate) at 256, 41 and 3, the flagship at 256 "
+                           "and MOMO3 at 256 and 3")
                 runs = n if label == S16K else None
             else:
                 runs, e, db = r_multi[(label, dtype)]
@@ -6512,7 +6549,8 @@ def main() -> int:
                 checked = "phase 36; fp32 and int16 IO"
             v = variant(f"{dtype}, {label}", checked,
                         r_t[(label, dtype, kind)], runs)
-            v.update(max_abs_err=e, worst_db=db, limit_db=limit)
+            v.update(max_abs_err=e, worst_db=db, limit_db=limit,
+                     **r_attrs[(dtype, kind)])
             out.append(v)
         return out
 
@@ -6566,11 +6604,12 @@ def main() -> int:
     v_fi = variant(flag_i8, "phase 44: 256 streams, voiced, the control "
                    "failing", fi_t[0], fi_launches)
     v_fi.update(max_abs_err=fi_err, worst_db=fi_db,
-                limit_db=FORCED_DB["int8"])
+                limit_db=FORCED_DB["int8"], **r_attrs[("int8", "hop")])
     v_fim = variant(flag_i8, "phase 44: K = 50, fp32 and int16 IO, the "
                     "control failing", fi_t[1], fim_launches)
     v_fim.update(max_abs_err=fi_multi[1], worst_db=fi_multi[2],
-                 limit_db=FREE_DB[(FLAGSHIP, "int8")][1])
+                 limit_db=FREE_DB[(FLAGSHIP, "int8")][1],
+                 **r_attrs[("int8", "K-hop")])
     rows = []
     for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by), \
             variants in (
