@@ -50,44 +50,48 @@
 // per stream; K hops in one call therefore equal K single hops bit for bit
 // (warm Griffin-Lim on trained weights is chaotic, so any other rounding
 // would part ways within a few hops):
-// 1. `analysis_stage`, kFftThreads lanes per stream: ring shift, peak, the
-//    3-frame STFT as in-kernel FFTs, mel and log1p; the features and the
-//    peak.
+// 1. `analysis_stage`, fft_threads(M) lanes per stream: ring shift, peak,
+//    the 3-frame STFT as in-kernel FFTs, mel and log1p; the features and
+//    the peak.
 // 2. `cell_stage`, kThreads lanes per tile of kTile streams: the three
 //    plan-cell steps on plan_cell.cuh's small-GEMM routine (the weights
 //    come from L2, each tile reads them once per step), then the
 //    residual; the mel magnitudes and hx.
-// 3. `gl_stage`, kFftThreads lanes per stream: inverse mel, the warm seed,
-//    the Griffin-Lim loop and the synthesis, with the magnitudes, phases,
-//    previous rebuilt spectrum and time signal in shared memory (about
-//    89 KB at n_fft 1536).
+// 3. `gl_stage`, fft_threads(M) lanes per stream: inverse mel, the warm
+//    seed, the Griffin-Lim loop and the synthesis, with the magnitudes,
+//    phases, previous rebuilt spectrum and time signal in shared memory
+//    (about 89 KB at n_fft 1536).
 // One hop per call is three launches on the caller's stream, one per
 // stage (`analysis_kernel`, `cell_kernel`, `gl_kernel`), with the features,
 // mel magnitudes and peaks in scratch. K hops per call are one launch of
-// `webrtc_hop_multi_kernel`: a block of kTile * kFftThreads threads owns a
-// tile of kTile streams (one block per SM at n_fft 1536, about 210 KB of
-// shared memory); it loads the tile's ring, OLA buffer, hx and both phase
-// planes into shared memory once, runs the three stages K times (threads
-// [kFftThreads s, kFftThreads (s + 1)) run stream s's transforms and wait
-// at a named barrier of their own; the first kThreads run the cell, whose
-// buffers alias stream 0's transform buffers), reading chunk k of
+// `webrtc_hop_multi_kernel`: a block of kTile * fft_threads(M) threads
+// owns a tile of kTile streams (one block per SM at n_fft 1536, about 210
+// KB of shared memory); it loads the tile's ring, OLA buffer, hx and both
+// phase planes into shared memory once, runs the three stages K times
+// (with L = fft_threads(M), threads [L s, L (s + 1)) run stream s's
+// transforms and wait at a named barrier of their own; the first kThreads
+// run the cell, whose buffers alias stream 0's transform buffers),
+// reading chunk k of
 // (K, B, hop) and writing output k, and stores the state once: the
 // counterpart of the Pallas kernel's VMEM scratch carried across its K
 // grid steps. A ragged last tile leaves its missing stream's lanes idle.
 // The transforms are real FFTs of n_fft points done as complex FFTs of
 // m = n_fft / 2 points plus the real-input split; the three frames of a
-// window are transformed side by side, 288 lanes (9 warps) per stream.
+// window are transformed side by side, 288 lanes (9 warps) per stream,
+// 256 at M = 441 (fft_threads).
 // The complex FFT is a Stockham autosort in a few wide passes: each lane
 // loads an item's R points from shared memory, twiddles them, runs the
-// R-point DFT in registers (8 and 12 as four-point DFTs and a second
-// level) and stores them; ping-pong buffers in shared memory, one barrier
-// per pass. At m = 768 the passes are 8 x 8 x 12 (a radix-8 pass is one
-// item per lane), at m = 512 8 x 8 x 8, at m = 320 (n_fft 640) 8 x 8 x 5
-// (5 runs in registers too). A prime factor p above 5 is a pass of its
-// own (`prime_pass`), whose p-point DFT runs as sums: each lane computes
-// one output of an item from its p points, so the pass spreads m
-// outputs over the lanes; at m = 441 (n_fft 882, WebRTC's 10 ms frame at
-// 44.1 kHz) the passes are 3 x 3 x 7 x 7. The first pass reads its points
+// R-point DFT in registers (5 and 7 pair the points r and R - r; 8, 9 and
+// 12 run four- or three-point DFTs and a second level) and stores them;
+// ping-pong buffers in shared memory, one barrier per pass. At m = 768
+// the passes are 8 x 8 x 12 (a radix-8 pass is one item per lane), at
+// m = 512 8 x 8 x 8, at m = 441 (n_fft 882, WebRTC's 10 ms frame at 44.1
+// kHz) 9 x 7 x 7 (147, 189 and 189 items: one a lane), at m = 320 (n_fft
+// 640) 8 x 8 x 5. In the M = 0 instantiation a prime factor p above 5 is
+// a pass of its own (`prime_pass`), whose p-point DFT runs as sums: each
+// lane computes one output of an item from its p points, so the pass
+// spreads m outputs over the lanes (n_fft 44 runs 2 x 11, n_fft 1018 one
+// pass of 509). The first pass reads its points
 // through the transform's input: the forward's reflect-indexed, windowed
 // frames packed two samples a point, the inverse's real-input pre-twiddle
 // of mag * (are + i aim); so a Griffin-Lim round waits at 8 barriers (3
@@ -99,12 +103,13 @@
 // built in float64 by the wrapper; the in-register DFTs' own twiddles are
 // compile-time constants, the prime passes' roots entries of the n_fft-point
 // table. The element loops of the transforming stages
-// stride by the constant kFftThreads. The geometry is compiled
+// stride by the constant fft_threads(M). The geometry is compiled
 // in: the stages that transform are templates on M = n_fft / 2, with
-// instantiations for 768, 512 and 32 whose radices, strides and counts
-// are constants (no division at run time), and M = 0, the same code with
-// the geometry read from FftPlan at run time, for any other m: every even
-// n_fft with hop = n_fft / 2, as JAX's kernel takes.
+// instantiations for 768, 512, 441 and 32 whose radices, strides and
+// counts are constants (no division at run time), and M = 0, the same
+// code with the geometry read from FftPlan at run time, for any other m
+// (its passes switch on the radix, 12, 8 and 5 and below in registers):
+// every even n_fft with hop = n_fft / 2, as JAX's kernel takes.
 //
 // Any mel count: the analysis's mel outputs (kFrames * n_mels of them) are
 // split over the lanes as partial sums where they are fewer than the lanes,
@@ -158,30 +163,49 @@ struct AdtWebRTCHopArgs {
 namespace {
 
 constexpr int kFrames = 3;
-// Lanes per stream of the FFT stages: 9 warps, so a radix-8 pass over the
-// three frames at M = 768 (3 x 96 items) is one item per lane.
-constexpr int kFftThreads = 288;
+// Lanes per stream of the FFT stages of the instantiation for M: 9 warps,
+// so a radix-8 pass over the three frames at M = 768 (3 x 96 items) is one
+// item per lane; 8 at M = 441, whose passes have 147, 189 and 189 items,
+// so that the K-hop kernel's block of kTile streams is the cell's kThreads
+// lanes: ptxas then gives it 128 registers and no spills, where 576 lanes
+// left it 96 and spills (the single hop's GL launch takes the same time
+// either way).
+__host__ __device__ constexpr int fft_threads(int m) {
+  return m == 441 ? 256 : 288;
+}
 // the analysis's partial results: the peak tree's lanes, the mel outputs'
-// partial sums where they are split (never more than the lanes)
-constexpr int kRed = kFftThreads;
-constexpr int kMultiThreads = kTile * kFftThreads;
+// partial sums where they are split (never more than the lanes); as many
+// as the most lanes a stream has
+constexpr int kRed = 288;
 constexpr int kCellBarrier = 1 + kTile;  // named barriers 1..kTile: streams
 constexpr int kMaxPasses = 16;
-static_assert(kThreads <= kMultiThreads, "the cell's lanes fit the block");
-static_assert(kFftThreads % 32 == 0, "a named barrier counts whole warps");
+
+// The half-lengths M = n_fft / 2 with an instantiation of their own, whose
+// geometry (radices, strides, frame and bin counts) is compile-time
+// constant: 768 (n_fft 1536, every 48 kHz WebRTC preset), 512 (n_fft
+// 1024), 441 (n_fft 882, WebRTC's 10 ms frame at 44.1 kHz) and 32 (n_fft
+// 64, the JAX tests' geometry). Any other M that `args_ok` accepts runs
+// the M = 0 instantiation, the same code with the geometry read from
+// FftPlan at run time.
+__host__ __device__ constexpr int fft_instance(int m) {
+  return m == 768 || m == 512 || m == 441 || m == 32 ? m : 0;
+}
 
 // The radix of the next pass when `rest` > 1 points are left to combine:
 // rest itself where the passes take it as one radix (12, 8, 5, 4, 3, 2),
-// else the first of 8, 4, 2, 3 and 5 that divides it, else rest's
-// smallest prime factor (a prime pass). M = 768 runs 8 x 8 x 12, M = 512
-// 8 x 8 x 8, M = 320 8 x 8 x 5, M = 32 8 x 4, M = 441 3 x 3 x 7 x 7.
-__host__ __device__ constexpr int next_radix(int rest) {
+// else the first of 8, 4, 2, 3 and 5 that divides it (for a compiled-in M,
+// 9 before 3), else rest's smallest prime factor (for a compiled-in M, 7
+// runs in registers; in the M = 0 instantiation it, and any prime above
+// it, is a prime pass). M = 768 runs 8 x 8 x 12, M = 512 8 x 8 x 8, M =
+// 441 9 x 7 x 7, M = 32 8 x 4; at run time 320 runs 8 x 8 x 5, 22 2 x 11.
+__host__ __device__ constexpr int next_radix(int rest, bool compiled) {
   if (rest == 12 || rest == 8 || rest == 5 || rest == 4 || rest == 3 ||
       rest == 2)
     return rest;
   if (rest % 8 == 0) return 8;
   if (rest % 4 == 0) return 4;
   if (rest % 2 == 0) return 2;
+  if (compiled && rest % 9 == 0) return 9;
   if (rest % 3 == 0) return 3;
   if (rest % 5 == 0) return 5;
   for (int q = 7; q * q <= rest; q += 2)  // 2, 3 and 5 divide it no more
@@ -189,10 +213,10 @@ __host__ __device__ constexpr int next_radix(int rest) {
   return rest;
 }
 
-// A radix the passes run as an in-register DFT (`dft`); any other is
-// a prime pass.
+// A radix a compiled-in M runs as an in-register DFT (`dft`); M = 0 runs
+// 12, 8 and 5 and below so, any other as a prime pass.
 __host__ __device__ constexpr bool fixed_radix(int r) {
-  return r == 12 || r == 8 || r <= 5;
+  return r == 12 || r == 9 || r == 8 || r == 7 || r <= 5;
 }
 
 // The radices of the complex FFT of m = n_fft / 2 points, read at run time
@@ -207,24 +231,15 @@ bool make_fft_plan(int m, FftPlan* p) {
   p->m = m;
   p->passes = 0;
   if (m < 1) return false;
+  const bool compiled = fft_instance(m) != 0;
   int rest = m;
   while (rest > 1 && p->passes < kMaxPasses) {
-    const int r = next_radix(rest);
+    const int r = next_radix(rest, compiled);
     p->radix[p->passes++] = r;
     rest /= r;
   }
   if (p->passes == 0) p->radix[p->passes++] = 1;
   return rest == 1;
-}
-
-// The half-lengths M = n_fft / 2 with an instantiation of their own, whose
-// geometry (radices, strides, frame and bin counts) is compile-time
-// constant: 768 (n_fft 1536, every 48 kHz WebRTC preset), 512 (n_fft
-// 1024) and 32 (n_fft 64, the JAX tests' geometry). Any other M that
-// `args_ok` accepts runs the M = 0 instantiation, the same code with the
-// geometry read from FftPlan at run time.
-int fft_instance(int m) {
-  return m == 768 || m == 512 || m == 32 ? m : 0;
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -297,13 +312,55 @@ __device__ __forceinline__ float2 rotate(float2 v) {
   }
 }
 
+// The terms r = kR .. H of outputs s and R - s of an odd R-point DFT, H =
+// (R - 1) / 2, from the sums a[r - 1] = v[r] + v[R - r] and differences
+// b[r - 1] = v[r] - v[R - r]: t += cos(2 pi r s / R) a and u += sin(2 pi r
+// s / R) b, each cosine and sine a compile-time constant.
+template <int R, int s, int kR>
+__device__ __forceinline__ void odd_terms(const float2 (&a)[(R - 1) / 2],
+                                          const float2 (&b)[(R - 1) / 2],
+                                          float2& t, float2& u) {
+  if constexpr (kR <= (R - 1) / 2) {
+    constexpr int q = kR * s % R;
+    constexpr float c = (float)cos_turn(q, R);
+    constexpr float sn = (float)cos_turn(4 * q - R, 4 * R);
+    t = make_float2(t.x + c * a[kR - 1].x, t.y + c * a[kR - 1].y);
+    u = make_float2(u.x + sn * b[kR - 1].x, u.y + sn * b[kR - 1].y);
+    odd_terms<R, s, kR + 1>(a, b, t, u);
+  }
+}
+
+// Outputs kS .. H and R - H .. R - kS of an odd R-point DFT into v: t +-
+// (-+i) u, t = v0 + sum_r cos a_r, u = sum_r sin b_r (odd_terms).
+template <bool kInverse, int R, int kS>
+__device__ __forceinline__ void odd_outputs(float2 (&v)[R], float2 v0,
+                                            const float2 (&a)[(R - 1) / 2],
+                                            const float2 (&b)[(R - 1) / 2]) {
+  if constexpr (kS <= (R - 1) / 2) {
+    constexpr int q = kS % R;
+    constexpr float c = (float)cos_turn(q, R);
+    constexpr float sn = (float)cos_turn(4 * q - R, 4 * R);
+    float2 t = make_float2(v0.x + c * a[0].x, v0.y + c * a[0].y);
+    float2 u = make_float2(sn * b[0].x, sn * b[0].y);
+    odd_terms<R, kS, 2>(a, b, t, u);
+    u = rot90<kInverse>(u);
+    v[kS] = cadd(t, u);
+    v[R - kS] = csub(t, u);
+    odd_outputs<kInverse, R, kS + 1>(v, v0, a, b);
+  }
+}
+
 // The DFT of R points in registers, in place and in natural order:
-// v[s] <- sum_r v[r] e^{-+2 pi i r s / R}, R = 1, 2, 3, 4, 5, 8 or 12. 5
-// pairs the points r and 5 - r (sums and differences) and weights them by
-// the cosines and sines of 2 pi / 5 and 4 pi / 5. 8 and
-// 12 run four-point DFTs over the R / 4 subsequences v[n2 + (R / 4) n1],
-// twiddle them by e^{-+2 pi i n2 k1 / R}, and finish with R / 4-point DFTs
-// across the subsequences.
+// v[s] <- sum_r v[r] e^{-+2 pi i r s / R}, R = 1, 2, 3, 4, 5, 7, 8, 9 or
+// 12. 5 and 7 pair the points r and R - r (sums and differences) and
+// weight them by the cosines and sines of 2 pi r s / R (7 by compile-time
+// constants from `odd_outputs`, which takes any odd R), so each output
+// pair costs (R - 1) / 2 products a part; 7 and 9 serve the compiled-in
+// M = 441 (the M = 0 instantiation runs 7 and any larger prime as a prime
+// pass). 8 and 12 run four-point DFTs
+// over the R / 4 subsequences v[n2 + (R / 4) n1], twiddle them by
+// e^{-+2 pi i n2 k1 / R}, and finish with R / 4-point DFTs across the
+// subsequences; 9 does the same with three-point DFTs over v[n2 + 3 n1].
 template <bool kInverse, int R>
 __device__ __forceinline__ void dft(float2 (&v)[R]) {
   if constexpr (R == 2) {
@@ -347,6 +404,40 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
     v[2] = cadd(t2, u2);
     v[3] = csub(t2, u2);
     v[4] = csub(t1, u1);
+  } else if constexpr (R == 7) {
+    constexpr int H = (R - 1) / 2;
+    float2 a[H], b[H];
+#pragma unroll
+    for (int r = 1; r <= H; ++r) {
+      a[r - 1] = cadd(v[r], v[R - r]);
+      b[r - 1] = csub(v[r], v[R - r]);
+    }
+    const float2 v0 = v[0];
+    float2 sum = v0;
+#pragma unroll
+    for (int r = 0; r < H; ++r) sum = cadd(sum, a[r]);
+    odd_outputs<kInverse, R, 1>(v, v0, a, b);
+    v[0] = sum;
+  } else if constexpr (R == 9) {
+    float2 y[3][3];
+#pragma unroll
+    for (int n2 = 0; n2 < 3; ++n2) {
+      float2 u[3] = {v[n2], v[3 + n2], v[6 + n2]};
+      dft<kInverse, 3>(u);
+#pragma unroll
+      for (int k1 = 0; k1 < 3; ++k1) y[n2][k1] = u[k1];
+    }
+    y[1][1] = rotate<kInverse, 9, 1>(y[1][1]);
+    y[1][2] = rotate<kInverse, 9, 2>(y[1][2]);
+    y[2][1] = rotate<kInverse, 9, 2>(y[2][1]);
+    y[2][2] = rotate<kInverse, 9, 4>(y[2][2]);
+#pragma unroll
+    for (int k1 = 0; k1 < 3; ++k1) {
+      float2 z[3] = {y[0][k1], y[1][k1], y[2][k1]};
+      dft<kInverse, 3>(z);
+#pragma unroll
+      for (int k2 = 0; k2 < 3; ++k2) v[k1 + 3 * k2] = z[k2];
+    }
   } else if constexpr (R == 8 || R == 12) {
     constexpr int Q = R / 4;
     float2 y[Q][4];
@@ -375,7 +466,7 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
       for (int k2 = 0; k2 < Q; ++k2) v[k1 + 4 * k2] = z[k2];
     }
   } else {
-    static_assert(R == 1, "radices 1, 2, 3, 4, 5, 8 and 12");
+    static_assert(R == 1, "radices 1, 2, 3, 4, 5, 7, 8, 9 and 12");
   }
 }
 
@@ -470,8 +561,8 @@ __device__ __forceinline__ float2* fft_fixed(float2* in, float2* out,
   if constexpr (kNs == kM) {
     return in;
   } else {
-    constexpr int R = next_radix(kM / kNs);
-    static_assert(fixed_radix(R), "a compiled-in M factors into 2, 3, 5");
+    constexpr int R = next_radix(kM / kNs, true);
+    static_assert(fixed_radix(R), "a compiled-in M factors into 2, 3, 5, 7");
     fft_pass<kInverse, R>(BufLoad{in, kM}, out, kM, kNs, ptw, g);
     return fft_fixed<kInverse, kM, kNs * R>(out, in, ptw, g);
   }
@@ -517,7 +608,7 @@ __device__ __forceinline__ float2* fft(const Load& first, float2* buf0,
                                        float2* buf1, const FftPlan& p,
                                        const float2* tw, const Lanes& g) {
   if constexpr (kM > 0) {
-    constexpr int R = next_radix(kM);
+    constexpr int R = next_radix(kM, true);
     const float2* ptw = tw + 2 * kM;
     fft_pass<kInverse, R>(first, buf0, kM, 1, ptw, g);
     return fft_fixed<kInverse, kM, R>(buf0, buf1, ptw, g);
@@ -714,7 +805,7 @@ __device__ __noinline__ void analysis_stage(
     float* peak_out) {
   extern __shared__ __align__(16) float dyn[];
   float* smem = dyn + base;
-  g.n = kFftThreads;  // what both entry points give a stream: a constant
+  g.n = fft_threads(kM);  // what both entry points give a stream: a constant
   const int m = half_length<kM>(p);
   const int n_fft = 2 * m, hop = m, keep = n_fft - hop;
   const int F = m + 1, M = a.n_mels;
@@ -889,7 +980,7 @@ __device__ __noinline__ void gl_stage(
     float* ang_re_out, float* ang_im_out) {
   extern __shared__ __align__(16) float dyn[];
   float* smem = dyn + base;
-  g.n = kFftThreads;  // what both entry points give a stream: a constant
+  g.n = fft_threads(kM);  // what both entry points give a stream: a constant
   const int m = half_length<kM>(p);
   const int n_fft = 2 * m, hop = m, F = m + 1, M = a.n_mels;
   const SpecLayout l = make_spec_layout(n_fft, F, true);
@@ -957,7 +1048,7 @@ __device__ __noinline__ void gl_stage(
 }
 
 template <int kM>
-__global__ void __launch_bounds__(kFftThreads)
+__global__ void __launch_bounds__(fft_threads(kM))
     analysis_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
                     const __grid_constant__ FftPlan p) {
   const size_t b = blockIdx.x;
@@ -976,7 +1067,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int kM>
-__global__ void __launch_bounds__(kFftThreads, 2)
+__global__ void __launch_bounds__(fft_threads(kM), 2)
     gl_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
               const __grid_constant__ FftPlan p) {
   const size_t b = blockIdx.x;
@@ -1025,17 +1116,21 @@ __host__ __device__ inline MultiLayout make_multi_layout(
 // The resident K-hop kernel (webrtc_hop.py:344): a.hops hops of a tile of
 // kTile streams with its state in shared memory throughout.
 template <int kM>
-__global__ void __launch_bounds__(kMultiThreads, 1)
+__global__ void __launch_bounds__(kTile * fft_threads(kM), 1)
     webrtc_hop_multi_kernel(const __grid_constant__ AdtWebRTCHopArgs a,
                             const __grid_constant__ FftPlan p) {
+  constexpr int lanes = fft_threads(kM);
+  static_assert(kThreads <= kTile * lanes, "the cell's lanes fit the block");
+  static_assert(lanes % 32 == 0, "a named barrier counts whole warps");
+  static_assert(lanes <= kRed, "a partial result for every lane");
   extern __shared__ __align__(16) float smem[];
   const MultiLayout l = make_multi_layout(a);
   const int b0 = blockIdx.x * kTile;
   const int rows = min(kTile, a.batch - b0);
   const int n_fft = a.n_fft, hop = a.hop, n = a.plan.n_hidden;
   const int nf = kFrames * a.n_mels, nb = kFrames * a.n_bins;
-  const int tid = threadIdx.x, s = tid / kFftThreads;
-  const Lanes fft_lanes{tid % kFftThreads, kFftThreads, 1 + s};
+  const int tid = threadIdx.x, s = tid / lanes;
+  const Lanes fft_lanes{tid % lanes, lanes, 1 + s};
   const Lanes cell_lanes{tid, kThreads, kCellBarrier};
   float* ring = smem + l.ring + s * l.ld_t;
   float* ola = smem + l.ola + s * l.ld_t;
@@ -1134,11 +1229,11 @@ cudaError_t launch(const AdtWebRTCHopArgs& a, const FftPlan& p,
       (err = set_smem((const void*)cell_kernel, sc)) != cudaSuccess ||
       (err = set_smem((const void*)gl_kernel<kM>, sg)) != cudaSuccess)
     return err;
-  analysis_kernel<kM><<<a.batch, kFftThreads, sa, stream>>>(a, p);
+  analysis_kernel<kM><<<a.batch, fft_threads(kM), sa, stream>>>(a, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   cell_kernel<<<(a.batch + kTile - 1) / kTile, kThreads, sc, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  gl_kernel<kM><<<a.batch, kFftThreads, sg, stream>>>(a, p);
+  gl_kernel<kM><<<a.batch, fft_threads(kM), sg, stream>>>(a, p);
   return cudaGetLastError();
 }
 
@@ -1148,8 +1243,9 @@ cudaError_t launch_multi(const AdtWebRTCHopArgs& a, const FftPlan& p,
   const size_t sm = multi_bytes(a);
   cudaError_t err = set_smem((const void*)webrtc_hop_multi_kernel<kM>, sm);
   if (err != cudaSuccess) return err;
+  const int threads = kTile * fft_threads(kM);
   webrtc_hop_multi_kernel<kM>
-      <<<(a.batch + kTile - 1) / kTile, kMultiThreads, sm, stream>>>(a, p);
+      <<<(a.batch + kTile - 1) / kTile, threads, sm, stream>>>(a, p);
   return cudaGetLastError();
 }
 
@@ -1161,6 +1257,8 @@ cudaError_t dispatch(const AdtWebRTCHopArgs& a, const FftPlan& p, bool multi,
       return (multi ? launch_multi<768> : launch<768>)(a, p, stream);
     case 512:
       return (multi ? launch_multi<512> : launch<512>)(a, p, stream);
+    case 441:
+      return (multi ? launch_multi<441> : launch<441>)(a, p, stream);
     case 32:
       return (multi ? launch_multi<32> : launch<32>)(a, p, stream);
     default:
@@ -1187,8 +1285,8 @@ long long adt_webrtc_hop_smem_bytes(const AdtWebRTCHopArgs* a) {
 }
 
 // The half-length M = n_fft / 2 whose instantiation runs a call with these
-// arguments (768, 512 or 32), 0 for the one that reads the geometry at
-// run time, -1 if the arguments are not ones the kernels take.
+// arguments (768, 512, 441 or 32), 0 for the one that reads the geometry
+// at run time, -1 if the arguments are not ones the kernels take.
 int adt_webrtc_hop_fft_instance(const AdtWebRTCHopArgs* a) {
   FftPlan p;
   return args_ok(*a, &p) ? fft_instance(a->hop) : -1;
@@ -1204,16 +1302,22 @@ int adt_webrtc_hop_fft_radices(int m, int* radix) {
 }
 
 // The registers a thread and the local (stack and spill) bytes of the
-// M = 0 instantiation's kernels, as cudaFuncGetAttributes reads them:
-// which 0 analysis_kernel, 1 cell_kernel, 2 gl_kernel, 3
-// webrtc_hop_multi_kernel. Returns the cudaError_t.
+// M = 0 and M = 441 instantiations' kernels, as cudaFuncGetAttributes
+// reads them: which 0 analysis_kernel<0>, 1 cell_kernel, 2 gl_kernel<0>,
+// 3 webrtc_hop_multi_kernel<0>, 4 analysis_kernel<441>, 5
+// gl_kernel<441>, 6 webrtc_hop_multi_kernel<441>. Returns the
+// cudaError_t.
 int adt_webrtc_hop_kernel_attrs(int which, int* regs,
                                 long long* local_bytes) {
   const void* kernels[] = {(const void*)analysis_kernel<0>,
                            (const void*)cell_kernel,
                            (const void*)gl_kernel<0>,
-                           (const void*)webrtc_hop_multi_kernel<0>};
-  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+                           (const void*)webrtc_hop_multi_kernel<0>,
+                           (const void*)analysis_kernel<441>,
+                           (const void*)gl_kernel<441>,
+                           (const void*)webrtc_hop_multi_kernel<441>};
+  constexpr int n = sizeof(kernels) / sizeof(kernels[0]);
+  if (which < 0 || which >= n) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
   if (err != cudaSuccess) return (int)err;

@@ -26,12 +26,13 @@ last tile masked, so B is not padded.
 The kernels take every geometry JAX's kernel takes: any even n_fft with
 hop = n_fft / 2, any mel count. Their transforms are FFTs of n_fft / 2
 points in a few wide passes (``fft_radices``: radices 12, 8, 5, 4, 3 and
-2 in registers, any other prime factor a pass of its own; their twiddles
-``twiddle_table`` and ``pass_twiddle_table``, which the wrapper hands
-over); ``fft_passes``, ``real_bins`` and ``inverse_input`` mirror the
-passes and the real-input formulas in plain PyTorch for the tests, and
-``fft_instance`` names the instantiation a bound hop runs (M = n_fft / 2
-compiled in, or 0).
+2 in registers, and 9 and 7 where M = n_fft / 2 is compiled in; any other
+prime factor a pass of its own; their twiddles ``twiddle_table`` and
+``pass_twiddle_table``, which the wrapper hands over); ``fft_passes``,
+``real_bins`` and ``inverse_input`` mirror the passes and the real-input
+formulas in plain PyTorch for the tests, and ``fft_instance`` names the
+instantiation a bound hop runs (M compiled in, FFT_INSTANCES: 768, 512,
+441 and 32; or 0, the geometry read at run time).
 
 ``compute_dtype=torch.bfloat16`` is JAX's bf16 Griffin-Lim mode
 (webrtc_hop.py:123-124, :144, :305-318): inside the GL loop only, each
@@ -65,8 +66,8 @@ from audio_denoising_torch.ops.windows import hann_window
 
 FRAMES = 3   # centered STFT frames of one window at hop = n_fft / 2
 KERNELS_PER_HOP = 3   # csrc/webrtc_hop.cu: analysis, cell, gl
-# kRed: the analysis's partial results, one per lane of the FFT stages'
-# 288 lanes per stream
+# kRed: the analysis's partial results, one per lane of a stream's FFT
+# stages, as many as the most lanes (288; 256 at M = 441, fft_threads)
 RED = 288
 
 
@@ -107,23 +108,29 @@ def _istft_envelope(win: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
 
 PASS_RADICES = (12, 8, 5, 4, 3, 2)   # a rest the kernels take as one pass
 MAX_PASSES = 16                   # kMaxPasses in csrc/webrtc_hop.cu
+# the M = n_fft / 2 compiled into an instantiation of their own
+# (fft_instance in csrc/webrtc_hop.cu); any other runs the M = 0 one
+FFT_INSTANCES = (768, 512, 441, 32)
 
 
 def fft_radices(m: int) -> List[int]:
     """The radices of the passes ``csrc/webrtc_hop.cu`` runs for a complex
     FFT of ``m = n_fft / 2`` points (its ``next_radix``): the rest itself
     where it is one of PASS_RADICES, else the first of 8, 4, 2, 3 and 5
-    that divides it, else its smallest prime factor (a prime pass);
-    ``m = 1`` is one pass of radix 1. 768 gives 8 x 8 x 12, 320 8 x 8 x
-    5, 441 3 x 3 x 7 x 7, 509 one pass of 509."""
+    that divides it (9 before 3 where m is compiled in, FFT_INSTANCES),
+    else its smallest prime factor (7 in registers where m is compiled
+    in, else it and any larger prime a prime pass); ``m = 1`` is one pass
+    of radix 1. 768 gives 8 x 8 x 12, 441 9 x 7 x 7, 320 8 x 8 x 5, 63
+    3 x 3 x 7, 22 2 x 11, 509 one pass of 509."""
     if m < 1:
         raise ValueError(f"an FFT of {m} points")
     if m == 1:
         return [1]
+    divisors = (8, 4, 2, 9, 3, 5) if m in FFT_INSTANCES else (8, 4, 2, 3, 5)
     radices, rest = [], m
     while rest > 1:
         r = rest if rest in PASS_RADICES else next(
-            (r for r in (8, 4, 2, 3, 5) if rest % r == 0), None)
+            (r for r in divisors if rest % r == 0), None)
         if r is None:
             r = next((q for q in range(7, math.isqrt(rest) + 1, 2)
                       if rest % q == 0), rest)

@@ -13,9 +13,10 @@ same nvcc flags (their ptxas register and spill lines printed) and bound
 to the same wrappers.
 
 ``--kernel webrtc_hop`` (the default), on gruunet2-dari_tult with
-warm-start Griffin-Lim at 256 streams, in fp32 (at its n_fft 1536, or at
+warm-start Griffin-Lim at 256 streams (at its n_fft 1536, or at
 ``--n-fft N`` with hop N / 2: 640 runs the M = 0 instantiation, passes
-8 x 8 x 5):
+8 x 8 x 5; 882 the compiled-in M = 441, 9 x 7 x 7), in fp32 and then in
+the bf16 GL mode:
 
 1. both run from one random state on the same chunks: the single hop at
    GL-32 over 3 hops, and one K-hop call (K = 25) at GL-8 and at GL-32;
@@ -25,9 +26,9 @@ warm-start Griffin-Lim at 256 streams, in fp32 (at its n_fft 1536, or at
    GL-32 (CUDA events over 50 hops, and torch.profiler's time per
    kernel), and the K-hop call per hop at GL-8 and GL-32 (CUDA events
    over 5 calls);
-3. this checkout's Griffin-Lim launch by rounds: its profiler time in
-   the single hop at GL-0, GL-8 and GL-32, and from them the time per
-   round and the time outside the rounds.
+3. both Griffin-Lim launches by rounds, in turns: each one's profiler
+   time in the single hop at GL-0, GL-8 and GL-32, and from them the
+   time per round and the time outside the rounds.
 
 ``--kernel fused_cell`` (gruunet2-good's plan):
 
@@ -338,7 +339,7 @@ def fused_hop_ab(torch, makers, smi, batches):
 
 
 def webrtc_ab(torch, makers, smi, n_fft=None):
-    """Parts 1-3 for ``webrtc_hop`` (module docstring)."""
+    """Parts 1-3 for ``webrtc_hop`` (module docstring), in each GL mode."""
     import dataclasses
 
     from audio_denoising_torch.hub import load_pretrained
@@ -353,65 +354,74 @@ def webrtc_ab(torch, makers, smi, n_fft=None):
     plan = build_cell_plan(model)
     g = torch.Generator(device="cuda").manual_seed(23)
 
-    def hop_pair(n_iter, K):
+    def hop_pair(n_iter, K, dtype):
         c = cs.warm_cfg(cfg, n_iter)
-        return c, {name: maker(c, plan, "cuda", hops_per_call=K)
-                   for name, maker in makers.items()}
+        return {name: maker(c, plan, "cuda", hops_per_call=K,
+                            compute_dtype=dtype)
+                for name, maker in makers.items()}
 
-    single_cfg, single = hop_pair(32, 1)
+    first = hop_pair(32, 1, torch.float32)
     state, _ = cs.hop_inputs(
-        torch, single["this"],
-        lambda b: webrtc_hop_init_state(single_cfg, plan, b, "cuda"),
-        cs.SLOTS)
-    chunks = 0.2 * torch.randn((cs.WEBRTC_K, cs.SLOTS, single["this"].hop),
+        torch, first["this"],
+        lambda b: webrtc_hop_init_state(cs.warm_cfg(cfg, 32), plan, b,
+                                        "cuda"), cs.SLOTS)
+    chunks = 0.2 * torch.randn((cs.WEBRTC_K, cs.SLOTS, first["this"].hop),
                                generator=g, device="cuda")
-    multis = {n: hop_pair(n, cs.WEBRTC_K)[1] for n in cs.WEBRTC_GL}
-    cs.say(f"n_fft {single['this'].n_fft}, FFT instantiation: this "
-           f"M={single['this'].fft_instance}")
-
-    cs.say("1. this against other from one state, the same chunks "
-           f"(B={cs.SLOTS}):")
-    runs = {name: cs.run_hops(h, state, chunks[:SINGLE_HOPS])
-            for name, h in single.items()}
-    (s_a, o_a), (s_b, o_b) = runs["this"], runs["other"]
-    diff = {k: cs.max_err(v, getattr(s_b, k))
-            for k, v in cs.planes(s_a).items()}
-    diff["out"] = max(cs.max_err(a, b) for a, b in zip(o_a, o_b))
-    cs.say(f"  single hop, GL-32, {SINGLE_HOPS} hops: {cs.fmt(diff)}")
-    for n, pair in multis.items():
-        (s_a, o_a), (s_b, o_b) = (pair[k](state, chunks)
-                                  for k in ("this", "other"))
+    cs.say(f"n_fft {first['this'].n_fft}, FFT instantiation: "
+           + ", ".join(f"{n} M={h.fft_instance}" for n, h in first.items()))
+    for mode, dtype in (("fp32", torch.float32),
+                        ("bf16 GL", torch.bfloat16)):
+        single = hop_pair(32, 1, dtype)
+        multis = {n: hop_pair(n, cs.WEBRTC_K, dtype) for n in cs.WEBRTC_GL}
+        cs.say(f"1. {mode}: this against other from one state, the same "
+               f"chunks (B={cs.SLOTS}):")
+        runs = {name: cs.run_hops(h, state, chunks[:SINGLE_HOPS])
+                for name, h in single.items()}
+        (s_a, o_a), (s_b, o_b) = runs["this"], runs["other"]
         diff = {k: cs.max_err(v, getattr(s_b, k))
                 for k, v in cs.planes(s_a).items()}
-        diff["out"] = cs.max_err(o_a, o_b)
-        cs.say(f"  K-hop call, GL-{n}, K={cs.WEBRTC_K}: {cs.fmt(diff)}")
-
-    cs.say(f"2. times in turns {', '.join(TURNS)} ({smi}):")
-    for turn in TURNS:
-        h = single[turn]
-        ms = cs.time_launches(torch, lambda: h(state, chunks[0]),
-                              TIMED_SINGLE)
-        cs.say(f"  {turn}: single hop GL-32 {ms * 1e3:.1f} us/hop")
-        cs.print_breakdown(cs.device_breakdown(
-            torch, lambda: h(state, chunks[0]), 20), "hop")
+        diff["out"] = max(cs.max_err(a, b) for a, b in zip(o_a, o_b))
+        cs.say(f"  single hop, GL-32, {SINGLE_HOPS} hops: {cs.fmt(diff)}")
         for n, pair in multis.items():
-            m = pair[turn]
-            ms = cs.time_launches(torch, lambda: m(state, chunks),
-                                  TIMED_MULTI)
-            cs.say(f"  {turn}: K-hop GL-{n} {ms * 1e3:.1f} us/call, "
-                   f"{ms * 1e3 / cs.WEBRTC_K:.2f} us/hop")
+            (s_a, o_a), (s_b, o_b) = (pair[k](state, chunks)
+                                      for k in ("this", "other"))
+            diff = {k: cs.max_err(v, getattr(s_b, k))
+                    for k, v in cs.planes(s_a).items()}
+            diff["out"] = cs.max_err(o_a, o_b)
+            cs.say(f"  K-hop call, GL-{n}, K={cs.WEBRTC_K}: {cs.fmt(diff)}")
 
-    cs.say(f"3. this checkout's GL launch by rounds ({smi}):")
-    gl = {}
-    for n in GL_ROUNDS:
-        h = hop_pair(n, 1)[1]["this"]
-        rows = cs.device_breakdown(torch, lambda: h(state, chunks[0]), 20)
-        gl[n] = sum(us for name, us in rows.items() if "gl_kernel" in name)
-        cs.say(f"  GL-{n}: the GL launch {gl[n]:.1f} us/hop")
-    lo, hi = GL_ROUNDS[0], GL_ROUNDS[-1]
-    per_round = (gl[hi] - gl[lo]) / (hi - lo)
-    cs.say(f"  {per_round:.2f} us per round; {gl[lo]:.1f} us outside the "
-           f"rounds (inverse mel, seed, the last inverse STFT, output)")
+        cs.say(f"2. {mode}: times in turns {', '.join(TURNS)} ({smi}):")
+        for turn in TURNS:
+            h = single[turn]
+            ms = cs.time_launches(torch, lambda: h(state, chunks[0]),
+                                  TIMED_SINGLE)
+            cs.say(f"  {turn}: single hop GL-32 {ms * 1e3:.1f} us/hop")
+            cs.print_breakdown(cs.device_breakdown(
+                torch, lambda: h(state, chunks[0]), 20), "hop")
+            for n, pair in multis.items():
+                m = pair[turn]
+                ms = cs.time_launches(torch, lambda: m(state, chunks),
+                                      TIMED_MULTI)
+                cs.say(f"  {turn}: K-hop GL-{n} {ms * 1e3:.1f} us/call, "
+                       f"{ms * 1e3 / cs.WEBRTC_K:.2f} us/hop")
+
+        cs.say(f"3. {mode}: the GL launch by rounds, in turns ({smi}):")
+        by_rounds = {n: hop_pair(n, 1, dtype) for n in GL_ROUNDS}
+        lo, hi = GL_ROUNDS[0], GL_ROUNDS[-1]
+        for turn in TURNS:
+            gl = {}
+            for n, pair in by_rounds.items():
+                h = pair[turn]
+                rows = cs.device_breakdown(torch, lambda: h(state, chunks[0]),
+                                           20)
+                gl[n] = sum(us for name, us in rows.items()
+                            if "gl_kernel" in name)
+            per_round = (gl[hi] - gl[lo]) / (hi - lo)
+            cs.say(f"  {turn}: the GL launch "
+                   + ", ".join(f"GL-{n} {us:.1f}" for n, us in gl.items())
+                   + f" us/hop; {per_round:.2f} us per round, {gl[lo]:.1f} "
+                   f"us outside the rounds (inverse mel, seed, the last "
+                   f"inverse STFT, output)")
     return 0
 
 

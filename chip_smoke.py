@@ -374,15 +374,17 @@ raises on failure (so the script exits non-zero and prints no result):
     single hops (0); mode
     ``fused-webrtc`` at n_fft 640 and 256 slots against the CPU engine;
     rows 4 and 5 timed at n_fft 640;
-61. the WebRTC hop at n_fft / 2 with a prime factor above 5, the
-    kernels' prime pass: WebRTC's 10 ms frame at 44.1 kHz (hop 441,
-    n_fft 882, M = 441 = 3 x 3 x 7 x 7) on gruunet2-dari_tult's weights
-    at 256 and 3 streams, and on random weights n_fft 44 (M = 22 = 2 x
-    11) and n_fft 1018 (the prime M = 509: one pass, every point windowed
-    509 times) at 64 streams: phase 60's checks and timings, the shared
-    memory against the plain mirror, phase 60's n_fft 640 times beside
-    those before the prime pass, and the M = 0 kernels' registers and
-    local bytes (cudaFuncGetAttributes).
+61. the WebRTC hop at n_fft / 2 with a prime factor above 5: WebRTC's
+    10 ms frame at 44.1 kHz (hop 441, n_fft 882, the compiled-in M = 441
+    = 9 x 7 x 7, radices 9 and 7 in registers) on gruunet2-dari_tult's
+    weights at 256 and 3 streams, and on random weights the M = 0
+    instantiation's prime pass at n_fft 44 (M = 22 = 2 x 11) and n_fft
+    1018 (the prime M = 509: one pass, every point windowed 509 times)
+    at 64 streams: phase 60's checks and timings (cuFFT's time for one
+    GL round's transforms at n_fft 882 beside the GL launch's), the
+    shared memory against the plain mirror, phase 60's n_fft 640 times
+    beside those before the prime pass, and the M = 0 and M = 441
+    kernels' registers and local bytes (cudaFuncGetAttributes).
 
 Phases 30-34 drive the offline path, which launches none of the
 hand-written kernels: the JAX offline graph reaches no Pallas kernel
@@ -606,6 +608,17 @@ BF16_NEARER_DB = 0.0
 BF16_GEO_GL32_DB = {(640, 64): 12.0, (1024, 160): 15.5, (160, 64): 90.0,
                     (44, 16): 90.0, (1018, 64): 12.0}
 BF16_GEO_GL8_DB = {(882, 64): 37.0}
+# The bf16 mode at 3 streams a call, by geometry: the calls whose streams
+# are pooled per hop (1 where absent). At n_fft 882 each hop's median
+# over one call's 3 streams is too few to hold at BF16_GEO_GL8_DB: over 64
+# chunk seeds (NVIDIA H100 80GB HBM3, 700.00 W) a stream's SNR against the
+# plain version read 41.5 dB at the median and 32.7 at the 5th percentile
+# (the control 34.2, and 39.2 at the 95th), so one call missed a limit
+# (kernel or control side) on 67% of the seeds, and on 65% with the
+# kernel before M = 441 was compiled in; 16 calls, each its own chunks,
+# missed on none of 2000 draws of 16 seeds (the kernel's worst hop 38.7
+# dB at the 1st percentile, the control's best 36.3 at the 99th).
+BF16_SMALL_CALLS = {(882, 64): 16}
 
 
 def bf16_geometry_limit(n_fft, n_mels):
@@ -4058,15 +4071,18 @@ def phase_int8_flagship(torch, flag_cfg, flag, flag_plan, smi):
     return engine_launches, k_run[0], e, db, k_run, (t_hop, t_multi)
 
 
-def check_webrtc_bf16(torch, cfg, plan, batch, hops, plain_db=None):
+def check_webrtc_bf16(torch, cfg, plan, batch, hops, plain_db=None,
+                      calls=1):
     """The bf16 GL mode's kernel held by the warm-GL rule at the served
     geometry: along the plain bf16 version's trajectory on the card, at
     every hop the kernel, the plain version, the control (the port's fp32
     kernel in the bf16 kernel's place) and two float64 witnesses, of the
     bf16 mode and of fp32, start from its state and take the same chunk.
-    On hops 2 on, per stream, the SNR of the frame each adds to its OLA
-    buffer: against the plain version (median over streams at
-    ``plain_db``, by default BF16_GL_DB[n_iter]), and against the bf16
+    ``calls`` such trajectories of ``batch`` streams each, every one its
+    own chunks (the first the seed of a single call), are pooled stream by
+    stream per hop. On hops 2 on, per stream, the SNR of the frame each
+    adds to its OLA buffer: against the plain version (median over streams
+    at ``plain_db``, by default BF16_GL_DB[n_iter]), and against the bf16
     witness less against the
     fp32 witness (median over streams at BF16_NEARER_DB: nearer the mode
     it runs); the control must miss both at every hop; the kernel against
@@ -4082,30 +4098,37 @@ def check_webrtc_bf16(torch, cfg, plan, batch, hops, plain_db=None):
     w32 = float64_plain(torch, cfg, plan)
     limit = BF16_GL_DB[hop.n_iter]
     plain_db = limit if plain_db is None else plain_db
-    s = webrtc_hop_init_state(cfg, plan, batch, "cuda")
-    stats = {k: ([], []) for k in ("plain", "nearer", "sc")}
-    rules, worst_hx, worst_ola = [], 0.0, 0.0
-    for t, c in enumerate(webrtc_chunks(torch, batch, hops, batch + 45,
-                                        hop.hop)):
-        s_k, _ = hop(s, c.cuda())
-        s_p, _ = hop.reference(s, c.cuda())
-        s_c, _ = control(s, c.cuda())
-        s64 = to(s, "cpu", torch.float64)
-        s_16, _ = w16.reference(s64, c.double())
-        s_32, _ = w32.reference(s64, c.double())
-        torch.cuda.synchronize()
-        worst_hx = max(worst_hx, max_err(s_k.hx, s_p.hx))
-        worst_ola = max(worst_ola, max_err(s_k.ola, s_p.ola))
-        if not phases_ok(torch, s_k) or not bool(torch.isfinite(
-                s_k.ola).all()):
-            raise AssertionError(f"bf16 webrtc kernel: non-unit phases or a "
-                                 f"non-finite frame at hop {t}")
-        fk, fp, fc, f16, f32 = (added_frame(s, x, hop.hop)
-                                for x in (s_k, s_p, s_c, s_16, s_32))
-        if t < 2:          # a stream's first window is half silence
+    worst_hx, worst_ola = 0.0, 0.0
+    pooled = [[] for _ in range(hops)]   # per hop: each call's frames
+    for call in range(calls):
+        s = webrtc_hop_init_state(cfg, plan, batch, "cuda")
+        for t, c in enumerate(webrtc_chunks(torch, batch, hops,
+                                            batch + 45 + 1000 * call,
+                                            hop.hop)):
+            s_k, _ = hop(s, c.cuda())
+            s_p, _ = hop.reference(s, c.cuda())
+            s_c, _ = control(s, c.cuda())
+            s64 = to(s, "cpu", torch.float64)
+            s_16, _ = w16.reference(s64, c.double())
+            s_32, _ = w32.reference(s64, c.double())
+            torch.cuda.synchronize()
+            worst_hx = max(worst_hx, max_err(s_k.hx, s_p.hx))
+            worst_ola = max(worst_ola, max_err(s_k.ola, s_p.ola))
+            if not phases_ok(torch, s_k) or not bool(torch.isfinite(
+                    s_k.ola).all()):
+                raise AssertionError(f"bf16 webrtc kernel: non-unit phases "
+                                     f"or a non-finite frame at hop {t}")
+            if t >= 2:     # a stream's first window is half silence
+                _, peak, _, lin = w16.targets(s64, c.double())
+                pooled[t].append([added_frame(s, x, hop.hop) for x in (
+                    s_k, s_p, s_c, s_16, s_32)] + [peak, lin])
             s = s_p
-            continue
-        _, peak, _, lin = w16.targets(s64, c.double())
+    stats = {k: ([], []) for k in ("plain", "nearer", "sc")}
+    rules = []
+    for per_call in pooled[2:]:
+        fk, fp, fc, f16, f32 = (np.concatenate(x) for x in
+                                list(zip(*per_call))[:5])
+        peak, lin = (torch.cat(x) for x in list(zip(*per_call))[5:])
         sc_p = spectral_convergence(torch, w16, fp, peak, lin)
         for i, f in enumerate((fk, fc)):
             stats["plain"][i].append(float(np.median(stream_snrs(fp, f))))
@@ -4114,14 +4137,15 @@ def check_webrtc_bf16(torch, cfg, plan, batch, hops, plain_db=None):
             stats["sc"][i].append(float(np.abs(spectral_convergence(
                 torch, w16, f, peak, lin) - sc_p).max()))
         rules.append(forced_floor(fk, fp, f16, limit))
-        s = s_p
     readings = {k: (min(v[0]) if k != "sc" else max(v[0]),
                     max(v[1]) if k != "sc" else min(v[1]))
                 for k, v in stats.items()}
     worst = min(rules, key=lambda r: r[0] - r[2])
-    say(f"  bf16 GL-{hop.n_iter} B={batch:3d}, {fft_label(hop)}, each hop "
-        f"from the plain bf16 version's state, hops 2-{hops - 1}, median "
-        f"over streams per hop, kernel | control (the fp32 kernel):")
+    pooled_of = (f" ({calls} calls, {calls * batch} streams pooled)"
+                 if calls > 1 else "")
+    say(f"  bf16 GL-{hop.n_iter} B={batch:3d}{pooled_of}, {fft_label(hop)}, "
+        f"each hop from the plain bf16 version's state, hops 2-{hops - 1}, "
+        f"median over streams per hop, kernel | control (the fp32 kernel):")
     for k, unit in (("plain", "dB"), ("nearer", "dB"), ("sc", "")):
         say(f"    {k:6s} " + ", ".join(f"{v:.3g}" for v in stats[k][0])
             + " | " + ", ".join(f"{v:.3g}" for v in stats[k][1])
@@ -5963,9 +5987,12 @@ def phase_webrtc_geometries(torch, smi, cases=None, fft_sizes=GEO_FFT_SIZES,
     (0; its calls the main path's launches) and, each call from a shared
     state, against its plain version and the witness; the bf16 GL mode
     the same ways (the witness rule, and bf16_geometry_limit, which the
-    control must miss); StreamEngine mode fused-webrtc at SLOTS slots
-    against the CPU engine, in fp32 and
-    at bfloat16; both entry points timed in both modes. Then the same
+    control must miss; at 3 streams and n_fft 882, BF16_SMALL_CALLS calls,
+    their streams pooled per hop); StreamEngine mode fused-webrtc at SLOTS
+    slots against the CPU engine, in fp32 and
+    at bfloat16; both entry points timed in both modes, and cuFFT's time
+    for one GL round's transforms beside the fp32 GL launch's per round
+    (gl_round_yardstick). Then the same
     checks at GEO_BATCH streams on the random-weight geometries, and with
     no GL round every surface exact. Returns {(entry, dtype):
     (main-path launches, worst ola error against the plain version, the
@@ -5998,11 +6025,13 @@ def phase_webrtc_geometries(torch, smi, cases=None, fft_sizes=GEO_FFT_SIZES,
                                                torch, cfg, plan, b, 4,
                                                SNR_GL32_DB))
             n16, limit = bf16_geometry_limit(cfg.dsp.n_fft, cfg.dsp.n_mels)
+            calls = BF16_SMALL_CALLS.get((cfg.dsp.n_fft, cfg.dsp.n_mels),
+                                         1) if b < GEO_BATCH else 1
             errs["hop", "bfloat16"] = max(errs["hop", "bfloat16"],
                                           check_webrtc_bf16(
                                               torch, warm_cfg(cfg, n16),
-                                              plan, b, WEBRTC_HOPS,
-                                              limit)[1])
+                                              plan, b, WEBRTC_HOPS, limit,
+                                              calls)[1])
         for d, dt in modes.items():
             n = check_webrtc_multi_exact(torch, warm_cfg(cfg, WEBRTC_GL[0]),
                                          plan, batches[0], 2,
@@ -6031,6 +6060,8 @@ def phase_webrtc_geometries(torch, smi, cases=None, fft_sizes=GEO_FFT_SIZES,
                   lambda: hop.reference(w_state, w_chunk),
                   webrtc_hop_work(hop, SLOTS), SLOTS, 50, plain_launches=5)
         out["hop", d] = (launches["hop", d], errs["hop", d], t)
+        if d == "float32":
+            gl_round_yardstick(torch, hop, w_state, w_chunk, smi)
         multi = make_webrtc_hop(c8, plan, "cuda", hops_per_call=WEBRTC_K,
                                 compute_dtype=dt)
         m_state, _ = hop_inputs(
@@ -6048,10 +6079,11 @@ def phase_webrtc_geometries(torch, smi, cases=None, fft_sizes=GEO_FFT_SIZES,
 
 # -- phase 61: the WebRTC hop at an n_fft / 2 with a prime factor above 5 ---
 
-# WebRTC's 10 ms frame at 44.1 kHz: hop 441, n_fft 882 (M = 441 = 3 x 3 x
-# 7 x 7, two passes of radix 7), on gruunet2-dari_tult's weights (64 mels)
+# WebRTC's 10 ms frame at 44.1 kHz: hop 441, n_fft 882 (M = 441 = 9 x 7 x
+# 7, an instantiation of its own with radices 9 and 7 in registers), on
+# gruunet2-dari_tult's weights (64 mels)
 PRIME_RATE, PRIME_N_FFT = 44100, 882
-PRIME_RADICES = [3, 3, 7, 7]
+PRIME_RADICES = [9, 7, 7]
 # random weights at 64 streams: M = 22 = 2 x 11, and the prime M = 509,
 # one prime pass through which every point is windowed 509 times (the
 # slow case)
@@ -6063,7 +6095,8 @@ PRIME_FFT_SIZES = (441, 22, 509)   # their n_fft / 2
 BEFORE_PRIME_US = {"hop": (504.0, 508.0), "K-hop": (374.84, 374.88)}
 # the kernels adt_webrtc_hop_kernel_attrs reads, in its order
 KERNEL_ATTRS = ("analysis_kernel<0>", "cell_kernel", "gl_kernel<0>",
-                "webrtc_hop_multi_kernel<0>")
+                "webrtc_hop_multi_kernel<0>", "analysis_kernel<441>",
+                "gl_kernel<441>", "webrtc_hop_multi_kernel<441>")
 
 
 def prime_models(torch, n_iter):
@@ -6087,7 +6120,8 @@ def prime_models(torch, n_iter):
 
 def kernel_attrs():
     """{kernel: (registers a thread, local bytes)} of csrc/webrtc_hop.cu's
-    M = 0 kernels (KERNEL_ATTRS), as cudaFuncGetAttributes reads them."""
+    M = 0 and M = 441 kernels (KERNEL_ATTRS), as cudaFuncGetAttributes
+    reads them."""
     from audio_denoising_torch.ops.kernels.build import load_kernel_library
     fn = load_kernel_library("webrtc_hop").lib.adt_webrtc_hop_kernel_attrs
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -6104,16 +6138,17 @@ def kernel_attrs():
 
 
 def phase_webrtc_primes(torch, smi, geo):
-    """Phase 61: the WebRTC hop at n_fft / 2 with a prime factor above 5,
-    the kernels' prime pass. The shared memory the library counts
-    against webrtc_hop_smem_bytes on each geometry; the kernels' radices
-    at n_fft 882 (PRIME_RADICES, and fft_radices for PRIME_FFT_SIZES);
-    then phase 60's checks and timings on prime_models (dari_tult at
-    44.1 kHz at SLOTS and 3 streams, the engine, both entry points timed
-    in both GL modes; the random-weight geometries at GEO_BATCH streams).
-    Prints phase 60's n_fft 640 times beside BEFORE_PRIME_US and
-    the M = 0 kernels' registers and local bytes. Returns phase 60's
-    dict for these geometries."""
+    """Phase 61: the WebRTC hop at n_fft / 2 with a prime factor above 5.
+    The shared memory the library counts against webrtc_hop_smem_bytes
+    on each geometry; the kernels' instantiation (M = 441) and radices at
+    n_fft 882 (PRIME_RADICES, and fft_radices for PRIME_FFT_SIZES); then
+    phase 60's checks and timings on prime_models (dari_tult at 44.1 kHz
+    at SLOTS and 3 streams, the engine, both entry points timed in both
+    GL modes, cuFFT's GL round beside the GL launch's; the random-weight
+    geometries, the M = 0 instantiation's prime pass, at GEO_BATCH
+    streams). Prints phase 60's n_fft 640 times beside BEFORE_PRIME_US
+    and the M = 0 and M = 441 kernels' registers and local bytes.
+    Returns phase 60's dict for these geometries."""
     from audio_denoising_torch.ops.kernels.webrtc_hop import make_webrtc_hop
     cases = prime_models(torch, 32)
     phase_smem_mirror(torch, [("webrtc_hop", label, c, p)
@@ -6121,10 +6156,13 @@ def phase_webrtc_primes(torch, smi, geo):
                       torch.cuda.get_device_properties(
                           0).shared_memory_per_block_optin)
     _, cfg, _, plan = cases[0]
-    got = make_webrtc_hop(cfg, plan, "cuda").kernel_radices(cfg.dsp.hop_length)
-    if got != PRIME_RADICES:
-        raise AssertionError(f"the kernels' passes at n_fft {PRIME_N_FFT} "
-                             f"are {got}, not {PRIME_RADICES}")
+    hop = make_webrtc_hop(cfg, plan, "cuda")
+    got = hop.kernel_radices(cfg.dsp.hop_length)
+    if got != PRIME_RADICES or hop.fft_instance != PRIME_N_FFT // 2:
+        raise AssertionError(f"the kernels run n_fft {PRIME_N_FFT} as "
+                             f"{fft_label(hop)}, passes {got}, not the "
+                             f"compiled-in M={PRIME_N_FFT // 2}, passes "
+                             f"{PRIME_RADICES}")
     out = phase_webrtc_geometries(torch, smi, cases, PRIME_FFT_SIZES, 61)
     for entry, per in (("hop", 1), ("K-hop", WEBRTC_K)):
         us = geo[entry, "float32"][2][0] * 1e3 / per
@@ -6512,9 +6550,10 @@ def main() -> int:
     wide = ", ".join(f"n_fft {n}, {m} mels" for n, m in PRIME_CASES)
     say(f"phase 61: the WebRTC hop at n_fft {PRIME_N_FFT} (WebRTC's 10 ms "
         f"frame at 44.1 kHz, gruunet2-dari_tult) and on random weights "
-        f"({wide}): prime passes, both entry points, fp32 and bf16 GL, vs "
-        f"the plain version and a float64 witness; mode fused-webrtc; "
-        f"timed; the M = 0 kernels' registers")
+        f"({wide}): FFT M=441 (9 x 7 x 7) and the M = 0 prime pass, both "
+        f"entry points, fp32 and bf16 GL, vs the plain version and a "
+        f"float64 witness; mode fused-webrtc; timed, cuFFT's GL round; the "
+        f"M = 0 and M = 441 kernels' registers")
     primes = phase_webrtc_primes(torch, smi, geo)
 
     def variant(label, checked, timing=None, n=None):

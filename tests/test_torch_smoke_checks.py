@@ -342,12 +342,47 @@ def test_the_bf16_geometry_limits_need_the_control_to_fail(smoke,
             smoke.check_gl_bf16(n_iter, bad, lim)
 
 
+@pytest.mark.parametrize("calls", [1, 3])
+def test_bf16_check_pools_small_calls(smoke, monkeypatch, calls):
+    """check_webrtc_bf16 with ``calls`` trajectories of 3 streams each:
+    the first takes the chunks of a single call (seed batch + 45), each
+    other its own, and every hop's readings (the witness rule, the limits)
+    are taken over the streams of all calls. On the CPU the wrappers run
+    their plain version, so the kernel reads far above the limits and the
+    control (the fp32 hop) below them."""
+    import audio_denoising_torch.ops.kernels.webrtc_hop as wh
+    make, init = wh.make_webrtc_hop, wh.webrtc_hop_init_state
+    monkeypatch.setattr(wh, "make_webrtc_hop", lambda cfg, plan, device,
+                        **kw: make(cfg, plan, "cpu", **kw))
+    monkeypatch.setattr(wh, "webrtc_hop_init_state", lambda cfg, plan, b,
+                        device: init(cfg, plan, b, "cpu"))
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda t, *a, **k: t)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    seeds, streams, held = [], [], []
+    chunks, floor = smoke.webrtc_chunks, smoke.forced_floor
+    monkeypatch.setattr(smoke, "webrtc_chunks", lambda torch, b, h, seed, n:
+                        seeds.append(seed) or chunks(torch, b, h, seed, n))
+    monkeypatch.setattr(smoke, "forced_floor", lambda fk, fp, f16, lim:
+                        streams.append(len(fk)) or floor(fk, fp, f16, lim))
+    monkeypatch.setattr(smoke, "check_gl_bf16",
+                        lambda n_iter, r, lim: held.append(r))
+    cfg, plan = _small(smoke, 8)   # GL-8, as n_fft 882 is held
+    smoke.check_webrtc_bf16(torch, cfg, plan, 3, smoke.WEBRTC_HOPS, 12.0,
+                            calls)
+    assert seeds == [48 + 1000 * c for c in range(calls)]
+    assert streams == [3 * calls] * (smoke.WEBRTC_HOPS - 2)
+    (k_plain, c_plain), (k_near, c_near) = held[0]["plain"], \
+        held[0]["nearer"]
+    assert k_plain > 100 and c_plain < k_plain and k_near > c_near
+
+
 def test_prime_models_take_the_kernels(smoke):
     """Phase 61's geometries: n_fft 882 at 44.1 kHz on gruunet2-dari_tult
     (64 mels) with two radix-7 passes, n_fft 44 (2 x 11) and the prime
     M = 509 on random weights; each takes the kernels (shared memory
     counted) and one warm hop of its plain version is finite; the
-    kernels' attributes are read for four kernels."""
+    kernels' attributes are read for seven kernels (the M = 0 and
+    M = 441 instantiations')."""
     from audio_denoising_torch.ops.kernels.webrtc_hop import (
         fft_radices, webrtc_hop_smem_bytes)
     cases = smoke.prime_models(torch, 2)
@@ -358,7 +393,7 @@ def test_prime_models_take_the_kernels(smoke):
     assert [d.n_fft // 2 for d in dsp] == list(smoke.PRIME_FFT_SIZES)
     assert fft_radices(441) == smoke.PRIME_RADICES
     assert fft_radices(509) == [509] and fft_radices(22) == [2, 11]
-    assert len(smoke.KERNEL_ATTRS) == 4
+    assert len(smoke.KERNEL_ATTRS) == 7
     for _, cfg, _, plan in cases:
         assert cfg.dsp.griffin_lim_warm_start
         assert webrtc_hop_smem_bytes(cfg, plan) > 0

@@ -95,11 +95,12 @@ def test_real_split_gives_rfft_and_irfft_with_radix5(n_fft):
 @pytest.mark.parametrize("m", [28, 22, 441])
 def test_other_primes_keep_fused_webrtc_and_bind(monkeypatch, m):
     """n_fft / 2 with a prime factor above 5 (m = 28 = 4 x 7, 22 = 2 x
-    11, 441 = 3 x 3 x 7 x 7) is a geometry the kernels take: its shared
+    11, 441 = 9 x 7 x 7) is a geometry the kernels take: its shared
     memory is counted, the engine keeps mode fused-webrtc on a card (no
     downgrade warning), and binding a library gets past the geometry:
     with a stand-in library that agrees on the layout and the count, the
-    hop binds and names the M = 0 instantiation."""
+    hop binds and names the instantiation the library gives it (M = 441
+    compiled in, else M = 0)."""
     _, (cfg, model, plan) = _small(2 * m, 16)
     need = webrtc_hop_smem_bytes(cfg, plan)
     assert 0 < need == hop_smem_bytes(cfg, plan, "fused-webrtc")
@@ -114,7 +115,7 @@ def test_other_primes_keep_fused_webrtc_and_bind(monkeypatch, m):
     answers = {"adt_webrtc_hop_args_size": ctypes.sizeof(
                    webrtc_hop_mod._Args),
                "adt_webrtc_hop_smem_bytes": need,
-               "adt_webrtc_hop_fft_instance": 0}
+               "adt_webrtc_hop_fft_instance": 441 if m == 441 else 0}
     lib = types.SimpleNamespace(**{f: (lambda *a, v=v: v) for f, v in (
         *answers.items(), ("adt_webrtc_hop_fft_radices", -1),
         ("adt_webrtc_hop", 1), ("adt_webrtc_hop_multi", 1))})
@@ -122,7 +123,8 @@ def test_other_primes_keep_fused_webrtc_and_bind(monkeypatch, m):
                         lambda device: types.SimpleNamespace(
                             shared_memory_per_block_optin=SMEM_LIMIT))
     hop._bind(lib)
-    assert hop.fft_instance == 0 and hop._base_args.hop == m
+    assert hop.fft_instance == answers["adt_webrtc_hop_fft_instance"]
+    assert hop._base_args.hop == m
     assert fft_radices(m)[-1] in (7, 11)
 
 

@@ -1,8 +1,10 @@
 """The WebRTC hop at an n_fft / 2 with a prime factor above 5
-(``csrc/webrtc_hop.cu``'s prime pass and its plain mirrors in
-``ops/kernels/webrtc_hop.py``) on the CPU: the pass schedule against
-numpy's FFT at m = 7, 21, 22, 28, 441 (n_fft 882, WebRTC's 10 ms frame at
-44.1 kHz) and the prime 509, the real-input formulas around it, the plain
+(``csrc/webrtc_hop.cu``'s compiled-in M = 441, radices 9 and 7 in
+registers, its M = 0 instantiation's prime pass, and their plain mirrors
+in ``ops/kernels/webrtc_hop.py``) on the CPU: the pass schedule against
+numpy's FFT at m = 7, 21, 22, 28, 49, 63, 143, 441 (n_fft 882, WebRTC's
+10 ms frame at 44.1 kHz: 9 x 7 x 7) and the prime 509, the real-input
+formulas around it, the plain
 hop against JAX's ``make_webrtc_hop`` in interpret mode and JAX's op-by-op
 step at n_fft 56, 44, 42 and 882, fp32 and the bf16 Griffin-Lim mode, and
 the shared-memory count at the 44.1 kHz geometry on gruunet2-dari_tult's
@@ -33,19 +35,24 @@ from tests.test_torch_webrtc_geometries import (
     _snr, _step_state, _to_jax, _warm_state)
 
 # m = 509 is one pass of 509-term sums in fp32: against numpy's float64
-# FFT it reads 3.7e-7 of a frame's peak, the 441-point schedule 1.8e-7,
-# the others 1.2e-7 or less; FFT_REL holds 509 too, with room
+# FFT it reads 3.7e-7 of a frame's peak, the 441-point schedule 1.5e-7,
+# the others 1.7e-7 or less; FFT_REL holds 509 too, with room. Only the
+# compiled-in 441 takes 9 (before 3) and runs 7 in registers; at run time
+# (63 is 3 x 3 x 7) 7 and any larger prime are prime passes
 PRIME_SIZES = [(7, [7]), (21, [3, 7]), (22, [2, 11]), (28, [4, 7]),
-               (441, [3, 3, 7, 7]), (509, [509])]
+               (49, [7, 7]), (63, [3, 3, 7]), (143, [11, 13]),
+               (441, [9, 7, 7]), (509, [509])]
 # (n_fft, mels): m = 28 = 4 x 7, 22 = 2 x 11, 21 = 3 x 7 (odd), 441
 GEOMETRIES = [(56, 16), (44, 16), (42, 16), (882, 16)]
 
 
 @pytest.mark.parametrize("m,radices", PRIME_SIZES)
 def test_prime_pass_schedule_matches_numpy_fft(m, radices):
-    """The kernels' complex FFT with a prime pass, pass by pass, on three
-    complex64 frames with the float32 pass-twiddle table, against numpy's
-    fft and m * ifft in float64, within FFT_REL of each frame's peak."""
+    """The kernels' complex FFT with a radix-7 pass (a prime pass, or in
+    registers at the compiled-in 441) or a larger prime pass, pass by
+    pass, on three complex64 frames with the float32 pass-twiddle table,
+    against numpy's fft and m * ifft in float64, within FFT_REL of each
+    frame's peak."""
     assert fft_radices(m) == radices
     rng = np.random.default_rng(m)
     z = rng.standard_normal((3, m)) + 1j * rng.standard_normal((3, m))
