@@ -23,8 +23,11 @@
 // activations as float4 broadcasts from shared memory, so each weight load
 // feeds 16 kTile FMAs. Narrow stages split k across threads to shorten
 // each thread's chain of dependent steps, and add the partial sums in
-// shared memory in a fixed order. The epilogue adds the bias and applies
-// the stage's activation. Rows past the batch (the ragged edge) compute on
+// shared memory in a fixed order. `gemm` is a template on its row count
+// (kTile by default): webrtc_hop.cu runs the matmuls that read no state
+// over the three frames of a tile at once, so each weight load feeds
+// three times the FMAs. The epilogue adds the bias and applies the
+// stage's activation. Rows past the batch (the ragged edge) compute on
 // zeros and are never stored by the callers. `gemm` and `plan_cell` run on
 // the whole block, or on a group of its threads (`Lanes`) that waits at a
 // named barrier of its own, as webrtc_hop.cu's K-hop kernel runs them on
@@ -221,6 +224,8 @@ struct Gemm {
   float* c;
   int ldc;
   float* scratch;  // split-K partial sums, 4 * kThreads * kTile floats
+  const float* pre;  // gemm<W, kRows, true>: the sums C starts from
+  int ldpre;
   // the int8 plan (gemm_q): the column scale rows of w1 and w2, the
   // staging buffers, and whether the two dequantized inputs are added
   // before the bias (a delta level 0) or the second after it (a skip)
@@ -272,12 +277,12 @@ __device__ __forceinline__ float4 load_w4(const bf16_t* p) {
   return ldg4(p);
 }
 
-template <class W>
-__device__ __forceinline__ void fma_row(float (&acc)[kTile][4],
+template <class W, int kRows>
+__device__ __forceinline__ void fma_row(float (&acc)[kRows][4],
                                         const float* a, int lda, int k,
                                         float4 w, const W* wt) {
 #pragma unroll
-  for (int r = 0; r < kTile; ++r) {
+  for (int r = 0; r < kRows; ++r) {
     const float v = act(a[r * lda + k], wt);
     acc[r][0] = fmaf(v, w.x, acc[r][0]);
     acc[r][1] = fmaf(v, w.y, acc[r][1]);
@@ -286,10 +291,10 @@ __device__ __forceinline__ void fma_row(float (&acc)[kTile][4],
   }
 }
 
-// acc[r][c] += sum_{k in [lo, hi)} a[r][k] * w[k][4q + c], W float or
-// bf16 (the activation then rounded to bf16)
-template <bool kShared = false, class W = float>
-__device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
+// acc[r][c] += sum_{k in [lo, hi)} a[r][k] * w[k][4q + c] for the kRows
+// rows of acc, W float or bf16 (the activation then rounded to bf16)
+template <bool kShared = false, class W = float, int kRows = kTile>
+__device__ __forceinline__ void accumulate(float (&acc)[kRows][4],
                                            const float* a, int lda,
                                            const W* __restrict__ w,
                                            int ldw, int q, int lo, int hi) {
@@ -304,7 +309,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[kTile][4],
     const float4 w2 = load_w4<kShared>(wq + (size_t)(k + 2) * ldw);
     const float4 w3 = load_w4<kShared>(wq + (size_t)(k + 3) * ldw);
 #pragma unroll
-    for (int r = 0; r < kTile; ++r) {
+    for (int r = 0; r < kRows; ++r) {
       const float4 v =
           act4(*reinterpret_cast<const float4*>(a + r * lda + k), w);
       acc[r][0] = fmaf(v.x, w0.x, acc[r][0]);
@@ -337,46 +342,64 @@ __device__ __forceinline__ float epilogue(const Gemm& g, float v, int col) {
   return v;
 }
 
+// What the epilogue starts from: 0, or with kPre the row's precomputed
+// sum g.pre (then the products are added to it).
+template <bool kPre>
+__device__ __forceinline__ float start(const Gemm& g, int r, int col) {
+  return kPre ? g.pre[r * g.ldpre + col] : 0.f;
+}
+
 // A work item's sums: C through the epilogue when k is not split
 // (ks_n == 1), else its partial sums into the scratch.
+template <bool kPre = false, int kRows>
 __device__ __forceinline__ void store_item(const Gemm& g,
-                                           const float (&acc)[kTile][4],
+                                           const float (&acc)[kRows][4],
                                            int q, int ks, int ks_n, int ldw) {
 #pragma unroll
-  for (int r = 0; r < kTile; ++r)
+  for (int r = 0; r < kRows; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int col = 4 * q + c;
       if (ks_n == 1)
-        g.c[r * g.ldc + col] = epilogue(g, acc[r][c], col);
+        g.c[r * g.ldc + col] =
+            epilogue(g, kPre ? start<kPre>(g, r, col) + acc[r][c] : acc[r][c],
+                     col);
       else
-        g.scratch[(ks * kTile + r) * ldw + col] = acc[r][c];
+        g.scratch[(ks * kRows + r) * ldw + col] = acc[r][c];
     }
 }
 
 // With k split (ks_n > 1): C = epilogue(the partial sums added in the
-// order ks = 0, 1, ...), after the group's barrier.
+// order ks = 0, 1, ..., to g.pre with kPre), after the group's barrier.
+template <int kRows = kTile, bool kPre = false>
 __device__ __forceinline__ void reduce_partials(const Gemm& g, const Lanes& t,
                                                 int ks_n, int ldw) {
   if (ks_n > 1) {
     group_sync(t);
-    for (int e = t.id; e < kTile * ldw; e += t.n) {
+    for (int e = t.id; e < kRows * ldw; e += t.n) {
       const int r = e / ldw, col = e % ldw;
-      float v = 0.f;
+      float v = start<kPre>(g, r, col);
       for (int ks = 0; ks < ks_n; ++ks)
-        v += g.scratch[(ks * kTile + r) * ldw + col];
+        v += g.scratch[(ks * kRows + r) * ldw + col];
       g.c[r * g.ldc + col] = epilogue(g, v, col);
     }
     group_sync(t);  // the scratch is free for the next gemm
   }
 }
 
-// A work item is four output columns (q) for all kTile rows over one of ks_n
-// contiguous k ranges of the two sources laid end to end. Narrow stages
-// split k (ks_n > 1) until the items fill the block; their partial sums
-// meet in shared memory and are added in a fixed order. W is the weight
-// element, float or bf16 (the Gemm's pointers carry it).
-template <class W = float>
+// A work item is four output columns (q) for all kRows rows over one of
+// ks_n contiguous k ranges of the two sources laid end to end. Narrow
+// stages split k (ks_n > 1) until the items fill the block; their partial
+// sums meet in shared memory and are added in a fixed order. W is the
+// weight element, float or bf16 (the Gemm's pointers carry it). kRows is
+// the rows of A and C (kTile, or webrtc_hop.cu's three frames of a tile):
+// rows add accumulators to an item, not steps to its chain, and ks_n
+// depends on the columns and the threads only, so a row's sums are added
+// in the same order at any kRows; the scratch holds ks_n kRows rows of
+// round4(n) floats, at most 4 kThreads kRows. kPre: C = epilogue(g.pre +
+// the products), g.pre's rows holding a sum computed before (a decoder
+// level's skip product).
+template <class W = float, int kRows = kTile, bool kPre = false>
 __device__ void gemm(const Gemm& g, const Lanes& t) {
   const int ldw = round4(g.n);
   const int n4 = ldw / 4;
@@ -399,9 +422,9 @@ __device__ void gemm(const Gemm& g, const Lanes& t) {
   for (int it = t.id; it < items; it += nt) {
     const int q = it % n4, ks = it / n4;
     const int lo = ks * chunk, hi = min(ktot, lo + chunk);
-    float acc[kTile][4];
+    float acc[kRows][4];
 #pragma unroll
-    for (int r = 0; r < kTile; ++r)
+    for (int r = 0; r < kRows; ++r)
       acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
     if (lo < min(hi, g.k1))
       accumulate(acc, g.a1, g.lda1, reinterpret_cast<const W*>(g.w1), ldw,
@@ -409,9 +432,9 @@ __device__ void gemm(const Gemm& g, const Lanes& t) {
     if (g.a2 != nullptr && max(lo, g.k1) < hi)
       accumulate(acc, g.a2, g.lda2, reinterpret_cast<const W*>(g.w2), ldw,
                  q, max(lo, g.k1) - g.k1, hi - g.k1);
-    store_item(g, acc, q, ks, ks_n, ldw);
+    store_item<kPre>(g, acc, q, ks, ks_n, ldw);
   }
-  reduce_partials(g, t, ks_n, ldw);
+  reduce_partials<kRows, kPre>(g, t, ks_n, ldw);
 }
 
 template <class W = float>
@@ -628,6 +651,8 @@ __device__ inline Gemm make_gemm(const float* a1, int lda1, int k1,
   g.c = c;
   g.ldc = ldc;
   g.scratch = scratch;
+  g.pre = nullptr;
+  g.ldpre = 0;
   g.s1 = g.s2 = nullptr;
   g.q = nullptr;
   g.qsx = nullptr;

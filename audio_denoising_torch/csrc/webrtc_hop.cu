@@ -55,8 +55,24 @@
 //    the peak.
 // 2. `cell_stage`, kThreads lanes per tile of kTile streams: the three
 //    plan-cell steps on plan_cell.cuh's small-GEMM routine (the weights
-//    come from L2, each tile reads them once per step), then the
-//    residual; the mel magnitudes and hx.
+//    come from L2), each followed by the residual; the mel magnitudes and
+//    hx. The three steps read 2.84 MB of gruunet2-dari_tult's weights
+//    each, and the 128 tiles of 256 streams pulled them from L2 at about
+//    5 TB/s, which bound the launch. The matmuls that read no state run
+//    once for the three frames (`cell_stage_frames`, the batched walk):
+//    the encoder chain reads only the frame's features and the decoder's
+//    skip products only encoder activations (JAX computes the three
+//    frames' features before any cell runs, webrtc_hop.py:283-290), so
+//    they run over 3 kTile rows per weight load, two thirds of the plan's
+//    bytes; then frame by frame the reset gate, the GRU update and each
+//    decoder level's h @ up_w added to its skip product. A tile then reads
+//    1.87 + 3 x 0.97 MB a hop in place of 3 x 2.84, and the launch took
+//    145 us against 210 on an H100 (PERF.md, PR 24). Its buffers are
+//    larger; where they do not fit a block in both entry points (plans
+//    wider than hidden 17, the 128-mel plans) the host picks the
+//    per-frame walk (`cell_stage`, the plan cell three times), in both
+//    entry points, by AdtWebRTCHopArgs.cell_batched; the single hop
+//    launches `cell_kernel<true>` or `<false>`.
 // 3. `gl_stage`, fft_threads(M) lanes per stream: inverse mel, the warm
 //    seed, the Griffin-Lim loop and the synthesis, with the magnitudes,
 //    phases, previous rebuilt spectrum and time signal in shared memory
@@ -158,6 +174,12 @@ struct AdtWebRTCHopArgs {
   float output_gain;
   float state_decay;
   int gl_bf16;          // the Griffin-Lim rounds' transform inputs in bf16
+  int cell_batched;     // the cell stage's walk: 1 batched, 0 per frame
+  // where the K-hop kernel's cell layout lies (MultiLayout.cell): set by
+  // launch_multi on the host, so that the kernel keeps none of it live
+  int cell_d;
+  int cell_s;
+  int cell_x;
 };
 
 namespace {
@@ -882,8 +904,8 @@ __device__ __noinline__ void analysis_stage(
   }
 }
 
-// Stage 2 for a tile of kTile streams (`rows` of them real), the cell's
-// layout at dynamic shared memory + base: hx from hx_in (n_hidden a
+// Stage 2 in the per-frame walk for a tile of kTile streams (`rows` of
+// them real), the cell's layout at dynamic shared memory + base: hx from hx_in (n_hidden a
 // stream), the features from feat (kFrames * n_mels a stream), the mel
 // magnitudes to mel_mag, hx decayed to hx_out (which may be hx_in). Ends
 // on the group's barrier.
@@ -929,6 +951,204 @@ __device__ __noinline__ void cell_stage(const AdtWebRTCHopArgs& a, int base,
     hx_out[s * n + j] = smem[l.hx + s * l.ld_n + j] * a.state_decay;
   }
   group_sync(g);
+}
+
+// Rows of the batched walk's matmuls that read no state: the tile's
+// streams at each of the three frames, frame-major (row t kTile + s), so
+// a frame's kTile rows are contiguous.
+constexpr int kFrameRows = kFrames * kTile;
+
+// The batched walk's shared memory, in floats, in three parts that each
+// entry point places where it has room: the encoder's activations d[0..L]
+// of all kFrameRows rows; the decoder's skip products of those rows, and
+// hx; the split-K scratch of those rows' matmuls, and over it (dead while
+// they run) the per-frame matmuls' scratch, the reset gate's output, the
+// updated state and the decoder's two buffers. A buffer's offset is
+// computed from the plan where it is needed: the plan lies in the launch's
+// parameter space, where the walk can index it by level, whereas a table
+// of offsets indexed at run time would live in each thread's local
+// memory, whose writes (65,536 threads' copies a launch) evicted the other
+// two launches' data from L2 and cost them about 8 us each.
+struct FrameBases {
+  int d, s, x;  // where the three parts start
+};
+
+// Offset of level i's activations (kFrameRows rows of round4(down_n[i])).
+__host__ __device__ inline int frames_d(const AdtPlan& p, int base, int i) {
+  for (int j = 0; j < i; ++j) base += kFrameRows * round4(p.down_n[j]);
+  return base;
+}
+
+// Offset of decoder level i's skip product (kFrameRows rows of
+// round4(up_n[i + 1]), where up_s[i] is set); i = levels: of hx.
+__host__ __device__ inline int frames_skip(const AdtPlan& p, int base,
+                                           int i) {
+  for (int j = 0; j < i; ++j)
+    if (p.up_s[j] != nullptr) base += kFrameRows * round4(p.up_n[j + 1]);
+  return base;
+}
+
+// The decoder's buffers' leading dimension: its widest level.
+__host__ __device__ inline int frames_ld_pp(const AdtPlan& p) {
+  int widest = 0;
+  for (int i = 1; i <= p.levels; ++i)
+    widest = p.up_n[i] > widest ? p.up_n[i] : widest;
+  return round4(widest);
+}
+
+// The floats of the three parts.
+__host__ __device__ inline void frames_sizes(const AdtPlan& p, int* d,
+                                             int* s, int* x) {
+  const int n = p.n_hidden;
+  *d = frames_d(p, 0, p.levels + 1);
+  *s = frames_skip(p, 0, p.levels) + kTile * round4(n);
+  const int per_frame = kTile * (4 * kThreads + round4(3 * n) + round4(n) +
+                                 2 * frames_ld_pp(p));
+  const int batched = kFrameRows * 4 * kThreads;
+  *x = per_frame > batched ? per_frame : batched;
+}
+
+// The parts laid end to end (the single hop's cell launch); *floats gets
+// the floats they take.
+__host__ __device__ inline FrameBases frames_contiguous(const AdtPlan& p,
+                                                        int* floats) {
+  int d, s, x;
+  frames_sizes(p, &d, &s, &x);
+  *floats = d + s + x;
+  return FrameBases{0, d, d + s};
+}
+
+// Stage 2 in the batched walk: what `cell_stage` computes, for the same
+// tile and hand-offs, with its layout's parts at dynamic shared memory
+// + base. The encoder and the skip products run on
+// kFrameRows rows (their sums in the per-frame walk's order: `gemm`'s
+// split does not depend on rows); each decoder level with a skip adds
+// h @ up_w to its skip product (gemm<float, kTile, true>), where the
+// per-frame walk adds both products' k ranges laid end to end. Ends on the
+// group's barrier.
+__device__ __noinline__ void cell_stage_frames(
+    const AdtWebRTCHopArgs& a, FrameBases base, Lanes g, int rows,
+    const float* hx_in, const float* feat, float* mel_mag, float* hx_out) {
+  extern __shared__ __align__(16) float dyn[];
+  float* smem = dyn;
+  const AdtPlan& p = a.plan;
+  const int M = a.n_mels, n = p.n_hidden, L = p.levels;
+  const int ld_n = round4(n), ld_gh = round4(3 * n), ld_pp = frames_ld_pp(p);
+  const int ld_x = round4(p.down_n[0]);
+  float* d0 = smem + base.d;
+  float* scratch = smem + base.x;
+  float* gh = scratch + kTile * 4 * kThreads;
+  float* hc = smem + frames_skip(p, base.s, L);  // this frame's hx
+  float* hn = gh + kTile * ld_gh;                 // its update
+  float* pp0 = hn + kTile * ld_n;
+  float* pp1 = pp0 + kTile * ld_pp;
+
+  for (int e = g.id; e < kTile * n; e += g.n) {
+    const int s = e / n, j = e % n;
+    hc[s * ld_n + j] = s < rows ? hx_in[s * n + j] : 0.f;
+  }
+  for (int e = g.id; e < kFrameRows * M; e += g.n) {
+    const int r = e / M, mm = e % M;
+    const int t = r / kTile, s = r % kTile;
+    d0[r * ld_x + mm] = s < rows ? feat[(s * kFrames + t) * M + mm] : 0.f;
+  }
+  group_sync(g);
+  // the matmuls that read no state, once for the three frames: the
+  // encoder, level i from d[i] into d[i + 1]
+  for (int i = 0, off = base.d; i < L; ++i) {
+    const int next = off + kFrameRows * round4(p.down_n[i]);
+    gemm<float, kFrameRows>(
+        make_gemm(smem + off, round4(p.down_n[i]), p.down_n[i], p.down_w[i],
+                  p.down_n[i + 1], p.down_b[i], kRelu, smem + next,
+                  round4(p.down_n[i + 1]), scratch),
+        g);
+    group_sync(g);
+    off = next;
+  }
+  // the skip products (decoder level i's, of d[L - i]) read d[1..L-1],
+  // complete by now, and write buffers of their own: no barrier between
+  // them (a split one ends on its own)
+  for (int i = 0, off = base.s; i < L; ++i) {
+    if (p.up_s[i] == nullptr) continue;
+    const int k = p.down_n[L - i], w = round4(p.up_n[i + 1]);
+    gemm<float, kFrameRows>(
+        make_gemm(smem + frames_d(p, base.d, L - i), round4(k), k, p.up_s[i],
+                  p.up_n[i + 1], nullptr, kNone, smem + off, w, scratch),
+        g);
+    off += kFrameRows * w;
+  }
+  group_sync(g);
+
+  const float* gx_all = smem + frames_d(p, base.d, L);
+  const int ld_gx = round4(p.down_n[L]);
+  for (int t = 0; t < kFrames; ++t) {
+    gemm<float>(make_gemm(hc, ld_n, n, p.reset_w, 3 * n, p.reset_b, kRelu, gh,
+                          ld_gh, scratch),
+                g);
+    group_sync(g);
+    const float* gx = gx_all + t * kTile * ld_gx;
+    for (int e = g.id; e < kTile * n; e += g.n) {
+      const int s = e / n, j = e % n;
+      const float* x = gx + s * ld_gx;
+      const float* h = gh + s * ld_gh;
+      const float inputgate = sigmoidf(x[n + j] + h[n + j]);
+      const float resetgate = sigmoidf(x[j] + h[j]);
+      const float newgate = tanhf(x[2 * n + j] + resetgate * h[2 * n + j]);
+      const float hxv = hc[s * ld_n + j];
+      hn[s * ld_n + j] = newgate + inputgate * (hxv - newgate);
+    }
+    group_sync(g);
+    // decoder level i on h into pp0 or pp1, its skip product added
+    const float* h = hn;
+    int ldh = ld_n;
+    for (int i = 0, off = base.s; i < L; ++i) {
+      float* dst = (i & 1) ? pp1 : pp0;
+      Gemm gm = make_gemm(h, ldh, p.up_n[i], p.up_w[i], p.up_n[i + 1],
+                          p.up_b[i], i != L - 1 ? kRelu : kNone, dst, ld_pp,
+                          scratch);
+      if (p.up_s[i] != nullptr) {
+        const int w = round4(p.up_n[i + 1]);
+        gm.pre = smem + off + t * kTile * w;
+        gm.ldpre = w;
+        gemm<float, kTile, true>(gm, g);
+        off += kFrameRows * w;
+      } else {
+        gemm<float>(gm, g);
+      }
+      group_sync(g);
+      h = dst;
+      ldh = ld_pp;
+    }
+    // mel magnitude: max(exp(leaky_relu(x - y, 0.2)) - 1, 0); the next
+    // frame's barriers come before anything writes h again
+    const float* x = d0 + t * kTile * ld_x;
+    for (int e = g.id; e < rows * M; e += g.n) {
+      const int s = e / M, mm = e % M;
+      float r = x[s * ld_x + mm] - h[s * ld_pp + mm];
+      r = r >= 0.f ? r : 0.2f * r;
+      mel_mag[(s * kFrames + t) * M + mm] = fmaxf(expf(r) - 1.f, 0.f);
+    }
+    float* next = hc;  // hn is the next frame's hx
+    hc = hn;
+    hn = next;
+  }
+  for (int e = g.id; e < rows * n; e += g.n) {
+    const int s = e / n, j = e % n;
+    hx_out[s * n + j] = hc[s * ld_n + j] * a.state_decay;
+  }
+  group_sync(g);
+}
+
+// Stage 2 in the walk the host chose (AdtWebRTCHopArgs.cell_batched), its
+// layout's parts at dynamic shared memory + base (the per-frame walk's
+// one part at base.d).
+__device__ __forceinline__ void run_cell_stage(
+    const AdtWebRTCHopArgs& a, FrameBases base, const Lanes& g, int rows,
+    const float* hx_in, const float* feat, float* mel_mag, float* hx_out) {
+  if (a.cell_batched)
+    cell_stage_frames(a, base, g, rows, hx_in, feat, mel_mag, hx_out);
+  else
+    cell_stage(a, base.d, g, rows, hx_in, feat, mel_mag, hx_out);
 }
 
 // The Griffin-Lim rounds of stage 3 on the layout's phases (are, aim),
@@ -1057,13 +1277,24 @@ __global__ void __launch_bounds__(fft_threads(kM))
                  a.feat + b * kFrames * a.n_mels, a.peak + b);
 }
 
+// The single hop's cell launch in one walk (kBatched: a.cell_batched),
+// so that it holds the code of that walk only.
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads, 1)
     cell_kernel(const __grid_constant__ AdtWebRTCHopArgs a) {
   const size_t b0 = (size_t)blockIdx.x * kTile;
   const int rows = min(kTile, a.batch - (int)b0);
   const size_t n = a.plan.n_hidden, nf = kFrames * a.n_mels;
-  cell_stage(a, 0, block_lanes(), rows, a.hx + b0 * n, a.feat + b0 * nf,
-             a.mel_mag + b0 * nf, a.hx_out + b0 * n);
+  const float* hx = a.hx + b0 * n;
+  const float* feat = a.feat + b0 * nf;
+  if (kBatched) {
+    int floats;
+    cell_stage_frames(a, frames_contiguous(a.plan, &floats), block_lanes(),
+                      rows, hx, feat, a.mel_mag + b0 * nf, a.hx_out + b0 * n);
+  } else {
+    cell_stage(a, 0, block_lanes(), rows, hx, feat, a.mel_mag + b0 * nf,
+               a.hx_out + b0 * n);
+  }
 }
 
 template <int kM>
@@ -1082,13 +1313,16 @@ __global__ void __launch_bounds__(fft_threads(kM), 2)
 // (its are and aim hold the carried phases), then the tile's state and
 // the stages' hand-offs, each kTile rows; the cell's layout aliases
 // stream 0's transform buffers where it fits (they are dead while the
-// cell runs), else it follows.
+// cell runs), else it follows. The batched walk's three parts, largest
+// first, each take the first of stream 0's and stream 1's transform
+// buffers that still has room for it, else follow.
 struct MultiLayout {
   SpecLayout spec;
   int stream[kTile];
   int ld_t;                            // ring and OLA rows
   int ring, ola, hx, feat, mel_mag, peak;
-  int cell;
+  FrameBases cell;                     // the cell layout's parts
+  static_assert(kTile == 2, "the cell's parts fit two streams' buffers");
   int total;
 };
 
@@ -1105,10 +1339,41 @@ __host__ __device__ inline MultiLayout make_multi_layout(
   l.feat = take(&off, 1, round4(kTile * kFrames * a.n_mels));
   l.mel_mag = take(&off, 1, round4(kTile * kFrames * a.n_mels));
   l.peak = take(&off, 1, round4(kTile));
-  CellLayout cl;
-  int cell = 0;
-  make_cell_layout(a.plan, &cl, &cell);
-  l.cell = cell <= l.spec.are ? l.stream[0] : take(&off, 1, cell);
+  if (a.cell_batched) {
+    // the three parts, largest first (the first of equals), each in the
+    // first stream's transform buffers with room left for it, else after
+    int size_d, size_s, size_x;
+    frames_sizes(a.plan, &size_d, &size_s, &size_x);
+    int used0 = 0, used1 = 0, placed = 0;  // placed: a bit a part
+    for (int k = 0; k < 3; ++k) {
+      int i = -1, size = -1;
+      for (int j = 0; j < 3; ++j) {
+        const int sj = j == 0 ? size_d : j == 1 ? size_s : size_x;
+        if (!(placed >> j & 1) && sj > size) {
+          i = j;
+          size = sj;
+        }
+      }
+      placed |= 1 << i;
+      int at;
+      if (used0 + size <= l.spec.are) {
+        at = l.stream[0] + used0;
+        used0 += size;
+      } else if (used1 + size <= l.spec.are) {
+        at = l.stream[1] + used1;
+        used1 += size;
+      } else {
+        at = take(&off, 1, size);
+      }
+      (i == 0 ? l.cell.d : i == 1 ? l.cell.s : l.cell.x) = at;
+    }
+  } else {
+    CellLayout cl;
+    int floats = 0;
+    make_cell_layout(a.plan, &cl, &floats);
+    l.cell.d = floats <= l.spec.are ? l.stream[0] : take(&off, 1, floats);
+    l.cell.s = l.cell.x = 0;
+  }
   l.total = off;
   return l;
 }
@@ -1166,7 +1431,8 @@ __global__ void __launch_bounds__(kTile * fft_threads(kM), 1)
                          ring, feat + s * nf, peak + s);
     __syncthreads();
     if (tid < kThreads)
-      cell_stage(a, l.cell, cell_lanes, rows, hx, feat, mel_mag, hx);
+      run_cell_stage(a, FrameBases{a.cell_d, a.cell_s, a.cell_x},
+                     cell_lanes, rows, hx, feat, mel_mag, hx);
     __syncthreads();
     if (s < rows)
       gl_stage<kM>(a, p, l.stream[s], fft_lanes, mel_mag + s * nf, peak[s],
@@ -1197,6 +1463,11 @@ size_t spec_bytes(const AdtWebRTCHopArgs& a, bool gl) {
 }
 
 size_t cell_bytes(const AdtWebRTCHopArgs& a) {
+  if (a.cell_batched) {
+    int floats;
+    frames_contiguous(a.plan, &floats);
+    return (size_t)floats * sizeof(float);
+  }
   CellLayout l;
   int off = 0;
   make_cell_layout(a.plan, &l, &off);
@@ -1210,7 +1481,8 @@ size_t multi_bytes(const AdtWebRTCHopArgs& a) {
 bool args_ok(const AdtWebRTCHopArgs& a, FftPlan* p) {
   return plan_ok(a.plan, a.n_mels) && a.n_fft == 2 * a.hop &&
          a.n_bins == a.hop + 1 && a.n_iter >= 0 && a.hops >= 1 &&
-         a.n_mels >= 1 && make_fft_plan(a.hop, p);
+         a.n_mels >= 1 && (a.cell_batched == 0 || a.cell_batched == 1) &&
+         make_fft_plan(a.hop, p);
 }
 
 cudaError_t set_smem(const void* kernel, size_t bytes) {
@@ -1224,14 +1496,15 @@ cudaError_t launch(const AdtWebRTCHopArgs& a, const FftPlan& p,
                    cudaStream_t stream) {
   const size_t sa = spec_bytes(a, false), sc = cell_bytes(a),
                sg = spec_bytes(a, true);
+  const auto cell = a.cell_batched ? cell_kernel<true> : cell_kernel<false>;
   cudaError_t err;
   if ((err = set_smem((const void*)analysis_kernel<kM>, sa)) != cudaSuccess ||
-      (err = set_smem((const void*)cell_kernel, sc)) != cudaSuccess ||
+      (err = set_smem((const void*)cell, sc)) != cudaSuccess ||
       (err = set_smem((const void*)gl_kernel<kM>, sg)) != cudaSuccess)
     return err;
   analysis_kernel<kM><<<a.batch, fft_threads(kM), sa, stream>>>(a, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  cell_kernel<<<(a.batch + kTile - 1) / kTile, kThreads, sc, stream>>>(a);
+  cell<<<(a.batch + kTile - 1) / kTile, kThreads, sc, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   gl_kernel<kM><<<a.batch, fft_threads(kM), sg, stream>>>(a, p);
   return cudaGetLastError();
@@ -1240,12 +1513,17 @@ cudaError_t launch(const AdtWebRTCHopArgs& a, const FftPlan& p,
 template <int kM>
 cudaError_t launch_multi(const AdtWebRTCHopArgs& a, const FftPlan& p,
                          cudaStream_t stream) {
-  const size_t sm = multi_bytes(a);
+  const MultiLayout l = make_multi_layout(a);
+  AdtWebRTCHopArgs b = a;
+  b.cell_d = l.cell.d;
+  b.cell_s = l.cell.s;
+  b.cell_x = l.cell.x;
+  const size_t sm = (size_t)l.total * sizeof(float);
   cudaError_t err = set_smem((const void*)webrtc_hop_multi_kernel<kM>, sm);
   if (err != cudaSuccess) return err;
   const int threads = kTile * fft_threads(kM);
   webrtc_hop_multi_kernel<kM>
-      <<<(a.batch + kTile - 1) / kTile, threads, sm, stream>>>(a, p);
+      <<<(a.batch + kTile - 1) / kTile, threads, sm, stream>>>(b, p);
   return cudaGetLastError();
 }
 
@@ -1274,7 +1552,8 @@ int adt_webrtc_hop_args_size() { return (int)sizeof(AdtWebRTCHopArgs); }
 
 // The largest dynamic shared memory one block needs in a call with these
 // arguments (the three single-hop kernels for a->hops == 1, the K-hop
-// kernel else); -1 if the arguments are not ones the kernels take.
+// kernel else) in the walk a->cell_batched names; -1 if the arguments are
+// not ones the kernels take.
 long long adt_webrtc_hop_smem_bytes(const AdtWebRTCHopArgs* a) {
   FftPlan p;
   if (!args_ok(*a, &p)) return -1;
@@ -1303,19 +1582,20 @@ int adt_webrtc_hop_fft_radices(int m, int* radix) {
 
 // The registers a thread and the local (stack and spill) bytes of the
 // M = 0 and M = 441 instantiations' kernels, as cudaFuncGetAttributes
-// reads them: which 0 analysis_kernel<0>, 1 cell_kernel, 2 gl_kernel<0>,
-// 3 webrtc_hop_multi_kernel<0>, 4 analysis_kernel<441>, 5
-// gl_kernel<441>, 6 webrtc_hop_multi_kernel<441>. Returns the
-// cudaError_t.
+// reads them: which 0 analysis_kernel<0>, 1 cell_kernel<false> (the
+// per-frame walk), 2 gl_kernel<0>, 3 webrtc_hop_multi_kernel<0>, 4
+// analysis_kernel<441>, 5 gl_kernel<441>, 6 webrtc_hop_multi_kernel<441>,
+// 7 cell_kernel<true> (the batched walk). Returns the cudaError_t.
 int adt_webrtc_hop_kernel_attrs(int which, int* regs,
                                 long long* local_bytes) {
   const void* kernels[] = {(const void*)analysis_kernel<0>,
-                           (const void*)cell_kernel,
+                           (const void*)cell_kernel<false>,
                            (const void*)gl_kernel<0>,
                            (const void*)webrtc_hop_multi_kernel<0>,
                            (const void*)analysis_kernel<441>,
                            (const void*)gl_kernel<441>,
-                           (const void*)webrtc_hop_multi_kernel<441>};
+                           (const void*)webrtc_hop_multi_kernel<441>,
+                           (const void*)cell_kernel<true>};
   constexpr int n = sizeof(kernels) / sizeof(kernels[0]);
   if (which < 0 || which >= n) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;

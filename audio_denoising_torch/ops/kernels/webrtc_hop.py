@@ -44,6 +44,15 @@ with fp32 twiddles and fp32 sums, where JAX also rounds its window-folded
 DFT matrices to bf16; the analysis, the plan cell and the final synthesis
 stay fp32 in both. It buys no speed on the card: the rounding is extra
 work on the same FFTs.
+
+The cell stage walks the plan in one of two ways (``CELL_WALKS``), the
+same in both entry points of a configuration: ``batched`` runs the
+matmuls that read no state (the encoder chain, the decoder's skip
+products) once over the three frames of a tile, then the rest frame by
+frame; ``per-frame`` runs the plan cell three times. ``cell_walk`` picks batched where its larger
+buffers fit a block of the card in both entry points, and
+``webrtc_hop_smem_bytes`` counts the walk a limit gives; a bound hop
+names its walk in ``cell_walk``.
 """
 
 import ctypes
@@ -58,8 +67,9 @@ from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import indexed, resolve_device
 from audio_denoising_torch.ops.griffinlim import griffin_lim
 from audio_denoising_torch.ops.kernels.common import (
-    KTILE, MAX_LEVELS, PlanArgs, cell_layout_floats, kernel_operand,
-    pack_plan_weights, plan_args, plan_cell_math, plan_shape, round4)
+    KTHREADS, KTILE, MAX_LEVELS, PlanArgs, PlanShape, cell_layout_floats,
+    kernel_operand, pack_plan_weights, plan_args, plan_cell_math, plan_shape,
+    round4)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.stft import istft, stft
 from audio_denoising_torch.ops.windows import hann_window
@@ -69,6 +79,8 @@ KERNELS_PER_HOP = 3   # csrc/webrtc_hop.cu: analysis, cell, gl
 # kRed: the analysis's partial results, one per lane of a stream's FFT
 # stages, as many as the most lanes (288; 256 at M = 441, fft_threads)
 RED = 288
+# the cell stage's walks (cell_batched in csrc/webrtc_hop.cu: 1, 0)
+CELL_WALKS = ("batched", "per-frame")
 
 
 class WebRTCHopState(NamedTuple):
@@ -141,9 +153,17 @@ def fft_radices(m: int) -> List[int]:
 
 def twiddle_table(n_fft: int) -> np.ndarray:
     """(n_fft, 2) float64: e^{-2 pi i t / n_fft} as (cos, -sin), the
-    table the wrapper hands to the kernels (in float32)."""
-    t = np.arange(n_fft) * (2 * np.pi / n_fft)
-    return np.stack([np.cos(t), -np.sin(t)], axis=1)
+    table the wrapper hands to the kernels (in float32). Its quarter turns
+    are exact: with sin(pi) rounded (1.2e-16) the real split gave the
+    Nyquist bin an imaginary part of that order, which Griffin-Lim's
+    u / (|u| + 1e-16) turned into a phase of norm between 0 and 1 where
+    the bin's real part was 0."""
+    t = np.arange(n_fft)
+    table = np.stack([np.cos(t * (2 * np.pi / n_fft)),
+                      -np.sin(t * (2 * np.pi / n_fft))], axis=1)
+    quarter = (4 * t) % n_fft == 0
+    table[quarter] = np.rint(table[quarter])
+    return table
 
 
 def pass_twiddle_table(m: int) -> np.ndarray:
@@ -241,7 +261,8 @@ class _Args(ctypes.Structure):
             "batch", "n_fft", "hop", "n_bins", "n_mels", "n_iter", "hops")]
         + [(f, ctypes.c_float) for f in (
             "momentum", "output_gain", "state_decay")]
-        + [("gl_bf16", ctypes.c_int)])
+        + [(f, ctypes.c_int) for f in ("gl_bf16", "cell_batched", "cell_d",
+                                       "cell_s", "cell_x")])
 
 
 def _spec_floats(n_fft: int, F: int, gl: bool) -> Tuple[int, int]:
@@ -254,30 +275,93 @@ def _spec_floats(n_fft: int, F: int, gl: bool) -> Tuple[int, int]:
     return are + (4 * round4(FRAMES * F) if gl else 0), are
 
 
-def webrtc_hop_smem_bytes(cfg: Config, plan, hops_per_call: int = 1) -> int:
-    """The most dynamic shared memory one block of the WebRTC hop's
-    kernels takes for ``cfg`` and ``plan`` (the three single-hop kernels,
-    or the K-hop kernel where ``hops_per_call > 1``), or -1 where the
-    kernels do not take the arguments (hop other than n_fft / 2): a plain
-    mirror of ``adt_webrtc_hop_smem_bytes`` in csrc/webrtc_hop.cu, which
-    the wrapper holds it equal to on the card."""
-    dsp = cfg.dsp
-    n_fft, F, M = dsp.n_fft, dsp.n_stft, dsp.n_mels
-    if n_fft < 2 or n_fft != 2 * dsp.hop_length:
-        return -1
+def _frames_floats(shape: PlanShape) -> Tuple[int, int, int]:
+    """The floats of the batched walk's three parts (``frames_sizes`` in
+    csrc/webrtc_hop.cu): the encoder's activations of the 3 KTILE rows;
+    the decoder's skip products of those rows and hx; the split-K scratch
+    of those rows' matmuls, over which the per-frame matmuls' scratch, the
+    reset gate's output, the updated state and the decoder's two buffers
+    lie."""
+    rows, L = FRAMES * KTILE, shape.levels
+    d = rows * sum(round4(w) for w in shape.down_n[:L + 1])
+    skip = (rows * sum(round4(shape.up_n[i + 1]) for i in range(L)
+                       if shape.skips[i])
+            + KTILE * round4(shape.n_hidden))
+    per_frame = KTILE * (4 * KTHREADS + round4(3 * shape.n_hidden)
+                         + round4(shape.n_hidden)
+                         + 2 * round4(max(shape.up_n[1:L + 1])))
+    return d, skip, max(per_frame, rows * 4 * KTHREADS)
+
+
+def _smem_floats(n_fft: int, F: int, M: int, shape: PlanShape,
+                 hops_per_call: int, walk: str) -> int:
     spec, are = _spec_floats(n_fft, F, True)
-    shape = plan_shape(plan, M)
-    cell = cell_layout_floats(shape)
+    parts = (_frames_floats(shape) if walk == CELL_WALKS[0]
+             else (cell_layout_floats(shape),))
     if hops_per_call == 1:
-        return 4 * max(spec, cell)
+        return max(spec, sum(parts))
     # make_multi_layout: each stream's spectra, the tile's ring and ola,
     # hx, the features and mel magnitudes of the frames, the peaks; the
-    # cell reuses the first stream's spectra where it fits below its GL
-    # planes
+    # cell's parts, largest first, each in the first stream's transform
+    # buffers below its GL planes that still have room, else after
     floats = (KTILE * spec + 2 * KTILE * round4(n_fft)
               + round4(KTILE * shape.n_hidden)
               + 2 * round4(KTILE * FRAMES * M) + round4(KTILE))
-    return 4 * (floats + (0 if cell <= are else cell))
+    used = [0] * KTILE
+    for p in sorted(parts, reverse=True):
+        s = next((s for s in range(KTILE) if used[s] + p <= are), None)
+        if s is None:
+            floats += p
+        else:
+            used[s] += p
+    return floats
+
+
+def _walk(n_fft: int, F: int, M: int, shape: PlanShape, limit: int) -> str:
+    fits = all(4 * _smem_floats(n_fft, F, M, shape, hops, CELL_WALKS[0])
+               <= limit for hops in (1, 2))
+    return CELL_WALKS[0] if fits else CELL_WALKS[1]
+
+
+def _takes(cfg: Config) -> bool:
+    """Whether the kernels take ``cfg``'s geometry (hop n_fft / 2)."""
+    return cfg.dsp.n_fft >= 2 and cfg.dsp.n_fft == 2 * cfg.dsp.hop_length
+
+
+def cell_walk(cfg: Config, plan, limit: int) -> str:
+    """The cell stage's walk for ``cfg`` and ``plan`` on a card whose
+    block may take ``limit`` bytes of shared memory: ``"batched"`` where
+    its buffers fit a block in both entry points (the three single-hop
+    kernels and the K-hop kernel), else ``"per-frame"`` (the 128-mel
+    plans on an H100). Both entry points run the walk it names, so K hops
+    equal K single hops bit for bit. A geometry the kernels refuse is
+    ``"per-frame"``."""
+    if not _takes(cfg):
+        return CELL_WALKS[1]
+    dsp = cfg.dsp
+    return _walk(dsp.n_fft, dsp.n_stft, dsp.n_mels,
+                 plan_shape(plan, dsp.n_mels), limit)
+
+
+def webrtc_hop_smem_bytes(cfg: Config, plan, hops_per_call: int = 1,
+                          limit: Optional[int] = None) -> int:
+    """The most dynamic shared memory one block of the WebRTC hop's
+    kernels takes for ``cfg`` and ``plan`` (the three single-hop kernels,
+    or the K-hop kernel where ``hops_per_call > 1``) in the walk
+    ``cell_walk`` gives at ``limit``; without a limit, in the per-frame
+    walk, the least any walk takes (what decides whether the kernels fit
+    a card at all: ``runtime.engine._fit``). -1 where the kernels do not
+    take the arguments (hop other than n_fft / 2). A plain mirror of
+    ``adt_webrtc_hop_smem_bytes`` in csrc/webrtc_hop.cu, which the
+    wrapper holds it equal to on the card."""
+    if not _takes(cfg):
+        return -1
+    dsp = cfg.dsp
+    shape = plan_shape(plan, dsp.n_mels)
+    walk = CELL_WALKS[1] if limit is None else _walk(
+        dsp.n_fft, dsp.n_stft, dsp.n_mels, shape, limit)
+    return 4 * _smem_floats(dsp.n_fft, dsp.n_stft, dsp.n_mels, shape,
+                            hops_per_call, walk)
 
 
 def _check_supported(cfg: Config, plan, hops_per_call: int,
@@ -322,6 +406,7 @@ class WebRTCHop:
         self.output_gain = float(srv.output_gain)
         self.state_decay = float(srv.state_decay)
         self.smem_bytes = webrtc_hop_smem_bytes(cfg, plan, hops_per_call)
+        self.shape = plan_shape(plan, self.M)
         self.launches = 0
 
         win = hann_window(self.n_fft, dtype=torch.float64).numpy()
@@ -346,7 +431,10 @@ class WebRTCHop:
         self.weights: List[torch.Tensor] = [w.contiguous() for w in weights]
 
         self._lib = None
-        self.fft_instance = None   # set when a kernel library is bound
+        # set when a kernel library is bound: the FFT instantiation and the
+        # cell stage's walk ("batched" or "per-frame") at the card's limit
+        self.fft_instance = None
+        self.cell_walk = None
         if device.type == "cuda":
             from audio_denoising_torch.ops.kernels.build import (
                 load_kernel_library)
@@ -375,8 +463,14 @@ class WebRTCHop:
             raise ValueError(
                 f"the webrtc hop kernels take hop = n_fft / 2, not n_fft "
                 f"{self.n_fft} and hop {self.hop}")
+        limit = torch.cuda.get_device_properties(
+            self.device).shared_memory_per_block_optin
+        self.cell_walk = _walk(self.n_fft, self.F, self.M, self.shape, limit)
+        self.smem_bytes = 4 * _smem_floats(self.n_fft, self.F, self.M,
+                                           self.shape, self.hops_per_call,
+                                           self.cell_walk)
         self._base_args = self._args()
-        self._check_shared_memory()
+        self._check_shared_memory(limit)
         # the M = n_fft / 2 of the kernels' FFT instantiation, 0 for the
         # one that reads the geometry at run time
         self.fft_instance = int(lib.adt_webrtc_hop_fft_instance(
@@ -536,6 +630,7 @@ class WebRTCHop:
         a.n_iter = self.n_iter
         a.hops = self.hops_per_call
         a.gl_bf16 = int(self.gl_bf16)
+        a.cell_batched = int(self.cell_walk == CELL_WALKS[0])
         a.momentum = self.momentum / (1.0 + self.momentum)
         a.output_gain, a.state_decay = self.output_gain, self.state_decay
         return a
@@ -549,18 +644,17 @@ class WebRTCHop:
             raise ValueError(f"the kernels take no FFT of {m} points")
         return list(out[:n])
 
-    def _check_shared_memory(self) -> None:
-        """What these kernels can take on this card: a block's working set
-        in its shared memory, as the library counts it and as
-        ``webrtc_hop_smem_bytes`` does."""
+    def _check_shared_memory(self, limit: int) -> None:
+        """What these kernels can take on this card (``limit`` bytes a
+        block): a block's working set in its shared memory, in the walk
+        bound, as the library counts it and as ``webrtc_hop_smem_bytes``
+        does."""
         need = int(self._lib.adt_webrtc_hop_smem_bytes(
             ctypes.byref(self._base_args)))
         if need != self.smem_bytes:
             raise RuntimeError(
                 f"csrc/webrtc_hop.cu counts {need} B of shared memory per "
                 f"block, webrtc_hop_smem_bytes {self.smem_bytes} B")
-        limit = torch.cuda.get_device_properties(
-            self.device).shared_memory_per_block_optin
         if need > limit:
             raise RuntimeError(
                 f"the webrtc hop needs {need} B of shared memory per block; "

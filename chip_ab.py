@@ -9,8 +9,8 @@ NVIDIA card.
 interface and argument struct (with the headers it includes), for example
 an earlier commit's ``audio_denoising_torch/csrc`` unpacked with
 ``git archive``, or a copy with one text change. Both are built with the
-same nvcc flags (their ptxas register and spill lines printed) and bound
-to the same wrappers.
+same nvcc flags (their ptxas register, stack frame and spill lines
+printed) and bound to the same wrappers.
 
 ``--kernel webrtc_hop`` (the default), on gruunet2-dari_tult with
 warm-start Griffin-Lim at 256 streams (at its n_fft 1536, or at
@@ -24,8 +24,9 @@ the bf16 GL mode:
    the two sources compute the same arithmetic);
 2. both are timed in turns, other, this, this, other: the single hop at
    GL-32 (CUDA events over 50 hops, and torch.profiler's time per
-   kernel), and the K-hop call per hop at GL-8 and GL-32 (CUDA events
-   over 5 calls);
+   launch, the mean over its events; the cell launch's on a line of its
+   own and per turn at the end), and the K-hop call per hop at GL-8 and
+   GL-32 (CUDA events over 5 calls);
 3. both Griffin-Lim launches by rounds, in turns: each one's profiler
    time in the single hop at GL-0, GL-8 and GL-32, and from them the
    time per round and the time outside the rounds.
@@ -391,19 +392,32 @@ def webrtc_ab(torch, makers, smi, n_fft=None):
             cs.say(f"  K-hop call, GL-{n}, K={cs.WEBRTC_K}: {cs.fmt(diff)}")
 
         cs.say(f"2. {mode}: times in turns {', '.join(TURNS)} ({smi}):")
+        cells = []
         for turn in TURNS:
             h = single[turn]
             ms = cs.time_launches(torch, lambda: h(state, chunks[0]),
                                   TIMED_SINGLE)
             cs.say(f"  {turn}: single hop GL-32 {ms * 1e3:.1f} us/hop")
-            cs.print_breakdown(cs.device_breakdown(
-                torch, lambda: h(state, chunks[0]), 20), "hop")
+            events = cs.kernel_events(torch, lambda: h(state, chunks[0]),
+                                      cs.PROFILED_CALLS)
+            cs.print_breakdown({name: us / k for name, (us, k)
+                                in events.items()}, "launch")
+            cell, k = cs.launch_us(events, "cell_kernel")
+            cells.append(f"{turn} {cell:.1f}" if k else
+                         f"{turn} not measured")
+            cs.say(f"  {turn}: the cell launch "
+                   + (f"{cell:.1f} us ({k} profiler events)" if k else
+                      "not measured") + f" of the hop's {ms * 1e3:.1f} us, "
+                   f"cell walk {getattr(h, 'cell_walk', None) or 'per-frame'}")
             for n, pair in multis.items():
                 m = pair[turn]
                 ms = cs.time_launches(torch, lambda: m(state, chunks),
                                       TIMED_MULTI)
                 cs.say(f"  {turn}: K-hop GL-{n} {ms * 1e3:.1f} us/call, "
                        f"{ms * 1e3 / cs.WEBRTC_K:.2f} us/hop")
+        cs.say(f"  {mode}: the cell launch in turns (us a launch, the "
+               f"profiler's mean over its events): "
+               + "; ".join(cells))
 
         cs.say(f"3. {mode}: the GL launch by rounds, in turns ({smi}):")
         by_rounds = {n: hop_pair(n, 1, dtype) for n in GL_ROUNDS}
@@ -412,10 +426,9 @@ def webrtc_ab(torch, makers, smi, n_fft=None):
             gl = {}
             for n, pair in by_rounds.items():
                 h = pair[turn]
-                rows = cs.device_breakdown(torch, lambda: h(state, chunks[0]),
-                                           20)
-                gl[n] = sum(us for name, us in rows.items()
-                            if "gl_kernel" in name)
+                gl[n] = cs.launch_us(cs.kernel_events(
+                    torch, lambda: h(state, chunks[0]), cs.PROFILED_CALLS),
+                    "gl_kernel")[0]
             per_round = (gl[hi] - gl[lo]) / (hi - lo)
             cs.say(f"  {turn}: the GL launch "
                    + ", ".join(f"GL-{n} {us:.1f}" for n, us in gl.items())

@@ -96,11 +96,15 @@ raises on failure (so the script exits non-zero and prints no result):
     streams and K = 25, GL-8 (bench.py's fused_webrtc_gl8_resident_k25)
     and GL-32: two calls carrying the state, each one launch, against 50
     single-hop calls from the same state (0 on every output and plane);
-20. the same at 255 and 3 streams (the ragged tile), one call;
+    the same on gruunet2s16kw40-mrstft-idp-50k.npz, whose plan takes the
+    per-frame cell walk (checked) in both entry points;
+20. the same at 255 and 3 streams (the ragged tile), one call (the
+    hidden-40 plan at 3);
 21. the K-hop kernel against its plain version at K = 2, GL-32 and GL-8,
-    256 and 3 streams: every call from the plain version's state, what
-    the call adds to the output stream held against the float64 plain
-    version as phase 3 holds one hop (``forced_floor``), hx, unit phases;
+    256 and 3 streams, on both plans: every call from the plain version's
+    state, what the call adds to the output stream held against the
+    float64 plain version as phase 3 holds one hop (``forced_floor``),
+    hx, unit phases;
 22. the K-hop kernel against its plain version at the JAX tests' small
     geometry: one call of 6 hops at GL-32 (256 and 3 streams) and of 40
     hops at GL-4 (64 streams), waveform held; and at n_fft 96 (M = 0)
@@ -497,6 +501,8 @@ WEBRTC_GL = (8, 32)
 RUNTIME_FFT = 96     # n_fft whose M = 48 has no instantiation of its own
 FFT_SIZES = (768, 512, 32, RUNTIME_FFT // 2)   # the checks' n_fft / 2
 FORCED_K = 2         # hops per call where each call starts from a shared state
+PROFILED_CALLS = 20  # calls torch.profiler records for a kernel breakdown
+SPLIT_REL = 0.1      # a hop's launches by the profiler vs the hop by events
 MOMO_SPEC = "momo3-4d4ea0"
 MOMO_TRAINED = "momo3-realnoise.npz"
 MOMO2_GOLDEN = "model_MOMO2-rand.npz"
@@ -872,10 +878,12 @@ def small_webrtc_model(torch, n_iter, n_fft=64, n_mels=16):
 
 
 def fft_label(hop) -> str:
-    """Which FFT instantiation of csrc/webrtc_hop.cu ran ``hop``: M =
-    n_fft / 2 compiled in, or M = 0, the geometry read at run time."""
+    """Which FFT instantiation of csrc/webrtc_hop.cu ran ``hop`` (M =
+    n_fft / 2 compiled in, or M = 0, the geometry read at run time) and
+    which walk its cell stage took (WebRTCHop.cell_walk)."""
     m = hop.fft_instance
-    return "FFT M=0 (runtime geometry)" if m == 0 else f"FFT M={m}"
+    fft = "FFT M=0 (runtime geometry)" if m == 0 else f"FFT M={m}"
+    return f"{fft}, cell walk {hop.cell_walk}"
 
 
 def phases_ok(torch, state) -> bool:
@@ -2095,6 +2103,10 @@ def check_webrtc_multi_exact(torch, cfg, plan, batch, calls,
     s_s, outs_s = run_hops(single, s0, torch.cat(chunks))
     exact = {k: max_err(getattr(s_m, k), v) for k, v in planes(s_s).items()}
     exact["out"] = max_err(torch.cat(outs_m), torch.stack(outs_s))
+    if multi.cell_walk != single.cell_walk:
+        raise AssertionError(f"the K-hop kernel walks the cell "
+                             f"{multi.cell_walk}, the single hop "
+                             f"{single.cell_walk}")
     say(f"  {'bf16 ' if multi.gl_bf16 else ''}GL-{multi.n_iter:<2d} "
         f"B={batch:3d}, {fft_label(multi)}: {calls} calls of K={WEBRTC_K} "
         f"vs {calls * WEBRTC_K} single-hop calls: {fmt(exact)} (0 "
@@ -2189,22 +2201,40 @@ def check_webrtc_multi_small(torch, cfg, plan, batch, K, snr_bound,
                              f"version ({label}, B={batch})")
 
 
-def phase_webrtc_multi(torch, cfg, plan):
-    """Phases 19 to 22; returns (launches on the main path, the largest
-    OLA error against the plain version of the forced GL-32 run at
-    B=SLOTS)."""
-    say(f"phase 19: the resident K-hop WebRTC hop (gruunet2-dari_tult, "
-        f"{SLOTS} streams, K={WEBRTC_K}) vs single-hop calls, bit for bit")
+def phase_webrtc_multi(torch, cfg, plan, per_frame):
+    """Phases 19 to 22, on gruunet2-dari_tult's plan (``cfg``, ``plan``;
+    the batched cell walk) and on ``per_frame`` = (label, cfg, plan), a
+    plan whose K-hop block fits the card in the per-frame walk only (the
+    walk checked, so that both walks of both entry points run); returns
+    (launches on the main path, the largest OLA error against the plain
+    version of the forced GL-32 runs, the per-frame plan's K-hop
+    launches)."""
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        CELL_WALKS, make_webrtc_hop)
+    pf_label, pf_cfg, pf_plan = per_frame
+    walk = make_webrtc_hop(warm_cfg(pf_cfg), pf_plan, "cuda",
+                           hops_per_call=WEBRTC_K).cell_walk
+    if walk != CELL_WALKS[1]:
+        raise AssertionError(f"{pf_label}: the K-hop kernel walks the cell "
+                             f"{walk}, not {CELL_WALKS[1]}")
+    say(f"phase 19: the resident K-hop WebRTC hop (gruunet2-dari_tult; "
+        f"{pf_label}, the per-frame cell walk; {SLOTS} streams, "
+        f"K={WEBRTC_K}) vs single-hop calls, bit for bit")
     launches = sum(check_webrtc_multi_exact(torch, warm_cfg(cfg, n), plan,
                                             SLOTS, 2) for n in WEBRTC_GL)
+    pf_launches = sum(check_webrtc_multi_exact(
+        torch, warm_cfg(pf_cfg, n), pf_plan, SLOTS, 2) for n in WEBRTC_GL)
     say("phase 20: the K-hop WebRTC hop on ragged batches")
     for b in (SLOTS - 1, 3):
         check_webrtc_multi_exact(torch, warm_cfg(cfg, WEBRTC_GL[0]), plan, b,
                                  1)
+    pf_launches += check_webrtc_multi_exact(
+        torch, warm_cfg(pf_cfg, WEBRTC_GL[0]), pf_plan, 3, 1)
     say("phase 21: the K-hop WebRTC hop vs its plain version, each call from "
         "a shared state")
-    err = max(check_webrtc_multi_forced(torch, warm_cfg(cfg, n), plan, b, 4,
+    err = max(check_webrtc_multi_forced(torch, warm_cfg(c, n), p, b, 4,
                                         SNR_GL32_DB)
+              for c, p in ((cfg, plan), (pf_cfg, pf_plan))
               for n in WEBRTC_GL for b in (SLOTS, 3))
     say("phase 22: the K-hop WebRTC hop vs its plain version at the JAX "
         "tests' geometry (n_fft 64, 16 mels, hidden (5, 5)), random weights")
@@ -2220,7 +2250,7 @@ def phase_webrtc_multi(torch, cfg, plan):
         f"version's state:")
     odd_cfg, _ = small_webrtc_model(torch, 4, RUNTIME_FFT)
     check_webrtc_multi_forced(torch, odd_cfg, small_plan, 64, 4, SNR_GL4_DB)
-    return launches, err
+    return launches, err, pf_launches
 
 
 def phase_engine_webrtc_gated(torch, cfg, model):
@@ -3101,10 +3131,11 @@ def webrtc_hop_work(hop, batch):
             4 * (batch * per_stream + weights))
 
 
-def device_breakdown(torch, fn, n):
-    """Device time per call (us) of each kernel ``fn`` launches, summed
-    from torch.profiler's kernel events over ``n`` calls; empty if the
-    profiler records none."""
+def kernel_events(torch, fn, n):
+    """{kernel name: (device us summed, events)} of torch.profiler's
+    kernel events over ``n`` calls of ``fn``; empty if the profiler
+    records none. It may record fewer events than launches, so one
+    launch's time is a row's sum over its own events, not over ``n``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3117,9 +3148,26 @@ def device_breakdown(torch, fn, n):
     rows = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            rows[e.name] = (rows.get(e.name, 0.0)
-                            + e.time_range.elapsed_us() / n)
+            us, k = rows.get(e.name, (0.0, 0))
+            rows[e.name] = (us + e.time_range.elapsed_us(), k + 1)
     return rows
+
+
+def device_breakdown(torch, fn, n):
+    """Device time per call (us) of each kernel ``fn`` launches, summed
+    from torch.profiler's kernel events over ``n`` calls; empty if the
+    profiler records none."""
+    return {name: us / n
+            for name, (us, _) in kernel_events(torch, fn, n).items()}
+
+
+def launch_us(events, key):
+    """(us a launch, events) of the kernels whose names hold ``key`` in
+    ``kernel_events``' rows: their time summed over their events, divided
+    by the events; (None, 0) where the profiler recorded none."""
+    hits = [v for name, v in events.items() if key in name]
+    us, k = sum(u for u, _ in hits), sum(n for _, n in hits)
+    return (us / k if k else None), k
 
 
 def hop_inputs(torch, hop, init, batch):
@@ -3134,12 +3182,13 @@ def hop_inputs(torch, hop, init, batch):
 
 
 def timed(torch, run, plain, work, batch, launches, plain_launches=None,
-          hops=1):
+          hops=1, rows=None):
     """Kernel and plain times (ms per call) of ``run`` and ``plain``, and
     the bound from ``work`` = (flops, bytes[, seconds of the operations
     at their types' peaks; else all at FP32_FLOPS]);
     prints them (also per hop for ``hops`` hops per call) and the kernel
-    breakdown."""
+    breakdown over PROFILED_CALLS calls, whose ``kernel_events`` rows it
+    also puts in the dict ``rows`` if given."""
     ms = time_launches(torch, run, launches)
     plain_ms = time_launches(torch, plain, plain_launches or launches)
     flops, nbytes = work[:2]
@@ -3154,9 +3203,44 @@ def timed(torch, run, plain, work, batch, launches, plain_launches=None,
         f"({flops / 1e6:.1f} MFLOP -> {t_ops * 1e3:.2f} us, "
         f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us); kernel at "
         f"{bound_ms / ms:.1%} of the bound{per_hop}")
-    print_breakdown(device_breakdown(torch, run, 20), "call")
+    events = kernel_events(torch, run, PROFILED_CALLS)
+    print_breakdown({name: us / PROFILED_CALLS
+                     for name, (us, _) in events.items()}, "call")
+    if rows is not None:
+        rows.update(events)
     return ms, plain_ms, bound_ms, ("operations" if t_ops >= t_bytes
                                     else "bytes")
+
+
+def timed_webrtc(torch, hop, run, plain, batch, launches, **kw):
+    """``timed`` for a WebRTC hop (its bound from webrtc_hop_work), then
+    the cell stage's walk and, for one hop a call, the cell launch's own
+    device time beside the hop's: the mean of the profiler's events of
+    that launch, kept only where the three launches' means sum to the
+    hop's time by CUDA events within SPLIT_REL. Returns (ms, plain ms, bound ms,
+    bound by, walk, cell launch ms or None)."""
+    events = {}
+    t = timed(torch, run, plain, webrtc_hop_work(hop, batch), batch,
+              launches, rows=events, **kw)
+    cell, split = None, "one launch a call (the cell stage not timed apart)"
+    if hop.hops_per_call == 1:
+        us, k = launch_us(events, "cell_kernel")
+        hop_us = sum(v / n for v, n in events.values())
+        if us is None:
+            split = "the cell launch: not measured (no profiler rows)"
+        elif abs(hop_us - t[0] * 1e3) > SPLIT_REL * t[0] * 1e3:
+            split = (f"the cell launch: not measured (the profiler's three "
+                     f"launches average {hop_us:.1f} us together, the hop "
+                     f"{t[0] * 1e3:.1f} us by CUDA events: not within "
+                     f"{SPLIT_REL:.0%})")
+        else:
+            cell = us * 1e-3
+            split = (f"the cell launch {us:.1f} us (the mean of the "
+                     f"profiler's {k} events of it in {PROFILED_CALLS} "
+                     f"hops; the three launches' means {hop_us:.1f} us) of "
+                     f"the hop's {t[0] * 1e3:.1f} us by CUDA events")
+    say(f"  cell walk {hop.cell_walk}; {split}")
+    return (*t, hop.cell_walk, cell)
 
 
 def gl_round_yardstick(torch, hop, state, chunk, smi):
@@ -3295,10 +3379,9 @@ def time_webrtc_multi(torch, cfg, plan, smi):
         chunks = 0.2 * torch.randn((WEBRTC_K, SLOTS, multi.hop), generator=g,
                                    device="cuda")
         say(f"  K-hop webrtc kernel, GL-{n}, K={WEBRTC_K} ({smi}):")
-        results[n] = timed(torch, lambda: multi(state, chunks),
-                           lambda: multi.plain(state, chunks),
-                           webrtc_hop_work(multi, SLOTS), SLOTS, 10,
-                           plain_launches=2, hops=WEBRTC_K)
+        results[n] = timed_webrtc(torch, multi, lambda: multi(state, chunks),
+                                  lambda: multi.plain(state, chunks), SLOTS,
+                                  10, plain_launches=2, hops=WEBRTC_K)
         ms = time_launches(torch, lambda: run_hops(single, state, chunks), 5)
         say(f"  {WEBRTC_K} single-hop calls carrying the state, GL-{n} "
             f"({smi}): {ms * 1e3:.1f} us, {ms * 1e3 / WEBRTC_K:.2f} us/hop; "
@@ -3839,13 +3922,15 @@ def phase_smem_mirror(torch, cases, limit):
     """The shared memory per block the built libraries count against
     fused_hop_smem_bytes and webrtc_hop_smem_bytes (the plain mirrors the
     engine decides by), for every configuration the script builds, in
-    every compute mode and with the gates, one hop and K hops (also those
+    every compute mode and with the gates (the WebRTC hop in each cell
+    walk), one hop and K hops (also those
     over the card's limit, which no kernel can be built for: the
     arguments are filled on the CPU). ``cases``: (kernel, label, cfg,
     plan), kernel "fused_hop" or "webrtc_hop"."""
     from audio_denoising_torch.ops.kernels.build import load_kernel_library
     from audio_denoising_torch.ops.kernels.fused_hop import FusedHop
-    from audio_denoising_torch.ops.kernels.webrtc_hop import WebRTCHop
+    from audio_denoising_torch.ops.kernels.webrtc_hop import (
+        CELL_WALKS, WebRTCHop, cell_walk, webrtc_hop_smem_bytes)
     libs = {n: load_kernel_library(n).lib for n in ("fused_hop",
                                                     "webrtc_hop")}
     for name in libs:
@@ -3876,17 +3961,24 @@ def phase_smem_mirror(torch, cases, limit):
                     over.append(f"{label} {dtype_name(dtype)} gate {est} "
                                 f"K={k}: {got} B")
         else:
-            for k in (1, WEBRTC_K):
+            # each cell walk: per frame (no limit: the least, what the
+            # engine decides by) and batched (a limit every layout fits)
+            for k, walk_limit in itertools.product((1, WEBRTC_K),
+                                                   (None, 1 << 30)):
                 hop = WebRTCHop(cfg, plan, cpu, hops_per_call=k)
+                if walk_limit is not None:
+                    hop.cell_walk = cell_walk(cfg, plan, walk_limit)
                 got = libs["webrtc_hop"].adt_webrtc_hop_smem_bytes(
                     ctypes.byref(hop._args()))
-                if got != hop.smem_bytes:
+                want = webrtc_hop_smem_bytes(cfg, plan, k, limit=walk_limit)
+                walk = hop.cell_walk or CELL_WALKS[1]
+                if got != want:
                     raise AssertionError(
-                        f"{label}, K={k}: the library counts {got} B, "
-                        f"webrtc_hop_smem_bytes {hop.smem_bytes} B")
+                        f"{label}, K={k}, cell walk {walk}: the library "
+                        f"counts {got} B, webrtc_hop_smem_bytes {want} B")
                 checked += 1
                 if got > limit:
-                    over.append(f"{label} webrtc K={k}: {got} B")
+                    over.append(f"{label} webrtc K={k} {walk}: {got} B")
     say(f"  {checked} configurations: the libraries' count equals the "
         f"plain mirrors' on each; over the card's {limit} B: "
         + "; ".join(over))
@@ -4227,13 +4319,11 @@ def phase_webrtc_bf16(torch, dari_cfg, dari, dari_plan, smi):
     w_state, w_chunk = hop_inputs(
         torch, hop, lambda b: webrtc_hop_init_state(dari_cfg, dari_plan, b,
                                                     "cuda"), SLOTS)
-    t_hop = timed(torch, lambda: hop(w_state, w_chunk),
-                  lambda: hop.reference(w_state, w_chunk),
-                  webrtc_hop_work(hop, SLOTS), SLOTS, 50)
-    t_multi = timed(torch, lambda: multi(s0, chunks[:WEBRTC_K]),
-                    lambda: multi.plain(s0, chunks[:WEBRTC_K]),
-                    webrtc_hop_work(multi, SLOTS), SLOTS, 5,
-                    plain_launches=1, hops=WEBRTC_K)
+    t_hop = timed_webrtc(torch, hop, lambda: hop(w_state, w_chunk),
+                         lambda: hop.reference(w_state, w_chunk), SLOTS, 50)
+    t_multi = timed_webrtc(torch, multi, lambda: multi(s0, chunks[:WEBRTC_K]),
+                           lambda: multi.plain(s0, chunks[:WEBRTC_K]), SLOTS,
+                           5, plain_launches=1, hops=WEBRTC_K)
     worst_ola = max(ola for _, ola in readings.values())
     return e_launches, k_launches, worst_ola, (t_hop, t_multi), readings
 
@@ -6056,9 +6146,9 @@ def phase_webrtc_geometries(torch, smi, cases=None, fft_sizes=GEO_FFT_SIZES,
         w_state, w_chunk = hop_inputs(
             torch, hop, lambda b: webrtc_hop_init_state(cfg, plan, b,
                                                         "cuda"), SLOTS)
-        t = timed(torch, lambda: hop(w_state, w_chunk),
-                  lambda: hop.reference(w_state, w_chunk),
-                  webrtc_hop_work(hop, SLOTS), SLOTS, 50, plain_launches=5)
+        t = timed_webrtc(torch, hop, lambda: hop(w_state, w_chunk),
+                         lambda: hop.reference(w_state, w_chunk), SLOTS, 50,
+                         plain_launches=5)
         out["hop", d] = (launches["hop", d], errs["hop", d], t)
         if d == "float32":
             gl_round_yardstick(torch, hop, w_state, w_chunk, smi)
@@ -6069,10 +6159,9 @@ def phase_webrtc_geometries(torch, smi, cases=None, fft_sizes=GEO_FFT_SIZES,
                                                           "cuda"), SLOTS)
         say(f"  K-hop webrtc kernel at n_fft {cfg.dsp.n_fft}, {d}, "
             f"GL-{WEBRTC_GL[0]}, K={WEBRTC_K} ({smi}):")
-        t = timed(torch, lambda: multi(m_state, chunks),
-                  lambda: multi.plain(m_state, chunks),
-                  webrtc_hop_work(multi, SLOTS), SLOTS, 10,
-                  plain_launches=1, hops=WEBRTC_K)
+        t = timed_webrtc(torch, multi, lambda: multi(m_state, chunks),
+                         lambda: multi.plain(m_state, chunks), SLOTS, 10,
+                         plain_launches=1, hops=WEBRTC_K)
         out["K-hop", d] = (launches["K-hop", d], errs["K-hop", d], t)
     return out
 
@@ -6094,9 +6183,10 @@ PRIME_FFT_SIZES = (441, 22, 509)   # their n_fft / 2
 # the K-hop kernel per hop at K = 25, GL-8, fp32, in us
 BEFORE_PRIME_US = {"hop": (504.0, 508.0), "K-hop": (374.84, 374.88)}
 # the kernels adt_webrtc_hop_kernel_attrs reads, in its order
-KERNEL_ATTRS = ("analysis_kernel<0>", "cell_kernel", "gl_kernel<0>",
-                "webrtc_hop_multi_kernel<0>", "analysis_kernel<441>",
-                "gl_kernel<441>", "webrtc_hop_multi_kernel<441>")
+KERNEL_ATTRS = ("analysis_kernel<0>", "cell_kernel<per-frame>",
+                "gl_kernel<0>", "webrtc_hop_multi_kernel<0>",
+                "analysis_kernel<441>", "gl_kernel<441>",
+                "webrtc_hop_multi_kernel<441>", "cell_kernel<batched>")
 
 
 def prime_models(torch, n_iter):
@@ -6262,12 +6352,13 @@ def main() -> int:
     gated_path = os.path.join(REPO, "runs", GATED_CHECKPOINT)
     w40_cfg, w40 = load_pretrained(gated_path)
     w40_cfg = recommended_serving(w40_cfg)
+    w40_plan = build_cell_plan(w40)
     srv = w40_cfg.serving
     say("phase 13: the gated fused hop kernel vs its plain version on the "
         "card")
     g_err = phase_gated_hop(torch, [
         ("gruunet2-stream16k", cfg, model, plan, GATE_POINTS),
-        (GATED_CHECKPOINT, w40_cfg, w40, build_cell_plan(w40),
+        (GATED_CHECKPOINT, w40_cfg, w40, w40_plan,
          {e: (srv.snr_gate_db, srv.snr_gate_width_db)
           for e in ("removed", "floor", "both")})])
     say(f"phase 14: the resident K-hop kernel (gruunet2-stream16k, {SLOTS} "
@@ -6297,9 +6388,9 @@ def main() -> int:
         torch, w_hop,
         lambda b: webrtc_hop_init_state(dari_cfg, dari_plan, b, "cuda"),
         SLOTS)
-    webrtc = timed(torch, lambda: w_hop(w_state, w_chunk),
-                   lambda: w_hop.reference(w_state, w_chunk),
-                   webrtc_hop_work(w_hop, SLOTS), SLOTS, 50)
+    webrtc = timed_webrtc(torch, w_hop, lambda: w_hop(w_state, w_chunk),
+                          lambda: w_hop.reference(w_state, w_chunk), SLOTS,
+                          50)
     gl_round_yardstick(torch, w_hop, w_state, w_chunk, smi)
     pm = PlanModel(good, fused=True)
     cell = pm.fused_cell
@@ -6324,7 +6415,8 @@ def main() -> int:
                                (MOMO_SPEC, momo_cfg, momo_plan)],
                        (good_cfg, good), smi)
 
-    wm_launches, wm_err = phase_webrtc_multi(torch, dari_cfg, dari_plan)
+    wm_launches, wm_err, wpf_launches = phase_webrtc_multi(
+        torch, dari_cfg, dari_plan, (GATED_CHECKPOINT, w40_cfg, w40_plan))
     dari_gated = tuned_gate(load_pretrained("gruunet2-dari_tult")[0])
     say(f"phase 23: StreamEngine mode webrtc with the SNR gate "
         f"(gruunet2-dari_tult), {SLOTS} slots, card vs CPU")
@@ -6556,11 +6648,15 @@ def main() -> int:
         f"M = 0 and M = 441 kernels' registers")
     primes = phase_webrtc_primes(torch, smi, geo)
 
-    def variant(label, checked, timing=None, n=None):
+    def variant(label, checked, timing=None, n=None, walk=None):
         v = {"name": label, "checked": checked}
+        if walk is not None:
+            v["cell_walk"] = walk
         if timing is not None:
             v.update(ms=timing[0], plain_ms=timing[1], bound_ms=timing[2],
                      bound_by=timing[3])
+        if timing is not None and len(timing) > 4:   # timed_webrtc's
+            v.update(cell_walk=timing[4], cell_launch_ms=timing[5])
         if n is not None:
             v["launches"] = n
         return v
@@ -6650,8 +6746,8 @@ def main() -> int:
                  limit_db=FREE_DB[(FLAGSHIP, "int8")][1],
                  **r_attrs[("int8", "K-hop")])
     rows = []
-    for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by), \
-            variants in (
+    for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by,
+                                       *walk), variants in (
             ("fused_hop", "fused_hop", "fused_hop.py:242",
              launches + me_launches + sum(re_launches.values())
              + ws_launches + fi_launches + mesh_l["fused"]
@@ -6705,7 +6801,8 @@ def main() -> int:
                  geo["hop", "bfloat16"][1], primes["hop", "float32"][1],
                  primes["hop", "bfloat16"][1]), webrtc,
              [variant("mel, gruunet2-dari_tult, warm GL", "phases 3, 6, 7; "
-                      "not on a MOMO path (JAX refuses delta and raw)"),
+                      "not on a MOMO path (JAX refuses delta and raw)",
+                      walk="batched"),
               variant("WebSocket daemon, gruunet2-dari_tult, warm GL",
                       f"phase 40: {WS_CLIENTS} clients, replies vs the "
                       f"kernel replayed per stream; reply p50 "
@@ -6719,19 +6816,30 @@ def main() -> int:
                       "the plain state, 256 streams, the control failing"),
               variant("sharded, gruunet2-dari_tult, warm GL", mesh_runs,
                       n=mesh_l["fused-webrtc"]),
+              variant(f"the per-frame cell walk, {OTHER_CHECKPOINTS[1]} and "
+                      f"{GATED_CHECKPOINT}", "phase 3: the first, GL-0, 256 "
+                      "and 3 streams vs the plain version; phases 19-21: "
+                      "the second, the single hops the K-hop kernel is held "
+                      "to", walk="per-frame"),
               geo_variant("hop", "float32", "GL-32"),
               geo_variant("hop", "bfloat16", "GL-32"),
               geo_variant("hop", "float32", "GL-32", prime=True),
               geo_variant("hop", "bfloat16", "GL-32", prime=True)]),
             ("webrtc_hop_multi", "webrtc_hop", "webrtc_hop.py:344",
-             wm_launches + wbm_launches + geo["K-hop", "float32"][0]
+             wm_launches + wpf_launches + wbm_launches
+             + geo["K-hop", "float32"][0]
              + geo["K-hop", "bfloat16"][0] + primes["K-hop", "float32"][0]
              + primes["K-hop", "bfloat16"][0],
              max(wm_err, geo["K-hop", "float32"][1],
                  primes["K-hop", "float32"][1]),
              w_multi[WEBRTC_GL[0]],
              [variant("mel, gruunet2-dari_tult, GL-8 and GL-32",
-                      "phases 19-22; not on a MOMO path"),
+                      "phases 19-22; not on a MOMO path", walk="batched"),
+              variant(f"the per-frame cell walk, {GATED_CHECKPOINT}, GL-8 "
+                      f"and GL-32, K={WEBRTC_K}", f"phases 19-21: 256 and 3 "
+                      f"streams against single hops (0) and, each call from "
+                      f"the plain state, the plain version and a float64 "
+                      f"witness", n=wpf_launches, walk="per-frame"),
               variant(f"bf16 GL, gruunet2-dari_tult, GL-{WEBRTC_GL[0]}, "
                       f"K={WEBRTC_K}", f"phase 45: 2 calls against "
                       f"{2 * WEBRTC_K} single bf16 hops (0)", wb_t[1],
@@ -6762,6 +6870,8 @@ def main() -> int:
             "replaces": f"audio_denoising_tpu/ops/pallas/{replaces}",
             "launches": n, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            **({"cell_walk": walk[0], "cell_launch_ms": walk[1]} if walk
+               else {}),
             "variants": variants})
     say("done")
     say(json.dumps({"kernels": rows}))

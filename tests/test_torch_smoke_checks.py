@@ -381,8 +381,9 @@ def test_prime_models_take_the_kernels(smoke):
     (64 mels) with two radix-7 passes, n_fft 44 (2 x 11) and the prime
     M = 509 on random weights; each takes the kernels (shared memory
     counted) and one warm hop of its plain version is finite; the
-    kernels' attributes are read for seven kernels (the M = 0 and
-    M = 441 instantiations')."""
+    kernels' attributes are read for eight kernels (the M = 0 and
+    M = 441 instantiations', and the single hop's cell launch in each
+    walk)."""
     from audio_denoising_torch.ops.kernels.webrtc_hop import (
         fft_radices, webrtc_hop_smem_bytes)
     cases = smoke.prime_models(torch, 2)
@@ -393,7 +394,7 @@ def test_prime_models_take_the_kernels(smoke):
     assert [d.n_fft // 2 for d in dsp] == list(smoke.PRIME_FFT_SIZES)
     assert fft_radices(441) == smoke.PRIME_RADICES
     assert fft_radices(509) == [509] and fft_radices(22) == [2, 11]
-    assert len(smoke.KERNEL_ATTRS) == 7
+    assert len(smoke.KERNEL_ATTRS) == 8
     for _, cfg, _, plan in cases:
         assert cfg.dsp.griffin_lim_warm_start
         assert webrtc_hop_smem_bytes(cfg, plan) > 0

@@ -237,6 +237,25 @@ def test_real_split_and_pre_twiddle_give_rfft_and_irfft(n_fft):
     assert float((y - ref).abs().max()) < 1e-10 * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("n_fft", [640, 882, 1536])
+def test_real_split_keeps_dc_and_nyquist_real(n_fft):
+    """In float32, as the kernels run it: the real split of the packed
+    frames' FFT gives DC and Nyquist bins with no imaginary part, as a real
+    frame's are (the twiddle table's quarter turns exact; a rounded
+    e^{-i pi} left one of order 1e-16, which Griffin-Lim's u / (|u| +
+    1e-16) made a phase of norm between 0 and 1 where the bin was 0)."""
+    rng = np.random.default_rng(n_fft)
+    x = torch.from_numpy(rng.standard_normal((3, n_fft)).astype(np.float32))
+    ptw = torch.from_numpy(pass_twiddle_table(n_fft // 2)).float()
+    tw = torch.from_numpy(twiddle_table(n_fft)).float()
+    spec = real_bins(fft_passes(torch.complex(x[:, 0::2], x[:, 1::2]), ptw),
+                     tw)
+    assert bool((spec[:, [0, -1]].imag == 0).all())
+    want = torch.fft.rfft(x.double())
+    assert float((spec - want).abs().max()) < 1e-5 * float(
+        want.abs().max())
+
+
 # -- the small setup: tests/test_webrtc_hop.py::_small_setup ----------------
 
 def _small(n_iter=4, warm=True, **dsp):

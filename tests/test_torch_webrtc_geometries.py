@@ -39,7 +39,8 @@ from audio_denoising_torch.models import build_model
 from audio_denoising_torch.ops.kernels.common import (
     cell_layout_floats, plan_shape)
 from audio_denoising_torch.ops.kernels.webrtc_hop import (
-    FRAMES, fft_passes, fft_radices, inverse_input, make_webrtc_hop,
+    FRAMES, cell_walk, fft_passes, fft_radices, inverse_input,
+    make_webrtc_hop,
     pass_twiddle_table, real_bins, twiddle_table, webrtc_hop_init_state,
     webrtc_hop_smem_bytes)
 from audio_denoising_torch.ops.kernels import webrtc_hop as webrtc_hop_mod
@@ -98,9 +99,10 @@ def test_other_primes_keep_fused_webrtc_and_bind(monkeypatch, m):
     11, 441 = 9 x 7 x 7) is a geometry the kernels take: its shared
     memory is counted, the engine keeps mode fused-webrtc on a card (no
     downgrade warning), and binding a library gets past the geometry:
-    with a stand-in library that agrees on the layout and the count, the
-    hop binds and names the instantiation the library gives it (M = 441
-    compiled in, else M = 0)."""
+    with a stand-in library that agrees on the layout and the count (in
+    the cell walk the card's limit gives), the hop binds and names the
+    instantiation the library gives it (M = 441 compiled in, else M = 0)
+    and that walk."""
     _, (cfg, model, plan) = _small(2 * m, 16)
     need = webrtc_hop_smem_bytes(cfg, plan)
     assert 0 < need == hop_smem_bytes(cfg, plan, "fused-webrtc")
@@ -114,7 +116,8 @@ def test_other_primes_keep_fused_webrtc_and_bind(monkeypatch, m):
     hop = make_webrtc_hop(cfg, plan, "cpu")
     answers = {"adt_webrtc_hop_args_size": ctypes.sizeof(
                    webrtc_hop_mod._Args),
-               "adt_webrtc_hop_smem_bytes": need,
+               "adt_webrtc_hop_smem_bytes": webrtc_hop_smem_bytes(
+                   cfg, plan, limit=SMEM_LIMIT),
                "adt_webrtc_hop_fft_instance": 441 if m == 441 else 0}
     lib = types.SimpleNamespace(**{f: (lambda *a, v=v: v) for f, v in (
         *answers.items(), ("adt_webrtc_hop_fft_radices", -1),
@@ -124,6 +127,8 @@ def test_other_primes_keep_fused_webrtc_and_bind(monkeypatch, m):
                             shared_memory_per_block_optin=SMEM_LIMIT))
     hop._bind(lib)
     assert hop.fft_instance == answers["adt_webrtc_hop_fft_instance"]
+    assert hop.cell_walk == cell_walk(cfg, plan, SMEM_LIMIT)
+    assert hop._base_args.cell_batched == (hop.cell_walk == "batched")
     assert hop._base_args.hop == m
     assert fft_radices(m)[-1] in (7, 11)
 
