@@ -55,16 +55,21 @@
 // whole state (ring, OLA buffer, hx, the gate's planes) in dynamic shared
 // memory, except in the int8 mode the gate's two per-bin floor planes,
 // which stay in the state tensors in global memory (see make_layout).
-// Both entry points load the state once, run `hop_body` (kept out
-// of line, so the two run the same instructions and K hops in one call
-// equal K single hops bit for bit), and write the state back once: the
-// single-hop kernel runs one hop, the multi-hop kernel K, reading chunk k
-// from (K, B, hop) and writing output k, the counterpart of the Pallas
-// kernel's VMEM scratch carried across its K grid steps. The weights
-// (6.3 MB) stay in global memory and are served from the 50 MB L2; each
-// block reads each weight once per hop. All 17 matmuls go through the
-// small-GEMM routine of plan_cell.cuh (`gemm`, shared with webrtc_hop.cu),
-// which that header describes.
+// Both entry points load the state once, run the hops, and write the
+// state back once: the single-hop kernel runs one hop, the multi-hop
+// kernel K, reading chunk k from (K, B, hop) and writing output k, the
+// counterpart of the Pallas kernel's VMEM scratch carried across its K
+// grid steps. The weights (6.3 MB) stay in global memory and are served
+// from the 50 MB L2. All 17 matmuls go through the small-GEMM routine of
+// plan_cell.cuh (`gemm`, shared with webrtc_hop.cu), which that header
+// describes. The hops run in one of two walks, the same in both entry
+// points of a configuration (AdtFusedHopArgs.group, chosen on the host),
+// so K hops in one call equal K single hops bit for bit: the per-frame
+// walk (`hop_body`, kept out of line: every stage once a hop, each block
+// reading each weight once a hop; the bf16 and int8 modes, and fp32 where
+// a group does not fit), or in fp32 the frame-group walk (`group_walk`,
+// below), which runs the stages that read no state once for a group of
+// hops.
 //
 // The tile trades two limits: a larger tile streams fewer weight bytes
 // from L2 in all (each block reads all of them), a smaller one gives each
@@ -141,6 +146,8 @@ struct AdtFusedHopArgs {
   int raw;             // raw-spectrogram domain: no mel pair
   int hops;            // hops per call (the multi-hop kernel)
   int pcm16;           // chunks and outputs are int16 (the multi-hop kernel)
+  int group;           // the fp32 multi-hop kernel's walk: 0 per frame,
+                       // kGroup the frame-group walk in groups of kGroup
   float output_gain;
   float state_decay;
   AdtPlanScales scales;  // the int8 plan's column scales
@@ -245,9 +252,17 @@ __device__ inline void store_sample(const AdtFusedHopArgs& a, int k,
     static_cast<float*>(a.out)[idx] = v;
 }
 
+// hx's offset and leading dimension in each walk's layout.
+__device__ __forceinline__ int hx_of(const Layout& l) { return l.cell.hx; }
+__device__ __forceinline__ int ld_n_of(const Layout& l) {
+  return l.cell.ld_n;
+}
+
 // Copies rows [b0, b0 + rows) of state `st` into the tile's shared
-// memory (to = true; rows past the batch are zeros) or back (to = false).
-__device__ inline void move_state(const AdtFusedHopArgs& a, const Layout& l,
+// memory (to = true; rows past the batch are zeros) or back (to = false),
+// at the offsets of the walk's layout L (Layout or GroupLayout).
+template <class L>
+__device__ inline void move_state(const AdtFusedHopArgs& a, const L& l,
                                   float* smem, const AdtHopState& st, int b0,
                                   int rows, bool to) {
   const int n_fft = a.n_fft, F = a.n_bins, n = a.plan.n_hidden;
@@ -263,7 +278,7 @@ __device__ inline void move_state(const AdtFusedHopArgs& a, const Layout& l,
   };
   move(st.ring, n_fft, l.ring, l.ld_t);
   move(st.ola, n_fft, l.ola, l.ld_t);
-  move(st.hx, n, l.cell.hx, l.cell.ld_n);
+  move(st.hx, n, hx_of(l), ld_n_of(l));
   if (a.plan.delta) move(st.prev, a.n_mels, l.prev, l.ld_m);
   if (a.gate.floor) {
     if (!floor_in_global(a)) {
@@ -282,9 +297,10 @@ __device__ inline void move_state(const AdtFusedHopArgs& a, const Layout& l,
 // floor_step, their SNRs and gate_alpha) at hop k of the call; leaves each
 // stream's denoise weight alpha in the scalars. The bin means run over
 // exactly n_bins bins. kFloorGlobal: the floor planes are in the state
-// tensors (the int8 mode, make_layout), not in shared memory.
-template <bool kFloorGlobal>
-__device__ void gate_alphas(const AdtFusedHopArgs& a, const Layout& l,
+// tensors (the int8 mode, make_layout), not in shared memory. L: Layout,
+// or the frame-group walk's GateRows (one hop's rows of mag and lin).
+template <bool kFloorGlobal, class L>
+__device__ void gate_alphas(const AdtFusedHopArgs& a, const L& l,
                             float* smem, int k, int b0, int rows) {
   const AdtGate& g = a.gate;
   const int F = a.n_bins;
@@ -543,6 +559,387 @@ __device__ __forceinline__ void hops_of(const AdtFusedHopArgs& a,
     hop_body<kRaw, kDelta, kCompute>(a, l, smem, k, b0, rows);
 }
 
+// -- the frame-group walk (fp32, the multi-hop kernel) ----------------------
+//
+// Most of a hop reads no state: the analysis (ring shift, window, DFT,
+// magnitude, the feature, a delta plan's prev) reads only the audio, the
+// encoder chain only the feature, and the inverse mel and inverse DFT
+// reach the recurrence only through their inputs. The walk runs those
+// stages once for a group of kGroup hops, over kGroup kTile rows
+// (frame-major: row t kTile + s), so each weight load feeds kGroup times
+// the multiply-adds (at gruunet2-stream16k the DSP matrices' 3.44 MB and
+// the encoder's 0.99 of the 6.3 MB a block reads a hop); what reads state
+// runs hop by hop in order: the reset gate, the GRU update, each decoder
+// level as one matmul over h and its skip input (that hop's rows of the
+// encoder's output), the residual and hx decayed; later the gate's
+// estimators, the blend and the phase reuse; last the overlap-add.
+// `gemm`'s split of k does not depend on its rows, and every other stage
+// does the per-frame walk's arithmetic in its order, so each hop gets the
+// sums `hop_body` gives it: the single-hop kernel runs `hop_body`, and K
+// hops in one call equal K single hops bit for bit. Two designs lost on
+// an H100 (NVIDIA H100 80GB HBM3, 700 W, B = 256, in turns against the
+// per-frame kernels): the skip products run over the group's rows too,
+// as webrtc_hop.cu's batched cell walk runs them, cut the stream16k K-hop
+// to 84 us a hop (this walk: 102-104; the per-frame walk 125-127), but
+// the single hop has to add in the same order then, and in groups of 1
+// it took 144-145 us against 134.5-136; and this walk in groups of 1, as
+// the single hop, took 154 us.
+
+// The multi-hop kernel's group (mirrored by GROUP in
+// ops/kernels/fused_hop.py); the host takes this walk where its layout
+// fits a block. Groups of 8 spilled under the 128 registers of 512
+// threads and gained MOMO3 3% over 4.
+constexpr int kGroup = 4;
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Offset of level i's activations in a group of `rows` rows (each
+// round4(down_n[i]) floats), from `base` on; i = levels + 1: past them.
+__host__ __device__ inline int group_d(const AdtPlan& p, int base, int rows,
+                                       int i) {
+  for (int j = 0; j < i; ++j) base += rows * round4(p.down_n[j]);
+  return base;
+}
+
+// The walk's shared memory (floats): the tile's state (kTile rows) and
+// the reset gate's output; kGroup kTile rows of the spectrum
+// (re, im, mag, lin); then two regions that hold several buffers in turn.
+// `u`: the windowed frames, then the cell's activations d[0..L] (d[0]
+// last holds the residual, the inverse mel's input), then the synthesised
+// frames. `x`: the batched matmuls' split-K scratch; over it (dead while
+// they run) the per-hop matmuls' scratch, hi and the decoder's two
+// buffers; at a group's start the newest frame's samples for the ring.
+// Every offset comes from the plan in parameter space: a table indexed at
+// run time would live in each thread's local memory.
+struct GroupLayout {
+  int ld_t, ld_f, ld_m, ld_n, ld_pp;
+  int ring, ola, hx, prev, nfs, nff, sc, red, gh;
+  int re, im, mag, lin;
+  int u, x;
+  int total;
+};
+
+__host__ __device__ inline void make_group_layout(const AdtFusedHopArgs& a,
+                                                  GroupLayout* l) {
+  const AdtPlan& p = a.plan;
+  const int rows = kGroup * kTile, n = p.n_hidden;
+  int off = 0, widest = 0;
+  for (int i = 1; i <= p.levels; ++i)
+    widest = p.up_n[i] > widest ? p.up_n[i] : widest;
+  l->ld_t = round4(a.n_fft);
+  l->ld_f = round4(a.n_bins);
+  l->ld_m = round4(a.n_mels);
+  l->ld_n = round4(n);
+  l->ld_pp = round4(widest);
+  l->ring = take(&off, kTile, l->ld_t);
+  l->ola = take(&off, kTile, l->ld_t);
+  l->hx = take(&off, kTile, l->ld_n);
+  l->prev = p.delta ? take(&off, kTile, l->ld_m) : 0;
+  l->nfs = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
+  l->nff = a.gate.floor ? take(&off, kTile, l->ld_f) : 0;
+  l->sc = take(&off, kTile, kScalars);
+  l->red = take(&off, kTile, kMeans * kLanes);
+  l->gh = take(&off, kTile, round4(3 * n));
+  l->re = take(&off, rows, l->ld_f);
+  l->im = take(&off, rows, l->ld_f);
+  l->mag = take(&off, rows, l->ld_f);
+  l->lin = take(&off, rows, l->ld_f);
+  l->u = off;
+  off += imax(rows * l->ld_t, group_d(p, 0, rows, p.levels + 1));
+  l->x = off;
+  off += imax(imax(rows * 4 * kThreads, kTile * l->ld_t),
+              kTile * (4 * kThreads + l->ld_n + 2 * l->ld_pp));
+  l->total = off;
+}
+
+__device__ __forceinline__ int hx_of(const GroupLayout& l) { return l.hx; }
+__device__ __forceinline__ int ld_n_of(const GroupLayout& l) {
+  return l.ld_n;
+}
+
+// One hop's rows of the spectrum, for gate_alphas.
+struct GateRows {
+  int mag, lin, ld_f, nfs, nff, sc, red;
+};
+
+// Hops k0 .. k0 + frames - 1 of the call (frames <= kGroup; the last
+// group of a call may be shorter) on the tile's state in shared memory.
+// Rows of frames past `frames` run on zeros and are never stored. The
+// domain and the delta carry are template parameters, as in hop_body.
+template <bool kRaw, bool kDelta>
+__device__ __noinline__ void group_walk(const AdtFusedHopArgs& a, float* smem,
+                                        int k0, int frames, int b0,
+                                        int rows) {
+  constexpr int kRows = kGroup * kTile;
+  GroupLayout l;
+  make_group_layout(a, &l);
+  const AdtPlan& p = a.plan;
+  const Lanes g = block_lanes();
+  const float* cf = static_cast<const float*>(a.cf);
+  const float* sf = static_cast<const float*>(a.sf);
+  const float* ic = static_cast<const float*>(a.ic);
+  const float* is = static_cast<const float*>(a.is_);
+  const float* mel = static_cast<const float*>(a.mel);
+  const float* imel = static_cast<const float*>(a.imel);
+  const int n_fft = a.n_fft, hop = a.hop, F = a.n_bins, M = a.n_mels;
+  const int n = p.n_hidden, L = p.levels;
+  const int keep = n_fft - hop;
+  const int ld_t = l.ld_t, ld_f = l.ld_f, ld_n = l.ld_n, ld_pp = l.ld_pp;
+  const int ld_x = round4(p.down_n[0]), ld_gh = round4(3 * n);
+  const bool gated = a.gate.removed || a.gate.floor;
+  float* ring = smem + l.ring;
+  float* ola = smem + l.ola;
+  float* hx = smem + l.hx;
+  float* gh = smem + l.gh;
+  float* re = smem + l.re;
+  float* im = smem + l.im;
+  float* mag = smem + l.mag;
+  float* lin = smem + l.lin;
+  float* frame = smem + l.u;  // the frames, later the synthesis
+  float* x = smem + l.u;      // d[0]: the feature (and prev)
+  float* scratch = smem + l.x;
+
+  // frame t: the last n_fft samples of ring ++ chunks[k0 .. k0 + t],
+  // windowed; the newest frame's samples staged for the ring
+  for (int e = g.id; e < kRows * n_fft; e += g.n) {
+    const int r = e / n_fft, i = e % n_fft;
+    const int t = r / kTile, s = r % kTile;
+    float v = 0.f;
+    if (t < frames) {
+      const int j = (t + 1) * hop + i;
+      if (j < n_fft)
+        v = ring[s * ld_t + j];
+      else if (s < rows)
+        v = load_sample(a, k0 + (j - n_fft) / hop, b0 + s, (j - n_fft) % hop);
+      if (t == frames - 1) scratch[s * ld_t + i] = v;
+    }
+    frame[r * ld_t + i] = v * a.win[i];
+  }
+  __syncthreads();
+  for (int e = g.id; e < kTile * n_fft; e += g.n) {
+    const int o = (e / n_fft) * ld_t + e % n_fft;
+    ring[o] = scratch[o];
+  }
+  __syncthreads();
+
+  // DFT as two matmuls, then the magnitude
+  gemm<float, kRows, false, false>(
+      make_gemm(frame, ld_t, n_fft, cf, F, nullptr, kNone, re, ld_f, scratch),
+      g);
+  gemm<float, kRows, false, false>(
+      make_gemm(frame, ld_t, n_fft, sf, F, nullptr, kNone, im, ld_f, scratch),
+      g);
+  __syncthreads();
+  for (int e = g.id; e < kRows * F; e += g.n) {
+    const int o = (e / F) * ld_f + e % F;
+    mag[o] = sqrtf(re[o] * re[o] + im[o] * im[o]);
+  }
+  __syncthreads();
+
+  // the feature into d[0]: log(1 + mag @ mel), or log(1 + mag) in the raw
+  // domain; a delta plan's prev beside it: the previous frame's feature
+  // (the carried plane for the group's first)
+  if (kRaw) {
+    for (int e = g.id; e < kRows * F; e += g.n) {
+      const int r = e / F, f = e % F;
+      x[r * ld_x + f] = logf(1.f + mag[r * ld_f + f]);
+    }
+  } else {
+    gemm<float, kRows, false, false>(
+        make_gemm(mag, ld_f, F, mel, M, nullptr, kLog1p, x, ld_x, scratch),
+        g);
+  }
+  if (kDelta) {
+    __syncthreads();
+    for (int e = g.id; e < kRows * M; e += g.n) {
+      const int r = e / M, m = e % M;
+      x[r * ld_x + M + m] = r < kTile ? smem[l.prev + r * l.ld_m + m]
+                                      : x[(r - kTile) * ld_x + m];
+    }
+  }
+  __syncthreads();
+
+  // the encoder, level i from d[i] into d[i + 1]; the first hop's reset
+  // gate reads only hx and shares level 0's barrier, as in plan_cell
+  for (int i = 0, off = l.u; i < L; ++i) {
+    const int next = off + kRows * round4(p.down_n[i]);
+    gemm<float, kRows, false, false>(
+        make_gemm(smem + off, round4(p.down_n[i]), p.down_n[i], p.down_w[i],
+                  p.down_n[i + 1], p.down_b[i], kRelu, smem + next,
+                  round4(p.down_n[i + 1]), scratch),
+        g);
+    if (i == 0)
+      gemm<float, kTile, false, false>(
+          make_gemm(hx, ld_n, n, p.reset_w, 3 * n, p.reset_b, kRelu, gh,
+                    ld_gh, scratch),
+          g);
+    __syncthreads();
+    off = next;
+  }
+
+  // hop by hop: the GRU update, the decoder (level i over h and, with a
+  // skip, that hop's rows of d[L - i]), hx decayed and the residual:
+  // max(exp(leaky_relu(x - y, 0.2)) - 1, 0), in place of x (the inverse
+  // mel's input), or in the raw domain times the gain into lin; prev' = x;
+  // then the next hop's reset gate
+  const int ld_gx = round4(p.down_n[L]);
+  const float* gx_all = smem + group_d(p, l.u, kRows, L);
+  float* hi = scratch + kTile * 4 * kThreads;
+  float* pp0 = hi + kTile * ld_n;
+  float* pp1 = pp0 + kTile * ld_pp;
+  for (int t = 0; t < frames; ++t) {
+    const float* gx = gx_all + t * kTile * ld_gx;
+    for (int e = g.id; e < kTile * n; e += g.n) {
+      const int s = e / n, j = e % n;
+      const float* xs = gx + s * ld_gx;
+      const float* h = gh + s * ld_gh;
+      const float inputgate = sigmoidf(xs[n + j] + h[n + j]);
+      const float resetgate = sigmoidf(xs[j] + h[j]);
+      const float newgate = tanhf(xs[2 * n + j] + resetgate * h[2 * n + j]);
+      const float hxv = hx[s * ld_n + j];
+      hi[s * ld_n + j] = newgate + inputgate * (hxv - newgate);
+    }
+    __syncthreads();
+    const float* h = hi;
+    int ldh = ld_n;
+    for (int i = 0; i < L; ++i) {
+      float* dst = (i & 1) ? pp1 : pp0;
+      Gemm gm = make_gemm(h, ldh, p.up_n[i], p.up_w[i], p.up_n[i + 1],
+                          p.up_b[i], i != L - 1 ? kRelu : kNone, dst, ld_pp,
+                          scratch);
+      if (p.up_s[i] != nullptr) {  // decoder skip: split matmul, no concat
+        const int ld = round4(p.down_n[L - i]);
+        gm.a2 = smem + group_d(p, l.u, kRows, L - i) + t * kTile * ld;
+        gm.lda2 = ld;
+        gm.k2 = p.down_n[L - i];
+        gm.w2 = p.up_s[i];
+      }
+      gemm<float>(gm, g);
+      __syncthreads();
+      h = dst;
+      ldh = ld_pp;
+    }
+    for (int e = g.id; e < kTile * n; e += g.n) {
+      const int o = (e / n) * ld_n + e % n;
+      hx[o] = hi[o] * a.state_decay;
+    }
+    float* xt = x + t * kTile * ld_x;
+    for (int e = g.id; e < kTile * M; e += g.n) {
+      const int s = e / M, m = e % M;
+      const float xv = xt[s * ld_x + m];
+      float r = xv - h[s * ld_pp + m];
+      r = r >= 0.f ? r : 0.2f * r;
+      const float v = fmaxf(expf(r) - 1.f, 0.f);
+      if (kRaw)
+        lin[(t * kTile + s) * ld_f + m] = v * a.output_gain;
+      else
+        xt[s * ld_x + m] = v;
+      if (kDelta) smem[l.prev + s * l.ld_m + m] = xv;
+    }
+    __syncthreads();
+    if (t + 1 < frames) {
+      gemm<float, kTile, false, false>(
+          make_gemm(hx, ld_n, n, p.reset_w, 3 * n, p.reset_b, kRelu, gh,
+                    ld_gh, scratch),
+          g);
+      __syncthreads();
+    }
+  }
+
+  if (!kRaw) {  // lin = max(feat @ imel, 0) * gain
+    Gemm gl = make_gemm(x, ld_x, M, imel, F, nullptr, kLinGain, lin, ld_f,
+                        scratch);
+    gl.gain = a.output_gain;
+    gemm<float, kRows, false, false>(gl, g);
+    __syncthreads();
+  }
+
+  // the gate's blend toward the input magnitude, then phase reuse as
+  // complex scaling (at mag ~ 0 the bin becomes lin + 0j); gated, hop by
+  // hop after that hop's estimators (the next hop's estimators pass a
+  // barrier before they write the scalars again)
+  auto blend = [&](int r0, int n_rows) {
+    for (int e = g.id; e < n_rows * F; e += g.n) {
+      const int r = r0 + e / F;
+      const int o = r * ld_f + e % F;
+      const float mg = mag[o];
+      float ln = lin[o];
+      if (gated) {
+        const float alpha = smem[l.sc + (r % kTile) * kScalars + kAlpha];
+        ln = alpha * ln + (1.f - alpha) * mg;
+      }
+      const bool safe = mg > 1e-8f;
+      const float scale = ln / (safe ? mg : 1.f);
+      re[o] = safe ? re[o] * scale : ln;
+      im[o] = safe ? im[o] * scale : 0.f;
+    }
+  };
+  if (gated) {
+    for (int t = 0; t < frames; ++t) {
+      const int o = t * kTile * ld_f;
+      gate_alphas<false>(a,
+                         GateRows{l.mag + o, l.lin + o, ld_f, l.nfs, l.nff,
+                                  l.sc, l.red},
+                         smem, k0 + t, b0, rows);
+      blend(t * kTile, kTile);
+    }
+  } else {
+    blend(0, frames * kTile);
+  }
+  __syncthreads();
+
+  // inverse DFT from both parts in one accumulation, into u
+  Gemm gs = make_gemm(re, ld_f, F, ic, n_fft, nullptr, kNone, frame, ld_t,
+                      scratch);
+  gs.a2 = im;
+  gs.lda2 = ld_f;
+  gs.k2 = F;
+  gs.w2 = is;
+  gemm<float, kRows>(gs, g);
+  __syncthreads();
+
+  // hop by hop: window and overlap-add onto the previous hop's sums
+  // shifted by a hop (the carried ola for the first); the finished hop
+  // divided by the envelope
+  for (int t = 0; t < frames; ++t) {
+    for (int e = g.id; e < kTile * n_fft; e += g.n) {
+      const int s = e / n_fft, i = e % n_fft;
+      float* acc = frame + (t * kTile + s) * ld_t;
+      const float base =
+          t == 0 ? ola[s * ld_t + i]
+                 : (i < keep ? acc[i + hop - kTile * ld_t] : 0.f);
+      const float v = base + acc[i] * a.win[i];
+      acc[i] = v;
+      if (i < hop && s < rows) store_sample(a, k0 + t, b0 + s, i, v / a.env[i]);
+    }
+    __syncthreads();
+  }
+  for (int e = g.id; e < kTile * n_fft; e += g.n) {
+    const int s = e / n_fft, i = e % n_fft;
+    const float* acc = frame + ((frames - 1) * kTile + s) * ld_t;
+    ola[s * ld_t + i] = i < keep ? acc[i + hop] : 0.f;
+  }
+  __syncthreads();  // u is free for the next group's frames
+}
+
+// The frame-group walk's whole call on the tile: the state in, `hops`
+// hops in groups of kGroup (the last one shorter), the state out. Inline
+// in the kernel: out of line (a call between the kernel and group_walk),
+// a single-hop launch of the walk came out wrong on an H100 while K-hop
+// launches of the same code were right.
+template <bool kRaw, bool kDelta>
+__device__ __forceinline__ void run_groups(const AdtFusedHopArgs& a,
+                                           float* smem, int hops, int b0,
+                                           int rows) {
+  GroupLayout l;
+  make_group_layout(a, &l);
+  move_state(a, l, smem, a.in, b0, rows, true);
+  __syncthreads();
+  for (int k0 = 0; k0 < hops; k0 += kGroup)
+    group_walk<kRaw, kDelta>(a, smem, k0, min(kGroup, hops - k0), b0, rows);
+  move_state(a, l, smem, a.out_state, b0, rows, false);
+}
+
 // Loads the tile's state, runs `hops` hops and writes the state back.
 template <int kCompute>
 __device__ __forceinline__ void run_hops(const AdtFusedHopArgs& a, int hops) {
@@ -579,6 +976,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   run_hops<kCompute>(a, a.hops);
 }
 
+// The fp32 resident multi-hop kernel in the frame-group walk (a.group ==
+// kGroup): a kernel of its own, so the per-frame one keeps its registers
+// and stack (sharing one kernel, the walk's layout cost the 128-mel
+// plans' per-frame K-hop 1% on an H100).
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_hop_group_kernel(const __grid_constant__ AdtFusedHopArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int b0 = blockIdx.x * kTile;
+  const int rows = min(kTile, a.batch - b0);
+  if (a.raw && a.plan.delta)
+    run_groups<true, true>(a, smem, a.hops, b0, rows);
+  else if (a.raw)
+    run_groups<true, false>(a, smem, a.hops, b0, rows);
+  else if (a.plan.delta)
+    run_groups<false, true>(a, smem, a.hops, b0, rows);
+  else
+    run_groups<false, false>(a, smem, a.hops, b0, rows);
+}
+
 cudaError_t launch(void (*kernel)(AdtFusedHopArgs), const AdtFusedHopArgs& a,
                    size_t smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -607,8 +1023,11 @@ bool args_ok(const AdtFusedHopArgs& a) {
       scales_ok = scales_ok && s.down[i] != nullptr && s.up[i] != nullptr &&
                   (a.plan.up_s[i] == nullptr) == (s.skip[i] == nullptr);
   }
+  // the frame-group walk: fp32, the compiled-in group
+  const bool walk_ok =
+      a.group == 0 || (a.compute == kFp32 && a.group == kGroup);
   return plan_ok(a.plan, a.n_mels) && a.n_fft % a.hop == 0 && state_ok &&
-         domain_ok && scales_ok && a.hops >= 1;
+         domain_ok && scales_ok && walk_ok && a.hops >= 1;
 }
 
 // The single-hop or the multi-hop kernel of the mode a.compute.
@@ -624,6 +1043,8 @@ cudaError_t launch_mode(const AdtFusedHopArgs& a, bool multi,
                           : fused_hop_kernel<kInt8>,
                     a, smem_bytes, stream);
     default:
+      if (multi && a.group > 0)
+        return launch(fused_hop_group_kernel, a, smem_bytes, stream);
       return launch(multi ? fused_hop_multi_kernel<kFp32>
                           : fused_hop_kernel<kFp32>,
                     a, smem_bytes, stream);
@@ -636,22 +1057,33 @@ extern "C" {
 
 int adt_fused_hop_args_size() { return (int)sizeof(AdtFusedHopArgs); }
 
-// Dynamic shared memory one block of kTile streams needs (either kernel).
+// Dynamic shared memory one block of kTile streams needs (either kernel)
+// in the walk a->group names.
 long long adt_fused_hop_smem_bytes(const AdtFusedHopArgs* a) {
-  Layout l;
-  make_layout(*a, &l);
-  return (long long)l.total * (long long)sizeof(float);
+  int floats;
+  if (a->group > 0) {
+    GroupLayout l;
+    make_group_layout(*a, &l);
+    floats = l.total;
+  } else {
+    Layout l;
+    make_layout(*a, &l);
+    floats = l.total;
+  }
+  return (long long)floats * (long long)sizeof(float);
 }
 
-// Registers a thread and local (spill and stack) bytes of the reduced
-// modes' kernel `which` (cudaFuncGetAttributes): 0 and 1 the bf16
-// single-hop and multi-hop kernels, 2 and 3 the int8 ones. Returns the
-// cudaError_t.
+// Registers a thread and local (spill and stack) bytes of kernel `which`
+// (cudaFuncGetAttributes): 0 and 1 the bf16 single-hop and multi-hop
+// kernels, 2 and 3 the int8 ones, 4 and 5 the fp32 ones, 6 the fp32
+// multi-hop kernel in the frame-group walk. Returns the cudaError_t.
 int adt_fused_hop_kernel_attrs(int which, int* regs, long long* local) {
-  void (*kernels[4])(AdtFusedHopArgs) = {
+  void (*kernels[7])(AdtFusedHopArgs) = {
       fused_hop_kernel<kBf16>, fused_hop_multi_kernel<kBf16>,
-      fused_hop_kernel<kInt8>, fused_hop_multi_kernel<kInt8>};
-  if (which < 0 || which >= 4) return (int)cudaErrorInvalidValue;
+      fused_hop_kernel<kInt8>, fused_hop_multi_kernel<kInt8>,
+      fused_hop_kernel<kFp32>, fused_hop_multi_kernel<kFp32>,
+      fused_hop_group_kernel};
+  if (which < 0 || which >= 7) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
   if (err != cudaSuccess) return (int)err;
@@ -663,7 +1095,7 @@ int adt_fused_hop_kernel_attrs(int which, int* regs, long long* local) {
 // Launches one hop (float32 IO, a->hops == 1) on `stream` without
 // synchronising; returns the launch's cudaError_t (0 on success).
 int adt_fused_hop(const AdtFusedHopArgs* a, void* stream) {
-  if (!args_ok(*a) || a->hops != 1 || a->pcm16)
+  if (!args_ok(*a) || a->hops != 1 || a->pcm16 || a->group != 0)
     return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
   return (int)launch_mode(*a, false, (size_t)adt_fused_hop_smem_bytes(a),

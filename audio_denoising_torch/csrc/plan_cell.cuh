@@ -398,8 +398,10 @@ __device__ __forceinline__ void reduce_partials(const Gemm& g, const Lanes& t,
 // in the same order at any kRows; the scratch holds ks_n kRows rows of
 // round4(n) floats, at most 4 kThreads kRows. kPre: C = epilogue(g.pre +
 // the products), g.pre's rows holding a sum computed before (a decoder
-// level's skip product).
-template <class W = float, int kRows = kTile, bool kPre = false>
+// level's skip product). kTwo = false: the caller has no second source
+// (g.a2 null), which the routine then does not compile in.
+template <class W = float, int kRows = kTile, bool kPre = false,
+          bool kTwo = true>
 __device__ void gemm(const Gemm& g, const Lanes& t) {
   const int ldw = round4(g.n);
   const int n4 = ldw / 4;
@@ -429,7 +431,7 @@ __device__ void gemm(const Gemm& g, const Lanes& t) {
     if (lo < min(hi, g.k1))
       accumulate(acc, g.a1, g.lda1, reinterpret_cast<const W*>(g.w1), ldw,
                  q, lo, min(hi, g.k1));
-    if (g.a2 != nullptr && max(lo, g.k1) < hi)
+    if (kTwo && g.a2 != nullptr && max(lo, g.k1) < hi)
       accumulate(acc, g.a2, g.lda2, reinterpret_cast<const W*>(g.w2), ldw,
                  q, max(lo, g.k1) - g.k1, hi - g.k1);
     store_item<kPre>(g, acc, q, ks, ks_n, ldw);

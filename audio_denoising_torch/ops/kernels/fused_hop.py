@@ -38,6 +38,19 @@ exactly and dequantized rank-1, and the DSP matmuls run as in bf16. The
 window and envelope rows, the biases, the scale rows and every state
 plane stay fp32.
 
+The fp32 K-hop kernel walks a call's hops in one of two ways, chosen on
+the host from the configuration and the card's shared memory per block
+(``hop_group``): the frame-group walk (``frames``) runs the stages that
+read no state (the analysis, the encoder, the inverse mel and inverse
+DFT) once for a group of ``GROUP`` hops and the recurrence hop by hop,
+where its buffers fit a block; else the per-frame walk (``per-frame``:
+every stage once a hop), which the single hop and the bf16 and int8
+kernels always take. Each hop gets the same sums in both walks, so K
+hops equal K single hops bit for bit. ``fused_hop_smem_bytes`` counts
+the per-frame walk without a limit (what the engine's capacity rule
+decides by) and the walk a limit gives with one; a bound hop names its
+walk in ``walk`` and its group in ``group``.
+
 The port does not take JAX's ``hops_per_step`` (hops unrolled per grid
 step: its outputs are bit-identical, and the Hopper kernel has no grid
 step along K) or ``block_b`` (the kernel's tile of 2 streams is fixed and
@@ -53,8 +66,8 @@ import torch
 from audio_denoising_torch.config import Config
 from audio_denoising_torch.device import indexed, resolve_device
 from audio_denoising_torch.ops.kernels.common import (
-    KTILE, PlanArgs, PlanScaleArgs, cell_layout_floats, check_plan,
-    kernel_operand, pack_plan_weights, plan_args, plan_args_q,
+    KTHREADS, KTILE, PlanArgs, PlanScaleArgs, PlanShape, cell_layout_floats,
+    check_plan, kernel_operand, pack_plan_weights, plan_args, plan_args_q,
     plan_cell_math, plan_shape, round4)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.noisefloor import (
@@ -71,6 +84,11 @@ COMPUTE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # per-stream scalars and the gate's reduction lanes (kScalars, kMeans and
 # kLanes in csrc/fused_hop.cu)
 SCALARS, MEANS, LANES = 4, 4, 32
+# the K-hop kernel's frame-group walk: its group of hops (kGroup in
+# csrc/fused_hop.cu); the walks a bound hop names (AdtFusedHopArgs.group
+# GROUP, 0)
+GROUP = 4
+WALKS = ("frames", "per-frame")
 
 
 class FusedHopState(NamedTuple):
@@ -154,7 +172,7 @@ class _Args(ctypes.Structure):
         + [("plan", PlanArgs), ("gate", _GateArgs)]
         + [(f, ctypes.c_int) for f in (
             "batch", "n_fft", "hop", "n_bins", "n_mels", "raw", "hops",
-            "pcm16")]
+            "pcm16", "group")]
         + [("output_gain", ctypes.c_float), ("state_decay", ctypes.c_float),
            ("scales", PlanScaleArgs), ("compute", ctypes.c_int)])
 
@@ -179,28 +197,83 @@ def _check_supported(cfg: Config, plan, hops_per_call: int, io_dtype,
     gate_planes(cfg.serving)   # raises on an unknown estimator
 
 
-def fused_hop_smem_bytes(cfg: Config, plan,
-                         compute_dtype=torch.float32) -> int:
-    """The dynamic shared memory one block of either fused-hop kernel
-    takes for ``cfg``, ``plan`` and ``compute_dtype``: a plain mirror of
-    ``make_layout`` in csrc/fused_hop.cu, so that what a card can take is
-    known before the library is built (the wrapper holds it equal to the
-    library's ``adt_fused_hop_smem_bytes`` on the card). kTile rows of:
-    the frame, the spectrum (re, im, mag, lin), ring and ola, a delta
-    plan's prev, the gate's two floor planes (not at int8, which keeps
-    them in global memory), the scalars and the gate's reduction lanes;
-    then the plan cell's layout (with the int8 plan's staging
-    buffers)."""
+def _per_frame_floats(cfg: Config, shape: PlanShape, compute_dtype) -> int:
+    """Floats of ``make_layout`` in csrc/fused_hop.cu (the per-frame walk):
+    kTile rows of the frame, the spectrum (re, im, mag, lin), ring and
+    ola, a delta plan's prev, the gate's two floor planes (not at int8,
+    which keeps them in global memory), the scalars and the gate's
+    reduction lanes; then the plan cell's layout (with the int8 plan's
+    staging buffers)."""
     _, floor = gate_planes(cfg.serving)
     floor = floor and compute_dtype != torch.int8
-    M = _feat_width(cfg)
     ld_t, ld_f, ld_m = (round4(n) for n in (cfg.dsp.n_fft, cfg.dsp.n_stft,
-                                            M))
-    floats = KTILE * (3 * ld_t + 4 * ld_f + (ld_m if plan.delta else 0)
+                                            _feat_width(cfg)))
+    floats = KTILE * (3 * ld_t + 4 * ld_f + (ld_m if shape.delta else 0)
                       + (2 * ld_f if floor else 0) + SCALARS + MEANS * LANES)
-    floats += cell_layout_floats(plan_shape(plan, M),
-                                 quant=compute_dtype == torch.int8)
-    return 4 * floats
+    return floats + cell_layout_floats(shape,
+                                       quant=compute_dtype == torch.int8)
+
+
+def _group_floats(cfg: Config, shape: PlanShape) -> int:
+    """Floats of ``make_group_layout`` in csrc/fused_hop.cu (the fp32
+    frame-group walk in groups of GROUP hops): the tile's state (ring,
+    ola, hx, prev, the floor planes, the scalars and reduction lanes) and
+    the reset gate's output; the spectrum of group x kTile rows; a region
+    that holds the frames, then the cell's activations of those rows,
+    then the synthesis; and a region that holds those rows' split-K
+    scratch, then the per-hop matmuls' scratch, hi and the decoder's two
+    buffers (and the newest frame's samples)."""
+    _, floor = gate_planes(cfg.serving)
+    ld_t, ld_f, ld_m = (round4(n) for n in (cfg.dsp.n_fft, cfg.dsp.n_stft,
+                                            _feat_width(cfg)))
+    n, L, rows = shape.n_hidden, shape.levels, GROUP * KTILE
+    state = KTILE * (2 * ld_t + round4(n) + (ld_m if shape.delta else 0)
+                     + (2 * ld_f if floor else 0) + SCALARS + MEANS * LANES
+                     + round4(3 * n))
+    cell = rows * sum(round4(w) for w in shape.down_n[:L + 1])
+    per_hop = KTILE * (4 * KTHREADS + round4(n)
+                       + 2 * round4(max(shape.up_n[1:L + 1])))
+    return (state + 4 * rows * ld_f + max(rows * ld_t, cell)
+            + max(rows * 4 * KTHREADS, KTILE * ld_t, per_hop))
+
+
+def _group(cfg: Config, shape: PlanShape, limit: int, hops_per_call: int,
+           compute_dtype) -> int:
+    fits = 4 * _group_floats(cfg, shape) <= limit
+    return GROUP if (compute_dtype == torch.float32 and hops_per_call > 1
+                     and fits) else 0
+
+
+def hop_group(cfg: Config, plan, limit: int, hops_per_call: int = 1,
+              compute_dtype=torch.float32) -> int:
+    """The walk of the fused hop's kernel on a card whose block may take
+    ``limit`` bytes of shared memory: 0 for the per-frame walk, else
+    ``GROUP``, the frame-group walk's group of hops. The fp32 K-hop kernel
+    (``hops_per_call > 1``) takes the frame-group walk where its layout
+    fits a block; the single hop, the 128-mel plans on an H100 and the
+    bf16 and int8 modes walk per frame."""
+    return _group(cfg, plan_shape(plan, _feat_width(cfg)), limit,
+                  hops_per_call, compute_dtype)
+
+
+def fused_hop_smem_bytes(cfg: Config, plan, compute_dtype=torch.float32,
+                         hops_per_call: int = 1,
+                         limit: Optional[int] = None) -> int:
+    """The dynamic shared memory one block of the fused hop's kernel
+    takes for ``cfg``, ``plan`` and ``compute_dtype`` (the single hop, or
+    the K-hop kernel where ``hops_per_call > 1``): without a limit, in the
+    per-frame walk, which the engine's capacity rule decides by (either
+    entry point); with ``limit``, in the walk ``hop_group`` gives. A plain
+    mirror of ``make_layout`` and ``make_group_layout`` in
+    csrc/fused_hop.cu, so that what a card can take is known before the
+    library is built (the wrapper holds it equal to the library's
+    ``adt_fused_hop_smem_bytes`` on the card)."""
+    shape = plan_shape(plan, _feat_width(cfg))
+    group = 0 if limit is None else _group(cfg, shape, limit, hops_per_call,
+                                           compute_dtype)
+    if group:
+        return 4 * _group_floats(cfg, shape)
+    return 4 * _per_frame_floats(cfg, shape, compute_dtype)
 
 
 class FusedHop:
@@ -225,7 +298,11 @@ class FusedHop:
         self.output_gain = float(srv.output_gain)
         self.state_decay = float(srv.state_decay)
         self.widths = _plane_widths(cfg, plan)
+        self._cfg, self._shape = cfg, plan_shape(plan, self.M)
         self.smem_bytes = fused_hop_smem_bytes(cfg, plan, compute_dtype)
+        # set when a kernel library is bound: the walk ("frames" or
+        # "per-frame") at the card's limit and its group size (0 per frame)
+        self.walk, self.group = None, 0
         self.launches = 0
         self._gate_constants(cfg)
 
@@ -293,8 +370,17 @@ class FusedHop:
         if lib.adt_fused_hop_args_size() != ctypes.sizeof(_Args):
             raise RuntimeError("csrc/fused_hop.cu and _Args disagree on "
                                "the argument layout")
+        limit = torch.cuda.get_device_properties(
+            self.device).shared_memory_per_block_optin
+        self.group = _group(self._cfg, self._shape, limit,
+                            self.hops_per_call, self.compute_dtype)
+        self.walk = WALKS[0] if self.group else WALKS[1]
+        self.smem_bytes = 4 * (
+            _group_floats(self._cfg, self._shape) if self.group
+            else _per_frame_floats(self._cfg, self._shape,
+                                   self.compute_dtype))
         self._base_args = self._args()
-        self._check_shared_memory()
+        self._check_shared_memory(limit)
 
     # -- the plain PyTorch version ------------------------------------------
     def _dsp(self, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -469,6 +555,7 @@ class FusedHop:
             a.plan = plan_args(self.weights, self.skip_flags, self.M, self.n,
                                keep, self.delta)
         a.compute = COMPUTE_DTYPES[self.compute_dtype]
+        a.group = self.group
         a.n_fft, a.hop, a.n_bins, a.n_mels = self.n_fft, self.hop, self.F, \
             self.M
         a.raw = int(self.raw)
@@ -486,12 +573,11 @@ class FusedHop:
             g.floor_bias, g.eps = FLOOR_BIAS, _EPS
         return a
 
-    def _check_shared_memory(self) -> None:
-        """What this kernel can take: the activations and the state of
-        one block's tile of streams in its shared memory, as the library
+    def _check_shared_memory(self, limit: int) -> None:
+        """What this kernel can take on this card (``limit`` bytes a
+        block): the activations and the state of one block's tile of
+        streams in its shared memory, in the walk bound, as the library
         counts it and as ``fused_hop_smem_bytes`` does."""
-        limit = torch.cuda.get_device_properties(
-            self.device).shared_memory_per_block_optin
         need = int(self._lib.adt_fused_hop_smem_bytes(
             ctypes.byref(self._base_args)))
         if need != self.smem_bytes:

@@ -70,7 +70,9 @@ raises on failure (so the script exits non-zero and prints no result):
     the tuned gate: two calls carrying the state and one with int16 IO,
     each one launch; then against 50 launches of the single-hop kernel
     (every plane, 0 expected), its plain version, the int16 plain path
-    (1 LSB) and the float32 K-hop clipped and scaled (2 LSB);
+    (1 LSB) and the float32 K-hop clipped and scaled (2 LSB); the same at
+    K = 7, whose last group of the fp32 frame-group walk is short (each
+    check names the walk and group of the K-hop and the single hop);
 15. ``StreamEngine`` mode ``fused`` on the hidden-40 checkpoint with its
     recommended gate, 256 slots for 30 ticks with skipped slots, against
     the same run on the CPU, idle slots bit-identical;
@@ -191,7 +193,8 @@ raises on failure (so the script exits non-zero and prints no result):
     int16 IO, each one launch; against 50 single-hop launches (0 on every
     output and plane), its plain version and the int16 plain path (each
     stream's SNR, as phase 35's free runs) and the float32-IO K-hop
-    clipped and scaled (2 LSB);
+    clipped and scaled (2 LSB); then the flagship's fp32 K-hop (the
+    per-frame walk) at K = 3, as phase 14 holds it;
 37. ``StreamEngine`` mode ``fused`` at serving.dtype bfloat16 and int8
     (gruunet2-stream16k) and mode ``fast`` at int8 (gruunet2-good on the
     quantized plan, ``PlanModel(quantized=True)``), 256 slots for 50
@@ -235,9 +238,10 @@ raises on failure (so the script exits non-zero and prints no result):
     the gated int8 flagship in mode ``fused`` stays ``fused``, within a
     block's shared memory, with no warning. Then, for every
     configuration the script builds, in each compute mode, gated and
-    not, one hop and K hops, the libraries' shared memory per block
-    against the plain mirrors the engine decides by
-    (``fused_hop_smem_bytes``, ``webrtc_hop_smem_bytes``; each kernel's
+    not, one hop and K hops (the fused hop's fp32 K-hop also in the
+    frame-group walk, the WebRTC hop in each cell walk), the libraries'
+    shared memory per block against the plain mirrors the engine decides
+    by (``fused_hop_smem_bytes``, ``webrtc_hop_smem_bytes``; each kernel's
     wrapper also holds them equal whenever it binds on the card);
 43. the bounded-lookahead checkpoint
     runs/gruunet2mel128w64-mrstft-la4-50k.npz (4 frames, the flagship's
@@ -491,6 +495,11 @@ ABS_PLANES = ("ring", "ola", "hx", "prev")   # held at STATE_ATOL
 PLANE_ATOL = 1e-9
 GATED_OUT_ATOL = 3e-4  # gated kernel vs the gated fast step (JAX's bound)
 K_HOPS = 50          # hops per call of the resident kernel (bench.py's K)
+# K-hop calls whose last group of the fp32 frame-group walk is short (7 =
+# 4 + 3 at stream16k), and the 128-mel flagship's fp32 K-hop check on the
+# per-frame walk (phase 36)
+RAGGED_K = 7
+FLAG_K = 3
 KHOP_EXACT = 1e-6    # K-hop kernel vs K single-hop launches (0 expected)
 GATE_FLOPS_PER_BIN = 20   # the gate's EMAs, means and blend, per bin
 # the resident K-hop WebRTC hop: bench.py's fused_webrtc_gl8_resident_k25
@@ -532,9 +541,11 @@ OFFLINE_BATCH = 16
 OFFLINE_BATCH_S = 10
 REDUCED = ("bfloat16", "int8")   # the fused hop's reduced compute modes
 RAGGED = 41          # streams whose last tile is ragged above one (phase 35)
-# the reduced modes' kernels adt_fused_hop_kernel_attrs reads, in its order
+# the kernels adt_fused_hop_kernel_attrs reads, in its order
 REDUCED_KERNELS = (("bfloat16", "hop"), ("bfloat16", "K-hop"),
                    ("int8", "hop"), ("int8", "K-hop"))
+FP32_KERNELS = (("float32", "hop"), ("float32", "K-hop"),
+                ("float32", "K-hop, frame groups"))
 FLAGSHIP = "gruunet2mel128w64-mrstft-50k.npz"   # bench.py's quality flagship
 S16K = "gruunet2-stream16k"
 # The reduced modes' kernel against its plain version on the card, by SNR
@@ -1921,8 +1932,10 @@ def check_multi(torch, cfg, plan, label, chunks, dtype="float32"):
     scaled = torch.clamp(outs_f, -1, 1) * 32767
     lsb_f32 = float((outs_16.float() - scaled).abs().max().cpu())
     torch.cuda.synchronize()
-    say(f"  {label}, {dtype}, B={B}, K={K}: K-hop vs {K} single-hop "
-        f"launches: {fmt(exact)} (bound {KHOP_EXACT:g}, 0 expected); vs "
+    say(f"  {label}, {dtype}, B={B}, K={K} ({multi.walk} walk, group "
+        f"{multi.group}; the single hop's {single.group}): K-hop vs {K} "
+        f"single-hop launches: {fmt(exact)} (bound {KHOP_EXACT:g}, 0 "
+        f"expected); vs "
         f"the plain version over 2 calls: {text}; int16 IO vs its plain "
         f"path: {text16}; vs the float32 K-hop clipped and scaled "
         f"{lsb_f32:.2f} LSB (bound 2); {launches} launches for 3 calls")
@@ -1933,14 +1946,16 @@ def check_multi(torch, cfg, plan, label, chunks, dtype="float32"):
 
 def phase_multi(torch, cfg, plan):
     """Phase 14 at bench.py's headline shape: ungated (fused_hop_resident)
-    and with the tuned gate, estimator 'both' (fused_hop_gated_both)."""
+    and with the tuned gate, estimator 'both' (fused_hop_gated_both), at
+    K = K_HOPS and at RAGGED_K (the frame-group walk's last group short)."""
     chunks = torch.from_numpy(voiced_chunks(
         SLOTS, K_HOPS, cfg.dsp.hop_length, cfg.dsp.sample_rate, 14)).cuda()
     launches = worst = 0
     for label, c in (("ungated", cfg), ("gated both", tuned_gate(cfg))):
-        n, e, _ = check_multi(torch, c, plan, label, chunks)
-        launches += n
-        worst = max(worst, e)
+        for k in (K_HOPS, RAGGED_K):
+            n, e, _ = check_multi(torch, c, plan, label, chunks[:k])
+            launches += n
+            worst = max(worst, e)
     return launches, worst
 
 
@@ -2537,16 +2552,17 @@ def time_momo(torch, cfg, model, plan, smi):
 
 def fused_hop_reduced_attrs():
     """{(dtype, 'hop' or 'K-hop'): {tile, cluster, registers,
-    local_bytes}} of the fused hop's reduced-mode kernels: the streams a
-    block owns (KTILE) with no cluster (1 block), the registers a thread
-    and local bytes (adt_fused_hop_kernel_attrs: cudaFuncGetAttributes)."""
+    local_bytes}} of the fused hop's kernels in each mode (the fp32 ones
+    too): the streams a block owns (KTILE) with no cluster (1 block), the
+    registers a thread and local bytes (adt_fused_hop_kernel_attrs:
+    cudaFuncGetAttributes)."""
     from audio_denoising_torch.ops.kernels.build import load_kernel_library
     from audio_denoising_torch.ops.kernels.common import KTILE
     fn = load_kernel_library("fused_hop").lib.adt_fused_hop_kernel_attrs
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = {}
-    for i, (dtype, entry) in enumerate(REDUCED_KERNELS):
+    for i, (dtype, entry) in enumerate(REDUCED_KERNELS + FP32_KERNELS):
         regs, local = ctypes.c_int(), ctypes.c_longlong()
         err = fn(i, ctypes.byref(regs), ctypes.byref(local))
         if err != 0:
@@ -2556,6 +2572,18 @@ def fused_hop_reduced_attrs():
                                "registers": regs.value,
                                "local_bytes": local.value}
     return out
+
+
+def fp32_walks(torch, cases):
+    """{(label, 'hop' or 'K-hop'): {walk, group}} of the fp32 fused hop
+    bound on the card for each (label, cfg, plan): the single hop and the
+    K_HOPS-hop kernel."""
+    from audio_denoising_torch.ops.kernels.fused_hop import make_fused_hop
+    return {(label, entry): {"walk": h.walk, "group": h.group}
+            for label, cfg, plan in cases
+            for entry, h in (("hop", make_fused_hop(cfg, plan, "cuda")),
+                             ("K-hop", make_fused_hop(
+                                 cfg, plan, "cuda", hops_per_call=K_HOPS)))}
 
 
 def phase_reduced_hop(torch, cases):
@@ -3922,13 +3950,15 @@ def phase_smem_mirror(torch, cases, limit):
     """The shared memory per block the built libraries count against
     fused_hop_smem_bytes and webrtc_hop_smem_bytes (the plain mirrors the
     engine decides by), for every configuration the script builds, in
-    every compute mode and with the gates (the WebRTC hop in each cell
+    every compute mode and with the gates (the fused hop's fp32 K-hop
+    also in the frame-group walk, the WebRTC hop in each cell
     walk), one hop and K hops (also those
     over the card's limit, which no kernel can be built for: the
     arguments are filled on the CPU). ``cases``: (kernel, label, cfg,
     plan), kernel "fused_hop" or "webrtc_hop"."""
     from audio_denoising_torch.ops.kernels.build import load_kernel_library
-    from audio_denoising_torch.ops.kernels.fused_hop import FusedHop
+    from audio_denoising_torch.ops.kernels.fused_hop import (
+        FusedHop, fused_hop_smem_bytes, hop_group)
     from audio_denoising_torch.ops.kernels.webrtc_hop import (
         CELL_WALKS, WebRTCHop, cell_walk, webrtc_hop_smem_bytes)
     libs = {n: load_kernel_library(n).lib for n in ("fused_hop",
@@ -3939,27 +3969,37 @@ def phase_smem_mirror(torch, cases, limit):
     cpu, checked, over = torch.device("cpu"), 0, []
     for kind, label, cfg, plan in cases:
         if kind == "fused_hop":
-            for est, dtype, k in itertools.product(
+            # each walk: per frame (no limit: what the engine decides by)
+            # and, for the fp32 K-hop kernel, the frame-group walk (a
+            # limit every layout fits)
+            for est, dtype, k, walk_limit in itertools.product(
                     (None, "removed", "floor", "both"),
                     (torch.float32, torch.bfloat16, torch.int8),
-                    (1, K_HOPS)):
+                    (1, K_HOPS), (None, 1 << 30)):
+                if walk_limit is not None and (dtype != torch.float32
+                                               or k == 1):
+                    continue
                 c = cfg if est is None else dataclasses.replace(
                     cfg, serving=dataclasses.replace(
                         cfg.serving, snr_gate_db=1.0,
                         snr_gate_estimator=est))
                 hop = FusedHop(c, plan, cpu, hops_per_call=k,
                                compute_dtype=dtype)
+                if walk_limit is not None:
+                    hop.group = hop_group(c, plan, walk_limit, k)
+                want = fused_hop_smem_bytes(c, plan, dtype, k, walk_limit)
                 got = libs["fused_hop"].adt_fused_hop_smem_bytes(
                     ctypes.byref(hop._args()))
-                if got != hop.smem_bytes:
+                if got != want or (walk_limit is None
+                                   and got != hop.smem_bytes):
                     raise AssertionError(
-                        f"{label}, gate {est}, {dtype}, K={k}: the library "
-                        f"counts {got} B, fused_hop_smem_bytes "
-                        f"{hop.smem_bytes} B")
+                        f"{label}, gate {est}, {dtype}, K={k}, group "
+                        f"{hop.group}: the library counts {got} B, "
+                        f"fused_hop_smem_bytes {want} B")
                 checked += 1
                 if got > limit:
                     over.append(f"{label} {dtype_name(dtype)} gate {est} "
-                                f"K={k}: {got} B")
+                                f"K={k} group {hop.group}: {got} B")
         else:
             # each cell walk: per frame (no limit: the least, what the
             # engine decides by) and batched (a limit every layout fits)
@@ -6503,6 +6543,10 @@ def main() -> int:
         (FLAGSHIP, flag_cfg, flag_plan, flag_chunks),
         (MOMO_SPEC, momo_cfg, momo_plan, momo_chunks(torch, momo_cfg, K_HOPS,
                                                      37))])
+    say(f"  and the fp32 K-hop on the per-frame walk ({FLAGSHIP}, "
+        f"K={FLAG_K}):")
+    fm_launches, fm_err, _ = check_multi(torch, flag_cfg, flag_plan, FLAGSHIP,
+                                         flag_chunks[:FLAG_K])
     say(f"phase 37: StreamEngine modes fused (bf16, int8; "
         f"gruunet2-stream16k) and fast (int8, the quantized plan; "
         f"gruunet2-good), {SLOTS} slots, card vs CPU")
@@ -6745,6 +6789,18 @@ def main() -> int:
     v_fim.update(max_abs_err=fi_multi[1], worst_db=fi_multi[2],
                  limit_db=FREE_DB[(FLAGSHIP, "int8")][1],
                  **r_attrs[("int8", "K-hop")])
+    walks = fp32_walks(torch, [(S16K, cfg, plan),
+                               (FLAGSHIP, flag_cfg, flag_plan),
+                               (MOMO_SPEC, momo_cfg, momo_plan)])
+
+    def fp32(v, label, kind):
+        """A fp32 variant with its kernel's walk, group size, registers
+        and local bytes."""
+        walk = walks[(label, kind)]
+        kernel = "K-hop, frame groups" if walk["group"] else kind
+        v.update(**walk, **r_attrs[("float32", kernel)])
+        return v
+
     rows = []
     for name, source, replaces, n, e, (ms, plain_ms, bound_ms, bound_by,
                                        *walk), variants in (
@@ -6754,18 +6810,19 @@ def main() -> int:
              + mesh_l["daemon"] + ox_launches,
              max(err, g_err, mh_err, flag_err, fi_err, ox_err,
                  *(e for _, e in r_err.values())), fused,
-             [variant("mel, gruunet2-stream16k and two runs/ widths",
-                      "phases 2, 4, 5, 13, 15, 16"),
+             [fp32(variant("mel, gruunet2-stream16k and two runs/ widths",
+                           "phases 2, 4, 5, 13, 15, 16"), S16K, "hop"),
               variant(f"WebSocket daemon, {S16K}", "phase 39: "
                       f"{WS_CLIENTS} clients, int16 replies vs the plain "
                       f"hop; reply p50 {ws_lat[0]:.3f} ms, p99 "
                       f"{ws_lat[1]:.3f} ms", n=ws_launches),
-              variant(f"raw + delta, {MOMO_SPEC}", momo_checked,
-                      momo_t["hop"], me_launches),
+              fp32(variant(f"raw + delta, {MOMO_SPEC}", momo_checked,
+                           momo_t["hop"], me_launches), MOMO_SPEC, "hop"),
               variant(f"raw + delta, {MOMO_SPEC}, tuned gate", momo_checked,
                       momo_t["hop, tuned gate"]),
-              variant(f"float32, {FLAGSHIP}", "phase 35, 256 streams",
-                      r_t[(FLAGSHIP, "float32", "hop")])]
+              fp32(variant(f"float32, {FLAGSHIP}", "phase 35, 256 streams",
+                           r_t[(FLAGSHIP, "float32", "hop")]), FLAGSHIP,
+                   "hop")]
              + reduced("bfloat16", "hop", re_launches["bfloat16"])
              + reduced("int8", "hop", re_launches["int8"]) + [v_fi]
              + sharded_variants(False)
@@ -6777,15 +6834,20 @@ def main() -> int:
                         "engine's; vs the CPU", n=ox_launches)]),
             ("fused_hop_multi", "fused_hop", "fused_hop.py:384",
              m_launches + mm_launches + fim_launches + oxm_launches
-             + sum(n for n, _, _ in r_multi.values()),
-             max(m_err, mm_err, fi_multi[1],
+             + fm_launches + sum(n for n, _, _ in r_multi.values()),
+             max(m_err, mm_err, fi_multi[1], fm_err,
                  *(e for _, e, _ in r_multi.values())), multi,
-             [variant("mel, gruunet2-stream16k, ungated and gated, fp32 and "
-                      "int16 IO", "phase 14"),
-              variant(f"raw + delta, {MOMO_SPEC}, fp32 and int16 IO",
-                      "phase 26", momo_t["K-hop"], mm_launches),
-              variant(f"float32, {FLAGSHIP}", "timed beside phase 36",
-                      r_t[(FLAGSHIP, "float32", "K-hop")])]
+             [fp32(variant("mel, gruunet2-stream16k, ungated and gated, fp32 "
+                           f"and int16 IO, K={K_HOPS} and {RAGGED_K}",
+                           "phase 14"), S16K, "K-hop"),
+              fp32(variant(f"raw + delta, {MOMO_SPEC}, fp32 and int16 IO",
+                           "phase 26", momo_t["K-hop"], mm_launches),
+                   MOMO_SPEC, "K-hop"),
+              fp32(variant(f"float32, {FLAGSHIP}", f"phase 36 at K={FLAG_K} "
+                           f"against single hops and the plain version; "
+                           f"timed beside phase 36 at K={K_HOPS}",
+                           r_t[(FLAGSHIP, "float32", "K-hop")], fm_launches),
+                   FLAGSHIP, "K-hop")]
              + reduced("bfloat16", "K-hop", None)
              + reduced("int8", "K-hop", None) + [v_fim]
              + sharded_variants(True)
