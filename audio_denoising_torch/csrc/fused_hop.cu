@@ -18,13 +18,17 @@
 // quantization, dp4a into int32, rank-1 dequant) and the DSP matmuls run
 // as in bf16. Windows, biases, scales and every state plane stay fp32.
 // Each mode is its own instantiation of both kernels, so the fp32 ones
-// run the code they ran before the modes were added. The weight bytes a
-// block streams per hop fall with the mode: at gruunet2-stream16k 6.3 MB
-// in fp32, 3.2 MB in bf16, 1.8 MB in int8 (the DSP pair stays bf16).
+// run the code they ran before the modes were added. The fp32 walks take
+// the transforms as in-kernel FFTs (fft.cuh; AdtFusedHopArgs.transform,
+// chosen on the host) where the reduced modes keep the DFT pair as
+// matmuls. The weight bytes a block streams per hop fall with the mode:
+// at gruunet2-stream16k 3.0 MB in fp32 (6.3 with the dense DFT pair), 3.2
+// MB in bf16, 1.8 MB in int8 (the DSP pair stays bf16).
 //
 // Per stream and hop: shift the analysis ring, apply the Hann window,
-// take the DFT as cos/sin matmuls and the magnitude, project to mel and
-// take log(1 + .) (in the raw domain log(1 + .) of the magnitude itself,
+// take the DFT (a real FFT, or cos/sin matmuls) and the magnitude,
+// project to mel and take log(1 + .) (in the raw domain log(1 + .) of the
+// magnitude itself,
 // fused_hop.py:164-168), run the plan cell (encoder matmuls with ReLU, the
 // reset-gate matmul, GRU gating, decoder matmuls with split skips; a
 // delta plan's level 0 over cat(x, prev), with prev the previous hop's
@@ -33,7 +37,8 @@
 // times the output gain, the SNR gate (ops/noisefloor.py:
 // per-stream EMAs of the output and removed power and the per-bin noise
 // floor, then the output magnitude blended toward the input's), reuse the
-// noisy phase by scaling the complex bins, inverse DFT, window,
+// noisy phase by scaling the complex bins, inverse DFT (an inverse real
+// FFT, or matmuls), window,
 // overlap-add divided by the window envelope, and decay the hidden state
 // (prev' = this hop's feature, not decayed).
 //
@@ -45,10 +50,15 @@
 // 3.4 MB of state in and out) over 3.35 TB/s are 1.9 us: the hop is bound
 // by fp32 operations. K hops in one call move the weights and the state
 // once and K chunks in and out, so the call stays bound by operations.
-// This kernel takes the transforms as dense cos/sin matmuls, as the
-// reference does (805 MFLOP per hop), so it does about twice the work the
-// bound counts. Parity with the reference needs fp32, so the kernel uses
-// FMA, not TF32 tensor cores.
+// The fp32 walks take the transforms as FFTs of n_fft / 2 points in a few
+// passes (their twiddles 7.7 KB at n_fft 640), the work the bound counts;
+// as dense cos/sin matmuls (the reduced modes, and fp32 past n_fft 2048)
+// they are 420 of 805 MFLOP a hop and 3.3 of 6.3 MB a block streams, and
+// each thread's chain of dependent L2 loads doubles. On an H100 the FFTs
+// took the stream16k single hop from 141 to 95 us and gruunet2-good's
+// (n_fft 1024, 8.4 of 11.5 MB the DFT pair) from 230 to 101, in turns
+// (PERF.md). Parity with the reference needs fp32, so the kernel
+// uses FMA, not TF32 tensor cores.
 //
 // Design: one block of 512 threads owns a tile of kTile = 2 streams and
 // walks the chain's stages in order, with every activation and the tile's
@@ -59,11 +69,15 @@
 // state back once: the single-hop kernel runs one hop, the multi-hop
 // kernel K, reading chunk k from (K, B, hop) and writing output k, the
 // counterpart of the Pallas kernel's VMEM scratch carried across its K
-// grid steps. The weights (6.3 MB) stay in global memory and are served
-// from the 50 MB L2. All 17 matmuls go through the small-GEMM routine of
-// plan_cell.cuh (`gemm`, shared with webrtc_hop.cu), which that header
-// describes. The hops run in one of two walks, the same in both entry
-// points of a configuration (AdtFusedHopArgs.group, chosen on the host),
+// grid steps. The weights (3.0 MB in fp32 at stream16k) stay in global
+// memory and are served from the 50 MB L2. All the matmuls (13 at
+// stream16k; 17 with the dense DFT pair) go through the small-GEMM
+// routine of plan_cell.cuh (`gemm`, shared with webrtc_hop.cu), which that
+// header describes; splitting their k within a warp and adding the
+// partial sums by shuffles (in place of the scratch) measured 179 us
+// against 95 at stream16k (PERF.md) and is not used. The hops run in one
+// of two walks, the same in both entry points of a configuration
+// (AdtFusedHopArgs.group, chosen on the host),
 // so K hops in one call equal K single hops bit for bit: the per-frame
 // walk (`hop_body`, kept out of line: every stage once a hop, each block
 // reading each weight once a hop; the bf16 and int8 modes, and fp32 where
@@ -74,21 +88,34 @@
 // The tile trades two limits: a larger tile streams fewer weight bytes
 // from L2 in all (each block reads all of them), a smaller one gives each
 // thread less dependent work. At B = 256 on an H100, tile 2 measured best
-// of tiles 1, 2, 4 and 8 (PERF.md); the kernel then pulls about 800 MB per
-// hop from L2.
+// of tiles 1, 2, 4 and 8 (PERF.md); the kernel then pulled about 800 MB
+// per hop from L2 with the dense DFT pair, 390 MB with the FFTs.
 //
 // MOMO3-4d4ea0 (48 kHz, n_fft 42, hop 21, 22 raw bins, B = 256): the
 // plan cell's 80,000 multiply-adds a stream per hop (the transforms add
 // 1.1 kFLOP at FFT cost), 41 MFLOP in all, 0.62 us against 67 TFLOP/s;
 // its 0.68 MB of weights and state over 3.35 TB/s are 0.20 us: bound by
-// operations again. Its DFT matrices (42 x 22) and plan (0.33 MB) are
-// small: a hop is a chain of short dependent stages with most of the 512
-// threads idle in each (the widest matmul has 44 column quads), which is
-// left as it is. The real-time budget of one hop is 437.5 us.
+// operations again. Its plan (0.33 MB) is small: a hop is a chain of
+// short dependent stages with most of the 512 threads idle in each (the
+// widest matmul has 44 column quads). Its transforms are FFTs too (3 x 7,
+// a prime pass of 7): the dense 42 x 22 pair took 74 against 66 us in the
+// same build (PERF.md). The real-time budget of one hop is 437.5 us.
 
 #include <cuda_runtime.h>
 
+#include "fft.cuh"
 #include "plan_cell.cuh"
+
+// ops/kernels/build.py compiles this source as three objects at once, with
+// ADT_FUSED_HOP_PART 0 (the fp32 kernels and the C interface), 1 (the bf16
+// kernels) and 2 (the int8 kernels), and links them into one library:
+// each mode's kernels are instantiated in its own part only, so three
+// nvcc processes share the build. Without the macro one object holds all
+// (chip_ab.py builds another source so).
+#ifndef ADT_FUSED_HOP_PART
+#define ADT_FUSED_HOP_PART -1
+#endif
+#define ADT_IN_PART(p) (ADT_FUSED_HOP_PART < 0 || ADT_FUSED_HOP_PART == (p))
 
 // One set of per-stream state planes, B rows each. The gate's planes are
 // null when the configuration does not carry them.
@@ -148,6 +175,13 @@ struct AdtFusedHopArgs {
   int pcm16;           // chunks and outputs are int16 (the multi-hop kernel)
   int group;           // the fp32 multi-hop kernel's walk: 0 per frame,
                        // kGroup the frame-group walk in groups of kGroup
+  // the fp32 walks' transforms: 0 the dense DFT matmuls (cf, sf, ic, is_),
+  // 1 in-kernel FFTs (fft.cuh), which read none of those matrices
+  int transform;
+  // transform 1: e^{-2 pi i t / n_fft} for t < n_fft, then the passes'
+  // twiddles of the FFT of n_fft / 2 points (fft.cuh's pass_twiddle)
+  const float2* twiddle;
+  FftPlan fft;  // the library fills it from n_fft (make_fft_plan)
   float output_gain;
   float state_decay;
   AdtPlanScales scales;  // the int8 plan's column scales
@@ -250,6 +284,89 @@ __device__ inline void store_sample(const AdtFusedHopArgs& a, int k,
         (short)__float2int_rz(fminf(fmaxf(v, -1.f), 1.f) * 32767.f);
   else
     static_cast<float*>(a.out)[idx] = v;
+}
+
+// -- the transforms as in-kernel FFTs (fp32, AdtFusedHopArgs.transform) ----
+//
+// The forward real DFT of nf windowed frames and the inverse of nf
+// phase-reused spectra on fft.cuh's FFT of m = n_fft / 2 points, its
+// radices and the frame count read at run time (a.fft, nf), over the
+// lanes `g`: in place of the dense DFT matmuls, whose 4 n_fft (n_fft / 2 +
+// 1) floats every block read every hop (3.3 MB at n_fft 640, 8.4 MB at
+// 1024) and whose 4 n_fft^2 multiply-adds a stream were half the hop's.
+// The single hop (nf = kTile) and the frame-group walk (nf = kGroup kTile)
+// call the same two functions, so each frame's outputs come from the same
+// instructions and each hop gets the same sums in both. Two buffers of nf
+// n_fft floats ping-pong: `buf` (the split-K scratch, free around the
+// transforms) and the frames' own buffer (dead once the first pass has
+// read it; for the inverse, before the overlap-add writes it). The host
+// takes them for n_fft <= 4 kThreads, where nf n_fft floats fit the
+// scratch of nf rows (transform_ok).
+
+// re, im and the magnitude of bins 0 .. n_fft / 2 of each of nf windowed
+// frames (rows of `frames`, leading dimension ld_t) into rows of re, im and
+// mag (leading dimension ld_f): the complex FFT of each frame packed two
+// samples a point, then the real-input split. Ends on the group's barrier.
+__device__ __noinline__ void forward_dft(const AdtFusedHopArgs& a, int nf,
+                                         float* frames, int ld_t, float* buf,
+                                         float* re, float* im, float* mag,
+                                         int ld_f, Lanes g) {
+  const int m = a.fft.m, F = m + 1;
+  const float2* tw = a.twiddle;
+  const auto packed = [=](int f, int q) {
+    return *reinterpret_cast<const float2*>(frames + f * ld_t + 2 * q);
+  };
+  const float2* Z = fft<false, 0, 0>(packed, reinterpret_cast<float2*>(buf),
+                                     reinterpret_cast<float2*>(frames), a.fft,
+                                     tw, g, nf);
+  for (int e = g.id; e < nf * F; e += g.n) {
+    const int f = e / F, k = e % F;
+    const float2 v = real_bin(Z + f * m, m, k, tw);
+    const int o = f * ld_f + k;
+    re[o] = v.x;
+    im[o] = v.y;
+    mag[o] = sqrtf(v.x * v.x + v.y * v.y);
+  }
+  group_sync(g);
+}
+
+// n_fft times the inverse real DFT (irfft) of nf spectra (rows of re and
+// im, leading dimension ld_f; the imaginary parts of DC and Nyquist
+// dropped, as irfft does) into nf rows of n_fft samples end to end at
+// `buf`, with `spare` (nf n_fft floats) the other buffer: the first pass
+// reads the real-input pre-twiddle of the bins. Ends on the group's
+// barrier.
+__device__ __noinline__ void inverse_dft(const AdtFusedHopArgs& a, int nf,
+                                         const float* re, const float* im,
+                                         int ld_f, float* buf, float* spare,
+                                         Lanes g) {
+  const int m = a.fft.m;
+  const float2* tw = a.twiddle;
+  const auto spectrum = [=](int f, int k) {
+    const float* r = re + f * ld_f;
+    const float* i = im + f * ld_f;
+    float2 xk = make_float2(r[k], i[k]);
+    float2 xc = make_float2(r[m - k], -i[m - k]);
+    if (k == 0) {
+      xk.y = 0.f;
+      xc.y = 0.f;
+    }
+    const float2 ev = cadd(xk, xc);
+    const float2 od = cmul(csub(xk, xc), conjf2(__ldg(tw + k)));
+    return cadd(ev, rot90<true>(od));
+  };
+  // the passes alternate from the first buffer: an odd count ends there
+  const bool odd = a.fft.passes & 1;
+  fft<true, 0, 0>(spectrum, reinterpret_cast<float2*>(odd ? buf : spare),
+                  reinterpret_cast<float2*>(odd ? spare : buf), a.fft, tw, g,
+                  nf);
+}
+
+// One synthesised sample: base + (the inverse FFT's sample x 1 / n_fft) x
+// the window, in explicit roundings, so that both walks add it alike.
+__device__ __forceinline__ float overlap_add(float base, float sample,
+                                             float inv_n, float win) {
+  return __fmaf_rn(__fmul_rn(sample, inv_n), win, base);
 }
 
 // hx's offset and leading dimension in each walk's layout.
@@ -437,18 +554,24 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   }
   __syncthreads();
 
-  // DFT as two matmuls, then the magnitude
-  gemm<Dsp>(make_gemm(frame, l.ld_t, n_fft, cf, F, nullptr, kNone,
-                      smem + l.re, l.ld_f, smem + l.cell.scratch));
-  gemm<Dsp>(make_gemm(frame, l.ld_t, n_fft, sf, F, nullptr, kNone,
-                      smem + l.im, l.ld_f, smem + l.cell.scratch));
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
-    const int o = (e / F) * l.ld_f + e % F;
-    const float re = smem[l.re + o], im = smem[l.im + o];
-    smem[l.mag + o] = sqrtf(re * re + im * im);
+  // the DFT and the magnitude: in-kernel FFTs (fp32, a.transform), or two
+  // matmuls
+  if (kCompute == kFp32 && a.transform) {
+    forward_dft(a, kTile, frame, l.ld_t, smem + l.cell.scratch, smem + l.re,
+                smem + l.im, smem + l.mag, l.ld_f, block_lanes());
+  } else {
+    gemm<Dsp>(make_gemm(frame, l.ld_t, n_fft, cf, F, nullptr, kNone,
+                        smem + l.re, l.ld_f, smem + l.cell.scratch));
+    gemm<Dsp>(make_gemm(frame, l.ld_t, n_fft, sf, F, nullptr, kNone,
+                        smem + l.im, l.ld_f, smem + l.cell.scratch));
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTile * F; e += blockDim.x) {
+      const int o = (e / F) * l.ld_f + e % F;
+      const float re = smem[l.re + o], im = smem[l.im + o];
+      smem[l.mag + o] = sqrtf(re * re + im * im);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // x = log(1 + mag @ mel), or log(1 + mag) in the raw domain: the
   // model's feature, in the cell's input d[0]
@@ -526,22 +649,36 @@ __device__ __noinline__ void hop_body(const AdtFusedHopArgs& a,
   }
   __syncthreads();
 
-  // inverse DFT from both parts in one accumulation
-  Gemm gs = make_gemm(smem + l.re, l.ld_f, F, ic, n_fft, nullptr, kNone,
-                      frame, l.ld_t, smem + l.cell.scratch);
-  gs.a2 = smem + l.im;
-  gs.lda2 = l.ld_f;
-  gs.k2 = F;
-  gs.w2 = is;
-  gemm<Dsp>(gs);
-  __syncthreads();
-
-  // window and overlap-add; the finished hop divided by the envelope
-  for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
-    const int o = (e / n_fft) * l.ld_t + e % n_fft;
-    frame[o] = ola[o] + frame[o] * a.win[e % n_fft];
+  // the inverse DFT: in-kernel FFTs (into the scratch, then times 1 /
+  // n_fft), or from both parts in one accumulation; then window and
+  // overlap-add
+  if (kCompute == kFp32 && a.transform) {
+    const float* fr = smem + l.cell.scratch;
+    inverse_dft(a, kTile, smem + l.re, smem + l.im, l.ld_f,
+                smem + l.cell.scratch, frame, block_lanes());
+    const float inv_n = 1.f / (float)n_fft;
+    for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
+      const int s = e / n_fft, i = e % n_fft;
+      const int o = s * l.ld_t + i;
+      frame[o] = overlap_add(ola[o], fr[s * n_fft + i], inv_n, a.win[i]);
+    }
+  } else {
+    Gemm gs = make_gemm(smem + l.re, l.ld_f, F, ic, n_fft, nullptr, kNone,
+                        frame, l.ld_t, smem + l.cell.scratch);
+    gs.a2 = smem + l.im;
+    gs.lda2 = l.ld_f;
+    gs.k2 = F;
+    gs.w2 = is;
+    gemm<Dsp>(gs);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
+      const int o = (e / n_fft) * l.ld_t + e % n_fft;
+      frame[o] = ola[o] + frame[o] * a.win[e % n_fft];
+    }
   }
   __syncthreads();
+
+  // the finished hop divided by the envelope
   for (int e = threadIdx.x; e < kTile * n_fft; e += blockDim.x) {
     const int s = e / n_fft, i = e % n_fft;
     const float* acc = frame + s * l.ld_t;
@@ -722,19 +859,26 @@ __device__ __noinline__ void group_walk(const AdtFusedHopArgs& a, float* smem,
   }
   __syncthreads();
 
-  // DFT as two matmuls, then the magnitude
-  gemm<float, kRows, false, false>(
-      make_gemm(frame, ld_t, n_fft, cf, F, nullptr, kNone, re, ld_f, scratch),
-      g);
-  gemm<float, kRows, false, false>(
-      make_gemm(frame, ld_t, n_fft, sf, F, nullptr, kNone, im, ld_f, scratch),
-      g);
-  __syncthreads();
-  for (int e = g.id; e < kRows * F; e += g.n) {
-    const int o = (e / F) * ld_f + e % F;
-    mag[o] = sqrtf(re[o] * re[o] + im[o] * im[o]);
+  // the DFT and the magnitude: in-kernel FFTs (a.transform), or two
+  // matmuls
+  if (a.transform) {
+    forward_dft(a, kRows, frame, ld_t, scratch, re, im, mag, ld_f, g);
+  } else {
+    gemm<float, kRows, false, false>(
+        make_gemm(frame, ld_t, n_fft, cf, F, nullptr, kNone, re, ld_f,
+                  scratch),
+        g);
+    gemm<float, kRows, false, false>(
+        make_gemm(frame, ld_t, n_fft, sf, F, nullptr, kNone, im, ld_f,
+                  scratch),
+        g);
+    __syncthreads();
+    for (int e = g.id; e < kRows * F; e += g.n) {
+      const int o = (e / F) * ld_f + e % F;
+      mag[o] = sqrtf(re[o] * re[o] + im[o] * im[o]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // the feature into d[0]: log(1 + mag @ mel), or log(1 + mag) in the raw
   // domain; a delta plan's prev beside it: the previous frame's feature
@@ -888,19 +1032,26 @@ __device__ __noinline__ void group_walk(const AdtFusedHopArgs& a, float* smem,
   }
   __syncthreads();
 
-  // inverse DFT from both parts in one accumulation, into u
-  Gemm gs = make_gemm(re, ld_f, F, ic, n_fft, nullptr, kNone, frame, ld_t,
-                      scratch);
-  gs.a2 = im;
-  gs.lda2 = ld_f;
-  gs.k2 = F;
-  gs.w2 = is;
-  gemm<float, kRows>(gs, g);
-  __syncthreads();
+  // the inverse DFT: in-kernel FFTs (into the scratch, then times 1 /
+  // n_fft), or from both parts in one accumulation into u
+  const float* fr = scratch;
+  const float inv_n = 1.f / (float)n_fft;
+  if (a.transform) {
+    inverse_dft(a, kRows, re, im, ld_f, scratch, frame, g);
+  } else {
+    Gemm gs = make_gemm(re, ld_f, F, ic, n_fft, nullptr, kNone, frame, ld_t,
+                        scratch);
+    gs.a2 = im;
+    gs.lda2 = ld_f;
+    gs.k2 = F;
+    gs.w2 = is;
+    gemm<float, kRows>(gs, g);
+    __syncthreads();
+  }
 
   // hop by hop: window and overlap-add onto the previous hop's sums
-  // shifted by a hop (the carried ola for the first); the finished hop
-  // divided by the envelope
+  // shifted by a hop (the carried ola for the first), in u; the finished
+  // hop divided by the envelope
   for (int t = 0; t < frames; ++t) {
     for (int e = g.id; e < kTile * n_fft; e += g.n) {
       const int s = e / n_fft, i = e % n_fft;
@@ -908,7 +1059,10 @@ __device__ __noinline__ void group_walk(const AdtFusedHopArgs& a, float* smem,
       const float base =
           t == 0 ? ola[s * ld_t + i]
                  : (i < keep ? acc[i + hop - kTile * ld_t] : 0.f);
-      const float v = base + acc[i] * a.win[i];
+      const float v =
+          a.transform ? overlap_add(base, fr[(t * kTile + s) * n_fft + i],
+                                    inv_n, a.win[i])
+                      : base + acc[i] * a.win[i];
       acc[i] = v;
       if (i < hop && s < rows) store_sample(a, k0 + t, b0 + s, i, v / a.env[i]);
     }
@@ -976,6 +1130,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   run_hops<kCompute>(a, a.hops);
 }
 
+#if ADT_IN_PART(0)
 // The fp32 resident multi-hop kernel in the frame-group walk (a.group ==
 // kGroup): a kernel of its own, so the per-frame one keeps its registers
 // and stack (sharing one kernel, the walk's layout cost the 128-mel
@@ -994,6 +1149,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   else
     run_groups<false, false>(a, smem, a.hops, b0, rows);
 }
+#endif
 
 cudaError_t launch(void (*kernel)(AdtFusedHopArgs), const AdtFusedHopArgs& a,
                    size_t smem_bytes, cudaStream_t stream) {
@@ -1003,6 +1159,15 @@ cudaError_t launch(void (*kernel)(AdtFusedHopArgs), const AdtFusedHopArgs& a,
   const dim3 grid((a.batch + kTile - 1) / kTile);
   kernel<<<grid, kThreads, smem_bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The FFTs (transform 1): fp32, the twiddles given, and kF n_fft floats
+// within the scratch of kF rows (4 kThreads floats a row).
+bool transform_ok(const AdtFusedHopArgs& a) {
+  if (a.transform == 0) return true;
+  return a.transform == 1 && a.compute == kFp32 && a.twiddle != nullptr &&
+         a.n_fft % 2 == 0 && a.n_fft <= 4 * kThreads &&
+         a.n_bins == a.n_fft / 2 + 1;
 }
 
 bool args_ok(const AdtFusedHopArgs& a) {
@@ -1027,27 +1192,109 @@ bool args_ok(const AdtFusedHopArgs& a) {
   const bool walk_ok =
       a.group == 0 || (a.compute == kFp32 && a.group == kGroup);
   return plan_ok(a.plan, a.n_mels) && a.n_fft % a.hop == 0 && state_ok &&
-         domain_ok && scales_ok && walk_ok && a.hops >= 1;
+         domain_ok && scales_ok && walk_ok && transform_ok(a) && a.hops >= 1;
 }
+
+// The launch's arguments with the FFT plan filled in where a.transform
+// asks for the FFTs (the M = 0 schedule of n_fft / 2 points); false if
+// n_fft / 2 has no plan.
+bool with_fft_plan(const AdtFusedHopArgs& a, AdtFusedHopArgs* out) {
+  *out = a;
+  out->fft.m = out->fft.passes = 0;
+  return !a.transform || make_fft_plan(a.n_fft / 2, false, &out->fft);
+}
+
+}  // namespace
+
+// Each compute mode's kernels launched (the single-hop or the multi-hop
+// kernel; in fp32 the frame-group kernel where a.group asks for it), and
+// the attributes of one of them (entry 0 the single hop, 1 the multi-hop
+// kernel, 2 fp32's frame-group kernel): defined in the mode's part,
+// external so that part 0's C interface reaches every part.
+template <int kCompute>
+cudaError_t adt_fused_hop_launch(const AdtFusedHopArgs& a, bool multi,
+                                 size_t smem_bytes, cudaStream_t stream);
+template <int kCompute>
+cudaError_t adt_fused_hop_attrs(int entry, cudaFuncAttributes* attr);
+template <>
+cudaError_t adt_fused_hop_launch<kFp32>(const AdtFusedHopArgs&, bool, size_t,
+                                        cudaStream_t);
+template <>
+cudaError_t adt_fused_hop_launch<kBf16>(const AdtFusedHopArgs&, bool, size_t,
+                                        cudaStream_t);
+template <>
+cudaError_t adt_fused_hop_launch<kInt8>(const AdtFusedHopArgs&, bool, size_t,
+                                        cudaStream_t);
+template <>
+cudaError_t adt_fused_hop_attrs<kFp32>(int, cudaFuncAttributes*);
+template <>
+cudaError_t adt_fused_hop_attrs<kBf16>(int, cudaFuncAttributes*);
+template <>
+cudaError_t adt_fused_hop_attrs<kInt8>(int, cudaFuncAttributes*);
+
+#if ADT_IN_PART(0)
+template <>
+cudaError_t adt_fused_hop_launch<kFp32>(const AdtFusedHopArgs& a, bool multi,
+                                        size_t smem_bytes,
+                                        cudaStream_t stream) {
+  if (multi && a.group > 0)
+    return launch(fused_hop_group_kernel, a, smem_bytes, stream);
+  return launch(multi ? fused_hop_multi_kernel<kFp32>
+                      : fused_hop_kernel<kFp32>,
+                a, smem_bytes, stream);
+}
+template <>
+cudaError_t adt_fused_hop_attrs<kFp32>(int entry, cudaFuncAttributes* attr) {
+  return cudaFuncGetAttributes(
+      attr, entry == 2 ? fused_hop_group_kernel
+                       : entry ? fused_hop_multi_kernel<kFp32>
+                               : fused_hop_kernel<kFp32>);
+}
+#endif
+#if ADT_IN_PART(1)
+template <>
+cudaError_t adt_fused_hop_launch<kBf16>(const AdtFusedHopArgs& a, bool multi,
+                                        size_t smem_bytes,
+                                        cudaStream_t stream) {
+  return launch(multi ? fused_hop_multi_kernel<kBf16>
+                      : fused_hop_kernel<kBf16>,
+                a, smem_bytes, stream);
+}
+template <>
+cudaError_t adt_fused_hop_attrs<kBf16>(int entry, cudaFuncAttributes* attr) {
+  return cudaFuncGetAttributes(attr, entry ? fused_hop_multi_kernel<kBf16>
+                                           : fused_hop_kernel<kBf16>);
+}
+#endif
+#if ADT_IN_PART(2)
+template <>
+cudaError_t adt_fused_hop_launch<kInt8>(const AdtFusedHopArgs& a, bool multi,
+                                        size_t smem_bytes,
+                                        cudaStream_t stream) {
+  return launch(multi ? fused_hop_multi_kernel<kInt8>
+                      : fused_hop_kernel<kInt8>,
+                a, smem_bytes, stream);
+}
+template <>
+cudaError_t adt_fused_hop_attrs<kInt8>(int entry, cudaFuncAttributes* attr) {
+  return cudaFuncGetAttributes(attr, entry ? fused_hop_multi_kernel<kInt8>
+                                           : fused_hop_kernel<kInt8>);
+}
+#endif
+
+#if ADT_IN_PART(0)
+namespace {
 
 // The single-hop or the multi-hop kernel of the mode a.compute.
 cudaError_t launch_mode(const AdtFusedHopArgs& a, bool multi,
                         size_t smem_bytes, cudaStream_t stream) {
   switch (a.compute) {
     case kBf16:
-      return launch(multi ? fused_hop_multi_kernel<kBf16>
-                          : fused_hop_kernel<kBf16>,
-                    a, smem_bytes, stream);
+      return adt_fused_hop_launch<kBf16>(a, multi, smem_bytes, stream);
     case kInt8:
-      return launch(multi ? fused_hop_multi_kernel<kInt8>
-                          : fused_hop_kernel<kInt8>,
-                    a, smem_bytes, stream);
+      return adt_fused_hop_launch<kInt8>(a, multi, smem_bytes, stream);
     default:
-      if (multi && a.group > 0)
-        return launch(fused_hop_group_kernel, a, smem_bytes, stream);
-      return launch(multi ? fused_hop_multi_kernel<kFp32>
-                          : fused_hop_kernel<kFp32>,
-                    a, smem_bytes, stream);
+      return adt_fused_hop_launch<kFp32>(a, multi, smem_bytes, stream);
   }
 }
 
@@ -1074,18 +1321,20 @@ long long adt_fused_hop_smem_bytes(const AdtFusedHopArgs* a) {
 }
 
 // Registers a thread and local (spill and stack) bytes of kernel `which`
-// (cudaFuncGetAttributes): 0 and 1 the bf16 single-hop and multi-hop
+// (cudaFuncGetAttributes), the kernels as (compute mode, entry) in
+// chip_smoke.py's order: 0 and 1 the bf16 single-hop and multi-hop
 // kernels, 2 and 3 the int8 ones, 4 and 5 the fp32 ones, 6 the fp32
 // multi-hop kernel in the frame-group walk. Returns the cudaError_t.
 int adt_fused_hop_kernel_attrs(int which, int* regs, long long* local) {
-  void (*kernels[7])(AdtFusedHopArgs) = {
-      fused_hop_kernel<kBf16>, fused_hop_multi_kernel<kBf16>,
-      fused_hop_kernel<kInt8>, fused_hop_multi_kernel<kInt8>,
-      fused_hop_kernel<kFp32>, fused_hop_multi_kernel<kFp32>,
-      fused_hop_group_kernel};
+  const int kernels[7][2] = {{kBf16, 0}, {kBf16, 1}, {kInt8, 0}, {kInt8, 1},
+                             {kFp32, 0}, {kFp32, 1}, {kFp32, 2}};
   if (which < 0 || which >= 7) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  const int mode = kernels[which][0], entry = kernels[which][1];
+  const cudaError_t err =
+      mode == kBf16   ? adt_fused_hop_attrs<kBf16>(entry, &attr)
+      : mode == kInt8 ? adt_fused_hop_attrs<kInt8>(entry, &attr)
+                      : adt_fused_hop_attrs<kFp32>(entry, &attr);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local = (long long)attr.localSizeBytes;
@@ -1095,19 +1344,40 @@ int adt_fused_hop_kernel_attrs(int which, int* regs, long long* local) {
 // Launches one hop (float32 IO, a->hops == 1) on `stream` without
 // synchronising; returns the launch's cudaError_t (0 on success).
 int adt_fused_hop(const AdtFusedHopArgs* a, void* stream) {
-  if (!args_ok(*a) || a->hops != 1 || a->pcm16 || a->group != 0)
+  AdtFusedHopArgs b;
+  if (!args_ok(*a) || a->hops != 1 || a->pcm16 || a->group != 0 ||
+      !with_fft_plan(*a, &b))
     return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  return (int)launch_mode(*a, false, (size_t)adt_fused_hop_smem_bytes(a),
+  return (int)launch_mode(b, false, (size_t)adt_fused_hop_smem_bytes(a),
                           static_cast<cudaStream_t>(stream));
 }
 
 // Launches a->hops hops in one kernel on `stream` without synchronising.
 int adt_fused_hop_multi(const AdtFusedHopArgs* a, void* stream) {
-  if (!args_ok(*a)) return (int)cudaErrorInvalidValue;
+  AdtFusedHopArgs b;
+  if (!args_ok(*a) || !with_fft_plan(*a, &b))
+    return (int)cudaErrorInvalidValue;
   if (a->batch <= 0) return (int)cudaSuccess;
-  return (int)launch_mode(*a, true, (size_t)adt_fused_hop_smem_bytes(a),
+  return (int)launch_mode(b, true, (size_t)adt_fused_hop_smem_bytes(a),
                           static_cast<cudaStream_t>(stream));
 }
 
+// The number of k ranges `gemm` splits a matmul of n columns and depth k
+// into on `lanes` threads (plan_cell.cuh's split_ks).
+int adt_fused_hop_split_ks(int n, int k, int lanes) {
+  return split_ks(n, k, lanes);
+}
+
+// The radices of the passes the fp32 walks' FFTs run for n_fft (its
+// n_fft / 2 points), into radix[0..kMaxPasses); returns their count, -1
+// where n_fft / 2 has no plan.
+int adt_fused_hop_fft_radices(int n_fft, int* radix) {
+  FftPlan p;
+  if (!make_fft_plan(n_fft / 2, false, &p)) return -1;
+  for (int i = 0; i < p.passes; ++i) radix[i] = p.radix[i];
+  return p.passes;
+}
+
 }  // extern "C"
+#endif

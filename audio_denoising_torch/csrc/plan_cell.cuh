@@ -22,8 +22,14 @@
 // threads read neighbouring columns, so the loads coalesce) and reads the
 // activations as float4 broadcasts from shared memory, so each weight load
 // feeds 16 kTile FMAs. Narrow stages split k across threads to shorten
-// each thread's chain of dependent steps, and add the partial sums in
-// shared memory in a fixed order. `gemm` is a template on its row count
+// each thread's chain of dependent steps (`split_ks`, mirrored on the
+// host), and add the partial sums in shared memory in a fixed order. A
+// block's 512 threads must still share n / 4 x k steps a matmul, so the
+// split cannot shorten a wide stage's chain much: at gruunet2-good's
+// decoder level 2 (544 x 544) 182 steps against at least 145. Splitting
+// k within a warp and adding by shuffles in place of the scratch took the
+// fused hop's fp32 single hop from 95 to 179 us on an H100 (PERF.md).
+// `gemm` is a template on its row count
 // (kTile by default): webrtc_hop.cu runs the matmuls that read no state
 // over the three frames of a tile at once, so each weight load feeds
 // three times the FMAs. The epilogue adds the bias and applies the
@@ -387,6 +393,33 @@ __device__ __forceinline__ void reduce_partials(const Gemm& g, const Lanes& t,
   }
 }
 
+// The number of contiguous k ranges ks_n that `gemm` splits a matmul of n
+// columns and depth ktot into on `lanes` threads: the fewest dependent
+// steps a thread, rounds of work items times k an item, with at least 16
+// k an item and the partial sums within the scratch (at most 4 kThreads
+// floats a row); the fewest ranges among equals. It depends on the
+// columns, the depth and the lanes only. `gemm` keeps its own copy of the
+// loop (calling this one changed the code of webrtc_hop.cu's cell
+// kernels); the host reads this one (adt_fused_hop_split_ks), and
+// `split_schedule` in ops/kernels/common.py mirrors both.
+__host__ __device__ inline int split_ks(int n, int ktot, int lanes) {
+  const int ldw = round4(n);
+  const int n4 = ldw / 4;
+  int ks_n = 1;
+  int best = 0x7fffffff;
+  const int cap = ktot / 16 < 4 * kThreads / ldw ? ktot / 16
+                                                 : 4 * kThreads / ldw;
+  const int ks_max = cap > 1 ? cap : 1;
+  for (int ks = 1; ks <= ks_max; ++ks) {
+    const int cost = ((n4 * ks + lanes - 1) / lanes) * ((ktot + ks - 1) / ks);
+    if (cost < best) {
+      best = cost;
+      ks_n = ks;
+    }
+  }
+  return ks_n;
+}
+
 // A work item is four output columns (q) for all kRows rows over one of
 // ks_n contiguous k ranges of the two sources laid end to end. Narrow
 // stages split k (ks_n > 1) until the items fill the block; their partial
@@ -409,6 +442,7 @@ __device__ void gemm(const Gemm& g, const Lanes& t) {
   const int nt = t.n;
   // fewest dependent steps per thread: rounds of items times k per item,
   // with at least 16 k per item and the partial sums within the scratch
+  // (the rule split_ks states for the host)
   int ks_n = 1;
   int best = 0x7fffffff;
   const int ks_max = max(1, min(ktot / 16, 4 * kThreads / ldw));

@@ -247,6 +247,54 @@ def pack_plan_weights(plan, quantize: bool = False
     return weights, skip_flags
 
 
+class SplitSchedule(NamedTuple):
+    """How ``gemm`` in csrc/plan_cell.cuh splits one matmul's depth
+    (``split_schedule``): ``ks_n`` work items a column quad, each over
+    one of the contiguous k ranges ``ranges`` ([lo, hi) of the sources
+    laid end to end, ``chunk`` k each, a multiple of 4); with more than
+    one, their partial sums meet in the shared-memory scratch and are
+    added in the order of ``ranges`` (from 0, or the kPre sum), then the
+    bias and the activation."""
+    ks_n: int
+    chunk: int
+    ranges: Tuple[Tuple[int, int], ...]
+
+
+def split_schedule(n: int, k: int, lanes: int = KTHREADS) -> SplitSchedule:
+    """The schedule ``gemm`` runs for ``n`` output columns over depth
+    ``k`` (both sources) on ``lanes`` threads: a plain mirror of its
+    ``split_ks`` rule (the fewest rounds of work items times k an item,
+    at least 16 k an item, the partial sums within the scratch of 4
+    KTHREADS floats a row; the fewest ranges among equals). It depends on
+    n, k and the lanes only, never on the rows, so a row's sums are added
+    in the same order in both walks of the fused hop."""
+    ldw = round4(n)
+    n4 = ldw // 4
+    best, ks_n = None, 1
+    for ks in range(1, max(1, min(k // 16, 4 * KTHREADS // ldw)) + 1):
+        cost = -(-n4 * ks // lanes) * -(-k // ks)
+        if best is None or cost < best:
+            best, ks_n = cost, ks
+    chunk = round4(-(-k // ks_n))
+    return SplitSchedule(ks_n, chunk, tuple(
+        (min(k, r * chunk), min(k, (r + 1) * chunk)) for r in range(ks_n)))
+
+
+def split_gemm(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               bias: torch.Tensor) -> torch.Tensor:
+    """A ``gemm(pairs, bias)`` for ``plan_cell_math`` that adds as the
+    kernels' ``gemm`` does: the sources laid end to end, each k range of
+    ``split_schedule`` one product (a float32 matmul), the ranges' sums in
+    order from 0, then the bias."""
+    a = torch.cat([p[0] for p in pairs], dim=-1)
+    w = torch.cat([p[1] for p in pairs], dim=0)
+    out = torch.zeros(a.shape[0], w.shape[1], dtype=a.dtype, device=a.device)
+    for lo, hi in split_schedule(w.shape[1], w.shape[0]).ranges:
+        if hi > lo:
+            out = out + a[:, lo:hi] @ w[lo:hi]
+    return out + bias
+
+
 def dense_gemm(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                bias: torch.Tensor) -> torch.Tensor:
     """a_0 @ w_0 + bias + a_1 @ w_1 + ...: the reference's matmuls."""

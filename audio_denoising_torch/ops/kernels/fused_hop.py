@@ -15,6 +15,17 @@ version that follows ``_hop_math``, fused_hop.py:256-371, with the same
 int16 conversion); for CUDA tensors it launches the hand-written kernels
 in ``csrc/fused_hop.cu`` or raises. ``launches`` counts kernel launches.
 
+The transforms (``transform``, ``hop_transform``): in fp32 the kernels
+take the analysis DFT and the synthesis's inverse as in-kernel real FFTs
+(``csrc/fft.cuh``, the FFT of n_fft / 2 points on the schedule
+``fft_radices(n_fft // 2, compiled=False)``) and read no dense DFT
+matrix; bf16 and int8 keep JAX's dense DFT matmuls (in bf16).
+``reference`` computes in the kernels' transform (the FFTs mirrored pass
+by pass, ``ops/kernels/fft.py``) unless asked for the other; its dense
+form is JAX's. Both agree with JAX's kernel within the fused hop's
+bounds. ``hop_stages`` lists each fp32 hop's matmuls, whose k splits
+``common.split_schedule`` mirrors.
+
 The model's feature is log(1 + mag @ mel) in the mel domain and log(1 +
 mag) in the raw-spectrogram domain (MOMO3's, no mel pair; JAX
 fused_hop.py:164-168). A delta (MOMO3) plan carries the previous hop's
@@ -69,6 +80,9 @@ from audio_denoising_torch.ops.kernels.common import (
     KTHREADS, KTILE, PlanArgs, PlanScaleArgs, PlanShape, cell_layout_floats,
     check_plan, kernel_operand, pack_plan_weights, plan_args, plan_args_q,
     plan_cell_math, plan_shape, round4)
+from audio_denoising_torch.ops.kernels.fft import (
+    MAX_PASSES, fft_passes, inverse_input, pass_twiddle_table, real_bins,
+    twiddle_table)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.noisefloor import (
     _EPS, FLOOR_BIAS, FLOOR_VETO_GATE_DB, FLOOR_VETO_WIDTH_DB,
@@ -89,6 +103,11 @@ SCALARS, MEANS, LANES = 4, 4, 32
 # GROUP, 0)
 GROUP = 4
 WALKS = ("frames", "per-frame")
+# the fp32 walks' transforms (AdtFusedHopArgs.transform 1, 0): in-kernel
+# FFTs (csrc/fft.cuh) or the dense DFT matmuls; the FFTs' buffers are kF
+# n_fft floats within the split-K scratch of kF rows (4 KTHREADS a row)
+TRANSFORMS = ("fft", "dense")
+FFT_MAX_N_FFT = 4 * KTHREADS
 
 
 class FusedHopState(NamedTuple):
@@ -162,6 +181,13 @@ class _GateArgs(ctypes.Structure):
                     "beta", "rise", "beta_tot", "floor_bias", "eps")])
 
 
+class _FftPlan(ctypes.Structure):
+    """Field-for-field mirror of FftPlan in csrc/fft.cuh (the library
+    fills it)."""
+    _fields_ = [("m", ctypes.c_int), ("passes", ctypes.c_int),
+                ("radix", ctypes.c_int * MAX_PASSES)]
+
+
 class _Args(ctypes.Structure):
     """Field-for-field mirror of AdtFusedHopArgs in csrc/fused_hop.cu."""
     _fields_ = (
@@ -172,7 +198,8 @@ class _Args(ctypes.Structure):
         + [("plan", PlanArgs), ("gate", _GateArgs)]
         + [(f, ctypes.c_int) for f in (
             "batch", "n_fft", "hop", "n_bins", "n_mels", "raw", "hops",
-            "pcm16", "group")]
+            "pcm16", "group", "transform")]
+        + [("twiddle", ctypes.c_void_p), ("fft", _FftPlan)]
         + [("output_gain", ctypes.c_float), ("state_decay", ctypes.c_float),
            ("scales", PlanScaleArgs), ("compute", ctypes.c_int)])
 
@@ -256,6 +283,46 @@ def hop_group(cfg: Config, plan, limit: int, hops_per_call: int = 1,
                   hops_per_call, compute_dtype)
 
 
+def hop_transform(cfg: Config, compute_dtype=torch.float32) -> str:
+    """The transform of the fused hop's kernels for ``cfg``, the same in
+    both entry points and both walks: ``"fft"`` (csrc/fft.cuh's FFTs of
+    n_fft / 2 points, the M = 0 schedule: ``fft_radices(n_fft // 2,
+    compiled=False)``) in fp32 where n_fft <= FFT_MAX_N_FFT; else
+    ``"dense"``, the DFT matmuls (the bf16 and int8 modes keep theirs in
+    bf16)."""
+    fits = cfg.dsp.n_fft % 2 == 0 and cfg.dsp.n_fft <= FFT_MAX_N_FFT
+    return TRANSFORMS[0] if compute_dtype == torch.float32 and fits \
+        else TRANSFORMS[1]
+
+
+def hop_stages(cfg: Config, plan) -> List[Tuple[str, int, int]]:
+    """(stage, columns, depth) of each matmul one fp32 hop of the fused
+    hop's kernels runs, in order: the DFT pair where ``hop_transform`` is
+    dense, the mel projection, the
+    encoder levels, the reset gate, the decoder levels (a skip level's
+    depth counts both sources), the inverse mel, the inverse DFT (both
+    parts). Each one's k split is ``split_schedule(columns, depth)``."""
+    M, F, n_fft = _feat_width(cfg), cfg.dsp.n_stft, cfg.dsp.n_fft
+    shape = plan_shape(plan, M)
+    dense = hop_transform(cfg) == TRANSFORMS[1]
+    raw = cfg.dsp.domain == "raw"
+    L, n = shape.levels, shape.n_hidden
+    stages = [("dft re", F, n_fft), ("dft im", F, n_fft)] if dense else []
+    if not raw:
+        stages.append(("mel", M, F))
+    stages += [(f"down {i}", shape.down_n[i + 1], shape.down_n[i])
+               for i in range(L)]
+    stages.append(("reset", 3 * n, n))
+    stages += [(f"up {i}", shape.up_n[i + 1],
+                shape.up_n[i] + (shape.down_n[L - i] if shape.skips[i] else 0))
+               for i in range(L)]
+    if not raw:
+        stages.append(("imel", F, M))
+    if dense:
+        stages.append(("idft", n_fft, 2 * F))
+    return stages
+
+
 def fused_hop_smem_bytes(cfg: Config, plan, compute_dtype=torch.float32,
                          hops_per_call: int = 1,
                          limit: Optional[int] = None) -> int:
@@ -303,6 +370,7 @@ class FusedHop:
         # set when a kernel library is bound: the walk ("frames" or
         # "per-frame") at the card's limit and its group size (0 per frame)
         self.walk, self.group = None, 0
+        self.transform = hop_transform(cfg, compute_dtype)
         self.launches = 0
         self._gate_constants(cfg)
 
@@ -324,6 +392,11 @@ class FusedHop:
                 self.F, self.M, dsp.sample_rate).T.contiguous().to(device))
         self.win = f32(win)
         self.env = f32(wola_envelope(win, self.n_fft, self.hop))
+        # the FFTs' twiddles, built in float64: the n_fft-point table, then
+        # the passes' of the M = 0 schedule of n_fft / 2 points
+        m = self.n_fft // 2
+        self.twiddle = f32(np.concatenate([
+            twiddle_table(self.n_fft), pass_twiddle_table(m, compiled=False)]))
         plan = plan.to(device=device, dtype=torch.float32)
         weights, self.skip_flags = pack_plan_weights(
             plan, quantize=compute_dtype == torch.int8)
@@ -388,14 +461,52 @@ class FusedHop:
         bf16 against the bf16-valued matrix, summed in fp32."""
         return (a.bfloat16().float() if self.dsp_bf16 else a) @ m
 
-    def reference(self, state: FusedHopState, chunk: torch.Tensor
+    def reference(self, state: FusedHopState, chunk: torch.Tensor,
+                  transform: Optional[str] = None
                   ) -> Tuple[FusedHopState, torch.Tensor]:
-        """One hop in the hop's compute dtype (float32 IO and state)."""
+        """One hop in the hop's compute dtype (float32 IO and state), in
+        the kernels' transform (``transform``) unless ``transform`` names
+        the other: ``"fft"``, the real FFTs of csrc/fft.cuh mirrored pass by
+        pass (``fft_passes``, ``real_bins``, ``inverse_input`` on the M = 0
+        schedule and the float32 twiddles the kernels read); ``"dense"``,
+        the DFT matmuls (JAX's)."""
+        transform = transform or self.transform
+        if transform not in TRANSFORMS:
+            raise ValueError(f"transform must be one of {TRANSFORMS}, got "
+                             f"{transform!r}")
+        return self._hop(state, chunk, fft=transform == TRANSFORMS[0])
+
+    def _rfft(self, frame: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(re, im) of bins 0..n_fft/2 of each row, as the kernels' FFT:
+        the frame packed two samples a point, the complex FFT of n_fft / 2
+        points, the real-input split."""
+        tw, ptw = self.twiddle[:self.n_fft], self.twiddle[self.n_fft:]
+        z = torch.complex(frame[:, 0::2].contiguous(),
+                          frame[:, 1::2].contiguous())
+        spec = real_bins(fft_passes(z, ptw, compiled=False, twiddle=tw), tw)
+        return spec.real, spec.imag
+
+    def _irfft(self, re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+        """irfft of each row of bins (the imaginary parts of DC and
+        Nyquist dropped), as the kernels' inverse FFT: the real-input
+        pre-twiddle, the inverse complex FFT of n_fft / 2 points read as
+        sample pairs, times the float32 1 / n_fft."""
+        tw, ptw = self.twiddle[:self.n_fft], self.twiddle[self.n_fft:]
+        z = fft_passes(inverse_input(torch.complex(re, im), tw), ptw,
+                       inverse=True, compiled=False, twiddle=tw)
+        return torch.view_as_real(z).reshape(re.shape[0], self.n_fft) \
+            * np.float32(1.0 / self.n_fft)
+
+    def _hop(self, state: FusedHopState, chunk: torch.Tensor, fft: bool
+             ) -> Tuple[FusedHopState, torch.Tensor]:
         hop = self.hop
         ring = torch.cat([state.ring[:, hop:], chunk], dim=-1)
         frame = ring * self.win
-        re = self._dsp(frame, self.cf)
-        im = self._dsp(frame, self.sf)
+        if fft:
+            re, im = self._rfft(frame)
+        else:
+            re = self._dsp(frame, self.cf)
+            im = self._dsp(frame, self.sf)
         mag = torch.sqrt(re * re + im * im)
         x = torch.log(1.0 + (mag if self.raw else self._dsp(mag, self.mel)))
         h, hi = plan_cell_math(self.weights, self.skip_flags, self.n, x,
@@ -421,8 +532,11 @@ class FusedHop:
         scale = lin / torch.where(safe, mag, torch.ones_like(mag))
         rec_re = torch.where(safe, re * scale, lin)
         rec_im = torch.where(safe, im * scale, torch.zeros_like(im))
-        synth = (self._dsp(rec_re, self.ic)
-                 + self._dsp(rec_im, self.is_)) * self.win
+        if fft:
+            synth = self._irfft(rec_re, rec_im) * self.win
+        else:
+            synth = (self._dsp(rec_re, self.ic)
+                     + self._dsp(rec_im, self.is_)) * self.win
         acc = state.ola + synth
         out = acc[:, :hop] / self.env
         ola = torch.cat([acc[:, hop:], torch.zeros_like(acc[:, :hop])],
@@ -543,11 +657,17 @@ class FusedHop:
         keep = self._kernel_tensors
         a = _Args()
         dsp = torch.bfloat16 if self.dsp_bf16 else torch.float32
-        for name in ("cf", "sf", "ic", "is_", "mel", "imel"):
+        fft = self.transform == TRANSFORMS[0]
+        # the FFTs read no dense DFT matrix: none is handed over
+        for name in ("mel", "imel") if fft else ("cf", "sf", "ic", "is_",
+                                                  "mel", "imel"):
             t = getattr(self, name)
             if t is not None:
                 setattr(a, name, kernel_operand(t.to(dsp), keep))
         a.win, a.env = (kernel_operand(t, keep) for t in (self.win, self.env))
+        a.transform = int(fft)
+        if fft:
+            a.twiddle = kernel_operand(self.twiddle, keep, pad_columns=False)
         if self.compute_dtype == torch.int8:
             a.plan, a.scales = plan_args_q(self.weights, self.skip_flags,
                                            self.M, self.n, keep, self.delta)

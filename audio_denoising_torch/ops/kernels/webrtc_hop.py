@@ -24,15 +24,16 @@ lanes, which the port does not need. The port does not take JAX's
 last tile masked, so B is not padded.
 
 The kernels take every geometry JAX's kernel takes: any even n_fft with
-hop = n_fft / 2, any mel count. Their transforms are FFTs of n_fft / 2
-points in a few wide passes (``fft_radices``: radices 12, 8, 5, 4, 3 and
-2 in registers, and 9 and 7 where M = n_fft / 2 is compiled in; any other
-prime factor a pass of its own; their twiddles ``twiddle_table`` and
-``pass_twiddle_table``, which the wrapper hands over); ``fft_passes``,
-``real_bins`` and ``inverse_input`` mirror the passes and the real-input
-formulas in plain PyTorch for the tests, and ``fft_instance`` names the
-instantiation a bound hop runs (M compiled in, FFT_INSTANCES: 768, 512,
-441 and 32; or 0, the geometry read at run time).
+hop = n_fft / 2, any mel count. Their transforms are ``csrc/fft.cuh``'s
+FFTs of n_fft / 2 points in a few wide passes (``fft_radices``: radices
+12, 8, 5, 4, 3 and 2 in registers, and 9 and 7 where M = n_fft / 2 is
+compiled in; any other prime factor a pass of its own; their twiddles
+``twiddle_table`` and ``pass_twiddle_table``, which the wrapper hands
+over); ``fft_passes``, ``real_bins`` and ``inverse_input`` (all in
+``ops/kernels/fft.py``) mirror the passes and the real-input formulas in
+plain PyTorch for the tests, and ``fft_instance`` names the
+instantiation a bound hop runs (M compiled in, ``fft.FFT_INSTANCES``:
+768, 512, 441 and 32; or 0, the geometry read at run time).
 
 ``compute_dtype=torch.bfloat16`` is JAX's bf16 Griffin-Lim mode
 (webrtc_hop.py:123-124, :144, :305-318): inside the GL loop only, each
@@ -57,7 +58,6 @@ names its walk in ``cell_walk``.
 
 import ctypes
 import functools
-import math
 from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -70,6 +70,10 @@ from audio_denoising_torch.ops.kernels.common import (
     KTHREADS, KTILE, MAX_LEVELS, PlanArgs, PlanShape, cell_layout_floats,
     kernel_operand, pack_plan_weights, plan_args, plan_cell_math, plan_shape,
     round4)
+# the FFT schedule's mirror, also imported from here by the tests
+from audio_denoising_torch.ops.kernels.fft import (  # noqa: F401
+    MAX_PASSES, fft_passes, fft_radices, inverse_input, pass_twiddle_table,
+    real_bins, twiddle_table)
 from audio_denoising_torch.ops.mel import inverse_mel_matrix, mel_filterbank
 from audio_denoising_torch.ops.stft import istft, stft
 from audio_denoising_torch.ops.windows import hann_window
@@ -113,140 +117,6 @@ def _istft_envelope(win: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
         env[t * hop:t * hop + n_fft] += win * win
     env = env[hop:hop + n_fft]
     return np.where(np.abs(env) > 1e-11, env, 1.0).astype(np.float32)
-
-
-# -- the kernels' transform schedule: its tables, and a plain PyTorch
-# -- mirror of its passes for the tests ---------------------------------------
-
-PASS_RADICES = (12, 8, 5, 4, 3, 2)   # a rest the kernels take as one pass
-MAX_PASSES = 16                   # kMaxPasses in csrc/webrtc_hop.cu
-# the M = n_fft / 2 compiled into an instantiation of their own
-# (fft_instance in csrc/webrtc_hop.cu); any other runs the M = 0 one
-FFT_INSTANCES = (768, 512, 441, 32)
-
-
-def fft_radices(m: int) -> List[int]:
-    """The radices of the passes ``csrc/webrtc_hop.cu`` runs for a complex
-    FFT of ``m = n_fft / 2`` points (its ``next_radix``): the rest itself
-    where it is one of PASS_RADICES, else the first of 8, 4, 2, 3 and 5
-    that divides it (9 before 3 where m is compiled in, FFT_INSTANCES),
-    else its smallest prime factor (7 in registers where m is compiled
-    in, else it and any larger prime a prime pass); ``m = 1`` is one pass
-    of radix 1. 768 gives 8 x 8 x 12, 441 9 x 7 x 7, 320 8 x 8 x 5, 63
-    3 x 3 x 7, 22 2 x 11, 509 one pass of 509."""
-    if m < 1:
-        raise ValueError(f"an FFT of {m} points")
-    if m == 1:
-        return [1]
-    divisors = (8, 4, 2, 9, 3, 5) if m in FFT_INSTANCES else (8, 4, 2, 3, 5)
-    radices, rest = [], m
-    while rest > 1:
-        r = rest if rest in PASS_RADICES else next(
-            (r for r in divisors if rest % r == 0), None)
-        if r is None:
-            r = next((q for q in range(7, math.isqrt(rest) + 1, 2)
-                      if rest % q == 0), rest)
-        radices.append(r)
-        rest //= r
-    return radices
-
-
-def twiddle_table(n_fft: int) -> np.ndarray:
-    """(n_fft, 2) float64: e^{-2 pi i t / n_fft} as (cos, -sin), the
-    table the wrapper hands to the kernels (in float32). Its quarter turns
-    are exact: with sin(pi) rounded (1.2e-16) the real split gave the
-    Nyquist bin an imaginary part of that order, which Griffin-Lim's
-    u / (|u| + 1e-16) turned into a phase of norm between 0 and 1 where
-    the bin's real part was 0."""
-    t = np.arange(n_fft)
-    table = np.stack([np.cos(t * (2 * np.pi / n_fft)),
-                      -np.sin(t * (2 * np.pi / n_fft))], axis=1)
-    quarter = (4 * t) % n_fft == 0
-    table[quarter] = np.rint(table[quarter])
-    return table
-
-
-def pass_twiddle_table(m: int) -> np.ndarray:
-    """(max(m - 1, 1), 2) float64: the twiddles of the passes of an FFT of
-    m points, as (cos, -sin), the table the wrapper hands to the kernels
-    (in float32). A pass of radix R after passes of product ns multiplies
-    point r of item k by e^{-2 pi i k r / (ns R)}, entry r ns + k - 1
-    (1 <= r < R, k < ns): pass by pass the entries fill [ns - 1,
-    ns R - 1); m = 1 has one unused entry, 1."""
-    if m == 1:
-        return np.array([[1.0, 0.0]])
-    table = np.full((m - 1, 2), np.nan)
-    ns = 1
-    for R in fft_radices(m):
-        k, r = np.meshgrid(np.arange(ns), np.arange(1, R), indexing="ij")
-        angle = 2 * np.pi * k * r / (ns * R)
-        table[r * ns + k - 1] = np.stack([np.cos(angle), -np.sin(angle)],
-                                         axis=-1)
-        ns *= R
-    return table
-
-
-def _complex_table(twiddle: torch.Tensor, dtype) -> torch.Tensor:
-    return torch.complex(twiddle[:, 0], twiddle[:, 1]).to(dtype)
-
-
-def fft_passes(z: torch.Tensor, pass_twiddle: torch.Tensor,
-               inverse: bool = False) -> torch.Tensor:
-    """The kernels' complex FFT (unnormalized; conjugate twiddles for the
-    inverse) of each row of ``z`` (frames, m), pass by pass as the kernels
-    run it: Stockham autosort over ``fft_radices(m)``, item j of a pass of
-    radix R after passes of product ns reading points j + r m / R, point
-    r > 0 twiddled by entry r ns + k - 1 (k = j mod ns) of
-    ``pass_twiddle`` (``pass_twiddle_table(m)``), an R-point DFT, and the
-    results stored at (j div ns) ns R + k + s ns."""
-    m = z.shape[-1]
-    tw = torch.cat([torch.ones(1, dtype=z.dtype),
-                    _complex_table(pass_twiddle, z.dtype)])  # 1 at k r = 0
-    if inverse:
-        tw = tw.conj()
-    x, ns = z, 1
-    for R in fft_radices(m):
-        stride, L = m // R, ns * R
-        j = torch.arange(stride)
-        k = j % ns
-        r = torch.arange(R)
-        v = x[:, j[None, :] + r[:, None] * stride]            # (F, R, stride)
-        v = v * tw[torch.where((k[None, :] > 0) & (r[:, None] > 0),
-                               r[:, None] * ns + k[None, :], 0)]
-        sign = 1.0 if inverse else -1.0
-        dft = torch.from_numpy(np.exp(sign * 2j * np.pi * np.outer(
-            np.arange(R), np.arange(R)) / R)).to(z.dtype)     # (s, r)
-        y = torch.einsum("sr,frj->fsj", dft, v)
-        out = torch.empty_like(x)
-        out[:, ((j // ns) * L + k)[None, :] + r[:, None] * ns] = y
-        x, ns = out, L
-    return x
-
-
-def real_bins(z: torch.Tensor, twiddle: torch.Tensor) -> torch.Tensor:
-    """Bins 0..m of the real FFT of each frame from ``z`` (frames, m), the
-    complex FFT of the frame packed as m points (even samples real, odd
-    imaginary): the kernels' ``real_bin``."""
-    m = z.shape[-1]
-    tw = _complex_table(twiddle, z.dtype)
-    k = torch.arange(m + 1)
-    zk, zc = z[:, k % m], z[:, (m - k) % m].conj()
-    return 0.5 * (zk + zc) + tw[k] * (-0.5j * (zk - zc))
-
-
-def inverse_input(spec: torch.Tensor, twiddle: torch.Tensor
-                  ) -> torch.Tensor:
-    """The m packed points the kernels' inverse transform starts from,
-    given bins 0..m of each frame (frames, m + 1): the imaginary parts of
-    DC and Nyquist dropped, the real-input pre-twiddle that the inverse
-    FFT's first pass applies. Their inverse complex FFT, its points read
-    as (even, odd) sample pairs, is n_fft times ``irfft(spec)``."""
-    m = spec.shape[-1] - 1
-    tw = _complex_table(twiddle, spec.dtype)
-    k = torch.arange(m)
-    xk, xc = spec[:, k].clone(), spec[:, m - k].conj()
-    xk[:, 0], xc[:, 0] = xk[:, 0].real, xc[:, 0].real
-    return (xk + xc) + 1j * ((xk - xc) * tw[k].conj())
 
 
 class _Args(ctypes.Structure):

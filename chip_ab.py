@@ -39,10 +39,10 @@ the bf16 GL mode:
    ``--batches`` streams (default 256): the cell step (CUDA events over
    200 launches).
 
-``--kernel fused_hop``, on gruunet2-stream16k, bench.py's quality
-flagship (runs/gruunet2mel128w64-mrstft-50k.npz) and MOMO3
-(momo3-4d4ea0), each in fp32, bf16 and int8, ungated and with the tuned
-gate ('both'):
+``--kernel fused_hop``, on gruunet2-stream16k, gruunet2-good (n_fft
+1024), bench.py's quality flagship (runs/gruunet2mel128w64-mrstft-50k.npz)
+and MOMO3 (momo3-4d4ea0), each in fp32, bf16 and int8, ungated and with
+the tuned gate ('both'):
 
 1. both run from a fresh state on the same voiced chunks at the largest
    batch: the single hop over 3 hops, then one K-hop call (K = 50) from
@@ -255,8 +255,8 @@ def hop_configs():
 
     from audio_denoising_torch.hub import load_pretrained
     from audio_denoising_torch.runtime.plan import build_cell_plan
-    for spec in (cs.S16K, os.path.join(cs.REPO, "runs", cs.FLAGSHIP),
-                 cs.MOMO_SPEC):
+    for spec in (cs.S16K, "gruunet2-good",
+                 os.path.join(cs.REPO, "runs", cs.FLAGSHIP), cs.MOMO_SPEC):
         cfg, model = load_pretrained(spec)
         plan = build_cell_plan(model)
         for gated in (False, True):

@@ -11,10 +11,14 @@ raises on failure (so the script exits non-zero and prints no result):
    register and shared-memory lines, build seconds); the fused cell's
    weight ring on gruunet2-good: tile, cluster size, stages, slab bytes,
    and how many clusters of the 128-block grid the card holds at once;
-2. the fused-hop kernel against its plain PyTorch version on the card,
-   at 256 streams and at 3 (the ragged edge), over 20 hops; then at 64
-   streams on two trained checkpoints of other widths (hidden 40; 128
-   mels, n_fft 1024, five levels, hidden 64);
+2. the fused-hop kernel against its plain PyTorch version on the card
+   (both in the kernel's transform: in fp32 csrc/fft.cuh's FFTs, the
+   plain version mirroring them pass by pass), at 256 streams and at 3
+   (the ragged edge), over 20 hops; then at 64 streams on two trained
+   checkpoints of other widths (hidden 40; 128 mels, n_fft 1024, five
+   levels, hidden 64); the library's FFT radices and each fp32 matmul's
+   split of k against their plain mirrors on those plans, gruunet2-good's
+   and MOMO3's;
 3. the WebRTC-hop kernels against their plain version on the card (each
    check names the FFT instantiation that ran, M = n_fft / 2 compiled in
    or M = 0 for the geometry read at run time), after the kernels' FFT
@@ -435,12 +439,15 @@ convergence). The last two lines are the ``kernels`` JSON line (each
 entry with the variants checked, the MOMO3, flagship, bf16 and int8 ones
 with their times) and
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout
-of the repo, the script fails.
+of the repo, the script fails. A phase still running PHASE_WATCHDOG_S
+seconds after its title line dumps every thread's stack to stderr (again
+each time as long), so a hang leaves where it hung.
 """
 
 import contextlib
 import ctypes
 import dataclasses
+import faulthandler
 import io
 import itertools
 import json
@@ -648,14 +655,22 @@ def bf16_geometry_limit(n_fft, n_mels):
 
 
 _T0 = time.perf_counter()
+# a phase that runs this long without the next title line dumps every
+# thread's stack to stderr (and again each time as long), so a hang leaves
+# where it hung; the slowest phase took about 190 s (the builds)
+PHASE_WATCHDOG_S = 600
 
 
 def say(*parts):
     """Print a line now; a phase's title line ("phase N: ...", "offline
-    timing ...", "done") ends with the seconds since the script started."""
+    timing ...", "done") ends with the seconds since the script started
+    and re-arms the phase watchdog (cancelled at "done")."""
     if isinstance(parts[0], str) and parts[0].startswith(
             ("phase ", "offline timing", "done")):
         parts = (*parts, f"[{time.perf_counter() - _T0:.0f} s]")
+        faulthandler.cancel_dump_traceback_later()
+        if not parts[0].startswith("done"):
+            faulthandler.dump_traceback_later(PHASE_WATCHDOG_S, repeat=True)
     print(*parts, flush=True)
 
 
@@ -1933,7 +1948,8 @@ def check_multi(torch, cfg, plan, label, chunks, dtype="float32"):
     lsb_f32 = float((outs_16.float() - scaled).abs().max().cpu())
     torch.cuda.synchronize()
     say(f"  {label}, {dtype}, B={B}, K={K} ({multi.walk} walk, group "
-        f"{multi.group}; the single hop's {single.group}): K-hop vs {K} "
+        f"{multi.group}; the single hop's {single.group}; {multi.transform} "
+        f"transform): K-hop vs {K} "
         f"single-hop launches: {fmt(exact)} (bound {KHOP_EXACT:g}, 0 "
         f"expected); vs "
         f"the plain version over 2 calls: {text}; int16 IO vs its plain "
@@ -2575,15 +2591,54 @@ def fused_hop_reduced_attrs():
 
 
 def fp32_walks(torch, cases):
-    """{(label, 'hop' or 'K-hop'): {walk, group}} of the fp32 fused hop
-    bound on the card for each (label, cfg, plan): the single hop and the
-    K_HOPS-hop kernel."""
+    """{(label, 'hop' or 'K-hop'): {walk, group, transform, split}} of the
+    fp32 fused hop bound on the card for each (label, cfg, plan): the
+    single hop and the K_HOPS-hop kernel; the split of every matmul's
+    depth (through the scratch; PERF.md records the warp split measured
+    against it)."""
     from audio_denoising_torch.ops.kernels.fused_hop import make_fused_hop
-    return {(label, entry): {"walk": h.walk, "group": h.group}
+    return {(label, entry): {"walk": h.walk, "group": h.group,
+                             "transform": h.transform, "split": "scratch"}
             for label, cfg, plan in cases
             for entry, h in (("hop", make_fused_hop(cfg, plan, "cuda")),
                              ("K-hop", make_fused_hop(
                                  cfg, plan, "cuda", hops_per_call=K_HOPS)))}
+
+
+def check_fused_schedules(cases):
+    """The fused hop library's FFT passes and split of k against their
+    plain mirrors, for each (label, cfg, plan): the radices of n_fft / 2
+    (adt_fused_hop_fft_radices against ``fft_radices(m, compiled=False)``)
+    and each fp32 matmul's k ranges (adt_fused_hop_split_ks against
+    ``split_schedule``, ``hop_stages``). Returns the stages checked."""
+    from audio_denoising_torch.ops.kernels.build import load_kernel_library
+    from audio_denoising_torch.ops.kernels.common import (
+        KTHREADS, split_schedule)
+    from audio_denoising_torch.ops.kernels.fft import MAX_PASSES, fft_radices
+    from audio_denoising_torch.ops.kernels.fused_hop import hop_stages
+    lib = load_kernel_library("fused_hop").lib
+    lib.adt_fused_hop_fft_radices.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.adt_fused_hop_fft_radices.restype = ctypes.c_int
+    lib.adt_fused_hop_split_ks.argtypes = [ctypes.c_int] * 3
+    lib.adt_fused_hop_split_ks.restype = ctypes.c_int
+    n = 0
+    for label, cfg, plan in cases:
+        out = (ctypes.c_int * MAX_PASSES)()
+        got = list(out[:lib.adt_fused_hop_fft_radices(cfg.dsp.n_fft, out)])
+        want = fft_radices(cfg.dsp.n_fft // 2, compiled=False)
+        stages = hop_stages(cfg, plan)
+        ks = {name: (lib.adt_fused_hop_split_ks(cols, k, KTHREADS),
+                     split_schedule(cols, k).ks_n)
+              for name, cols, k in stages}
+        bad = {k: v for k, v in ks.items() if v[0] != v[1]}
+        say(f"  {label}: FFT radices {got} (fft_radices {want}); the "
+            f"k ranges a matmul "
+            + ", ".join(f"{k} {v[0]}" for k, v in ks.items()))
+        if got != want or bad:
+            raise AssertionError(f"{label}: the library's schedules differ "
+                                 f"from the mirrors: {bad or got}")
+        n += len(stages)
+    return n
 
 
 def phase_reduced_hop(torch, cases):
@@ -3087,9 +3142,9 @@ def hop_ops(hop, batch):
     the raw domain) and the transform and its inverse at the cost of a
     real FFT of n_fft points (2.5 N log2 N each); with the SNR gate
     GATE_FLOPS_PER_BIN per bin; 2 per multiply-add of the plan cell's
-    matmuls. The kernel itself takes the transforms as dense matmuls,
-    about twice this work; the int8 activations' quantization is not
-    counted."""
+    matmuls. The fp32 kernels take the transforms as such FFTs; the bf16
+    and int8 ones as dense matmuls, about twice this work; the int8
+    activations' quantization is not counted."""
     K = hop.hops_per_call
     mel = 0 if hop.raw else 2 * hop.F * hop.M    # no mel pair when raw
     plan = sum(w.numel() for w in hop.weights
@@ -3106,7 +3161,8 @@ def hop_work(hop, batch, fp32_dsp=False):
     every state plane read and written once per call, and each hop's
     chunk read and output written (2 bytes a sample with int16 IO), each
     operand at its own size (bf16 matrices 2 bytes, int8 1, their scale
-    rows 4); and the least time the operations take at the published
+    rows 4; the FFTs' twiddle table where the hop's transform is the
+    FFT); and the least time the operations take at the published
     peak of each product's type (PEAK_BY_ITEMSIZE): in bf16 and int8 the
     DSP's products (bf16 DFT and mel matrices) at BF16_FLOPS and the
     plan's at BF16_FLOPS or INT8_OPS, the gate at FP32_FLOPS.
@@ -3120,7 +3176,8 @@ def hop_work(hop, batch, fp32_dsp=False):
     weights = (sum(w.numel() * w.element_size() for w in hop.weights)
                + sum((2 if dsp_bf16 else 4) * t.numel()
                      for t in (hop.mel, hop.imel) if t is not None)
-               + 4 * (hop.win.numel() + hop.env.numel()))
+               + 4 * (hop.win.numel() + hop.env.numel())
+               + (4 * hop.twiddle.numel() if hop.transform == "fft" else 0))
     state = 2 * sum(hop.widths.values())
     io = 2 * K * hop.hop * hop.io_dtype.itemsize
     return dsp + gate + plan, 4 * batch * state + weights + batch * io, \
@@ -6344,19 +6401,34 @@ def main() -> int:
     ring_line("fused cell, gruunet2-good",
               make_fused_cell(build_cell_plan(good), "cuda"))
 
-    say("phase 2: fused hop kernel vs its plain version on the card")
+    say(f"phase 2: fused hop kernel vs its plain version on the card "
+        f"({hop.transform} transform)")
     err = phase_kernel_vs_plain(torch, hop, cfg, plan, (SLOTS, 3))[0]
+    # the fp32 walks' dense DFT matmuls, which n_fft past FFT_MAX_N_FFT
+    # takes (no shipped configuration does): stream16k bound to them
+    dense = make_fused_hop(cfg, plan, "cuda")
+    dense.transform = "dense"
+    dense._base_args = dense._args()
+    say("  and in the dense transform (the DFT matmuls):")
+    err = max(err, phase_kernel_vs_plain(torch, dense, cfg, plan,
+                                         (SLOTS, 3))[0])
     other_plans, built = [], [("fused_hop", S16K, cfg, plan)]
+    schedules = [(S16K, cfg, plan),
+                 ("gruunet2-good", good_cfg, build_cell_plan(good))]
     for name in OTHER_CHECKPOINTS:
         other_cfg, other = load_pretrained(os.path.join(REPO, "runs", name))
         other_plan = build_cell_plan(other)
         other_plans.append((name, other_plan))
         built.append(("fused_hop", name, other_cfg, other_plan))
+        schedules.append((name, other_cfg, other_plan))
         say(f"  {name}: n_fft {other_cfg.dsp.n_fft}, {other_cfg.dsp.n_mels} "
             f"mels, hidden {other_cfg.model.hidden_sizes}")
         phase_kernel_vs_plain(
             torch, make_fused_hop(other_cfg, other_plan, "cuda"), other_cfg,
             other_plan, (64,))
+    momo_cfg, momo = load_pretrained(MOMO_SPEC)
+    check_fused_schedules(schedules + [(MOMO_SPEC, momo_cfg,
+                                        build_cell_plan(momo))])
 
     dari_cfg, dari = load_pretrained("gruunet2-dari_tult")
     dari_cfg = warm_cfg(dari_cfg)
@@ -6444,7 +6516,6 @@ def main() -> int:
     time_fast_step(torch, good_cfg, pm, "PlanModel(fused=True)")
     multi = time_fused_hops(torch, cfg, plan, smi)
     w_multi = time_webrtc_multi(torch, dari_cfg, dari_plan, smi)
-    momo_cfg, momo = load_pretrained(MOMO_SPEC)
     momo_plan = build_cell_plan(momo)
     momo_t = time_momo(torch, momo_cfg, momo, momo_plan, smi)
     flag_cfg, flag = load_pretrained(os.path.join(REPO, "runs", FLAGSHIP))

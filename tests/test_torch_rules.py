@@ -192,20 +192,20 @@ def test_reduced_kernel_attrs_follow_chip_smokes_order():
     """The kernels adt_fused_hop_kernel_attrs reads (csrc/fused_hop.cu),
     in its order, are the ones chip_smoke.py names for the kernels line:
     bf16 single hop and K-hop, then int8's, then fp32's and the fp32
-    K-hop kernel of the frame-group walk."""
+    K-hop kernel of the frame-group walk. The library lists them as
+    (compute mode, entry) pairs, each read in the object of its mode's
+    build part (entry 0 the single hop, 1 the multi-hop kernel, 2 the
+    frame-group kernel)."""
     with open(os.path.join(PKG, "csrc", "fused_hop.cu")) as f:
         text = f.read()
     body = text[text.index("int adt_fused_hop_kernel_attrs("):]
     body = body[body.index("{", body.index("kernels[")) + 1:body.index("};")]
-    names = re.findall(r"(fused_hop(?:_multi|_group)?_kernel)(?:<k(\w+)>)?",
-                       body)
-    dtype = {"Bf16": "bfloat16", "Int8": "int8", "Fp32": "float32",
-             "": "float32"}
-    entry = {"fused_hop_kernel": "hop", "fused_hop_multi_kernel": "K-hop",
-             "fused_hop_group_kernel": "K-hop, frame groups"}
+    names = re.findall(r"\{k(\w+), (\d)\}", body)
+    dtype = {"Bf16": "bfloat16", "Int8": "int8", "Fp32": "float32"}
+    entry = {"0": "hop", "1": "K-hop", "2": "K-hop, frame groups"}
     sys.path.insert(0, REPO)
     import chip_smoke
-    assert [(dtype[d], entry[k]) for k, d in names] == \
+    assert [(dtype[d], entry[k]) for d, k in names] == \
         list(chip_smoke.REDUCED_KERNELS + chip_smoke.FP32_KERNELS)
 
 
